@@ -1,0 +1,676 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (dynamo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, any failure exits non-zero:
+  1. the card's name and power limit (nvidia-smi);
+  2. build every CUDA kernel from dynamo_tpu_torch/csrc with nvcc;
+  3. check each kernel against its plain PyTorch version at llama-3.1-8b
+     attention geometry (H 32, KV 8, D 128, page size 16), at 64 rows and
+     at the serve phase's own row count and table width: ragged lengths,
+     zero-length and padding rows, bf16 / int8 / fp8 pages, KV splits;
+     rtol = atol = 1e-2 for bf16 outputs, 1e-4 for f32;
+  4. time each kernel at the shapes the serving path gives it, beside its
+     plain version, its bytes/flops bound, and one PyTorch library call of
+     the same function (scaled_dot_product_attention over pre-gathered
+     contiguous K/V at KV heads — a yardstick the port never calls); the
+     kernel's output there is held against the plain version's and the
+     library's;
+  5. the paged model path in f32 (4 layers at full width, f32 pages)
+     against a dense reference forward: chunked prefill over a prior
+     prefix, then decode steps, at rtol = atol = 1e-4;
+  6. serve 8 concurrent greedy requests through TorchEngine on
+     llama-3.1-8b at full width and depth (random seeded bf16 weights,
+     page size 16, decode_steps 8, prefill_chunk 512), with both kernels'
+     launch counters zeroed just before and read just after; check every
+     stream, and the bf16 model's logits against the dense reference;
+  7. print the kernels line, then the device line last.
+
+Needs a CUDA device; without one it prints no result and exits 1.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+H, KV, D, PS = 32, 8, 128, 16  # llama-3.1-8b attention geometry
+G = H // KV
+# The serving configuration of phase 6; phase 4 times the kernels at the
+# shapes it gives them.
+SERVE_CFG = dict(
+    model="llama-3.1-8b", dtype="bfloat16", block_size=PS, num_blocks=2048,
+    max_batch=16, max_model_len=4096, prefill_chunk=512, decode_steps=8, seed=0,
+)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def _pages(torch, gen, dev, P, dtype, scale):
+    from dynamo_tpu_torch.ops.ragged_attention import quantize_for_cache
+
+    vals = torch.randn((P, PS, 2 * KV, D), generator=gen, device=dev)
+    return quantize_for_cache(vals / scale, dtype)
+
+
+def decode_case(torch, gen, dev, lens, nvalid, PP, q_dtype, page_dtype, scale):
+    S = len(lens)
+    q = torch.randn((S, H, D), generator=gen, device=dev).to(q_dtype)
+    pages = _pages(torch, gen, dev, S * PP + 8, page_dtype, scale)
+    tables = torch.randperm(S * PP, generator=gen, device=dev).view(S, PP).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    num = torch.tensor([nvalid], dtype=torch.int32, device=dev)
+    return q, pages, kv_lens, tables, num
+
+
+def prefill_case(torch, gen, dev, priors, q_lens, S, T, q_dtype, page_dtype, scale):
+    kv = [p + n for p, n in zip(priors, q_lens)]
+    PP = max(1, math.ceil(max(kv) / PS))
+    q = torch.randn((T, H, D), generator=gen, device=dev).to(q_dtype)
+    pages = _pages(torch, gen, dev, S * PP + 8, page_dtype, scale)
+    tables = torch.randperm(S * PP, generator=gen, device=dev).view(S, PP).int()
+    kv_lens = torch.zeros(S, dtype=torch.int32, device=dev)
+    kv_lens[: len(kv)] = torch.tensor(kv, dtype=torch.int32)
+    cu = [0]
+    for n in q_lens:
+        cu.append(cu[-1] + n)
+    cu += [cu[-1]] * (S + 1 - len(cu))
+    cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+    num = torch.tensor([len(q_lens)], dtype=torch.int32, device=dev)
+    return q, pages, kv_lens, tables, cu_t, num
+
+
+# ------------------------------------------------------------------ timing
+
+
+SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's clocks
+
+
+def cuda_ms(torch, fn, iters, flush, spin=True):
+    """Mean device ms of ``fn`` over ``iters`` launches, each timed by CUDA
+    events with the L2 cache flushed before it (the serving path reads each
+    layer's KV once per step, cold).  With ``spin``, a spin kernel holds
+    the stream while the host queues every launch, so a timed window holds
+    the device's work and not the host's time to launch it; if the spin
+    ends before the last launch is queued, the run is made again with a
+    longer spin.  Without it (for a function that waits on the device
+    itself), a window also holds the host's time inside ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES * 4**attempt)
+        spun = torch.cuda.Event()
+        spun.record()
+        pairs = []
+        for _ in range(iters):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        queued_in_time = not spin or not spun.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    raise RuntimeError("the host could not queue the timed launches within the spin")
+
+
+TIMING_ROUNDS = 7
+
+
+def alternating_ms(torch, kernel, library, flush):
+    """Kernel and library call timed in turns, TIMING_ROUNDS rounds of 20
+    launches each, so that a drift of the card's clocks reaches both
+    alike: the median round of each, and every round's mean."""
+    rounds = {"ms": [], "library_ms": []}
+    for _ in range(TIMING_ROUNDS):
+        rounds["ms"].append(cuda_ms(torch, kernel, 20, flush))
+        rounds["library_ms"].append(cuda_ms(torch, library, 20, flush))
+    return {k: statistics.median(v) for k, v in rounds.items()}, rounds
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ kernel checks
+
+
+class Tally:
+    """Every comparison of a kernel with its plain version: the worst
+    max-abs error per kernel and the labels of those that failed."""
+
+    def __init__(self):
+        self.worst = {"decode_attention": 0.0, "prefill_attention": 0.0}
+        self.failures = []
+
+    def compare(self, torch, name, label, got, want, tol, zero_rows=()):
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        self.worst[name] = max(self.worst[name], err)
+        ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=tol, atol=tol)
+        for r in zero_rows:
+            ok = ok and bool((g[r] == 0).all())
+        log(f"check {name} {label}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(f"{name} {label}")
+
+
+# (q dtype, page dtype, kv_scale, tolerance) of every kernel check.
+CHECK_DTYPES = [
+    ("bfloat16", "bfloat16", 1.0, 1e-2),
+    ("bfloat16", "int8", 0.02, 1e-2),
+    ("bfloat16", "float8_e4m3fn", 0.01, 1e-2),
+    ("float32", "float32", 1.0, 1e-4),
+]
+
+
+def serving_decode_lens(cfg):
+    """kv_lens of a fused decode dispatch of the serve phase: 8 live rows at
+    576..2116 tokens, the other max_batch rows padding rows at kv_len 1."""
+    live = [576 + 220 * i for i in range(8)]
+    return live, live + [1] * (cfg.max_batch - len(live))
+
+
+def check_kernels(torch, dev, cfg, tally):
+    """Phase 3: each kernel against its plain version, every page dtype."""
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sm = D**-0.5
+    dt = {n: getattr(torch, n) for n in ("bfloat16", "int8", "float8_e4m3fn", "float32")}
+
+    # Decode: S 64 with ragged kv_len up to 4096, zero-length rows and rows
+    # past num_seqs; and the serve phase's own geometry (max_batch rows,
+    # padding rows at kv_len 1, its table width), whose automatic split
+    # count leaves an uneven last split.
+    lens64 = [int(x) for x in torch.randint(1, 4097, (64,), generator=torch.Generator().manual_seed(1))]
+    lens64[0], lens64[5], lens64[17] = 4096, 0, 1
+    geometries = [
+        ("S=64", lens64, 56, 4096 // PS),
+        (f"S={cfg.max_batch} serving", serving_decode_lens(cfg)[1], cfg.max_batch,
+         cfg.max_blocks_per_seq),
+    ]
+    for geo, lens, nvalid, PP in geometries:
+        S = len(lens)
+        zero = [r for r in range(S) if r >= nvalid or lens[r] == 0]
+        for q_dt, p_dt, scale, tol in CHECK_DTYPES:
+            q, pages, kv_lens, tables, num = decode_case(
+                torch, gen, dev, lens, nvalid, PP, dt[q_dt], dt[p_dt], scale)
+            want = da.decode_attention_plain(q, pages, kv_lens, tables, num, sm_scale=sm, kv_scale=scale)
+            for splits in (1, None):
+                got = da.decode_attention_cuda(q, pages, kv_lens, tables, num, sm_scale=sm,
+                                               kv_scale=scale, num_kv_splits=splits)
+                tally.compare(torch, "decode_attention",
+                              f"{geo} q={q_dt} pages={p_dt} splits={splits or 'auto'}",
+                              got, want, tol, zero)
+            del q, pages, want, got
+
+    # Prefill: ragged rows whose lengths are not multiples of the kernel's
+    # q-block (16 tokens at G 4), prior prefixes in the pages, a padded T
+    # bucket, and rows past num_seqs, at the serve phase's row count.
+    priors = [0, 1024, 77, 300, 2000]
+    q_lens = [37, 500, 1, 203, 61]
+    T, S = 1024, cfg.max_batch
+    for q_dt, p_dt, scale, tol in CHECK_DTYPES:
+        q, pages, kv_lens, tables, cu, num = prefill_case(
+            torch, gen, dev, priors, q_lens, S, T, dt[q_dt], dt[p_dt], scale)
+        want = pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm, kv_scale=scale)
+        zero = list(range(sum(q_lens), T))
+        for splits in (1, 3):
+            got = pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
+                                            kv_scale=scale, num_kv_splits=splits)
+            tally.compare(torch, "prefill_attention",
+                          f"S={S} q={q_dt} pages={p_dt} splits={splits}", got, want, tol, zero)
+        del q, pages, want, got
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ kernel timing
+
+
+def time_kernels(torch, dev, cfg, tally):
+    """Phase 4, at the serving path's shapes: the rows of a fused decode
+    dispatch (serving_decode_lens) and a 512-token prefill chunk over a
+    1024-token prior prefix in its token bucket.  The kernel's output on
+    these inputs is held against the plain version's, and the library
+    call's against the kernel's (it must compute the same function)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    sm = D**-0.5
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    out = {}
+
+    S, PP = cfg.max_batch, cfg.max_blocks_per_seq
+    live, lens = serving_decode_lens(cfg)
+    q, pages, kv_lens, tables, num = decode_case(
+        torch, gen, dev, lens, S, PP, torch.bfloat16, torch.bfloat16, 1.0)
+    kv_bytes = sum(lens) * 2 * KV * D * 2 + sum(math.ceil(n / PS) for n in lens) * 4
+    nbytes = kv_bytes + 2 * q.numel() * 2 + S * 4
+    flops = sum(lens) * H * D * 4
+    b_ms, b_by = bound(nbytes, flops)
+
+    def kernel():
+        return da.decode_attention_cuda(q, pages, kv_lens, tables, num, sm_scale=sm)
+
+    def plain():
+        return da.decode_attention_plain(q, pages, kv_lens, tables, num, sm_scale=sm)
+
+    got = kernel()
+    tally.compare(torch, "decode_attention", f"serving shape S={S} bf16 splits=auto",
+                  got, plain(), 1e-2)
+    # Library: SDPA over the live rows only, K/V gathered into contiguous
+    # [n, KV, W, D] tensors kept at KV heads (W the longest live row, a
+    # length mask for the rest); each KV head's G query heads are its G
+    # query positions, so nothing is copied out per query head.  The
+    # gather is not timed.
+    n, W = len(live), max(live)
+    ctx = torch.arange(W, device=dev)
+    slots = tables[:n, ctx // PS].long() * PS + ctx % PS
+    kvg = pages.view(-1, 2 * KV, D)[slots]  # [n, W, 2KV, D]
+    k = kvg[:, :, 0::2].permute(0, 2, 1, 3).contiguous()
+    v = kvg[:, :, 1::2].permute(0, 2, 1, 3).contiguous()
+    del kvg
+    mask = (ctx[None, :] < kv_lens[:n, None])[:, None, None, :]  # [n, 1, 1, W]
+    qg = q[:n].reshape(n, KV, G, D)
+
+    def library():
+        return F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=sm)
+
+    lib_err = float((library().reshape(n, H, D).float() - got[:n].float()).abs().max())
+    out["decode_attention"] = dict(
+        **dict(zip(("medians", "rounds"), alternating_ms(torch, kernel, library, flush))),
+        plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
+        library_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+        shape=f"S={S} PP={PP} kv_lens={lens} bf16; library: {n} live rows padded to {W}",
+    )
+    del q, pages, k, v, got
+
+    T = cfg.bucket_tokens(cfg.prefill_chunk)
+    prior, ql = 1024, cfg.prefill_chunk
+    q, pages, kv_lens, tables, cu, num = prefill_case(
+        torch, gen, dev, [prior], [ql], S, T, torch.bfloat16, torch.bfloat16, 1.0)
+    L = prior + ql
+    nbytes = L * 2 * KV * D * 2 + 2 * ql * H * D * 2 + math.ceil(L / PS) * 4
+    flops = sum(prior + i + 1 for i in range(ql)) * H * D * 4
+    b_ms, b_by = bound(nbytes, flops)
+
+    def kernel():
+        return pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
+
+    def plain():
+        return pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
+
+    got = kernel()
+    tally.compare(torch, "prefill_attention", f"serving shape T={T} S={S} bf16 splits=auto",
+                  got, plain(), 1e-2, range(ql, T))
+    # Library: SDPA with K/V at KV heads; query token t of head kv*G + g is
+    # row t*G + g of its KV head, masked causally at prior + t.
+    ctx = torch.arange(L, device=dev)
+    slots = tables[0, ctx // PS].long() * PS + ctx % PS
+    kvg = pages.view(-1, 2 * KV, D)[slots]  # [L, 2KV, D]
+    k = kvg[:, 0::2].permute(1, 0, 2)[None].contiguous()  # [1, KV, L, D]
+    v = kvg[:, 1::2].permute(1, 0, 2)[None].contiguous()
+    del kvg
+    qpos = (prior + torch.arange(ql, device=dev)).repeat_interleave(G)
+    pmask = (ctx[None, :] <= qpos[:, None])[None, None]  # [1, 1, ql*G, L]
+    qg = q[:ql].reshape(ql, KV, G, D).permute(1, 0, 2, 3).reshape(1, KV, ql * G, D).contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(qg, k, v, attn_mask=pmask, scale=sm)
+
+    lib = library().reshape(KV, ql, G, D).permute(1, 0, 2, 3).reshape(ql, H, D)
+    lib_err = float((lib.float() - got[:ql].float()).abs().max())
+    out["prefill_attention"] = dict(
+        **dict(zip(("medians", "rounds"), alternating_ms(torch, kernel, library, flush))),
+        plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
+        library_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+        shape=f"T={T} S={S} one row: {ql} tokens over a {prior}-token prefix, bf16",
+    )
+    del q, pages, k, v, got, lib, flush
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        r.update(r.pop("medians"))
+        ok = r["library_err"] <= 1e-2
+        log(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms (vs kernel max_abs_err {r['library_err']:.3e} "
+            f"{'ok' if ok else 'FAIL'}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"medians of {TIMING_ROUNDS} alternating rounds: kernel "
+            f"{[round(x, 4) for x in r['rounds']['ms']]} library "
+            f"{[round(x, 4) for x in r['rounds']['library_ms']]}")
+        if not ok:
+            tally.failures.append(f"{name} library yardstick computes another function")
+    return out
+
+
+# ------------------------------------------------------------- the model
+
+
+def reference_logits(torch, params, mc, tokens):
+    """Dense (unpaged) forward of one prompt through plain PyTorch math,
+    attention in f32: the logits at every position, [n, vocab]."""
+    from dynamo_tpu_torch.models import llama as tl
+    from dynamo_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+    p = params
+    dev = p["embed"].device
+    n, nh, nkv, hd = len(tokens), mc.num_heads, mc.num_kv_heads, mc.head_dim
+    ids = torch.tensor(tokens, device=dev)
+    pos = torch.arange(n, device=dev)
+    inv = rope_frequencies(mc.head_dim, mc.rope_theta, mc.rope_scaling, device=dev)
+    causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    h = tl.embed_lookup(p, ids)
+    for l in range(mc.num_layers):
+        lp = {k: w[l] for k, w in p["layers"].items()}
+        x = tl.rms_norm(h, lp["attn_norm"], mc.rms_norm_eps)
+        q, k, v = tl.qkv_proj(x, lp, nh * hd, nkv * hd)
+        q = apply_rope(q.reshape(n, nh, hd), pos, inv).float()
+        k = apply_rope(k.reshape(n, nkv, hd), pos, inv).float().repeat_interleave(nh // nkv, dim=1)
+        v = v.reshape(n, nkv, hd).float().repeat_interleave(nh // nkv, dim=1)
+        s = torch.einsum("thd,uhd->htu", q, k) * hd**-0.5
+        s = s.masked_fill(~causal, float("-inf")).softmax(-1)
+        a = torch.einsum("htu,uhd->thd", s, v).to(h.dtype)
+        h = h + tl.linear(a.reshape(n, nh * hd), lp, "wo")
+        h = h + tl.mlp(tl.rms_norm(h, lp["mlp_norm"], mc.rms_norm_eps), lp)
+    h = tl.rms_norm(h, p["final_norm"], mc.rms_norm_eps)
+    return tl.lm_logits(p, h)
+
+
+def one_row_batch(torch, dev, S, table, tokens, start, decode, kv_len=None):
+    """A RaggedBatch whose row 0 holds ``tokens`` at positions start.. in
+    the pages of ``table``, the other rows padded as the engine pads them:
+    a prefill step's at kv_len 0 past num_seqs, a fused decode step's as
+    1-token rows at kv_len 1.  ``kv_len`` overrides row 0's."""
+    from dynamo_tpu_torch.models.llama import RaggedBatch
+
+    n = len(tokens)
+    T = S if decode else max(16, 1 << (n - 1).bit_length())
+    pos = list(range(start, start + n))
+    slots = [table[p // PS] * PS + p % PS for p in pos]
+    row0 = start + n if kv_len is None else kv_len
+    if decode:
+        kv_lens, cu, num = [row0] + [1] * (S - 1), list(range(S + 1)), S
+    else:
+        kv_lens, cu, num = [row0] + [0] * (S - 1), [0] + [n] * S, 1
+
+    def t(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    return RaggedBatch(
+        token_ids=t(tokens + [0] * (T - n)),
+        positions=t(pos + [0] * (T - n)),
+        slot_mapping=t(slots + [-1] * (T - n)),
+        kv_lens=t(kv_lens),
+        page_indices=t([table] + [[0] * len(table)] * (S - 1)),
+        cu_q_lens=t(cu),
+        num_seqs=t([num]),
+    )
+
+
+MODEL_CHECK_LAYERS = 4
+MODEL_CHECK_TOL = 1e-4
+
+
+def model_check(torch, dev, cfg):
+    """Phase 5: the paged model path in f32 — llama-3.1-8b at full width,
+    its first MODEL_CHECK_LAYERS layers, f32 weights (seed 0) and f32
+    pages — against the dense reference: a 300-token prompt prefilled in two chunks (the
+    second over a 200-token prior prefix), then two fused-decode-shaped
+    steps, through both kernels at the serve phase's row count.  Returns
+    ok.  The check must not be blind: a run whose row is told one position
+    fewer than it has (as a kernel that drops the newest K/V would compute)
+    is made too, and must miss the reference by 10x the tolerance."""
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.llama import (
+        PagedKVCache, forward_ragged, fuse_projections, init_params,
+    )
+
+    mc = get_config("llama-3.1-8b").with_overrides(dtype="float32", num_layers=MODEL_CHECK_LAYERS)
+    params = fuse_projections(init_params(mc, 0, dev))
+    S, PP = cfg.max_batch, 32
+    cache = PagedKVCache.create(mc, 2 * PP, PS, torch.float32, dev)
+    table = torch.randperm(2 * PP, generator=torch.Generator().manual_seed(3))[:PP].tolist()
+    tokens = torch.randint(1, mc.vocab_size, (302,), generator=torch.Generator().manual_seed(4)).tolist()
+    want = reference_logits(torch, params, mc, tokens)
+
+    def run(part, start, decode, kv_len=None):
+        rb = one_row_batch(torch, dev, S, table, part, start, decode, kv_len)
+        return forward_ragged(params, mc, rb, cache, decode=decode)[0]
+
+    ok = True
+    forward_ragged(params, mc, one_row_batch(torch, dev, S, table, tokens[:200], 0, False), cache)
+    steps = [
+        ("prefill chunk 200..300 over 200", run(tokens[200:300], 200, False), 299),
+        ("decode at 300", run(tokens[300:301], 300, True), 300),
+        ("decode at 301", run(tokens[301:302], 301, True), 301),
+    ]
+    for label, got, row in steps:
+        w = want[row]
+        err = float((got - w).abs().max())
+        good = bool(torch.isfinite(got).all()) and got.shape == w.shape and torch.allclose(
+            got, w, rtol=MODEL_CHECK_TOL, atol=MODEL_CHECK_TOL)
+        ok = ok and good
+        log(f"model f32 {MODEL_CHECK_LAYERS} layers, {label}: max_abs_err {err:.3e} "
+            f"(logits max |x| {float(w.abs().max()):.3f}) tol {MODEL_CHECK_TOL} "
+            f"{'ok' if good else 'FAIL'}")
+    # Sensitivity: the last decode step again, its row told one position
+    # fewer than it has (the newest K/V left out).
+    off = run(tokens[301:302], 301, True, kv_len=301)
+    miss = float((off - want[301]).abs().max())
+    sensitive = miss > 10 * MODEL_CHECK_TOL
+    log(f"model f32 sensitivity: dropping the newest position moves the logits by {miss:.3e} "
+        f"({'> 10x tol, ok' if sensitive else 'within 10x tol: the check is blind — FAIL'})")
+    del params, cache, want
+    torch.cuda.empty_cache()
+    return ok and sensitive
+
+
+async def serve(torch, engine, prompts, max_tokens):
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(p):
+        req = PreprocessedRequest(
+            token_ids=p,
+            stop_conditions=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0),
+        ).to_dict()
+        t0 = time.perf_counter()
+        stream = await engine.generate(Context(req))
+        toks, stamps, finish = [], [], None
+        async for item in stream:
+            now = time.perf_counter()
+            for tok in item["token_ids"]:
+                toks.append(tok)
+                stamps.append(now - t0)
+            finish = item.get("finish_reason") or finish
+        return toks, stamps, finish
+
+    return await asyncio.gather(*(one(p) for p in prompts))
+
+
+def main_path(torch, dev):
+    """Phase 6: TorchEngine serving llama-3.1-8b.  Returns (ok, launches)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    cfg = EngineConfig(**SERVE_CFG)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"engine: llama-3.1-8b, {engine.model_config.num_layers} layers, bf16 random "
+        f"weights (seed 0), init {time.perf_counter() - t0:.1f} s, "
+        f"kernels decode={engine.decode_kernel} prefill={engine.prefill_kernel}")
+    rng = torch.Generator().manual_seed(7)
+    lens = [512 + 219 * i for i in range(8)]  # 512 .. 2045 tokens
+    prompts = [torch.randint(1, 128000, (n,), generator=rng).tolist() for n in lens]
+    max_tokens = 64
+
+    async def run():
+        try:
+            return await serve(torch, engine, prompts, max_tokens)
+        finally:
+            await engine.close()
+
+    da.decode_attention_cuda.launches = 0
+    pa.prefill_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = asyncio.run(run())
+    wall = time.perf_counter() - t0
+    launches = {
+        "decode_attention": da.decode_attention_cuda.launches,
+        "prefill_attention": pa.prefill_attention_cuda.launches,
+    }
+    ok = True
+    for i, (toks, stamps, finish) in enumerate(results):
+        good = len(toks) == max_tokens and finish == "length"
+        ok = ok and good
+        if not good:
+            log(f"request {i}: {len(toks)} tokens, finish {finish!r} — FAIL")
+    ttft = sorted(s[0] for _, s, _ in results)
+    itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
+    total = sum(len(t) for t, _, _ in results)
+    dec, pre = engine.decode_spans, engine.prefill_spans
+    step_ms = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
+    chunk_ms = pre.seconds / max(1, pre.count) * 1e3
+    log(f"serve: 8 requests, prompts {lens[0]}..{lens[-1]} tokens, {max_tokens} new each, "
+        f"wall {wall:.3f} s, {total / wall:.2f} output tok/s; TTFT p50 "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; ITL mean "
+        f"{sum(itl) / len(itl) * 1e3:.2f} ms; decode dispatches {dec.count} at "
+        f"{step_ms:.2f} ms a fused step, prefill steps {pre.count} at {chunk_ms:.2f} ms "
+        f"each (stream time); launches {launches}")
+    ok = ok and all(v > 0 for v in launches.values())
+
+    # The served model's output in bf16 at full depth: finite logits of the
+    # expected shape, near the dense reference's.  Random weights give a
+    # flat top of the vocabulary, so bf16 rounding over 32 layers may swap
+    # the top two; the top-2 gap is printed beside the drift.  The f32
+    # model check (model_check) is the tight one.
+    from dynamo_tpu_torch.models.llama import forward_ragged
+
+    with torch.inference_mode():
+        prompt = prompts[0][:100]
+        table = list(range(cfg.max_blocks_per_seq))
+        rb = one_row_batch(torch, dev, cfg.max_batch, table, prompt, 0, False)
+        got = forward_ragged(engine.params, engine.model_config, rb, engine.cache)[0]
+        want = reference_logits(torch, engine.params, engine.model_config, prompt)[-1]
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all())
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    err = float((got - want).abs().max())
+    top2 = want.topk(2).values
+    log(f"logits bf16 {engine.model_config.num_layers} layers: shape {tuple(got.shape)} "
+        f"finite={finite} cosine vs dense reference {cos:.6f} max_abs_err {err:.4f} "
+        f"(reference max |x| {float(want.abs().max()):.3f}, top-2 gap "
+        f"{float(top2[0] - top2[1]):.4f}) same argmax {int(got.argmax()) == int(want.argmax())}")
+    ok = ok and finite and got.shape == (engine.model_config.vocab_size,) and cos > 0.99
+    return ok, launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    if not (REPO / "dynamo_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: dynamo_tpu_torch is not beside this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    try:
+        from dynamo_tpu_torch.ops import _build
+
+        dev = torch.device("cuda", 0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+        card = smi[0] if smi else "nvidia-smi gave nothing"
+        log(f"card: {card}")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+        t0 = time.perf_counter()
+        report = _build.build_all()
+        log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report) or 'cached libraries'}")
+        for stem, r in report.items():
+            for line in str(r["log"]).splitlines():
+                if "registers" in line or "spill" in line.lower():
+                    log(f"ptxas {stem}: {line.strip()}")
+
+        from dynamo_tpu_torch.engine.config import EngineConfig
+
+        cfg = EngineConfig(**SERVE_CFG)
+        tally = Tally()
+        with torch.inference_mode():
+            check_kernels(torch, dev, cfg, tally)
+            times = time_kernels(torch, dev, cfg, tally)
+            ok_model = model_check(torch, dev, cfg)
+        ok_path, launches = main_path(torch, dev)
+
+        sources = {
+            "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
+                                 "dynamo_tpu/ops/decode_attention.py:330"),
+            "prefill_attention": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                  "dynamo_tpu/ops/prefill_attention.py:285"),
+        }
+        kernels = []
+        for name, (src, rep) in sources.items():
+            tm = times[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[name], "max_abs_err": tally.worst[name],
+                "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+                "checks_passed": not any(f.startswith(name) for f in tally.failures),
+            })
+        log(json.dumps({"kernels": kernels}))
+        if tally.failures or not ok_model or not ok_path:
+            log(f"FAILED: kernel checks {tally.failures or 'ok'}; f32 model check "
+                f"{'ok' if ok_model else 'failed'}; main path {'ok' if ok_path else 'failed'}")
+            return 1
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

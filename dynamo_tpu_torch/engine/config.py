@@ -1,0 +1,106 @@
+"""Engine configuration knobs.
+
+The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
+a knob it would silently ignore (meshes, weight quantization, speculative
+decoding, LoRA, the KV tiers) is absent, so passing one fails at
+construction instead of serving something else.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+@dataclass
+class QosSchedConfig:
+    """Scheduler-side QoS (engine/scheduler.py WfqQueue).  Defaults give
+    exact FIFO for single-tenant traffic: equal weights collapse WFQ to
+    per-tenant FIFO, and FIFO within one tenant.
+    """
+
+    # Tenant → WFQ weight (share of admission work while backlogged).
+    tenant_weights: Dict[str, float] = field(default_factory=dict)
+    default_weight: float = 1.0
+    # Batch-class starvation bound: at most this many consecutive
+    # interactive admissions while batch is backlogged before one batch
+    # admission is forced.
+    batch_every: int = 4
+
+    def __post_init__(self) -> None:
+        if self.default_weight <= 0:
+            raise ValueError("qos default_weight must be > 0")
+        if self.batch_every < 1:
+            raise ValueError("qos batch_every must be >= 1")
+        for name, w in self.tenant_weights.items():
+            if float(w) <= 0:
+                raise ValueError(f"qos tenant weight {name!r} must be > 0")
+
+    @classmethod
+    def normalize(cls, v: Any) -> "QosSchedConfig":
+        """Accept the section as an instance, a dict, or None."""
+        if v is None:
+            return cls()
+        if isinstance(v, cls):
+            return v
+        if isinstance(v, dict):
+            known = set(cls.__dataclass_fields__)
+            bad = set(v) - known
+            if bad:
+                raise ValueError(f"unknown qos keys: {sorted(bad)}")
+            return cls(**v)
+        raise ValueError(f"bad qos section: {v!r}")
+
+
+@dataclass
+class EngineConfig:
+    model: str = "debug-tiny"
+    block_size: int = 16  # tokens per KV page
+    num_blocks: int = 256  # device KV pages
+    max_batch: int = 8  # decode slots
+    max_model_len: int = 1024  # context limit per sequence
+    prefill_chunk: int = 512  # max prompt tokens per device step
+    dtype: str = "bfloat16"
+    # KV page dtype; defaults to dtype.  Quantized page dtypes ("int8",
+    # "float8_e4m3fn") store value / kv_scale; kv_scale is a float or a
+    # per-layer sequence (calibration is not part of this engine yet).
+    cache_dtype: Any = None
+    kv_scale: Any = 1.0
+    seed: int = 0  # random-init weights when no params are given
+    enable_prefix_caching: bool = True
+    # Attention kernel routes: "auto" is the device's; an explicit value
+    # must equal it (validated once, by ops/ragged_attention.resolve_kernel
+    # when the engine is built).
+    decode_kernel: str = "auto"
+    prefill_kernel: str = "auto"
+    # Decode iterations fused into one dispatch: the sampled token feeds
+    # the next iteration on the device, with one host fetch per dispatch.
+    decode_steps: int = 4
+    # Mixed-phase cadence: while prompts are prefilling, decode rows sit out
+    # the prefill steps and advance via one fused decode_steps burst every
+    # this many prefill chunks (engine.py _run_loop).
+    prefill_chunks_per_burst: int = 24
+    # Scheduler QoS section (QosSchedConfig; accepts dict).
+    qos: Any = None
+
+    def __post_init__(self) -> None:
+        if self.cache_dtype is None:
+            self.cache_dtype = self.dtype
+        self.qos = QosSchedConfig.normalize(self.qos)
+        if self.decode_steps < 1:
+            raise ValueError("decode_steps must be >= 1")
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return (self.max_model_len + self.block_size - 1) // self.block_size
+
+    @property
+    def max_step_tokens(self) -> int:
+        """Token capacity of one unified (ragged) step: a full prefill
+        budget plus a decode token for every batch slot."""
+        n = self.prefill_chunk + self.max_batch
+        return 1 << (n - 1).bit_length()
+
+    def bucket_tokens(self, n: int) -> int:
+        """Power-of-two token-count bucket for the unified ragged step."""
+        b = max(16, 1 << (max(1, n) - 1).bit_length())
+        return min(b, self.max_step_tokens)

@@ -1,0 +1,238 @@
+"""Paged KV block allocator with hash-based prefix reuse + event emission.
+
+Reference semantics (not code): lib/llm/src/kv/{reuse,reserved,manager}.rs —
+freed blocks *retain their contents* and sit in a reuse pool keyed by chained
+sequence hash; a new request first matches its prompt's block hashes against
+live ("inflight") blocks, then the reuse pool, and only then takes fresh
+blocks (evicting the coldest reusable ones).  Every store/evict emits a
+``KvCacheEvent`` so the router's index mirrors this pool exactly.
+
+Host-side bookkeeping only — the device never sees hashes, just block ids.
+Physical block order is irrelevant to the device (attention gathers via block
+tables), so allocation never copies anything in HBM.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..llm.kv_router.protocols import (
+    KvCacheEvent,
+    KvCacheStoredBlockData,
+)
+from ..tokens import TokenBlock
+
+
+@dataclass
+class _Block:
+    id: int
+    ref_count: int = 0
+    sequence_hash: Optional[int] = None  # contents identity (None = scratch)
+    parent_hash: Optional[int] = None
+    tokens_hash: Optional[int] = None
+
+
+EventCallback = Callable[[KvCacheEvent], None]
+
+
+class KvBlockManager:
+    """Fixed pool of ``num_blocks`` physical blocks of ``block_size`` tokens.
+
+    States a block moves through:
+      free+anonymous → active (ref>0) → [sealed w/ hash] → free+reusable
+      (contents intact, matchable) → evicted (hash dropped, Removed emitted)
+      → active again.
+    """
+
+    def __init__(
+        self,
+        num_blocks: int,
+        block_size: int,
+        event_callback: Optional[EventCallback] = None,
+        enable_prefix_caching: bool = True,
+    ):
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._blocks = [_Block(i) for i in range(num_blocks)]
+        # Free anonymous blocks (no reusable contents), FIFO.
+        self._free_anon: List[int] = list(range(num_blocks))
+        # Free blocks with reusable contents, LRU-ordered (oldest first).
+        self._free_reusable: "OrderedDict[int, None]" = OrderedDict()
+        # seq_hash → block id, for any block (active or free) holding it.
+        self._by_hash: Dict[int, int] = {}
+        self._event_callback = event_callback
+        self._event_id = 0
+        self._enable_prefix_caching = enable_prefix_caching
+        # cumulative counters for metrics
+        self.lookup_blocks = 0
+        self.matched_blocks = 0
+
+    # ------------------------------------------------------------------ stats
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free_anon) + len(self._free_reusable)
+
+    @property
+    def active_blocks(self) -> int:
+        return self.num_blocks - self.free_blocks
+
+    @property
+    def usage(self) -> float:
+        return self.active_blocks / self.num_blocks if self.num_blocks else 0.0
+
+    @property
+    def hit_rate(self) -> float:
+        return self.matched_blocks / self.lookup_blocks if self.lookup_blocks else 0.0
+
+    # ----------------------------------------------------------------- events
+    def _emit(self, event: KvCacheEvent) -> None:
+        if self._event_callback is not None:
+            self._event_callback(event)
+
+    def _next_event_id(self) -> int:
+        self._event_id += 1
+        return self._event_id
+
+    # ------------------------------------------------------------- allocation
+    def match_prefix(self, token_blocks: Sequence[TokenBlock]) -> List[int]:
+        """Longest run of leading blocks already resident; returns block ids
+        (does NOT take references — pair with allocate_sequence)."""
+        matched: List[int] = []
+        if not self._enable_prefix_caching:
+            return matched
+        for tb in token_blocks:
+            bid = self._by_hash.get(tb.sequence_hash)
+            if bid is None:
+                break
+            matched.append(bid)
+        return matched
+
+    def would_fit(
+        self,
+        token_blocks: Sequence[TokenBlock],
+        num_blocks_needed: int,
+        matched: Optional[List[int]] = None,
+    ) -> bool:
+        """Dry-run of allocate_sequence's capacity check (no side effects,
+        no counter updates).  The fused-decode admission gate polls this —
+        keeping the math here means it can never drift from real admission.
+        ``matched`` lets a caller that already ran match_prefix skip the
+        second walk."""
+        if matched is None:
+            matched = self.match_prefix(token_blocks)
+        fresh_needed = num_blocks_needed - len(matched)
+        # Matched blocks sitting in the reuse pool get revived and stop
+        # counting as free, so subtract them from available capacity.
+        revived = sum(1 for b in matched if self._blocks[b].ref_count == 0)
+        return fresh_needed <= self.free_blocks - revived
+
+    def allocate_sequence(
+        self,
+        token_blocks: Sequence[TokenBlock],
+        num_blocks_needed: int,
+        count_hits: bool = True,
+    ) -> Optional[Tuple[List[int], int]]:
+        """Allocate ``num_blocks_needed`` blocks for a prompt whose complete
+        blocks are ``token_blocks`` (hashed).  Leading blocks already resident
+        are shared (ref++) instead of recomputed.
+
+        ``count_hits=False`` skips the hit-rate counters (bookkeeping
+        allocations that are not request admissions).
+
+        Returns (block_ids, num_cached_tokens) or None if out of capacity.
+        """
+        matched = self.match_prefix(token_blocks)
+        if count_hits:
+            self.lookup_blocks += len(token_blocks)
+            self.matched_blocks += len(matched)
+        if not self.would_fit(token_blocks, num_blocks_needed, matched):
+            return None
+        fresh_needed = num_blocks_needed - len(matched)
+        ids: List[int] = []
+        for bid in matched:
+            blk = self._blocks[bid]
+            if blk.ref_count == 0:
+                self._free_reusable.pop(bid, None)  # revive from reuse pool
+            blk.ref_count += 1
+            ids.append(bid)
+        for _ in range(fresh_needed):
+            bid = self._take_free_block()
+            if bid is None:  # rollback
+                self.free_sequence(ids)
+                return None
+            self._blocks[bid].ref_count = 1
+            ids.append(bid)
+        return ids, len(matched) * self.block_size
+
+    def allocate_block(self) -> Optional[int]:
+        """One fresh anonymous block (decode growth)."""
+        bid = self._take_free_block()
+        if bid is not None:
+            self._blocks[bid].ref_count = 1
+        return bid
+
+    def _take_free_block(self) -> Optional[int]:
+        if self._free_anon:
+            return self._free_anon.pop()
+        if self._free_reusable:
+            bid, _ = self._free_reusable.popitem(last=False)  # LRU evict
+            blk = self._blocks[bid]
+            if blk.sequence_hash is not None:
+                self._by_hash.pop(blk.sequence_hash, None)
+                self._emit(
+                    KvCacheEvent.removed(self._next_event_id(), [blk.sequence_hash])
+                )
+            blk.sequence_hash = blk.parent_hash = blk.tokens_hash = None
+            return bid
+        return None
+
+    # ---------------------------------------------------------------- sealing
+    def seal_block(self, block_id: int, token_block: TokenBlock) -> None:
+        """Mark a block's contents complete + reusable; emits Stored.
+
+        Called when prefill writes a full block or decode fills one up.  If
+        another block already holds this hash (a race between two identical
+        prompts), the newer block stays anonymous (no double-publish).
+        """
+        if not self._enable_prefix_caching:
+            return
+        blk = self._blocks[block_id]
+        if token_block.sequence_hash in self._by_hash:
+            return
+        blk.sequence_hash = token_block.sequence_hash
+        blk.parent_hash = token_block.parent_hash
+        blk.tokens_hash = token_block.block_hash
+        self._by_hash[token_block.sequence_hash] = block_id
+        self._emit(
+            KvCacheEvent.stored(
+                self._next_event_id(),
+                token_block.parent_hash,
+                [
+                    KvCacheStoredBlockData(
+                        block_hash=token_block.sequence_hash,
+                        tokens_hash=token_block.block_hash,
+                    )
+                ],
+            )
+        )
+
+    # ---------------------------------------------------------------- freeing
+    def free_sequence(self, block_ids: Sequence[int]) -> None:
+        """Release references; blocks with hashes park in the reuse pool
+        (contents intact), anonymous ones return to the free list."""
+        # Tail blocks are appended to the reuse pool first so eviction
+        # (oldest-first popitem) consumes a sequence tail-before-head: heads
+        # are the shareable prefixes and must outlive their tails, otherwise
+        # match_prefix (which stops at the first missing block) can never
+        # reach the surviving tail blocks.
+        for bid in reversed(list(block_ids)):
+            blk = self._blocks[bid]
+            blk.ref_count -= 1
+            if blk.ref_count > 0:
+                continue
+            if blk.sequence_hash is not None:
+                self._free_reusable[bid] = None
+            else:
+                self._free_anon.append(bid)

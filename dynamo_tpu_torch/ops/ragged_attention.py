@@ -1,0 +1,152 @@
+"""Unified ragged paged attention: the KV write and the dispatch to the two
+attention kernels.
+
+A step is a flat run of tokens — any mix of prompt chunks and decode tokens
+— described by ``cu_q_lens`` row boundaries (the JAX package's
+``ops/ragged_attention.py`` contract).  Cache layout per layer:
+``[num_pages, page_size, 2 * kv_heads, head_dim]`` with K at even and V at
+odd combined-head indices.
+
+Routing follows the tensors' device and nothing else: CUDA tensors go to
+the hand-written kernels (ops/decode_attention.py, ops/prefill_attention.py),
+CPU tensors to their plain versions.  There is no selector that could pick
+a different implementation on the same device and no fallback on failure.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .decode_attention import decode_attention
+from .prefill_attention import prefill_attention
+
+# Attention kernel routes.  ``cuda``: the hand-written Hopper kernels
+# (dynamo_tpu_torch/csrc); ``plain``: their PyTorch reference versions.
+ATTENTION_KERNELS = ("cuda", "plain")
+
+
+def resolve_kernel(value: Optional[str], device: torch.device) -> str:
+    """An engine's kernel setting against its device: ``auto`` is the
+    device's route (``cuda`` on CUDA, ``plain`` on the CPU); an explicit
+    value must equal that route, anything else raises."""
+    route = "cuda" if device.type == "cuda" else "plain"
+    v = (value or "auto").strip().lower()
+    if v == "auto":
+        return route
+    if v not in ATTENTION_KERNELS:
+        raise ValueError(
+            f"unknown attention kernel {value!r} (auto|{'|'.join(ATTENTION_KERNELS)})"
+        )
+    if v != route:
+        raise ValueError(
+            f"attention kernel {v!r} cannot serve tensors on {device}: CUDA "
+            "tensors always launch the CUDA kernels, CPU tensors always take "
+            "the plain versions"
+        )
+    return v
+
+
+def quantize_for_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Make already-scaled values representable in a page dtype.
+
+    int8: round half to even (``torch.round``, as ``jnp.round``), then
+    clip — a bare cast truncates toward zero and wraps on overflow.
+    float8 e4m3fn: clip to ±finfo.max first — the format has no inf, so an
+    overflowing cast becomes NaN and one NaN K row poisons every later read
+    of its page."""
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        x = torch.round(x.float()).clamp(info.min, info.max)
+    elif dtype.itemsize == 1:
+        fmax = float(torch.finfo(dtype).max)
+        x = x.float().clamp(-fmax, fmax)
+    return x.to(dtype)
+
+
+_SAME_WIDTH_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+class KvWritePlan(NamedTuple):
+    """Where a step's K/V rows go — the same for every layer, so the model
+    computes it once per step (``kv_write_plan``)."""
+
+    dst: torch.Tensor  # [T] int64 destination slot of every row
+    keep: torch.Tensor  # [T] bool: slot >= 0
+    first: torch.Tensor  # [1] index of the first kept row (0 if none)
+    any_keep: torch.Tensor  # [1] bool
+
+
+def kv_write_plan(slot_mapping: torch.Tensor) -> KvWritePlan:
+    """Rows with slot -1 are dropped without a host sync: they are
+    redirected to repeat the first kept row's write (``index_copy_`` with
+    duplicate indices is well defined when the duplicates carry equal
+    values), or, when no row is kept, to rewrite slot 0 with its own
+    contents.  ``index_select``, never a 0-dim tensor index, which would
+    read the index back to the host and stall the stream."""
+    slots = slot_mapping.long()
+    keep = slots >= 0
+    first = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    any_keep = keep.index_select(0, first)
+    dst = torch.where(keep, slots, torch.where(any_keep, slots.index_select(0, first), 0))
+    return KvWritePlan(dst, keep, first, any_keep)
+
+
+def write_kv_ragged(
+    pages: torch.Tensor,  # [num_pages, page_size, 2*kv_heads, head_dim]
+    k_new: torch.Tensor,  # [T, kv_heads, head_dim]
+    v_new: torch.Tensor,  # [T, kv_heads, head_dim]
+    slot_mapping: torch.Tensor,  # [T] int32 flat slot ids; -1 = padding (dropped)
+    kv_scale: Optional[float] = None,  # quantized cache: store value / scale
+    plan: Optional[KvWritePlan] = None,  # kv_write_plan(slot_mapping), if made
+) -> torch.Tensor:
+    """Scatter new K/V rows into their cache slots, IN PLACE (the JAX
+    package threaded the slab functionally); returns ``pages``.  Slot -1
+    rows are dropped (see ``kv_write_plan``)."""
+    if not pages.is_contiguous():
+        raise ValueError("pages must be contiguous for the in-place write")
+    P, ps, KV2, D = pages.shape
+    T = k_new.shape[0]
+    # [T, KV, 2, D] -> [T, 2KV, D]: k_h at combined index 2h, v_h at 2h+1.
+    comb = torch.stack([k_new, v_new], dim=2).reshape(T, KV2, D)
+    if kv_scale is not None:
+        comb = comb.float() / float(kv_scale)
+    comb = quantize_for_cache(comb, pages.dtype)
+    as_int = _SAME_WIDTH_INT[pages.element_size()]
+    flat = pages.view(P * ps, KV2, D).view(as_int)
+    src = comb.view(as_int)
+    dst, keep, first, any_keep = plan if plan is not None else kv_write_plan(slot_mapping)
+    fill = torch.where(any_keep[:, None, None], src.index_select(0, first), flat[:1])
+    src = torch.where(keep[:, None, None], src, fill)
+    flat.index_copy_(0, dst, src)
+    return pages
+
+
+def ragged_attention(
+    q: torch.Tensor,  # [T, num_heads, head_dim]
+    pages: torch.Tensor,  # [num_pages, page_size, 2*kv_heads, head_dim]
+    kv_lens: torch.Tensor,  # [S] int32 context length per row
+    page_indices: torch.Tensor,  # [S, pages_per_seq] int32
+    cu_q_lens: torch.Tensor,  # [S+1] int32 cumulative query lengths
+    num_seqs: torch.Tensor,  # [1] int32 valid rows
+    *,
+    sm_scale: float,
+    kv_scale: Optional[float] = None,  # quantized pages: value = stored * scale
+    decode: bool = False,  # every row is a 1-token decode row
+) -> torch.Tensor:
+    """Causal attention of each token against its row's paged context (the
+    K/V must already be written — callers run write_kv_ragged first).
+    ``decode=True`` routes to the decode kernel, whose rows are single
+    tokens at position ``kv_len - 1`` (``cu_q_lens`` is then the identity
+    and unused); otherwise to the prefill kernel.  ``kv_scale`` is applied
+    inside the kernels (in-kernel dequant)."""
+    if decode:
+        return decode_attention(
+            q, pages, kv_lens, page_indices, num_seqs,
+            sm_scale=sm_scale, kv_scale=kv_scale,
+        )
+    return prefill_attention(
+        q, pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        sm_scale=sm_scale, kv_scale=kv_scale,
+    )

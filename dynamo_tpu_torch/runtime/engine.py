@@ -1,0 +1,223 @@
+"""AsyncEngine core: the universal service trait + per-request context.
+
+Reference semantics (not code): lib/runtime/src/engine.rs:46-109 —
+``AsyncEngine<Req, Resp, E>::generate()`` is the single trait every service
+stage implements; ``AsyncEngineContext`` carries the request id plus two-level
+cancellation (``stop_generating`` = graceful, ``kill`` = immediate).
+
+Design notes: the runtime layer is pure host-side asyncio; nothing here
+touches the device.  Engines that drive a device loop observe
+``ctx.is_stopped`` between device steps (a batched synchronous device loop
+cannot be pre-empted mid-step, so cancellation is polled at step granularity).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import uuid
+from abc import ABC, abstractmethod
+from typing import AsyncIterator, Callable, Generic, List, Optional, TypeVar
+
+T = TypeVar("T")
+U = TypeVar("U")
+Req = TypeVar("Req")
+Resp = TypeVar("Resp")
+
+
+class AsyncEngineContext:
+    """Per-request identity + cancellation.
+
+    Two levels of cancellation mirror the reference (engine.rs:46-85):
+    - ``stop_generating()`` — graceful: stop producing new items, flush what's
+      in flight (used on client disconnect).
+    - ``kill()`` — immediate: also stop streaming already-produced items.
+
+    Child contexts are linked so cancelling a parent cascades.
+    """
+
+    __slots__ = (
+        "_id", "_stopped", "_killed", "_children", "_stop_event", "deadline",
+        "trace",
+    )
+
+    def __init__(self, id: Optional[str] = None, deadline=None, trace=None):
+        self._id = id if id is not None else uuid.uuid4().hex
+        self._stopped = False
+        self._killed = False
+        self._children: List["AsyncEngineContext"] = []
+        self._stop_event: asyncio.Event = asyncio.Event()
+        # Optional resilience.Deadline: the request's remaining wall-clock
+        # budget, decremented across hops (serialized on the wire by the
+        # service plane, enforced by Client retries and the HTTP edge).
+        self.deadline = deadline
+        # Optional tracing.TraceContext: the request's span-plane identity,
+        # set by the HTTP edge (sampling decision) or the service transport
+        # (``trace`` request-header key) and read by every instrumented hop
+        # (runtime/tracing.py).  None = untraced — the zero-cost path.
+        self.trace = trace
+
+    @property
+    def id(self) -> str:
+        return self._id
+
+    @property
+    def is_stopped(self) -> bool:
+        return self._stopped
+
+    @property
+    def is_killed(self) -> bool:
+        return self._killed
+
+    def stop_generating(self) -> None:
+        self._stopped = True
+        self._stop_event.set()
+        for c in self._children:
+            c.stop_generating()
+
+    def kill(self) -> None:
+        self._killed = True
+        for c in self._children:
+            c.kill()
+        self.stop_generating()
+
+    def link_child(self, child: "AsyncEngineContext") -> None:
+        self._children.append(child)
+        if self._stopped:
+            child.stop_generating()
+        if self._killed:
+            child.kill()
+
+    async def stopped(self) -> None:
+        """Wait until stop_generating()/kill() is called."""
+        await self._stop_event.wait()
+
+
+class Context(Generic[T]):
+    """``SingleIn<T>`` — a request payload + its engine context.
+
+    Reference: lib/runtime/src/pipeline.rs:209-236 (``SingleIn<T> =
+    Context<T>``) and pipeline/context.rs.  ``map``/``transfer`` move the
+    context between pipeline stages without re-creating ids.
+    """
+
+    __slots__ = ("data", "ctx")
+
+    def __init__(self, data: T, ctx: Optional[AsyncEngineContext] = None):
+        self.data = data
+        self.ctx = ctx if ctx is not None else AsyncEngineContext()
+
+    @classmethod
+    def with_id(cls, data: T, id: str) -> "Context[T]":
+        return cls(data, AsyncEngineContext(id))
+
+    @property
+    def id(self) -> str:
+        return self.ctx.id
+
+    def map(self, fn: Callable[[T], U]) -> "Context[U]":
+        return Context(fn(self.data), self.ctx)
+
+    def transfer(self, data: U) -> "Context[U]":
+        return Context(data, self.ctx)
+
+    # Convenience passthroughs
+    @property
+    def is_stopped(self) -> bool:
+        return self.ctx.is_stopped
+
+    def stop_generating(self) -> None:
+        self.ctx.stop_generating()
+
+
+class ResponseStream(Generic[T]):
+    """``ManyOut<T>`` — an async stream of response items with its context.
+
+    Async-iterating the stream honours ``kill()`` (items are dropped once
+    killed) and stops cleanly when the producer finishes.  Dropping the
+    consumer (``GeneratorExit`` / task cancellation) propagates
+    ``stop_generating()`` upstream so device loops stop scheduling the request
+    — the reference does the same when a TCP response send fails
+    (pipeline/network/ingress/push_handler.rs:100-116).
+    """
+
+    def __init__(self, iterator: AsyncIterator[T], ctx: AsyncEngineContext):
+        self._iterator = iterator
+        self.ctx = ctx
+
+    @property
+    def id(self) -> str:
+        return self.ctx.id
+
+    def __aiter__(self) -> "ResponseStream[T]":
+        return self
+
+    async def __anext__(self) -> T:
+        if self.ctx.is_killed:
+            await self._close_inner()
+            raise StopAsyncIteration
+        try:
+            item = await self._iterator.__anext__()
+        except asyncio.CancelledError:
+            # Consumer task torn down (e.g. HTTP client disconnected): tell
+            # upstream to stop scheduling this request.
+            self.ctx.stop_generating()
+            raise
+        if self.ctx.is_killed:
+            await self._close_inner()
+            raise StopAsyncIteration
+        return item
+
+    async def aclose(self) -> None:
+        """Abandon the stream: stop upstream generation and close the source."""
+        self.ctx.stop_generating()
+        await self._close_inner()
+
+    async def _close_inner(self) -> None:
+        aclose = getattr(self._iterator, "aclose", None)
+        if aclose is not None:
+            try:
+                await aclose()
+            except RuntimeError:
+                pass
+
+    def map(self, fn: Callable[[T], U]) -> "ResponseStream[U]":
+        src = self
+
+        async def mapped() -> AsyncIterator[U]:
+            try:
+                async for item in src._iterator:
+                    yield fn(item)
+            finally:
+                await src._close_inner()
+
+        return ResponseStream(mapped(), self.ctx)
+
+
+class AsyncEngine(ABC, Generic[Req, Resp]):
+    """The universal service trait: ``SingleIn<Req> -> ManyOut<Resp>``.
+
+    Every stage — HTTP handler, preprocessor, router, the engine itself,
+    and remote clients — implements this one interface, so local and
+    distributed pipelines compose identically (reference: engine.rs:103-109).
+    """
+
+    @abstractmethod
+    async def generate(self, request: Context[Req]) -> ResponseStream[Resp]:
+        ...
+
+
+def engine_from_generator(
+    fn: Callable[[Context[Req]], AsyncIterator[Resp]]
+) -> AsyncEngine[Req, Resp]:
+    """Build an AsyncEngine from a plain async-generator function."""
+
+    class _Lambda(AsyncEngine):
+        async def generate(self, request: Context) -> ResponseStream:
+            return ResponseStream(fn(request), request.ctx)
+
+    return _Lambda()
+
+
+async def collect(stream: ResponseStream[T]) -> List[T]:
+    """Drain a stream into a list (test/aggregation helper)."""
+    return [item async for item in stream]

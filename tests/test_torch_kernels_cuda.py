@@ -1,0 +1,143 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  These tests need a CUDA device and skip without one (they
+import no JAX, so they also run where JAX is absent):
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+chip_smoke.py runs the same comparison at llama-3.1-8b shapes.
+"""
+
+import pytest
+import torch
+
+from dynamo_tpu_torch.ops import decode_attention as da
+from dynamo_tpu_torch.ops import prefill_attention as pa
+from dynamo_tpu_torch.ops.ragged_attention import quantize_for_cache
+
+pytestmark = pytest.mark.torch_port
+
+H, KV, D, PS = 32, 8, 128, 16
+PAGE_DTYPES = [
+    (torch.bfloat16, 1.0),
+    (torch.int8, 0.02),
+    (torch.float8_e4m3fn, 0.01),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _pages(gen, dev, P, dtype, scale):
+    vals = torch.randn((P, PS, 2 * KV, D), generator=gen, device=dev)
+    return quantize_for_cache(vals / scale, dtype)
+
+
+@pytest.mark.parametrize("page_dtype,scale", PAGE_DTYPES, ids=str)
+@pytest.mark.parametrize("splits", [1, None])
+def test_decode_kernel_matches_plain(cuda, page_dtype, scale, splits):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S, PP = 12, 40
+    lens = [640, 0, 1, 17, 16, 33, 300, 639, 5, 100, 1, 2]
+    q = torch.randn((S, H, D), generator=gen, device=cuda).to(torch.bfloat16)
+    pages = _pages(gen, cuda, S * PP + 4, page_dtype, scale)
+    tables = torch.randperm(S * PP, generator=gen, device=cuda).view(S, PP).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    num = torch.tensor([10], dtype=torch.int32, device=cuda)
+    args = (q, pages, kv_lens, tables, num)
+    got = da.decode_attention_cuda(*args, sm_scale=D**-0.5, kv_scale=scale, num_kv_splits=splits)
+    want = da.decode_attention_plain(*args, sm_scale=D**-0.5, kv_scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert (got[10:] == 0).all() and (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("page_dtype,scale", PAGE_DTYPES, ids=str)
+@pytest.mark.parametrize("splits", [1, 2])
+def test_prefill_kernel_matches_plain(cuda, page_dtype, scale, splits):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    priors, q_lens = [0, 300, 5], [37, 100, 1]
+    S, T = 4, 256
+    kv = [p + n for p, n in zip(priors, q_lens)]
+    PP = -(-max(kv) // PS)
+    q = torch.randn((T, H, D), generator=gen, device=cuda).to(torch.bfloat16)
+    pages = _pages(gen, cuda, S * PP + 4, page_dtype, scale)
+    tables = torch.randperm(S * PP, generator=gen, device=cuda).view(S, PP).int()
+    kv_lens = torch.tensor(kv + [0], dtype=torch.int32, device=cuda)
+    cu = torch.tensor([0, 37, 137, 138, 138], dtype=torch.int32, device=cuda)
+    num = torch.tensor([3], dtype=torch.int32, device=cuda)
+    args = (q, pages, kv_lens, tables, cu, num)
+    got = pa.prefill_attention_cuda(*args, sm_scale=D**-0.5, kv_scale=scale, num_kv_splits=splits)
+    want = pa.prefill_attention_plain(*args, sm_scale=D**-0.5, kv_scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert (got[138:] == 0).all()
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((2, 32, 64), dtype=torch.bfloat16, device=cuda)  # head_dim 64
+    pages = torch.zeros((4, PS, 16, 64), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    num = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q, pages, lens, idx, num, sm_scale=1.0)
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q.cpu(), pages, lens, idx, num, sm_scale=1.0)
+
+
+def test_engine_sampling_features_on_the_card(cuda):
+    """TorchEngine on CUDA with every sampler stage engaged: penalties (the
+    on-device counts carry), top-k/top-p, seeds, logprobs; a small model
+    at head_dim 128 (what the kernels take)."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.protocols import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.config import ModelConfig, register_config
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+
+    register_config(ModelConfig(
+        name="card-tiny", vocab_size=512, hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=1, head_dim=128, intermediate_size=512,
+    ))
+    cfg = EngineConfig(model="card-tiny", dtype="bfloat16", block_size=16,
+                       num_blocks=64, max_batch=4, max_model_len=256,
+                       prefill_chunk=32, decode_steps=4)
+
+    async def run():
+        eng = TorchEngine(cfg, device=cuda)
+        opts = [
+            dict(temperature=0.0, frequency_penalty=0.5, presence_penalty=0.3),
+            dict(temperature=0.8, top_k=20, top_p=0.9, seed=5),
+            dict(temperature=1.0, seed=6, logprobs=3),
+            dict(temperature=0.0),
+        ]
+
+        async def one(i, o):
+            req = PreprocessedRequest(
+                token_ids=list(range(1, 40 + 9 * i)),
+                stop_conditions=StopConditions(max_tokens=12, ignore_eos=True),
+                sampling_options=SamplingOptions(**o),
+            ).to_dict()
+            return await collect(await eng.generate(Context(req)))
+
+        try:
+            return await asyncio.gather(*(one(i, o) for i, o in enumerate(opts)))
+        finally:
+            await eng.close()
+
+    first = asyncio.run(run())
+    for items in first:
+        assert items[-1]["finish_reason"] == "length"
+        assert sum(len(it["token_ids"]) for it in items) == 12
+    assert all("logprobs" in it for it in first[2][:-1])
+    again = asyncio.run(run())  # seeded and greedy streams reproduce
+    toks = [[t for it in items for t in it["token_ids"]] for items in first]
+    assert toks == [[t for it in items for t in it["token_ids"]] for items in again]
