@@ -6,17 +6,25 @@
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from dynamo_tpu_torch/csrc with nvcc;
-  3. check each kernel against its plain PyTorch version at llama-3.1-8b
-     attention geometry (H 32, KV 8, D 128, page size 16), at 64 rows and
-     at the serve phase's own row count and table width: ragged lengths,
-     zero-length and padding rows, bf16 / int8 / fp8 pages, KV splits;
+  3. check that the bf16 kernel bodies run on the tensor cores and the
+     f32 bodies do not (HMMA instructions in cuobjdump's SASS); check each
+     kernel against its plain PyTorch version at llama-3.1-8b attention
+     geometry (H 32, KV 8, D 128, page size 16), at 64 rows and at the
+     serve phase's own row count and table width: ragged lengths,
+     zero-length and padding rows, decode contexts on and one past a
+     partition boundary and across the whole 4096-token table, prefill
+     chunks that are not multiples of a tile over prefixes ending mid-page,
+     a mixed step's 1-token rows beside a 512-token chunk, bf16 q over
+     bf16 / int8 / fp8 / f32 pages and f32 q over f32 pages, KV splits;
      rtol = atol = 1e-2 for bf16 outputs, 1e-4 for f32;
   4. time each kernel at the shapes the serving path gives it, beside its
      plain version, its bytes/flops bound, and one PyTorch library call of
      the same function (scaled_dot_product_attention over pre-gathered
      contiguous K/V at KV heads — a yardstick the port never calls); the
      kernel's output there is held against the plain version's and the
-     library's;
+     library's; and the prefill kernel once more at a mixed step's shape
+     (the 512-token chunk plus 7 one-token rows), beside a decode launch of
+     those 7 rows;
   5. the paged model path in f32 (4 layers at full width, f32 pages)
      against a dense reference forward: chunked prefill over a prior
      prefix, then decode steps, at rtol = atol = 1e-4;
@@ -35,6 +43,9 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,6 +169,46 @@ def bound(nbytes, flops):
 # ------------------------------------------------------------ kernel checks
 
 
+def tensor_core_report(lib_path):
+    """HMMA (tensor-core mma) instructions per kernel function in a built
+    library's SASS, from cuobjdump: {function: count}, or None without the
+    tool."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_tensor_cores(failures):
+    """The bf16 bodies (``*_tc_kernel``) must run on the tensor cores and
+    the f32 bodies (``*_f32_kernel``) must not."""
+    from dynamo_tpu_torch.ops import _build
+
+    for stem in ("decode_attention", "prefill_attention"):
+        counts = tensor_core_report(_build._target(_build.CSRC / f"{stem}.cu"))
+        if counts is None:
+            log(f"sass {stem}: cuobjdump not found, not checked")
+            continue
+        for fn, n in sorted(counts.items()):
+            m = re.search(r"\d+((?:prefill|decode)_(?:tc|f32)_kernel)I(\w+?)EEv", fn)
+            if not m:
+                continue
+            ok = n > 0 if m.group(1).endswith("_tc_kernel") else n == 0
+            log(f"sass {stem}: {m.group(1)}<{m.group(2)}> {n} HMMA {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{stem} {m.group(1)}<{m.group(2)}> tensor-core use")
+
+
 class Tally:
     """Every comparison of a kernel with its plain version: the worst
     max-abs error per kernel and the labels of those that failed."""
@@ -184,6 +235,7 @@ CHECK_DTYPES = [
     ("bfloat16", "bfloat16", 1.0, 1e-2),
     ("bfloat16", "int8", 0.02, 1e-2),
     ("bfloat16", "float8_e4m3fn", 0.01, 1e-2),
+    ("bfloat16", "float32", 1.0, 1e-2),
     ("float32", "float32", 1.0, 1e-4),
 ]
 
@@ -193,6 +245,12 @@ def serving_decode_lens(cfg):
     576..2116 tokens, the other max_batch rows padding rows at kv_len 1."""
     live = [576 + 220 * i for i in range(8)]
     return live, live + [1] * (cfg.max_batch - len(live))
+
+
+# Context lengths of the 7 decode rows that ride a mixed prefill/decode
+# step beside a 512-token chunk: spread over the serve phase's decode
+# lengths, 576..2116 tokens.
+MIXED_DECODE_LENS = [576, 833, 1089, 1346, 1603, 1859, 2116]
 
 
 def check_kernels(torch, dev, cfg, tally):
@@ -211,10 +269,16 @@ def check_kernels(torch, dev, cfg, tally):
     # count leaves an uneven last split.
     lens64 = [int(x) for x in torch.randint(1, 4097, (64,), generator=torch.Generator().manual_seed(1))]
     lens64[0], lens64[5], lens64[17] = 4096, 0, 1
+    # Partition edges: kv_len on a partition boundary and one past it, a
+    # row spanning the whole 4096-token table, padding rows at kv_len 1 and
+    # rows past num_seqs.
+    part = da.DECODE_PARTITION
+    edges = [part, part + 1, 2 * part, 2 * part + 1, 4096, part - 1, 1, 1, 3000, 1]
     geometries = [
         ("S=64", lens64, 56, 4096 // PS),
         (f"S={cfg.max_batch} serving", serving_decode_lens(cfg)[1], cfg.max_batch,
          cfg.max_blocks_per_seq),
+        (f"S={len(edges)} partition edges", edges, 8, 4096 // PS),
     ]
     for geo, lens, nvalid, PP in geometries:
         S = len(lens)
@@ -231,23 +295,32 @@ def check_kernels(torch, dev, cfg, tally):
                               got, want, tol, zero)
             del q, pages, want, got
 
-    # Prefill: ragged rows whose lengths are not multiples of the kernel's
-    # q-block (16 tokens at G 4), prior prefixes in the pages, a padded T
-    # bucket, and rows past num_seqs, at the serve phase's row count.
-    priors = [0, 1024, 77, 300, 2000]
-    q_lens = [37, 500, 1, 203, 61]
-    T, S = 1024, cfg.max_batch
-    for q_dt, p_dt, scale, tol in CHECK_DTYPES:
-        q, pages, kv_lens, tables, cu, num = prefill_case(
-            torch, gen, dev, priors, q_lens, S, T, dt[q_dt], dt[p_dt], scale)
-        want = pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm, kv_scale=scale)
-        zero = list(range(sum(q_lens), T))
-        for splits in (1, 3):
-            got = pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
-                                            kv_scale=scale, num_kv_splits=splits)
-            tally.compare(torch, "prefill_attention",
-                          f"S={S} q={q_dt} pages={p_dt} splits={splits}", got, want, tol, zero)
-        del q, pages, want, got
+    # Prefill, at the serve phase's row count with rows past num_seqs and a
+    # padded T bucket: ragged rows whose lengths are not multiples of the
+    # kernel's q-block (16 tokens at G 4), of a warp's 16 rows or of its
+    # 64-key tile, prior prefixes ending mid-page and on page edges, and a
+    # mixed step's 512-token chunk beside 1-token rows up to 2116 tokens.
+    S = cfg.max_batch
+    cases = [
+        ("ragged", [0, 1024, 77, 300, 2000], [37, 500, 1, 203, 61], 1024),
+        ("tile edges", [16, 45, 64, 0, 1], [63, 65, 17, 128, 3], 512),
+        ("mixed step", [1024] + [n - 1 for n in MIXED_DECODE_LENS], [512] + [1] * 7,
+         cfg.bucket_tokens(519)),
+    ]
+    for label, priors, q_lens, T in cases:
+        for q_dt, p_dt, scale, tol in CHECK_DTYPES:
+            q, pages, kv_lens, tables, cu, num = prefill_case(
+                torch, gen, dev, priors, q_lens, S, T, dt[q_dt], dt[p_dt], scale)
+            want = pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
+                                              kv_scale=scale)
+            zero = list(range(sum(q_lens), T))
+            for splits in (1, 3):
+                got = pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
+                                                kv_scale=scale, num_kv_splits=splits)
+                tally.compare(torch, "prefill_attention",
+                              f"{label} S={S} T={T} q={q_dt} pages={p_dt} splits={splits}",
+                              got, want, tol, zero)
+            del q, pages, want, got
     torch.cuda.empty_cache()
 
 
@@ -357,13 +430,59 @@ def time_kernels(torch, dev, cfg, tally):
         library_err=lib_err, bound_ms=b_ms, bound_by=b_by,
         shape=f"T={T} S={S} one row: {ql} tokens over a {prior}-token prefix, bf16",
     )
-    del q, pages, k, v, got, lib, flush
+    del q, pages, k, v, got, lib
+
+    # A mixed step: the serve cadence's 512-token chunk over its 1024-token
+    # prefix beside 7 one-token decode rows (MIXED_DECODE_LENS), one prefill
+    # launch.  No single library call computes it: library not measured.
+    priors = [prior] + [n - 1 for n in MIXED_DECODE_LENS]
+    q_lens = [ql] + [1] * len(MIXED_DECODE_LENS)
+    Tm = cfg.bucket_tokens(sum(q_lens))
+    q, pages, kv_lens, tables, cu, num = prefill_case(
+        torch, gen, dev, priors, q_lens, S, Tm, torch.bfloat16, torch.bfloat16, 1.0)
+    ctxs = [p + n for p, n in zip(priors, q_lens)]
+    nbytes = (sum(ctxs) * 2 * KV * D * 2 + 2 * sum(q_lens) * H * D * 2
+              + sum(math.ceil(c / PS) for c in ctxs) * 4)
+    flops = (sum(prior + i + 1 for i in range(ql)) + sum(MIXED_DECODE_LENS)) * H * D * 4
+    b_ms, b_by = bound(nbytes, flops)
+
+    def kernel():
+        return pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
+
+    got = kernel()
+    tally.compare(torch, "prefill_attention", f"mixed step shape T={Tm} S={S} bf16",
+                  got, pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm),
+                  1e-2, range(sum(q_lens), Tm))
+    # What the 7 rows cost as a decode-shaped launch of their own (16 rows,
+    # the rest padding rows at kv_len 1), for comparison.
+    dq, dpages, dlens, dtables, dnum = decode_case(
+        torch, gen, dev, MIXED_DECODE_LENS + [1] * (S - len(MIXED_DECODE_LENS)), S, PP,
+        torch.bfloat16, torch.bfloat16, 1.0)
+
+    def decode_rows():
+        return da.decode_attention_cuda(dq, dpages, dlens, dtables, dnum, sm_scale=sm)
+
+    rounds, drounds = [], []
+    for _ in range(TIMING_ROUNDS):
+        rounds.append(cuda_ms(torch, kernel, 20, flush))
+        drounds.append(cuda_ms(torch, decode_rows, 20, flush))
+    mixed = dict(ms=statistics.median(rounds), bound_ms=b_ms, bound_by=b_by,
+                 decode_rows_ms=statistics.median(drounds))
+    log(f"time prefill_attention mixed step [T={Tm} S={S}: a {ql}-token chunk over a "
+        f"{prior}-token prefix and 7 one-token rows at {MIXED_DECODE_LENS[0]}.."
+        f"{MIXED_DECODE_LENS[-1]} tokens, bf16]: kernel {mixed['ms']:.4f} ms, library not "
+        f"measured, bound {b_ms:.4f} ms ({b_by}); the 7 rows as a decode launch "
+        f"{mixed['decode_rows_ms']:.4f} ms; rounds {[round(x, 4) for x in rounds]} / "
+        f"{[round(x, 4) for x in drounds]}")
+    out["prefill_attention"]["mixed"] = mixed
+    del q, pages, got, dq, dpages, flush
     torch.cuda.empty_cache()
     for name, r in out.items():
         r.update(r.pop("medians"))
         ok = r["library_err"] <= 1e-2
         log(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms (vs kernel max_abs_err {r['library_err']:.3e} "
+            f"library {r['library_ms']:.4f} ms (kernel/library {r['ms'] / r['library_ms']:.3f}; "
+            f"vs kernel max_abs_err {r['library_err']:.3e} "
             f"{'ok' if ok else 'FAIL'}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
             f"medians of {TIMING_ROUNDS} alternating rounds: kernel "
             f"{[round(x, 4) for x in r['rounds']['ms']]} library "
@@ -636,6 +755,7 @@ def main() -> int:
 
         cfg = EngineConfig(**SERVE_CFG)
         tally = Tally()
+        check_tensor_cores(tally.failures)
         with torch.inference_mode():
             check_kernels(torch, dev, cfg, tally)
             times = time_kernels(torch, dev, cfg, tally)
@@ -658,6 +778,11 @@ def main() -> int:
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                 "checks_passed": not any(f.startswith(name) for f in tally.failures),
             })
+            if "mixed" in tm:
+                kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
+                                   mixed_step_bound_ms=tm["mixed"]["bound_ms"],
+                                   mixed_step_library_ms=None,
+                                   mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path:
             log(f"FAILED: kernel checks {tally.failures or 'ok'}; f32 model check "

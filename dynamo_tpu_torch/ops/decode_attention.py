@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,6 +27,7 @@ from . import _build
 NEG_INF = -1e30  # the JAX package's mask value
 HEAD_DIM = 128  # csrc/common.cuh HEAD_DIM
 MAX_G = 8  # csrc/decode_attention.cu MAX_G
+DECODE_PARTITION = 256  # context positions a decode block reads (a multiple of 16)
 
 
 def gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -98,16 +99,26 @@ def check_paged_inputs(q, pages, index_tensors) -> None:
             raise TypeError(f"index tensors must be int32, got {t.dtype}")
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def decode_partitions(PP: int, ps: int, num_kv_splits: Optional[int] = None) -> Tuple[int, int]:
+    """``(part_tokens, n_parts)`` of a decode launch: each row's context is
+    cut into runs of ``part_tokens`` positions, and the grid holds
+    ``n_parts`` of them per (row, KV head) — enough for the whole table
+    width ``PP * ps``, so the launch never reads ``kv_lens`` on the host.
+    ``num_kv_splits`` (tests) cuts the table into that many page-aligned
+    runs instead."""
+    if num_kv_splits:
+        J = max(1, min(num_kv_splits, PP))
+        part = -(-PP // J) * ps
+    else:
+        part = DECODE_PARTITION
+    return part, -(-PP * ps // part)
 
 
-def auto_splits(S: int, KV: int, PP: int, device: torch.device) -> int:
-    """KV splits so that S * KV * J blocks cover every SM about four times
-    (padding rows' blocks exit at once, so live rows need the margin)."""
-    sms = _num_sms(device.index if device.index is not None else torch.cuda.current_device())
-    return max(1, min(16, PP, -(-4 * sms // (S * KV))))
+def covered_partitions(kv_len: int, part_tokens: int) -> int:
+    """Partitions that hold a position of a ``kv_len`` context: the blocks
+    of a row that do work, and the partials its combine reads (a row with
+    one is written by its block, with none by the zero path)."""
+    return -(-max(kv_len, 0) // part_tokens)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,7 +142,8 @@ def decode_attention_cuda(
     num_kv_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch csrc/decode_attention.cu on the current stream (no sync).
-    ``num_kv_splits`` None picks ``auto_splits``."""
+    ``num_kv_splits`` None partitions by ``DECODE_PARTITION`` positions
+    (``decode_partitions``)."""
     check_paged_inputs(q, pages, (kv_lens, page_indices, num_seqs))
     S, H, D = q.shape
     P, ps, KV2, _ = pages.shape
@@ -142,21 +154,20 @@ def decode_attention_cuda(
         raise ValueError(f"decode kernel takes at most {MAX_G} query heads per KV head, got {G}")
     if kv_lens.shape != (S,) or page_indices.shape[0] != S or num_seqs.shape != (1,):
         raise ValueError("kv_lens / page_indices / num_seqs do not match q's rows")
-    J = num_kv_splits or auto_splits(S, KV, PP, q.device)
-    J = max(1, min(J, PP))
-    split_pages = -(-PP // J)
-    J = -(-PP // split_pages)  # drop now-empty tail splits
+    part, J = decode_partitions(PP, ps, num_kv_splits)
     dev = q.device
-    o_part = torch.empty((J, S, H, D), dtype=torch.float32, device=dev)
-    m_part = torch.empty((J, S, H), dtype=torch.float32, device=dev)
-    l_part = torch.empty((J, S, H), dtype=torch.float32, device=dev)
+    o_part = m_part = l_part = None  # one partition: the kernel writes ``out`` itself
+    if J > 1:
+        o_part = torch.empty((J, S, H, D), dtype=torch.float32, device=dev)
+        m_part = torch.empty((J, S, H), dtype=torch.float32, device=dev)
+        l_part = torch.empty((J, S, H), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     lib = _lib()
     p = _build.ptr
     code = lib.decode_attention_launch(
         p(q), p(pages), p(kv_lens), p(page_indices), p(num_seqs),
         p(o_part), p(m_part), p(l_part), p(out),
-        S, KV, G, P, ps, PP, J, split_pages,
+        S, KV, G, P, ps, PP, J, part,
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages.dtype],
         float(sm_scale), 1.0 if kv_scale is None else float(kv_scale),
         _build.stream_ptr(dev),

@@ -18,14 +18,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
-from .decode_attention import NEG_INF, check_paged_inputs, gather_rows
+from .decode_attention import HEAD_DIM, NEG_INF, check_paged_inputs, gather_rows
 
 ROWS = 64  # csrc/prefill_attention.cu ROWS: query-head rows per block
+SMALL_ROWS = 16  # csrc/prefill_attention.cu RW: rows of a small q-block
+SMALL_SLICES = 4  # csrc/prefill_attention.cu SMALL_SLICES
 
 
 def prefill_attention_plain(
@@ -77,11 +79,48 @@ def prefill_attention_plain(
     return out.to(q.dtype)
 
 
+def prefill_slots(T: int, S: int, G: int, tensor_cores: bool) -> int:
+    """Block slots a prefill launch needs per KV head and split, from the
+    shapes alone (no host read of ``cu_q_lens``): one per 64-row q-block of
+    the T-token bucket, plus what the ragged rows' partial q-blocks can add
+    — at most one more a row, which the tensor-core body cuts into
+    ``SMALL_SLICES`` key slices when it fits one warp.  The kernel maps
+    slots to q-blocks on the device; the slots left over zero the padding
+    tokens, and there are always enough of them."""
+    qb = ROWS // G
+    return -(-T // qb) + S * (SMALL_SLICES if tensor_cores else 1)
+
+
+_slice_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def slice_scratch(device: torch.device, n: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scratch of the small q-blocks' key slices for ``n`` (split, row, KV
+    head) triples, for launches on ``device``'s current stream: partial
+    outputs, their (m, l), and int32 arrival counters.  One buffer serves
+    every launch on that stream, which runs them in order: the counters are
+    zero before a launch and left zero after it (the last slice of a
+    q-block to arrive resets its counter).  Each stream has its own, so
+    launches on two streams never share counters.  Grown, with fresh zero
+    counters, when a launch needs more."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    have = _slice_scratch.get(key)
+    if have is None or have[2].numel() < n:
+        n = max(n, 256)
+        have = (
+            torch.empty((n, SMALL_SLICES, SMALL_ROWS, HEAD_DIM), dtype=torch.float32, device=device),
+            torch.empty((n, SMALL_SLICES, SMALL_ROWS, 2), dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.int32, device=device),
+        )
+        _slice_scratch[key] = have
+    return have
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("prefill_attention")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.prefill_attention_launch.argtypes = [vp] * 10 + [ci] * 11 + [cf, cf, vp]
+    lib.prefill_attention_launch.argtypes = [vp] * 13 + [ci] * 12 + [cf, cf, vp]
     lib.prefill_attention_launch.restype = ci
     return lib
 
@@ -100,7 +139,9 @@ def prefill_attention_cuda(
 ) -> torch.Tensor:
     """Launch csrc/prefill_attention.cu on the current stream (no sync).
     ``num_kv_splits`` None means 1: the q-block grid already spreads a
-    chunk over the SMs."""
+    chunk over the SMs, and the kernel then writes ``out`` itself with no
+    combine pass.  bf16 queries run on the tensor cores, f32 queries on the
+    f32 CUDA-core body."""
     check_paged_inputs(q, pages, (kv_lens, page_indices, cu_q_lens, num_seqs))
     T, H, D = q.shape
     P, ps, KV2, _ = pages.shape
@@ -115,16 +156,21 @@ def prefill_attention_cuda(
     split_pages = -(-PP // J)
     J = -(-PP // split_pages)
     dev = q.device
-    o_part = torch.empty((J, T, H, D), dtype=torch.float32, device=dev)
-    m_part = torch.empty((J, T, H), dtype=torch.float32, device=dev)
-    l_part = torch.empty((J, T, H), dtype=torch.float32, device=dev)
+    o_part = m_part = l_part = None  # one partition: the kernel writes ``out`` itself
+    if J > 1:
+        o_part = torch.empty((J, T, H, D), dtype=torch.float32, device=dev)
+        m_part = torch.empty((J, T, H), dtype=torch.float32, device=dev)
+        l_part = torch.empty((J, T, H), dtype=torch.float32, device=dev)
+    slice_o = slice_ml = slice_cnt = None  # key slices of small q-blocks (bf16 q)
+    if q.dtype == torch.bfloat16:
+        slice_o, slice_ml, slice_cnt = slice_scratch(dev, J * S * KV)
     out = torch.empty_like(q)
     lib = _lib()
     p = _build.ptr
     code = lib.prefill_attention_launch(
         p(q), p(pages), p(kv_lens), p(page_indices), p(cu_q_lens), p(num_seqs),
-        p(o_part), p(m_part), p(l_part), p(out),
-        T, S, KV, G, P, ps, PP, J, split_pages,
+        p(o_part), p(m_part), p(l_part), p(out), p(slice_o), p(slice_ml), p(slice_cnt),
+        prefill_slots(T, S, G, q.dtype == torch.bfloat16), T, S, KV, G, P, ps, PP, J, split_pages,
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[pages.dtype],
         float(sm_scale), 1.0 if kv_scale is None else float(kv_scale),
         _build.stream_ptr(dev),

@@ -21,6 +21,7 @@ PAGE_DTYPES = [
     (torch.bfloat16, 1.0),
     (torch.int8, 0.02),
     (torch.float8_e4m3fn, 0.01),
+    (torch.float32, 1.0),
 ]
 
 
@@ -36,45 +37,73 @@ def _pages(gen, dev, P, dtype, scale):
     return quantize_for_cache(vals / scale, dtype)
 
 
+# (kv_lens, num_seqs, table width in pages): ragged rows with zero-length
+# and padding rows; kv_len on a partition boundary and one past it, a row
+# spanning the whole 4096-token table, padding rows at kv_len 1.
+DECODE_CASES = {
+    "ragged": ([640, 0, 1, 17, 16, 33, 300, 639, 5, 100, 1, 2], 10, 40),
+    "partition_edges": ([da.DECODE_PARTITION, da.DECODE_PARTITION + 1, 2 * da.DECODE_PARTITION,
+                         2 * da.DECODE_PARTITION + 1, 4096, 1, 1, 0, 3000, 1], 8, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
 @pytest.mark.parametrize("page_dtype,scale", PAGE_DTYPES, ids=str)
 @pytest.mark.parametrize("splits", [1, None])
-def test_decode_kernel_matches_plain(cuda, page_dtype, scale, splits):
+def test_decode_kernel_matches_plain(cuda, case, page_dtype, scale, splits):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    S, PP = 12, 40
-    lens = [640, 0, 1, 17, 16, 33, 300, 639, 5, 100, 1, 2]
+    lens, nvalid, PP = DECODE_CASES[case]
+    S = len(lens)
     q = torch.randn((S, H, D), generator=gen, device=cuda).to(torch.bfloat16)
     pages = _pages(gen, cuda, S * PP + 4, page_dtype, scale)
     tables = torch.randperm(S * PP, generator=gen, device=cuda).view(S, PP).int()
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    num = torch.tensor([10], dtype=torch.int32, device=cuda)
+    num = torch.tensor([nvalid], dtype=torch.int32, device=cuda)
     args = (q, pages, kv_lens, tables, num)
     got = da.decode_attention_cuda(*args, sm_scale=D**-0.5, kv_scale=scale, num_kv_splits=splits)
     want = da.decode_attention_plain(*args, sm_scale=D**-0.5, kv_scale=scale)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-    assert (got[10:] == 0).all() and (got[1] == 0).all()
+    for r, n in enumerate(lens):
+        if r >= nvalid or n == 0:
+            assert (got[r] == 0).all()
 
 
+# (prior prefixes, chunk lengths, S, T): ragged rows; chunks that are not
+# multiples of the 64-key tile or a warp's 16 rows over prefixes ending
+# mid-page and on page edges; a mixed step's 512-token chunk beside 1-token
+# rows up to 2116 tokens.
+PREFILL_CASES = {
+    "ragged": ([0, 300, 5], [37, 100, 1], 4, 256),
+    "tile_edges": ([16, 45, 64, 0], [63, 65, 17, 128], 5, 512),
+    "mixed_step": ([1024, 575, 832, 1088, 1345, 1602, 1858, 2115], [512] + [1] * 7, 9, 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
 @pytest.mark.parametrize("page_dtype,scale", PAGE_DTYPES, ids=str)
-@pytest.mark.parametrize("splits", [1, 2])
-def test_prefill_kernel_matches_plain(cuda, page_dtype, scale, splits):
+@pytest.mark.parametrize("splits", [1, 3])
+def test_prefill_kernel_matches_plain(cuda, case, page_dtype, scale, splits):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    priors, q_lens = [0, 300, 5], [37, 100, 1]
-    S, T = 4, 256
+    priors, q_lens, S, T = PREFILL_CASES[case]
     kv = [p + n for p, n in zip(priors, q_lens)]
     PP = -(-max(kv) // PS)
     q = torch.randn((T, H, D), generator=gen, device=cuda).to(torch.bfloat16)
     pages = _pages(gen, cuda, S * PP + 4, page_dtype, scale)
     tables = torch.randperm(S * PP, generator=gen, device=cuda).view(S, PP).int()
-    kv_lens = torch.tensor(kv + [0], dtype=torch.int32, device=cuda)
-    cu = torch.tensor([0, 37, 137, 138, 138], dtype=torch.int32, device=cuda)
-    num = torch.tensor([3], dtype=torch.int32, device=cuda)
+    kv_lens = torch.tensor(kv + [0] * (S - len(kv)), dtype=torch.int32, device=cuda)
+    cu = [0]
+    for n in q_lens:
+        cu.append(cu[-1] + n)
+    cu += [cu[-1]] * (S + 1 - len(cu))
+    cu = torch.tensor(cu, dtype=torch.int32, device=cuda)
+    num = torch.tensor([len(q_lens)], dtype=torch.int32, device=cuda)
     args = (q, pages, kv_lens, tables, cu, num)
     got = pa.prefill_attention_cuda(*args, sm_scale=D**-0.5, kv_scale=scale, num_kv_splits=splits)
     want = pa.prefill_attention_plain(*args, sm_scale=D**-0.5, kv_scale=scale)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-    assert (got[138:] == 0).all()
+    assert (got[sum(q_lens):] == 0).all()
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -25,8 +25,12 @@ from dynamo_tpu_torch.device import default_device
 from dynamo_tpu_torch.ops import ragged_attention as tra
 from dynamo_tpu_torch.ops import rope as trope
 from dynamo_tpu_torch.ops import sampling as tsamp
-from dynamo_tpu_torch.ops.decode_attention import decode_attention_plain
-from dynamo_tpu_torch.ops.prefill_attention import prefill_attention_plain
+from dynamo_tpu_torch.ops.decode_attention import (
+    covered_partitions, decode_attention_plain, decode_partitions,
+)
+from dynamo_tpu_torch.ops.prefill_attention import (
+    ROWS, SMALL_ROWS, SMALL_SLICES, prefill_attention_plain, prefill_slots,
+)
 
 # dynamo_tpu.ops re-exports functions under its submodules' names.
 jra = importlib.import_module("dynamo_tpu.ops.ragged_attention")
@@ -168,6 +172,30 @@ def test_decode_attention_plain_vs_xla(geom):
             np.testing.assert_array_equal(got[i].numpy(), 0.0)
 
 
+# (table pages, page size, num_kv_splits): the serve phase's 256-page
+# table, tables narrower than one partition, and the test override with an
+# uneven last split.
+PARTITION_PLANS = [(256, 16, None), (40, 16, None), (5, 16, None), (1, 16, None),
+                   (256, 16, 5), (40, 16, 3), (7, 4, 2), (3, 4, 8)]
+
+
+@pytest.mark.parametrize("PP,ps,splits", PARTITION_PLANS, ids=str)
+def test_decode_partition_plan_matches_a_brute_force_count(PP, ps, splits):
+    """The decode grid (sized from the table width alone) covers every
+    position with no partition wholly past the table, and the partitions a
+    row's combine reads are exactly those holding one of its positions,
+    counted position by position."""
+    part, n = decode_partitions(PP, ps, splits)
+    W = PP * ps
+    owner = np.arange(W) // part  # partition of every table position
+    assert owner.max() == n - 1  # every partition holds a position
+    if splits:
+        assert part % ps == 0 and n <= splits
+    for kv_len in sorted(set(range(0, W + 1, 7)) | {0, 1, part - 1, part, part + 1, W - 1, W}):
+        if 0 <= kv_len <= W:
+            assert covered_partitions(kv_len, part) == len(np.unique(owner[:kv_len]))
+
+
 # -------------------------------------------------------- prefill attention
 
 # (S, PP, ps, KV, G, D, kv lens, q lens, dtype, scale): the geometries of
@@ -200,6 +228,55 @@ def _prefill_case(seed, S, PP, ps, KV, G, D, kls, qls, dtype, scale, pad=2):
     tables = rng.permutation(S * PP).astype(np.int32).reshape(S, PP)
     num = np.asarray([len(qls)], np.int32)
     return q, pages, kv_lens, tables, cu, num
+
+
+def _resolve_slot(b, cu, nseq, G, nsl):
+    """csrc/prefill_attention.cu resolve_slot, one slot at a time: (row,
+    q-block, key slice), or (-1, spare index, 0)."""
+    qb, small = ROWS // G, SMALL_ROWS // G
+    for pass_ in (0, 1):
+        for r in range(nseq):
+            q_len = cu[r + 1] - cu[r]
+            nq = -(-q_len // qb)
+            nsmall = 1 if nq > 0 and q_len - (nq - 1) * qb <= small else 0
+            n = nq - nsmall if pass_ == 0 else nsmall * nsl
+            if b < n:
+                return (r, b, 0) if pass_ == 0 else (r, nq - 1, b)
+            b -= n
+    return (-1, b, 0)
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+def test_prefill_slots_cover_every_q_block_and_padding_token(G, tensor_cores):
+    """``prefill_slots`` sized from the shapes alone: over random ragged
+    batches, the device's slot walk gives every full q-block one slot and
+    every small one a slot per key slice, and the spare slots' zero ranges
+    cover every padding token up to T."""
+    rng = np.random.default_rng(G)
+    qb, nsl = ROWS // G, SMALL_SLICES if tensor_cores else 1
+    for _ in range(60):
+        S = int(rng.integers(1, 9))
+        T = int(rng.choice([16, 64, 512, 1024]))
+        nseq = int(rng.integers(0, S + 1))
+        q_lens = [int(x) for x in rng.integers(0, 3 * qb, size=nseq)]
+        while sum(q_lens) > T:
+            q_lens[int(np.argmax(q_lens))] //= 2
+        cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(int).tolist()
+        cu += [cu[-1]] * (S + 1 - len(cu))
+        slots = [_resolve_slot(b, cu, nseq, G, nsl) for b in range(prefill_slots(T, S, G, tensor_cores))]
+        work = [x for x in slots if x[0] >= 0]
+        want = []
+        for r, n in enumerate(q_lens):
+            nq = -(-n // qb)
+            for i in range(nq):
+                small = i == nq - 1 and (n - i * qb) * G <= SMALL_ROWS
+                want += [(r, i, k) for k in range(nsl)] if small else [(r, i, 0)]
+        assert sorted(work) == sorted(want)
+        zeroed = set()
+        for _, k, _ in (x for x in slots if x[0] < 0):
+            zeroed.update(range(cu[nseq] + k * qb, cu[nseq] + (k + 1) * qb))
+        assert set(range(cu[nseq], T)) <= zeroed
 
 
 @pytest.mark.parametrize("geom", PREFILL_GEOMETRIES,
