@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (dynamo_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-ab   # direct vs HTTP serve in turns only
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -33,7 +34,13 @@ Phases, any failure exits non-zero:
      page size 16, decode_steps 8, prefill_chunk 512), with both kernels'
      launch counters zeroed just before and read just after; check every
      stream, and the bf16 model's logits against the dense reference;
-  7. print the kernels line, then the device line last.
+  7. serve the same model over HTTP through the CLI's own code
+     (``run in=http out=torch``, a fresh engine, the server's event loop in
+     a thread of this process) to a standard-library client: /v1/models and
+     /health, the same 8 prompts as streamed /v1/completions, one chat
+     request unary and streamed (equal texts), an unknown model (404) and
+     /metrics, with both kernels' counters zeroed before and read after;
+  8. print the kernels line, then the device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -41,6 +48,8 @@ Needs a CUDA device; without one it prints no result and exits 1.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -49,6 +58,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -614,6 +624,15 @@ def model_check(torch, dev, cfg):
     return ok and sensitive
 
 
+SERVE_MAX_TOKENS = 64
+
+
+def serve_prompts(torch):
+    """The serve phases' 8 prompts: 512, 731, ..., 2045 random ids (seed 7)."""
+    rng = torch.Generator().manual_seed(7)
+    return [torch.randint(1, 128000, (512 + 219 * i,), generator=rng).tolist() for i in range(8)]
+
+
 async def serve(torch, engine, prompts, max_tokens):
     from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
     from dynamo_tpu_torch.runtime.engine import Context
@@ -652,10 +671,9 @@ def main_path(torch, dev):
     log(f"engine: llama-3.1-8b, {engine.model_config.num_layers} layers, bf16 random "
         f"weights (seed 0), init {time.perf_counter() - t0:.1f} s, "
         f"kernels decode={engine.decode_kernel} prefill={engine.prefill_kernel}")
-    rng = torch.Generator().manual_seed(7)
-    lens = [512 + 219 * i for i in range(8)]  # 512 .. 2045 tokens
-    prompts = [torch.randint(1, 128000, (n,), generator=rng).tolist() for n in lens]
-    max_tokens = 64
+    prompts = serve_prompts(torch)
+    lens = [len(p) for p in prompts]
+    max_tokens = SERVE_MAX_TOKENS
 
     async def run():
         try:
@@ -718,6 +736,343 @@ def main_path(torch, dev):
     return ok, launches
 
 
+# ------------------------------------------------------------ the HTTP path
+
+HTTP_MODEL = "llama-3.1-8b"
+HTTP_ARGV = [
+    "run", "in=http", "out=torch", "--arch", "llama-3.1-8b", "--dtype", "bfloat16",
+    "--block-size", "16", "--num-blocks", "2048", "--max-batch", "16", "--max-model-len", "4096",
+    "--prefill-chunk", "512", "--decode-steps", "8", "--port", "0", "--model", HTTP_MODEL,
+]
+CHAT_BODY = {
+    "model": HTTP_MODEL, "max_tokens": 16, "temperature": 0,
+    "messages": [{"role": "user", "content": "Name three colours of the sea."}],
+}
+
+
+class CliServer:
+    """``cli._run`` of the port on an event loop in a thread of this
+    process, so this process's kernel launch counters see its work."""
+
+    def __init__(self, argv, timeout=900):
+        from dynamo_tpu_torch import cli
+
+        args = cli.parse_args(argv)
+        ready = concurrent.futures.Future()
+        self.loop = asyncio.new_event_loop()
+
+        async def run():
+            try:
+                await cli._run(args, on_serving=ready.set_result)
+            except BaseException as e:
+                if not ready.done():
+                    ready.set_exception(e)
+                raise
+
+        self.task = self.loop.create_task(run())
+
+        def drive():
+            try:
+                self.loop.run_until_complete(self.task)
+            except BaseException:  # the task's outcome is read by stop()
+                pass
+
+        self.thread = threading.Thread(target=drive, name="cli-server", daemon=True)
+        self.thread.start()
+        self.service = ready.result(timeout=timeout)
+
+    def stop(self):
+        """Cancel the server (it closes its service and engine) and raise
+        whatever else ended it."""
+        self.loop.call_soon_threadsafe(self.task.cancel)
+        self.thread.join(120)
+        if self.thread.is_alive():
+            raise RuntimeError("the HTTP server did not stop")
+        self.loop.close()
+        if not self.task.cancelled() and self.task.exception() is not None:
+            raise self.task.exception()
+
+
+async def http_call(port, method, path, body=None):
+    """One HTTP/1.1 request over a fresh connection (standard library
+    only).  Returns (status, headers, body bytes, SSE events) with each SSE
+    event stamped on arrival, in seconds after the request was sent."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    head = (f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n"
+            f"Content-Type: application/json\r\nContent-Length: {len(payload)}\r\n\r\n")
+    t0 = time.perf_counter()
+    try:
+        writer.write(head.encode() + payload)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        headers = {}
+        while True:
+            line = (await reader.readline()).decode("latin-1").strip()
+            if not line:
+                break
+            k, _, v = line.partition(":")
+            headers[k.strip().lower()] = v.strip()
+        data, events, pending = b"", [], b""
+        if headers.get("transfer-encoding") == "chunked":
+            while True:
+                size = int((await reader.readline()).strip(), 16)
+                if size == 0:
+                    await reader.readline()
+                    break
+                part = await reader.readexactly(size)
+                await reader.readexactly(2)
+                now = time.perf_counter() - t0
+                data += part
+                pending += part
+                while b"\n\n" in pending:
+                    ev, pending = pending.split(b"\n\n", 1)
+                    events.append((now, ev.decode()))
+        else:
+            data = await reader.readexactly(int(headers.get("content-length", "0")))
+        return status, headers, data, events
+    finally:
+        writer.close()
+        await writer.wait_closed()
+
+
+def parse_prometheus(text):
+    """Samples of a Prometheus text exposition: {(name, ((label, value), ...)):
+    value}.  Raises ValueError on a line that is not a comment or a sample."""
+    sample = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.fullmatch(line)
+        if m is None:
+            raise ValueError(f"not a sample line: {line!r}")
+        labels, rest = [], m.group(3) or ""
+        while rest:
+            lm = label.match(rest)
+            if lm is None:
+                raise ValueError(f"bad labels in {line!r}")
+            labels.append((lm.group(1), lm.group(2)))
+            rest = rest[lm.end():]
+        out[(m.group(1), tuple(sorted(labels)))] = float(m.group(4))
+    return out
+
+
+def sse_data(events):
+    """The JSON chunks of an SSE stream and whether it ended with [DONE];
+    raises ValueError on an event that is not a data line of JSON."""
+    chunks, done = [], False
+    for t, ev in events:
+        if not ev.startswith("data: "):
+            raise ValueError(f"unexpected SSE event {ev[:80]!r}")
+        data = ev[len("data: "):]
+        if data == "[DONE]":
+            done = True
+            continue
+        chunks.append((t, json.loads(data)))
+    return chunks, done
+
+
+def http_path(torch):
+    """Phase 7: llama-3.1-8b served over HTTP by ``run in=http out=torch``.
+    Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    fails = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"http check FAILED: {what}")
+
+    t0 = time.perf_counter()
+    server = CliServer(HTTP_ARGV)
+    port = server.service.port
+    log(f"http: server up on port {port} in {time.perf_counter() - t0:.1f} s "
+        f"({' '.join(HTTP_ARGV)})")
+    prompts = serve_prompts(torch)
+    out = {}
+
+    async def phase():
+        st, _, body, _ = await http_call(port, "GET", "/v1/models")
+        check(st == 200 and [m["id"] for m in json.loads(body)["data"]] == [HTTP_MODEL],
+              f"/v1/models lists {HTTP_MODEL} ({st} {body[:200]!r})")
+        st, _, body, _ = await http_call(port, "GET", "/health")
+        check(st == 200, f"/health 200 ({st})")
+
+        async def complete(p):
+            return await http_call(port, "POST", "/v1/completions", {
+                "model": HTTP_MODEL, "prompt": p, "max_tokens": SERVE_MAX_TOKENS,
+                "temperature": 0, "stream": True, "nvext": {"ignore_eos": True}})
+
+        da.decode_attention_cuda.launches = 0
+        pa.prefill_attention_cuda.launches = 0
+        t = time.perf_counter()
+        results = await asyncio.gather(*(complete(p) for p in prompts))
+        out["wall"] = time.perf_counter() - t
+        ttft, itl, n_chunks = [], [], []
+        for i, (st, headers, _, events) in enumerate(results):
+            check(st == 200 and headers.get("content-type") == "text/event-stream",
+                  f"request {i}: 200 text/event-stream ({st}, {headers.get('content-type')})")
+            try:
+                chunks, done = sse_data(events)
+            except ValueError as e:
+                check(False, f"request {i}: every chunk is JSON ({e})")
+                continue
+            check(done, f"request {i}: stream ends with data: [DONE]")
+            final = chunks[-1][1] if chunks else {}
+            fin = (final.get("choices") or [{}])[0].get("finish_reason")
+            used = (final.get("usage") or {}).get("completion_tokens")
+            check(fin == "length" and used == SERVE_MAX_TOKENS,
+                  f"request {i}: final chunk length/{SERVE_MAX_TOKENS} (got {fin}/{used})")
+            content = [t for t, c in chunks if c["choices"] and c["choices"][0]["text"]]
+            if content:
+                ttft.append(content[0])
+                itl.append((chunks[-1][0] - content[0]) / (SERVE_MAX_TOKENS - 1))
+                n_chunks.append(len(content))
+                out.setdefault("stamps", []).append((content[0], chunks[-1][0]))
+        out.update(ttft=sorted(ttft), itl=itl, chunks=n_chunks)
+
+        # One chat request, alone: first to warm the prompt's prefix cache,
+        # then unary and streamed, both over the same cached prefix.
+        texts = {}
+        for label, stream in (("warm", True), ("unary", False), ("stream", True)):
+            st, _, body, events = await http_call(
+                port, "POST", "/v1/chat/completions", dict(CHAT_BODY, stream=stream))
+            check(st == 200, f"chat {label}: 200 ({st} {body[:200]!r})")
+            if st != 200:
+                continue
+            if stream:
+                chunks, done = sse_data(events)
+                check(done, f"chat {label}: ends with [DONE]")
+                texts[label] = "".join(c["choices"][0]["delta"].get("content") or ""
+                                       for _, c in chunks if c["choices"])
+            else:
+                texts[label] = json.loads(body)["choices"][0]["message"]["content"]
+        out["chat"] = texts
+        check(texts.get("unary") is not None and texts.get("unary") == texts.get("stream"),
+              f"chat unary text == streamed deltas ({texts.get('unary')!r} vs "
+              f"{texts.get('stream')!r})")
+
+        st, _, body, _ = await http_call(port, "POST", "/v1/completions",
+                                         {"model": "no-such-model", "prompt": [1, 2, 3]})
+        err = json.loads(body).get("error", {}) if body else {}
+        check(st == 404 and err.get("code") == "model_not_found",
+              f"unknown model: 404 model_not_found ({st} {body[:200]!r})")
+
+        st, _, body, _ = await http_call(port, "GET", "/metrics")
+        try:
+            samples = parse_prometheus(body.decode())
+        except ValueError as e:
+            check(False, f"/metrics parses as Prometheus text ({e})")
+            samples = {}
+
+        def total(name, **want):
+            return sum(v for (n, labels), v in samples.items()
+                       if n == name and all(dict(labels).get(k) == w for k, w in want.items()))
+
+        ns = "dynamo_tpu_http_service"
+        got = total(f"{ns}_requests_total", model=HTTP_MODEL, endpoint="completions",
+                    request_type="stream", status="success")
+        check(got == len(prompts), f"/metrics counts {len(prompts)} streamed completions ({got})")
+        got = total(f"{ns}_requests_total", model=HTTP_MODEL, endpoint="chat_completions",
+                    status="success")
+        check(got == 3, f"/metrics counts 3 chat requests ({got})")
+        got = total(f"{ns}_time_to_first_token_seconds_count", model=HTTP_MODEL)
+        check(got >= len(prompts), f"/metrics has {ns}_time_to_first_token_seconds ({got})")
+
+    try:
+        asyncio.run(phase())
+    finally:
+        launches = {
+            "decode_attention": da.decode_attention_cuda.launches,
+            "prefill_attention": pa.prefill_attention_cuda.launches,
+        }
+        server.stop()
+    check(all(v > 0 for v in launches.values()), f"both kernels launched ({launches})")
+    ttft, itl = out.get("ttft") or [float("nan")], out.get("itl") or [float("nan")]
+    total_tokens = len(prompts) * SERVE_MAX_TOKENS
+    out.update(ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, ttft_max_ms=ttft[-1] * 1e3,
+               itl_mean_ms=sum(itl) / len(itl) * 1e3,
+               tok_s=total_tokens / out["wall"] if "wall" in out else float("nan"))
+    log(f"http: {len(prompts)} streamed /v1/completions, prompts {len(prompts[0])}.."
+        f"{len(prompts[-1])} tokens as ids, {SERVE_MAX_TOKENS} new each, wall "
+        f"{out.get('wall', float('nan')):.3f} s, {out['tok_s']:.2f} output tok/s; TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms max {out['ttft_max_ms']:.1f} ms (request sent -> first "
+        f"SSE content chunk); ITL mean {out['itl_mean_ms']:.2f} ms (finish chunk - first content "
+        f"chunk, over {SERVE_MAX_TOKENS - 1}); SSE content chunks a request "
+        f"{out.get('chunks')}; chat unary/stream {out.get('chat', {}).get('unary')!r} / "
+        f"{out.get('chat', {}).get('stream')!r} (cold first run "
+        f"{out.get('chat', {}).get('warm')!r}); launches {launches}; host clock, one call")
+    return not fails, launches, out
+
+
+# ------------------------------------------------ direct vs HTTP, in turns
+
+
+def direct_stamps(torch, dev):
+    """One direct serve of the 8 prompts on a fresh engine, read where the
+    HTTP client reads: per request (first text, last token) in seconds,
+    the first text being the token at which the byte tokenizer's
+    detokenizer first releases text (it holds U+FFFD back up to 4 ids).
+    Returns (wall s, stamps, first-token seconds)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    engine = TorchEngine(EngineConfig(**SERVE_CFG), device=dev)
+
+    async def run():
+        try:
+            return await serve(torch, engine, serve_prompts(torch), SERVE_MAX_TOKENS)
+        finally:
+            await engine.close()
+
+    t0 = time.perf_counter()
+    results = asyncio.run(run())
+    wall = time.perf_counter() - t0
+    stamps, first_token = [], []
+    for toks, times, _ in results:
+        ds = ByteTokenizer().decode_stream()
+        first_text = next((i for i, t in enumerate(toks) if ds.step(t)), len(toks) - 1)
+        stamps.append((times[first_text], times[-1]))
+        first_token.append(times[0])
+    return wall, stamps, first_token
+
+
+def serve_ab(torch, dev):
+    """``--serve-ab``: the direct serve and the HTTP serve in turns in one
+    process — a cold direct serve first (discarded), then direct, HTTP,
+    HTTP, direct — each read at the client's points: first text, ITL
+    (last − first text) / (tokens − 1), and the request's end."""
+    def summary(label, wall, stamps, extra=""):
+        first = sorted(a for a, _ in stamps)
+        done = sorted(b for _, b in stamps)
+        itl = [(b - a) / (SERVE_MAX_TOKENS - 1) for a, b in stamps]
+        log(f"ab {label}: wall {wall:.3f} s, {len(stamps) * SERVE_MAX_TOKENS / wall:.2f} tok/s; "
+            f"first text p50 {first[len(first) // 2] * 1e3:.1f} max {first[-1] * 1e3:.1f} ms; "
+            f"ITL mean {sum(itl) / len(itl) * 1e3:.2f} ms; end p50 "
+            f"{done[len(done) // 2] * 1e3:.1f} max {done[-1] * 1e3:.1f} ms{extra}")
+
+    direct_stamps(torch, dev)  # warm-up
+    ok = True
+    for label in ("direct", "http", "http", "direct"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if label == "direct":
+            wall, stamps, first_token = direct_stamps(torch, dev)
+            ft = sorted(first_token)
+            summary(label, wall, stamps, f"; first token p50 {ft[len(ft) // 2] * 1e3:.1f} "
+                    f"max {ft[-1] * 1e3:.1f} ms")
+        else:
+            good, _, out = http_path(torch)
+            ok = ok and good
+            summary(label, out["wall"], out.get("stamps", []))
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -750,6 +1105,8 @@ def main() -> int:
             for line in str(r["log"]).splitlines():
                 if "registers" in line or "spill" in line.lower():
                     log(f"ptxas {stem}: {line.strip()}")
+        if sys.argv[1:] == ["--serve-ab"]:
+            return 0 if serve_ab(torch, dev) else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -761,6 +1118,13 @@ def main() -> int:
             times = time_kernels(torch, dev, cfg, tally)
             ok_model = model_check(torch, dev, cfg)
         ok_path, launches = main_path(torch, dev)
+        # Phase 7 builds its own engine: free the direct serve's first
+        # (16 GB of weights and 4 GiB of KV pages).
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the HTTP phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated")
+        ok_http, http_launches, _ = http_path(torch)
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -773,7 +1137,8 @@ def main() -> int:
             tm = times[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": tally.worst[name],
+                "launches": launches[name], "http_launches": http_launches[name],
+                "max_abs_err": tally.worst[name],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                 "checks_passed": not any(f.startswith(name) for f in tally.failures),
@@ -784,9 +1149,10 @@ def main() -> int:
                                    mixed_step_library_ms=None,
                                    mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])
         log(json.dumps({"kernels": kernels}))
-        if tally.failures or not ok_model or not ok_path:
+        if tally.failures or not ok_model or not ok_path or not ok_http:
             log(f"FAILED: kernel checks {tally.failures or 'ok'}; f32 model check "
-                f"{'ok' if ok_model else 'failed'}; main path {'ok' if ok_path else 'failed'}")
+                f"{'ok' if ok_model else 'failed'}; main path {'ok' if ok_path else 'failed'}; "
+                f"HTTP path {'ok' if ok_http else 'failed'}")
             return 1
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,200 @@
+"""CLI launcher for the port — the ``run`` command of the JAX package's
+``cli.py`` (reference: launch/dynamo-run, ``dynamo-run in=… out=…``).
+
+Usage:
+  python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
+        --model llama-3.1-8b [--port 8000] [--device cpu]   # OpenAI server
+  python -m dynamo_tpu_torch.cli run in=text out=torch ...       # chat REPL
+  python -m dynamo_tpu_torch.cli run in=stdin out=torch ...      # one prompt
+  python -m dynamo_tpu_torch.cli run in=batch:FILE.jsonl out=torch ...
+  python -m dynamo_tpu_torch.cli run in=http out=echocore        # no model
+
+``out=torch`` is ``TorchEngine`` on the first CUDA device unless
+``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.  The
+flags keep the JAX parser's names and defaults.  Its options that the port
+does not have yet fail when set (engine/__init__.py UNSUPPORTED_OPTIONS);
+the other JAX subcommands (hub, http over a hub, workers, planner, deploy)
+are not ported.  The tokenizer is the self-contained byte tokenizer, the
+JAX CLI's default without ``--tokenizer`` or ``--checkpoint``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import os
+from typing import Callable, Optional
+
+from .engine import build_torch_engine
+from .llm.backend import Backend
+from .llm.engines import EchoEngineCore, EchoEngineFull
+from .llm.http_service import HttpService
+from .llm.preprocessor import OpenAIPreprocessor
+from .llm.tokenizer import ByteTokenizer
+from .runtime.pipeline import build_pipeline
+
+logger = logging.getLogger(__name__)
+
+INPUTS = ("http", "text", "stdin", "none")  # and batch:FILE
+
+
+def _build_engine(out: str, args):
+    """out= engine factory: (engine, "core" | "full")."""
+    if out == "echocore":
+        return EchoEngineCore(), "core"
+    if out == "echofull":
+        return EchoEngineFull(), "full"
+    if out == "torch":
+        return build_torch_engine(args), "core"
+    raise SystemExit(f"unknown out= engine: {out!r} (the port has torch, echocore, echofull)")
+
+
+def _tokenizer(args):
+    if getattr(args, "tokenizer", None):
+        raise SystemExit(
+            "--tokenizer: HF and sentencepiece tokenizers are not ported yet "
+            "(ROADMAP queue 1 item 1); the port serves with the byte tokenizer"
+        )
+    return ByteTokenizer()
+
+
+async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None) -> None:
+    """Serve ``args.inp`` through the pipeline onto ``args.out``.  With
+    ``in=http``, ``on_serving`` is called with the service once it listens
+    (its ``port`` resolved); the server runs until this task is cancelled."""
+    inp = args.inp
+    if inp not in INPUTS and not inp.startswith("batch:"):
+        raise SystemExit(
+            f"in={inp} is not supported by the port (it has in=http|text|stdin|batch:FILE|none; "
+            "workers over a hub are ROADMAP queue 1 item 1)"
+        )
+    tokenizer = _tokenizer(args)
+    engine, level = _build_engine(args.out, args)
+    if level == "core":
+        pipeline = build_pipeline(
+            [OpenAIPreprocessor(tokenizer, args.model), Backend(tokenizer)], engine
+        )
+    else:
+        pipeline = engine
+    try:
+        if inp == "http":
+            service = HttpService(host=args.host, port=args.port)
+            service.models.add_chat_model(args.model, pipeline)
+            service.models.add_completion_model(args.model, pipeline)
+            await service.start()
+            try:
+                print(f"serving {args.model!r} on http://{args.host}:{service.port}", flush=True)
+                if on_serving is not None:
+                    on_serving(service)
+                await asyncio.Event().wait()
+            finally:
+                await service.close()
+        elif inp == "none":
+            # Start the engine with no input surface (reference Input::None).
+            print(f"engine up (in=none), model {args.model!r}; ctrl-C to exit", flush=True)
+            await asyncio.Event().wait()
+        else:
+            from .llm.console import run_batch, run_stdin_prompt, run_text_chat
+
+            if inp == "text":
+                await run_text_chat(pipeline, args.model, args)
+            elif inp == "stdin":
+                await run_stdin_prompt(pipeline, args.model, args)
+            else:
+                await run_batch(pipeline, args.model, inp[len("batch:"):], args)
+    finally:
+        close = getattr(engine, "close", None)
+        if close is not None:
+            await close()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_run = sub.add_parser("run", help="in=… out=… launcher")
+    p_run.add_argument("inout", nargs=2, metavar="in=/out=")
+    p_run.add_argument("--host", default="0.0.0.0")
+    p_run.add_argument("--port", type=int, default=8000, help="0 takes a free port")
+    p_run.add_argument("--model", default="echo", help="the served model name")
+    # Console input modes (in=text/stdin/batch:FILE) sampling defaults.
+    p_run.add_argument("--max-tokens", type=int, default=None, dest="max_tokens")
+    p_run.add_argument("--temperature", type=float, default=None)
+    p_run.add_argument("--tokenizer", default=None, help="not ported yet")
+    # out=torch engine knobs (reference: launch/dynamo-run/src/flags.rs)
+    p_run.add_argument("--arch", default=None, help="model architecture name (out=torch)")
+    p_run.add_argument(
+        "--device", default=None,
+        help="torch device for out=torch (default: the first CUDA device; "
+        "'cpu' runs the plain attention versions)",
+    )
+    p_run.add_argument("--block-size", type=int, default=16, dest="block_size")
+    p_run.add_argument("--num-blocks", type=int, default=256, dest="num_blocks")
+    p_run.add_argument("--max-batch", type=int, default=8, dest="max_batch")
+    p_run.add_argument("--max-model-len", type=int, default=1024, dest="max_model_len")
+    p_run.add_argument("--prefill-chunk", type=int, default=512, dest="prefill_chunk")
+    p_run.add_argument(
+        "--dtype", default="bfloat16",
+        help="weight/activation dtype (bfloat16; float32 for CPU runs)",
+    )
+    p_run.add_argument(
+        "--decode-steps", type=int, default=4, dest="decode_steps",
+        help="decode iterations fused into one device dispatch",
+    )
+    p_run.add_argument(
+        "--kv-cache-dtype", default=None, dest="cache_dtype",
+        help="KV page dtype (e.g. int8 or float8_e4m3fn with --kv-scale)",
+    )
+    p_run.add_argument(
+        "--kv-scale",
+        type=lambda s: s if s == "auto" else float(s),
+        default=1.0,
+        dest="kv_scale",
+        help="static scale of quantized KV pages ('auto' calibration is not ported)",
+    )
+    # The JAX parser's options that out=torch lacks: accepted so that
+    # setting one fails with where it waits (build_torch_engine).
+    p_run.add_argument("--checkpoint", default=None)
+    for flag in ("--tp", "--dp", "--ep", "--sp", "--nnodes"):
+        p_run.add_argument(flag, type=int, default=1)
+    for flag in ("--host-cache-mb", "--disk-cache-mb", "--object-store-mb"):
+        p_run.add_argument(flag, type=int, default=0)
+    p_run.add_argument("--kv-pull-mb", type=int, default=None)
+    for flag in ("--disk-cache-dir", "--object-store-dir"):
+        p_run.add_argument(flag, default=None)
+    p_run.add_argument("--spec-decode", action="store_true", default=None)
+    for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max",
+                 "--lora-max-adapters", "--lora-rank"):
+        p_run.add_argument(flag, type=int, default=None)
+    p_run.add_argument("--lora", action="append", default=None, metavar="NAME=SPEC")
+    return parser
+
+
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    args = build_parser().parse_args(argv)
+    io = {}
+    for part in args.inout:
+        key, sep, value = part.partition("=")
+        if not sep:
+            raise SystemExit(f"run expects in=… out=…, got {part!r}")
+        io[key] = value
+    if "in" not in io or "out" not in io:
+        raise SystemExit("run requires in=… out=…")
+    args.inp, args.out = io["in"], io["out"]
+    return args
+
+
+def main(argv: Optional[list] = None) -> None:
+    logging.basicConfig(
+        level=os.environ.get("DYN_LOG", "info").upper(),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    args = parse_args(argv)
+    try:
+        asyncio.run(_run(args))
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

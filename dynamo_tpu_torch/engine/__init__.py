@@ -1,1 +1,53 @@
 """TorchEngine and its host-side scheduler / KV manager."""
+
+# Options of the JAX package's ``run`` command that this engine does not
+# have yet: (args attribute, its default, flag, where it waits in ROADMAP).
+# Setting one fails; it is never dropped.
+UNSUPPORTED_OPTIONS = (
+    ("checkpoint", None, "--checkpoint", "queue 1 item 6, loaders"),
+    ("tp", 1, "--tp", "queue 1 item 7, tp/sp and multi-host"),
+    ("dp", 1, "--dp", "queue 1 item 7, tp/sp and multi-host"),
+    ("ep", 1, "--ep", "queue 1 item 7, tp/sp and multi-host"),
+    ("sp", 1, "--sp", "queue 1 item 7, tp/sp and multi-host"),
+    ("nnodes", 1, "--nnodes", "queue 1 item 7, tp/sp and multi-host"),
+    ("host_cache_mb", 0, "--host-cache-mb", "queue 1 item 5, KV tiers"),
+    ("disk_cache_mb", 0, "--disk-cache-mb", "queue 1 item 5, KV tiers"),
+    ("disk_cache_dir", None, "--disk-cache-dir", "queue 1 item 5, KV tiers"),
+    ("object_store_mb", 0, "--object-store-mb", "queue 1 item 5, KV tiers"),
+    ("object_store_dir", None, "--object-store-dir", "queue 1 item 5, KV tiers"),
+    ("kv_pull_mb", None, "--kv-pull-mb", "queue 1 item 5, KV transfer"),
+    ("spec_decode", None, "--spec-decode", "queue 1 item 5, speculative decoding"),
+    ("spec_k", None, "--spec-k", "queue 1 item 5, speculative decoding"),
+    ("spec_ngram_min", None, "--spec-ngram-min", "queue 1 item 5, speculative decoding"),
+    ("spec_ngram_max", None, "--spec-ngram-max", "queue 1 item 5, speculative decoding"),
+    ("lora", None, "--lora", "queue 1 item 6, LoRA"),
+    ("lora_max_adapters", None, "--lora-max-adapters", "queue 1 item 6, LoRA"),
+    ("lora_rank", None, "--lora-rank", "queue 1 item 6, LoRA"),
+)
+
+
+def build_torch_engine(args):
+    """CLI factory for ``run out=torch``, the counterpart of the JAX
+    package's ``build_tpu_engine`` for the settings this engine has.  Runs
+    on CUDA unless ``args.device`` says otherwise (device.py).  Imports
+    torch lazily."""
+    for attr, default, flag, waits in UNSUPPORTED_OPTIONS:
+        if getattr(args, attr, default) != default:
+            raise SystemExit(f"{flag} is not supported by out=torch yet (ROADMAP {waits})")
+    from .config import EngineConfig
+    from .engine import TorchEngine
+
+    cfg = EngineConfig(
+        model=getattr(args, "arch", None) or "debug-tiny",
+        block_size=getattr(args, "block_size", 16),
+        num_blocks=getattr(args, "num_blocks", 256),
+        max_batch=getattr(args, "max_batch", 8),
+        max_model_len=getattr(args, "max_model_len", 1024),
+        prefill_chunk=getattr(args, "prefill_chunk", 512),
+        dtype=getattr(args, "dtype", "bfloat16"),
+        decode_steps=getattr(args, "decode_steps", 4),
+        cache_dtype=getattr(args, "cache_dtype", None),
+        kv_scale=getattr(args, "kv_scale", 1.0),
+        seed=getattr(args, "seed", 0),
+    )
+    return TorchEngine(cfg, device=getattr(args, "device", None))

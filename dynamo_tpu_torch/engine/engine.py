@@ -258,6 +258,12 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 f"prompt length {len(pre.token_ids)} exceeds max_model_len "
                 f"{self.cfg.max_model_len}"
             )
+        V = self.model_config.vocab_size
+        bad = next((t for t in pre.token_ids if not 0 <= t < V), None)
+        if bad is not None:
+            # An id past the embedding would fault the step of every row in
+            # the batch (on CUDA, the device context): refuse it here.
+            raise ValueError(f"prompt token id {bad} is outside the vocabulary [0, {V})")
         if pre.grammar:
             raise ValueError("grammar-constrained requests are not supported by this engine yet")
         if pre.annotations.get("adapter"):
@@ -365,10 +371,17 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 return
             await asyncio.sleep(0)  # let ingress/egress run between steps
 
+    def _stopped(self, seq: SequenceState) -> bool:
+        """Whether ``seq``'s caller stopped it or abandoned its stream.
+        Closing the stream drops the request's context (generate's
+        ``finally``), so a missing context is a stop too: without this, a
+        client that disconnected kept its row until max_tokens."""
+        ctx = self._contexts.get(seq.request_id)
+        return not seq.finished and (ctx is None or ctx.is_stopped)
+
     def _cancel_stopped(self) -> None:
         for seq in list(self.scheduler.running) + list(self.scheduler.waiting):
-            ctx = self._contexts.get(seq.request_id)
-            if ctx is not None and ctx.is_stopped and not seq.finished:
+            if self._stopped(seq):
                 seq.finished = True
                 self.scheduler.remove(seq)
                 self._finish(seq, FinishReason.CANCELLED)

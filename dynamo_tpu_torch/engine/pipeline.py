@@ -118,8 +118,7 @@ class DecodePipelineMixin:
         dispatched = False
         while not self._closed:
             for seq in members:
-                ctx = self._contexts.get(seq.request_id)
-                if ctx is not None and ctx.is_stopped and not seq.finished:
+                if self._stopped(seq):
                     seq.finished = True
                     self.scheduler.remove(seq)
                     self._finish(seq, FinishReason.CANCELLED)
@@ -181,7 +180,10 @@ class DecodePipelineMixin:
     def _accept_chunk(self, members, pos0, sampled, logp, top_ids, top_lp) -> None:
         """Apply one fused dispatch's ``[decode_steps, S]`` samples: per row,
         tokens are accepted in order until a stop, the budget, or the
-        allocation wall; the rest were over-decoded and are dropped."""
+        allocation wall; the rest were over-decoded and are dropped.  A row
+        without logprobs gets its accepted tokens as ONE multi-token item,
+        as the JAX engine's vectorized accept emits them; a row with
+        logprobs gets one item per token (each carries its payload)."""
         bs = self.cfg.block_size
         for i, seq in enumerate(members):
             if seq is None or seq.finished or pos0[i] < 0:
@@ -189,6 +191,7 @@ class DecodePipelineMixin:
             p0 = int(pos0[i])
             if seq.num_computed != p0:
                 continue
+            pending: Optional[List[int]] = [] if seq.logprobs is None else None
             for t in range(sampled.shape[0]):
                 if seq.num_computed >= len(seq.block_ids) * bs:
                     break  # beyond allocation: the token was never KV-backed
@@ -205,9 +208,11 @@ class DecodePipelineMixin:
                         None if top_ids is None else top_ids[t],
                         None if top_lp is None else top_lp[t],
                     ),
+                    pending=pending,
                 )
                 if seq.finished:
                     break
+            self._emit_pending(seq, pending)
 
     def _lp_info(self, seq: SequenceState, i: int, logp, top_ids, top_lp) -> Optional[Dict[str, Any]]:
         """Per-token logprob payload for row ``i`` (None unless requested)."""
@@ -225,21 +230,36 @@ class DecodePipelineMixin:
         token: int,
         defer_removal: bool = False,
         logprobs: Optional[Dict[str, Any]] = None,
+        pending: Optional[List[int]] = None,
     ) -> None:
+        """Append ``token`` to ``seq`` and emit it — into ``pending`` when
+        given (one item for a fused chunk, flushed before any finish item),
+        else as its own item."""
         seq.output.append(token)
         reason = self._check_stop(seq, token)
         queue = self._queues.get(seq.request_id)
         # Stop-triggering tokens (eos / stop_token_ids) are not emitted.
-        if queue is not None and reason is not FinishReason.STOP:
-            item = LLMEngineOutput.token(token)
-            if logprobs is not None:
-                item["logprobs"] = logprobs
-            queue.put_nowait(item)
+        if reason is not FinishReason.STOP:
+            if pending is not None:
+                pending.append(token)
+            elif queue is not None:
+                item = LLMEngineOutput.token(token)
+                if logprobs is not None:
+                    item["logprobs"] = logprobs
+                queue.put_nowait(item)
         if reason is not None:
             seq.finished = True
             if not defer_removal:
                 self.scheduler.remove(seq)
+            self._emit_pending(seq, pending)
             self._finish(seq, reason)
+
+    def _emit_pending(self, seq: SequenceState, pending: Optional[List[int]]) -> None:
+        if pending:
+            queue = self._queues.get(seq.request_id)
+            if queue is not None:
+                queue.put_nowait(LLMEngineOutput.tokens(pending))
+            pending.clear()
 
     def _check_stop(self, seq: SequenceState, token: int) -> Optional[FinishReason]:
         n_out = seq.num_output_tokens  # survives preemption's prompt-folding

@@ -1,0 +1,185 @@
+"""Backend operator: incremental detokenization + stop-condition evaluation.
+
+Copy of the JAX package's ``llm/backend.py``.  Reference semantics:
+lib/llm/src/backend.rs — wraps the token-in/token-out engine; on the
+response path it incrementally detokenizes, evaluates stop conditions (eos,
+stop_token_ids, max_tokens, stop strings), and implements the hidden
+partial-match "jail": text that might be the start of a stop sequence is
+held back until the match resolves, so stop strings never leak to clients
+(backend.rs:234-423 ``Decoder::step``).
+
+The backend stamps ``text`` onto each engine output dict and emits a final
+item with ``finish_reason``.  When a stop triggers here (engine didn't know),
+it calls ``stop_generating()`` so the device loop frees the request's slot.
+"""
+
+from __future__ import annotations
+
+from typing import Any, AsyncIterator, Dict, Optional, Tuple
+
+from ..runtime.engine import AsyncEngine, Context, ResponseStream
+from ..runtime.pipeline import Operator
+from .protocols import FinishReason, PreprocessedRequest, StopConditions
+from .tokenizer import BaseTokenizer
+
+
+class Decoder:
+    """Per-request decode state: detok stream + stop evaluation + jail."""
+
+    def __init__(self, tokenizer: BaseTokenizer, stop: StopConditions):
+        self._stream = tokenizer.decode_stream()
+        self._stop = stop
+        self._eos_id = tokenizer.eos_token_id
+        self._generated = 0
+        self._jail = ""  # held-back text that may prefix a stop string
+
+    def step(self, token_id: int) -> Tuple[str, Optional[FinishReason]]:
+        """Feed one generated token → (emit_text, finish_reason|None)."""
+        self._generated += 1
+        stop = self._stop
+
+        past_min = stop.min_tokens is None or self._generated > stop.min_tokens
+        if past_min:
+            if not stop.ignore_eos and self._eos_id is not None and token_id == self._eos_id:
+                return self._jail_flush_on_stop(), FinishReason.STOP
+            if token_id in stop.stop_token_ids:
+                return self._jail_flush_on_stop(), FinishReason.STOP
+
+        text = self._stream.step(token_id)
+        emit, finished = self._eval_stop_strings(text)
+        if finished:
+            return emit, FinishReason.STOP
+
+        if stop.max_tokens is not None and self._generated >= stop.max_tokens:
+            # at the length limit, release anything jailed — it is real text
+            return emit + self._release_jail(), FinishReason.LENGTH
+        return emit, None
+
+    def finish(self) -> str:
+        """Engine ended the stream: flush detok + jail."""
+        return self._stream.flush() + self._release_jail()
+
+    # -- stop strings -------------------------------------------------------
+
+    def _eval_stop_strings(self, new_text: str) -> Tuple[str, bool]:
+        if not self._stop.stop:
+            return new_text, False
+        pending = self._jail + new_text
+        # full match anywhere → truncate before it, stop
+        for s in self._stop.stop:
+            idx = pending.find(s)
+            if idx != -1:
+                self._jail = ""
+                return pending[:idx], True
+        # hold the longest tail that is a proper prefix of any stop string
+        hold = 0
+        for s in self._stop.stop:
+            for k in range(min(len(s) - 1, len(pending)), 0, -1):
+                if pending.endswith(s[:k]):
+                    hold = max(hold, k)
+                    break
+        if hold:
+            self._jail = pending[-hold:]
+            return pending[:-hold], False
+        self._jail = ""
+        return pending, False
+
+    def _release_jail(self) -> str:
+        jail, self._jail = self._jail, ""
+        return jail
+
+    def _jail_flush_on_stop(self) -> str:
+        # a stop token ends generation; jailed text was never part of a stop
+        # string match, so it is real output
+        return self._release_jail()
+
+
+class Backend(Operator):
+    """Pipeline operator wrapping a token-in/token-out engine."""
+
+    def __init__(self, tokenizer: BaseTokenizer):
+        self._tokenizer = tokenizer
+
+    async def generate(self, request: Context, next: AsyncEngine) -> ResponseStream:
+        pre = PreprocessedRequest.from_dict(request.data)
+        stream = await next.generate(request)
+        return ResponseStream(self._postprocess(pre, stream, request), request.ctx)
+
+    async def _postprocess(
+        self, pre: PreprocessedRequest, stream: ResponseStream, request: Context
+    ) -> AsyncIterator[Dict[str, Any]]:
+        decoder = Decoder(self._tokenizer, pre.stop_conditions)
+        prompt_tokens = len(pre.token_ids)
+        completion_tokens = 0
+        finished = False
+        try:
+            async for out in stream:
+                if finished:
+                    break
+                engine_finish = out.get("finish_reason")
+                emit_text = ""
+                finish: Optional[FinishReason] = None
+                for tok in out.get("token_ids", ()):  # one, or a fused chunk's
+                    completion_tokens += 1
+                    text, finish = decoder.step(tok)
+                    emit_text += text
+                    if finish is not None:
+                        break
+                if finish is None and engine_finish is not None:
+                    emit_text += decoder.finish()
+                    finish = FinishReason(engine_finish)
+                if emit_text or finish is None:
+                    item = dict(out)
+                    item["text"] = emit_text
+                    item["finish_reason"] = None
+                    lp = out.get("logprobs")
+                    if lp is not None:
+                        # Render token ids to strings here — the only layer
+                        # holding the tokenizer (OpenAI logprobs carry text).
+                        toks = out.get("token_ids") or [0]
+                        item["logprobs"] = {
+                            "token": self._tokenizer.decode([toks[0]]),
+                            "logprob": lp["logprob"],
+                            "top": [
+                                {
+                                    "token": self._tokenizer.decode([tid]),
+                                    "logprob": l,
+                                }
+                                for tid, l in lp.get("top", [])
+                            ],
+                        }
+                    yield item
+                if finish is not None:
+                    finished = True
+                    # tell the engine to release the slot if it doesn't know
+                    request.stop_generating()
+                    yield {
+                        "token_ids": [],
+                        "text": None,
+                        "finish_reason": str(finish),
+                        "usage": {
+                            "prompt_tokens": prompt_tokens,
+                            "completion_tokens": completion_tokens,
+                            "total_tokens": prompt_tokens + completion_tokens,
+                        },
+                    }
+            if not finished:
+                # engine stream ended without a finish reason (e.g. cancelled)
+                tail = decoder.finish()
+                reason = (
+                    FinishReason.CANCELLED if request.is_stopped else FinishReason.STOP
+                )
+                if tail:
+                    yield {"token_ids": [], "text": tail, "finish_reason": None}
+                yield {
+                    "token_ids": [],
+                    "text": None,
+                    "finish_reason": str(reason),
+                    "usage": {
+                        "prompt_tokens": prompt_tokens,
+                        "completion_tokens": completion_tokens,
+                        "total_tokens": prompt_tokens + completion_tokens,
+                    },
+                }
+        finally:
+            await stream.aclose()

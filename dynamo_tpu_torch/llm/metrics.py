@@ -1,0 +1,285 @@
+"""HTTP-edge Prometheus metrics.
+
+Copy of the HTTP-service part of the JAX package's ``llm/metrics.py``:
+``Status``, ``Metrics`` with its families and rolling-window percentile
+gauges, and ``InflightGuard``.  Reference semantics:
+lib/llm/src/http/service/metrics.rs:57-128,319 —
+``{prefix}_http_service_{requests_total, inflight_requests,
+request_duration_seconds, time_to_first_token_seconds,
+inter_token_latency_seconds}`` with status labels
+``success | client_drop | rejected | error``, and a RAII ``InflightGuard``
+that records duration + status when dropped.
+
+``prometheus_client`` is not used: the small ``Counter``, ``Gauge`` and
+``Histogram`` below render the same exposition text (names, label names,
+buckets, value format) minus the optional ``_created`` series, so one
+scraper reads both packages.  The metric groups of subsystems the port does
+not have yet (speculative decoding, KV tiers, QoS, tracing, ...) are not
+here.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+from ..labels import escape_label
+
+REQUEST_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+TOKEN_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+class Status:
+    SUCCESS = "success"
+    CLIENT_DROP = "client_drop"
+    REJECTED = "rejected"
+    ERROR = "error"
+
+
+# -- a minimal Prometheus client ------------------------------------------------
+
+
+def _fmt(v: float) -> str:
+    """A sample value as prometheus_client writes it (Go float syntax)."""
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    return repr(float(v))
+
+
+def _labels(names: Sequence[str], values: Sequence[str]) -> str:
+    if not names:
+        return ""
+    return "{" + ",".join(f'{n}="{escape_label(v)}"' for n, v in zip(names, values)) + "}"
+
+
+class _Value:
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.value -= amount
+
+    def set(self, value: float) -> None:
+        self.value = float(value)
+
+
+class _HistogramValue:
+    def __init__(self, buckets: Sequence[float]):
+        self.buckets = buckets
+        self.counts = [0] * len(buckets)
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, value: float) -> None:
+        for i, upper in enumerate(self.buckets):
+            if value <= upper:
+                self.counts[i] += 1
+        self.count += 1
+        self.sum += value
+
+
+class _Family:
+    """A labelled metric family; ``labels(*values)`` returns its child."""
+
+    kind = ""
+
+    def __init__(self, name: str, doc: str, labelnames: Sequence[str]):
+        self.name = name
+        self.doc = doc
+        self.labelnames = tuple(labelnames)
+        self._children: Dict[Tuple[str, ...], object] = {}
+
+    def _child(self):
+        return _Value()
+
+    def labels(self, *values: object):
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels {self.labelnames}")
+        key = tuple(str(v) for v in values)
+        child = self._children.get(key)
+        if child is None:
+            child = self._children[key] = self._child()
+        return child
+
+    def samples(self) -> List[str]:
+        return [
+            f"{self.name}{_labels(self.labelnames, key)} {_fmt(child.value)}"
+            for key, child in self._children.items()
+        ]
+
+    def render(self) -> List[str]:
+        doc = self.doc.replace("\\", r"\\").replace("\n", r"\n")
+        return [f"# HELP {self.name} {doc}", f"# TYPE {self.name} {self.kind}", *self.samples()]
+
+
+class Counter(_Family):
+    kind = "counter"
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+
+class Histogram(_Family):
+    kind = "histogram"
+
+    def __init__(self, name: str, doc: str, labelnames: Sequence[str], buckets: Sequence[float]):
+        super().__init__(name, doc, labelnames)
+        self.buckets = tuple(float(b) for b in buckets) + (math.inf,)
+
+    def _child(self):
+        return _HistogramValue(self.buckets)
+
+    def samples(self) -> List[str]:
+        out = []
+        names = ("le", *self.labelnames)
+        for key, child in self._children.items():
+            for upper, n in zip(self.buckets, child.counts):
+                out.append(f"{self.name}_bucket{_labels(names, (_fmt(upper), *key))} {_fmt(n)}")
+            out.append(f"{self.name}_count{_labels(self.labelnames, key)} {_fmt(child.count)}")
+            out.append(f"{self.name}_sum{_labels(self.labelnames, key)} {_fmt(child.sum)}")
+        return out
+
+
+# -- the edge's metrics -----------------------------------------------------------
+
+
+class RollingWindow:
+    """Bounded rolling sample window with percentile queries.
+
+    Histograms answer "distribution since process start"; the percentile
+    gauges answer "distribution right now" — a window of the most recent
+    observations, cheap to query at scrape time."""
+
+    def __init__(self, maxlen: int = 2048):
+        self._xs: Deque[float] = deque(maxlen=maxlen)
+
+    def observe(self, x: float) -> None:
+        self._xs.append(x)
+
+    def percentile(self, p: float) -> float:
+        if not self._xs:
+            return 0.0
+        xs = sorted(self._xs)
+        return xs[min(len(xs) - 1, int(len(xs) * p))]
+
+    def __len__(self) -> int:
+        return len(self._xs)
+
+
+class Metrics:
+    def __init__(self, prefix: str = "dynamo_tpu"):
+        ns = f"{prefix}_http_service"
+        me = ["model", "endpoint"]
+        self.requests_total = Counter(
+            f"{ns}_requests_total",
+            "Total requests by model/endpoint/status",
+            ["model", "endpoint", "request_type", "status"],
+        )
+        self.inflight = Gauge(f"{ns}_inflight_requests", "Currently in-flight requests", me)
+        self.request_duration = Histogram(
+            f"{ns}_request_duration_seconds", "End-to-end request duration", me, REQUEST_BUCKETS
+        )
+        self.ttft = Histogram(
+            f"{ns}_time_to_first_token_seconds", "Time to first token (streaming)", me,
+            REQUEST_BUCKETS,
+        )
+        self.itl = Histogram(
+            f"{ns}_inter_token_latency_seconds", "Inter-token latency (streaming)", me,
+            TOKEN_BUCKETS,
+        )
+        self.output_tokens = Counter(f"{ns}_output_tokens_total", "Total output tokens produced", me)
+        # Rolling-window percentile gauges: the histograms above accumulate
+        # since start; these answer "now".
+        self.ttft_p50_gauge = Gauge(f"{ns}_ttft_p50_seconds", "Rolling-window TTFT p50", me)
+        self.ttft_p95_gauge = Gauge(f"{ns}_ttft_p95_seconds", "Rolling-window TTFT p95", me)
+        self.itl_p50_gauge = Gauge(
+            f"{ns}_itl_p50_seconds", "Rolling-window inter-token-latency p50", me
+        )
+        self.itl_p95_gauge = Gauge(
+            f"{ns}_itl_p95_seconds", "Rolling-window inter-token-latency p95", me
+        )
+        self._families = [
+            self.requests_total, self.inflight, self.request_duration, self.ttft, self.itl,
+            self.output_tokens, self.ttft_p50_gauge, self.ttft_p95_gauge, self.itl_p50_gauge,
+            self.itl_p95_gauge,
+        ]
+        # (model, endpoint) → (ttft window, itl window)
+        self._windows: Dict[Tuple[str, str], Tuple[RollingWindow, RollingWindow]] = {}
+
+    def window(self, model: str, endpoint: str) -> Tuple[RollingWindow, RollingWindow]:
+        key = (model, endpoint)
+        if key not in self._windows:
+            self._windows[key] = (RollingWindow(), RollingWindow())
+        return self._windows[key]
+
+    def guard(self, model: str, endpoint: str, request_type: str) -> "InflightGuard":
+        return InflightGuard(self, model, endpoint, request_type)
+
+    def _update_quantile_gauges(self) -> None:
+        for (model, endpoint), (ttft_w, itl_w) in self._windows.items():
+            self.ttft_p50_gauge.labels(model, endpoint).set(ttft_w.percentile(0.5))
+            self.ttft_p95_gauge.labels(model, endpoint).set(ttft_w.percentile(0.95))
+            self.itl_p50_gauge.labels(model, endpoint).set(itl_w.percentile(0.5))
+            self.itl_p95_gauge.labels(model, endpoint).set(itl_w.percentile(0.95))
+
+    def render(self) -> bytes:
+        self._update_quantile_gauges()
+        lines = [line for fam in self._families for line in fam.render()]
+        return ("\n".join(lines) + "\n").encode()
+
+
+class InflightGuard:
+    """Tracks one request: inflight gauge, duration, TTFT, ITL, final status.
+
+    Must be closed with ``finish(status)``; a guard dropped without an explicit
+    status records ``error`` (the reference's RAII Drop behaviour).
+    """
+
+    def __init__(self, metrics: Metrics, model: str, endpoint: str, request_type: str):
+        self._m = metrics
+        self.model = model
+        self.endpoint = endpoint
+        self.request_type = request_type
+        self._start = time.monotonic()
+        self._last_token_t: Optional[float] = None
+        self._finished = False
+        metrics.inflight.labels(model, endpoint).inc()
+
+    def on_token(self, n_tokens: int = 1) -> None:
+        now = time.monotonic()
+        ttft_w, itl_w = self._m.window(self.model, self.endpoint)
+        if self._last_token_t is None:
+            self._m.ttft.labels(self.model, self.endpoint).observe(now - self._start)
+            ttft_w.observe(now - self._start)
+        else:
+            self._m.itl.labels(self.model, self.endpoint).observe(now - self._last_token_t)
+            itl_w.observe(now - self._last_token_t)
+        self._last_token_t = now
+        self._m.output_tokens.labels(self.model, self.endpoint).inc(n_tokens)
+
+    def finish(self, status: str) -> None:
+        if self._finished:
+            return
+        self._finished = True
+        self._m.inflight.labels(self.model, self.endpoint).dec()
+        self._m.request_duration.labels(self.model, self.endpoint).observe(
+            time.monotonic() - self._start
+        )
+        self._m.requests_total.labels(
+            self.model, self.endpoint, self.request_type, status
+        ).inc()
+
+    def __del__(self):
+        if not self._finished:
+            try:
+                self.finish(Status.ERROR)
+            except Exception:  # noqa: BLE001 — interpreter teardown
+                pass

@@ -14,8 +14,8 @@ streams from different tenants never share cache entries.
 Hashing is pure host-side bookkeeping (never runs on the device).  The
 algorithm is XXH64 seed 1337, the same function the JAX package and its
 native C++ runtime components use, so hashes agree across one deployment.
-blake2b-64 is the fallback only when the xxhash module is missing — mixing
-fallback and XXH64 hashing in one fleet would break routing.
+Where the xxhash module is missing, ``xxh64`` below computes the same
+function in pure Python: the hashes never depend on what is installed.
 """
 
 from __future__ import annotations
@@ -26,18 +26,65 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 HASH_SEED = 1337
 
+_M64 = 0xFFFFFFFFFFFFFFFF
+_P1 = 0x9E3779B185EBCA87
+_P2 = 0xC2B2AE3D27D4EB4F
+_P3 = 0x165667B19E3779F9
+_P4 = 0x85EBCA77C2B2AE63
+_P5 = 0x27D4EB2F165667C5
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _round(acc: int, lane: int) -> int:
+    return (_rotl((acc + lane * _P2) & _M64, 31) * _P1) & _M64
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of ``data`` (the xxHash specification), as an unsigned int."""
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(seed + _P1 + _P2) & _M64, (seed + _P2) & _M64, seed & _M64, (seed - _P1) & _M64]
+        while i + 32 <= n:  # four lanes over each 32-byte stripe
+            lanes = struct.unpack_from("<4Q", data, i)
+            v = [_round(a, lane) for a, lane in zip(v, lanes)]
+            i += 32
+        h = (_rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + _rotl(v[3], 18)) & _M64
+        for a in v:
+            h = ((h ^ _round(0, a)) * _P1 + _P4) & _M64
+    else:
+        h = (seed + _P5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        h ^= _round(0, struct.unpack_from("<Q", data, i)[0])
+        h = (_rotl(h, 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h ^= (struct.unpack_from("<I", data, i)[0] * _P1) & _M64
+        h = (_rotl(h, 23) * _P2 + _P3) & _M64
+        i += 4
+    for b in data[i:]:
+        h ^= (b * _P5) & _M64
+        h = (_rotl(h, 11) * _P1) & _M64
+    h ^= h >> 33
+    h = (h * _P2) & _M64
+    h ^= h >> 29
+    h = (h * _P3) & _M64
+    return h ^ (h >> 32)
+
+
 try:
     import xxhash
 
     def _hash_bytes(data: bytes) -> int:
         return xxhash.xxh64_intdigest(data, seed=HASH_SEED)
 
-except ImportError:  # machines without xxhash (e.g. the GPU host)
-    import hashlib
+except ImportError:  # the same function, in Python
 
     def _hash_bytes(data: bytes) -> int:
-        h = hashlib.blake2b(data, digest_size=8, salt=b"dyn1337\x00")
-        return int.from_bytes(h.digest(), "little")
+        return xxh64(data, HASH_SEED)
 
 
 def _pack_tokens(tokens: Sequence[int]) -> bytes:

@@ -137,3 +137,36 @@ def test_engine_refuses_mismatched_kernel_and_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         TorchEngine(EngineConfig(**CFG))  # no device given: CUDA or nothing
+
+
+async def test_engine_refuses_prompt_ids_outside_the_vocabulary():
+    eng = TorchEngine(EngineConfig(**CFG), device="cpu")
+    try:
+        for bad in ([1, 256], [-1, 2]):  # debug-tiny's vocabulary is [0, 256)
+            with pytest.raises(ValueError, match="outside the vocabulary"):
+                await eng.generate(Context(_req(bad, 4)))
+        assert eng.scheduler.num_waiting == eng.scheduler.num_running == 0
+    finally:
+        await eng.close()
+
+
+async def test_abandoned_stream_frees_its_row():
+    """Closing a stream after its first item cancels the request: the
+    engine must not decode it on to max_tokens."""
+    eng = TorchEngine(EngineConfig(**CFG), device="cpu")
+    removed = []
+    remove = eng.scheduler.remove
+    eng.scheduler.remove = lambda seq: (removed.append(len(seq.output)), remove(seq))[1]
+    try:
+        stream = await eng.generate(Context(_req([5, 17, 33], 100)))
+        async for _ in stream:
+            break
+        await stream.aclose()
+        for _ in range(200):
+            if not eng.scheduler.num_running:
+                break
+            await asyncio.sleep(0.01)
+        assert eng.scheduler.num_running == 0
+        assert removed and removed[0] < 100
+    finally:
+        await eng.close()
