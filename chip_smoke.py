@@ -29,17 +29,28 @@ Phases, any failure exits non-zero:
   5. the paged model path in f32 (4 layers at full width, f32 pages)
      against a dense reference forward: chunked prefill over a prior
      prefix, then decode steps, at rtol = atol = 1e-4;
-  6. serve 8 concurrent greedy requests through TorchEngine on
-     llama-3.1-8b at full width and depth (random seeded bf16 weights,
-     page size 16, decode_steps 8, prefill_chunk 512), with both kernels'
-     launch counters zeroed just before and read just after; check every
-     stream, and the bf16 model's logits against the dense reference;
+  6. build TorchEngine on llama-3.1-8b at full width and depth (random
+     seeded bf16 weights, page size 16, decode_steps 8, prefill_chunk 512,
+     pipeline_depth 2), capture every device program ahead of time
+     (``run_warmup``: one CUDA graph per token bucket, two for the fused
+     decode), then serve 8 concurrent greedy requests through the
+     continuous pipeline, with both kernels' launch counters (advanced per
+     graph replay) zeroed just before and read just after; check every
+     stream, that the serve captured no graph, and the bf16 model's logits
+     against the dense reference; then hold a captured prefill bucket and
+     the captured fused decode (seeded and chained) against the eager
+     calls on the same inputs, writes dropped: equal tokens, logprobs
+     within 1e-3; then a churn serve on the same engine: 16 requests at
+     max_batch 16, the back half arriving inside a live fused session, with
+     staggered max_tokens, which must be admitted and retired in the loop
+     with no rebuild and no new graph;
   7. serve the same model over HTTP through the CLI's own code
-     (``run in=http out=torch``, a fresh engine, the server's event loop in
-     a thread of this process) to a standard-library client: /v1/models and
-     /health, the same 8 prompts as streamed /v1/completions, one chat
-     request unary and streamed (equal texts), an unknown model (404) and
-     /metrics, with both kernels' counters zeroed before and read after;
+     (``run in=http out=torch``, a fresh engine warmed before the timed
+     requests, the server's event loop in a thread of this process) to a
+     standard-library client: /v1/models and /health, the same 8 prompts as
+     streamed /v1/completions, one chat request unary and streamed (equal
+     texts), an unknown model (404) and /metrics (the engine-dispatch
+     group too), with both kernels' counters zeroed before and read after;
   8. print the kernels line, then the device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
@@ -73,7 +84,8 @@ G = H // KV
 # shapes it gives them.
 SERVE_CFG = dict(
     model="llama-3.1-8b", dtype="bfloat16", block_size=PS, num_blocks=2048,
-    max_batch=16, max_model_len=4096, prefill_chunk=512, decode_steps=8, seed=0,
+    max_batch=16, max_model_len=4096, prefill_chunk=512, decode_steps=8,
+    pipeline_depth=2, seed=0,
 )
 
 
@@ -459,10 +471,12 @@ def time_kernels(torch, dev, cfg, tally):
     def kernel():
         return pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
 
+    def plain():
+        return pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
+
     got = kernel()
     tally.compare(torch, "prefill_attention", f"mixed step shape T={Tm} S={S} bf16",
-                  got, pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm),
-                  1e-2, range(sum(q_lens), Tm))
+                  got, plain(), 1e-2, range(sum(q_lens), Tm))
     # What the 7 rows cost as a decode-shaped launch of their own (16 rows,
     # the rest padding rows at kv_len 1), for comparison.
     dq, dpages, dlens, dtables, dnum = decode_case(
@@ -477,11 +491,13 @@ def time_kernels(torch, dev, cfg, tally):
         rounds.append(cuda_ms(torch, kernel, 20, flush))
         drounds.append(cuda_ms(torch, decode_rows, 20, flush))
     mixed = dict(ms=statistics.median(rounds), bound_ms=b_ms, bound_by=b_by,
+                 plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
                  decode_rows_ms=statistics.median(drounds))
     log(f"time prefill_attention mixed step [T={Tm} S={S}: a {ql}-token chunk over a "
         f"{prior}-token prefix and 7 one-token rows at {MIXED_DECODE_LENS[0]}.."
-        f"{MIXED_DECODE_LENS[-1]} tokens, bf16]: kernel {mixed['ms']:.4f} ms, library not "
-        f"measured, bound {b_ms:.4f} ms ({b_by}); the 7 rows as a decode launch "
+        f"{MIXED_DECODE_LENS[-1]} tokens, bf16]: kernel {mixed['ms']:.4f} ms, plain "
+        f"{mixed['plain_ms']:.4f} ms, library not measured (no single call computes it), "
+        f"bound {b_ms:.4f} ms ({b_by}); the 7 rows as a decode launch "
         f"{mixed['decode_rows_ms']:.4f} ms; rounds {[round(x, 4) for x in rounds]} / "
         f"{[round(x, 4) for x in drounds]}")
     out["prefill_attention"]["mixed"] = mixed
@@ -657,12 +673,105 @@ async def serve(torch, engine, prompts, max_tokens):
     return await asyncio.gather(*(one(p) for p in prompts))
 
 
-def main_path(torch, dev):
-    """Phase 6: TorchEngine serving llama-3.1-8b.  Returns (ok, launches)."""
-    from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+def kernel_counts():
     from dynamo_tpu_torch.ops import decode_attention as da
     from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    return {"decode_attention": da.decode_attention_cuda.launches,
+            "prefill_attention": pa.prefill_attention_cuda.launches}
+
+
+def zero_kernel_counts():
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    da.decode_attention_cuda.launches = 0
+    pa.prefill_attention_cuda.launches = 0
+
+
+GRAPH_CHECK_TOL = 1e-3
+
+
+def graph_check(torch, dev, engine):
+    """A captured prefill bucket and the captured fused decode, seeded from
+    the host and chained to the device carry, each against the eager call
+    on the same inputs, every write dropped (prefill slots -1; decode
+    limits at the rows' positions, so no step is writable), with and
+    without logprobs.  Tokens must be equal, logprobs within
+    GRAPH_CHECK_TOL.  Returns ok."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.llama import RaggedBatch
+
+    cfg = engine.cfg
+    S, PP, T_steps = cfg.max_batch, cfg.max_blocks_per_seq, cfg.decode_steps
+    rng = np.random.default_rng(11)
+    V = engine.model_config.vocab_size
+    ok = True
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def compare(label, got, want, lp):
+        nonlocal ok
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.tokens, want.tokens))
+        err = float((got.logprob - want.logprob).abs().max()) if lp else 0.0
+        top = float((got.top_logprobs - want.top_logprobs).abs().max()) if lp else 0.0
+        good = same and err <= GRAPH_CHECK_TOL and top <= GRAPH_CHECK_TOL
+        bitwise = same and (not lp or (torch.equal(got.logprob, want.logprob)
+                                       and torch.equal(got.top_logprobs, want.top_logprobs)))
+        ok = ok and good
+        log(f"graph {label}: tokens equal {same}, logprob max_abs_err {err:.3e}, top-20 "
+            f"{top:.3e} (tol {GRAPH_CHECK_TOL}), bitwise {bitwise} {'ok' if good else 'FAIL'}")
+
+    def snap(out):
+        return type(out)(*(x.clone() for x in out))
+
+    with torch.inference_mode():
+        for lp in (False, True):
+            base = engine._sampling_arrays([])
+            samp = base._replace(flags=base.flags._replace(need_logprobs=lp))
+            sp = engine._samp_params({k: t(v) for k, v in samp.arrays.items()}, samp.flags)
+            # Prefill: a 300-token chunk over a 200-token prefix of row 0,
+            # in the 512-token bucket; the pages hold the earlier serve's KV.
+            n, prior = 300, 200
+            T = cfg.bucket_tokens(n)
+            tok = np.zeros(T, np.int64)
+            tok[:n] = rng.integers(1, V, n)
+            pos = np.zeros(T, np.int32)
+            pos[:n] = np.arange(prior, prior + n)
+            tables = np.zeros((S, PP), np.int32)
+            tables[0] = rng.permutation(cfg.num_blocks)[:PP]
+            cu = np.zeros(S + 1, np.int32)
+            cu[1:] = n
+            rb = dict(token_ids=tok, positions=pos, slot_mapping=np.full(T, -1, np.int32),
+                      kv_lens=np.asarray([prior + n] + [0] * (S - 1), np.int32),
+                      page_indices=tables, cu_q_lens=cu, num_seqs=np.asarray([1], np.int32))
+            got = snap(engine._run_step(rb, samp))
+            want = engine._step(RaggedBatch(**{k: t(v) for k, v in rb.items()}), sp)
+            compare(f"step T={T} need_logprobs={lp} vs eager", got, want, lp)
+            # Fused decode over every row, positions 500.., limits at the
+            # positions: kv_len stays at the limit and nothing is written.
+            pos0 = (500 + 97 * np.arange(S)).astype(np.int32)
+            tabs = np.stack([rng.permutation(cfg.num_blocks)[:PP] for _ in range(S)]).astype(np.int32)
+            tok0 = rng.integers(1, V, S).astype(np.int64)
+            got = snap(engine._run_multi(tok0, pos0, tabs, pos0.copy(), samp))
+            want, carry = engine._multi(t(tok0), sp.steps, engine._zero_counts, t(pos0), t(tabs),
+                                        t(pos0), sp)
+            compare(f"multi seeded need_logprobs={lp} vs eager", got, want, lp)
+            pos0b = pos0 + T_steps
+            got = snap(engine._run_multi(None, pos0b, tabs, pos0.copy(), samp))
+            want, _ = engine._multi(*carry, t(pos0b), t(tabs), t(pos0), sp)
+            compare(f"multi chained need_logprobs={lp} vs eager", got, want, lp)
+    return ok
+
+
+def main_path(torch, dev):
+    """Phase 6: TorchEngine serving llama-3.1-8b after warmup, the graph
+    check and the churn serve.  Returns (ok, launches)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
 
     cfg = EngineConfig(**SERVE_CFG)
     t0 = time.perf_counter()
@@ -674,42 +783,29 @@ def main_path(torch, dev):
     prompts = serve_prompts(torch)
     lens = [len(p) for p in prompts]
     max_tokens = SERVE_MAX_TOKENS
+    out = {}
 
     async def run():
         try:
-            return await serve(torch, engine, prompts, max_tokens)
+            t = time.perf_counter()
+            out["warm"] = await engine.run_warmup()
+            out["warm_s"] = time.perf_counter() - t
+            zero_kernel_counts()
+            t = time.perf_counter()
+            results = await serve(torch, engine, prompts, max_tokens)
+            out["wall"] = time.perf_counter() - t
+            out["launches"] = kernel_counts()
+            out["after"] = engine.compile_counts()
+            out["ok"] = report_serve(torch, engine, results, out, lens)
+            # Diagnostics on the warm engine, with no request in flight.
+            out["ok"] = graph_check(torch, dev, engine) and out["ok"]
+            out["ok"] = (await churn_path(torch, engine)) and out["ok"]
+            out["ok"] = slice_counters_zero(torch, dev) and out["ok"]
         finally:
             await engine.close()
 
-    da.decode_attention_cuda.launches = 0
-    pa.prefill_attention_cuda.launches = 0
-    t0 = time.perf_counter()
-    results = asyncio.run(run())
-    wall = time.perf_counter() - t0
-    launches = {
-        "decode_attention": da.decode_attention_cuda.launches,
-        "prefill_attention": pa.prefill_attention_cuda.launches,
-    }
-    ok = True
-    for i, (toks, stamps, finish) in enumerate(results):
-        good = len(toks) == max_tokens and finish == "length"
-        ok = ok and good
-        if not good:
-            log(f"request {i}: {len(toks)} tokens, finish {finish!r} — FAIL")
-    ttft = sorted(s[0] for _, s, _ in results)
-    itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
-    total = sum(len(t) for t, _, _ in results)
-    dec, pre = engine.decode_spans, engine.prefill_spans
-    step_ms = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
-    chunk_ms = pre.seconds / max(1, pre.count) * 1e3
-    log(f"serve: 8 requests, prompts {lens[0]}..{lens[-1]} tokens, {max_tokens} new each, "
-        f"wall {wall:.3f} s, {total / wall:.2f} output tok/s; TTFT p50 "
-        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; ITL mean "
-        f"{sum(itl) / len(itl) * 1e3:.2f} ms; decode dispatches {dec.count} at "
-        f"{step_ms:.2f} ms a fused step, prefill steps {pre.count} at {chunk_ms:.2f} ms "
-        f"each (stream time); launches {launches}")
-    ok = ok and all(v > 0 for v in launches.values())
-
+    asyncio.run(run())
+    ok, launches = out["ok"], out["launches"]
     # The served model's output in bf16 at full depth: finite logits of the
     # expected shape, near the dense reference's.  Random weights give a
     # flat top of the vocabulary, so bf16 rounding over 32 layers may swap
@@ -736,6 +832,116 @@ def main_path(torch, dev):
     return ok, launches
 
 
+def slice_counters_zero(torch, dev):
+    """The prefill kernel's self-resetting arrival counters: one scratch a
+    stream, shared by every graph captured on that stream.  After the
+    serve's, the graph check's and the churn's replays (mixed steps among
+    them) every counter must be back at zero.  Returns ok."""
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    torch.cuda.synchronize(dev)
+    left = [int(cnt.count_nonzero()) for _, _, cnt in pa._slice_scratch.values()]
+    ok = bool(left) and not any(left)
+    log(f"prefill slice counters after the replays: {len(left)} scratch buffers, "
+        f"nonzero counters {left} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def report_serve(torch, engine, results, out, lens):
+    """Print phase 6's serve line and the warmup line; returns whether
+    every stream is whole, both kernels ran and no graph was captured."""
+    cfg = engine.cfg
+    max_tokens = SERVE_MAX_TOKENS
+    launches, wall = out["launches"], out["wall"]
+    per_graph = {name: {str(k): v for k, v in getattr(engine.programs, name)
+                        .captured_launches().items()} for name in ("step", "multi")}
+    log(f"warmup: {out['warm_s']:.2f} s, graphs per entry {out['warm']} (buckets "
+        f"{engine.reachable_token_buckets()}); kernel launches a replay, by key {per_graph}")
+    ok = out["after"] == out["warm"]
+    if not ok:
+        log(f"compile counts grew during the serve: {out['warm']} -> {out['after']} — FAIL")
+    for i, (toks, stamps, finish) in enumerate(results):
+        good = len(toks) == max_tokens and finish == "length"
+        ok = ok and good
+        if not good:
+            log(f"request {i}: {len(toks)} tokens, finish {finish!r} — FAIL")
+    ttft = sorted(s[0] for _, s, _ in results)
+    itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
+    total = sum(len(t) for t, _, _ in results)
+    dec, pre = engine.decode_spans, engine.prefill_spans
+    step_ms = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
+    chunk_ms = pre.seconds / max(1, pre.count) * 1e3
+    summ = engine.dispatch_summary()
+    kinds = {k: (v["dispatches"], v["p50_ms"]) for k, v in summ["kinds"].items()}
+    pipe = {k: v for k, v in summ["pipeline"].items() if k != "last_stall"}
+    log(f"serve: 8 requests, prompts {lens[0]}..{lens[-1]} tokens, {max_tokens} new each, "
+        f"wall {wall:.3f} s, {total / wall:.2f} output tok/s; TTFT p50 "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; ITL mean "
+        f"{sum(itl) / len(itl) * 1e3:.2f} ms; decode dispatches {dec.count} at "
+        f"{step_ms:.2f} ms a fused step, prefill steps {pre.count} at {chunk_ms:.2f} ms "
+        f"each (stream time); host_gap_frac {pipe['host_gap_frac']}; pipeline {pipe}; "
+        f"dispatch kinds (count, p50 ms) {kinds}; launches {launches} (per replay); "
+        f"graphs {out['after']}")
+    return ok and all(v > 0 for v in launches.values())
+
+
+CHURN_REQUESTS = 16
+
+
+async def churn_path(torch, engine):
+    """The churn serve on the warm phase-6 engine: 16 greedy requests at
+    max_batch 16, prompts 128..848 tokens; the first 8 (48 or 64 new
+    tokens) start together, the back 8 (8, 16 or 24 new tokens) are sent
+    once a fused session is live.  Every stream must have its length and
+    finish ``length``; the engine must admit and retire inside the loop
+    with no rebuild, and capture no graph.  Returns ok."""
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    rng = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(1, 128000, (128 + 48 * i,), generator=rng).tolist()
+               for i in range(CHURN_REQUESTS)]
+    half = CHURN_REQUESTS // 2
+    osl = [48 + 16 * (i % 2) if i < half else 8 + 8 * (i % 3) for i in range(CHURN_REQUESTS)]
+
+    async def one(i):
+        if i >= half:
+            while not engine._pipeline_members:  # land inside a live session
+                await asyncio.sleep(0.001)
+        req = PreprocessedRequest(
+            token_ids=prompts[i],
+            stop_conditions=StopConditions(max_tokens=osl[i], ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0),
+        ).to_dict()
+        toks, finish = [], None
+        async for item in await engine.generate(Context(req)):
+            toks += item["token_ids"]
+            finish = item.get("finish_reason") or finish
+        return toks, finish
+
+    async def run():
+        before = engine.compile_counts()
+        engine.reset_dispatch_stats()
+        zero_kernel_counts()
+        t = time.perf_counter()
+        results = await asyncio.gather(*(one(i) for i in range(CHURN_REQUESTS)))
+        return results, time.perf_counter() - t, kernel_counts(), before, engine.compile_counts()
+
+    results, wall, launches, before, after = await run()
+    pipe = engine.dispatch_summary()["pipeline"]
+    ok = all(len(t) == n and f == "length" for (t, f), n in zip(results, osl))
+    ok = ok and pipe["continuous_admissions"] >= 1 and pipe["continuous_retired"] >= 1
+    ok = ok and pipe["rebuilds"] == 0 and after == before and all(v > 0 for v in launches.values())
+    log(f"churn: {CHURN_REQUESTS} requests at max_batch {engine.cfg.max_batch}, prompts "
+        f"{len(prompts[0])}..{len(prompts[-1])} tokens, new tokens {osl}, back half sent into a "
+        f"live session; wall {wall:.3f} s; lengths {[len(t) for t, _ in results]} finishes "
+        f"{sorted(set(f for _, f in results))}; admissions {pipe['continuous_admissions']} retired "
+        f"{pipe['continuous_retired']} rebuilds {pipe['rebuilds']} sessions {pipe['sessions']} "
+        f"host_gap_frac {pipe['host_gap_frac']}; graphs {before} -> {after}; launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 # ------------------------------------------------------------ the HTTP path
 
 HTTP_MODEL = "llama-3.1-8b"
@@ -752,7 +958,8 @@ CHAT_BODY = {
 
 class CliServer:
     """``cli._run`` of the port on an event loop in a thread of this
-    process, so this process's kernel launch counters see its work."""
+    process, so this process's kernel launch counters see its work.  The
+    engine the CLI builds is kept (``engine``) so it can be warmed."""
 
     def __init__(self, argv, timeout=900):
         from dynamo_tpu_torch import cli
@@ -760,6 +967,15 @@ class CliServer:
         args = cli.parse_args(argv)
         ready = concurrent.futures.Future()
         self.loop = asyncio.new_event_loop()
+        self.engine = None
+        build = cli._build_engine
+
+        def keep(out, a):
+            engine, level = build(out, a)
+            self.engine = engine
+            return engine, level
+
+        cli._build_engine = keep
 
         async def run():
             try:
@@ -779,7 +995,15 @@ class CliServer:
 
         self.thread = threading.Thread(target=drive, name="cli-server", daemon=True)
         self.thread.start()
-        self.service = ready.result(timeout=timeout)
+        try:
+            self.service = ready.result(timeout=timeout)
+        finally:
+            cli._build_engine = build
+
+    def warmup(self):
+        """The engine's ``run_warmup`` on the server's loop; returns its
+        compile counts."""
+        return asyncio.run_coroutine_threadsafe(self.engine.run_warmup(), self.loop).result(900)
 
     def stop(self):
         """Cancel the server (it closes its service and engine) and raise
@@ -892,6 +1116,9 @@ def http_path(torch):
     port = server.service.port
     log(f"http: server up on port {port} in {time.perf_counter() - t0:.1f} s "
         f"({' '.join(HTTP_ARGV)})")
+    t0 = time.perf_counter()
+    warm = server.warmup()
+    log(f"http: engine warmed in {time.perf_counter() - t0:.1f} s, graphs {warm}")
     prompts = serve_prompts(torch)
     out = {}
 
@@ -982,6 +1209,9 @@ def http_path(torch):
         check(got == 3, f"/metrics counts 3 chat requests ({got})")
         got = total(f"{ns}_time_to_first_token_seconds_count", model=HTTP_MODEL)
         check(got >= len(prompts), f"/metrics has {ns}_time_to_first_token_seconds ({got})")
+        got = total("dynamo_tpu_engine_dispatch_pipeline_sessions_total")
+        check(got >= 1, f"/metrics has the engine's fused sessions ({got})")
+        out["host_gap_frac"] = total("dynamo_tpu_engine_dispatch_host_gap_frac")
 
     try:
         asyncio.run(phase())
@@ -1005,7 +1235,8 @@ def http_path(torch):
         f"chunk, over {SERVE_MAX_TOKENS - 1}); SSE content chunks a request "
         f"{out.get('chunks')}; chat unary/stream {out.get('chat', {}).get('unary')!r} / "
         f"{out.get('chat', {}).get('stream')!r} (cold first run "
-        f"{out.get('chat', {}).get('warm')!r}); launches {launches}; host clock, one call")
+        f"{out.get('chat', {}).get('warm')!r}); launches {launches}; host_gap_frac "
+        f"{out.get('host_gap_frac')} (/metrics); host clock, one call")
     return not fails, launches, out
 
 
@@ -1013,7 +1244,7 @@ def http_path(torch):
 
 
 def direct_stamps(torch, dev):
-    """One direct serve of the 8 prompts on a fresh engine, read where the
+    """One direct serve of the 8 prompts on a fresh, warmed engine, read where the
     HTTP client reads: per request (first text, last token) in seconds,
     the first text being the token at which the byte tokenizer's
     detokenizer first releases text (it holds U+FFFD back up to 4 ids).
@@ -1026,13 +1257,14 @@ def direct_stamps(torch, dev):
 
     async def run():
         try:
-            return await serve(torch, engine, serve_prompts(torch), SERVE_MAX_TOKENS)
+            await engine.run_warmup()  # as the HTTP phase's engine is warmed
+            t0 = time.perf_counter()
+            results = await serve(torch, engine, serve_prompts(torch), SERVE_MAX_TOKENS)
+            return results, time.perf_counter() - t0
         finally:
             await engine.close()
 
-    t0 = time.perf_counter()
-    results = asyncio.run(run())
-    wall = time.perf_counter() - t0
+    results, wall = asyncio.run(run())
     stamps, first_token = [], []
     for toks, times, _ in results:
         ds = ByteTokenizer().decode_stream()
@@ -1145,6 +1377,7 @@ def main() -> int:
             })
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
+                                   mixed_step_plain_ms=tm["mixed"]["plain_ms"],
                                    mixed_step_bound_ms=tm["mixed"]["bound_ms"],
                                    mixed_step_library_ms=None,
                                    mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])

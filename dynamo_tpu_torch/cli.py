@@ -30,6 +30,7 @@ from .engine import build_torch_engine
 from .llm.backend import Backend
 from .llm.engines import EchoEngineCore, EchoEngineFull
 from .llm.http_service import HttpService
+from .llm.metrics import engine_dispatch_metrics
 from .llm.preprocessor import OpenAIPreprocessor
 from .llm.tokenizer import ByteTokenizer
 from .runtime.pipeline import build_pipeline
@@ -79,6 +80,10 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
         pipeline = engine
     try:
         if inp == "http":
+            # Colocated engine: its decode-dispatch health on /metrics
+            # (dynamo_tpu_engine_dispatch_*; llm/metrics.py).
+            if hasattr(engine, "dispatch_summary"):
+                engine_dispatch_metrics.set_source(engine.dispatch_summary)
             service = HttpService(host=args.host, port=args.port)
             service.models.add_chat_model(args.model, pipeline)
             service.models.add_completion_model(args.model, pipeline)
@@ -104,6 +109,8 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
             else:
                 await run_batch(pipeline, args.model, inp[len("batch:"):], args)
     finally:
+        if inp == "http" and hasattr(engine, "dispatch_summary"):
+            engine_dispatch_metrics.set_source(None)
         close = getattr(engine, "close", None)
         if close is not None:
             await close()
@@ -140,6 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument(
         "--decode-steps", type=int, default=4, dest="decode_steps",
         help="decode iterations fused into one device dispatch",
+    )
+    p_run.add_argument(
+        "--pipeline-depth", type=int, default=2, dest="pipeline_depth",
+        help="fused decode dispatches kept in flight",
     )
     p_run.add_argument(
         "--kv-cache-dtype", default=None, dest="cache_dtype",

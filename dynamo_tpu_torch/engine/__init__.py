@@ -46,6 +46,7 @@ def build_torch_engine(args):
         prefill_chunk=getattr(args, "prefill_chunk", 512),
         dtype=getattr(args, "dtype", "bfloat16"),
         decode_steps=getattr(args, "decode_steps", 4),
+        pipeline_depth=getattr(args, "pipeline_depth", 2),
         cache_dtype=getattr(args, "cache_dtype", None),
         kv_scale=getattr(args, "kv_scale", 1.0),
         seed=getattr(args, "seed", 0),

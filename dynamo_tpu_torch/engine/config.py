@@ -9,7 +9,7 @@ construction instead of serving something else.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 @dataclass
 class QosSchedConfig:
@@ -75,6 +75,17 @@ class EngineConfig:
     # Decode iterations fused into one dispatch: the sampled token feeds
     # the next iteration on the device, with one host fetch per dispatch.
     decode_steps: int = 4
+    # Fused decode dispatches kept in flight before their token fetch is
+    # awaited (the sampled-token carry stays on the device between
+    # dispatches, so chunk k+1 runs while chunk k's tokens come back).
+    # Stop conditions apply with up to pipeline_depth * decode_steps tokens
+    # of lag; over-decoded tokens are dropped host-side.
+    pipeline_depth: int = 2
+    # Decode-stall watchdog threshold in seconds (engine/pipeline.py
+    # _await_device): a token fetch or device dispatch exceeding it logs the
+    # recent dispatch trace and bumps dynamo_tpu_engine_stall_total.  None
+    # reads the DYN_DECODE_STALL_S environment variable; 0 disables.
+    decode_stall_s: Optional[float] = None
     # Mixed-phase cadence: while prompts are prefilling, decode rows sit out
     # the prefill steps and advance via one fused decode_steps burst every
     # this many prefill chunks (engine.py _run_loop).
@@ -88,6 +99,8 @@ class EngineConfig:
         self.qos = QosSchedConfig.normalize(self.qos)
         if self.decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
+        if self.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
 
     @property
     def max_blocks_per_seq(self) -> int:

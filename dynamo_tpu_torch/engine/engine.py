@@ -8,12 +8,21 @@ serving path, token-level requests in, ``LLMEngineOutput`` items out:
   the batched sampler;
 - a fused multi-step decode (``_multi``): ``decode_steps`` iterations per
   dispatch, the sampled token, position, rng step and penalty counts
-  staying on the device between iterations, one host fetch per dispatch;
+  staying on the device between iterations, and the final carry returned
+  so the next dispatch can chain to it on the device;
+- each dispatch of either is ONE device program (engine/graphs.py): on
+  CUDA a CUDA graph captured once per key (at first use or by
+  ``warmup()``) and replayed, the counterpart of the JAX engine's
+  ``jax.jit`` executables; on the CPU the same functions eagerly;
+- the JAX engine's default serving loop (engine/pipeline.py): the
+  continuous fused-decode pipeline with ``pipeline_depth`` dispatches in
+  flight, deferred device→host fetches into pinned memory, in-loop
+  admission and retirement;
 - the same continuous-batching scheduler and paged-KV block manager
   (copies of the JAX package's host modules), KV events and
   ForwardPassMetrics included.
 
-Device work runs in a worker thread (``asyncio.to_thread``) so the event
+Device work runs in worker threads (``asyncio.to_thread``) so the event
 loop keeps serving ingress while the card computes; the paged KV slab is
 updated in place.  Attention goes through the hand-written CUDA kernels on
 a CUDA device and through their plain versions on the CPU — chosen by the
@@ -27,6 +36,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import os
 import time
 from typing import Any, AsyncIterator, Callable, Deque, Dict, List, Optional, Tuple
 
@@ -46,11 +56,12 @@ from ..models.llama import (
     torch_dtype,
 )
 from ..ops.ragged_attention import resolve_kernel
-from ..ops.sampling import SampleOut, SamplingParams, sample_tokens
+from ..ops.sampling import SampleOut, SamplingFlags, SamplingParams, sample_tokens
 from ..runtime.engine import AsyncEngine, Context, ResponseStream
 from .config import EngineConfig
+from .graphs import DevicePrograms, FetchRing
 from .kv_manager import KvBlockManager
-from .pipeline import _FINISHED, DecodePipelineMixin
+from .pipeline import _FINISHED, DecodePipelineMixin, HostSampling
 from .scheduler import Scheduler, SequenceState, StepPlan
 
 logger = logging.getLogger(__name__)
@@ -132,13 +143,50 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
         self._wake = asyncio.Event()
         self._closed = False
         self._loop_task: Optional[asyncio.Task] = None
+        # Serialises device dispatches (each runs in a worker thread).
+        self._device_lock = asyncio.Lock()
         # Mixed-phase cadence: prefill chunks run since the last decode burst.
         self._chunks_since_burst = 0
         self._prefill_requeues_seen = 0
+        # Per-dispatch trace (kind, wall_s, rows, device_tokens); dispatch
+        # and fetch are recorded apart since they overlap.  Bounded.
+        self.step_trace: Deque[Tuple[str, float, int, int]] = collections.deque(maxlen=65536)
+        # Prefill-chunk accounting: cumulative counters plus a bounded
+        # per-chunk wall trace for the latency quantiles on /metrics.
+        self.prefill_chunks = 0
+        self.prefill_wall_s = 0.0
+        self.prefill_tokens = 0
+        self._prefill_chunk_trace: Deque[float] = collections.deque(maxlen=4096)
+        # Deferred token fetches (FIFO): (kind, task, *meta), applied at
+        # harvest points (engine/pipeline.py _harvest_pending).
+        self._pending_fetches: List[Tuple] = []
+        # Request ids with fused dispatches possibly in flight.
+        self._pipeline_members: set = set()
+        # Continuous-batching pipeline health, on /metrics as
+        # dynamo_tpu_engine_dispatch_* (llm/metrics.py).
+        self.pipeline_sessions = 0  # _decode_pipeline runs begun
+        self.pipeline_rebuilds = 0  # sessions drained by a rebuild event
+        self.continuous_admissions = 0  # sequences admitted in-loop
+        self.continuous_retired = 0  # rows retired in-loop (no drain)
+        self.pipeline_wall_s = 0.0  # cumulative fused-session wall
+        # Device-busy wall inside fused sessions (dispatch, wait and the
+        # interleaved admission prefill): host_gap_frac's numerator.
+        self.decode_busy_s = 0.0
+        # Decode-stall watchdog (pipeline._await_device): threshold from
+        # the config, else DYN_DECODE_STALL_S; 0 = off.
+        self._stall_threshold_s = float(
+            cfg.decode_stall_s
+            if cfg.decode_stall_s is not None
+            else os.environ.get("DYN_DECODE_STALL_S", "0") or 0
+        )
+        self.decode_stalls = 0
+        self.last_stall: Optional[Dict[str, Any]] = None
+        # Awaited before every device op, outside the device lock, when set
+        # (tests throttle decode with it).
+        self.pace_hook: Optional[Callable[[], Any]] = None
         # Device time and count of prefill steps and fused decode
-        # dispatches, timed on the stream: a prefill step that skips the
-        # fetch returns once queued, and the next fetch (often a decode
-        # dispatch's) waits for its work, so host walls would misplace it.
+        # dispatches, timed on the stream: a dispatch returns once queued,
+        # so host walls would misplace its work.
         self.prefill_spans = StreamSpans(self.device)
         self.decode_spans = StreamSpans(self.device)
 
@@ -168,13 +216,24 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 self.kv_scale = float(cfg.kv_scale)
         else:
             self.kv_scale = None
-        S = cfg.max_batch
-        self._zero_counts = torch.zeros(
-            (S, self.model_config.vocab_size), dtype=torch.int16, device=dev
-        )
+        S, V = cfg.max_batch, self.model_config.vocab_size
+        self._zero_counts = torch.zeros((S, V), dtype=torch.int16, device=dev)
         self._rows = torch.arange(S, device=dev)
         self._decode_cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
         self._decode_num = torch.full((1,), S, dtype=torch.int32, device=dev)
+        # The fused decode's device carry (token, rng step, penalty counts):
+        # every ``multi`` dispatch leaves its final carry here and a chained
+        # dispatch starts from it.
+        self._carry = (
+            torch.zeros((S,), dtype=torch.int64, device=dev),
+            torch.zeros((S,), dtype=torch.int64, device=dev),
+            torch.zeros((S, V), dtype=torch.int16, device=dev),
+        )
+        # The device programs (captured graphs on CUDA) and the pinned
+        # slots of deferred fetches: pipeline_depth chunks, up to two burst
+        # chunks, and one first-token fetch per parked row at most.
+        self.programs = DevicePrograms(dev)
+        self._fetch_ring = FetchRing(dev, cfg.pipeline_depth + 2 + S)
 
     # ----------------------------------------------------------- device ops
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -190,14 +249,18 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
     def _multi(
         self,
         tok0: torch.Tensor,  # [S] int64
+        steps0: torch.Tensor,  # [S] int64 rng stream positions
+        counts0: torch.Tensor,  # [S, V] int16 penalty counts
         pos0: torch.Tensor,  # [S] int32, -1 = padding row
         tables: torch.Tensor,  # [S, PP] int32
         limits: torch.Tensor,  # [S] int32 allocated KV capacity
         samp: SamplingParams,
-    ) -> SampleOut:
+    ) -> Tuple[SampleOut, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """``decode_steps`` fused decode iterations in one dispatch: each
-        sampled token feeds the next iteration on the device; returns the
-        stacked ``[decode_steps, S]`` outputs, not yet fetched.
+        sampled token feeds the next iteration on the device.  Returns the
+        stacked ``[decode_steps, S]`` outputs, not yet fetched, and the
+        final carry ``(token, steps, counts)`` a chained dispatch starts
+        from (the JAX engine's ``_multi`` contract).
 
         Steps whose position reaches ``limits`` skip the cache write (their
         tokens are discarded host-side).  Padding rows attend over one
@@ -205,8 +268,7 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
         bs, PP = self.cfg.block_size, tables.shape[1]
         rows = self._rows
         active = pos0 >= 0
-        tok, pos = tok0, pos0
-        steps, counts = samp.steps, samp.counts
+        tok, pos, steps, counts = tok0, pos0, steps0, counts0
         outs: List[SampleOut] = []
         for _ in range(self.cfg.decode_steps):
             posc = pos.clamp(min=0)
@@ -233,20 +295,116 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 counts = counts.scatter(1, col, counts.gather(1, col) + active[:, None].to(counts.dtype))
             pos = torch.where(active, pos + 1, pos)
             steps = torch.where(active, steps + 1, steps)
-        return SampleOut(*(torch.stack(f) for f in zip(*outs)))
+        return SampleOut(*(torch.stack(f) for f in zip(*outs))), (tok, steps, counts)
 
-    @staticmethod
-    def _fetch(out: SampleOut, need_lp: bool):
-        """The one host fetch of a dispatch's sampled outputs."""
-        tokens = out.tokens.cpu().numpy()
-        if not need_lp:
-            return tokens, None, None, None
-        return (
-            tokens,
-            out.logprob.cpu().numpy(),
-            out.top_ids.cpu().numpy(),
-            out.top_logprobs.cpu().numpy(),
-        )
+    def _samp_params(self, x: Dict[str, torch.Tensor], flags: SamplingFlags) -> SamplingParams:
+        return SamplingParams.from_tensors(x, x.get("counts", self._zero_counts), flags)
+
+    def _run_step(self, rb: Dict[str, np.ndarray], samp: HostSampling) -> SampleOut:
+        """Dispatch the ``step`` program for host-built ``rb`` (RaggedBatch
+        fields) and ``samp``: a graph replay on CUDA, keyed by the token
+        bucket and the sampler's flags."""
+        host = {**rb, **samp.arrays}
+        if samp.counts is not None:
+            host["counts"] = samp.counts
+        flags = samp.flags
+
+        def fn(x):
+            batch = RaggedBatch(*(x[f] for f in RaggedBatch._fields))
+            return self._step(batch, self._samp_params(x, flags))
+
+        return self.programs.step((int(rb["token_ids"].shape[0]), *flags), fn, host)
+
+    def _run_multi(self, tok0: Optional[np.ndarray], pos0: np.ndarray, tables: np.ndarray,
+                   limits: np.ndarray, samp: HostSampling) -> SampleOut:
+        """Dispatch the ``multi`` program: seeded from the host (``tok0``
+        and ``samp``'s steps and counts) or, with ``tok0`` None, chained to
+        the device carry of the previous dispatch.  Keyed by the sampler's
+        flags and the carry form.  Leaves the final carry in ``_carry``."""
+        flags = samp.flags
+        chained = tok0 is None
+        host = {"pos0": pos0, "tables": tables, "limits": limits, **samp.arrays}
+        dev: Dict[str, torch.Tensor] = {}
+        if chained:
+            dev = {"carry_tok": self._carry[0], "carry_steps": self._carry[1]}
+            if flags.any_penalty:
+                dev["carry_counts"] = self._carry[2]
+        else:
+            host["tok0"] = tok0
+            if samp.counts is not None:
+                host["counts"] = samp.counts
+
+        def fn(x):
+            sp = self._samp_params(x, flags)
+            if chained:
+                carry = (x["carry_tok"], x["carry_steps"], x.get("carry_counts", sp.counts))
+            else:
+                carry = (x["tok0"], sp.steps, sp.counts)
+            return self._multi(*carry, x["pos0"], x["tables"], x["limits"], sp)
+
+        outs, (last, steps_f, counts_f) = self.programs.multi((*flags, chained), fn, host, dev)
+        self._carry[0].copy_(last)
+        self._carry[1].copy_(steps_f)
+        if flags.any_penalty:
+            self._carry[2].copy_(counts_f)
+        return outs
+
+    # --------------------------------------------------------------- warmup
+    def compile_counts(self) -> Dict[str, int]:
+        """Programs per entry: graphs captured on CUDA (keys run on the
+        CPU).  A serve after ``warmup()`` must not grow them."""
+        return self.programs.cache_sizes()
+
+    def reachable_token_buckets(self) -> List[int]:
+        """Every token bucket the scheduler can hand _run_unified: up to
+        max_batch decode rows ride alongside up to prefill_chunk prompt
+        tokens in one step, so totals range 1..prefill_chunk + max_batch."""
+        hi = self.cfg.bucket_tokens(self.cfg.prefill_chunk + self.cfg.max_batch)
+        buckets, b = [], self.cfg.bucket_tokens(1)
+        while b < hi:
+            buckets.append(b)
+            b *= 2
+        buckets.append(hi)
+        return buckets
+
+    def warmup(self) -> Dict[str, int]:
+        """Capture every program the serving loop dispatches at the greedy
+        defaults — one unified step per reachable token bucket, and the
+        fused decode seeded from the host and chained to the device carry —
+        so no capture lands inside a request.  Every slot is -1 and every
+        fused row inactive, so no cache write lands.  Sampled, penalised or
+        logprob traffic keys other programs, captured at first use.
+        Returns compile_counts()."""
+        cfg = self.cfg
+        S, PP = cfg.max_batch, cfg.max_blocks_per_seq
+        samp = self._sampling_arrays([])
+        with torch.inference_mode():
+            for T in self.reachable_token_buckets():
+                cu = np.zeros((S + 1,), np.int32)
+                cu[1:] = T  # one row owns every token; the others are empty
+                rb = dict(
+                    token_ids=np.zeros((T,), np.int64),
+                    positions=np.zeros((T,), np.int32),
+                    slot_mapping=np.full((T,), -1, np.int32),  # writes dropped
+                    kv_lens=np.asarray([T] + [0] * (S - 1), np.int32),
+                    page_indices=np.zeros((S, PP), np.int32),
+                    cu_q_lens=cu,
+                    num_seqs=np.asarray([1], np.int32),
+                )
+                out = self._run_step(rb, samp)
+            if cfg.decode_steps > 1:
+                args = (np.full((S,), -1, np.int32), np.zeros((S, PP), np.int32),
+                        np.zeros((S,), np.int32))
+                self._run_multi(np.zeros((S,), np.int64), *args, samp)
+                out = self._run_multi(None, *args, samp)
+            # A real fetch: warmup must not return with work still queued.
+            self._start_d2h(out, False).result()
+        return self.compile_counts()
+
+    async def run_warmup(self) -> Dict[str, int]:
+        """warmup() under the device lock, off the event loop."""
+        async with self._device_lock:
+            return await asyncio.to_thread(self.warmup)
 
     # ------------------------------------------------------------ public API
     async def generate(self, request: Context) -> ResponseStream:
@@ -315,6 +473,9 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
             await self._loop_task
             self._loop_task = None
         self._fail_all()  # no generate() stream is left hanging
+        # The graphs bake in the weights' and pages' addresses: drop them
+        # with the engine.
+        self.programs.close()
 
     # -------------------------------------------------------------- the loop
     def _ensure_loop(self) -> None:
@@ -324,11 +485,32 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
     async def _run_loop(self) -> None:
         while not self._closed:
             self._cancel_stopped()
+            try:
+                while self._pending_fetches and self._pending_fetches[0][1].done():
+                    # Completed background fetches apply for free: parked
+                    # rows resume without the loop blocking on a copy.
+                    await self._harvest_pending()
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # a failed fetch fails every stream
+                logger.exception("deferred fetch failed")
+                self._fail_all()
+                return
             plan = self.scheduler.schedule()
             self._note_prefill_requeues()
             for seq in self.scheduler.take_rejected():
                 self._finish(seq, FinishReason.ERROR)
             if plan is None:
+                if self._pending_fetches:
+                    try:
+                        await self._harvest_pending(all_pending=True)
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception:
+                        logger.exception("deferred fetch failed")
+                        self._fail_all()
+                        return
+                    continue
                 if self.scheduler.num_waiting and not self.scheduler.num_running:
                     # e.g. decode just preempted everyone back to waiting:
                     # retry admission (each pass admits or rejects one).
@@ -340,12 +522,17 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
             try:
                 did_work = False
                 if plan.pure_decode and self.cfg.decode_steps > 1:
+                    if self._pending_fetches:
+                        # Parked rows must not sit out a whole fused
+                        # session: fold them in first.
+                        await self._harvest_pending(all_pending=True)
+                        continue
                     self._chunks_since_burst = 0
                     did_work = await self._decode_pipeline([s for s, _, _ in plan.items])
-                elif self.cfg.decode_steps > 1:
-                    # Mixed phase: prefill-only steps at device rate, and
-                    # every prefill_chunks_per_burst of them one fused burst
-                    # advancing every decode row decode_steps tokens.
+                if not did_work and self.cfg.decode_steps > 1:
+                    # Mixed phase: fetch-free prefill steps at device rate,
+                    # and every prefill_chunks_per_burst of them one fused
+                    # burst advancing every decode row.
                     decode_items = [it for it in plan.items if it[1] >= len(it[0].prompt)]
                     prefill_items = [it for it in plan.items if it[1] < len(it[0].prompt)]
                     if decode_items and prefill_items:
@@ -353,13 +540,16 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                         self._chunks_since_burst += 1
                         if self._chunks_since_burst >= self.cfg.prefill_chunks_per_burst:
                             self._chunks_since_burst = 0
-                            burst = [s for s, _, _ in decode_items if not s.finished]
-                            if burst and not await self._decode_burst(burst):
+                            burst_items = [it for it in decode_items
+                                           if not it[0].finished and not it[0].frozen]
+                            if burst_items and not await self._decode_burst(
+                                [s for s, _, _ in burst_items]
+                            ):
                                 # No KV headroom for a whole burst: the
                                 # 1-token slots are already allocated.
-                                await self._run_unified(StepPlan(
-                                    [it for it in decode_items if not it[0].finished]
-                                ))
+                                self.step_trace.append(
+                                    ("burst_fallback", 0.0, len(burst_items), 0))
+                                await self._run_unified(StepPlan(burst_items))
                         did_work = True
                 if not did_work:
                     await self._run_unified(plan)
@@ -387,7 +577,10 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 self._finish(seq, FinishReason.CANCELLED)
 
     def _fail_all(self) -> None:
+        self._pending_fetches.clear()  # drop in-flight token fetches
+        self._pipeline_members = set()
         for seq in list(self.scheduler.running) + list(self.scheduler.waiting):
+            seq.awaiting_fetch = False
             self.scheduler.remove(seq)
             self._finish(seq, FinishReason.ERROR)
 
@@ -400,37 +593,83 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
             self._prefill_requeues_seen = reqs
             self._chunks_since_burst = 0
 
-    async def _run_unified(self, plan: StepPlan) -> None:
-        """One unified step for ``plan``; rows whose prompt completes get
-        their first token, decode rows their next one."""
-        rb = self._build_ragged(plan.items)
-        samp = self._sampling_arrays([s for s, _, _ in plan.items])
-        # A step whose every row stays mid-prefill samples nothing anyone
-        # consumes: skip the fetch, and with it the host-device sync.
-        need_tokens = any(start + n >= len(seq.prompt) for seq, start, n in plan.items)
+    # ------------------------------------------------------------ accounting
+    def _note_prefill_chunk(self, wall_s: float, tokens: int) -> None:
+        """Account one prefill chunk (every unified step that advanced
+        prompt tokens): cumulative counters and the bounded trace behind
+        dynamo_tpu_prefill_chunk_seconds."""
+        self.prefill_chunks += 1
+        self.prefill_wall_s += wall_s
+        self.prefill_tokens += tokens
+        self._prefill_chunk_trace.append(wall_s)
 
-        prefill = any(start < len(seq.prompt) for seq, start, _ in plan.items)
+    def prefill_summary(self) -> Dict[str, Any]:
+        """Prefill-chunk latency: cumulative counters plus p50/p99 over the
+        bounded per-chunk trace window."""
+        times = sorted(self._prefill_chunk_trace)
+        m = len(times)
+        return {
+            "chunks": self.prefill_chunks,
+            "wall_s": round(self.prefill_wall_s, 4),
+            "prompt_tokens": self.prefill_tokens,
+            "p50_ms": round(times[m // 2] * 1e3, 2) if m else 0.0,
+            "p99_ms": round(times[min(m - 1, int(m * 0.99))] * 1e3, 2) if m else 0.0,
+        }
 
-        def run():
-            with torch.inference_mode():
-                span = self.prefill_spans.start() if prefill else None
-                out = self._step(rb, samp)
-                if prefill:
-                    self.prefill_spans.stop(span)
-                return self._fetch(out, samp.need_logprobs) if need_tokens else None
+    def step_summary(self) -> Dict[str, Any]:
+        """The dispatch trace per step kind: counts, wall, device tokens,
+        latency percentiles."""
+        out: Dict[str, Any] = {}
+        for kind in sorted({k for k, *_ in self.step_trace}):
+            times = sorted(t for k, t, _, _ in self.step_trace if k == kind)
+            toks = sum(n for k, _, _, n in self.step_trace if k == kind)
+            m = len(times)
+            out[kind] = {
+                "dispatches": m,
+                "wall_s": round(sum(times), 4),
+                "device_tokens": toks,
+                "p50_ms": round(times[m // 2] * 1e3, 2),
+                "p99_ms": round(times[min(m - 1, int(m * 0.99))] * 1e3, 2),
+            }
+        return out
 
-        fetched = await asyncio.to_thread(run)
-        for i, (seq, start, n) in enumerate(plan.items):
-            if seq.finished:
-                continue  # cancelled while the step ran
-            if start >= len(seq.prompt):
-                # Decode row: the fed token joins the hash stream.
-                seq.block_seq.append((seq.prompt + seq.output)[start])
-            seq.num_computed = start + n
-            self._seal_completed_blocks(seq)
-            if not seq.in_prefill:
-                sampled, logp, top_ids, top_lp = fetched
-                self._accept_token(
-                    seq, int(sampled[i]),
-                    logprobs=self._lp_info(seq, i, logp, top_ids, top_lp),
-                )
+    def reset_dispatch_stats(self) -> None:
+        """Zero the dispatch trace and the session counters together (a
+        timed window's start)."""
+        self.step_trace.clear()
+        self.pipeline_sessions = 0
+        self.pipeline_rebuilds = 0
+        self.continuous_admissions = 0
+        self.continuous_retired = 0
+        self.pipeline_wall_s = 0.0
+        self.decode_busy_s = 0.0
+        self.decode_stalls = 0
+        self.last_stall = None
+        self.prefill_chunks = 0
+        self.prefill_wall_s = 0.0
+        self.prefill_tokens = 0
+        self._prefill_chunk_trace.clear()
+
+    def dispatch_summary(self) -> Dict[str, Any]:
+        """Decode-pipeline health, the JAX engine's keys: the per-kind
+        dispatch trace plus the session counters and ``host_gap_frac``, the
+        share of fused-session wall not covered by in-session device work
+        (dispatch, wait, admission prefill).  0.0 before any session."""
+        wall = self.pipeline_wall_s
+        gap = max(0.0, wall - self.decode_busy_s) / wall if wall > 0 else 0.0
+        return {
+            "kinds": self.step_summary(),
+            "decode_kernel": self.decode_kernel,
+            "prefill_kernel": self.prefill_kernel,
+            "prefill": self.prefill_summary(),
+            "pipeline": {
+                "sessions": self.pipeline_sessions,
+                "rebuilds": self.pipeline_rebuilds,
+                "continuous_admissions": self.continuous_admissions,
+                "continuous_retired": self.continuous_retired,
+                "wall_s": round(wall, 4),
+                "host_gap_frac": round(gap, 4),
+                "stalls": self.decode_stalls,
+                "last_stall": self.last_stall,
+            },
+        }

@@ -1,14 +1,17 @@
 """Where a serving step's time goes on the card: one fused decode dispatch
-and one prefill chunk of TorchEngine on llama-3.1-8b, under torch.profiler.
+and one prefill chunk of TorchEngine on llama-3.1-8b, under torch.profiler,
+each as the eager calls and as the replay of its captured CUDA graph (what
+the serving loop dispatches).
 
     python -m dynamo_tpu_torch.engine.profile_step [--rows 8] [--steps 8]
 
-Prints, for each of the two, the host wall time of an unprofiled run
-(ending in a device synchronize), the summed device time of the kernels of
-a profiled run, the device's idle share of the unprofiled wall
-(1 - busy / wall), and the kernels with the most device time.  Random seeded bf16 weights at full width and depth; the KV
-pages the rows attend over are written by real prefill steps first.
-Needs a CUDA device.
+Prints, for each, the host wall time of an unprofiled run (ending in a
+device synchronize), the summed device time of the kernels of a profiled
+run, the device's idle share of the unprofiled wall (1 - busy / wall), the
+kernels a run holds, whether the two attention kernels are among them, and
+the kernels with the most device time.  Random seeded bf16 weights at full
+width and depth; the KV pages the rows attend over are written by real
+prefill steps first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,9 +57,11 @@ def _profile(label: str, fn, top: int) -> None:
     ]
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
     launches = sum(e.count for e in rows)
+    seen = {k: any(k in e.key for e in rows) for k in ("prefill_tc_kernel", "decode_tc_kernel")}
     print(f"{label}: wall {plain_ms:.3f} ms unprofiled ({wall_ms:.3f} ms profiled), "
           f"device busy {busy_ms:.3f} ms, idle share of the unprofiled wall "
-          f"{max(0.0, 1 - busy_ms / plain_ms):.3f}, {launches} kernels")
+          f"{max(0.0, 1 - busy_ms / plain_ms):.3f}, {launches} kernels; attention kernels "
+          f"in the kernel rows {seen}")
     for e in sorted(rows, key=_device_us, reverse=True)[:top]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
@@ -81,9 +86,11 @@ def main() -> None:
     for i, n in enumerate(ctx):  # disjoint pages per row
         tables[i, : PP] = np.arange(i * PP, (i + 1) * PP) % cfg.num_blocks
     d = eng._to_device
-    samp = eng._sampling_arrays([None] * S)
+    hs = eng._sampling_arrays([None] * S)
+    samp = eng._samp_params({k: d(v) for k, v in hs.arrays.items()}, hs.flags)
 
-    def chunk(row: int, start: int, n: int) -> RaggedBatch:
+    def chunk(row: int, start: int, n: int):
+        """Host arrays of a prefill chunk of ``row`` (RaggedBatch fields)."""
         T = cfg.bucket_tokens(n)
         pos = np.arange(start, start + n, dtype=np.int32)
         tok = np.zeros(T, np.int64)
@@ -98,25 +105,40 @@ def main() -> None:
         tab[0] = tables[row]
         cu = np.zeros(S + 1, np.int32)
         cu[1:] = n
-        return RaggedBatch(d(tok), d(posp), d(slots), d(kv), d(tab), d(cu),
-                           d(np.asarray([1], np.int32)))
+        return dict(token_ids=tok, positions=posp, slot_mapping=slots, kv_lens=kv,
+                    page_indices=tab, cu_q_lens=cu, num_seqs=np.asarray([1], np.int32))
+
+    def eager_batch(rb) -> RaggedBatch:
+        return RaggedBatch(**{k: d(v) for k, v in rb.items()})
 
     with torch.inference_mode():
         for i, n in enumerate(ctx):  # real K/V for every context position
             for start in range(0, n, cfg.prefill_chunk):
-                eng._step(chunk(i, start, min(cfg.prefill_chunk, n - start)), samp)
+                rb = chunk(i, start, min(cfg.prefill_chunk, n - start))
+                eng._step(eager_batch(rb), samp)
         torch.cuda.synchronize()
         pre = chunk(0, 512, 512)  # a 512-token chunk over a 512-token prefix
-        _profile("prefill chunk (512 tokens over 512, one row)",
-                 lambda: eng._fetch(eng._step(pre, samp), False), args.top)
+        _profile("prefill chunk (512 tokens over 512, one row), eager",
+                 lambda: eng._step(eager_batch(pre), samp).tokens.cpu(), args.top)
+        _profile("prefill chunk (512 tokens over 512, one row), graph replay",
+                 lambda: eng._start_d2h(eng._run_step(pre, hs), False).result(), args.top)
         pos0 = np.full(S, -1, np.int32)
         pos0[: args.rows] = ctx
         limits = np.zeros(S, np.int32)
         limits[: args.rows] = PP * bs
         tok0 = np.zeros(S, np.int64)
-        margs = (d(tok0), d(pos0), d(tables), d(limits))
-        _profile(f"fused decode dispatch ({args.rows} live rows of {S}, {args.steps} steps)",
-                 lambda: eng._fetch(eng._multi(*margs, samp), False), args.top)
+        label = f"fused decode dispatch ({args.rows} live rows of {S}, {args.steps} steps)"
+
+        def eager_multi():
+            outs, _ = eng._multi(d(tok0), samp.steps, eng._zero_counts, d(pos0), d(tables),
+                                 d(limits), samp)
+            return outs.tokens.cpu()
+
+        _profile(f"{label}, eager", eager_multi, args.top)
+        _profile(f"{label}, graph replay",
+                 lambda: eng._start_d2h(eng._run_multi(tok0, pos0, tables, limits, hs),
+                                        False).result(), args.top)
+    eng.programs.close()
 
 
 if __name__ == "__main__":

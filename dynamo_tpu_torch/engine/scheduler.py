@@ -393,6 +393,61 @@ class WfqQueue:
             yield from q
 
 
+class RowSlots:
+    """Row-slot free list for the continuous fused decode pipeline
+    (engine/pipeline.py _decode_pipeline).
+
+    The fused multi-step decode program is dispatched over ``max_batch``
+    device rows.  Continuous batching keeps a persistent slot map: retiring
+    a finished row frees its slot after the in-flight-write barrier (the
+    retired sequence's KV blocks are released only once every dispatched
+    chunk that could write them has been harvested), and a newly admitted
+    sequence takes a free slot at the next chain-break merge.  The per-row
+    ``pos0``/``tables``/``limits``/sampling arrays are all indexed by these
+    slots.
+
+    Retired slots pass through a PENDING state (``retire`` → barrier →
+    ``free``) so a slot is never handed to a newcomer while an in-flight
+    chunk could still write the old row's blocks; ``capacity_left`` counts
+    pending slots as available because admission decisions happen strictly
+    before the merge that would reuse them (by which point every barrier
+    has passed).
+    """
+
+    def __init__(self, size: int):
+        self.size = size
+        self.rows: List[Optional[SequenceState]] = [None] * size
+        # Pop from the end: lowest index first.
+        self._free: List[int] = list(range(size - 1, -1, -1))
+        self._pending: set = set()  # retired, awaiting the write barrier
+
+    def assign(self, seq: SequenceState) -> int:
+        i = self._free.pop()
+        self.rows[i] = seq
+        return i
+
+    def retire(self, i: int) -> None:
+        """Row finished/cancelled: excluded from future dispatches now,
+        reusable only after ``free(i)`` (the caller's write barrier)."""
+        self.rows[i] = None
+        self._pending.add(i)
+
+    def free(self, i: int) -> None:
+        self._pending.discard(i)
+        self._free.append(i)
+
+    def active(self) -> List[Tuple[int, SequenceState]]:
+        return [(i, s) for i, s in enumerate(self.rows) if s is not None]
+
+    @property
+    def num_active(self) -> int:
+        return sum(1 for s in self.rows if s is not None)
+
+    @property
+    def capacity_left(self) -> int:
+        return len(self._free) + len(self._pending)
+
+
 @dataclass
 class StepPlan:
     """One unified device step: per-row (state, start, n_tokens).
@@ -626,6 +681,40 @@ class Scheduler:
             )
             seq._admit_hash_cache = cached
         return self.kv.would_fit(cached[1], prompt_blocks)
+
+    def waiting_head_compatible(self) -> bool:
+        """Can the waiting head join a running fused decode session via
+        in-loop admission (engine/pipeline.py)?  Grammar-constrained rows
+        cannot, and frozen (mid-migration) heads must not be admitted at
+        all.  An incompatible-but-admissible head is the one remaining
+        reason the continuous pipeline drains for a full scheduler
+        rebuild."""
+        if not self.waiting:
+            return False
+        seq = self.waiting[0]
+        return not seq.frozen and seq.grammar is None
+
+    def admit_continuous(self, limit: int) -> List[SequenceState]:
+        """In-loop admission for the continuous fused decode pipeline: pop
+        and admit up to ``limit`` compatible waiting heads (same WFQ order,
+        same ``_try_admit`` block accounting and admission-wait metrics as
+        ``schedule()``'s admission loop).  Stops at the first head that is
+        incompatible, frozen, or doesn't fit; never rejects (the never-fits
+        reject path needs an EMPTY engine to be provable, and mid-pipeline
+        the batch is running)."""
+        admitted: List[SequenceState] = []
+        while limit > 0 and self.waiting and len(self.running) < self.cfg.max_batch:
+            seq = self.waiting[0]
+            if seq.frozen or seq.grammar is not None:
+                break
+            if not self._try_admit(seq):
+                break
+            self.waiting.popleft()
+            self.running.append(seq)
+            self._record_admission(seq)
+            admitted.append(seq)
+            limit -= 1
+        return admitted
 
     def _try_admit(self, seq: SequenceState) -> bool:
         """Allocate prompt blocks (sharing any cached prefix)."""

@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Set
 
 from ..labels import bounded_label
 from ..runtime.engine import AsyncEngine, Context
-from .metrics import Metrics, Status
+from .metrics import Metrics, Status, engine_dispatch_metrics
 from .openai import SSE_DONE, aggregate_chunks, sse_encode
 from .protocols import ModelNotFoundError
 
@@ -248,6 +248,7 @@ class HttpService:
         self.port = port
         self.models = model_manager or ModelManager()
         self.metrics = Metrics(metrics_prefix)
+        self._metrics_prefix = metrics_prefix
         self._server: Optional[asyncio.AbstractServer] = None
         self._connections: Set[asyncio.Task] = set()
         # path → (method, handler(conn, req) -> response, or None when the
@@ -357,7 +358,8 @@ class HttpService:
         return _json_response({"status": "ok", "models": self.models.model_names()})
 
     async def _metrics(self, conn: _Connection, req: _Request) -> _Response:
-        return _Response(200, self.metrics.render(), "text/plain; version=0.0.4; charset=utf-8")
+        body = self.metrics.render() + engine_dispatch_metrics.render(self._metrics_prefix).encode()
+        return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")
 
     async def _list_models(self, conn: _Connection, req: _Request) -> _Response:
         now = int(time.time())

@@ -13,9 +13,10 @@ that records duration + status when dropped.
 ``prometheus_client`` is not used: the small ``Counter``, ``Gauge`` and
 ``Histogram`` below render the same exposition text (names, label names,
 buckets, value format) minus the optional ``_created`` series, so one
-scraper reads both packages.  The metric groups of subsystems the port does
-not have yet (speculative decoding, KV tiers, QoS, tracing, ...) are not
-here.
+scraper reads both packages.  ``EngineDispatchMetrics`` is the colocated
+engine's dispatch-health group.  The metric groups of subsystems the port
+does not have yet (speculative decoding, KV tiers, QoS, tracing, ...) are
+not here.
 """
 
 from __future__ import annotations
@@ -283,3 +284,118 @@ class InflightGuard:
                 self.finish(Status.ERROR)
             except Exception:  # noqa: BLE001 — interpreter teardown
                 pass
+
+
+# -- the colocated engine's dispatch health ---------------------------------------
+
+
+class EngineDispatchMetrics:
+    """Decode-pipeline dispatch health (engine/pipeline.py), copied from the
+    JAX package's ``llm/metrics.py``: per-kind dispatch counts/wall/
+    percentiles from the engine's step_trace, plus the continuous-batching
+    session gauges (sessions, rebuilds, in-loop admissions/retirements,
+    fused-loop host-gap fraction).
+
+    Holds a SOURCE callable (``engine.dispatch_summary``) wired by whoever
+    colocates an engine with the HTTP edge (``cli run in=http out=torch``);
+    rendered as Prometheus text and appended to ``/metrics``.  Without a
+    source it renders nothing."""
+
+    def __init__(self):
+        self._source = None
+
+    def set_source(self, source) -> None:
+        """``source() -> engine.dispatch_summary()`` dict, or None to
+        detach."""
+        self._source = source
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        if self._source is None:
+            return ""
+        try:
+            s = self._source()
+        except Exception:  # engine mid-teardown: drop this scrape's section
+            return ""
+        ns = f"{prefix}_engine_dispatch"
+        # Per-kind stats come from the engine's BOUNDED step_trace window:
+        # gauges, never counters.
+        lines = [
+            f"# HELP {ns}_window_dispatches Device dispatches per step "
+            "kind over the bounded trace window",
+            f"# TYPE {ns}_window_dispatches gauge",
+        ]
+        kinds = sorted(s.get("kinds", {}).items())
+        for kind, v in kinds:
+            lines.append(f'{ns}_window_dispatches{{kind="{escape_label(kind)}"}} '
+                         f'{v["dispatches"]}')
+        lines.append(f"# HELP {ns}_window_wall_seconds Wall per step kind "
+                     "over the bounded trace window")
+        lines.append(f"# TYPE {ns}_window_wall_seconds gauge")
+        for kind, v in kinds:
+            lines.append(f'{ns}_window_wall_seconds{{kind="{escape_label(kind)}"}} {v["wall_s"]}')
+        for q in ("p50", "p99"):
+            lines.append(f"# HELP {ns}_{q}_ms {q} dispatch latency per "
+                         "step kind (over the bounded trace window)")
+            lines.append(f"# TYPE {ns}_{q}_ms gauge")
+            for kind, v in kinds:
+                lines.append(f'{ns}_{q}_ms{{kind="{escape_label(kind)}"}} {v[f"{q}_ms"]}')
+        pipe = s.get("pipeline", {})
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("pipeline_sessions_total", "counter",
+             "Fused decode pipeline sessions begun", pipe.get("sessions", 0))
+        emit("pipeline_rebuilds_total", "counter",
+             "Sessions drained by a rebuild event (incompatible change)",
+             pipe.get("rebuilds", 0))
+        emit("continuous_admissions_total", "counter",
+             "Sequences admitted into a live fused session (no drain)",
+             pipe.get("continuous_admissions", 0))
+        emit("continuous_retired_total", "counter",
+             "Rows retired from a live fused session (no drain)",
+             pipe.get("continuous_retired", 0))
+        emit("pipeline_wall_seconds_total", "counter",
+             "Cumulative fused-session wall time", pipe.get("wall_s", 0.0))
+        emit("host_gap_frac", "gauge",
+             "Fraction of fused-session wall not covered by decode "
+             "dispatch/wait device work", pipe.get("host_gap_frac", 0.0))
+        # Decode-stall watchdog, outside the _dispatch namespace: alert
+        # rules key on this exact name.
+        lines.append(f"# HELP {prefix}_engine_stall_total Token fetches "
+                     "that exceeded the decode-stall threshold")
+        lines.append(f"# TYPE {prefix}_engine_stall_total counter")
+        lines.append(f"{prefix}_engine_stall_total {pipe.get('stalls', 0)}")
+        kern = s.get("decode_kernel", "")
+        if kern:
+            lines.append(f"# HELP {ns}_decode_kernel_info Active decode "
+                         "attention kernel (DYN_DECODE_KERNEL)")
+            lines.append(f"# TYPE {ns}_decode_kernel_info gauge")
+            lines.append(f'{ns}_decode_kernel_info{{kernel="{escape_label(kern)}"}} 1')
+        pkern = s.get("prefill_kernel", "")
+        if pkern:
+            lines.append(f"# HELP {ns}_prefill_kernel_info Active prefill "
+                         "attention kernel (DYN_PREFILL_KERNEL)")
+            lines.append(f"# TYPE {ns}_prefill_kernel_info gauge")
+            lines.append(f'{ns}_prefill_kernel_info{{kernel="{escape_label(pkern)}"}} 1')
+        # Prefill-chunk latency summary: cumulative _sum/_count, quantiles
+        # over the bounded per-chunk trace window.
+        pf = s.get("prefill", {})
+        if pf:
+            pn = f"{prefix}_prefill_chunk_seconds"
+            lines.append(f"# HELP {pn} Prefill chunk dispatch wall time")
+            lines.append(f"# TYPE {pn} summary")
+            for q, key in (("0.5", "p50_ms"), ("0.99", "p99_ms")):
+                lines.append(f'{pn}{{quantile="{escape_label(q)}"}} {pf.get(key, 0.0) / 1e3}')
+            lines.append(f"{pn}_sum {pf.get('wall_s', 0.0)}")
+            lines.append(f"{pn}_count {pf.get('chunks', 0)}")
+            lines.append(f"# HELP {prefix}_prefill_tokens_total Prompt tokens "
+                         "computed by prefill chunks")
+            lines.append(f"# TYPE {prefix}_prefill_tokens_total counter")
+            lines.append(f"{prefix}_prefill_tokens_total {pf.get('prompt_tokens', 0)}")
+        return "\n".join(lines) + "\n"
+
+
+engine_dispatch_metrics = EngineDispatchMetrics()

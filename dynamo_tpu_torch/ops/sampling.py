@@ -18,7 +18,7 @@ device.  The stream is this package's own: it does not reproduce
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +34,39 @@ class SampleOut(NamedTuple):
     logprob: torch.Tensor  # [B] f32 — raw log p(sampled token)
     top_ids: torch.Tensor  # [B, TOPK_LOGPROBS] int64
     top_logprobs: torch.Tensor  # [B, TOPK_LOGPROBS] f32
+
+
+class SamplingFlags(NamedTuple):
+    """The host-known facts that decide which sampler stages run.  Each
+    changes the launched work, so a captured device program is keyed by
+    them (engine/graphs.py)."""
+
+    need_logprobs: bool
+    any_penalty: bool
+    any_sampled: bool  # some row has temperature > 0
+    any_filter: bool  # some sampled row uses top-k or top-p
+
+    @classmethod
+    def of(cls, temperature, top_k, top_p, freq_penalty, pres_penalty,
+           need_logprobs) -> "SamplingFlags":
+        temperature = np.asarray(temperature, np.float32)
+        sampled = temperature > 0.0
+        filt = (np.asarray(top_k) > 0) | (np.asarray(top_p, np.float32) < 1.0)
+        pen = (np.asarray(freq_penalty) != 0.0) | (np.asarray(pres_penalty) != 0.0)
+        return cls(bool(need_logprobs), bool(np.any(pen)), bool(np.any(sampled)),
+                   bool(np.any(sampled & filt)))
+
+
+# Host dtypes of the per-row sampling arrays (SamplingParams' tensors).
+SAMPLING_DTYPES = {
+    "seeds": np.int64,  # holding uint32 seeds
+    "steps": np.int64,
+    "temperature": np.float32,
+    "top_k": np.int64,
+    "top_p": np.float32,
+    "freq_penalty": np.float32,
+    "pres_penalty": np.float32,
+}
 
 
 class SamplingParams(NamedTuple):
@@ -58,6 +91,14 @@ class SamplingParams(NamedTuple):
     any_mask: bool = False
 
     @classmethod
+    def from_tensors(cls, t: Mapping[str, torch.Tensor], counts: torch.Tensor,
+                     flags: SamplingFlags) -> "SamplingParams":
+        """From tensors named as ``SAMPLING_DTYPES``, already on the device
+        (a captured program's static inputs), and the flags they were
+        built with."""
+        return cls(**{k: t[k] for k in SAMPLING_DTYPES}, counts=counts, **flags._asdict())
+
+    @classmethod
     def from_numpy(
         cls,
         device: torch.device,
@@ -74,32 +115,17 @@ class SamplingParams(NamedTuple):
     ) -> "SamplingParams":
         """Move host arrays to ``device`` and derive the flags from them
         (``counts`` is already a device tensor: the engine caches zeros)."""
-
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
-
-        temperature = np.asarray(temperature, np.float32)
-        top_k = np.asarray(top_k)
-        top_p = np.asarray(top_p, np.float32)
-        freq_penalty = np.asarray(freq_penalty, np.float32)
-        pres_penalty = np.asarray(pres_penalty, np.float32)
-        sampled = temperature > 0.0
-        return cls(
-            seeds=t(np.asarray(seeds).astype(np.int64) & 0xFFFFFFFF, torch.int64),
-            steps=t(np.asarray(steps).astype(np.int64), torch.int64),
-            temperature=t(temperature, torch.float32),
-            top_k=t(top_k.astype(np.int64), torch.int64),
-            top_p=t(top_p, torch.float32),
-            freq_penalty=t(freq_penalty, torch.float32),
-            pres_penalty=t(pres_penalty, torch.float32),
-            counts=counts,
-            need_logprobs=bool(need_logprobs),
-            any_penalty=bool(np.any((freq_penalty != 0.0) | (pres_penalty != 0.0))),
-            any_sampled=bool(np.any(sampled)),
-            any_filter=bool(np.any(sampled & ((top_k > 0) | (top_p < 1.0)))),
+        host = dict(seeds=np.asarray(seeds).astype(np.int64) & 0xFFFFFFFF, steps=steps,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    freq_penalty=freq_penalty, pres_penalty=pres_penalty)
+        t = {k: torch.as_tensor(np.asarray(host[k], dt)).to(device)
+             for k, dt in SAMPLING_DTYPES.items()}
+        flags = SamplingFlags.of(temperature, top_k, top_p, freq_penalty, pres_penalty,
+                                 need_logprobs)
+        return cls.from_tensors(t, counts, flags)._replace(
             mask_words=(
                 None if mask_words is None
-                else t(np.asarray(mask_words).astype(np.int64), torch.int64)
+                else torch.as_tensor(np.asarray(mask_words).astype(np.int64)).to(device)
             ),
             any_mask=mask_words is not None,
         )

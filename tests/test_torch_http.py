@@ -293,6 +293,49 @@ def test_keep_alive_and_metrics(servers):
                for n, _ in samples)
 
 
+def _key_tree(d):
+    return {k: _key_tree(v) if isinstance(v, dict) else None for k, v in d.items()}
+
+
+def test_engine_dispatch_metrics_match_jax(servers):
+    """With each engine wired to its package's ``engine_dispatch_metrics``
+    (as ``run in=http`` wires a colocated engine), the same trace through
+    both servers leaves ``dispatch_summary()`` with the JAX engine's key
+    set, step kinds included, and ``/metrics`` with the JAX server's
+    engine-dispatch family names."""
+    from dynamo_tpu.llm.metrics import engine_dispatch_metrics as jax_dispatch_metrics
+    from dynamo_tpu_torch.llm.metrics import engine_dispatch_metrics
+
+    async def trace(base):
+        bodies = [dict(model="m", prompt=PROMPT[: 3 + i], max_tokens=10 + 3 * i,
+                       nvext={"ignore_eos": True}) for i in range(3)]
+        replies = await asyncio.gather(*(_post(base, "/v1/completions", b) for b in bodies))
+        assert [r[0] for r in replies] == [200] * 3
+        async with ClientSession() as http:
+            async with http.get(base + "/metrics") as r:
+                return await r.text()
+
+    def families(text):
+        return {f.name for f in text_string_to_metric_families(text)
+                if f.name.startswith("dynamo_tpu_engine_")}
+
+    jax_dispatch_metrics.set_source(servers.jax_engine.dispatch_summary)
+    engine_dispatch_metrics.set_source(servers.engine.dispatch_summary)
+    try:
+        servers.jax_engine.reset_dispatch_stats()
+        servers.engine.reset_dispatch_stats()
+        want_text = servers.run(trace(servers.jax_base))
+        got_text = servers.run(trace(servers.base))
+        want, got = servers.jax_engine.dispatch_summary(), servers.engine.dispatch_summary()
+    finally:
+        jax_dispatch_metrics.set_source(None)
+        engine_dispatch_metrics.set_source(None)
+    assert _key_tree(got) == _key_tree(want)
+    assert got["pipeline"]["sessions"] >= 1 and "decode_dispatch" in got["kinds"]
+    assert families(got_text) == families(want_text)
+    assert "dynamo_tpu_engine_dispatch_pipeline_sessions" in families(got_text)
+
+
 @pytest.mark.parametrize("head,status", [
     (b"GET /health HTTP/1.0\r\n\r\n", 505),
     (b"NONSENSE\r\n\r\n", 400),

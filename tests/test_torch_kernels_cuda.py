@@ -170,3 +170,86 @@ def test_engine_sampling_features_on_the_card(cuda):
     again = asyncio.run(run())  # seeded and greedy streams reproduce
     toks = [[t for it in items for t in it["token_ids"]] for items in first]
     assert toks == [[t for it in items for t in it["token_ids"]] for items in again]
+
+
+def _card_tiny_engine(cuda, **over):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig, register_config
+
+    register_config(ModelConfig(
+        name="card-tiny", vocab_size=512, hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=1, head_dim=128, intermediate_size=512,
+    ))
+    cfg = EngineConfig(**dict(dict(model="card-tiny", dtype="bfloat16", block_size=16,
+                                   num_blocks=64, max_batch=4, max_model_len=256,
+                                   prefill_chunk=32, decode_steps=4), **over))
+    return TorchEngine(cfg, device=cuda)
+
+
+def test_graph_replays_match_eager_and_count_kernel_launches(cuda):
+    """Each captured program against the eager call on the same inputs
+    (writes dropped), and the kernel launches a replay adds."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.llama import RaggedBatch
+
+    eng = _card_tiny_engine(cuda)
+    counts = eng.warmup()
+    assert counts == {"step": len(eng.reachable_token_buckets()), "multi": 2}
+    S, PP = eng.cfg.max_batch, eng.cfg.max_blocks_per_seq
+    samp = eng._sampling_arrays([])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    sp = eng._samp_params({k: t(v) for k, v in samp.arrays.items()}, samp.flags)
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        n = 20
+        cu = np.zeros(S + 1, np.int32)
+        cu[1:] = n
+        rb = dict(token_ids=np.pad(rng.integers(1, 512, n), (0, 12)).astype(np.int64),
+                  positions=np.pad(np.arange(n), (0, 12)).astype(np.int32),
+                  slot_mapping=np.full(32, -1, np.int32),
+                  kv_lens=np.asarray([n, 0, 0, 0], np.int32),
+                  page_indices=np.zeros((S, PP), np.int32), cu_q_lens=cu,
+                  num_seqs=np.asarray([1], np.int32))
+        before = pa.prefill_attention_cuda.launches
+        got = eng._run_step(rb, samp).tokens.clone()
+        assert pa.prefill_attention_cuda.launches - before == 2  # one a layer
+        want = eng._step(RaggedBatch(**{k: t(v) for k, v in rb.items()}), sp).tokens
+        assert torch.equal(got, want)
+        pos0 = np.asarray([40, 55, 70, 85], np.int32)
+        tabs = rng.permutation(64)[: S * PP].reshape(S, PP).astype(np.int32) % 64
+        tok0 = rng.integers(1, 512, S).astype(np.int64)
+        before = da.decode_attention_cuda.launches
+        got = eng._run_multi(tok0, pos0, tabs, pos0.copy(), samp).tokens.clone()
+        assert da.decode_attention_cuda.launches - before == 2 * eng.cfg.decode_steps
+        want, _ = eng._multi(t(tok0), sp.steps, eng._zero_counts, t(pos0), t(tabs), t(pos0), sp)
+        assert torch.equal(got, want.tokens)
+    assert eng.compile_counts() == counts
+
+
+def test_failed_capture_raises(cuda):
+    """A program that cannot be captured (here: a host sync inside the
+    step) raises from the dispatch; nothing runs eagerly instead."""
+    import numpy as np
+
+    eng = _card_tiny_engine(cuda)
+    step = eng._step
+
+    def syncing_step(rb, samp):
+        out = step(rb, samp)
+        out.tokens.sum().item()  # a host read: not permitted while capturing
+        return out
+
+    eng._step = syncing_step
+    S, PP = eng.cfg.max_batch, eng.cfg.max_blocks_per_seq
+    cu = np.zeros(S + 1, np.int32)
+    cu[1:] = 16
+    rb = dict(token_ids=np.ones(16, np.int64), positions=np.arange(16, dtype=np.int32),
+              slot_mapping=np.full(16, -1, np.int32),
+              kv_lens=np.asarray([16, 0, 0, 0], np.int32),
+              page_indices=np.zeros((S, PP), np.int32), cu_q_lens=cu,
+              num_seqs=np.asarray([1], np.int32))
+    with torch.inference_mode(), pytest.raises(RuntimeError):
+        eng._run_step(rb, eng._sampling_arrays([]))
+    assert eng.compile_counts()["step"] == 0
