@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-ab   # direct vs HTTP serve in turns only
+    python3 chip_smoke.py --quant-ab   # phase c's traffic, W8A8 vs bf16 in turns only
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -51,7 +52,42 @@ Phases, any failure exits non-zero:
      streamed /v1/completions, one chat request unary and streamed (equal
      texts), an unknown model (404) and /metrics (the engine-dispatch
      group too), with both kernels' counters zeroed before and read after;
-  8. print the kernels line, then the device line last.
+  a. W8A8 ops: ``qdot`` at each llama-3.1-8b projection shape (wqkv, wo,
+     w_gateup, w_down, lm_head) and M = 16, 256, 2048: int32 accumulation
+     equal to an exact integer reference, every output entry within 8
+     standard deviations of the activations' rounding from
+     x @ dequant(w), the largest error within 1.5 % of its largest entry;
+     timed against bf16 ``torch.matmul`` and ``_int_mm``
+     alone in both weight layouts, beside the bounds; then both kernels
+     over int8 pages at the shapes of phases c and d, each held against
+     its plain version and timed beside its plain version, its bound and
+     SDPA over pre-gathered, dequantized K/V;
+  b. the W8A8 model: llama-3.1-8b at 4 and 32 layers (int8 weights drawn
+     by the engine, int8 KV scales calibrated at start — printed with the
+     time calibration took) against its own tree dequantized to bf16: mean
+     KL < 0.05 and decisive top-1 agreement at both depths; int8 pages vs
+     bf16 pages on the W8A8 model: cosine > 0.99 at 4 layers, and at 32
+     1 - cosine within 8x the bf16 tree's under the same scales;
+  c. bench.py's geometry on one W8A8 + int8-KV ``auto`` engine (max_batch
+     256, max_model_len 256, 4160 pages, prefill_chunk 512, decode_steps 8,
+     pipeline_depth 8): 256 greedy requests, ISL 128, OSL 64, after
+     ``run_warmup()``, with no graph captured during the serve;
+  d. benchmarks/loadgen.py's self-hosted geometry through the port's
+     HttpService → preprocessor → backend (W8A8 + int8 KV ``auto``,
+     max_batch 24, max_model_len 4096, 6208 pages, prefill_chunk 2048,
+     decode_steps 16, pipeline_depth 4): 24 concurrent streamed
+     /v1/completions of 3000-token-id prompts, OSL 150, and /metrics;
+  e. speculation as bench.py's ``_spec_bench`` runs it: a fresh W8A8
+     engine at phase c's geometry per mode, off then on at k 8, 32
+     requests of repetitive prompts (greedy) and of random prompts
+     (temperature 0.7, seed i·7+1); the streams must be identical; then
+     the same traffic on the spec-on engine with drafts forced from an
+     oracle of the spec-off streams (one token wrong in every other
+     8-token window): identical streams again, with verification
+     dispatches and both accepted and rejected drafts;
+  8. print the kernels line (each kernel's int8 timings and its launches in
+     phases c, d and e beside phase 6's and 7's), then the device line
+     last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -349,14 +385,165 @@ def check_kernels(torch, dev, cfg, tally):
 # ------------------------------------------------------------ kernel timing
 
 
+def time_decode(torch, dev, tally, flush, label, lens, n_live, PP, page_dtype, scale,
+                lib_rtol=0.0):
+    """Time one decode launch at ``lens`` (the first ``n_live`` rows real,
+    the rest padding rows at kv_len 1), table width ``PP``, bf16 q over
+    ``page_dtype`` pages stored at ``scale``: the kernel, held against its
+    plain version, beside the plain version, the bound and the library
+    yardstick — SDPA over the live rows' pre-gathered K/V, dequantized to
+    bf16 and kept at KV heads, each KV head's G query heads as its G query
+    positions (the gather is not timed)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    sm = D**-0.5
+    S = len(lens)
+    kv_scale = None if page_dtype == torch.bfloat16 else scale
+    q, pages, kv_lens, tables, num = decode_case(
+        torch, gen, dev, lens, S, PP, torch.bfloat16, page_dtype, scale)
+    esize = pages.element_size()
+    kv_bytes = sum(lens) * 2 * KV * D * esize + sum(math.ceil(n / PS) for n in lens) * 4
+    b_ms, b_by = bound(kv_bytes + 2 * q.numel() * 2 + S * 4, sum(lens) * H * D * 4)
+
+    def kernel():
+        return da.decode_attention_cuda(q, pages, kv_lens, tables, num, sm_scale=sm,
+                                        kv_scale=kv_scale)
+
+    def plain():
+        return da.decode_attention_plain(q, pages, kv_lens, tables, num, sm_scale=sm,
+                                         kv_scale=kv_scale)
+
+    got = kernel()
+    tally.compare(torch, "decode_attention", f"{label} S={S} PP={PP} pages={page_dtype}",
+                  got, plain(), 1e-2)
+    W = max(lens[:n_live])
+    ctx = torch.arange(W, device=dev)
+    slots = tables[:n_live, (ctx // PS).clamp(max=PP - 1)].long() * PS + ctx % PS
+    kvg = (pages.view(-1, 2 * KV, D)[slots].float() * (kv_scale or 1.0)).to(torch.bfloat16)
+    k = kvg[:, :, 0::2].permute(0, 2, 1, 3).contiguous()  # [n, KV, W, D]
+    v = kvg[:, :, 1::2].permute(0, 2, 1, 3).contiguous()
+    del kvg
+    mask = (ctx[None, :] < kv_lens[:n_live, None])[:, None, None, :]  # [n, 1, 1, W]
+    qg = q[:n_live].reshape(n_live, KV, G, D)
+
+    def library():
+        return F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=sm)
+
+    lib = library().reshape(n_live, H, D).float()
+    lib_err = float((lib - got[:n_live].float()).abs().max())
+    lib_ok = torch.allclose(lib, got[:n_live].float(), rtol=lib_rtol, atol=LIBRARY_ATOL)
+    medians, rounds = alternating_ms(torch, kernel, library, flush)
+    r = dict(**medians, rounds=rounds, plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
+             library_err=lib_err, library_ok=lib_ok, lib_rtol=lib_rtol, bound_ms=b_ms,
+             bound_by=b_by,
+             shape=f"{label}: S={S} PP={PP} kv_lens {min(lens[:n_live])}..{W} "
+                   f"({n_live} live) q bf16 pages {str(page_dtype).split('.')[-1]}; "
+                   f"library: {n_live} live rows padded to {W}")
+    del q, pages, k, v, got, lib
+    return r
+
+
+def time_prefill(torch, dev, tally, flush, label, S, T, priors, q_lens, page_dtype, scale,
+                 lib_rtol=0.0):
+    """Time one prefill launch of rows ``q_lens`` over prior prefixes
+    ``priors`` in a ``T``-token bucket of ``S`` rows, bf16 q over
+    ``page_dtype`` pages: the kernel against its plain version, beside the
+    plain version, the bound and the library yardstick — one SDPA call
+    over every row's pre-gathered, dequantized K/V at KV heads (query
+    token t of head kv*G + g is row t*G + g of its KV head; rows padded to
+    the longest, masked causally at prior + t)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    sm = D**-0.5
+    kv_scale = None if page_dtype == torch.bfloat16 else scale
+    q, pages, kv_lens, tables, cu, num = prefill_case(
+        torch, gen, dev, priors, q_lens, S, T, torch.bfloat16, page_dtype, scale)
+    ctxs = [p + n for p, n in zip(priors, q_lens)]
+    nbytes = (sum(ctxs) * 2 * KV * D * pages.element_size() + 2 * sum(q_lens) * H * D * 2
+              + sum(math.ceil(c / PS) for c in ctxs) * 4)
+    flops = sum(sum(p + i + 1 for i in range(n)) for p, n in zip(priors, q_lens)) * H * D * 4
+    b_ms, b_by = bound(nbytes, flops)
+
+    def kernel():
+        return pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
+                                         kv_scale=kv_scale)
+
+    def plain():
+        return pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm,
+                                          kv_scale=kv_scale)
+
+    got = kernel()
+    tally.compare(torch, "prefill_attention", f"{label} T={T} S={S} pages={page_dtype}",
+                  got, plain(), 1e-2, range(sum(q_lens), T))
+    R, Qm, L = len(q_lens), max(q_lens), max(ctxs)
+    ctx = torch.arange(L, device=dev)
+    PP = tables.shape[1]
+    slots = tables[:R, (ctx // PS).clamp(max=PP - 1)].long() * PS + ctx % PS  # [R, L]
+    kvg = (pages.view(-1, 2 * KV, D)[slots].float() * (kv_scale or 1.0)).to(torch.bfloat16)
+    k = kvg[:, :, 0::2].permute(0, 2, 1, 3).contiguous()  # [R, KV, L, D]
+    v = kvg[:, :, 1::2].permute(0, 2, 1, 3).contiguous()
+    del kvg
+    qg = torch.zeros((R, Qm, H, D), dtype=q.dtype, device=dev)
+    for r, (start, n) in enumerate(zip(cu.tolist(), q_lens)):
+        qg[r, :n] = q[start:start + n]
+    qg = qg.reshape(R, Qm, KV, G, D).permute(0, 2, 1, 3, 4).reshape(R, KV, Qm * G, D).contiguous()
+    t = torch.arange(Qm, device=dev)
+    prior = torch.tensor(priors, device=dev)
+    # Padding query rows may see key 0 only, so they stay finite.
+    limit = torch.where(t[None, :] < torch.tensor(q_lens, device=dev)[:, None],
+                        prior[:, None] + t[None, :], 0).repeat_interleave(G, dim=1)
+    pmask = (ctx[None, None, :] <= limit[:, :, None])[:, None]  # [R, 1, Qm*G, L]
+
+    def library():
+        return F.scaled_dot_product_attention(qg, k, v, attn_mask=pmask, scale=sm)
+
+    lib = library().reshape(R, KV, Qm, G, D).permute(0, 2, 1, 3, 4).reshape(R, Qm, H, D)
+    pairs = [(lib[r, :n].float(), got[s:s + n].float())
+             for r, (s, n) in enumerate(zip(cu.tolist(), q_lens))]
+    lib_err = max(float((a - b).abs().max()) for a, b in pairs)
+    lib_ok = all(torch.allclose(a, b, rtol=lib_rtol, atol=LIBRARY_ATOL) for a, b in pairs)
+    medians, rounds = alternating_ms(torch, kernel, library, flush)
+    out = dict(**medians, rounds=rounds, plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
+               library_err=lib_err, library_ok=lib_ok, lib_rtol=lib_rtol, bound_ms=b_ms,
+               bound_by=b_by,
+               shape=f"{label}: T={T} S={S}, rows {list(q_lens)} tokens over prefixes "
+                     f"{list(priors)}, q bf16 pages {str(page_dtype).split('.')[-1]}")
+    del q, pages, k, v, got, lib, pairs
+    return out
+
+
+LIBRARY_ATOL = 1e-2
+
+
+def report_times(torch, out, tally):
+    """Print each timing and hold the library yardstick to the kernel's
+    output (it must compute the same function)."""
+    for name, r in out.items():
+        ok = r["library_ok"]
+        log(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms (kernel/library {r['ms'] / r['library_ms']:.3f}; "
+            f"vs kernel max_abs_err {r['library_err']:.3e} (atol {LIBRARY_ATOL} rtol "
+            f"{r['lib_rtol']}) {'ok' if ok else 'FAIL'}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"medians of {TIMING_ROUNDS} alternating rounds: kernel "
+            f"{[round(x, 4) for x in r['rounds']['ms']]} library "
+            f"{[round(x, 4) for x in r['rounds']['library_ms']]}")
+        if not ok:
+            tally.failures.append(f"{name.split(' ')[0]} library yardstick computes another function")
+
+
 def time_kernels(torch, dev, cfg, tally):
     """Phase 4, at the serving path's shapes: the rows of a fused decode
     dispatch (serving_decode_lens) and a 512-token prefill chunk over a
-    1024-token prior prefix in its token bucket.  The kernel's output on
-    these inputs is held against the plain version's, and the library
-    call's against the kernel's (it must compute the same function)."""
-    import torch.nn.functional as F
-
+    1024-token prior prefix in its token bucket; then the prefill kernel at
+    a mixed step's shape beside a decode launch of its one-token rows."""
     from dynamo_tpu_torch.ops import decode_attention as da
     from dynamo_tpu_torch.ops import prefill_attention as pa
 
@@ -364,95 +551,16 @@ def time_kernels(torch, dev, cfg, tally):
     gen.manual_seed(1)
     sm = D**-0.5
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    out = {}
-
     S, PP = cfg.max_batch, cfg.max_blocks_per_seq
     live, lens = serving_decode_lens(cfg)
-    q, pages, kv_lens, tables, num = decode_case(
-        torch, gen, dev, lens, S, PP, torch.bfloat16, torch.bfloat16, 1.0)
-    kv_bytes = sum(lens) * 2 * KV * D * 2 + sum(math.ceil(n / PS) for n in lens) * 4
-    nbytes = kv_bytes + 2 * q.numel() * 2 + S * 4
-    flops = sum(lens) * H * D * 4
-    b_ms, b_by = bound(nbytes, flops)
-
-    def kernel():
-        return da.decode_attention_cuda(q, pages, kv_lens, tables, num, sm_scale=sm)
-
-    def plain():
-        return da.decode_attention_plain(q, pages, kv_lens, tables, num, sm_scale=sm)
-
-    got = kernel()
-    tally.compare(torch, "decode_attention", f"serving shape S={S} bf16 splits=auto",
-                  got, plain(), 1e-2)
-    # Library: SDPA over the live rows only, K/V gathered into contiguous
-    # [n, KV, W, D] tensors kept at KV heads (W the longest live row, a
-    # length mask for the rest); each KV head's G query heads are its G
-    # query positions, so nothing is copied out per query head.  The
-    # gather is not timed.
-    n, W = len(live), max(live)
-    ctx = torch.arange(W, device=dev)
-    slots = tables[:n, ctx // PS].long() * PS + ctx % PS
-    kvg = pages.view(-1, 2 * KV, D)[slots]  # [n, W, 2KV, D]
-    k = kvg[:, :, 0::2].permute(0, 2, 1, 3).contiguous()
-    v = kvg[:, :, 1::2].permute(0, 2, 1, 3).contiguous()
-    del kvg
-    mask = (ctx[None, :] < kv_lens[:n, None])[:, None, None, :]  # [n, 1, 1, W]
-    qg = q[:n].reshape(n, KV, G, D)
-
-    def library():
-        return F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=sm)
-
-    lib_err = float((library().reshape(n, H, D).float() - got[:n].float()).abs().max())
-    out["decode_attention"] = dict(
-        **dict(zip(("medians", "rounds"), alternating_ms(torch, kernel, library, flush))),
-        plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
-        library_err=lib_err, bound_ms=b_ms, bound_by=b_by,
-        shape=f"S={S} PP={PP} kv_lens={lens} bf16; library: {n} live rows padded to {W}",
-    )
-    del q, pages, k, v, got
-
-    T = cfg.bucket_tokens(cfg.prefill_chunk)
+    out = {
+        "decode_attention": time_decode(torch, dev, tally, flush, "serving shape", lens,
+                                        len(live), PP, torch.bfloat16, 1.0),
+        "prefill_attention": time_prefill(torch, dev, tally, flush, "serving shape", S,
+                                          cfg.bucket_tokens(cfg.prefill_chunk), [1024],
+                                          [cfg.prefill_chunk], torch.bfloat16, 1.0),
+    }
     prior, ql = 1024, cfg.prefill_chunk
-    q, pages, kv_lens, tables, cu, num = prefill_case(
-        torch, gen, dev, [prior], [ql], S, T, torch.bfloat16, torch.bfloat16, 1.0)
-    L = prior + ql
-    nbytes = L * 2 * KV * D * 2 + 2 * ql * H * D * 2 + math.ceil(L / PS) * 4
-    flops = sum(prior + i + 1 for i in range(ql)) * H * D * 4
-    b_ms, b_by = bound(nbytes, flops)
-
-    def kernel():
-        return pa.prefill_attention_cuda(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
-
-    def plain():
-        return pa.prefill_attention_plain(q, pages, kv_lens, tables, cu, num, sm_scale=sm)
-
-    got = kernel()
-    tally.compare(torch, "prefill_attention", f"serving shape T={T} S={S} bf16 splits=auto",
-                  got, plain(), 1e-2, range(ql, T))
-    # Library: SDPA with K/V at KV heads; query token t of head kv*G + g is
-    # row t*G + g of its KV head, masked causally at prior + t.
-    ctx = torch.arange(L, device=dev)
-    slots = tables[0, ctx // PS].long() * PS + ctx % PS
-    kvg = pages.view(-1, 2 * KV, D)[slots]  # [L, 2KV, D]
-    k = kvg[:, 0::2].permute(1, 0, 2)[None].contiguous()  # [1, KV, L, D]
-    v = kvg[:, 1::2].permute(1, 0, 2)[None].contiguous()
-    del kvg
-    qpos = (prior + torch.arange(ql, device=dev)).repeat_interleave(G)
-    pmask = (ctx[None, :] <= qpos[:, None])[None, None]  # [1, 1, ql*G, L]
-    qg = q[:ql].reshape(ql, KV, G, D).permute(1, 0, 2, 3).reshape(1, KV, ql * G, D).contiguous()
-
-    def library():
-        return F.scaled_dot_product_attention(qg, k, v, attn_mask=pmask, scale=sm)
-
-    lib = library().reshape(KV, ql, G, D).permute(1, 0, 2, 3).reshape(ql, H, D)
-    lib_err = float((lib.float() - got[:ql].float()).abs().max())
-    out["prefill_attention"] = dict(
-        **dict(zip(("medians", "rounds"), alternating_ms(torch, kernel, library, flush))),
-        plain_ms=cuda_ms(torch, plain, 3, flush, spin=False),
-        library_err=lib_err, bound_ms=b_ms, bound_by=b_by,
-        shape=f"T={T} S={S} one row: {ql} tokens over a {prior}-token prefix, bf16",
-    )
-    del q, pages, k, v, got, lib
 
     # A mixed step: the serve cadence's 512-token chunk over its 1024-token
     # prefix beside 7 one-token decode rows (MIXED_DECODE_LENS), one prefill
@@ -503,18 +611,51 @@ def time_kernels(torch, dev, cfg, tally):
     out["prefill_attention"]["mixed"] = mixed
     del q, pages, got, dq, dpages, flush
     torch.cuda.empty_cache()
-    for name, r in out.items():
-        r.update(r.pop("medians"))
-        ok = r["library_err"] <= 1e-2
-        log(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms (kernel/library {r['ms'] / r['library_ms']:.3f}; "
-            f"vs kernel max_abs_err {r['library_err']:.3e} "
-            f"{'ok' if ok else 'FAIL'}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            f"medians of {TIMING_ROUNDS} alternating rounds: kernel "
-            f"{[round(x, 4) for x in r['rounds']['ms']]} library "
-            f"{[round(x, 4) for x in r['rounds']['library_ms']]}")
-        if not ok:
-            tally.failures.append(f"{name} library yardstick computes another function")
+    report_times(torch, out, tally)
+    return out
+
+
+# The int8-page shapes of this slice's two serving geometries (phases c
+# and d): a fused decode step and a prefill step of each.
+INT8_KV_SCALE = 0.02
+# The library yardstick against the kernel there: a query early in a short
+# causal context averages few values of up to ±2.54 (int8 · 0.02), where
+# one bf16 ulp is 0.0156, so the check is relative as well.
+INT8_LIB_RTOL = 1e-2
+
+
+def time_int8_kernels(torch, dev, tally):
+    """Both kernels over int8 pages (scale INT8_KV_SCALE) at the shapes of
+    phase c (bench.py: 256 rows at 129..192 tokens over 16-page tables; a
+    512-token step of four 128-token prompts) and phase d (loadgen: 24 rows
+    at 3000..3138 tokens over 256-page tables; a 2048-token step packing a
+    prompt's last 952 tokens over its 2048-token prefix with the next
+    prompt's first 1096), each held against its plain version.  Returns
+    {geometry: {kernel: timing}}."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    i8, sc = torch.int8, INT8_KV_SCALE
+    bench_lens = [129 + (7 * i) % 64 for i in range(256)]
+    loadgen_lens = [3000 + 6 * i for i in range(24)]
+    out = {
+        "bench": {
+            "decode_attention": time_decode(torch, dev, tally, flush, "phase c fused step",
+                                            bench_lens, 256, 16, i8, sc, INT8_LIB_RTOL),
+            "prefill_attention": time_prefill(torch, dev, tally, flush, "phase c prefill step",
+                                              256, 512, [0] * 4, [128] * 4, i8, sc,
+                                              INT8_LIB_RTOL),
+        },
+        "loadgen": {
+            "decode_attention": time_decode(torch, dev, tally, flush, "phase d fused step",
+                                            loadgen_lens, 24, 256, i8, sc, INT8_LIB_RTOL),
+            "prefill_attention": time_prefill(torch, dev, tally, flush, "phase d prefill step",
+                                              24, 2048, [2048, 0], [952, 1096], i8, sc,
+                                              INT8_LIB_RTOL),
+        },
+    }
+    del flush
+    torch.cuda.empty_cache()
+    for geo, r in out.items():
+        report_times(torch, {f"{k} int8 {geo}": v for k, v in r.items()}, tally)
     return out
 
 
@@ -534,7 +675,7 @@ def reference_logits(torch, params, mc, tokens):
     pos = torch.arange(n, device=dev)
     inv = rope_frequencies(mc.head_dim, mc.rope_theta, mc.rope_scaling, device=dev)
     causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
-    h = tl.embed_lookup(p, ids)
+    h = tl.embed_lookup(p, ids, tl.torch_dtype(mc.dtype))
     for l in range(mc.num_layers):
         lp = {k: w[l] for k, w in p["layers"].items()}
         x = tl.rms_norm(h, lp["attn_norm"], mc.rms_norm_eps)
@@ -1305,6 +1446,642 @@ def serve_ab(torch, dev):
     return ok
 
 
+# -------------------------------------------- W8A8, int8 KV, speculation
+
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+# llama-3.1-8b's projections as the engine runs them (fused q|k|v and
+# gate|up): (leaf, K, N).  gate|up and the head write f32, the rest bf16.
+PROJECTIONS = [("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gateup", 4096, 28672),
+               ("w_down", 14336, 4096), ("lm_head", 4096, 128256)]
+F32_OUT = ("w_gateup", "lm_head")
+GEMM_ROWS = (16, 256, 2048)
+# qdot's error bars (phase a): per entry, standard deviations of the
+# activations' rounding (the largest of the ~4e8 entries lies near 6); and
+# the largest error's share of the largest |x @ dequant(w)|.
+QDOT_SIGMAS = 8.0
+QDOT_MAX_SHARE = 0.015
+
+
+def w8a8_ops(torch, dev):
+    """Phase a: ``qdot`` at each projection shape of llama-3.1-8b and M =
+    16, 256 and 2048 rows, bf16 activations.  Its int32 accumulation must
+    equal an exact integer reference of the same codes (f64 products,
+    exact below 2^53).  Against ``x @ dequant(w)`` in f32 two bars hold:
+    every entry within ``QDOT_SIGMAS`` standard deviations of the
+    activations' rounding (each code is off by at most half a row step s,
+    uniformly, so an entry's error has sd s / sqrt(12) times the column's
+    L2 norm) plus the output dtype's rounding; and the largest error
+    within ``QDOT_MAX_SHARE`` of the largest |x @ dequant(w)|
+    (tests/test_weight_quant.py holds 1 % at 16 x 64 x 48, where a row's
+    largest entry is ~2.4 sigma; at K = 4096..14336 it is ~3.8 sigma, the
+    row step larger, and the share 0.87-1.11 % on the card).  Timed (L2 flushed before
+    each launch): qdot (quantize + ``torch._int_mm`` + rescale), ``_int_mm``
+    alone on the column-major weight the port stores and on a row-major
+    copy, and bf16 ``torch.matmul`` on the dequantized weight, beside the
+    bounds: max(bytes / 3.35 TB/s, 2·M·N·K / peak) with the int8 and the
+    bf16 peaks.  Returns ok."""
+    from dynamo_tpu_torch.models.quant import operand_layout
+    from dynamo_tpu_torch.ops import quant_matmul as qm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 reference in full f32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ok = True
+    for name, K, N in PROJECTIONS:
+        w_rm = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        w_cm = operand_layout(w_rm)
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        w_bf = (w_rm.float() * scale).to(torch.bfloat16)
+        out_dtype = torch.float32 if name in F32_OUT else None
+        for M in GEMM_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            codes, row_scale = qm.quantize_rows(x)
+            acc = qm.int_mm(codes, w_cm)
+            int_ok = bool(torch.equal(acc.double(), codes.double() @ w_rm.double()))
+            got = qm.qdot(x, w_cm, scale, out_dtype=out_dtype)
+            w_deq = w_rm.float() * scale
+            ref = x.float() @ w_deq
+            err = (got.float() - ref).abs()
+            out_eps = 2.0**-8 if out_dtype is None else 1e-6  # bf16 / f32 output rounding
+            sd = row_scale * (w_deq.norm(dim=0) / math.sqrt(12.0))
+            limit = QDOT_SIGMAS * sd + out_eps * ref.abs() + 1e-5 * ref.abs().max()
+            within = bool((err <= limit).all())
+            sigmas = float((err / sd).max())
+            rel = float(err.max() / ref.abs().max())
+            good = (int_ok and within and rel <= QDOT_MAX_SHARE
+                    and bool(torch.isfinite(got).all()))
+            ok = ok and good
+            del acc, got, ref, err, limit, w_deq, sd
+            t = {
+                "qdot": cuda_ms(torch, lambda: qm.qdot(x, w_cm, scale, out_dtype=out_dtype), 10,
+                                flush),
+                "int_mm": cuda_ms(torch, lambda: qm.int_mm(codes, w_cm), 10, flush),
+                "bf16": cuda_ms(torch, lambda: torch.matmul(x, w_bf), 10, flush),
+            }
+            try:  # a layout the port never passes: reported, not required
+                t["int_mm_row_major"] = cuda_ms(torch, lambda: qm.int_mm(codes, w_rm), 10, flush)
+            except RuntimeError as e:
+                t["int_mm_row_major"] = f"refused ({str(e).splitlines()[0][:80]})"
+            out_b = 4 if out_dtype else 2
+            q_bound = max((M * K * 2 + K * N + N * 4 + M * N * out_b) / HBM_BYTES_PER_S,
+                          2 * M * N * K / INT8_OPS) * 1e3
+            bf_bound = max((M * K * 2 + K * N * 2 + M * N * 2) / HBM_BYTES_PER_S,
+                           2 * M * N * K / BF16_FLOPS) * 1e3
+            fmt = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in t.items()}
+            log(f"w8a8 {name} M={M} K={K} N={N}: int32 accumulation exact {int_ok}, every "
+                f"entry within {QDOT_SIGMAS:g} sd of the activations' rounding {within} (largest "
+                f"{sigmas:.2f} sd), max err {rel:.2e} of max |x @ dequant(w)| (bar "
+                f"{QDOT_MAX_SHARE:g}) {'ok' if good else 'FAIL'}; "
+                f"ms {fmt}; bound W8A8 {q_bound:.4f} ms, bf16 {bf_bound:.4f} ms; "
+                f"qdot/bf16 {t['qdot'] / t['bf16']:.3f}")
+            del x, codes
+        del w_rm, w_cm, w_bf
+        torch.cuda.empty_cache()
+    return ok
+
+
+W8A8 = dict(weight_quant="int8", cache_dtype="int8", kv_scale="auto")
+MODEL_CHECK_ROWS, MODEL_CHECK_TOKENS = 8, 64
+KL_TOL = 0.05
+KV_COSINE = 0.99
+# Full depth: the W8A8 model's int8-page 1 - cosine against its witness, the
+# bf16 tree's under the same scales (~5x on the card at 4 and at 32 layers:
+# W8A8's rounding turns the KV noise into whole-step code changes).
+KV_DRIFT_WITNESS = 8.0
+
+
+def rows_batch(torch, dev, prompts, tables):
+    """A prefill RaggedBatch of one row per prompt (positions from 0) in
+    the pages of its table."""
+    from dynamo_tpu_torch.models.llama import RaggedBatch
+
+    n = sum(len(p) for p in prompts)
+    T = max(16, 1 << (n - 1).bit_length())
+    tok, pos, slots, cu = [], [], [], [0]
+    for p, table in zip(prompts, tables):
+        tok += p
+        pos += list(range(len(p)))
+        slots += [table[i // PS] * PS + i % PS for i in range(len(p))]
+        cu.append(cu[-1] + len(p))
+
+    def t(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    return RaggedBatch(
+        token_ids=t(tok + [0] * (T - n)), positions=t(pos + [0] * (T - n)),
+        slot_mapping=t(slots + [-1] * (T - n)), kv_lens=t([len(p) for p in prompts]),
+        page_indices=t(tables), cu_q_lens=t(cu), num_seqs=t([len(prompts)]))
+
+
+def w8a8_model_check(torch, dev):
+    """Phase b: llama-3.1-8b at full width, W8A8 (an engine's
+    ``init_params_quantized`` tree, int8 KV scales calibrated at start),
+    against the same quantized tree dequantized to bf16, on 8 prompts of 64
+    tokens in one prefill step, as tests/test_weight_quant.py holds it:
+    mean KL below KL_TOL, and the top-1 tokens agree wherever the
+    reference's top-2 gap is decisive (> 3x the largest logit error; a
+    random model's top-2 gap rarely is, and the line says when the check
+    was vacuous).  Then int8 pages under the calibrated scales against
+    bf16 pages on the same W8A8 model, at MODEL_CHECK_LAYERS layers (the
+    paged f32 check's depth): cosine above KV_COSINE on every row.  At all
+    32 layers the KL bar holds as well, and the int8-page drift is held
+    against its witness, the bf16 tree's drift under the same scales:
+    1 - cosine within KV_DRIFT_WITNESS times the witness's, since a random
+    32-layer model amplifies any perturbation (1 - cosine grows
+    with the square of the per-layer noise).  Returns ok."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.llama import PagedKVCache, forward_ragged
+    from dynamo_tpu_torch.models.quant import dequantize_params
+
+    t0 = time.perf_counter()
+    engine = TorchEngine(EngineConfig(model="llama-3.1-8b", dtype="bfloat16", block_size=PS,
+                                      num_blocks=64, max_batch=MODEL_CHECK_ROWS,
+                                      max_model_len=1024, seed=0, **W8A8), device=dev)
+    torch.cuda.synchronize()
+    mc, scales = engine.model_config, np.asarray(engine.kv_scale)
+    ok = scales.shape == (mc.num_layers,) and bool(np.all(np.isfinite(scales) & (scales > 0)))
+    log(f"w8a8 engine: init {time.perf_counter() - t0:.1f} s; {len(scales)} calibrated int8 KV "
+        f"scales min {scales.min():.6g} max {scales.max():.6g}, calibration "
+        f"{engine.calibration_s:.3f} s {'ok' if ok else 'FAIL'}")
+    gen = torch.Generator().manual_seed(17)
+    prompts = torch.randint(1, 128000, (MODEL_CHECK_ROWS, MODEL_CHECK_TOKENS), generator=gen).tolist()
+    PP = MODEL_CHECK_TOKENS // PS
+    tables = [list(range(r * PP, (r + 1) * PP)) for r in range(MODEL_CHECK_ROWS)]
+    rb = rows_batch(torch, dev, prompts, tables)
+    with torch.inference_mode():
+        deq = dequantize_params(engine.params, torch.bfloat16)
+    for depth in sorted({min(MODEL_CHECK_LAYERS, mc.num_layers), mc.num_layers}):
+        mcd = mc.with_overrides(num_layers=depth)
+
+        def logits(params, dtype, kv_scale):
+            sub = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
+            cache = PagedKVCache.create(mcd, MODEL_CHECK_ROWS * PP, PS, dtype, dev)
+            return forward_ragged(sub, mcd, rb, cache, kv_scale=kv_scale).double().cpu()
+
+        with torch.inference_mode():
+            lq = logits(engine.params, torch.bfloat16, None)
+            lq8 = logits(engine.params, torch.int8, scales[:depth])
+            lr = logits(deq, torch.bfloat16, None)
+            lr8 = logits(deq, torch.int8, scales[:depth])
+        kls, agree, decisive = [], 0, 0
+        for a, b in zip(lq, lr):
+            pq, pr = a.softmax(-1), b.softmax(-1)
+            kls.append(float((pr * (pr.clamp_min(1e-300).log() - pq.clamp_min(1e-300).log())).sum()))
+            top2 = b.topk(2).values
+            if float(top2[0] - top2[1]) > 3 * float((a - b).abs().max()):
+                decisive += 1
+                agree += int(a.argmax() == b.argmax())
+
+        def cosines(x, y):
+            return [float(torch.nn.functional.cosine_similarity(a, b, dim=0)) for a, b in zip(x, y)]
+
+        cos_q, cos_r = cosines(lq8, lq), cosines(lr8, lr)
+        finite = all(bool(torch.isfinite(t).all()) for t in (lq, lq8, lr, lr8))
+        shallow = depth == min(MODEL_CHECK_LAYERS, mc.num_layers)
+        good_w = float(np.mean(kls)) < KL_TOL and agree == decisive
+        drift_q, drift_r = 1 - min(cos_q), 1 - min(cos_r)
+        good_kv = (min(cos_q) > KV_COSINE if shallow
+                   else drift_q <= KV_DRIFT_WITNESS * drift_r)
+        good = finite and good_w and good_kv
+        ok = ok and good
+        kv_bar = (f"bar {KV_COSINE}" if shallow else
+                  f"1 - cosine {drift_q / max(drift_r, 1e-12):.2f}x the bf16 tree's, bar "
+                  f"{KV_DRIFT_WITNESS:g}x")
+        top1 = (f"{agree}/{decisive} decisive rows" if decisive else
+                "vacuous (no row's top-2 gap is decisive)")
+        log(f"w8a8 model {depth} layers vs its dequantized bf16 tree, {MODEL_CHECK_ROWS} prompts "
+            f"of {MODEL_CHECK_TOKENS}: mean KL {np.mean(kls):.3e} (bar {KL_TOL}), top-1 agreement "
+            f"{top1}, max logit err {float((lq - lr).abs().max()):.4f} "
+            f"(max |logit| {float(lr.abs().max()):.3f}); int8 pages (calibrated) vs bf16 pages: "
+            f"cosine min {min(cos_q):.6f} on the W8A8 model ({kv_bar}), "
+            f"{min(cos_r):.6f} on the bf16 tree; same argmax "
+            f"{sum(int(a.argmax() == b.argmax()) for a, b in zip(lq8, lq))}/{MODEL_CHECK_ROWS} "
+            f"{'ok' if good else 'FAIL'}")
+    del deq
+    asyncio.run(engine.close())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+# bench.py's geometry (phase c): full-depth llama-3.1-8b, 256 rows.
+BENCH_CFG = dict(model="llama-3.1-8b", dtype="bfloat16", block_size=PS, num_blocks=4160,
+                 max_batch=256, max_model_len=256, prefill_chunk=512, decode_steps=8,
+                 pipeline_depth=8, seed=0)
+BENCH_ISL, BENCH_OSL = 128, 64
+
+
+def bench_prompts(vocab, n):
+    """bench.py's prompts: token j of request i is (i·7919 + j·104729) % vocab."""
+    return [[(i * 7919 + j * 104729) % vocab for j in range(BENCH_ISL)] for i in range(n)]
+
+
+def bench_serve(torch, dev, quant):
+    """One engine at BENCH_CFG (W8A8 with int8 KV ``auto``, or bf16 weights
+    and bf16 KV), warmed (``run_warmup``), then 256 greedy requests of
+    BENCH_ISL tokens with BENCH_OSL new each and ``ignore_eos``, kernel
+    counters zeroed just before and read just after.  Returns (ok,
+    numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = EngineConfig(**BENCH_CFG, **(W8A8 if quant else {}))
+    label = "W8A8 + int8 KV auto" if quant else "bf16 + bf16 KV"
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    out = {"label": label, "init_s": time.perf_counter() - t0,
+           "calibration_s": engine.calibration_s}
+    prompts = bench_prompts(engine.model_config.vocab_size, cfg.max_batch)
+
+    async def run():
+        try:
+            t = time.perf_counter()
+            out["warm"] = await engine.run_warmup()
+            out["warm_s"] = time.perf_counter() - t
+            zero_kernel_counts()
+            t = time.perf_counter()
+            results = await serve(torch, engine, prompts, BENCH_OSL)
+            out["wall"] = time.perf_counter() - t
+            out["launches"] = kernel_counts()
+            out["after"] = engine.compile_counts()
+            out["per_replay"] = {name: {str(k): v for k, v in getattr(engine.programs, name)
+                                        .captured_launches().items()} for name in ("step", "multi")}
+            dec, pre = engine.decode_spans, engine.prefill_spans
+            out["fused_step_ms"] = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
+            out["prefill_step_ms"] = pre.seconds / max(1, pre.count) * 1e3
+            out["summary"] = engine.dispatch_summary()
+            return results
+        finally:
+            await engine.close()
+
+    results = asyncio.run(run())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttft = sorted(s[0] for _, s, _ in results)
+    itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
+    total = sum(len(t) for t, _, _ in results)
+    whole = all(len(t) == BENCH_OSL and f == "length" for t, _, f in results)
+    ok = whole and out["after"] == out["warm"] and all(v > 0 for v in out["launches"].values())
+    pipe = out["summary"]["pipeline"]
+    out.update(tok_s=total / out["wall"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+               ttft_max_ms=ttft[-1] * 1e3, itl_ms=sum(itl) / len(itl) * 1e3,
+               host_gap_frac=pipe["host_gap_frac"])
+    log(f"bench {label}: {len(results)} requests, ISL {BENCH_ISL} OSL {BENCH_OSL}, "
+        f"max_batch {cfg.max_batch}, decode_steps {cfg.decode_steps}, pipeline_depth "
+        f"{cfg.pipeline_depth}; init {out['init_s']:.1f} s (calibration "
+        f"{out['calibration_s']:.3f} s), warmup {out['warm_s']:.2f} s for graphs {out['warm']}; "
+        f"wall {out['wall']:.3f} s, {out['tok_s']:.2f} output tok/s; TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms max {out['ttft_max_ms']:.1f} ms; ITL mean "
+        f"{out['itl_ms']:.2f} ms; fused step {out['fused_step_ms']:.2f} ms and prefill step "
+        f"{out['prefill_step_ms']:.2f} ms (stream time); host_gap_frac {out['host_gap_frac']}; "
+        f"sessions {pipe['sessions']} rebuilds {pipe['rebuilds']}; launches {out['launches']}; "
+        f"per replay {out['per_replay']}; graphs after the serve {out['after']}; streams whole "
+        f"{whole} {'ok' if ok else 'FAIL'}")
+    return ok, out
+
+
+def quant_ab(torch, dev):
+    """``--quant-ab``: phase c's traffic on W8A8 + int8 KV and on bf16 +
+    bf16 KV, engines one after the other in one process, in turns (W8A8,
+    bf16, bf16, W8A8)."""
+    ok = True
+    for quant in (True, False, False, True):
+        good, _ = bench_serve(torch, dev, quant)
+        ok = ok and good
+    return ok
+
+
+# benchmarks/loadgen.py's self-hosted geometry (phase d).
+LOADGEN_CFG = dict(model="llama-3.1-8b", dtype="bfloat16", block_size=PS, num_blocks=6208,
+                   max_batch=24, max_model_len=4096, prefill_chunk=2048, decode_steps=16,
+                   pipeline_depth=4, prefill_chunks_per_burst=24, seed=0, **W8A8)
+LOADGEN_ISL, LOADGEN_OSL, LOADGEN_CONC = 3000, 150, 24
+
+
+def loadgen_prompt(i, vocab):
+    """benchmarks/loadgen.py's ``_prompt_tokens``: distinct per request."""
+    return [(i * 7919 + j * 104729 + 11) % (vocab - 2) + 1 for j in range(LOADGEN_ISL)]
+
+
+def pct(xs, p):
+    """benchmarks/loadgen.py's percentile."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * p))] if xs else float("nan")
+
+
+def loadgen_http(torch, dev):
+    """Phase d: the port's HttpService → OpenAIPreprocessor → Backend →
+    TorchEngine built in-process as benchmarks/loadgen.py builds its
+    self-hosted stack, at LOADGEN_CFG, the server's event loop in a thread
+    of this process; 24 concurrent streamed /v1/completions of 3000-token-id
+    prompts with 150 new tokens and ``nvext.ignore_eos``, read at the
+    client as loadgen reads them (a token per SSE chunk, stamped on
+    arrival); then ``/metrics``.  Returns (ok, numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.llm.metrics import engine_dispatch_metrics
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.pipeline import build_pipeline
+
+    t0 = time.perf_counter()
+    engine = TorchEngine(EngineConfig(**LOADGEN_CFG), device=dev)
+    out = {"init_s": time.perf_counter() - t0, "calibration_s": engine.calibration_s}
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="loadgen-server", daemon=True)
+    thread.start()
+
+    def on_server(coro, timeout=1200):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    async def start():
+        tok = ByteTokenizer()
+        pipeline = build_pipeline([OpenAIPreprocessor(tok, "bench"), Backend(tok)], engine)
+        service = HttpService(host="127.0.0.1", port=0)
+        service.models.add_completion_model("bench", pipeline)
+        service.models.add_chat_model("bench", pipeline)
+        return await service.start()
+
+    vocab = engine.model_config.vocab_size
+    fails = []
+    service = None
+    try:
+        t = time.perf_counter()
+        out["warm"] = on_server(engine.run_warmup())
+        out["warm_s"] = time.perf_counter() - t
+        engine_dispatch_metrics.set_source(engine.dispatch_summary)
+        service = on_server(start())
+
+        async def client():
+            async def one(i):
+                return await http_call(service.port, "POST", "/v1/completions", {
+                    "model": "bench", "prompt": loadgen_prompt(i, vocab),
+                    "max_tokens": LOADGEN_OSL, "stream": True, "nvext": {"ignore_eos": True}})
+
+            zero_kernel_counts()
+            t = time.perf_counter()
+            results = await asyncio.gather(*(one(i) for i in range(LOADGEN_CONC)))
+            out["wall"] = time.perf_counter() - t
+            out["launches"] = kernel_counts()
+            out["metrics"] = (await http_call(service.port, "GET", "/metrics"))[2].decode()
+            return results
+
+        results = asyncio.run(client())
+        out["after"] = engine.compile_counts()
+        dec, pre = engine.decode_spans, engine.prefill_spans
+        out["fused_step_ms"] = dec.seconds / max(1, dec.count * LOADGEN_CFG["decode_steps"]) * 1e3
+        out["prefill_step_ms"] = pre.seconds / max(1, pre.count) * 1e3
+        out["per_replay"] = {name: {str(k): v for k, v in getattr(engine.programs, name)
+                                    .captured_launches().items()} for name in ("step", "multi")}
+    finally:
+        engine_dispatch_metrics.set_source(None)
+        if service is not None:
+            on_server(service.close())
+        on_server(engine.close())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttfts, itls, per_token, tokens, n_chunks = [], [], [], 0, []
+    for i, (st, _, _, events) in enumerate(results):
+        chunks, done = sse_data(events)
+        final = chunks[-1][1] if chunks else {}
+        used = (final.get("usage") or {}).get("completion_tokens")
+        fin = (final.get("choices") or [{}])[0].get("finish_reason")
+        if st != 200 or not done or fin != "length" or used != LOADGEN_OSL:
+            fails.append(f"request {i}: {st} done={done} {fin}/{used}")
+            continue
+        tokens += used
+        stamps = [t for t, c in chunks
+                  if c.get("choices") and not c["choices"][0].get("finish_reason")]
+        ttfts.append(stamps[0])
+        itls += [b - a for a, b in zip(stamps, stamps[1:])]
+        per_token.append((chunks[-1][0] - stamps[0]) / (used - 1))
+        n_chunks.append(len(stamps))
+    samples = parse_prometheus(out["metrics"])
+    gap = [v for (n, _), v in samples.items() if n == "dynamo_tpu_engine_dispatch_host_gap_frac"]
+    has_spec = any(n == "dynamo_tpu_spec_decode_acceptance_rate" for n, _ in samples)
+    if out["after"] != out["warm"]:
+        fails.append(f"graphs captured during the serve: {out['warm']} -> {out['after']}")
+    if not all(v > 0 for v in out["launches"].values()):
+        fails.append(f"a kernel never launched: {out['launches']}")
+    if not gap or not has_spec:
+        fails.append("/metrics lacks the engine-dispatch or the spec-decode group")
+    out.update(tok_s=tokens / out["wall"], ttft_p50_ms=pct(ttfts, 0.5) * 1e3,
+               ttft_p99_ms=pct(ttfts, 0.99) * 1e3, itl_p50_ms=pct(itls, 0.5) * 1e3,
+               itl_p99_ms=pct(itls, 0.99) * 1e3, host_gap_frac=gap[0] if gap else None,
+               itl_per_token_ms=sum(per_token) / max(1, len(per_token)) * 1e3)
+    log(f"loadgen W8A8 + int8 KV auto over HTTP: {LOADGEN_CONC} concurrent streamed "
+        f"/v1/completions, ISL {LOADGEN_ISL} OSL {LOADGEN_OSL}, max_batch "
+        f"{LOADGEN_CFG['max_batch']}, prefill_chunk {LOADGEN_CFG['prefill_chunk']}, decode_steps "
+        f"{LOADGEN_CFG['decode_steps']}, pipeline_depth {LOADGEN_CFG['pipeline_depth']}; init "
+        f"{out['init_s']:.1f} s (calibration {out['calibration_s']:.3f} s), warmup "
+        f"{out['warm_s']:.2f} s for graphs {out['warm']}; wall {out['wall']:.3f} s, "
+        f"{out['tok_s']:.2f} output tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['ttft_p99_ms']:.1f} ms; ITL p50 {out['itl_p50_ms']:.2f} ms p99 "
+        f"{out['itl_p99_ms']:.2f} ms (client, per SSE chunk; chunks a request {min(n_chunks, default=0)}"
+        f"..{max(n_chunks, default=0)}), per token {out['itl_per_token_ms']:.2f} ms (end - first "
+        f"chunk over {LOADGEN_OSL - 1}); fused step {out['fused_step_ms']:.2f} ms, prefill step "
+        f"{out['prefill_step_ms']:.2f} ms (stream time); host_gap_frac "
+        f"{out['host_gap_frac']} (/metrics); launches {out['launches']}; per replay "
+        f"{out['per_replay']}; graphs after {out['after']} "
+        f"{'ok' if not fails else 'FAIL: ' + '; '.join(fails)}")
+    return not fails, out
+
+
+SPEC_K = 8
+
+
+def spec_oracle(prompts, streams, vocab):
+    """A stand-in for ``engine.spec.propose_ngram`` that drafts each
+    request's own spec-off stream from its position (the request is found
+    by its prompt's first 8 tokens, unique in both workloads), with one
+    token made wrong in every other 8-token window of output, so drafts
+    are both accepted and rejected on the card whatever the random model
+    emits."""
+    import numpy as np
+
+    refs = {tuple(p[:8]): (len(p), out) for p, out in zip(prompts, streams)}
+
+    def oracle(hist, ngram_min, ngram_max, k):
+        n_prompt, ref = refs[tuple(int(t) for t in hist[:8])]
+        pos = len(hist) - n_prompt  # output tokens committed so far
+        d = [int(t) for t in ref[pos: pos + k]]
+        if d and (pos // 8) % 2:
+            j = min(2, len(d) - 1)
+            d[j] = (d[j] + 1) % vocab
+        return np.asarray(d, np.int64)
+
+    return oracle
+
+
+def spec_prompts(kind, n, vocab):
+    """bench.py's ``_spec_prompts``: ``repetitive`` period-8 templated
+    prompts, or ``random`` prompts with a jittered length."""
+    prompts = []
+    for i in range(n):
+        if kind == "repetitive":
+            pattern = [(i * 131 + j * 17 + 3) % vocab for j in range(8)]
+            prompts.append((pattern * ((BENCH_ISL + 7) // 8))[:BENCH_ISL])
+        else:
+            isl_i = max(8, BENCH_ISL // 2 + (i * 2654435761) % BENCH_ISL)
+            prompts.append([(i * 7919 + j * 104729 + 13) % vocab for j in range(isl_i)])
+    return prompts
+
+
+async def spec_run(engine, prompts, osl, temperature):
+    """bench.py's ``_spec_run``: every prompt at once, seed i·7+1."""
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+
+    async def one(i, prompt):
+        req = PreprocessedRequest(
+            token_ids=prompt,
+            stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=temperature, seed=i * 7 + 1),
+        ).to_dict()
+        items = await collect(await engine.generate(Context(req)))
+        return [t for it in items for t in it["token_ids"]]
+
+    t0 = time.perf_counter()
+    streams = await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+    return sum(len(s) for s in streams), time.perf_counter() - t0, streams
+
+
+def spec_phase(torch, dev):
+    """Phase e, as bench.py's ``_spec_bench`` runs it: a fresh W8A8 + int8
+    KV engine at BENCH_CFG per mode (speculation off, then on at k
+    SPEC_K), n = max_batch // 8 requests of BENCH_ISL tokens with
+    BENCH_OSL new each — the repetitive prompts greedy, the random ones at
+    temperature 0.7 — each after bench.py's 4-token warm pass (which fills
+    the prefix cache) and a second, whole warm pass over the cached
+    prompts, which captures the sampled programs ``run_warmup`` leaves to
+    first use (the graphs a timed pass still captured are printed).  The streams must be
+    identical between the modes.  The random model's greedy output seldom
+    gives the n-gram proposer a match, so the spec-on engine then serves
+    both workloads once more with drafts forced (``spec_oracle``): the
+    streams must again equal the spec-off ones, with verification
+    dispatches, accepted and rejected drafts all above 0.  Returns (ok,
+    numbers)."""
+    from dynamo_tpu_torch.engine import spec as spec_mod
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.metrics import spec_metrics
+
+    n = max(2, BENCH_CFG["max_batch"] // 8)
+    res, streams = {}, {}
+    for mode in ("off", "on"):
+        engine = TorchEngine(EngineConfig(**BENCH_CFG, **W8A8,
+                                          spec_decode={"enable": mode == "on", "k": SPEC_K}),
+                             device=dev)
+        vocab = engine.model_config.vocab_size
+
+        async def run():
+            try:
+                await engine.run_warmup()
+                for kind, temp in (("repetitive", 0.0), ("random", 0.7)):
+                    prompts = spec_prompts(kind, n, vocab)
+                    await spec_run(engine, prompts, 4, temp)  # bench.py's warm pass
+                    await spec_run(engine, prompts, BENCH_OSL, temp)
+                    spec_metrics.reset()
+                    zero_kernel_counts()
+                    before = engine.compile_counts()
+                    toks, dt, out = await spec_run(engine, prompts, BENCH_OSL, temp)
+                    snap = spec_metrics.snapshot()
+                    captured = sum(engine.compile_counts().values()) - sum(before.values())
+                    res[(kind, mode)] = dict(tok_s=toks / dt, tokens=toks, wall=dt,
+                                             launches=kernel_counts(), captured=captured, **snap)
+                    streams[(kind, mode)] = out
+                    log(f"spec {kind}/{mode}: {n} requests, {toks} tokens in {dt:.3f} s "
+                        f"({toks / dt:.2f} tok/s), acceptance {snap['acceptance_rate']:.3f}, "
+                        f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, verification "
+                        f"dispatches {int(snap['dispatches_total'])}, fallbacks "
+                        f"{int(snap['fallback_total'])}, launches {res[(kind, mode)]['launches']}, "
+                        f"graphs captured in the timed pass {captured}")
+                if mode == "on":
+                    await forced(engine, vocab)
+            finally:
+                await engine.close()
+
+        async def forced(engine, vocab):
+            """Drafts forced on the card: the proposer replaced by
+            ``spec_oracle`` over the spec-off streams."""
+            saved = spec_mod.propose_ngram
+            try:
+                for kind, temp in (("repetitive", 0.0), ("random", 0.7)):
+                    prompts = spec_prompts(kind, n, vocab)
+                    spec_mod.propose_ngram = spec_oracle(prompts, streams[(kind, "off")], vocab)
+                    spec_metrics.reset()
+                    zero_kernel_counts()
+                    toks, dt, out = await spec_run(engine, prompts, BENCH_OSL, temp)
+                    snap = spec_metrics.snapshot()
+                    rejected = snap["drafted_total"] - snap["accepted_total"]
+                    same = out == streams[(kind, "off")]
+                    good = (same and snap["dispatches_total"] > 0 and snap["accepted_total"] > 0
+                            and rejected > 0)
+                    res[(kind, "forced")] = dict(tok_s=toks / dt, identical=same, ok=good,
+                                                 launches=kernel_counts(), **snap)
+                    log(f"spec {kind}/forced drafts ({'greedy' if temp == 0 else f'temperature {temp}'}"
+                        f", oracle of the spec-off stream, one token wrong in every other "
+                        f"window): streams identical to spec off {same}; {toks / dt:.2f} tok/s, "
+                        f"verification dispatches {int(snap['dispatches_total'])}, drafted "
+                        f"{int(snap['drafted_total'])}, accepted {int(snap['accepted_total'])}, "
+                        f"rejected {int(rejected)}, acceptance {snap['acceptance_rate']:.3f}, "
+                        f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, launches "
+                        f"{res[(kind, 'forced')]['launches']} {'ok' if good else 'FAIL'}")
+            finally:
+                spec_mod.propose_ngram = saved
+
+        asyncio.run(run())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = True
+    for kind in ("repetitive", "random"):
+        same = streams[(kind, "on")] == streams[(kind, "off")]
+        whole = all(len(s) == BENCH_OSL for s in streams[(kind, "on")])
+        ok = ok and same and whole
+        ratio = res[(kind, "on")]["tok_s"] / res[(kind, "off")]["tok_s"]
+        res[kind] = dict(ratio=ratio, identical=same)
+        log(f"spec {kind}: streams identical on/off {same}, whole {whole}; tok/s off "
+            f"{res[(kind, 'off')]['tok_s']:.2f} on {res[(kind, 'on')]['tok_s']:.2f}, ratio "
+            f"{ratio:.3f} {'ok' if same and whole else 'FAIL'}")
+    # Whether drafts engage depends on the random model's output turning
+    # repetitive; it is reported, the streams and launches are checked.
+    launched = all(all(v > 0 for v in res[(k, m)]["launches"].values())
+                   for k in ("repetitive", "random") for m in ("off", "on"))
+    forced_ok = all(res[(k, "forced")]["ok"] for k in ("repetitive", "random"))
+    ok = ok and launched and forced_ok
+    rep = res[("repetitive", "on")]
+    # What the proposer can match: output positions whose bigram (previous
+    # token, token) already occurred in the prompt or earlier output.
+    hits = 0
+    for prompt, out in zip(spec_prompts("repetitive", n, vocab), streams[("repetitive", "off")]):
+        hist = prompt + out
+        seen = {(a, b) for a, b in zip(prompt, prompt[1:])}
+        for j in range(len(prompt), len(hist)):
+            pair = (hist[j - 1], hist[j])
+            hits += pair in seen
+            seen.add(pair)
+    log(f"spec: both kernels launched in every timed pass {launched}; verification dispatches "
+        f"on the repetitive traffic {int(rep['dispatches_total'])}, acceptance "
+        f"{rep['acceptance_rate']:.3f}, tokens/dispatch {rep['tokens_per_dispatch']:.2f}; output "
+        f"tokens whose bigram was already in the history {hits} of {n * BENCH_OSL} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, res
+
+
 def main() -> int:
     try:
         import torch
@@ -1339,6 +2116,8 @@ def main() -> int:
                     log(f"ptxas {stem}: {line.strip()}")
         if sys.argv[1:] == ["--serve-ab"]:
             return 0 if serve_ab(torch, dev) else 1
+        if sys.argv[1:] == ["--quant-ab"]:
+            return 0 if quant_ab(torch, dev) else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -1357,6 +2136,20 @@ def main() -> int:
         log(f"memory before the HTTP phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated")
         ok_http, http_launches, _ = http_path(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # This slice: W8A8 weights, calibrated int8 KV pages, speculation.
+        with torch.inference_mode():
+            ok_ops = w8a8_ops(torch, dev)
+            int8_times = time_int8_kernels(torch, dev, tally)
+        ok_w8a8_model = w8a8_model_check(torch, dev)
+        ok_bench, bench = bench_serve(torch, dev, quant=True)
+        ok_loadgen, loadgen = loadgen_http(torch, dev)
+        ok_spec, spec = spec_phase(torch, dev)
+        slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
+                    "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
+                    "speculation (e)": ok_spec}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -1375,6 +2168,14 @@ def main() -> int:
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                 "checks_passed": not any(f.startswith(name) for f in tally.failures),
             })
+            for geo, serve_out in (("bench", bench), ("loadgen", loadgen)):
+                it = int8_times[geo][name]
+                kernels[-1][f"int8_{geo}"] = {
+                    "launches": serve_out["launches"][name], "ms": it["ms"],
+                    "plain_ms": it["plain_ms"], "bound_ms": it["bound_ms"],
+                    "bound_by": it["bound_by"], "library_ms": it["library_ms"]}
+            kernels[-1]["spec_launches"] = spec[("repetitive", "on")]["launches"][name]
+            kernels[-1]["spec_forced_launches"] = spec[("repetitive", "forced")]["launches"][name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -1382,10 +2183,12 @@ def main() -> int:
                                    mixed_step_library_ms=None,
                                    mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])
         log(json.dumps({"kernels": kernels}))
-        if tally.failures or not ok_model or not ok_path or not ok_http:
+        if tally.failures or not ok_model or not ok_path or not ok_http or not all(
+                slice_ok.values()):
             log(f"FAILED: kernel checks {tally.failures or 'ok'}; f32 model check "
                 f"{'ok' if ok_model else 'failed'}; main path {'ok' if ok_path else 'failed'}; "
-                f"HTTP path {'ok' if ok_http else 'failed'}")
+                f"HTTP path {'ok' if ok_http else 'failed'}; "
+                f"{ {k: 'ok' if v else 'failed' for k, v in slice_ok.items()} }")
             return 1
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,7 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
         type=lambda s: s if s == "auto" else float(s),
         default=1.0,
         dest="kv_scale",
-        help="static scale of quantized KV pages ('auto' calibration is not ported)",
+        help="scale of quantized KV pages: a float, or 'auto' to calibrate per layer at start",
     )
     # The JAX parser's options that out=torch lacks: accepted so that
     # setting one fails with where it waits (build_torch_engine).

@@ -16,10 +16,6 @@ UNSUPPORTED_OPTIONS = (
     ("object_store_mb", 0, "--object-store-mb", "queue 1 item 5, KV tiers"),
     ("object_store_dir", None, "--object-store-dir", "queue 1 item 5, KV tiers"),
     ("kv_pull_mb", None, "--kv-pull-mb", "queue 1 item 5, KV transfer"),
-    ("spec_decode", None, "--spec-decode", "queue 1 item 5, speculative decoding"),
-    ("spec_k", None, "--spec-k", "queue 1 item 5, speculative decoding"),
-    ("spec_ngram_min", None, "--spec-ngram-min", "queue 1 item 5, speculative decoding"),
-    ("spec_ngram_max", None, "--spec-ngram-max", "queue 1 item 5, speculative decoding"),
     ("lora", None, "--lora", "queue 1 item 6, LoRA"),
     ("lora_max_adapters", None, "--lora-max-adapters", "queue 1 item 6, LoRA"),
     ("lora_rank", None, "--lora-rank", "queue 1 item 6, LoRA"),
@@ -50,5 +46,23 @@ def build_torch_engine(args):
         cache_dtype=getattr(args, "cache_dtype", None),
         kv_scale=getattr(args, "kv_scale", 1.0),
         seed=getattr(args, "seed", 0),
+        spec_decode=_spec_decode_section(args),
     )
     return TorchEngine(cfg, device=getattr(args, "device", None))
+
+
+def _spec_decode_section(args) -> dict:
+    """Layered spec_decode section: RuntimeConfig (file/DYN_SPEC_DECODE__*
+    env) under explicit --spec-* CLI flags."""
+    from ..runtime.config import RuntimeConfig
+
+    section = dict(RuntimeConfig.from_layers().spec_decode)
+    if getattr(args, "spec_decode", None) is not None:
+        section["enable"] = bool(args.spec_decode)
+    if getattr(args, "spec_k", None) is not None:
+        section["k"] = int(args.spec_k)
+    if getattr(args, "spec_ngram_max", None) is not None:
+        section["ngram_max"] = int(args.spec_ngram_max)
+    if getattr(args, "spec_ngram_min", None) is not None:
+        section["ngram_min"] = int(args.spec_ngram_min)
+    return section

@@ -1,9 +1,8 @@
 """Engine configuration knobs.
 
 The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
-a knob it would silently ignore (meshes, weight quantization, speculative
-decoding, LoRA, the KV tiers) is absent, so passing one fails at
-construction instead of serving something else.
+a knob it would silently ignore (meshes, LoRA, the KV tiers) is absent, so
+passing one fails at construction instead of serving something else.
 """
 
 from __future__ import annotations
@@ -52,6 +51,81 @@ class QosSchedConfig:
 
 
 @dataclass
+class SpecDecodeConfig:
+    """Draft-free speculative decoding (engine/spec.py), copied from the JAX
+    package's engine/config.py.
+
+    The proposer is prompt-lookup (Saxena 2023): the last ``ngram_min..
+    ngram_max`` tokens of a sequence are matched against its own
+    prompt+output history and the continuation of the most recent match is
+    proposed as a draft.  Drafts verify through the existing unified step,
+    one single-token row per draft position, so per-position logits and the
+    per-(seed, step) sampler come for free, and the longest prefix matching
+    the seeded sample stream is accepted.  Speculation on/off is
+    token-for-token identical at any temperature.
+    """
+
+    enable: bool = False
+    # Suffix n-gram lengths tried longest-first against the history.
+    ngram_min: int = 2
+    ngram_max: int = 4
+    # Draft-length ceiling per sequence per dispatch (the adaptive
+    # controller moves each sequence's k inside [k_min, k]).
+    k: int = 8
+    k_min: int = 1
+    # EWMA smoothing of per-dispatch acceptance (accepted/drafted).
+    ewma_alpha: float = 0.3
+    # Below this EWMA the sequence's proposer is benched ...
+    accept_floor: float = 0.15
+    # ... until this many more tokens have been committed, then re-probes
+    # at k_min.
+    cooldown_tokens: int = 64
+    # Proposer matching window: only the last ``lookback`` history tokens
+    # are scanned (0 = unlimited).
+    lookback: int = 2048
+    # Engagement bar vs the fused pipeline (pure-decode plans): speculate
+    # when the expected committed tokens per round trip reach
+    # ``pipeline_margin * n_decode * decode_steps`` (a verification step
+    # streams the weights once for all its rows where a fused chunk streams
+    # them decode_steps times).
+    pipeline_margin: float = 0.5
+
+    def __post_init__(self) -> None:
+        if self.ngram_min < 1 or self.ngram_max < self.ngram_min:
+            raise ValueError(
+                f"spec_decode ngram range [{self.ngram_min}, {self.ngram_max}]"
+                " must satisfy 1 <= ngram_min <= ngram_max"
+            )
+        if self.k < 1 or self.k_min < 1 or self.k_min > self.k:
+            raise ValueError(
+                f"spec_decode k range [{self.k_min}, {self.k}] must satisfy"
+                " 1 <= k_min <= k"
+            )
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError("spec_decode ewma_alpha must be in (0, 1]")
+        if self.pipeline_margin <= 0.0:
+            raise ValueError("spec_decode pipeline_margin must be > 0")
+
+    @classmethod
+    def normalize(cls, v: Any) -> "SpecDecodeConfig":
+        """Accept the config section in any layered-config shape: an
+        instance, a dict (file/env layers), a bare bool, or None."""
+        if v is None:
+            return cls()
+        if isinstance(v, cls):
+            return v
+        if isinstance(v, bool):
+            return cls(enable=v)
+        if isinstance(v, dict):
+            known = set(cls.__dataclass_fields__)
+            bad = set(v) - known
+            if bad:
+                raise ValueError(f"unknown spec_decode keys: {sorted(bad)}")
+            return cls(**v)
+        raise ValueError(f"bad spec_decode section: {v!r}")
+
+
+@dataclass
 class EngineConfig:
     model: str = "debug-tiny"
     block_size: int = 16  # tokens per KV page
@@ -61,10 +135,19 @@ class EngineConfig:
     prefill_chunk: int = 512  # max prompt tokens per device step
     dtype: str = "bfloat16"
     # KV page dtype; defaults to dtype.  Quantized page dtypes ("int8",
-    # "float8_e4m3fn") store value / kv_scale; kv_scale is a float or a
-    # per-layer sequence (calibration is not part of this engine yet).
+    # "float8_e4m3fn") store value / kv_scale; kv_scale is a float, a
+    # per-layer sequence, or "auto": per-layer scales calibrated from a
+    # probe forward at engine start (engine.py _calibrate_kv_scales).
+    # int8 needs a real scale: at 1.0, sub-unit activations round to 0.
     cache_dtype: Any = None
     kv_scale: Any = 1.0
+    # Weight quantization: "int8" = W8A8-dynamic (per-output-channel int8
+    # weights, per-row dynamic int8 activations, int8 products into int32
+    # — models/quant.py, ops/quant_matmul.py).  None = float weights.
+    weight_quant: Optional[str] = None
+    # Fuse q|k|v and gate|up weights at engine init (7 matmuls per dense
+    # layer -> 5; fused products share one activation quantization).
+    fuse_projections: bool = True
     seed: int = 0  # random-init weights when no params are given
     enable_prefix_caching: bool = True
     # Attention kernel routes: "auto" is the device's; an explicit value
@@ -92,11 +175,19 @@ class EngineConfig:
     prefill_chunks_per_burst: int = 24
     # Scheduler QoS section (QosSchedConfig; accepts dict).
     qos: Any = None
+    # Draft-free speculative decoding (SpecDecodeConfig; accepts a dict,
+    # a bool or None).
+    spec_decode: Any = None
 
     def __post_init__(self) -> None:
         if self.cache_dtype is None:
             self.cache_dtype = self.dtype
         self.qos = QosSchedConfig.normalize(self.qos)
+        self.spec_decode = SpecDecodeConfig.normalize(self.spec_decode)
+        if self.weight_quant not in (None, "int8"):
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r} (None or 'int8')")
+        if isinstance(self.kv_scale, str) and self.kv_scale != "auto":
+            raise ValueError(f"unknown kv_scale {self.kv_scale!r} (a float, a sequence or 'auto')")
         if self.decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
         if self.pipeline_depth < 1:

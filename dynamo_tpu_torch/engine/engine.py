@@ -26,9 +26,11 @@ Device work runs in worker threads (``asyncio.to_thread``) so the event
 loop keeps serving ingress while the card computes; the paged KV slab is
 updated in place.  Attention goes through the hand-written CUDA kernels on
 a CUDA device and through their plain versions on the CPU — chosen by the
-device, never by a fallback.  Out of this engine so far: int8 weights, KV
-scale calibration, speculative decoding, LoRA, grammar constraints, the KV
-tiers, transfer and migration, tp/sp and multi-host.
+device, never by a fallback.  W8A8 int8 weights (``weight_quant``), int8 /
+fp8 KV pages with calibrated per-layer scales (``kv_scale="auto"``) and
+draft-free speculative decoding (engine/spec.py) are the JAX engine's.  Out
+of this engine so far: LoRA, grammar constraints, the KV tiers, transfer and
+migration, tp/sp and multi-host.
 """
 
 from __future__ import annotations
@@ -47,14 +49,8 @@ from ..device import default_device
 from ..llm.kv_router.protocols import ForwardPassMetrics, KvCacheEvent
 from ..llm.protocols import FinishReason, PreprocessedRequest
 from ..models.config import ModelConfig, get_config
-from ..models.llama import (
-    PagedKVCache,
-    RaggedBatch,
-    forward_ragged,
-    fuse_projections,
-    init_params,
-    torch_dtype,
-)
+from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
+from ..models.quant import fuse_projections, init_params_quantized, quantize_params
 from ..ops.ragged_attention import resolve_kernel
 from ..ops.sampling import SampleOut, SamplingFlags, SamplingParams, sample_tokens
 from ..runtime.engine import AsyncEngine, Context, ResponseStream
@@ -63,6 +59,7 @@ from .graphs import DevicePrograms, FetchRing
 from .kv_manager import KvBlockManager
 from .pipeline import _FINISHED, DecodePipelineMixin, HostSampling
 from .scheduler import Scheduler, SequenceState, StepPlan
+from .spec import AcceptanceController, SpecDecodeMixin
 
 logger = logging.getLogger(__name__)
 
@@ -112,7 +109,7 @@ class StreamSpans:
         return self._total_s
 
 
-class TorchEngine(DecodePipelineMixin, AsyncEngine):
+class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
     """Token-in/token-out engine on one device."""
 
     def __init__(
@@ -193,29 +190,42 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
         # --- device state -------------------------------------------------
         dev = self.device
         if params is None:
-            params = init_params(self.model_config, cfg.seed, dev)
+            if cfg.weight_quant:
+                # Int8 drawn directly: full-depth 8B in bf16 would be 16 GB
+                # before it could be quantized.
+                params = init_params_quantized(self.model_config, cfg.seed, dev)
+            else:
+                params = init_params(self.model_config, cfg.seed, dev)
         else:
             params = {
                 k: ({n: w.to(dev) for n, w in v.items()} if k == "layers" else v.to(dev))
                 for k, v in params.items()
             }
-        self.params = fuse_projections(params)
+            if cfg.weight_quant:
+                params = quantize_params(params)  # a no-op on a quantized tree
+        self.params = fuse_projections(params) if cfg.fuse_projections else params
         cache_dtype = torch_dtype(cfg.cache_dtype)
         self.cache = PagedKVCache.create(
             self.model_config, cfg.num_blocks, cfg.block_size, cache_dtype, dev
         )
+        self.programs: Optional[DevicePrograms] = None
+        self.calibration_s = 0.0
         if cache_dtype.itemsize == 1:
-            if isinstance(cfg.kv_scale, str):
-                raise ValueError(
-                    f"kv_scale {cfg.kv_scale!r}: calibration is not supported by "
-                    "this engine yet; pass a float or a per-layer sequence"
-                )
-            if isinstance(cfg.kv_scale, (list, tuple, np.ndarray)):
-                self.kv_scale: Any = np.asarray(cfg.kv_scale, np.float32)
+            if isinstance(cfg.kv_scale, str):  # "auto" (EngineConfig checks)
+                t0 = time.perf_counter()
+                self.kv_scale: Any = self._calibrate_kv_scales()
+                self.calibration_s = time.perf_counter() - t0
+            elif isinstance(cfg.kv_scale, (list, tuple, np.ndarray)):
+                self.kv_scale = np.asarray(cfg.kv_scale, np.float32)
             else:
                 self.kv_scale = float(cfg.kv_scale)
         else:
             self.kv_scale = None
+        # Speculative decoding's per-sequence draft-length policy (spec.py);
+        # None when speculation is off.
+        self._spec_ctl = (
+            AcceptanceController(cfg.spec_decode) if cfg.spec_decode.enable else None
+        )
         S, V = cfg.max_batch, self.model_config.vocab_size
         self._zero_counts = torch.zeros((S, V), dtype=torch.int16, device=dev)
         self._rows = torch.arange(S, device=dev)
@@ -238,6 +248,48 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
     # ----------------------------------------------------------- device ops
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _calibrate_kv_scales(self) -> np.ndarray:
+        """Per-layer quantization scales from a probe forward (the JAX
+        engine's ``_calibrate_kv_scales``): a short deterministic token run
+        through the model into a throwaway bf16 cache, each layer's max
+        |K/V| mapped to the page dtype's largest value (127 for int8, 448
+        for e4m3), floored at 1e-6.  The probe is an ordinary eager forward,
+        so on CUDA it runs the hand-written kernels."""
+        # The scales reach the kernels as Python floats, which a CUDA graph
+        # bakes into its captured launches: they must be final before any
+        # program is captured (warmup or first use), never recalibrated
+        # after.
+        if self.programs is not None and any(self.programs.cache_sizes().values()):
+            raise RuntimeError("KV scales must be calibrated before any device program is captured")
+        cfg, mc = self.cfg, self.model_config
+        # Probe length bounded so nb (+1 slack) fits a single row's table.
+        T = min(128, (cfg.max_blocks_per_seq - 1) * cfg.block_size)
+        nb = (T + cfg.block_size - 1) // cfg.block_size + 1
+        probe = PagedKVCache.create(mc, nb, cfg.block_size, torch.bfloat16, self.device)
+        S = cfg.max_batch
+        toks = (np.arange(T, dtype=np.int64) * 2654435761) % mc.vocab_size
+        pos = np.arange(T, dtype=np.int32)
+        tables = np.zeros((S, nb), np.int32)
+        tables[0] = np.arange(nb)
+        cu = np.zeros((S + 1,), np.int32)
+        cu[1:] = T
+        d = self._to_device
+        rb = RaggedBatch(
+            token_ids=d(toks), positions=d(pos),
+            slot_mapping=d(pos),  # consecutive slots in pages 0..nb
+            kv_lens=d(np.asarray([T] + [0] * (S - 1), np.int32)),
+            page_indices=d(tables), cu_q_lens=d(cu), num_seqs=d(np.asarray([1], np.int32)),
+        )
+        with torch.inference_mode():
+            forward_ragged(self.params, mc, rb, probe)
+            maxabs = probe.pages.float().abs().amax(dim=(1, 2, 3, 4)).cpu().numpy()
+        dt = torch_dtype(cfg.cache_dtype)
+        qmax = float(torch.finfo(dt).max if dt.is_floating_point else torch.iinfo(dt).max)
+        scales = np.maximum(maxabs / qmax, 1e-6).astype(np.float32)
+        logger.info("calibrated per-layer kv scales (dtype %s): min %.4g max %.4g",
+                    dt, scales.min(), scales.max())
+        return scales
 
     def _step(self, rb: RaggedBatch, samp: SamplingParams) -> SampleOut:
         """One unified ragged step: forward + sample (device, no sync)."""
@@ -380,13 +432,18 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
         samp = self._sampling_arrays([])
         with torch.inference_mode():
             for T in self.reachable_token_buckets():
+                # One row owns as many tokens as its page table can hold
+                # (a bucket may exceed max_model_len); the rest of the
+                # bucket is padding and the other rows are empty.  The
+                # launches depend on the shapes only, not on these values.
+                n = min(T, PP * cfg.block_size)
                 cu = np.zeros((S + 1,), np.int32)
-                cu[1:] = T  # one row owns every token; the others are empty
+                cu[1:] = n
                 rb = dict(
                     token_ids=np.zeros((T,), np.int64),
                     positions=np.zeros((T,), np.int32),
                     slot_mapping=np.full((T,), -1, np.int32),  # writes dropped
-                    kv_lens=np.asarray([T] + [0] * (S - 1), np.int32),
+                    kv_lens=np.asarray([n] + [0] * (S - 1), np.int32),
                     page_indices=np.zeros((S, PP), np.int32),
                     cu_q_lens=cu,
                     num_seqs=np.asarray([1], np.int32),
@@ -521,7 +578,15 @@ class TorchEngine(DecodePipelineMixin, AsyncEngine):
                 continue
             try:
                 did_work = False
-                if plan.pure_decode and self.cfg.decode_steps > 1:
+                # Speculation first: drafted rows verify several tokens per
+                # round trip on the unified step (spec.py); no drafts
+                # (proposer misses, benched controllers, or an expected gain
+                # below the fused pipeline's) falls through unchanged.
+                drafts = self._spec_propose(plan) if self._spec_ctl is not None else {}
+                if drafts:
+                    await self._run_spec_unified(plan, drafts)
+                    did_work = True
+                if not did_work and plan.pure_decode and self.cfg.decode_steps > 1:
                     if self._pending_fetches:
                         # Parked rows must not sit out a whole fused
                         # session: fold them in first.

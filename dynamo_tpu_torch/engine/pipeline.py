@@ -13,10 +13,13 @@ engine/pipeline.py, whose default decode path this ports).
   dispatches in flight, chained on the device carry, and admits and
   retires rows inside the loop.
 
-Left out, with the later slices that port them: speculative decoding
-(``_spec_session_probe``, ``_harvest_spec``), migration freeze entry
-points, the multi-host publisher and request tracing.  The ``frozen`` and
-``grammar`` guards stay as the copied modules have them.
+Speculative decoding (engine/spec.py) enters here twice: the ``"spec"``
+kind of deferred fetch, applied by ``_harvest_spec``, and the session probe
+that leaves a fused session once its output turns repetitive enough for
+speculation to beat it.  Left out, with the later slices that port them:
+migration freeze entry points, the multi-host publisher and request
+tracing.  The ``frozen`` and ``grammar`` guards stay as the copied modules
+have them.
 """
 
 from __future__ import annotations
@@ -59,9 +62,13 @@ class DecodePipelineMixin:
     _continuous_decode = True
 
     # ------------------------------------------------------------ batch build
-    def _sampling_arrays(self, seqs: List[Optional[SequenceState]]) -> HostSampling:
+    def _sampling_arrays(self, seqs: List[Optional[SequenceState]],
+                         step_offsets: Optional[List[int]] = None) -> HostSampling:
         """Per-row sampling state for one step, one entry per batch row
-        (None = padding or a free row slot, greedy defaults)."""
+        (None = padding or a free row slot, greedy defaults).  A sequence
+        may own several rows (a speculative verification step):
+        ``step_offsets[i]`` then shifts row i's rng-stream position to the
+        output index it scores (engine/spec.py)."""
         S = self.cfg.max_batch
         V = self.model_config.vocab_size
         a = {k: np.zeros((S,), dt) for k, dt in SAMPLING_DTYPES.items()}
@@ -71,7 +78,7 @@ class DecodePipelineMixin:
             if seq is None:
                 continue
             a["seeds"][i] = seq.sampling_seed & 0xFFFFFFFF
-            a["steps"][i] = seq.num_output_tokens
+            a["steps"][i] = seq.num_output_tokens + (step_offsets[i] if step_offsets else 0)
             a["temperature"][i] = seq.sampling_temperature
             a["top_k"][i] = seq.sampling_top_k
             a["top_p"][i] = seq.sampling_top_p
@@ -175,6 +182,8 @@ class DecodePipelineMixin:
                         seq, int(sampled[i]),
                         logprobs=self._lp_info(seq, i, logp, top_ids, top_lp),
                     )
+            elif kind == "spec":  # speculative verification (engine/spec.py)
+                self._harvest_spec(entry, sampled, logp, top_ids, top_lp)
             else:  # burst
                 members, pos0, chained = entry[2], entry[3], entry[4]
                 self._accept_chunk(members, pos0, sampled, logp, top_ids, top_lp, [])
@@ -578,6 +587,11 @@ class DecodePipelineMixin:
                 )
                 self._accept_chunk(slots.rows, pos0_c, sampled, logp, top_ids, top_lp, [])
                 harvested = cid
+                if not rebuild and self._spec_session_probe([s for _, s in slots.active()]):
+                    # Output grew repetitive enough that in-step speculation
+                    # now beats the fused chunks: drain and let schedule()
+                    # propose for real (engine/spec.py).
+                    rebuild = True
             elif not progressed:
                 if self._pending_fetches:
                     # Nothing dispatchable until a first-token fetch lands.

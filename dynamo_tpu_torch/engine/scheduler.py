@@ -101,6 +101,23 @@ class SequenceState:
     # newcomer waiting out a fused pure-decode session (r5 stall
     # diagnosis); admission_waits records it per request.
     enqueue_t: float = 0.0
+    # --- speculative decoding (engine/spec.py) ---
+    # Per-request opt-out (sampling_options.spec_decode=false via nvext).
+    spec_enabled: bool = True
+    # Adaptive draft length: -1 = unresolved (controller seeds it from
+    # SpecDecodeConfig.k on first use).  Survives preemption — acceptance
+    # history is a property of the traffic, not of the KV residency.
+    spec_k: int = -1
+    # EWMA of per-dispatch acceptance (accepted/drafted).
+    spec_ewma: float = 1.0
+    # Proposer bench: no drafts until num_output_tokens reaches this
+    # (-1 = not benched).
+    spec_bench_until: int = -1
+    # Miss backoff: matching is skipped until total_tokens reaches this
+    # (exponential in consecutive misses, capped) so non-repetitive
+    # traffic stops paying the n-gram scan almost immediately.
+    spec_next_try: int = 0
+    spec_miss: int = 0
     # --- multi-tenancy (llm/tenancy) ---
     # Tenant salt mixed into the chained block hashes (tokens.py): equal
     # token streams from different adapters never share KV — engine
@@ -192,6 +209,7 @@ class SequenceState:
             min_new_tokens=stop.min_tokens,
             stop_token_ids=frozenset(stop.stop_token_ids or ()),
             ignore_eos=bool(stop.ignore_eos),
+            spec_enabled=getattr(samp, "spec_decode", None) is not False,
             orig_prompt_len=orig_len,
             # QoS identity: tenant keys the WFQ waiting queue,
             # priority picks the class band.  Both default benign — absent

@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Set
 
 from ..labels import bounded_label
 from ..runtime.engine import AsyncEngine, Context
-from .metrics import Metrics, Status, engine_dispatch_metrics
+from .metrics import Metrics, Status, engine_dispatch_metrics, spec_metrics
 from .openai import SSE_DONE, aggregate_chunks, sse_encode
 from .protocols import ModelNotFoundError
 
@@ -358,7 +358,11 @@ class HttpService:
         return _json_response({"status": "ok", "models": self.models.model_names()})
 
     async def _metrics(self, conn: _Connection, req: _Request) -> _Response:
-        body = self.metrics.render() + engine_dispatch_metrics.render(self._metrics_prefix).encode()
+        body = (
+            self.metrics.render()
+            + spec_metrics.render(self._metrics_prefix).encode()
+            + engine_dispatch_metrics.render(self._metrics_prefix).encode()
+        )
         return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")
 
     async def _list_models(self, conn: _Connection, req: _Request) -> _Response:

@@ -14,9 +14,9 @@ that records duration + status when dropped.
 ``Histogram`` below render the same exposition text (names, label names,
 buckets, value format) minus the optional ``_created`` series, so one
 scraper reads both packages.  ``EngineDispatchMetrics`` is the colocated
-engine's dispatch-health group.  The metric groups of subsystems the port
-does not have yet (speculative decoding, KV tiers, QoS, tracing, ...) are
-not here.
+engine's dispatch-health group and ``SpecDecodeMetrics`` its speculative
+decoding group.  The metric groups of subsystems the port does not have yet
+(KV tiers, QoS, tracing, ...) are not here.
 """
 
 from __future__ import annotations
@@ -399,3 +399,67 @@ class EngineDispatchMetrics:
 
 
 engine_dispatch_metrics = EngineDispatchMetrics()
+
+
+class SpecDecodeMetrics:
+    """Speculative-decoding counters and derived gauges (engine/spec.py),
+    copied from the JAX package's ``llm/metrics.py``: a module-level
+    singleton that the engine updates and ``/metrics`` appends."""
+
+    def __init__(self):
+        self.drafted_total = 0  # draft tokens submitted for verification
+        self.accepted_total = 0  # draft tokens accepted
+        self.emitted_total = 0  # tokens committed by spec dispatches (incl. bonus)
+        self.dispatches_total = 0  # unified verification dispatches
+        self.fallback_total = 0  # plans where spec stood down for the fused pipeline
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted_total / self.drafted_total if self.drafted_total else 0.0
+
+    @property
+    def tokens_per_dispatch(self) -> float:
+        return self.emitted_total / self.dispatches_total if self.dispatches_total else 0.0
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "drafted_total": float(self.drafted_total),
+            "accepted_total": float(self.accepted_total),
+            "emitted_total": float(self.emitted_total),
+            "dispatches_total": float(self.dispatches_total),
+            "fallback_total": float(self.fallback_total),
+            "acceptance_rate": self.acceptance_rate,
+            "tokens_per_dispatch": self.tokens_per_dispatch,
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_spec_decode"
+        lines = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("drafted_tokens_total", "counter",
+             "Draft tokens submitted for in-step verification", self.drafted_total)
+        emit("accepted_tokens_total", "counter",
+             "Draft tokens accepted (sampled-stream match)", self.accepted_total)
+        emit("emitted_tokens_total", "counter",
+             "Tokens committed by speculative dispatches (incl. the bonus sample)",
+             self.emitted_total)
+        emit("dispatches_total", "counter", "Unified verification dispatches",
+             self.dispatches_total)
+        emit("fallback_total", "counter",
+             "Plans where speculation stood down for the fused pipeline", self.fallback_total)
+        emit("acceptance_rate", "gauge", "accepted/drafted since start",
+             round(self.acceptance_rate, 6))
+        emit("tokens_per_dispatch", "gauge", "Committed tokens per verification dispatch",
+             round(self.tokens_per_dispatch, 6))
+        return "\n".join(lines) + "\n"
+
+
+spec_metrics = SpecDecodeMetrics()

@@ -5,7 +5,8 @@ plain functions over a dict of tensors: ``{"embed": [V, D], "layers":
 {name: [L, ...]}, "final_norm": [D], "lm_head": [D, V]}``, weights in the
 JAX package's ``[in, out]`` layout so trees convert leaf for leaf
 (``params_from_jax``).  The cast points are JAX's: norms in f32 then cast,
-the gate activation in f32, f32 logits.
+the gate activation in f32, f32 logits.  A weight with an ``*_scale``
+sibling is int8 (W8A8, models/quant.py) and runs ops/quant_matmul.qdot.
 
 The paged KV slab ``[L, P, ps, 2*KV, D]`` is updated IN PLACE: each layer
 writes its new K/V rows into its own ``pages[l]`` view and the attention
@@ -23,9 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from ..device import default_device
-from ..ops.ragged_attention import kv_write_plan, ragged_attention, write_kv_ragged
+from ..ops.quant_matmul import qdot
+from ..ops.ragged_attention import (
+    kv_write_plan, ragged_attention, single_row_plan, write_kv_ragged,
+)
 from ..ops.rope import rope_cos_sin, rope_frequencies, rotate
 from .config import ModelConfig
+from .quant import fuse_projections, operand_layout  # noqa: F401  (fuse_projections: re-exported)
 
 Params = Dict[str, Any]
 
@@ -48,7 +53,12 @@ def torch_dtype(name: Any) -> torch.dtype:
 
 
 def linear(x: torch.Tensor, lp: Params, name: str, out_dtype=None) -> torch.Tensor:
-    """``x @ lp[name]`` (weights [in, out])."""
+    """``x @ lp[name]`` (weights [in, out]), dispatching on quantization:
+    an int8 weight is recognised by its sibling ``name + "_scale"``
+    (models/quant.py) and runs the int8 product (ops/quant_matmul.qdot)."""
+    s = lp.get(name + "_scale")
+    if s is not None:
+        return qdot(x, lp[name], s, out_dtype=out_dtype)
     r = x @ lp[name]
     return r if out_dtype is None else r.to(out_dtype)
 
@@ -78,17 +88,29 @@ def mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
     return linear(gate * linear(x, lp, "w_up"), lp, "w_down")
 
 
-def embed_lookup(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][token_ids]
+def embed_lookup(params: Params, token_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Token embedding gather; int8 embeds dequantize the gathered rows by
+    their per-row scale (the vocab row, shared with the tied head)."""
+    e = params["embed"][token_ids]
+    s = params.get("embed_scale")
+    if s is None:
+        return e
+    return (e.float() * s[token_ids][:, None]).to(dtype)
 
 
 def lm_logits(params: Params, h_last: torch.Tensor) -> torch.Tensor:
-    """Final-norm hidden rows → f32 logits through lm_head or the tied
-    embedding."""
+    """Final-norm hidden rows → f32 logits, through lm_head or the tied
+    embedding, quantized or not."""
     head = params.get("lm_head")
     if head is not None:
-        return (h_last @ head).float()
-    return (h_last @ params["embed"].T).float()
+        s = params.get("lm_head_scale")
+        if s is None:
+            return (h_last @ head).float()
+        return qdot(h_last, head, s, out_dtype=torch.float32)
+    s = params.get("embed_scale")
+    if s is None:
+        return (h_last @ params["embed"].T).float()
+    return qdot(h_last, params["embed"].T, s, out_dtype=torch.float32)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -177,25 +199,13 @@ def init_params(
     return params
 
 
-def fuse_projections(params: Params) -> Params:
-    """Concatenate q|k|v and gate|up along their output axes (7 matmuls per
-    dense layer become 5).  The forward dispatches on the fused names."""
-    layers = dict(params["layers"])
-    if "wq" in layers and "wqkv" not in layers:
-        layers["wqkv"] = torch.cat([layers.pop("wq"), layers.pop("wk"), layers.pop("wv")], dim=-1)
-        if "bq" in layers:
-            layers["bqkv"] = torch.cat([layers.pop("bq"), layers.pop("bk"), layers.pop("bv")], dim=-1)
-    if "w_gate" in layers and "w_gateup" not in layers:
-        layers["w_gateup"] = torch.cat([layers.pop("w_gate"), layers.pop("w_up")], dim=-1)
-    return dict(params, layers=layers)
-
-
-_TOP_LEAVES = {"embed", "final_norm", "lm_head"}
-_LAYER_LEAVES = {
-    "attn_norm", "mlp_norm", "wo", "w_down",
-    "wq", "wk", "wv", "bq", "bk", "bv", "wqkv", "bqkv",
-    "w_gate", "w_up", "w_gateup",
-}
+_TOP_LEAVES = {"embed", "final_norm", "lm_head", "embed_scale", "lm_head_scale"}
+_QUANT_LAYER_LEAVES = {"wo", "w_down", "wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gateup"}
+_LAYER_LEAVES = (
+    {"attn_norm", "mlp_norm", "bq", "bk", "bv", "bqkv"}
+    | _QUANT_LAYER_LEAVES
+    | {n + "_scale" for n in _QUANT_LAYER_LEAVES}
+)
 
 
 def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
@@ -207,20 +217,28 @@ def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree: Mapping[str, Any], device: Optional[torch.device] = None) -> Params:
     """A JAX params tree (leaves as numpy arrays, e.g. via ``np.asarray``)
-    → this package's dict of tensors on ``device``, layout unchanged
+    → this package's dict of tensors on ``device``, shapes unchanged
     (weights stay ``[in, out]``).  Accepts unfused (wq/wk/wv, w_gate/w_up)
-    and fused (wqkv, w_gateup) leaves; refuses leaves it cannot serve
-    (int8 ``*_scale`` siblings, MoE, LoRA banks)."""
+    and fused (wqkv, w_gateup) leaves, float or int8 with their ``*_scale``
+    siblings (int8 weights are stored column-major, models/quant.py);
+    refuses leaves it cannot serve (MoE, LoRA banks)."""
     dev = default_device(device)
+
+    def conv(name: str, x: Any, group: Mapping[str, Any]) -> torch.Tensor:
+        t = _to_torch(x, dev)
+        if t.dtype == torch.int8 and name != "embed" and name + "_scale" in group:
+            t = operand_layout(t)
+        return t
+
     out: Params = {}
     for name, leaf in tree.items():
         if name == "layers":
             bad = set(leaf) - _LAYER_LEAVES
             if bad:
                 raise ValueError(f"unsupported layer leaves: {sorted(bad)}")
-            out["layers"] = {n: _to_torch(x, dev) for n, x in leaf.items()}
+            out["layers"] = {n: conv(n, x, leaf) for n, x in leaf.items()}
         elif name in _TOP_LEAVES:
-            out[name] = _to_torch(leaf, dev)
+            out[name] = conv(name, leaf, tree)
         else:
             raise ValueError(f"unsupported params leaf {name!r}")
     return out
@@ -250,12 +268,13 @@ def forward_ragged(
     L = cache.pages.shape[0]
     scales = None if kv_scale is None else np.asarray(kv_scale, np.float32).reshape(-1)
     layers = params["layers"]
-    # Per-step, layer-invariant work done once: rope angles and the KV
-    # write's destination plan.
+    # Per-step, layer-invariant work done once: rope angles, the KV write's
+    # destination plan and the attention's single-token rows.
     cos, sin = rope_cos_sin(rb.positions, inv_freq)
     plan = kv_write_plan(rb.slot_mapping)
+    rows = None if decode else single_row_plan(rb.kv_lens, rb.cu_q_lens, rb.num_seqs, T)
 
-    h = embed_lookup(params, rb.token_ids)  # [T, D]
+    h = embed_lookup(params, rb.token_ids, torch_dtype(config.dtype))  # [T, D]
     for l in range(L):
         lp = {name: w[l] for name, w in layers.items()}
         x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
@@ -268,7 +287,7 @@ def forward_ragged(
         write_kv_ragged(pages, k, v, rb.slot_mapping, kv_scale=s_l, plan=plan)
         attn = ragged_attention(
             q, pages, rb.kv_lens, rb.page_indices, rb.cu_q_lens, rb.num_seqs,
-            sm_scale=sm_scale, kv_scale=s_l, decode=decode,
+            sm_scale=sm_scale, kv_scale=s_l, decode=decode, rows=rows,
         )
         h = h + linear(attn.reshape(T, H * hd), lp, "wo")
         x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)

@@ -123,6 +123,44 @@ def write_kv_ragged(
     return pages
 
 
+class SingleRowPlan(NamedTuple):
+    """Which rows of a step are single tokens, and where their decode-op
+    outputs go — the same for every layer, so the model computes it once per
+    step (``single_row_plan``)."""
+
+    at: torch.Tensor  # [S] int64 each row's first token (clamped into the step)
+    single: torch.Tensor  # [S] bool: a live row of one token
+    kv_prefill: torch.Tensor  # [S] int32 the prefill op's context lengths
+    kv_decode: torch.Tensor  # [S] int32 the decode op's context lengths
+    src: torch.Tensor  # [S] int64 decode-op row each row's write takes
+    dst: torch.Tensor  # [S] int64 token each row's write lands on
+    any_single: torch.Tensor  # [1] bool
+
+
+def single_row_plan(kv_lens: torch.Tensor, cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
+                    num_tokens: int) -> SingleRowPlan:
+    """The prefill op sees the single-token rows with a 1-token context
+    (their output is replaced) and the decode op every other row with an
+    empty one.  The single rows' outputs go back with one ``index_copy_``
+    and no host sync: the other rows repeat the first single row's write
+    (duplicate indices carrying equal values, as in ``kv_write_plan``), or
+    rewrite token 0 with its own value when no row is single."""
+    at = cu_q_lens[:-1].long().clamp(max=num_tokens - 1)
+    single = ((cu_q_lens[1:] - cu_q_lens[:-1]) == 1) & (kv_lens > 0)
+    single &= torch.arange(single.shape[0], device=kv_lens.device) < num_seqs.long()
+    first = torch.argmax(single.to(torch.uint8)).reshape(1)
+    any_single = single.index_select(0, first)
+    rows = torch.arange(single.shape[0], device=kv_lens.device)
+    return SingleRowPlan(
+        at=at, single=single,
+        kv_prefill=torch.where(single, torch.ones_like(kv_lens), kv_lens),
+        kv_decode=torch.where(single, kv_lens, torch.zeros_like(kv_lens)),
+        src=torch.where(single, rows, first),
+        dst=torch.where(single, at, torch.where(any_single, at.index_select(0, first), 0)),
+        any_single=any_single,
+    )
+
+
 def ragged_attention(
     q: torch.Tensor,  # [T, num_heads, head_dim]
     pages: torch.Tensor,  # [num_pages, page_size, 2*kv_heads, head_dim]
@@ -134,19 +172,37 @@ def ragged_attention(
     sm_scale: float,
     kv_scale: Optional[float] = None,  # quantized pages: value = stored * scale
     decode: bool = False,  # every row is a 1-token decode row
+    rows: Optional[SingleRowPlan] = None,  # single_row_plan(...), if made
 ) -> torch.Tensor:
     """Causal attention of each token against its row's paged context (the
     K/V must already be written — callers run write_kv_ragged first).
+    ``kv_scale`` is applied inside the kernels (in-kernel dequant).
+
     ``decode=True`` routes to the decode kernel, whose rows are single
     tokens at position ``kv_len - 1`` (``cu_q_lens`` is then the identity
-    and unused); otherwise to the prefill kernel.  ``kv_scale`` is applied
-    inside the kernels (in-kernel dequant)."""
+    and unused).  Otherwise rows of several tokens go to the prefill kernel
+    and single-token rows to the decode kernel, so a decode position's
+    output depends on its row's context alone, not on the step that carries
+    it: a fused decode dispatch, a prefill chunk's step, or a speculative
+    verification step (whose draft rows are single-token rows).  The two
+    kernels agree only to rounding, and at a near-tie of the top logits
+    that decides a token; without this, speculation on and off would give
+    different streams on the card."""
     if decode:
         return decode_attention(
             q, pages, kv_lens, page_indices, num_seqs,
             sm_scale=sm_scale, kv_scale=kv_scale,
         )
-    return prefill_attention(
-        q, pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+    if rows is None:
+        rows = single_row_plan(kv_lens, cu_q_lens, num_seqs, q.shape[0])
+    out = prefill_attention(
+        q, pages, rows.kv_prefill, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, kv_scale=kv_scale,
     )
+    dec = decode_attention(
+        q.index_select(0, rows.at), pages, rows.kv_decode, page_indices, num_seqs,
+        sm_scale=sm_scale, kv_scale=kv_scale,
+    )
+    vals = torch.where(rows.any_single[:, None, None], dec.index_select(0, rows.src), out[:1])
+    out.index_copy_(0, rows.dst, vals)
+    return out

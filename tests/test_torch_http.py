@@ -460,7 +460,7 @@ def test_cli_serves_http_out_torch():
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--host-cache-mb", "8"],
-                                  ["--spec-decode"], ["--lora", "a=random"], ["--nnodes", "2"],
+                                  ["--disk-cache-mb", "8"], ["--lora", "a=random"], ["--nnodes", "2"],
                                   ["--tokenizer", "tok.json"]])
 def test_cli_refuses_options_the_port_lacks(flag):
     from dynamo_tpu_torch import cli

@@ -119,7 +119,7 @@ def test_params_from_jax_keeps_layout_and_refuses_unknown_leaves():
     params = tl.params_from_jax(tree, device="cpu")
     assert params["layers"]["wq"].shape == tree["layers"]["wq"].shape  # [L, in, out]
     np.testing.assert_array_equal(params["embed"].numpy(), tree["embed"])
-    bad = dict(tree, layers=dict(tree["layers"], wq_scale=np.ones(1, np.float32)))
+    bad = dict(tree, layers=dict(tree["layers"], router=np.ones(1, np.float32)))  # MoE
     with pytest.raises(ValueError):
         tl.params_from_jax(bad, device="cpu")
 

@@ -305,6 +305,37 @@ def test_ragged_attention_routes_decode_rows():
     np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("kls,qls,dtype,scale", [
+    ([11, 5, 20, 7, 9], [3, 1, 1, 4, 1], "f32", None),
+    ([11, 5, 20, 7, 9], [3, 1, 1, 4, 1], "int8", 0.05),
+    ([5, 9, 13, 2], [1, 1, 1, 1], "int8", 0.05),
+    ([11, 20, 7], [3, 3, 3], "f32", None),
+], ids=["mixed-f32", "mixed-int8", "all-single-int8", "no-single-f32"])
+def test_ragged_attention_takes_single_token_rows_through_decode(kls, qls, dtype, scale):
+    """A step's single-token rows are computed by the decode op, bit for
+    bit, and its other rows by the prefill op, so a decode position's
+    output does not depend on the step that carries it; the whole step
+    still matches the JAX package's ragged attention."""
+    S, PP, ps, KV, G, D = 6, 6, 4, 2, 2, 16
+    q, pages, kv_lens, tables, cu, num = _prefill_case(5, S, PP, ps, KV, G, D, kls, qls, dtype,
+                                                       scale)
+    sm = D**-0.5
+    args = (t(q), t(pages), t(kv_lens), t(tables), t(cu), t(num))
+    got = tra.ragged_attention(*args, sm_scale=sm, kv_scale=scale)
+    pre = prefill_attention_plain(*args, sm_scale=sm, kv_scale=scale)
+    starts = t(np.minimum(cu[:-1], q.shape[0] - 1))
+    dec = decode_attention_plain(t(q).index_select(0, starts.long()), t(pages), t(kv_lens),
+                                 t(tables), t(num), sm_scale=sm, kv_scale=scale)
+    for r, (a, b) in enumerate(zip(cu[:len(qls)], cu[1:len(qls) + 1])):
+        want = dec[r:r + 1] if b - a == 1 else pre[a:b]
+        assert torch.equal(got[a:b], want), r
+    np.testing.assert_array_equal(got[int(cu[len(qls)]):].numpy(), 0.0)
+    ref = jax.jit(functools.partial(
+        jra.ragged_attention, sm_scale=sm, impl="xla", kv_scale=scale, prefill_kernel="xla",
+    ))(q, pages, kv_lens, tables, cu, num)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 # ----------------------------------------------------------------- sampling
 
 

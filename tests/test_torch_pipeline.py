@@ -164,6 +164,19 @@ def test_warmup_then_churn_adds_no_program(jax_churn):
     assert stats["admissions"] >= 1 and all(toks for toks, _ in streams)
 
 
+def test_warmup_covers_buckets_past_the_context():
+    """A step bucket may hold more tokens than one row's page table
+    (bench.py's geometry: 768-token steps at max_model_len 256).  Warmup's
+    row takes what its table holds and leaves the rest of the bucket as
+    padding; it used to claim the whole bucket and index past the table."""
+    engine = TorchEngine(EngineConfig(**dict(CFG, max_model_len=32, prefill_chunk=64)),
+                         device="cpu")
+    buckets = engine.reachable_token_buckets()
+    assert buckets[-1] > engine.cfg.max_model_len
+    assert engine.warmup() == {"step": len(buckets), "multi": 2}
+    engine.programs.close()
+
+
 # Each sampler flag keys its own programs: requests using it, served on a
 # warmed engine whose greedy programs already exist, must stream as the
 # control does.
