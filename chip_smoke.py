@@ -85,8 +85,27 @@ Phases, any failure exits non-zero:
      oracle of the spec-off streams (one token wrong in every other
      8-token window): identical streams again, with verification
      dispatches and both accepted and rejected drafts;
+  f. the serving edge's overload and observability plane, on phase 6's
+     warm engine through three HttpService instances on free ports
+     (preprocessor → backend → engine): admission (max_inflight 4, queue 2,
+     wait 30 s) under a burst of 12 streamed /v1/completions of 512 ids and
+     64 new tokens — exactly 6 whole streams, 6 429s with Retry-After,
+     counted on /metrics; a stream with ``x-deadline-s: 0.5`` and
+     max_tokens 2048 ends in the SSE 504 error event and its row leaves the
+     engine within one fused dispatch, no KV block held; QoS at rate 1,
+     burst 2: one tenant's three requests get 200, 200, 429 (quota) and
+     the brownout ladder ticks off the engine's live KV usage; 4 requests
+     with ``x-trace: 1`` (2048 ids, logprobs so the first token's chunk
+     reaches the client) each assemble at /traces/{id} with the edge,
+     preprocess, queue-wait, prefill (first_token) and decode-chunk spans
+     in order, the TTFT decomposition's terms within 10 % of the client's
+     TTFT; then 8 greedy requests a pass, one at a time, traced none /
+     all / all / none after a concurrent pass that fills the prefix cache:
+     identical token streams and no graph captured,
+     with each pass's TTFT and ITL medians (the tracing overhead, not
+     gated) and both kernels' launches in the phase;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d and e beside phase 6's and 7's), then the device line
+     phases c, d, e and f beside phase 6's and 7's), then the device line
      last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
@@ -123,6 +142,10 @@ SERVE_CFG = dict(
     max_batch=16, max_model_len=4096, prefill_chunk=512, decode_steps=8,
     pipeline_depth=2, seed=0,
 )
+
+
+# The card's name and power limit as nvidia-smi gives them (set by main).
+CARD = "not read"
 
 
 def log(*a):
@@ -910,7 +933,8 @@ def graph_check(torch, dev, engine):
 
 def main_path(torch, dev):
     """Phase 6: TorchEngine serving llama-3.1-8b after warmup, the graph
-    check and the churn serve.  Returns (ok, launches)."""
+    check and the churn serve, then phase f (edge_path) on the same warm
+    engine.  Returns (ok, launches, edge ok, edge numbers)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
@@ -920,7 +944,8 @@ def main_path(torch, dev):
     torch.cuda.synchronize()
     log(f"engine: llama-3.1-8b, {engine.model_config.num_layers} layers, bf16 random "
         f"weights (seed 0), init {time.perf_counter() - t0:.1f} s, "
-        f"kernels decode={engine.decode_kernel} prefill={engine.prefill_kernel}")
+        f"kernels decode={engine.dispatch_summary()['decode_kernel']} "
+        f"prefill={engine.dispatch_summary()['prefill_kernel']}")
     prompts = serve_prompts(torch)
     lens = [len(p) for p in prompts]
     max_tokens = SERVE_MAX_TOKENS
@@ -942,6 +967,8 @@ def main_path(torch, dev):
             out["ok"] = graph_check(torch, dev, engine) and out["ok"]
             out["ok"] = (await churn_path(torch, engine)) and out["ok"]
             out["ok"] = slice_counters_zero(torch, dev) and out["ok"]
+            # Phase f on the same warm engine.
+            out["edge_ok"], out["edge"] = await edge_path(torch, engine)
         finally:
             await engine.close()
 
@@ -970,7 +997,7 @@ def main_path(torch, dev):
         f"(reference max |x| {float(want.abs().max()):.3f}, top-2 gap "
         f"{float(top2[0] - top2[1]):.4f}) same argmax {int(got.argmax()) == int(want.argmax())}")
     ok = ok and finite and got.shape == (engine.model_config.vocab_size,) and cos > 0.99
-    return ok, launches
+    return ok, launches, out["edge_ok"], out["edge"]
 
 
 def slice_counters_zero(torch, dev):
@@ -1158,13 +1185,15 @@ class CliServer:
             raise self.task.exception()
 
 
-async def http_call(port, method, path, body=None):
+async def http_call(port, method, path, body=None, headers=None):
     """One HTTP/1.1 request over a fresh connection (standard library
-    only).  Returns (status, headers, body bytes, SSE events) with each SSE
-    event stamped on arrival, in seconds after the request was sent."""
+    only), with extra request ``headers``.  Returns (status, headers, body
+    bytes, SSE events) with each SSE event stamped on arrival, in seconds
+    after the request was sent."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     payload = b"" if body is None else json.dumps(body).encode()
-    head = (f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n"
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    head = (f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n{extra}"
             f"Content-Type: application/json\r\nContent-Length: {len(payload)}\r\n\r\n")
     t0 = time.perf_counter()
     try:
@@ -1379,6 +1408,357 @@ def http_path(torch):
         f"{out.get('chat', {}).get('warm')!r}); launches {launches}; host_gap_frac "
         f"{out.get('host_gap_frac')} (/metrics); host clock, one call")
     return not fails, launches, out
+
+
+# ---------------------------------------------- f. the serving edge's overload plane
+
+EDGE_MODEL = "llama-3.1-8b"
+EDGE_BURST, EDGE_ISL, EDGE_OSL = 12, 512, 64
+EDGE_INFLIGHT, EDGE_QUEUE, EDGE_QUEUE_TIMEOUT_S = 4, 2, 30.0
+EDGE_DEADLINE_S, EDGE_DEADLINE_TOKENS = 0.5, 2048
+EDGE_TRACED, EDGE_TRACED_ISL, EDGE_TRACED_OSL = 4, 2048, 16
+EDGE_TTFT_TOL = 0.10
+EDGE_PASSES = ("warm", "none", "all", "all", "none")
+
+
+def edge_prompts(torch, vocab, lens, seed):
+    """Random prompt ids below the vocabulary, one per length (seeded)."""
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, min(128000, vocab), (n,), generator=rng).tolist() for n in lens]
+
+
+class _Recorder:
+    """The engine under the HTTP pipeline, recording the token ids each
+    request's stream carried, keyed by its request id."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.streams = {}
+
+    async def generate(self, request):
+        from dynamo_tpu_torch.runtime.engine import ResponseStream
+
+        stream = await self.engine.generate(request)
+        toks = self.streams.setdefault(request.id, [])
+
+        async def gen():
+            try:
+                async for item in stream:
+                    toks.extend(item.get("token_ids") or ())
+                    yield item
+            finally:
+                await stream.aclose()
+
+        return ResponseStream(gen(), request.ctx)
+
+
+async def edge_path(torch, engine):
+    """Phase f: the port's HttpService → preprocessor → backend on the warm
+    phase-6 engine, three services on free ports sharing one pipeline:
+    admission control, per-request deadlines, QoS quotas with the brownout
+    ladder, and request tracing with /traces.  Every check fails the phase.
+    Returns (ok, numbers)."""
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.qos import BrownoutConfig, QosConfig, QosController
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.llm.trace_service import TraceAggregator
+    from dynamo_tpu_torch.runtime.pipeline import build_pipeline
+    from dynamo_tpu_torch.runtime.resilience import metrics as resilience_metrics
+    from dynamo_tpu_torch.runtime.tracing import SpanExporter, TraceSampler, TracingConfig
+
+    fails, out = [], {}
+    vocab = engine.model_config.vocab_size
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"edge check FAILED: {what}")
+
+    tok = ByteTokenizer()
+    recorder = _Recorder(engine)
+    pipeline = build_pipeline([OpenAIPreprocessor(tok, EDGE_MODEL), Backend(tok)], recorder)
+    aggregator = TraceAggregator()
+    exporter = await SpanExporter([aggregator], interval_s=0.05).start()
+    qos = QosController(QosConfig(rate=1.0, burst=2.0, brownout=BrownoutConfig()))
+    kv_seen = []  # what the ladder read, tick by tick, over the whole phase
+
+    def kv_usage():
+        kv_seen.append(engine.metrics().gpu_cache_usage_perc)
+        return kv_seen[-1]
+
+    services = {
+        "admission": HttpService(host="127.0.0.1", port=0, max_inflight=EDGE_INFLIGHT,
+                                 admission_queue=EDGE_QUEUE,
+                                 admission_timeout_s=EDGE_QUEUE_TIMEOUT_S),
+        "qos": HttpService(host="127.0.0.1", port=0, qos=qos, kv_usage_fn=kv_usage),
+        "tracing": HttpService(host="127.0.0.1", port=0, tracing=TraceSampler(TracingConfig()),
+                               trace_aggregator=aggregator),
+    }
+    for svc in services.values():
+        svc.models.add_completion_model(EDGE_MODEL, pipeline)
+        await svc.start()
+    port = {k: svc.port for k, svc in services.items()}
+
+    def completion(prompt, max_tokens, **kw):
+        return dict(model=EDGE_MODEL, prompt=prompt, max_tokens=max_tokens, temperature=0,
+                    stream=True, nvext={"ignore_eos": True}, **kw)
+
+    def whole(result, max_tokens):
+        st, _, _, events = result
+        try:
+            chunks, done = sse_data(events)
+        except ValueError:
+            return False
+        final = chunks[-1][1] if chunks else {}
+        return (st == 200 and done and (final.get("usage") or {}).get("completion_tokens")
+                == max_tokens and final["choices"][0].get("finish_reason") == "length")
+
+    def metric(name, **want):
+        samples = parse_prometheus(out["metrics_text"])
+        return sum(v for (n, labels), v in samples.items()
+                   if n == name and all(dict(labels).get(k) == w for k, w in want.items()))
+
+    async def get_trace(tid):
+        """/traces/{tid} once the exporter has delivered its edge span."""
+        trace = {}
+        for _ in range(200):
+            await exporter.flush()
+            st, _, body, _ = await http_call(port["tracing"], "GET", f"/traces/{tid}")
+            trace = json.loads(body) if st == 200 else {}
+            if any(s["name"] == "edge.request" for s in trace.get("spans", ())):
+                break
+            await asyncio.sleep(0.01)
+        return trace
+
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    try:
+        # Admission: 4 in flight, 2 queued, the other 6 shed with 429.
+        shed0 = resilience_metrics.admission_shed.get("429", 0)
+        burst = edge_prompts(torch, vocab, [EDGE_ISL] * EDGE_BURST, 9001)
+        t = time.perf_counter()
+        results = await asyncio.gather(*(
+            http_call(port["admission"], "POST", "/v1/completions", completion(p, EDGE_OSL))
+            for p in burst))
+        out["burst_wall_s"] = time.perf_counter() - t
+        served = [r for r in results if whole(r, EDGE_OSL)]
+        shed = [r for r in results if r[0] == 429 and r[1].get("retry-after")
+                and b"admission queue full" in r[2]]
+        check(len(served) == EDGE_INFLIGHT + EDGE_QUEUE and len(shed) == EDGE_BURST - len(served),
+              f"admission: {EDGE_INFLIGHT + EDGE_QUEUE} whole streams and "
+              f"{EDGE_BURST - EDGE_INFLIGHT - EDGE_QUEUE} 429s with Retry-After "
+              f"(statuses {sorted(r[0] for r in results)}, whole {len(served)})")
+        out["metrics_text"] = (await http_call(port["admission"], "GET", "/metrics"))[2].decode()
+        counted = metric("dynamo_tpu_resilience_admission_shed_total", status="429") - shed0
+        check(counted == len(shed), f"/metrics admission_shed_total{{status=\"429\"}} counts "
+                                    f"{len(shed)} ({counted})")
+        out["admission"] = {"statuses": sorted(r[0] for r in results), "whole": len(served),
+                            "retry_after": sorted({r[1].get("retry-after") for r in shed}),
+                            "counted": counted}
+
+        # Deadlines: a long traced stream cut at 0.5 s ends in the SSE 504
+        # event.  No fused dispatch takes its row once the deadline has
+        # passed (its trace's decode-chunk spans all start before) and none
+        # runs at all after the event.  The row leaves once the dispatches
+        # already in flight have landed (its KV blocks are held until then:
+        # the pipeline's write barrier): they land within pipeline_depth
+        # dispatch periods (an event recorded behind them on the stream),
+        # and the row is gone within half a period after, before another
+        # dispatch could have run.  The period is read off this stream: one
+        # SSE chunk a fused dispatch, the longest gap between two of its
+        # chunks after the first.
+        (prompt,) = edge_prompts(torch, vocab, [EDGE_ISL], 9002)
+        d_start = engine.decode_spans.count
+        st, headers, _, events = await http_call(
+            port["tracing"], "POST", "/v1/completions", completion(prompt, EDGE_DEADLINE_TOKENS),
+            headers={"x-deadline-s": str(EDGE_DEADLINE_S), "x-request-id": "deadline",
+                     "x-trace": "1"})
+        t_end, d_end = time.perf_counter(), engine.decode_spans.count
+        # The engine's dispatches replay on the default stream; on the CPU
+        # (a rehearsal) they have run when they return.
+        landed = torch.cuda.Event() if engine.device.type == "cuda" else None
+        if landed is not None:
+            landed.record()
+        t_landed = None
+        sched = engine.scheduler
+        while True:  # landing is read first: one poll may see both
+            now = time.perf_counter()
+            if t_landed is None and (landed is None or landed.query()):
+                t_landed = now
+            if not (sched.num_running or sched.num_waiting) or now - t_end >= 10:
+                break
+            await asyncio.sleep(0.001)
+        t_left = time.perf_counter()
+        if t_landed is None:  # the row left first: the check below fails
+            if landed is not None:
+                landed.synchronize()
+            t_landed = time.perf_counter()
+        left_ms, landed_ms = (t_left - t_end) * 1e3, (t_landed - t_end) * 1e3
+        extra = engine.decode_spans.count - d_end
+        last = events[-1][1].split("\n") if events else []
+        err = json.loads(last[1][len("data: "):]) if len(last) == 2 else None
+        check(st == 200 and last[:1] == ["event: error"]
+              and err == {"error": "deadline exceeded", "code": 504},
+              f"deadline: the stream ends in the SSE 504 event ({st}, {last})")
+        spans = (await get_trace(headers.get("x-trace-id"))).get("spans", [])
+        root = next((s["start_ms"] for s in spans if s["name"] == "edge.request"), None)
+        chunks_ms = [s["start_ms"] - root for s in spans
+                     if s["name"] == "engine.decode_chunk" and root is not None]
+        late = [c for c in chunks_ms if c >= EDGE_DEADLINE_S * 1e3]
+        data_t = [t for t, ev in events if ev.startswith("data: ")]
+        gaps_ms = [(b - a) * 1e3 for a, b in zip(data_t[1:], data_t[2:])]
+        period_ms = max(gaps_ms) if gaps_ms else float("nan")
+        depth = engine.cfg.pipeline_depth
+        check(len(chunks_ms) >= 2 and not late,
+              f"deadline: no fused dispatch takes the row after its deadline (decode chunks "
+              f"at {[round(c, 1) for c in chunks_ms]} ms after the request)")
+        check(len(gaps_ms) >= 2 and not sched.num_running and not sched.num_waiting
+              and extra == 0 and landed_ms <= depth * period_ms
+              and 0 <= left_ms - landed_ms <= period_ms / 2 and engine.kv.active_blocks == 0,
+              f"deadline: no fused dispatch after the 504 event, the dispatches in flight "
+              f"landed within pipeline_depth {depth} periods of {period_ms:.1f} ms and the "
+              f"row gone within half a period after ({extra} dispatches, landed "
+              f"{landed_ms:.1f} ms, gone {left_ms:.1f} ms, running {sched.num_running}, "
+              f"active blocks {engine.kv.active_blocks})")
+        tokens = sum(len(v) for k, v in recorder.streams.items() if k.startswith("deadline-"))
+        out["deadline"] = {"events": len(events), "dispatches": d_end - d_start,
+                           "tokens": tokens, "decode_chunks_ms": [round(c, 3) for c in chunks_ms],
+                           "chunk_gaps_ms": [round(g, 3) for g in gaps_ms],
+                           "extra_dispatches": extra, "landed_after_ms": landed_ms,
+                           "empty_after_ms": left_ms, "bound_ms": depth * period_ms}
+
+        # QoS: rate 1, burst 2 under one tenant; the ladder ticks off the
+        # engine's live KV usage.
+        short = edge_prompts(torch, vocab, [16], 9003)[0]
+        quota = []
+        for _ in range(3):
+            quota.append(await http_call(port["qos"], "POST", "/v1/completions",
+                                         dict(model=EDGE_MODEL, prompt=short, max_tokens=1),
+                                         headers={"x-tenant": "edge-qos"}))
+        check([r[0] for r in quota] == [200, 200, 429] and quota[2][1].get("retry-after")
+              and b"over its request quota" in quota[2][2],
+              f"qos: 200, 200, 429 quota with Retry-After ({[r[0] for r in quota]} "
+              f"{quota[2][2][:120]!r})")
+        ticks0 = qos.ladder.tick_count
+        rungs = [services["qos"].qos_tick() for _ in range(3)]
+        health = json.loads((await http_call(port["qos"], "GET", "/health"))[2])
+        check(rungs == [0, 0, 0] and qos.ladder.tick_count >= ticks0 + 3
+              and len(kv_seen) == qos.ladder.tick_count
+              and health.get("brownout", {}).get("rung") == 0,
+              f"qos: the ladder ticks off the live KV usage ({rungs}, {len(kv_seen)} reads, "
+              f"{health.get('brownout')})")
+        out["metrics_text"] = (await http_call(port["qos"], "GET", "/metrics"))[2].decode()
+        check(metric("dynamo_tpu_qos_quota_shed_total") >= 1, "qos: /metrics counts the quota shed")
+        out["qos"] = {"statuses": [r[0] for r in quota], "retry_after": quota[2][1].get("retry-after"),
+                      "kv_usage_max": max(kv_seen), "ticks": qos.ladder.tick_count,
+                      "rung": qos.ladder.rung}
+
+        # Tracing: 4 traced requests of 2048 ids; each asks for logprobs, so
+        # the chunk of its first token reaches the client even where the
+        # byte tokenizer holds the text back.  Warmed first untraced.
+        def traced_body(p):
+            return completion(p, EDGE_TRACED_OSL, logprobs=1)
+
+        for seed, headers in ((9004, None), (9005, {"x-trace": "1"})):
+            prompts = edge_prompts(torch, vocab, [EDGE_TRACED_ISL] * EDGE_TRACED, seed)
+            traced = await asyncio.gather(*(
+                http_call(port["tracing"], "POST", "/v1/completions", traced_body(p),
+                          headers=headers) for p in prompts))
+        out["traces"] = []
+        for st, headers, _, events in traced:
+            tid = headers.get("x-trace-id")
+            check(st == 200 and tid and whole((st, headers, None, events), EDGE_TRACED_OSL),
+                  f"tracing: a whole traced stream with x-trace-id ({st}, {tid})")
+            if not tid:
+                continue
+            client_ttft_ms = events[0][0] * 1e3
+            trace = await get_trace(tid)
+            spans = trace.get("spans", [])
+            names = [s["name"] for s in spans]
+            order = ["edge.request", "edge.admission_wait", "edge.preprocess",
+                     "engine.queue_wait", "engine.prefill"]
+            starts = [next((s["start_ms"] for s in spans if s["name"] == n), None) for n in order]
+            prefill = next((s for s in spans if s["name"] == "engine.prefill"), {})
+            rollup = trace.get("rollup", {})
+            terms = sum(rollup.get("hops", {}).values()) + rollup.get("unattributed_ms", 0.0)
+            check(None not in starts and starts == sorted(starts)
+                  and any(e["name"] == "first_token" for e in prefill.get("events", ()))
+                  and names.count("engine.decode_chunk") >= 1,
+                  f"tracing: /traces/{tid} holds the edge, preprocess, queue-wait, prefill "
+                  f"(first_token) and decode-chunk spans in order ({names})")
+            check(abs(terms - client_ttft_ms) <= EDGE_TTFT_TOL * client_ttft_ms,
+                  f"tracing: ttft_decomposition's terms {terms:.3f} ms within "
+                  f"{EDGE_TTFT_TOL:.0%} of the client's TTFT {client_ttft_ms:.3f} ms")
+            out["traces"].append({"client_ttft_ms": round(client_ttft_ms, 3),
+                                  "terms_ms": round(terms, 3), "rollup": rollup,
+                                  "decode_chunks": names.count("engine.decode_chunk"),
+                                  "spans": len(spans)})
+
+        # Tracing on and off: 8 greedy requests a pass, identical streams, no
+        # graph captured.  The first pass, concurrent, only fills the prefix
+        # cache; the measured passes send one request at a time, so every
+        # pass runs the same steps: a position's logits on the card depend on
+        # the rows that share its step (GEMM kernels are chosen by row
+        # count), and a random model's flat top tokens follow them.
+        prompts = edge_prompts(torch, vocab, [512 + 219 * i for i in range(8)], 9006)
+        passes, graphs0 = [], None
+        for p_i, mode in enumerate(EDGE_PASSES):
+            if p_i == 1:
+                graphs0 = dict(engine.compile_counts())
+            headers = {"x-trace": "1"} if mode == "all" else {}
+            calls = [http_call(port["tracing"], "POST", "/v1/completions",
+                               completion(p, EDGE_OSL),
+                               headers=dict(headers, **{"x-request-id": f"p{p_i}r{i}"}))
+                     for i, p in enumerate(prompts)]
+            if mode == "warm":
+                await asyncio.gather(*calls)
+                continue
+            results = [await c for c in calls]
+            ttft, itl = [], []
+            for st, headers_, _, events in results:
+                check(whole((st, headers_, None, events), EDGE_OSL)
+                      and ("x-trace-id" in headers_) == (mode == "all"),
+                      f"tracing {mode}: a whole stream, x-trace-id only when traced ({st})")
+                chunks, _ = sse_data(events)
+                ttft.append(chunks[0][0])
+                itl.append((chunks[-1][0] - chunks[0][0]) / (EDGE_OSL - 1))
+            streams = [recorder.streams[k] for i in range(len(prompts)) for k in recorder.streams
+                       if k.startswith(f"p{p_i}r{i}-")]
+            passes.append({"mode": mode, "streams": streams,
+                           "ttft_p50_ms": statistics.median(ttft) * 1e3,
+                           "itl_p50_ms": statistics.median(itl) * 1e3})
+        graphs1 = dict(engine.compile_counts())
+        same = all(p["streams"] == passes[0]["streams"] for p in passes)
+        differ = [sum(a != b for a, b in zip(p["streams"], passes[0]["streams"]))
+                  for p in passes]
+        check(same and all(len(s) == EDGE_OSL for s in passes[0]["streams"])
+              and len(passes[0]["streams"]) == len(prompts),
+              f"tracing on/off: identical greedy streams in every pass (streams differing "
+              f"from the first measured pass, by pass: {differ})")
+        check(graphs1 == graphs0, f"tracing on/off: no graph captured ({graphs0} -> {graphs1})")
+        out["passes"] = [{k: v for k, v in p.items() if k != "streams"} for p in passes]
+    finally:
+        out["launches"] = kernel_counts()
+        await exporter.stop(final_flush=False)
+        await aggregator.stop()
+        for svc in services.values():
+            await svc.close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    check(all(v > 0 for v in out["launches"].values()), f"edge: both kernels launched "
+                                                        f"({out['launches']})")
+    med = {mode: [p for p in out.get("passes", []) if p["mode"] == mode]
+           for mode in ("none", "all")}
+    log(f"edge (phase f, card {CARD}): admission {out.get('admission')}; deadline "
+        f"{out.get('deadline')}; qos {out.get('qos')}; traces {out.get('traces')}")
+    log(f"edge tracing overhead (card {CARD}; 8 greedy streams of {EDGE_OSL} a pass, one at a "
+        f"time, prompts 512..2045, prefix-cached; client clock, one call): " + "; ".join(
+            f"{mode} TTFT p50 {[round(p['ttft_p50_ms'], 3) for p in ps]} ms ITL p50 "
+            f"{[round(p['itl_p50_ms'], 3) for p in ps]} ms" for mode, ps in med.items())
+        + f"; phase wall {out['wall_s']:.2f} s; launches {out['launches']} "
+        f"{'ok' if not fails else 'FAIL: ' + '; '.join(fails)}")
+    return not fails, out
 
 
 # ------------------------------------------------ direct vs HTTP, in turns
@@ -2103,8 +2483,9 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60,
         ).stdout.strip().splitlines()
-        card = smi[0] if smi else "nvidia-smi gave nothing"
-        log(f"card: {card}")
+        global CARD
+        CARD = smi[0] if smi else "nvidia-smi gave nothing"
+        log(f"card: {CARD}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t0 = time.perf_counter()
@@ -2128,7 +2509,7 @@ def main() -> int:
             check_kernels(torch, dev, cfg, tally)
             times = time_kernels(torch, dev, cfg, tally)
             ok_model = model_check(torch, dev, cfg)
-        ok_path, launches = main_path(torch, dev)
+        ok_path, launches, ok_edge, edge = main_path(torch, dev)
         # Phase 7 builds its own engine: free the direct serve's first
         # (16 GB of weights and 4 GiB of KV pages).
         gc.collect()
@@ -2149,7 +2530,7 @@ def main() -> int:
         ok_spec, spec = spec_phase(torch, dev)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
-                    "speculation (e)": ok_spec}
+                    "speculation (e)": ok_spec, "edge (f)": ok_edge}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -2176,6 +2557,7 @@ def main() -> int:
                     "bound_by": it["bound_by"], "library_ms": it["library_ms"]}
             kernels[-1]["spec_launches"] = spec[("repetitive", "on")]["launches"][name]
             kernels[-1]["spec_forced_launches"] = spec[("repetitive", "forced")]["launches"][name]
+            kernels[-1]["edge_launches"] = edge["launches"][name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

@@ -10,7 +10,12 @@ Usage:
   python -m dynamo_tpu_torch.cli run in=http out=echocore        # no model
 
 ``out=torch`` is ``TorchEngine`` on the first CUDA device unless
-``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.  The
+``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.
+``in=http`` reads the edge's ``qos`` and ``tracing`` sections from the
+layered config (``DYN_RUNTIME_CONFIG`` file, then ``DYN_QOS__*`` /
+``DYN_TRACING__*`` env), as the JAX ``run in=http`` does: per-tenant
+quotas and the brownout ladder fed by the engine's KV usage, and a
+colocated span exporter feeding the ``/traces`` aggregator.  The
 flags keep the JAX parser's names and defaults.  Its options that the port
 does not have yet fail when set (engine/__init__.py UNSUPPORTED_OPTIONS);
 the other JAX subcommands (hub, http over a hub, workers, planner, deploy)
@@ -33,6 +38,7 @@ from .llm.http_service import HttpService
 from .llm.metrics import engine_dispatch_metrics
 from .llm.preprocessor import OpenAIPreprocessor
 from .llm.tokenizer import ByteTokenizer
+from .runtime.config import RuntimeConfig
 from .runtime.pipeline import build_pipeline
 
 logger = logging.getLogger(__name__)
@@ -55,9 +61,41 @@ def _tokenizer(args):
     if getattr(args, "tokenizer", None):
         raise SystemExit(
             "--tokenizer: HF and sentencepiece tokenizers are not ported yet "
-            "(ROADMAP queue 1 item 1); the port serves with the byte tokenizer"
+            "(ROADMAP queue 1 item 6); the port serves with the byte tokenizer"
         )
     return ByteTokenizer()
+
+
+def _edge_tracing():
+    """Edge-side tracing surfaces (runtime/tracing.py): the TraceSampler
+    (head + forced + tail-keep sampling decisions) and a TraceAggregator
+    serving /traces.  Returns (sampler, aggregator, cfg) — (None, None,
+    cfg) when the ``tracing`` config section disables the plane, which
+    removes every per-request cost at the edge."""
+    from .llm.trace_service import TraceAggregator
+    from .runtime.tracing import TraceSampler, TracingConfig
+
+    cfg = TracingConfig.from_config(RuntimeConfig.from_layers().tracing)
+    if not cfg.enabled:
+        return None, None, cfg
+    return TraceSampler(cfg), TraceAggregator(ttl_s=cfg.ttl_s), cfg
+
+
+def _edge_qos():
+    """QosController for the HTTP edge from the layered ``qos`` config
+    section (llm/qos.py; the JAX ``http`` command's --qos-*/--brownout
+    overrides come with that command, ROADMAP queue 1 item 10).  Returns
+    None when neither quotas nor the brownout ladder are enabled — zero
+    behaviour change by default."""
+    from .llm.qos import QosConfig, QosController
+
+    section = dict(RuntimeConfig.from_layers().qos)
+    for key in ("tenant_weights", "default_weight", "batch_every"):
+        section.pop(key, None)  # scheduler half (engine/__init__.py)
+    cfg = QosConfig.from_dict(section)
+    if cfg.rate is None and cfg.brownout is None:
+        return None
+    return QosController(cfg)
 
 
 async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None) -> None:
@@ -68,7 +106,7 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
     if inp not in INPUTS and not inp.startswith("batch:"):
         raise SystemExit(
             f"in={inp} is not supported by the port (it has in=http|text|stdin|batch:FILE|none; "
-            "workers over a hub are ROADMAP queue 1 item 1)"
+            "workers over a hub are ROADMAP queue 1 item 10)"
         )
     tokenizer = _tokenizer(args)
     engine, level = _build_engine(args.out, args)
@@ -80,21 +118,45 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
         pipeline = engine
     try:
         if inp == "http":
-            # Colocated engine: its decode-dispatch health on /metrics
+            # Colocated engine: its live KV usage feeds the brownout ladder,
+            # and its decode-dispatch health rides /metrics
             # (dynamo_tpu_engine_dispatch_*; llm/metrics.py).
+            kv_usage_fn = (
+                (lambda: engine.metrics().gpu_cache_usage_perc)
+                if hasattr(engine, "metrics") else None
+            )
             if hasattr(engine, "dispatch_summary"):
                 engine_dispatch_metrics.set_source(engine.dispatch_summary)
-            service = HttpService(host=args.host, port=args.port)
+            # Colocated tracing: edge and engine share this process, so the
+            # exporter feeds the aggregator directly and /traces serves
+            # assembled timelines one export interval after a request ends.
+            sampler, aggregator, tcfg = _edge_tracing()
+            exporter = None
+            if aggregator is not None:
+                from .runtime.tracing import SpanExporter
+
+                exporter = await SpanExporter(
+                    [aggregator], interval_s=tcfg.export_interval_s
+                ).start()
+            service = HttpService(
+                host=args.host, port=args.port,
+                qos=_edge_qos(), kv_usage_fn=kv_usage_fn,
+                tracing=sampler, trace_aggregator=aggregator,
+            )
             service.models.add_chat_model(args.model, pipeline)
             service.models.add_completion_model(args.model, pipeline)
-            await service.start()
             try:
+                await service.start()
                 print(f"serving {args.model!r} on http://{args.host}:{service.port}", flush=True)
                 if on_serving is not None:
                     on_serving(service)
                 await asyncio.Event().wait()
             finally:
                 await service.close()
+                if exporter is not None:
+                    await exporter.stop()
+                if aggregator is not None:
+                    await aggregator.stop()
         elif inp == "none":
             # Start the engine with no input surface (reference Input::None).
             print(f"engine up (in=none), model {args.model!r}; ctrl-C to exit", flush=True)

@@ -46,6 +46,7 @@ def build_torch_engine(args):
         cache_dtype=getattr(args, "cache_dtype", None),
         kv_scale=getattr(args, "kv_scale", 1.0),
         seed=getattr(args, "seed", 0),
+        qos=_qos_sched_section(),
         spec_decode=_spec_decode_section(args),
     )
     return TorchEngine(cfg, device=getattr(args, "device", None))
@@ -66,3 +67,15 @@ def _spec_decode_section(args) -> dict:
     if getattr(args, "spec_ngram_min", None) is not None:
         section["ngram_min"] = int(args.spec_ngram_min)
     return section
+
+
+def _qos_sched_section() -> dict:
+    """Scheduler half of the layered ``qos`` config section (file /
+    DYN_QOS__* env): WFQ tenant weights + the batch starvation bound.  The
+    edge half (quotas, brownout) is consumed by the CLI's HttpService
+    wiring instead."""
+    from ..runtime.config import RuntimeConfig
+
+    section = RuntimeConfig.from_layers().qos or {}
+    known = ("tenant_weights", "default_weight", "batch_every")
+    return {k: section[k] for k in known if k in section}

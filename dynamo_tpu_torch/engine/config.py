@@ -150,11 +150,6 @@ class EngineConfig:
     fuse_projections: bool = True
     seed: int = 0  # random-init weights when no params are given
     enable_prefix_caching: bool = True
-    # Attention kernel routes: "auto" is the device's; an explicit value
-    # must equal it (validated once, by ops/ragged_attention.resolve_kernel
-    # when the engine is built).
-    decode_kernel: str = "auto"
-    prefill_kernel: str = "auto"
     # Decode iterations fused into one dispatch: the sampled token feeds
     # the next iteration on the device, with one host fetch per dispatch.
     decode_steps: int = 4

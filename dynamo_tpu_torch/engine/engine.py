@@ -28,9 +28,11 @@ updated in place.  Attention goes through the hand-written CUDA kernels on
 a CUDA device and through their plain versions on the CPU — chosen by the
 device, never by a fallback.  W8A8 int8 weights (``weight_quant``), int8 /
 fp8 KV pages with calibrated per-layer scales (``kv_scale="auto"``) and
-draft-free speculative decoding (engine/spec.py) are the JAX engine's.  Out
-of this engine so far: LoRA, grammar constraints, the KV tiers, transfer and
-migration, tp/sp and multi-host.
+draft-free speculative decoding (engine/spec.py) are the JAX engine's, and
+so are its request-tracing spans (``engine.queue_wait``, ``engine.prefill``,
+``engine.decode_chunk``; host clocks only, outside every captured graph).
+Out of this engine so far: LoRA, grammar constraints, the KV tiers,
+transfer and migration, tp/sp and multi-host.
 """
 
 from __future__ import annotations
@@ -51,9 +53,10 @@ from ..llm.protocols import FinishReason, PreprocessedRequest
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
 from ..models.quant import fuse_projections, init_params_quantized, quantize_params
-from ..ops.ragged_attention import resolve_kernel
+from ..ops.ragged_attention import kernel_route
 from ..ops.sampling import SampleOut, SamplingFlags, SamplingParams, sample_tokens
 from ..runtime.engine import AsyncEngine, Context, ResponseStream
+from ..runtime.tracing import SeqTrace, parse_trace
 from .config import EngineConfig
 from .graphs import DevicePrograms, FetchRing
 from .kv_manager import KvBlockManager
@@ -122,10 +125,6 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         self.cfg = cfg
         self.device = default_device(device)
         self.model_config: ModelConfig = get_config(cfg.model).with_overrides(dtype=cfg.dtype)
-        # The attention route follows the device; an explicit config value
-        # must agree with it (no selector, no fallback).
-        self.decode_kernel = resolve_kernel(cfg.decode_kernel, self.device)
-        self.prefill_kernel = resolve_kernel(cfg.prefill_kernel, self.device)
         if self.model_config.is_moe:
             raise NotImplementedError("MoE models are not supported by this engine yet")
         self.kv = KvBlockManager(
@@ -483,8 +482,16 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
             raise ValueError("grammar-constrained requests are not supported by this engine yet")
         if pre.annotations.get("adapter"):
             raise ValueError("LoRA adapters are not supported by this engine yet")
+        # Request tracing (runtime/tracing.py): the context arrives in
+        # annotations.trace (the preprocessor) or on request.ctx.trace;
+        # None keeps every instrumentation point a single attr check.
+        trace = parse_trace(pre.annotations.get("trace")) or getattr(request.ctx, "trace", None)
         self._ensure_loop()
         seq = SequenceState.from_request(request.id, pre, self.cfg)
+        if trace is not None:
+            # Anchors the queue-wait (scheduler._record_admission) and
+            # prefill (pipeline._trace_first_token) spans.
+            seq.trace = SeqTrace(trace)
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[request.id] = queue
         self._contexts[request.id] = request.ctx
@@ -577,6 +584,13 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
                 await self._wake.wait()
                 continue
             try:
+                if plan.pure_decode and self.cfg.decode_steps == 1 and self._pending_fetches:
+                    # A row whose token is still in flight would miss this
+                    # plan and fall out of phase with the rest, the two
+                    # groups then taking turns: fold it in first, as the
+                    # fused branch below does.
+                    await self._harvest_pending(all_pending=True)
+                    continue
                 did_work = False
                 # Speculation first: drafted rows verify several tokens per
                 # round trip on the unified step (spec.py); no drafts
@@ -724,8 +738,9 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         gap = max(0.0, wall - self.decode_busy_s) / wall if wall > 0 else 0.0
         return {
             "kinds": self.step_summary(),
-            "decode_kernel": self.decode_kernel,
-            "prefill_kernel": self.prefill_kernel,
+            # Both kernels take the device's route (no selector, no fallback).
+            "decode_kernel": kernel_route(self.device),
+            "prefill_kernel": kernel_route(self.device),
             "prefill": self.prefill_summary(),
             "pipeline": {
                 "sessions": self.pipeline_sessions,

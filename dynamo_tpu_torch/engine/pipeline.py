@@ -16,10 +16,12 @@ engine/pipeline.py, whose default decode path this ports).
 Speculative decoding (engine/spec.py) enters here twice: the ``"spec"``
 kind of deferred fetch, applied by ``_harvest_spec``, and the session probe
 that leaves a fused session once its output turns repetitive enough for
-speculation to beat it.  Left out, with the later slices that port them:
-migration freeze entry points, the multi-host publisher and request
-tracing.  The ``frozen`` and ``grammar`` guards stay as the copied modules
-have them.
+speculation to beat it.  Request tracing enters at the first accepted
+token (``_trace_first_token``: the ``engine.prefill`` span) and once per
+fused dispatch (``_trace_decode_chunk``), on host clocks only.  Left out,
+with the later slices that port them: migration freeze entry points and the
+multi-host publisher.  The ``frozen`` and ``grammar`` guards stay as the
+copied modules have them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import torch
 
 from ..llm.protocols import FinishReason, LLMEngineOutput
 from ..ops.sampling import SAMPLING_DTYPES, SamplingFlags
+from ..runtime.tracing import _wall_ms
+from ..runtime.tracing import collector as trace_collector
 from .graphs import HostFetch
 from .scheduler import RowSlots, SequenceState, StepPlan
 
@@ -514,9 +518,11 @@ class DecodePipelineMixin:
                 fetch = await self._await_device(self._device_task(run), "decode_dispatch",
                                                  n_active)
             chained = True
-            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            wall = t1 - t0
             self.decode_busy_s += wall
             self.step_trace.append(("decode_dispatch", wall, n_active, n_active * T))
+            self._trace_decode_chunk(slots.active(), t0, t1, T)
             chunk_id += 1
             inflight.append((fetch, pos0, chunk_id))
             dispatched_any = True
@@ -665,7 +671,9 @@ class DecodePipelineMixin:
             t0 = time.perf_counter()
             async with self._device_lock:
                 fetch = await self._await_device(self._device_task(run), "burst_dispatch", n)
-            self.step_trace.append(("decode_burst", time.perf_counter() - t0, n, n * T))
+            t1 = time.perf_counter()
+            self.step_trace.append(("decode_burst", t1 - t0, n, n * T))
+            self._trace_decode_chunk(enumerate(members), t0, t1, T)
             return fetch
 
         self._stash_fetch("burst", await dispatch(tok0, pos0), members, pos0, chain)
@@ -752,6 +760,45 @@ class DecodePipelineMixin:
             "top": [(int(top_ids[i, j]), float(top_lp[i, j])) for j in range(k)],
         }
 
+    # ------------------------------------------------------------- tracing
+    def _trace_first_token(self, seq: SequenceState) -> None:
+        """First output token of a traced sequence: record the
+        ``engine.prefill`` span (admission → first token — chunked prompt
+        compute plus the first sampled fetch) with a ``first_token`` event,
+        the TTFT decomposition's engine-side anchor.  One latch per
+        sequence; untraced rows cost a single attr check."""
+        st = seq.trace
+        if st is None or st.first_done:
+            return
+        st.first_done = True
+        now = time.perf_counter()
+        trace_collector.record(
+            st.ctx, "engine.prefill", "engine",
+            st.t_admit or st.t_enqueue, now,
+            attrs={
+                "prompt_tokens": len(seq.prompt),
+                "cached_tokens": seq.num_cached_prompt,
+            },
+            events=[{"name": "first_token", "t_ms": round(_wall_ms(now), 3)}],
+        )
+
+    def _trace_decode_chunk(self, rows, t0: float, t1: float, steps: int) -> None:
+        """One ``engine.decode_chunk`` span per TRACED row per fused
+        dispatch: decode records at chunk (dispatch) granularity only,
+        never per token, from host clocks taken around the dispatch (no
+        synchronisation, nothing inside the captured graph).  Untraced rows
+        cost one attr check per chunk; rows whose first token has not
+        landed yet are skipped (their wall belongs to engine.prefill)."""
+        for _i, seq in rows:
+            if seq is None:
+                continue
+            st = seq.trace
+            if st is None or not st.first_done:
+                continue
+            trace_collector.record(
+                st.ctx, "engine.decode_chunk", "engine", t0, t1, attrs={"steps": steps},
+            )
+
     def _accept_token(
         self,
         seq: SequenceState,
@@ -763,6 +810,8 @@ class DecodePipelineMixin:
         """Append ``token`` to ``seq`` and emit it — into ``pending`` when
         given (one item for a fused chunk, flushed before any finish item),
         else as its own item."""
+        if seq.trace is not None:
+            self._trace_first_token(seq)
         seq.output.append(token)
         reason = self._check_stop(seq, token)
         queue = self._queues.get(seq.request_id)

@@ -32,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..llm.protocols import PreprocessedRequest
+from ..runtime.tracing import collector as trace_collector
 from ..tokens import TokenBlockSequence
 from .config import EngineConfig
 from .kv_manager import KvBlockManager
@@ -140,6 +141,12 @@ class SequenceState:
     # shed first under brownout).  Threaded from nvext.priority via
     # PreprocessedRequest.priority.
     priority: str = INTERACTIVE
+    # --- request tracing (runtime/tracing.py) ---
+    # SeqTrace (context + timing anchors + first-token latch) for sampled
+    # requests, parsed from ``annotations.trace`` at engine admission; None
+    # = untraced (the zero-cost path — every engine instrumentation point
+    # is behind this check).
+    trace: Any = None
 
     def __post_init__(self) -> None:
         if self.orig_prompt_len == 0:
@@ -518,11 +525,20 @@ class Scheduler:
 
     def _record_admission(self, seq: SequenceState) -> None:
         """Shared admission bookkeeping: the queue→admission latency sample
-        — the dominant TTFT-tail term at saturation (a newcomer waiting out
-        a fused pure-decode session)."""
+        plus, for traced requests, the ``engine.queue_wait`` span — the
+        dominant TTFT-tail term at saturation (a newcomer waiting out a
+        fused pure-decode session) attributable per request."""
         now = time.perf_counter()
         if seq.enqueue_t:
             self.admission_waits.append(now - seq.enqueue_t)
+        st = seq.trace
+        if st is not None:
+            st.t_admit = now
+            trace_collector.record(
+                st.ctx, "engine.queue_wait", "engine",
+                seq.enqueue_t or now, now,
+                attrs={"request_id": seq.request_id},
+            )
 
     def remove(self, seq: SequenceState) -> None:
         """Drop a sequence (finished or cancelled) and release its blocks."""

@@ -11,9 +11,20 @@ client disconnect mid-request calls ``stop_generating`` and records status
 The server speaks HTTP/1.1 (only): a request line, headers and a
 ``Content-Length`` body; connections are kept alive unless the client asks
 otherwise; streamed responses are ``text/event-stream`` sent with chunked
-transfer encoding.  Statuses and
-error bodies are the JAX edge's.  Not ported yet: admission control,
-deadlines, QoS, tracing (``/traces``) and hub health (ROADMAP queue 1).
+transfer encoding.  Statuses, error bodies
+and headers are the JAX edge's, the overload and observability plane
+included: admission control (``max_inflight`` and a bounded wait queue;
+429 on overflow, 503 on a wait timeout), per-request deadlines
+(``x-deadline-s`` or body ``deadline_s``; the edge bounds every chunk
+wait and answers 504 mid-generation, or an SSE error event mid-stream;
+the 504 at dispatch answers an engine that raises
+``DeadlineExceededError`` from ``generate``, which takes a hop that
+enforces deadlines, the routed client of ROADMAP queue 1 item 10: the
+colocated engine of ``run`` enforces none), QoS (per-tenant quotas, priority
+classes and the brownout ladder, llm/qos.py) and request tracing
+(``x-trace`` / ``nvext.trace``, ``GET /traces?recent=N`` and
+``/traces/{id}``).  Not ported yet: hub health (``/health``'s
+``hub_shards``), which needs the distributed runtime.
 
 The ``ModelManager`` maps model name → chat/completion pipelines
 (http/service.rs:59-120).
@@ -30,16 +41,58 @@ import uuid
 from http import HTTPStatus
 from typing import Any, Dict, Optional, Set
 
+from urllib.parse import parse_qs, unquote
+
 from ..labels import bounded_label
 from ..runtime.engine import AsyncEngine, Context
-from .metrics import Metrics, Status, engine_dispatch_metrics, spec_metrics
+from ..runtime.resilience import (
+    AdmissionController,
+    AdmissionRejected,
+    Deadline,
+    DeadlineExceededError,
+)
+from ..runtime.resilience import metrics as resilience_metrics
+from ..runtime.tracing import tracing_metrics
+from .metrics import Metrics, Status, engine_dispatch_metrics, qos_metrics, spec_metrics
 from .openai import SSE_DONE, aggregate_chunks, sse_encode
 from .protocols import ModelNotFoundError
+from .qos import (
+    BATCH,
+    RUNG_CAP_TOKENS,
+    RUNG_SHED_INTERACTIVE,
+    RUNG_SPEC_STANDDOWN,
+    BrownoutSignals,
+    QosController,
+    QosShed,
+    resolve_priority,
+    resolve_tenant,
+)
+from .trace_service import EdgeRequestTrace
 
 logger = logging.getLogger(__name__)
 
 MAX_BODY_BYTES = 16 << 20
 MAX_HEAD_BYTES = 64 << 10  # request line + headers
+
+
+class _TracedGuard:
+    """Metrics InflightGuard wrapper that mirrors token/finish callbacks to
+    the request's EdgeRequestTrace — one wrapper covers every status path
+    in the handlers without touching them individually."""
+
+    __slots__ = ("_guard", "_ert")
+
+    def __init__(self, guard, ert: EdgeRequestTrace):
+        self._guard = guard
+        self._ert = ert
+
+    def on_token(self, *args, **kwargs) -> None:
+        self._ert.on_first_token()
+        self._guard.on_token(*args, **kwargs)
+
+    def finish(self, status) -> None:
+        self._guard.finish(status)
+        self._ert.finish(str(status))
 
 
 class ModelManager:
@@ -76,11 +129,12 @@ class _BadRequest(Exception):
 
 
 class _Request:
-    __slots__ = ("method", "path", "headers", "body")
+    __slots__ = ("method", "path", "query", "headers", "body")
 
-    def __init__(self, method, path, headers, body):
+    def __init__(self, method, path, query, headers, body):
         self.method = method
         self.path = path
+        self.query: Dict[str, str] = query  # first value of each parameter
         self.headers: Dict[str, str] = headers  # lower-cased names
         self.body: bytes = body
 
@@ -195,7 +249,9 @@ class _Connection:
                 raise ConnectionError("connection closed inside the request body")
         body = bytes(self._buf[:n])
         del self._buf[:n]
-        return _Request(method, target.partition("?")[0], headers, body)
+        path, _, qs = target.partition("?")
+        query = {k: v[0] for k, v in parse_qs(qs, keep_blank_values=True).items()}
+        return _Request(method, path, query, headers, body)
 
     async def wait_peer_eof(self) -> None:
         """Return once the peer has closed its side (or sent more than a
@@ -243,16 +299,51 @@ class HttpService:
         port: int = 8000,
         metrics_prefix: str = "dynamo_tpu",
         model_manager: Optional[ModelManager] = None,
+        max_inflight: Optional[int] = None,
+        admission_queue: int = 0,
+        admission_timeout_s: float = 1.0,
+        default_deadline_s: Optional[float] = None,
+        qos: Optional[QosController] = None,
+        kv_usage_fn=None,
+        tracing=None,
+        trace_aggregator=None,
     ):
         self.host = host
         self.port = port
         self.models = model_manager or ModelManager()
         self.metrics = Metrics(metrics_prefix)
         self._metrics_prefix = metrics_prefix
+        # Admission control (disabled unless max_inflight is set): beyond
+        # the in-flight cap requests wait in a bounded FIFO; overflow sheds
+        # 429, wait-timeout sheds 503 — latency stays bounded instead of
+        # collapsing under burst.  Batch-class requests may only occupy the
+        # front half of the queue (llm/qos.py priority classes).
+        self.admission = AdmissionController(
+            max_inflight=max_inflight,
+            max_queue=admission_queue,
+            queue_timeout_s=admission_timeout_s,
+        )
+        # QoS/overload control (llm/qos.py): per-tenant token buckets + the
+        # brownout degradation ladder.  None = disabled (zero behaviour
+        # change).  ``kv_usage_fn`` optionally feeds the ladder a KV-
+        # pressure signal when an engine is colocated.
+        self.qos = qos
+        self._kv_usage_fn = kv_usage_fn
+        self._qos_task: Optional[asyncio.Task] = None
+        # Per-request wall-clock budget (None = unbounded); exhaustion maps
+        # to 504 below.
+        self.default_deadline_s = default_deadline_s
+        # Request tracing (runtime/tracing.py): ``tracing`` is a
+        # TraceSampler (None = the edge never samples, zero cost);
+        # ``trace_aggregator`` serves assembled traces at /traces (wired by
+        # the CLI as a direct exporter sink: the engine is colocated).
+        self.tracing = tracing
+        self.trace_aggregator = trace_aggregator
         self._server: Optional[asyncio.AbstractServer] = None
         self._connections: Set[asyncio.Task] = set()
         # path → (method, handler(conn, req) -> response, or None when the
-        # handler wrote its own or the client left)
+        # handler wrote its own or the client left); ``/traces/{id}`` is
+        # matched by prefix in _serve.
         self._routes = {
             "/v1/chat/completions": ("POST", functools.partial(self._watched_openai, chat=True)),
             "/v1/completions": ("POST", functools.partial(self._watched_openai, chat=False)),
@@ -260,6 +351,7 @@ class HttpService:
             "/metrics": ("GET", self._metrics),
             "/health": ("GET", self._health),
             "/live": ("GET", self._health),
+            "/traces": ("GET", self._traces_recent),
         }
 
     # -- lifecycle ----------------------------------------------------------
@@ -268,9 +360,18 @@ class HttpService:
         self._server = await asyncio.start_server(self._on_connection, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]  # resolve port 0
         logger.info("HTTP service listening on %s:%s", self.host, self.port)
+        if self.qos is not None and self.qos.ladder is not None:
+            self._qos_task = asyncio.get_running_loop().create_task(self._qos_tick_loop())
         return self
 
     async def close(self) -> None:
+        if self._qos_task is not None:
+            self._qos_task.cancel()
+            try:
+                await self._qos_task
+            except asyncio.CancelledError:
+                pass
+            self._qos_task = None
         if self._server is None:
             return
         self._server.close()
@@ -280,6 +381,47 @@ class HttpService:
         await asyncio.gather(*conns, return_exceptions=True)
         await self._server.wait_closed()
         self._server = None
+
+    async def _qos_tick_loop(self) -> None:
+        """Drive the brownout ladder off live edge signals.  The ladder
+        itself is pure (llm/qos.py BrownoutLadder.tick); this loop only
+        samples queue depth, rolling TTFT and (optionally) KV usage on the
+        configured interval and publishes the rung to metrics."""
+        while True:
+            await asyncio.sleep(self.qos.config.tick_s)
+            self.qos_tick()
+
+    def qos_tick(self) -> int:
+        """One brownout tick on the live signals; returns the rung."""
+        ladder = self.qos.ladder
+        kv_usage = 0.0
+        if self._kv_usage_fn is not None:
+            try:
+                kv_usage = float(self._kv_usage_fn())
+            except Exception:  # noqa: BLE001 — signal source is optional
+                logger.warning("qos kv_usage_fn failed", exc_info=True)
+        # TTFT from the AGE-bounded window (None = no first token in the
+        # last few seconds): a count-bounded window would hold a spike's
+        # samples long after it ended — at zero traffic forever — and the
+        # ladder could never recover.
+        ttft_p95_ms = self.metrics.recent_ttft_p95_ms()
+        before = ladder.rung
+        ladder.tick(
+            BrownoutSignals(
+                queue_depth=float(self.admission.queued),
+                kv_usage=kv_usage,
+                ttft_p95_ms=ttft_p95_ms,
+            )
+        )
+        qos_metrics.brownout_rung = ladder.rung
+        if ladder.rung != before:
+            qos_metrics.brownout_transitions_total += 1
+            logger.warning(
+                "brownout rung %d -> %d (queue=%d ttft_p95=%sms)",
+                before, ladder.rung, self.admission.queued,
+                "%.0f" % ttft_p95_ms if ttft_p95_ms is not None else "-",
+            )
+        return ladder.rung
 
     async def run(self, shutdown: Optional[asyncio.Event] = None) -> None:
         await self.start()
@@ -323,6 +465,9 @@ class HttpService:
 
     async def _serve(self, conn: _Connection, req: _Request) -> None:
         route = self._routes.get(req.path)
+        trace_id = req.path[len("/traces/"):] if req.path.startswith("/traces/") else ""
+        if route is None and trace_id and "/" not in trace_id:
+            route = ("GET", self._trace_get)
         if route is None:
             resp = _text_response(404, "404: Not Found")
         elif req.method != route[0]:
@@ -355,15 +500,42 @@ class HttpService:
     # -- handlers -----------------------------------------------------------
 
     async def _health(self, conn: _Connection, req: _Request) -> _Response:
-        return _json_response({"status": "ok", "models": self.models.model_names()})
+        body = {"status": "ok", "models": self.models.model_names()}
+        if self.qos is not None and self.qos.ladder is not None:
+            body["brownout"] = self.qos.ladder.state()
+        return _json_response(body)
 
     async def _metrics(self, conn: _Connection, req: _Request) -> _Response:
+        prefix = self._metrics_prefix
         body = (
             self.metrics.render()
-            + spec_metrics.render(self._metrics_prefix).encode()
-            + engine_dispatch_metrics.render(self._metrics_prefix).encode()
+            + resilience_metrics.render(prefix).encode()
+            + tracing_metrics.render(prefix).encode()
+            + spec_metrics.render(prefix).encode()
+            + qos_metrics.render(prefix).encode()
+            + engine_dispatch_metrics.render(prefix).encode()
         )
         return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")
+
+    async def _traces_recent(self, conn: _Connection, req: _Request) -> _Response:
+        """``/traces?recent=N``: the aggregator's most recent assemblies."""
+        if self.trace_aggregator is None:
+            return _error_response(404, "tracing aggregator not configured")
+        try:
+            n = int(req.query.get("recent", 20))
+        except (TypeError, ValueError):
+            n = 20
+        return _json_response({"traces": self.trace_aggregator.recent(n)})
+
+    async def _trace_get(self, conn: _Connection, req: _Request) -> _Response:
+        """``/traces/{id}``: one assembled trace + its per-hop rollup."""
+        if self.trace_aggregator is None:
+            return _error_response(404, "tracing aggregator not configured")
+        tid = unquote(req.path[len("/traces/"):])
+        trace = self.trace_aggregator.get(tid)
+        if trace is None:
+            return _error_response(404, f"trace {tid!r} not assembled here")
+        return _json_response(trace)
 
     async def _list_models(self, conn: _Connection, req: _Request) -> _Response:
         now = int(time.time())
@@ -402,8 +574,134 @@ class HttpService:
         # Past the served-model check the name is bounded (it resolved to
         # an engine) — not a cardinality hazard.
         model = bounded_label(model)
+
+        # Tracing (runtime/tracing.py): the sampling decision is made once
+        # here — forced (x-trace / nvext.trace) beats the head rate — and
+        # the handle shadows the request even when unsampled so tail-keep
+        # can promote an error/SLO-violating request's edge spans later.
+        ert = EdgeRequestTrace(self.tracing, req.headers, body)
+
+        # QoS (llm/qos.py): resolve tenant + priority, charge the tenant's
+        # quota, apply the brownout rung — all BEFORE a slot is consumed.
+        priority = resolve_priority(req.headers, body)
+        tenant: Optional[str] = None
+        if self.qos is not None:
+            tenant = resolve_tenant(req.headers, body)
+            if self.qos.rung >= RUNG_SHED_INTERACTIVE and self.admission.saturated:
+                # Rung 4: admission is saturated — shed instead of queueing
+                # (never sheds below the in-flight cap).  Checked BEFORE
+                # the quota charge: a shed request consumed no capacity
+                # and must not drain the tenant's bucket.
+                qos_metrics.interactive_shed_total += 1
+                qos_metrics.shed_tenant(tenant)
+                self.metrics.requests_total.labels(
+                    model, endpoint, "stream", Status.REJECTED
+                ).inc()
+                ert.finish(Status.REJECTED, model=model, endpoint=endpoint)
+                return _error_response(
+                    503,
+                    "server in brownout (interactive overflow)",
+                    retry_after_s=self.admission.estimate_retry_after(),
+                )
+            try:
+                self.qos.admit(tenant, priority, self.admission.estimate_retry_after())
+            except QosShed as e:
+                if e.reason == "quota":
+                    qos_metrics.quota_shed_total += 1
+                else:
+                    qos_metrics.batch_shed_total += 1
+                qos_metrics.shed_tenant(tenant)
+                self.metrics.requests_total.labels(
+                    model, endpoint, "stream", Status.REJECTED
+                ).inc()
+                ert.finish(Status.REJECTED, model=model, endpoint=endpoint)
+                return _error_response(e.status, e.message, retry_after_s=e.retry_after_s)
+            rung = self.qos.rung
+            if rung >= RUNG_CAP_TOKENS:
+                qos_metrics.capped_requests_total += 1
+            if rung >= RUNG_SPEC_STANDDOWN:
+                qos_metrics.spec_standdowns_total += 1
+            if rung and ert.active:
+                # Brownout rewrites are invisible in the response body —
+                # record WHICH rung shaped this request on its trace.
+                ert.event("brownout_rewrite", rung=rung)
+            body = self.qos.shape(body)
+            if tenant != model:
+                # Thread the RESOLVED identity to the scheduler's WFQ
+                # (preprocessor: nvext.tenant → annotations.tenant) — a
+                # model-named tenant is the scheduler's own fallback, so
+                # only header/credential identities need the stamp.
+                nvext = body.get("nvext")
+                if not isinstance(nvext, dict):
+                    nvext = {}
+                    body["nvext"] = nvext
+                nvext["tenant"] = tenant
+        if priority == BATCH or "x-priority" in req.headers:
+            # Thread the resolved class to the scheduler (the preprocessor
+            # reads nvext.priority into PreprocessedRequest.priority).
+            # NOT setdefault: a client-sent ``"nvext": null`` would satisfy
+            # it and the batch class would silently run as interactive.
+            nvext = body.get("nvext")
+            if not isinstance(nvext, dict):
+                nvext = {}
+                body["nvext"] = nvext
+            nvext["priority"] = priority
+
+        # Admission control guards everything that costs engine work; cheap
+        # 400/404s above never consume a slot.  Batch-class requests only
+        # queue in their reserved fraction (resilience.AdmissionController).
+        ert.admission_started()
+        try:
+            await self.admission.acquire(priority)
+        except AdmissionRejected as e:
+            if self.qos is not None and tenant is not None:
+                # The quota was charged above, but this request was shed
+                # before consuming any capacity — credit it back.
+                self.qos.quotas.refund(tenant)
+            self.metrics.requests_total.labels(
+                model, endpoint, "stream", Status.REJECTED
+            ).inc()
+            ert.finish(Status.REJECTED, model=model, endpoint=endpoint)
+            # The drain-rate estimate says when a slot frees; a deepening
+            # brownout says the estimate is optimistic — back clients off
+            # harder the further down the ladder the edge already is.
+            retry = e.retry_after_s
+            if self.qos is not None and self.qos.rung:
+                retry *= 1 + self.qos.rung
+            return _error_response(e.status, e.message, retry_after_s=retry)
+        except BaseException:
+            # Handler cancelled (client gone) or failed while QUEUED: the
+            # admission wait it died in is exactly the datum the trace
+            # exists to capture — record before propagating.
+            ert.finish(Status.ERROR, model=model, endpoint=endpoint)
+            raise
+        ert.admission_done()
+        try:
+            return await self._admitted_openai(conn, req, body, engine, model, endpoint, ert)
+        finally:
+            self.admission.release()
+            # Belt for paths no guard.finish covered (handler cancellation,
+            # unexpected escapes): finish is idempotent, so completed
+            # requests — already closed by _TracedGuard — are untouched.
+            ert.finish(Status.ERROR, model=model, endpoint=endpoint)
+
+    async def _admitted_openai(
+        self,
+        conn: _Connection,
+        req: _Request,
+        body: Dict[str, Any],
+        engine: AsyncEngine,
+        model: str,
+        endpoint: str,
+        ert: EdgeRequestTrace,
+    ) -> Optional[_Response]:
         stream_mode = bool(body.get("stream", False))
         guard = self.metrics.guard(model, endpoint, "stream" if stream_mode else "unary")
+        # The caller made the ONE sampling decision for this request.
+        ert.model, ert.endpoint = model, endpoint
+        # Every guard.finish path (success, error, client drop) also closes
+        # the edge trace — one wrapper instead of N call sites.
+        guard = _TracedGuard(guard, ert)
         # Request-id correlation: a caller-supplied x-request-id becomes the
         # PREFIX of the engine context id, uniquified with a server suffix —
         # request ids key the engine's response queues, so a client-chosen
@@ -411,6 +709,15 @@ class HttpService:
         # is echoed on every response from here on, success or error.
         rid = req.headers.get("x-request-id")
         ctx = Context.with_id(body, f"{rid}-{uuid.uuid4().hex[:8]}") if rid else Context(body)
+        # Per-request deadline: caller's x-deadline-s header (or body
+        # "deadline_s") wins, else the service default; None = unbounded.
+        deadline_s = _requested_deadline(req, body, self.default_deadline_s)
+        if deadline_s is not None:
+            ctx.ctx.deadline = Deadline.after(deadline_s)
+        if ert.tc is not None:
+            # Downstream propagation: the preprocessor stamps this onto
+            # ``annotations.trace`` — one trace from edge to decode chunk.
+            ctx.ctx.trace = ert.tc
         try:
             stream = await engine.generate(ctx)
         except ModelNotFoundError as e:
@@ -422,6 +729,10 @@ class HttpService:
             guard.finish(Status.REJECTED)
             logger.warning("request rejected: %s", e, exc_info=True)
             return _error_response(400, str(e), rid=ctx.id)
+        except (DeadlineExceededError, asyncio.TimeoutError) as e:
+            guard.finish(Status.ERROR)
+            logger.warning("request %s deadline exceeded at dispatch", ctx.id)
+            return _error_response(504, str(e) or "deadline exceeded", rid=ctx.id)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 — edge boundary
@@ -435,9 +746,20 @@ class HttpService:
         return await self._unary_response(stream, ctx, guard)
 
     async def _unary_response(self, stream, ctx: Context, guard) -> _Response:
+        # The edge is the enforcement point of last resort for deadlines: a
+        # local pipeline streams unbounded — bound every chunk wait here.
+        deadline = getattr(ctx.ctx, "deadline", None)
         chunks = []
         try:
-            async for chunk in stream:
+            it = stream.__aiter__()
+            while True:
+                try:
+                    if deadline is not None:
+                        chunk = await deadline.bound(it.__anext__(), "response")
+                    else:
+                        chunk = await it.__anext__()
+                except StopAsyncIteration:
+                    break
                 if "__annotations__" in chunk:
                     continue
                 if chunk.get("choices") or chunk.get("usage"):
@@ -448,12 +770,24 @@ class HttpService:
             ctx.stop_generating()
             guard.finish(Status.CLIENT_DROP)
             raise
+        except DeadlineExceededError as e:
+            # Abandoning the request must also stop upstream generation —
+            # otherwise the engine keeps burning batch slots on a response
+            # nobody will read, exactly when the server is already slow.
+            ctx.stop_generating()
+            guard.finish(Status.ERROR)
+            logger.warning("request %s deadline exceeded mid-generation", ctx.id)
+            return _error_response(504, str(e) or "deadline exceeded", rid=ctx.id)
         except Exception as e:  # noqa: BLE001
             guard.finish(Status.ERROR)
             logger.exception("stream failed")
             return _error_response(500, str(e), rid=ctx.id)
         guard.finish(Status.SUCCESS)
-        return _json_response(full, headers={"x-request-id": ctx.id})
+        headers = {"x-request-id": ctx.id}
+        trace = getattr(ctx.ctx, "trace", None)
+        if trace is not None:
+            headers["x-trace-id"] = trace.trace_id
+        return _json_response(full, headers=headers)
 
     async def _stream_response(self, conn: _Connection, req: _Request, stream, ctx: Context, guard) -> None:
         headers = {
@@ -461,10 +795,24 @@ class HttpService:
             "Cache-Control": "no-cache",
             "x-request-id": ctx.id,
         }
+        trace = getattr(ctx.ctx, "trace", None)
+        if trace is not None:
+            # The trace id is the lookup key for /traces/{id}.  Omitted when
+            # untraced — the response byte stream itself never changes.
+            headers["x-trace-id"] = trace.trace_id
+        deadline = getattr(ctx.ctx, "deadline", None)
         status = Status.SUCCESS
         try:
             await conn.start_stream(headers, req.keep_alive)
-            async for chunk in stream:
+            it = stream.__aiter__()
+            while True:
+                try:
+                    if deadline is not None:
+                        chunk = await deadline.bound(it.__anext__(), "stream")
+                    else:
+                        chunk = await it.__anext__()
+                except StopAsyncIteration:
+                    break
                 if "__annotations__" in chunk:
                     await conn.write_chunk(
                         b"event: annotation\n" + sse_encode(chunk["__annotations__"])
@@ -481,17 +829,41 @@ class HttpService:
             ctx.stop_generating()
             conn.broken = True
             status = Status.CLIENT_DROP
+        except DeadlineExceededError:
+            # The 200 head is already on the wire: stop generation and end
+            # the SSE stream with a typed error event.
+            ctx.stop_generating()
+            status = Status.ERROR
+            await self._end_with_error(conn, {"error": "deadline exceeded", "code": 504})
         except Exception:  # noqa: BLE001
             status = Status.ERROR
             logger.exception("stream failed")
-            try:
-                await conn.write_chunk(b"event: error\n" + sse_encode({"error": "stream failed"}))
-                await conn.end_stream()
-            except ConnectionError:
-                pass
+            await self._end_with_error(conn, {"error": "stream failed"})
         finally:
             guard.finish(status)
             await stream.aclose()
+
+    @staticmethod
+    async def _end_with_error(conn: _Connection, event: Dict[str, Any]) -> None:
+        try:
+            await conn.write_chunk(b"event: error\n" + sse_encode(event))
+            await conn.end_stream()
+        except ConnectionError:
+            pass
+
+
+def _requested_deadline(
+    req: _Request, body: Dict[str, Any], default_s: Optional[float]
+) -> Optional[float]:
+    raw = req.headers.get("x-deadline-s") or body.get("deadline_s")
+    if raw is not None:
+        try:
+            value = float(raw)
+            if value > 0:
+                return value
+        except (TypeError, ValueError):
+            pass
+    return default_s
 
 
 _ERROR_TYPES = {
@@ -505,12 +877,15 @@ def _error_response(
     status: int,
     message: str,
     rid: Optional[str] = None,
+    retry_after_s: Optional[float] = None,
     code: Optional[Any] = None,
     param: Optional[str] = None,
 ) -> _Response:
     headers = {}
     if rid:
         headers["x-request-id"] = rid
+    if retry_after_s is not None:
+        headers["Retry-After"] = str(max(1, int(retry_after_s)))
     error: Dict[str, Any] = {
         "message": message,
         "type": _ERROR_TYPES.get(status, "invalid_request_error"),

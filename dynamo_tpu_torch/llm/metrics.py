@@ -14,9 +14,12 @@ that records duration + status when dropped.
 ``Histogram`` below render the same exposition text (names, label names,
 buckets, value format) minus the optional ``_created`` series, so one
 scraper reads both packages.  ``EngineDispatchMetrics`` is the colocated
-engine's dispatch-health group and ``SpecDecodeMetrics`` its speculative
-decoding group.  The metric groups of subsystems the port does not have yet
-(KV tiers, QoS, tracing, ...) are not here.
+engine's dispatch-health group, ``SpecDecodeMetrics`` its speculative
+decoding group and ``QosMetrics`` the edge's quota and brownout group; the
+resilience and tracing groups live beside their producers
+(runtime/resilience.py, runtime/tracing.py).  The metric groups of
+subsystems the port does not have yet (KV tiers, migration, ...) are not
+here.
 """
 
 from __future__ import annotations
@@ -175,6 +178,42 @@ class RollingWindow:
         return len(self._xs)
 
 
+class TimedWindow:
+    """Sample window bounded by AGE, not count — the brownout ladder's
+    latency input (llm/qos.py).  A count-bounded window (RollingWindow)
+    holds a spike's samples until enough NEW traffic pushes them out: at
+    zero traffic it never drains, so pressure reads high forever and the
+    ladder can never recover.  Here samples expire after ``max_age_s``
+    regardless of traffic, so "the spike ended" is observable."""
+
+    def __init__(self, max_age_s: float = 10.0, maxlen: int = 4096,
+                 clock=time.monotonic):
+        self.max_age_s = max_age_s
+        self._clock = clock
+        self._xs: Deque[Tuple[float, float]] = deque(maxlen=maxlen)
+
+    def observe(self, x: float) -> None:
+        self._xs.append((self._clock(), x))
+
+    def _prune(self) -> None:
+        horizon = self._clock() - self.max_age_s
+        while self._xs and self._xs[0][0] < horizon:
+            self._xs.popleft()
+
+    def percentile(self, p: float) -> Optional[float]:
+        """p-quantile of the live samples, or None when the window is
+        empty (signal absent — distinct from 'fast')."""
+        self._prune()
+        if not self._xs:
+            return None
+        xs = sorted(x for _, x in self._xs)
+        return xs[min(len(xs) - 1, int(len(xs) * p))]
+
+    def __len__(self) -> int:
+        self._prune()
+        return len(self._xs)
+
+
 class Metrics:
     def __init__(self, prefix: str = "dynamo_tpu"):
         ns = f"{prefix}_http_service"
@@ -214,6 +253,16 @@ class Metrics:
         ]
         # (model, endpoint) → (ttft window, itl window)
         self._windows: Dict[Tuple[str, str], Tuple[RollingWindow, RollingWindow]] = {}
+        # Age-bounded TTFT window across all models: the brownout ladder's
+        # latency signal (llm/qos.py) — must DRAIN when the spike ends,
+        # which the count-bounded windows above deliberately do not.
+        self.ttft_recent = TimedWindow(max_age_s=10.0)
+
+    def recent_ttft_p95_ms(self) -> Optional[float]:
+        """p95 TTFT over the last ``ttft_recent.max_age_s`` seconds, or
+        None when no request produced a first token in that span."""
+        p = self.ttft_recent.percentile(0.95)
+        return None if p is None else p * 1e3
 
     def window(self, model: str, endpoint: str) -> Tuple[RollingWindow, RollingWindow]:
         key = (model, endpoint)
@@ -260,6 +309,7 @@ class InflightGuard:
         if self._last_token_t is None:
             self._m.ttft.labels(self.model, self.endpoint).observe(now - self._start)
             ttft_w.observe(now - self._start)
+            self._m.ttft_recent.observe(now - self._start)
         else:
             self._m.itl.labels(self.model, self.endpoint).observe(now - self._last_token_t)
             itl_w.observe(now - self._last_token_t)
@@ -284,6 +334,82 @@ class InflightGuard:
                 self.finish(Status.ERROR)
             except Exception:  # noqa: BLE001 — interpreter teardown
                 pass
+
+
+# -- QoS at the edge ------------------------------------------------------------
+
+
+class QosMetrics:
+    """QoS/overload-control counters (llm/qos.py): per-tenant quota sheds,
+    brownout rung + transitions, priority sheds.  Module-level singleton
+    rendered as Prometheus text and appended to ``/metrics`` (same pattern
+    as ``spec_metrics``)."""
+
+    def __init__(self):
+        self.brownout_rung = 0  # gauge: current ladder rung
+        self.brownout_transitions_total = 0
+        self.quota_shed_total = 0       # 429s from tenant token buckets
+        self.batch_shed_total = 0       # rung-3 batch-class sheds
+        self.interactive_shed_total = 0  # rung-4 interactive overflow 503s
+        self.capped_requests_total = 0  # rung-1 max_tokens caps applied
+        self.spec_standdowns_total = 0  # rung-2 spec-decode opt-outs applied
+        # tenant → sheds (bounded: the render sorts and truncates)
+        self.shed_by_tenant: Dict[str, int] = {}
+
+    def shed_tenant(self, tenant: str) -> None:
+        if len(self.shed_by_tenant) < 256 or tenant in self.shed_by_tenant:
+            self.shed_by_tenant[tenant] = self.shed_by_tenant.get(tenant, 0) + 1
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            k: float(v) for k, v in vars(self).items() if isinstance(v, (int, float))
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_qos"
+        lines = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("brownout_rung", "gauge",
+             "Current brownout ladder rung (0=normal .. 4=shed-interactive)",
+             self.brownout_rung)
+        emit("brownout_transitions_total", "counter",
+             "Brownout rung transitions", self.brownout_transitions_total)
+        emit("quota_shed_total", "counter",
+             "Requests shed by tenant token buckets (429)",
+             self.quota_shed_total)
+        emit("batch_shed_total", "counter",
+             "Batch-class requests shed by brownout rung >= 3",
+             self.batch_shed_total)
+        emit("interactive_shed_total", "counter",
+             "Interactive requests shed at rung 4 (admission saturated)",
+             self.interactive_shed_total)
+        emit("capped_requests_total", "counter",
+             "Requests with max_tokens capped by brownout rung >= 1",
+             self.capped_requests_total)
+        emit("spec_standdowns_total", "counter",
+             "Requests with spec-decode stood down by brownout rung >= 2",
+             self.spec_standdowns_total)
+        lines.append(f"# HELP {ns}_shed_by_tenant_total Sheds per tenant")
+        lines.append(f"# TYPE {ns}_shed_by_tenant_total counter")
+        for tenant, n in sorted(self.shed_by_tenant.items()):
+            # Tenant ids come off the wire (x-tenant header): escape the
+            # Prometheus label syntax so a crafted id cannot inject rows
+            # into the exposition.  (Credential-sourced ids are already
+            # hashed at resolution — llm/qos.py resolve_tenant.)
+            safe = escape_label(tenant)
+            lines.append(f'{ns}_shed_by_tenant_total{{tenant="{safe}"}} {n}')
+        return "\n".join(lines) + "\n"
+
+
+qos_metrics = QosMetrics()
 
 
 # -- the colocated engine's dispatch health ---------------------------------------

@@ -7,10 +7,14 @@ shapes backend text deltas into OpenAI chunks via ``DeltaGenerator``.
 Annotation requests (nvext.annotations) can echo the formatted prompt /
 token ids back to the caller as annotation events.
 
+A traced request (``ctx.trace``, sampled at the HTTP edge) records the
+``edge.preprocess`` span and carries its trace to the engine in
+``annotations["trace"]``.
+
 Not ported yet: structured output (``response_format`` other than text,
-``nvext.grammar``) and LoRA adapters, which the engine lacks, and request
-tracing.  A request asking for structured output is rejected with a
-``ValueError`` (400 at the edge), never served unconstrained.
+``nvext.grammar``) and LoRA adapters, which the engine lacks.  A request
+asking for structured output is rejected with a ``ValueError`` (400 at the
+edge), never served unconstrained.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..runtime.pipeline import Operator
 from .openai import ChatCompletionRequest, CompletionRequest, DeltaGenerator
 from .protocols import PreprocessedRequest
 from .tokenizer import BaseTokenizer
+from .trace_service import preprocess_span
 
 
 class OpenAIPreprocessor(Operator):
@@ -116,7 +121,14 @@ class OpenAIPreprocessor(Operator):
     async def generate(self, request: Context, next: AsyncEngine) -> ResponseStream:
         raw = request.data
         chat = "messages" in raw if isinstance(raw, dict) else True
-        pre = self.preprocess(raw)
+        with preprocess_span(request.ctx):
+            pre = self.preprocess(raw)
+        trace = getattr(request.ctx, "trace", None)
+        if trace is not None and trace.sampled:
+            # Propagation: the trace rides ``annotations.trace`` on the
+            # PreprocessedRequest — the same omit-when-absent idiom as
+            # tenant, so an untraced request never carries the key.
+            pre.annotations["trace"] = trace.to_dict()
         model = pre.model or self.model_name
         n = int(raw.get("n") or 1) if isinstance(raw, dict) else 1
         # Only user-REQUESTED debug annotations (nvext.annotations) echo as

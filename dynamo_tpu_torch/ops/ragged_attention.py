@@ -22,30 +22,11 @@ import torch
 from .decode_attention import decode_attention
 from .prefill_attention import prefill_attention
 
-# Attention kernel routes.  ``cuda``: the hand-written Hopper kernels
-# (dynamo_tpu_torch/csrc); ``plain``: their PyTorch reference versions.
-ATTENTION_KERNELS = ("cuda", "plain")
-
-
-def resolve_kernel(value: Optional[str], device: torch.device) -> str:
-    """An engine's kernel setting against its device: ``auto`` is the
-    device's route (``cuda`` on CUDA, ``plain`` on the CPU); an explicit
-    value must equal that route, anything else raises."""
-    route = "cuda" if device.type == "cuda" else "plain"
-    v = (value or "auto").strip().lower()
-    if v == "auto":
-        return route
-    if v not in ATTENTION_KERNELS:
-        raise ValueError(
-            f"unknown attention kernel {value!r} (auto|{'|'.join(ATTENTION_KERNELS)})"
-        )
-    if v != route:
-        raise ValueError(
-            f"attention kernel {v!r} cannot serve tensors on {device}: CUDA "
-            "tensors always launch the CUDA kernels, CPU tensors always take "
-            "the plain versions"
-        )
-    return v
+def kernel_route(device: torch.device) -> str:
+    """The attention route of tensors on ``device``: ``cuda`` (the
+    hand-written Hopper kernels, dynamo_tpu_torch/csrc) on a CUDA device,
+    ``plain`` (their PyTorch reference versions) anywhere else."""
+    return "cuda" if device.type == "cuda" else "plain"
 
 
 def quantize_for_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Layered runtime configuration: defaults < config file < environment.
 
 A trimmed copy of the JAX package's ``runtime/config.py``, as far as the
-``spec_decode`` section that ``engine/__init__.py::_spec_decode_section``
-reads: ``RuntimeConfig.from_layers()`` merges an optional JSON file named
-by ``DYN_RUNTIME_CONFIG`` and then ``DYN_*`` environment variables, later
-layers winning per key; every other section is ignored.
+sections something in this package reads: ``spec_decode``
+(engine/__init__.py), ``qos`` (the scheduler half in engine/__init__.py,
+the edge half in cli.py) and ``tracing`` (cli.py).  The ``resilience``
+section comes with its readers, the ``http`` command and the routed
+client (ROADMAP queue 1 item 10).  ``RuntimeConfig.from_layers()``
+merges an optional JSON file named by ``DYN_RUNTIME_CONFIG`` and then
+``DYN_*`` environment variables, later layers winning per key; every other
+section is ignored.
 
 Env mapping: ``DYN_<FIELD>`` (case-insensitive) sets a top-level field;
 double underscores nest (``DYN_SPEC_DECODE__K=8`` → ``spec_decode.k``).
@@ -64,13 +68,24 @@ def env_overrides(
 
 @dataclass
 class RuntimeConfig:
-    """The layered section this package reads so far."""
+    """The layered sections this package reads so far."""
 
     # Draft-free speculative decoding defaults (engine/config.py
     # SpecDecodeConfig keys).  build_torch_engine (out=torch) merges this section
     # under any explicit --spec-* flags; nested env works:
     # ``DYN_SPEC_DECODE__ENABLE=true``, ``DYN_SPEC_DECODE__K=8``.
     spec_decode: Dict[str, Any] = field(default_factory=dict)
+    # QoS/overload-control section (llm/qos.py QosConfig keys at the edge:
+    # rate, burst, tenants, brownout{queue_high,kv_high,ttft_p95_ms,
+    # band_up,band_down,confirm_up,confirm_down,cooldown,max_tokens_cap},
+    # tick_s; engine/config.py QosSchedConfig keys for the scheduler:
+    # tenant_weights, default_weight, batch_every).  Nested env works:
+    # ``DYN_QOS__RATE=20``, ``DYN_QOS__BROWNOUT__QUEUE_HIGH=32``.
+    qos: Dict[str, Any] = field(default_factory=dict)
+    # Request tracing (runtime/tracing.py TracingConfig keys: enabled,
+    # sample, ring, export_interval_s, ttl_s, tail_keep, tail_slo_ttft_ms).
+    # Nested env works: ``DYN_TRACING__SAMPLE=0.1``.
+    tracing: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_layers(
@@ -85,4 +100,4 @@ class RuntimeConfig:
         if path:
             merged = _deep_merge(merged, _load_file(path))
         merged = _deep_merge(merged, env_overrides(environ))
-        return cls(spec_decode=dict(merged.get("spec_decode") or {}))
+        return cls(**{f: dict(merged.get(f) or {}) for f in cls.__dataclass_fields__})

@@ -1,0 +1,532 @@
+"""Distributed request tracing: the span plane.
+
+A copy of the JAX package's ``runtime/tracing.py``.  One request crossing
+the serving stack — HTTP edge → preprocessor → engine — leaves a timeline
+that /metrics cannot reconstruct: /metrics aggregates per component, and
+the engine's step_trace never leaves its process.  This module is the
+process-local half of the tracing plane:
+
+- ``TraceContext`` — the wire identity (trace_id / span_id / sampled) that
+  rides every hop using the omit-when-absent idiom: ``annotations.trace``
+  on PreprocessedRequest dicts and ``ctx.trace`` on the request context.
+- ``SpanCollector`` — a bounded process-local ring of finished spans.
+  Monotonic clocks (``time.perf_counter``) with one wall anchor per process
+  make same-host spans orderable across processes without a clock protocol.
+- ``SpanExporter`` — drains the ring on an interval into its sinks: a
+  colocated ``TraceAggregator`` (llm/trace_service.py) that assembles them
+  by trace_id.  (The hub event-plane subject ``{namespace}.traces`` comes
+  with the distributed runtime.)
+- ``TraceSampler`` — head sampling (``tracing.sample`` config rate), forced
+  sampling (``x-trace`` header / ``nvext.trace``), and edge-side tail-keep
+  for error / SLO-violating requests.
+
+Overhead contract (tests/test_torch_tracing.py): tracing on vs off gives
+identical streams with no new device program (graph) captured.  Every
+instrumentation point is behind an ``is None`` check on the context; an
+unsampled request allocates nothing.  Decode records at CHUNK granularity
+only (one span per fused dispatch per traced row), never per token, and
+only from host clocks: no hook enters a captured graph or synchronises.
+
+Config (``tracing`` section of RuntimeConfig; env ``DYN_TRACING__*``):
+``enabled`` (default True), ``sample`` (head rate, default 0.0 — only
+forced traces), ``ring`` (span ring size), ``export_interval_s``,
+``ttl_s`` (aggregator assembly TTL), ``tail_keep`` (default True),
+``tail_slo_ttft_ms`` (TTFT above this tail-keeps the edge spans).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import random
+import time
+import uuid
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+logger = logging.getLogger(__name__)
+
+# Event-plane topic the exporters publish span batches on (namespace-scoped
+# by Namespace.publish, like the planner's slo_metrics subject).
+TRACES_TOPIC = "traces"
+
+# One wall anchor per process: span timestamps ship as anchored wall ms so
+# the aggregator can order spans from different processes on one host
+# without a clock-sync protocol (perf_counter epochs differ per process).
+_WALL_ANCHOR = time.time() - time.perf_counter()
+
+
+def _wall_ms(perf_t: float) -> float:
+    return (perf_t + _WALL_ANCHOR) * 1e3
+
+
+def new_id() -> str:
+    """128-bit random id, hex — no coordination needed between processes."""
+    return uuid.uuid4().hex
+
+
+@dataclass
+class TraceContext:
+    """The per-request trace identity that crosses process boundaries.
+
+    ``span_id`` names the span all spans recorded UNDER this context parent
+    to (the edge's root span records with this id itself).  The wire form is
+    a plain dict; ``sampled`` ships omit-when-absent (only when False) so
+    pre-tracing consumers — and the common sampled case — see the minimal
+    shape.
+    """
+
+    trace_id: str
+    span_id: str
+    sampled: bool = True
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+        }
+        if not self.sampled:
+            # Omitted when absent (= default True): the common sampled
+            # context keeps the minimal wire shape, and consumers that
+            # predate the field never see it.
+            out["sampled"] = self.sampled
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TraceContext":
+        return cls(
+            trace_id=str(d["trace_id"]),
+            span_id=str(d["span_id"]),
+            sampled=bool(d.get("sampled", True)),
+        )
+
+    @classmethod
+    def new(cls, sampled: bool = True) -> "TraceContext":
+        return cls(trace_id=new_id(), span_id=new_id(), sampled=sampled)
+
+
+def parse_trace(raw: Any) -> Optional[TraceContext]:
+    """Tolerant wire parse: annotations/headers come off the wire, so a
+    malformed trace dict must degrade to 'untraced', never raise into the
+    request path."""
+    if not isinstance(raw, dict):
+        return None
+    try:
+        tc = TraceContext.from_dict(raw)
+    except (KeyError, TypeError, ValueError):
+        return None
+    return tc if tc.sampled else None
+
+
+class TracingMetrics:
+    """``dynamo_tpu_tracing_*`` counters.  Module-level singleton rendered
+    as Prometheus text and appended to ``/metrics`` (same pattern as
+    ``spec_metrics``); the aggregator registers a source callable for its
+    assembly gauges the way ``engine_dispatch_metrics`` does."""
+
+    def __init__(self):
+        self.spans_recorded_total = 0
+        self.spans_dropped_total = 0      # ring overflow (oldest evicted)
+        self.traces_sampled_total = 0     # head-sampled at the edge
+        self.traces_forced_total = 0      # x-trace / nvext.trace
+        self.tail_kept_total = 0          # error/SLO tail-keep promotions
+        self.export_batches_total = 0
+        self.export_errors_total = 0
+        self._aggregator_source: Optional[Callable[[], Dict[str, Any]]] = None
+
+    def set_aggregator_source(self, source) -> None:
+        """``source() -> {"traces": n, "orphan_spans": n, "evicted": n}``
+        (TraceAggregator.stats), or None to detach."""
+        self._aggregator_source = source
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            k: float(v)
+            for k, v in vars(self).items()
+            if isinstance(v, (int, float))
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_tracing"
+        lines: List[str] = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("spans_recorded_total", "counter",
+             "Spans recorded into the process-local ring",
+             self.spans_recorded_total)
+        emit("spans_dropped_total", "counter",
+             "Spans evicted unexported (ring overflow)",
+             self.spans_dropped_total)
+        emit("traces_sampled_total", "counter",
+             "Traces head-sampled at the edge", self.traces_sampled_total)
+        emit("traces_forced_total", "counter",
+             "Traces forced via x-trace / nvext.trace",
+             self.traces_forced_total)
+        emit("tail_kept_total", "counter",
+             "Edge traces kept by the error/SLO tail-keep path",
+             self.tail_kept_total)
+        emit("export_batches_total", "counter",
+             "Span batches published on the traces subject",
+             self.export_batches_total)
+        emit("export_errors_total", "counter",
+             "Span batch publishes that failed", self.export_errors_total)
+        if self._aggregator_source is not None:
+            try:
+                s = self._aggregator_source()
+            except Exception:  # noqa: BLE001 — aggregator mid-teardown
+                s = {}
+            emit("aggregator_traces", "gauge",
+                 "Traces currently assembled (within TTL)",
+                 s.get("traces", 0))
+            emit("aggregator_orphan_spans_total", "counter",
+                 "Spans whose trace expired without a root span",
+                 s.get("orphan_spans", 0))
+            emit("aggregator_evicted_total", "counter",
+                 "Assembled traces evicted by TTL/capacity",
+                 s.get("evicted", 0))
+        return "\n".join(lines) + "\n"
+
+
+tracing_metrics = TracingMetrics()
+
+
+class SpanCollector:
+    """Bounded process-local ring of finished spans.
+
+    ``record`` is called from request hot paths, so it is plain list/dict
+    work — no awaits, no locks (asyncio single-thread), no device access.
+    An exporter drains the ring; without one the deque bound caps memory
+    and the overflow counter records what was lost.
+    """
+
+    def __init__(self, maxlen: int = 8192):
+        self._ring: deque = deque(maxlen=maxlen)
+        # Process label: distinguishes same-host processes in assembled
+        # traces (goodput/test fleets also set per-worker labels).
+        self.proc = f"pid-{os.getpid()}"
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def set_capacity(self, maxlen: int) -> None:
+        self._ring = deque(self._ring, maxlen=max(1, int(maxlen)))
+
+    def record(
+        self,
+        tc: TraceContext,
+        name: str,
+        component: str,
+        start: float,
+        end: float,
+        attrs: Optional[Dict[str, Any]] = None,
+        events: Optional[List[Dict[str, Any]]] = None,
+        span_id: Optional[str] = None,
+        parent_id: Optional[str] = "",
+    ) -> Optional[Dict[str, Any]]:
+        """Record one finished span under ``tc``.  ``start``/``end`` are
+        ``time.perf_counter`` values; the ring stores anchored wall ms.
+        ``parent_id``: default ("") parents to the context's span; None
+        marks a ROOT span (and the span takes the context's span_id unless
+        an explicit one is given)."""
+        if tc is None or not tc.sampled:
+            return None
+        if parent_id == "":
+            parent_id = tc.span_id
+        span = {
+            "trace_id": tc.trace_id,
+            "span_id": span_id
+            or (tc.span_id if parent_id is None else new_id()),
+            "parent_id": parent_id,
+            "name": name,
+            "component": component,
+            "proc": self.proc,
+            "start_ms": round(_wall_ms(start), 3),
+            "dur_ms": round(max(end - start, 0.0) * 1e3, 3),
+        }
+        if attrs:
+            span["attrs"] = attrs
+        if events:
+            span["events"] = events
+        if len(self._ring) == self._ring.maxlen:
+            tracing_metrics.spans_dropped_total += 1
+        self._ring.append(span)
+        tracing_metrics.spans_recorded_total += 1
+        return span
+
+    def drain(self) -> List[Dict[str, Any]]:
+        out = list(self._ring)
+        self._ring.clear()
+        return out
+
+
+# The process-wide default collector every instrumentation point records to.
+collector = SpanCollector()
+
+
+class _SpanHandle:
+    """Live span under construction: accumulate events/attrs, record on
+    ``finish`` (or context-manager exit)."""
+
+    __slots__ = ("tc", "name", "component", "t0", "attrs", "events", "_sink",
+                 "parent_id", "span_id", "_done")
+
+    def __init__(self, tc, name, component, sink, attrs=None,
+                 parent_id="", span_id=None, t0=None):
+        self.tc = tc
+        self.name = name
+        self.component = component
+        self.t0 = time.perf_counter() if t0 is None else t0
+        self.attrs = dict(attrs) if attrs else {}
+        self.events: List[Dict[str, Any]] = []
+        self._sink = sink
+        self.parent_id = parent_id
+        self.span_id = span_id
+        self._done = False
+
+    def set(self, **attrs) -> "_SpanHandle":
+        self.attrs.update(attrs)
+        return self
+
+    def event(self, name: str, **attrs) -> None:
+        ev: Dict[str, Any] = {
+            "name": name,
+            "t_ms": round(_wall_ms(time.perf_counter()), 3),
+        }
+        if attrs:
+            ev.update(attrs)
+        self.events.append(ev)
+
+    def finish(self, end: Optional[float] = None) -> None:
+        if self._done:
+            return
+        self._done = True
+        self._sink.record(
+            self.tc, self.name, self.component,
+            self.t0, time.perf_counter() if end is None else end,
+            attrs=self.attrs or None, events=self.events or None,
+            span_id=self.span_id, parent_id=self.parent_id,
+        )
+
+    def __enter__(self) -> "_SpanHandle":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.attrs.setdefault("error", exc_type.__name__)
+        self.finish()
+
+
+class _NoopSpan:
+    """The unsampled fast path: every method is a no-op, one shared
+    instance, zero allocation per call site."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> "_NoopSpan":
+        return self
+
+    def event(self, name: str, **attrs) -> None:
+        pass
+
+    def finish(self, end: Optional[float] = None) -> None:
+        pass
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+def span(
+    tc: Optional[TraceContext],
+    name: str,
+    component: str,
+    attrs: Optional[Dict[str, Any]] = None,
+    sink: Optional[SpanCollector] = None,
+    parent_id: str = "",
+    t0: Optional[float] = None,
+):
+    """Open a span under ``tc`` (context manager or explicit ``finish``).
+    Returns the shared no-op handle when the request is untraced — call
+    sites stay a single ``with span(...)`` with zero cost off-trace."""
+    if tc is None or not tc.sampled:
+        return NOOP_SPAN
+    return _SpanHandle(
+        tc, name, component, sink if sink is not None else collector,
+        attrs=attrs, parent_id=parent_id, t0=t0,
+    )
+
+
+class SeqTrace:
+    """Engine-side per-sequence trace state (SequenceState.trace): the
+    context plus the timing anchors the queue-wait/prefill spans need and
+    the first-token latch.  Never serialized itself — the snapshot ships
+    only ``ctx.to_dict()``."""
+
+    __slots__ = ("ctx", "t_enqueue", "t_admit", "first_done")
+
+    def __init__(self, ctx: TraceContext, t_enqueue: Optional[float] = None):
+        self.ctx = ctx
+        self.t_enqueue = (
+            time.perf_counter() if t_enqueue is None else t_enqueue
+        )
+        self.t_admit: Optional[float] = None
+        self.first_done = False
+
+
+@dataclass
+class TracingConfig:
+    """The ``tracing`` config section (``DYN_TRACING__*``)."""
+
+    enabled: bool = True
+    sample: float = 0.0           # head-sampling rate [0, 1]
+    ring: int = 8192              # SpanCollector capacity
+    export_interval_s: float = 0.25
+    ttl_s: float = 120.0          # aggregator assembly TTL
+    tail_keep: bool = True        # keep edge spans for error/SLO requests
+    tail_slo_ttft_ms: Optional[float] = None
+
+    @classmethod
+    def from_config(cls, section: Optional[Dict[str, Any]]) -> "TracingConfig":
+        s = section or {}
+        slo = s.get("tail_slo_ttft_ms")
+        return cls(
+            enabled=bool(s.get("enabled", True)),
+            sample=max(0.0, min(1.0, float(s.get("sample", 0.0)))),
+            ring=int(s.get("ring", 8192)),
+            export_interval_s=float(s.get("export_interval_s", 0.25)),
+            ttl_s=float(s.get("ttl_s", 120.0)),
+            tail_keep=bool(s.get("tail_keep", True)),
+            tail_slo_ttft_ms=float(slo) if slo is not None else None,
+        )
+
+
+class TraceSampler:
+    """Edge-side sampling decision: forced (``x-trace`` header or
+    ``nvext.trace``) beats the head rate; tail-keep eligibility is decided
+    at request finish (llm/trace_service.EdgeRequestTrace)."""
+
+    def __init__(self, config: Optional[TracingConfig] = None, rng=None):
+        self.config = config or TracingConfig()
+        self._rng = rng if rng is not None else random.random
+        if self.config.ring != collector._ring.maxlen:
+            collector.set_capacity(self.config.ring)
+
+    @staticmethod
+    def _forced(headers, body) -> bool:
+        raw = None
+        if headers is not None:
+            raw = headers.get("x-trace")
+        if raw is None and isinstance(body, dict):
+            nvext = body.get("nvext")
+            if isinstance(nvext, dict):
+                raw = nvext.get("trace")
+        if raw is None:
+            return False
+        return str(raw).lower() not in ("", "0", "false", "no", "off")
+
+    def decide(self, headers=None, body=None) -> Optional[TraceContext]:
+        """A sampled TraceContext, or None (tail-keep may still promote)."""
+        if not self.config.enabled:
+            return None
+        if self._forced(headers, body):
+            tracing_metrics.traces_forced_total += 1
+            return TraceContext.new()
+        if self.config.sample > 0.0 and self._rng() < self.config.sample:
+            tracing_metrics.traces_sampled_total += 1
+            return TraceContext.new()
+        return None
+
+    def tail_eligible(self, error: bool, ttft_ms: Optional[float]) -> bool:
+        if not self.config.enabled or not self.config.tail_keep:
+            return False
+        if error:
+            return True
+        slo = self.config.tail_slo_ttft_ms
+        return slo is not None and ttft_ms is not None and ttft_ms > slo
+
+
+class SpanExporter:
+    """Drain the collector on an interval and hand batches to ``sinks``.
+
+    A sink is either an async callable (``await sink(payload)`` — e.g.
+    ``lambda p: namespace.publish(TRACES_TOPIC, p)``) or an object with an
+    (async or sync) ``ingest`` method (a colocated TraceAggregator).  A
+    failed sink drops that batch for that sink only (tracing is best
+    effort; it must never fail a request or wedge teardown)."""
+
+    def __init__(
+        self,
+        sinks: List[Any],
+        source: Optional[SpanCollector] = None,
+        interval_s: float = 0.25,
+        proc: Optional[str] = None,
+    ):
+        self.sinks = list(sinks)
+        self.source = source if source is not None else collector
+        self.interval_s = interval_s
+        if proc:
+            self.source.proc = proc
+        self._task: Optional[asyncio.Task] = None
+
+    async def start(self) -> "SpanExporter":
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    async def _run(self) -> None:
+        try:
+            while True:
+                await asyncio.sleep(self.interval_s)
+                await self.flush()
+        except asyncio.CancelledError:
+            pass
+
+    async def _deliver(self, payload: Dict[str, Any]) -> None:
+        for sink in self.sinks:
+            try:
+                ingest = getattr(sink, "ingest", None)
+                if ingest is not None:
+                    res = ingest(payload)
+                else:
+                    res = sink(payload)
+                if asyncio.iscoroutine(res):
+                    await res
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — best-effort plane
+                tracing_metrics.export_errors_total += 1
+                logger.warning("span batch export failed", exc_info=True)
+
+    async def flush(self) -> int:
+        """Export everything currently in the ring; returns spans shipped."""
+        spans = self.source.drain()
+        if not spans:
+            return 0
+        tracing_metrics.export_batches_total += 1
+        await self._deliver({"proc": self.source.proc, "spans": spans})
+        return len(spans)
+
+    async def stop(self, final_flush: bool = True) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        if final_flush:
+            await self.flush()

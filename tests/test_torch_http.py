@@ -15,6 +15,7 @@ subprocess).
 """
 
 import asyncio
+import importlib
 import json
 import os
 import signal
@@ -396,6 +397,100 @@ def test_client_disconnect_frees_the_engine_row(servers):
         engine._multi = multi
     text = servers.service.metrics.render().decode()
     assert 'status="client_drop"} 1.0' in text
+
+
+
+# The overload plane on the real pipelines: both servers get the same
+# admission controller, QoS controller or header, then the same requests.
+def _overflow(pkg):
+    res = importlib.import_module(f"{pkg}.runtime.resilience")
+    return {"admission": res.AdmissionController(max_inflight=1, max_queue=0)}
+
+
+def _quota(pkg):
+    qos = importlib.import_module(f"{pkg}.llm.qos")
+    return {"qos": qos.QosController(qos.QosConfig(rate=0.001, burst=1.0))}
+
+
+def _brownout(pkg):
+    qos = importlib.import_module(f"{pkg}.llm.qos")
+    ctl = qos.QosController(qos.QosConfig(brownout=qos.BrownoutConfig(max_tokens_cap=3),
+                                          tick_s=30.0))
+    ctl.ladder.rung = 3  # caps max_tokens and sheds the batch class
+    return {"qos": ctl}
+
+
+def _sampler(pkg):
+    tr = importlib.import_module(f"{pkg}.runtime.tracing")
+    return {"tracing": tr.TraceSampler(tr.TracingConfig(sample=0.0))}
+
+
+STREAM = dict(model="m", prompt=PROMPT, max_tokens=12, stream=True, nvext={"ignore_eos": True})
+EDGE_CASES = {
+    # (service attributes, [(headers, body)], concurrent)
+    "overflow-429": (_overflow, [({}, dict(STREAM, max_tokens=40))] * 3, True),
+    "quota-429": (_quota, [({"x-tenant": "t"}, STREAM)] * 2, False),
+    "brownout-cap-and-batch-shed": (_brownout, [({}, dict(STREAM, max_tokens=9)),
+                                                ({"x-priority": "batch"}, STREAM)], False),
+    "deadline-504-unary": (None, [({"x-deadline-s": "0.000001"}, dict(STREAM, stream=False))],
+                           False),
+    "deadline-504-sse-event": (None, [({}, dict(STREAM, deadline_s=0.000001))], False),
+    "traced-equals-untraced": (_sampler, [({"x-trace": "1"}, STREAM), ({}, STREAM)], False),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_edge_paths_match_jax(servers, case):
+    setup, requests, concurrent = EDGE_CASES[case]
+
+    async def run(base):
+        calls = [_post(base, "/v1/completions", body, headers=h) for h, body in requests]
+        if concurrent:
+            replies = await asyncio.gather(*calls)
+        else:
+            replies = [await c for c in calls]
+        out = [(*_shape(st, ct, text), hdrs.get("Retry-After"), "x-trace-id" in hdrs)
+               for st, ct, text, hdrs in replies]
+        return sorted(out, key=json.dumps) if concurrent else out
+
+    results = []
+    for pkg, service, base in (("dynamo_tpu", servers.jax_service, servers.jax_base),
+                               ("dynamo_tpu_torch", servers.service, servers.base)):
+        saved = {"admission": service.admission, "qos": service.qos, "tracing": service.tracing}
+        if setup is not None:
+            for k, v in setup(pkg).items():
+                setattr(service, k, v)
+        try:
+            results.append(servers.run(run(base)))
+        finally:
+            for k, v in saved.items():
+                setattr(service, k, v)
+    want, got = results
+    assert got == want
+    statuses = [r[0] for r in got]
+    if case == "overflow-429":
+        assert statuses == [200, 429, 429] and got[1][2] == "1"
+    elif case == "quota-429":
+        assert statuses == [200, 429] and got[1][2] == "999"
+    elif case == "brownout-cap-and-batch-shed":
+        assert statuses == [200, 429]
+        assert got[0][1][-2][1]["usage"]["completion_tokens"] == 3  # capped from 9
+    elif case.startswith("deadline"):
+        assert "504" in json.dumps(got)
+    else:
+        assert got[0][1] == got[1][1] and [r[3] for r in got] == [True, False]
+
+
+def test_traces_endpoints_404_without_aggregator_match_jax(servers):
+    async def get(base, path):
+        async with ClientSession() as http:
+            async with http.get(base + path) as r:
+                return r.status, await r.text()
+
+    for path in ("/traces", "/traces?recent=2", "/traces/abc"):
+        want = servers.run(get(servers.jax_base, path))
+        got = servers.run(get(servers.base, path))
+        assert got == want and got[0] == 404
 
 
 # ---------------------------------------------------------------------- CLI

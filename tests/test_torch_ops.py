@@ -443,15 +443,20 @@ def test_default_device_needs_cuda_unless_cpu_is_explicit(monkeypatch):
 
 
 def test_kernel_routes_follow_the_device():
-    gpu = torch.device("cuda", 0)
-    assert tra.resolve_kernel("auto", CPU) == "plain"
-    assert tra.resolve_kernel("auto", gpu) == "cuda"
-    assert tra.resolve_kernel("cuda", gpu) == "cuda"
-    with pytest.raises(ValueError):
-        tra.resolve_kernel("cuda", CPU)  # no CPU fallback for the kernel
-    with pytest.raises(ValueError):
-        tra.resolve_kernel("plain", gpu)  # CUDA tensors always launch it
-    with pytest.raises(ValueError):
-        tra.resolve_kernel("pallas", gpu)
-    with pytest.raises(ValueError):
-        tra.resolve_kernel("stock", CPU)
+    """The tensors' device is the single switch: no engine setting names a
+    kernel, and an engine reports the route of its device."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    assert tra.kernel_route(CPU) == "plain"
+    assert tra.kernel_route(torch.device("cuda", 0)) == "cuda"
+    assert not hasattr(tra, "resolve_kernel") and not hasattr(tra, "ATTENTION_KERNELS")
+    fields = EngineConfig.__dataclass_fields__
+    assert "decode_kernel" not in fields and "prefill_kernel" not in fields
+    with pytest.raises(TypeError):
+        EngineConfig(model="debug-tiny", decode_kernel="cuda")
+    engine = TorchEngine(EngineConfig(model="debug-tiny", dtype="float32", num_blocks=16,
+                                      max_batch=2, max_model_len=32), device="cpu")
+    summary = engine.dispatch_summary()
+    engine.programs.close()
+    assert summary["decode_kernel"] == summary["prefill_kernel"] == "plain"

@@ -324,3 +324,82 @@ def test_write_barrier_holds_retired_blocks():
     _, stats = asyncio.run(_run(engine, lambda e: _churn(e, 0.9)))
     assert stats["retired"] >= 1 and frees_in_session[0] >= 1, (stats, frees_in_session)
     assert not violations, violations
+
+
+# --------------------------------------- decode_steps 1: no row sits out
+# Four prompts sent together at decode_steps 1, 48 new tokens each, the
+# same seed-0 params in both engines.  A row whose token fetch was still in
+# flight when the loop planned used to miss the plan: the rows split into
+# two groups that took turns, at twice the reference's dispatches.
+from test_torch_spec import CFG as SPEC_CFG  # noqa: E402
+from test_torch_spec import RANDOM, REPETITIVE  # noqa: E402
+
+SPLIT_CFG = dict(SPEC_CFG, decode_steps=1)
+SPLIT_PROMPTS = [REPETITIVE, [7] * 20, [11, 12, 13] * 6, RANDOM]
+
+
+async def _split_trace(engine):
+    async def one(p):
+        req = PreprocessedRequest(
+            token_ids=list(p), stop_conditions=StopConditions(max_tokens=48, ignore_eos=True),
+        ).to_dict()
+        items = await collect(await engine.generate(Context(req)))
+        return [t for it in items for t in it["token_ids"]]
+
+    try:
+        return await asyncio.gather(*(one(p) for p in SPLIT_PROMPTS))
+    finally:
+        await engine.close()
+
+
+def _count(engine, *kinds):
+    return sum(1 for k, *_ in engine.step_trace if k in kinds)
+
+
+@pytest.fixture(scope="module")
+def jax_split():
+    """TpuEngine on the trace, speculation off and on (k 8): streams,
+    unified dispatches, verification dispatches."""
+    params = jax_init_params(jax_get_config("debug-tiny").with_overrides(dtype="float32"),
+                             jax.random.PRNGKey(0))
+    out = {}
+    for spec in (False, True):
+        extra = {"spec_decode": {"enable": True, "k": 8}} if spec else {}
+        engine = TpuEngine(JaxEngineConfig(**SPLIT_CFG, **extra), params=params)
+        streams = asyncio.run(_split_trace(engine))
+        out[spec] = (streams, _count(engine, "unified", "unified_fetch"),
+                     _count(engine, "spec_verify"))
+    return params, out
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["spec-off", "spec-k8"])
+def test_decode_steps_1_plans_hold_every_live_row(jax_split, spec):
+    params, ref = jax_split
+    want, ref_unified, ref_verify = ref[spec]
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    extra = {"spec_decode": {"enable": True, "k": 8}} if spec else {}
+    engine = TorchEngine(EngineConfig(**SPLIT_CFG, **extra),
+                         params=params_from_jax(tree, device="cpu"), device="cpu")
+    plans = []  # per unified dispatch: (rows planned, live rows, holds prefill)
+    run_unified = engine._run_unified
+
+    async def spy(plan):
+        live = sum(1 for s in engine.scheduler.running if not s.finished)
+        prefill = any(start < len(s.prompt) for s, start, _ in plan.items)
+        plans.append((len(plan.items), live, prefill))
+        return await run_unified(plan)
+
+    engine._run_unified = spy
+    got = asyncio.run(_split_trace(engine))
+    print(f"decode_steps 1, {'spec k 8' if spec else 'spec off'}: unified dispatches "
+          f"{_count(engine, 'unified', 'unified_fetch')} (TpuEngine {ref_unified}), device "
+          f"tokens {sum(n for k, _, _, n in engine.step_trace if k.startswith('unified'))}, "
+          f"verification dispatches {_count(engine, 'spec_verify')} (TpuEngine {ref_verify}), "
+          f"rows a plan after the last prefill {sorted({n for n, _, _ in plans[-20:]})}")
+    assert got == want
+    assert all(len(t) == 48 for t in got)
+    last_prefill = max(i for i, (_, _, pf) in enumerate(plans) if pf)
+    after = plans[last_prefill + 1:]
+    assert after and all(n == live for n, live, _ in after), after
+    assert _count(engine, "unified", "unified_fetch") <= ref_unified
+    assert _count(engine, "spec_verify") <= ref_verify
