@@ -104,8 +104,27 @@ Phases, any failure exits non-zero:
      identical token streams and no graph captured,
      with each pass's TTFT and ITL medians (the tracing overhead, not
      gated) and both kernels' launches in the phase;
+  g. the KV memory tiers on engines sharing phase 6's weights (512 pages,
+     1 GiB; host tier 1024 MiB pinned, disk 1024 MiB and object store
+     2048 MiB in a temporary directory removed at the end): 12 greedy
+     prompts of 2056 ids, 16 new tokens each, one at a time, the offload
+     queue drained after each, so 1536 blocks demote host → disk → object
+     store; then, each prompt's chain evicted from the device first, a
+     re-serve whose first block is on disk under a ``kv_corrupt`` fault
+     (quarantined: one disk corruption, nothing restored, the stream
+     recomputed), and re-serves whose first block sits in host, on disk
+     and in the object store (128 blocks restored ahead of admission);
+     then a fresh engine on the same object store serves an
+     object-store-resident prompt (scale from zero).  Every stream equals
+     its first pass; a chosen block's restored pages equal the bytes read
+     after its first prefill, bitwise; the restored counts equal the
+     engine's counter and the /metrics text; the host restore's TTFT is
+     below the first pass's; no graph is captured and no
+     ``torch.cuda.synchronize`` runs while serving.  Then phase 6's 8
+     concurrent requests on a host-tier engine and on one without tiers,
+     in turns (the pump's cost on TTFT and ITL, not gated);
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e and f beside phase 6's and 7's), then the device line
+     phases c, d, e, f and g beside phase 6's and 7's), then the device line
      last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
@@ -934,7 +953,8 @@ def graph_check(torch, dev, engine):
 def main_path(torch, dev):
     """Phase 6: TorchEngine serving llama-3.1-8b after warmup, the graph
     check and the churn serve, then phase f (edge_path) on the same warm
-    engine.  Returns (ok, launches, edge ok, edge numbers)."""
+    engine and phase g (tier_path) on its weights.  Returns (ok, launches,
+    edge ok, edge numbers, tiers ok, tier numbers)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
@@ -969,6 +989,8 @@ def main_path(torch, dev):
             out["ok"] = slice_counters_zero(torch, dev) and out["ok"]
             # Phase f on the same warm engine.
             out["edge_ok"], out["edge"] = await edge_path(torch, engine)
+            # Phase g on engines of its own sharing this one's weights.
+            out["tiers_ok"], out["tiers"] = await tier_path(torch, engine)
         finally:
             await engine.close()
 
@@ -997,7 +1019,7 @@ def main_path(torch, dev):
         f"(reference max |x| {float(want.abs().max()):.3f}, top-2 gap "
         f"{float(top2[0] - top2[1]):.4f}) same argmax {int(got.argmax()) == int(want.argmax())}")
     ok = ok and finite and got.shape == (engine.model_config.vocab_size,) and cos > 0.99
-    return ok, launches, out["edge_ok"], out["edge"]
+    return ok, launches, out["edge_ok"], out["edge"], out["tiers_ok"], out["tiers"]
 
 
 def slice_counters_zero(torch, dev):
@@ -1761,6 +1783,340 @@ async def edge_path(torch, engine):
     return not fails, out
 
 
+# ------------------------------------------------------- phase g: KV tiers
+
+# Phase 6's geometry on a 512-page pool (1 GiB at llama-3.1-8b: a 16-token
+# page is 2 MiB over 32 layers) with the three tiers below it.
+TIER_CFG = dict(SERVE_CFG, num_blocks=512, host_cache_bytes=1024 << 20,
+                disk_cache_bytes=1024 << 20, object_store_bytes=2048 << 20)
+TIER_PROMPTS, TIER_LEN, TIER_NEW = 12, 2056, 16  # 128 full blocks + 8 ids each
+TIER_CHECK_BLOCK = 100  # the block whose pages are held bitwise across restores
+PUMP_TURNS = ("on", "off", "off", "on", "on", "off")
+
+
+def tier_prompts(torch, n, seed):
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, 128000, (TIER_LEN,), generator=rng).tolist() for _ in range(n)]
+
+
+async def drain_offload(engine):
+    """The explicit drains of phase g: until the offload queue is empty."""
+    while engine._offload_queue:
+        await engine.drain_offload()
+
+
+async def block_pages(engine, seq_hash):
+    """A sealed block's pages [L, ps, 2KV, D] read back to the host by the
+    harness (a stream-ordered copy under the device lock), or None."""
+    async with engine._device_lock:
+        bid = engine.kv._by_hash.get(seq_hash)
+        return None if bid is None else engine.cache.pages[:, bid].to("cpu", copy=True)
+
+
+class TierTimers:
+    """Host wall of the tier work inside a restore, by part, from wrappers
+    around the engine's methods (phase g's breakdown; the parts nest:
+    ``promote`` holds the reads and the demotion cascade its host-tier
+    puts set off)."""
+
+    PARTS = ("promote", "disk_read", "objstore_read", "demote_to_disk", "demote_to_objstore",
+             "host_verify", "upload_enqueue", "scatter_enqueue")
+
+    def __init__(self, engine):
+        from dynamo_tpu_torch.engine import offload
+
+        self.ms = dict.fromkeys(self.PARTS, 0.0)
+        self._undo = []
+
+        def wrap(obj, attr, part):
+            fn = getattr(obj, attr)
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.ms[part] += (time.perf_counter() - t0) * 1e3
+
+            setattr(obj, attr, timed)
+            self._undo.append((obj, attr, fn))
+
+        wrap(engine, "_promote_blocks", "promote")
+        wrap(engine.disk_kv, "read", "disk_read")
+        wrap(engine.object_kv, "read", "objstore_read")
+        wrap(engine.host_kv, "on_evict", "demote_to_disk")
+        wrap(engine.disk_kv, "on_evict", "demote_to_objstore")
+        wrap(offload, "block_checksums", "host_verify")
+        wrap(engine, "_restore_upload", "upload_enqueue")
+        wrap(engine, "_restore_scatter", "scatter_enqueue")
+
+    def take(self):
+        out, self.ms = self.ms, dict.fromkeys(self.PARTS, 0.0)
+        return {k: round(v, 3) for k, v in out.items()}
+
+    def close(self):
+        for obj, attr, fn in reversed(self._undo):
+            setattr(obj, attr, fn)
+
+
+async def tier_path(torch, phase6):
+    """Phase g: the KV memory tiers at llama-3.1-8b with phase 6's weights.
+    12 prompts of 2056 ids (16 new tokens each) one at a time, the offload
+    queue drained after each: 1536 blocks, three times the device pool, so
+    blocks demote host → disk → object store.  Then re-serves whose first
+    block sits on disk under a ``kv_corrupt`` fault (quarantined,
+    recomputed), in host, on disk and in the object store (restored ahead of
+    admission), a scale-from-zero engine on the same object store, and the
+    write-behind pump's cost on phase 6's 8 concurrent requests, host tier
+    on and off in turns (not gated).  Returns (ok, numbers)."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm import metrics as tm
+    from dynamo_tpu_torch.runtime.faultinject import faults
+    from dynamo_tpu_torch.tokens import hash_token_blocks
+
+    fails, out = [], {"rows": []}
+    dev, params = phase6.device, phase6.params
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"tiers check FAILED: {what}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+    real_sync = torch.cuda.synchronize
+    syncs = [0]
+
+    def counting_sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    def new_engine(disk_dir, **over):
+        cfg = dict(TIER_CFG, host_offload_interval=3600.0,  # drained explicitly
+                   disk_cache_dir=os.path.join(root, disk_dir),
+                   object_store_dir=os.path.join(root, "objects"))
+        cfg.update(over)
+        return TorchEngine(EngineConfig(**cfg), params=params, device=dev)
+
+    prompts = tier_prompts(torch, TIER_PROMPTS, 17)
+    chains = [[tb.sequence_hash for tb in hash_token_blocks(p, PS)] for p in prompts]
+    n_blocks = TIER_LEN // PS
+    first, saved = [], []
+    t_phase = time.perf_counter()
+    engine = new_engine("disk")
+    try:
+        t = time.perf_counter()
+        graphs0 = await engine.run_warmup()
+        out["warm_s"] = time.perf_counter() - t
+        for m in (tm.kv_tier_metrics, tm.kv_integrity_metrics, tm.objstore_metrics):
+            m.reset()
+        zero_kernel_counts()
+        torch.cuda.synchronize = counting_sync
+        t = time.perf_counter()
+        for i, p in enumerate(prompts):
+            toks, stamps, finish = (await serve(torch, engine, [p], TIER_NEW))[0]
+            check(len(toks) == TIER_NEW and finish == "length", f"fill {i}: {len(toks)} tokens")
+            first.append((toks, stamps[0]))
+            saved.append(await block_pages(engine, chains[i][TIER_CHECK_BLOCK]))
+            await drain_offload(engine)
+        out["fill_s"] = time.perf_counter() - t
+        out["fill_copies"] = engine.copy_summary()
+        tiers = [engine._tier_of(c[0]) for c in chains]
+        out["tiers_after_fill"] = tiers
+        out["summary_after_fill"] = {k: v for k, v in engine.kv_tier_summary().items()
+                                     if k != "prefix_hit_rate"}
+        check("objstore" in tiers and "disk" in tiers and "host" in tiers,
+              f"fill: first blocks in host, disk and object store ({tiers})")
+        used = set()
+        timers = TierTimers(engine)
+
+        def pick(tier):
+            """The most recent unused prompt whose first block is in ``tier``,
+            one with its whole prefix there first."""
+            cands = [i for i in reversed(range(TIER_PROMPTS))
+                     if i not in used and engine._tier_of(chains[i][0]) == tier]
+            whole = [i for i in cands if all(engine._tier_of(h) == tier for h in chains[i][:n_blocks])]
+            return (whole or cands or [None])[0]
+
+        async def reserve(label, i):
+            """Re-serve prompt ``i`` alone, its chain off the device first, and
+            hold it against the first pass."""
+            used.add(i)
+            engine.kv.evict_hashes(chains[i])
+            r0, m0 = engine.host_kv.restored_blocks, tm.kv_tier_metrics.restored_blocks_total
+            c0 = engine.copy_summary()
+            timers.take()
+            toks, stamps, _ = (await serve(torch, engine, [prompts[i]], TIER_NEW))[0]
+            parts = timers.take()
+            c1 = engine.copy_summary()
+            restored = engine.host_kv.restored_blocks - r0
+            scraped = parse_prometheus(tm.kv_tier_metrics.render())
+            metric = scraped[("dynamo_tpu_kv_tier_restored_blocks_total", ())] - m0
+            pages = await block_pages(engine, chains[i][TIER_CHECK_BLOCK])
+            await drain_offload(engine)
+            row = {"label": label, "prompt": i, "restored": restored, "metric": metric,
+                   "counter": tm.kv_tier_metrics.restored_blocks_total - m0,
+                   "ttft_ms": stamps[0] * 1e3, "first_ttft_ms": first[i][1] * 1e3,
+                   "identical": toks == first[i][0],
+                   "bitwise": pages is not None and torch.equal(pages, saved[i]),
+                   "h2d_bytes": c1["h2d_bytes"] - c0["h2d_bytes"],
+                   "h2d_ms": c1["h2d_ms"] - c0["h2d_ms"], "parts_ms": parts}
+            out["rows"].append(row)
+            check(row["identical"], f"{label}: stream identical to the first pass")
+            check(row["bitwise"] or not restored,  # a recompute is reported, not held
+                  f"{label}: block {TIER_CHECK_BLOCK}'s restored pages bitwise equal to the "
+                  f"first prefill's")
+            check(restored == row["counter"] == metric,
+                  f"{label}: restored blocks {restored} = counter {row['counter']} = /metrics "
+                  f"{metric}")
+            return row
+
+        # A kv_corrupt fault on one disk file: quarantined, recomputed.
+        i = pick("disk")
+        check(i is not None, "a prompt whose first block is on disk")
+        if i is not None:
+            integ = tm.kv_integrity_metrics
+            c0, r0 = integ.corrupt_total["disk"], integ.recomputed_total
+            faults.arm("kv_corrupt", match="disk", count=1)
+            try:
+                row = await reserve("disk, kv_corrupt", i)
+            finally:
+                faults.reset()
+            check(row["restored"] == 0, f"disk fault: nothing restored ({row['restored']})")
+            check(integ.corrupt_total["disk"] == c0 + 1 and integ.recomputed_total == r0 + 1,
+                  f"disk fault: one disk corruption, one recompute ({integ.snapshot()})")
+            check(engine.integrity.banned(chains[i][0]) and not engine.disk_kv.contains(chains[i][0]),
+                  "disk fault: the block quarantined (negative-cached, file gone)")
+        for tier in ("host", "disk", "objstore"):
+            i = pick(tier)
+            check(i is not None, f"a prompt whose first block is in {tier}")
+            if i is None:
+                continue
+            row = await reserve(tier, i)
+            check(row["restored"] == n_blocks, f"{tier}: {row['restored']} of {n_blocks} restored")
+            if tier == "host":
+                check(row["ttft_ms"] < row["first_ttft_ms"],
+                      f"host restore TTFT {row['ttft_ms']:.1f} ms below the first pass's "
+                      f"{row['first_ttft_ms']:.1f} ms")
+        timers.close()
+        out["graphs"] = (graphs0, engine.compile_counts())
+        check(engine.compile_counts() == graphs0, f"no graph captured ({out['graphs']})")
+        out["copies"] = engine.copy_summary()
+        out["integrity"] = tm.kv_integrity_metrics.snapshot()
+        out["objstore"] = tm.objstore_metrics.snapshot()
+        out["tier_counters"] = {k: v for k, v in tm.kv_tier_metrics.snapshot().items()
+                                if k.endswith("_total") and "pull" not in k}
+        # Scale from zero: a fresh engine, empty device, host and disk, on
+        # the same object store.
+        whole = [i for i in range(TIER_PROMPTS) if i not in used
+                 and all(engine.object_kv.contains(h) for h in chains[i][:n_blocks])]
+        s0 = whole[0] if whole else None
+        check(s0 is not None, "a prompt whose whole prefix is in the object store")
+        torch.cuda.synchronize = real_sync
+        await engine.close()
+        engine = None
+        if s0 is not None:
+            fresh = new_engine("disk2")
+            try:
+                g0 = await fresh.run_warmup()
+                timers = TierTimers(fresh)
+                check(len(fresh.host_kv) == len(fresh.disk_kv) == 0
+                      and len(fresh.object_kv) > 0, "scale from zero: only the object store holds blocks")
+                torch.cuda.synchronize = counting_sync
+                toks, stamps, _ = (await serve(torch, fresh, [prompts[s0]], TIER_NEW))[0]
+                pages = await block_pages(fresh, chains[s0][TIER_CHECK_BLOCK])
+                torch.cuda.synchronize = real_sync
+                timers.close()
+                row = {"label": "scale from zero", "prompt": s0,
+                       "restored": fresh.host_kv.restored_blocks,
+                       "ttft_ms": stamps[0] * 1e3, "first_ttft_ms": first[s0][1] * 1e3,
+                       "identical": toks == first[s0][0],
+                       "bitwise": pages is not None and torch.equal(pages, saved[s0]),
+                       "h2d_bytes": fresh.copy_summary()["h2d_bytes"],
+                       "h2d_ms": fresh.copy_summary()["h2d_ms"], "parts_ms": timers.take()}
+                out["rows"].append(row)
+                check(row["identical"], "scale from zero: stream identical to the first pass")
+                check(row["bitwise"], "scale from zero: restored pages bitwise equal")
+                check(row["restored"] == n_blocks, f"scale from zero: {row['restored']} restored")
+                check(fresh.compile_counts() == g0, "scale from zero: no graph captured")
+            finally:
+                torch.cuda.synchronize = real_sync
+                await fresh.close()
+        out["launches"] = kernel_counts()
+        out["syncs"] = syncs[0]
+        check(syncs[0] == 0, f"no torch.cuda.synchronize() while serving ({syncs[0]} calls)")
+        check(all(v > 0 for v in out["launches"].values()), f"tiers: both kernels launched "
+                                                            f"({out['launches']})")
+        out["pump"] = await pump_ab(torch, dev, params)
+    finally:
+        torch.cuda.synchronize = real_sync
+        if engine is not None:
+            await engine.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    gib = 1 << 30
+    log(f"tiers (phase g, card {CARD}): warmup {out['warm_s']:.2f} s; fill 12 x {TIER_LEN} ids "
+        f"{out.get('fill_s', 0):.2f} s, first blocks by tier {out.get('tiers_after_fill')}, "
+        f"tiers {out.get('summary_after_fill')}; fill copies {out.get('fill_copies')}")
+    for r in out["rows"]:
+        h2d = r["h2d_bytes"] / gib / (r["h2d_ms"] / 1e3) if r["h2d_ms"] else 0.0
+        log(f"tiers restore [{r['label']}] prompt {r['prompt']}: restored {r['restored']} blocks, "
+            f"TTFT {r['ttft_ms']:.1f} ms vs first pass {r['first_ttft_ms']:.1f} ms, identical "
+            f"{r['identical']}, bitwise {r['bitwise']}, host->device {r['h2d_bytes']} B in "
+            f"{r['h2d_ms']:.3f} ms stream time ({h2d:.2f} GiB/s); host wall by part (ms, "
+            f"nested) {r['parts_ms']}")
+    log(f"tiers totals: copies {out.get('copies')}; tier counters {out.get('tier_counters')}; "
+        f"integrity {out.get('integrity')}; objstore {out.get('objstore')}; graphs "
+        f"{out.get('graphs')}; torch.cuda.synchronize calls while serving {out.get('syncs')}; "
+        f"launches {out.get('launches')}; phase wall {out['wall_s']:.2f} s "
+        f"{'ok' if not fails else 'FAIL: ' + '; '.join(fails)}")
+    return not fails, out
+
+
+async def pump_ab(torch, dev, params):
+    """Phase g step 4: phase 6's 8 concurrent greedy requests (64 new
+    tokens) on a host-tier engine (the write-behind pump at its default
+    interval) and on one without tiers, in turns; fresh prompts of phase
+    6's lengths each pair.  Not gated.  Returns the turns."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    engines = {
+        "on": TorchEngine(EngineConfig(**dict(SERVE_CFG, num_blocks=512,
+                                              host_cache_bytes=1024 << 20)), params=params, device=dev),
+        "off": TorchEngine(EngineConfig(**dict(SERVE_CFG, num_blocks=512)), params=params, device=dev),
+    }
+    turns = []
+    try:
+        for e in engines.values():
+            await e.run_warmup()
+        for k, mode in enumerate(PUMP_TURNS):
+            rng = torch.Generator().manual_seed(1000 + k // 2)
+            prompts = [torch.randint(1, 128000, (512 + 219 * i,), generator=rng).tolist()
+                       for i in range(8)]
+            t0 = time.perf_counter()
+            results = await serve(torch, engines[mode], prompts, SERVE_MAX_TOKENS)
+            wall = time.perf_counter() - t0
+            ttft = [s[0] for _, s, _ in results]
+            itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
+            turns.append({"mode": mode, "ttft_p50_ms": statistics.median(ttft) * 1e3,
+                          "itl_mean_ms": statistics.fmean(itl) * 1e3, "wall_s": wall,
+                          "host_blocks": len(engines[mode].host_kv or ())})
+    finally:
+        for e in engines.values():
+            await e.close()
+    for mode in ("on", "off"):
+        ts = [t for t in turns if t["mode"] == mode]
+        log(f"tiers pump cost (card {CARD}), host tier {mode}: TTFT p50 "
+            f"{[round(t['ttft_p50_ms'], 3) for t in ts]} ms, ITL mean "
+            f"{[round(t['itl_mean_ms'], 3) for t in ts]} ms, wall "
+            f"{[round(t['wall_s'], 3) for t in ts]} s, host blocks "
+            f"{[t['host_blocks'] for t in ts]}")
+    return turns
+
+
 # ------------------------------------------------ direct vs HTTP, in turns
 
 
@@ -2360,12 +2716,13 @@ def spec_phase(torch, dev):
     from dynamo_tpu_torch.llm.metrics import spec_metrics
 
     n = max(2, BENCH_CFG["max_batch"] // 8)
-    res, streams = {}, {}
+    res, streams, kv_scales = {}, {}, {}
     for mode in ("off", "on"):
         engine = TorchEngine(EngineConfig(**BENCH_CFG, **W8A8,
                                           spec_decode={"enable": mode == "on", "k": SPEC_K}),
                              device=dev)
         vocab = engine.model_config.vocab_size
+        kv_scales[mode] = [float(s) for s in engine.kv_scale]
 
         async def run():
             try:
@@ -2427,6 +2784,13 @@ def spec_phase(torch, dev):
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    # A warm start from the object store restores int8 codes without their
+    # scales: it relies on two fresh engines of one seed calibrating the
+    # same scales (reported, not gated).
+    diff = max(abs(a - b) for a, b in zip(kv_scales["off"], kv_scales["on"]))
+    log(f"int8 kv scales (kv_scale auto), two fresh engines of one seed: equal "
+        f"{kv_scales['off'] == kv_scales['on']}, max |diff| {diff:.3e} over "
+        f"{len(kv_scales['off'])} layers")
     ok = True
     for kind in ("repetitive", "random"):
         same = streams[(kind, "on")] == streams[(kind, "off")]
@@ -2509,7 +2873,7 @@ def main() -> int:
             check_kernels(torch, dev, cfg, tally)
             times = time_kernels(torch, dev, cfg, tally)
             ok_model = model_check(torch, dev, cfg)
-        ok_path, launches, ok_edge, edge = main_path(torch, dev)
+        ok_path, launches, ok_edge, edge, ok_tiers, tiers = main_path(torch, dev)
         # Phase 7 builds its own engine: free the direct serve's first
         # (16 GB of weights and 4 GiB of KV pages).
         gc.collect()
@@ -2530,7 +2894,7 @@ def main() -> int:
         ok_spec, spec = spec_phase(torch, dev)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
-                    "speculation (e)": ok_spec, "edge (f)": ok_edge}
+                    "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -2558,6 +2922,7 @@ def main() -> int:
             kernels[-1]["spec_launches"] = spec[("repetitive", "on")]["launches"][name]
             kernels[-1]["spec_forced_launches"] = spec[("repetitive", "forced")]["launches"][name]
             kernels[-1]["edge_launches"] = edge["launches"][name]
+            kernels[-1]["tier_launches"] = tiers["launches"][name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

@@ -35,7 +35,7 @@ from .engine import build_torch_engine
 from .llm.backend import Backend
 from .llm.engines import EchoEngineCore, EchoEngineFull
 from .llm.http_service import HttpService
-from .llm.metrics import engine_dispatch_metrics
+from .llm.metrics import engine_dispatch_metrics, kv_tier_metrics
 from .llm.preprocessor import OpenAIPreprocessor
 from .llm.tokenizer import ByteTokenizer
 from .runtime.config import RuntimeConfig
@@ -127,6 +127,9 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
             )
             if hasattr(engine, "dispatch_summary"):
                 engine_dispatch_metrics.set_source(engine.dispatch_summary)
+            # ... and its KV tier gauges (dynamo_tpu_kv_tier_*).
+            if hasattr(engine, "kv_tier_summary"):
+                kv_tier_metrics.set_source(engine.kv_tier_summary)
             # Colocated tracing: edge and engine share this process, so the
             # exporter feeds the aggregator directly and /traces serves
             # assembled timelines one export interval after a request ends.
@@ -173,6 +176,7 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
     finally:
         if inp == "http" and hasattr(engine, "dispatch_summary"):
             engine_dispatch_metrics.set_source(None)
+            kv_tier_metrics.set_source(None)
         close = getattr(engine, "close", None)
         if close is not None:
             await close()
@@ -225,16 +229,40 @@ def build_parser() -> argparse.ArgumentParser:
         dest="kv_scale",
         help="scale of quantized KV pages: a float, or 'auto' to calibrate per layer at start",
     )
+    # The KV memory tiers (engine/offload.py), the JAX flags' names,
+    # defaults and MiB units.
+    p_run.add_argument(
+        "--host-cache-mb", type=int, default=0, dest="host_cache_mb",
+        help="host (CPU RAM, pinned on CUDA) KV tier budget in MiB: sealed blocks "
+        "survive device eviction and restore as prefix hits (0 = off)",
+    )
+    p_run.add_argument(
+        "--disk-cache-mb", type=int, default=0, dest="disk_cache_mb",
+        help="disk KV tier budget in MiB: host-tier eviction demotes blocks to "
+        "hash-named files instead of dropping them (requires --host-cache-mb)",
+    )
+    p_run.add_argument(
+        "--disk-cache-dir", default=None, dest="disk_cache_dir",
+        help="directory for the disk KV tier's block files "
+        "(default: a per-process dir under the system temp root, removed at exit)",
+    )
+    p_run.add_argument(
+        "--object-store-mb", type=int, default=0, dest="object_store_mb",
+        help="durable object-store KV tier budget in MiB: disk-tier eviction lands "
+        "in an object layout that outlives the worker, so a replacement boots warm "
+        "(requires --disk-cache-mb and --object-store-dir)",
+    )
+    p_run.add_argument(
+        "--object-store-dir", default=None, dest="object_store_dir",
+        help="object layout root for the durable KV tier (required with "
+        "--object-store-mb: the store outlives the process)",
+    )
     # The JAX parser's options that out=torch lacks: accepted so that
     # setting one fails with where it waits (build_torch_engine).
     p_run.add_argument("--checkpoint", default=None)
     for flag in ("--tp", "--dp", "--ep", "--sp", "--nnodes"):
         p_run.add_argument(flag, type=int, default=1)
-    for flag in ("--host-cache-mb", "--disk-cache-mb", "--object-store-mb"):
-        p_run.add_argument(flag, type=int, default=0)
     p_run.add_argument("--kv-pull-mb", type=int, default=None)
-    for flag in ("--disk-cache-dir", "--object-store-dir"):
-        p_run.add_argument(flag, default=None)
     p_run.add_argument("--spec-decode", action="store_true", default=None)
     for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max",
                  "--lora-max-adapters", "--lora-rank"):

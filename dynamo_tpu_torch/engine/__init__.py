@@ -10,12 +10,7 @@ UNSUPPORTED_OPTIONS = (
     ("ep", 1, "--ep", "queue 1 item 7, tp/sp and multi-host"),
     ("sp", 1, "--sp", "queue 1 item 7, tp/sp and multi-host"),
     ("nnodes", 1, "--nnodes", "queue 1 item 7, tp/sp and multi-host"),
-    ("host_cache_mb", 0, "--host-cache-mb", "queue 1 item 5, KV tiers"),
-    ("disk_cache_mb", 0, "--disk-cache-mb", "queue 1 item 5, KV tiers"),
-    ("disk_cache_dir", None, "--disk-cache-dir", "queue 1 item 5, KV tiers"),
-    ("object_store_mb", 0, "--object-store-mb", "queue 1 item 5, KV tiers"),
-    ("object_store_dir", None, "--object-store-dir", "queue 1 item 5, KV tiers"),
-    ("kv_pull_mb", None, "--kv-pull-mb", "queue 1 item 5, KV transfer"),
+    ("kv_pull_mb", None, "--kv-pull-mb", "queue 1 item 10, the cross-worker prefix pull"),
     ("lora", None, "--lora", "queue 1 item 6, LoRA"),
     ("lora_max_adapters", None, "--lora-max-adapters", "queue 1 item 6, LoRA"),
     ("lora_rank", None, "--lora-rank", "queue 1 item 6, LoRA"),
@@ -48,6 +43,11 @@ def build_torch_engine(args):
         seed=getattr(args, "seed", 0),
         qos=_qos_sched_section(),
         spec_decode=_spec_decode_section(args),
+        host_cache_bytes=(getattr(args, "host_cache_mb", 0) or 0) << 20,
+        disk_cache_bytes=(getattr(args, "disk_cache_mb", 0) or 0) << 20,
+        disk_cache_dir=getattr(args, "disk_cache_dir", None),
+        object_store_bytes=(getattr(args, "object_store_mb", 0) or 0) << 20,
+        object_store_dir=getattr(args, "object_store_dir", None),
     )
     return TorchEngine(cfg, device=getattr(args, "device", None))
 

@@ -1,7 +1,7 @@
 """Engine configuration knobs.
 
 The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
-a knob it would silently ignore (meshes, LoRA, the KV tiers) is absent, so
+a knob it would silently ignore (meshes, LoRA, the prefix pull) is absent, so
 passing one fails at construction instead of serving something else.
 """
 
@@ -159,6 +159,40 @@ class EngineConfig:
     # Stop conditions apply with up to pipeline_depth * decode_steps tokens
     # of lag; over-decoded tokens are dropped host-side.
     pipeline_depth: int = 2
+    # Host (CPU RAM) KV offload tier: sealed blocks are write-behind copied
+    # to host (pinned on CUDA) so device eviction keeps their contents;
+    # prompts restore evicted prefixes with one in-place scatter instead of
+    # recomputing (engine/host_cache.py, engine/offload.py).  0 disables.
+    host_cache_bytes: int = 0
+    # Seconds between offload pump cycles (device gather + async D2H).
+    host_offload_interval: float = 0.05
+    # Disk KV tier (engine/disk_cache.py): host-tier LRU eviction DEMOTES
+    # blocks to hash-named files under ``disk_cache_dir`` instead of
+    # dropping them; restores promote disk→host→device.  Requires
+    # host_cache_bytes > 0 (demotion feeds it).  0 disables.
+    disk_cache_bytes: int = 0
+    # Directory for the disk tier's block files; None resolves to a
+    # per-process dir under the system temp root, removed at close().
+    disk_cache_dir: Optional[str] = None
+    # fsync the block file before the atomic rename (DYN_DISK_FSYNC=1 also
+    # enables).  Off by default: the read-side checksum already turns a
+    # torn payload into a recompute, never a wrong scatter.
+    disk_fsync: bool = False
+    # Object-store KV tier (engine/object_store.py): disk-tier LRU eviction
+    # DEMOTES blocks into a durable object layout, and hot chains can be
+    # persisted there explicitly (persist_hashes), so a scale-from-zero
+    # worker pointed at the same ``object_store_dir`` boots warm.  Requires
+    # disk_cache_bytes > 0 and an explicit directory: the store outlives
+    # the process, so the operator owns params stability.  0 disables.
+    object_store_bytes: int = 0
+    object_store_dir: Optional[str] = None
+    # fsync each object before the atomic publish (DYN_OBJSTORE_FSYNC=1
+    # also enables).
+    object_store_fsync: bool = False
+    # KV integrity plane (engine/integrity.py): seconds a checksum-failed
+    # block hash stays negative-cached (restore and promotion treat it as
+    # a miss meanwhile).
+    kv_corrupt_ttl_s: float = 30.0
     # Decode-stall watchdog threshold in seconds (engine/pipeline.py
     # _await_device): a token fetch or device dispatch exceeding it logs the
     # recent dispatch trace and bumps dynamo_tpu_engine_stall_total.  None
@@ -187,6 +221,24 @@ class EngineConfig:
             raise ValueError("decode_steps must be >= 1")
         if self.pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if self.disk_cache_bytes > 0 and self.host_cache_bytes <= 0:
+            raise ValueError(
+                "disk_cache_bytes requires host_cache_bytes > 0 (the disk "
+                "tier is fed by host-tier demotion)"
+            )
+        if self.object_store_bytes > 0:
+            if self.disk_cache_bytes <= 0:
+                raise ValueError(
+                    "object_store_bytes requires disk_cache_bytes > 0 (the "
+                    "object tier is fed by disk-tier demotion)"
+                )
+            if self.object_store_dir is None:
+                raise ValueError(
+                    "object_store_bytes requires an explicit "
+                    "object_store_dir: the store outlives the process, so "
+                    "the operator must own the directory (and the params "
+                    "stability its hashes assume)"
+                )
 
     @property
     def max_blocks_per_seq(self) -> int:

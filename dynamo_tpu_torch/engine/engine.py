@@ -30,9 +30,13 @@ device, never by a fallback.  W8A8 int8 weights (``weight_quant``), int8 /
 fp8 KV pages with calibrated per-layer scales (``kv_scale="auto"``) and
 draft-free speculative decoding (engine/spec.py) are the JAX engine's, and
 so are its request-tracing spans (``engine.queue_wait``, ``engine.prefill``,
-``engine.decode_chunk``; host clocks only, outside every captured graph).
-Out of this engine so far: LoRA, grammar constraints, the KV tiers,
-transfer and migration, tp/sp and multi-host.
+``engine.decode_chunk``, ``engine.kv_restore``; host clocks only, outside
+every captured graph), and its local KV memory tiers (engine/offload.py):
+a host tier in pinned memory, a disk tier and the durable object store,
+each block CRC-32 verified at every tier boundary, restored ahead of
+admission by an in-place scatter into the pages the graphs hold.
+Out of this engine so far: LoRA, grammar constraints, KV transfer, the
+cross-worker prefix pull and migration, tp/sp and multi-host.
 """
 
 from __future__ import annotations
@@ -41,7 +45,11 @@ import asyncio
 import collections
 import logging
 import os
+import shutil
+import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, AsyncIterator, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +57,7 @@ import torch
 
 from ..device import default_device
 from ..llm.kv_router.protocols import ForwardPassMetrics, KvCacheEvent
+from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics
 from ..llm.protocols import FinishReason, PreprocessedRequest
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
@@ -56,10 +65,16 @@ from ..models.quant import fuse_projections, init_params_quantized, quantize_par
 from ..ops.ragged_attention import kernel_route
 from ..ops.sampling import SampleOut, SamplingFlags, SamplingParams, sample_tokens
 from ..runtime.engine import AsyncEngine, Context, ResponseStream
-from ..runtime.tracing import SeqTrace, parse_trace
+from ..runtime.tracing import SeqTrace, parse_trace, span
+from ..tokens import hash_token_blocks
 from .config import EngineConfig
+from .disk_cache import DiskKvStore
 from .graphs import DevicePrograms, FetchRing
+from .host_cache import HostKvStore
+from .integrity import CorruptionCache
 from .kv_manager import KvBlockManager
+from .object_store import ObjectKvStore
+from .offload import HostOffloadMixin
 from .pipeline import _FINISHED, DecodePipelineMixin, HostSampling
 from .scheduler import Scheduler, SequenceState, StepPlan
 from .spec import AcceptanceController, SpecDecodeMixin
@@ -112,7 +127,7 @@ class StreamSpans:
         return self._total_s
 
 
-class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
+class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
     """Token-in/token-out engine on one device."""
 
     def __init__(
@@ -185,6 +200,7 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         # so host walls would misplace its work.
         self.prefill_spans = StreamSpans(self.device)
         self.decode_spans = StreamSpans(self.device)
+        self._init_tiers()
 
         # --- device state -------------------------------------------------
         dev = self.device
@@ -243,6 +259,65 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         # chunks, and one first-token fetch per parked row at most.
         self.programs = DevicePrograms(dev)
         self._fetch_ring = FetchRing(dev, cfg.pipeline_depth + 2 + S)
+
+    def _init_tiers(self) -> None:
+        """The KV memory tiers (the JAX engine's tier wiring): host →
+        disk → object store, each fed by the demotion of the one above."""
+        cfg = self.cfg
+        cuda = self.device.type == "cuda"
+        self.host_kv: Optional[HostKvStore] = None
+        self.disk_kv: Optional[DiskKvStore] = None
+        # The durable object-store tier is the only one that OUTLIVES this
+        # process — never removed at close().
+        self.object_kv: Optional[ObjectKvStore] = None
+        self._disk_dir_owned = False
+        self._offload_queue: List[Tuple[int, Any]] = []
+        self._offload_task: Optional[asyncio.Task] = None
+        # KV integrity plane (engine/integrity.py): negative cache of
+        # checksum-failed hashes, and the optional self-corruption reporter
+        # the serving layer may wire to a health watchdog.
+        self.integrity = CorruptionCache(ttl_s=cfg.kv_corrupt_ttl_s)
+        self._integrity_reporter: Optional[Callable[[str], None]] = None
+        # Device↔host block copies: a side stream on CUDA, with their bytes
+        # and stream time (copy_summary()).
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if cuda and cfg.host_cache_bytes > 0 else None)
+        self.h2d_spans = StreamSpans(self.device)
+        self.d2h_spans = StreamSpans(self.device)
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self._copy_lock = threading.Lock()
+        self._crc_pool: Optional[ThreadPoolExecutor] = None
+        if cfg.host_cache_bytes <= 0:
+            return
+        self.host_kv = HostKvStore(cfg.host_cache_bytes)
+        # Checksums of whole prefixes, on threads (engine/integrity.py).
+        self._crc_pool = ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1), thread_name_prefix="kv-crc")
+        if cfg.disk_cache_bytes > 0:
+            # The per-PID default is deliberate: block hashes do not encode
+            # the weights' identity, so a stable shared dir could restore a
+            # previous (differently seeded) run's KV under valid hashes.
+            # Engine-owned dirs are removed at close(); only an explicit
+            # disk_cache_dir (the operator owns weight stability) survives
+            # restarts and benefits from the re-index.
+            self._disk_dir_owned = cfg.disk_cache_dir is None
+            d = cfg.disk_cache_dir or os.path.join(
+                tempfile.gettempdir(), f"dynamo_tpu_torch_kv_{os.getpid()}"
+            )
+            fsync = cfg.disk_fsync or os.environ.get("DYN_DISK_FSYNC", "") not in ("", "0", "false")
+            self.disk_kv = DiskKvStore(cfg.disk_cache_bytes, d, fsync=fsync, pin_memory=cuda)
+            self.host_kv.on_evict = self._demote_to_disk
+            if cfg.object_store_bytes > 0:
+                ofsync = cfg.object_store_fsync or os.environ.get(
+                    "DYN_OBJSTORE_FSYNC", "") not in ("", "0", "false")
+                self.object_kv = ObjectKvStore(
+                    cfg.object_store_bytes, cfg.object_store_dir, fsync=ofsync, pin_memory=cuda
+                )
+                self.disk_kv.on_evict = self._demote_to_objstore
+        # Device eviction of a block a lower tier retains emits a
+        # tier-tagged event instead of Removed (kv_manager).
+        self.kv.tier_lookup = self._tier_of
 
     # ----------------------------------------------------------- device ops
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -487,6 +562,22 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         # None keeps every instrumentation point a single attr check.
         trace = parse_trace(pre.annotations.get("trace")) or getattr(request.ctx, "trace", None)
         self._ensure_loop()
+        if self.host_kv is not None and self._tiers_hold_blocks():
+            # Pull any evicted prefix blocks back from the tiers BEFORE
+            # admission, so the scheduler sees them as prefix-cache hits.
+            # The tiers index blocks by the (salted) hashes they sealed
+            # under, so a tenant's restore hits exactly its own blocks.
+            salt = pre.annotations.get("kv_salt") or None
+            t0 = time.perf_counter()
+            with span(trace, "engine.kv_restore", "engine") as rs:
+                restored = await self._restore_from_host(
+                    list(pre.token_ids), None if salt is None else str(salt))
+                rs.set(restored_tokens=restored)
+            if restored:
+                kv_tier_metrics.restore_latency_ms.observe((time.perf_counter() - t0) * 1e3)
+                kv_tier_metrics.restore_hits_total += 1
+            else:
+                kv_tier_metrics.restore_misses_total += 1
         seq = SequenceState.from_request(request.id, pre, self.cfg)
         if trace is not None:
             # Anchors the queue-wait (scheduler._record_admission) and
@@ -536,15 +627,190 @@ class TorchEngine(SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
         if self._loop_task is not None:
             await self._loop_task
             self._loop_task = None
+        if self._offload_task is not None:
+            self._offload_task.cancel()
+            try:
+                await self._offload_task
+            except asyncio.CancelledError:
+                pass
+            self._offload_task = None
+        if self.disk_kv is not None and self._disk_dir_owned:
+            # Engine-owned (defaulted) disk-tier dir: removed, so restarts
+            # don't leak a dead budget's worth of block files.
+            shutil.rmtree(self.disk_kv.directory, ignore_errors=True)
+            self.disk_kv = None
+        # The object store is deliberately NOT removed: it is the durable
+        # rung — a replacement worker pointed at the same dir boots warm.
+        self.object_kv = None
+        if self._crc_pool is not None:
+            self._crc_pool.shutdown(wait=False)
         self._fail_all()  # no generate() stream is left hanging
         # The graphs bake in the weights' and pages' addresses: drop them
         # with the engine.
         self.programs.close()
 
+    # ------------------------------------------------------------ tiered KV
+    def estimate_prefix_hit(self, token_ids: List[int], salt: Optional[str] = None) -> int:
+        """Tokens of ``token_ids`` already resident on the device (router
+        input)."""
+        blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)
+        return len(self.kv.match_prefix(blocks)) * self.cfg.block_size
+
+    def _tier_of(self, seq_hash: int) -> Optional[str]:
+        """Cheapest LOWER tier still holding ``seq_hash`` (the device
+        excluded — the caller is usually deciding what device eviction
+        means)."""
+        if self.host_kv is not None and self.host_kv.contains(seq_hash):
+            return "host"
+        if self.disk_kv is not None and self.disk_kv.contains(seq_hash):
+            return "disk"
+        if self.object_kv is not None and self.object_kv.contains(seq_hash):
+            return "objstore"
+        return None
+
+    def _demote_to_disk(self, seq_hash: int, block: torch.Tensor) -> bool:
+        """HostKvStore.on_evict hook: push an evicted host-tier block down
+        to disk.  Runs inside the host store's eviction loop (often off the
+        event loop) — record-only, events flush later.  The offload-time
+        checksum is carried into the disk envelope (and verified by the
+        put), so a bit that rotted in host RAM is refused here."""
+        if self.disk_kv is None:
+            return False
+        return self.disk_kv.put(seq_hash, block, checksum=self.host_kv.checksum(seq_hash))
+
+    def _demote_to_objstore(self, seq_hash: int, path: str) -> bool:
+        """DiskKvStore.on_evict hook: re-wrap an evicted disk envelope as a
+        durable object (parsed and its carried CRC re-verified at ingest,
+        so disk rot is refused here).  Record-only, events flush later."""
+        if self.object_kv is None:
+            return False
+        return self.object_kv.ingest_kvblk(seq_hash, path)
+
+    def set_integrity_reporter(self, reporter: Optional[Callable[[str], None]]) -> None:
+        """Attach ``reporter(plane)``, called on every local-tier corruption
+        detection (a health watchdog's feed); None detaches."""
+        self._integrity_reporter = reporter
+
+    def _record_corruption(self, plane: str, seq_hash: Optional[int],
+                           chain: Optional[List[int]] = None) -> None:
+        """Corruption quarantine, one entry point for every plane: count
+        it, negative-cache the hash (TTL — restore loops must not thrash on
+        it), drop the block and every CHAINED DESCENDANT still held by the
+        local tiers (their chain passes through poison), and report the
+        local-tier rot.  The caller flushes tier events afterwards (this may
+        run in a thread; events are emitted on the loop)."""
+        kv_integrity_metrics.corrupt_total[plane] += 1
+        logger.warning(
+            "KV corruption detected on plane %r (block %s): dropped before "
+            "scatter; falling back to recompute",
+            plane, f"{seq_hash:#x}" if seq_hash is not None else "?",
+        )
+        if seq_hash is not None:
+            self.integrity.ban(seq_hash)
+            dropped = 0
+            descendants: List[int] = []
+            if chain:
+                try:
+                    descendants = chain[chain.index(seq_hash) + 1:]
+                except ValueError:
+                    descendants = []
+            for d in [seq_hash, *descendants]:
+                hit = False
+                for tier in (self.host_kv, self.disk_kv, self.object_kv):
+                    if tier is not None and tier.drop(d):
+                        hit = True
+                if hit and d != seq_hash:
+                    dropped += 1
+            kv_integrity_metrics.descendants_dropped_total += dropped
+        if self._integrity_reporter is not None:
+            try:
+                self._integrity_reporter(plane)
+            except Exception:  # noqa: BLE001 — reporting must never break serving
+                logger.warning("integrity reporter failed", exc_info=True)
+
+    def _flush_tier_events(self) -> None:
+        """Publish the tier transitions the stores recorded since the last
+        flush.  Runs on the event loop; every threaded tier mutation's
+        caller flushes after the thread returns.  A hash still sealed on
+        the device publishes nothing — the router's view stays 'hbm' until
+        device eviction."""
+        if self.host_kv is None:
+            return
+        # Each store's "demote" means "the NEXT tier down took it", so the
+        # tier tag depends on which store recorded the transition.
+        tagged: List[Tuple[str, str, int]] = [
+            ("disk", kind, h) for kind, h in self.host_kv.drain_transitions()
+        ]
+        if self.disk_kv is not None:
+            tagged += [("objstore", kind, h) for kind, h in self.disk_kv.drain_transitions()]
+        if self.object_kv is not None:
+            tagged += [("", kind, h) for kind, h in self.object_kv.drain_transitions()]
+        demoted: Dict[str, List[int]] = {}
+        removed: List[int] = []
+        for next_tier, kind, h in tagged:
+            if h in self.kv._by_hash:
+                continue  # the device still holds it: best tier unchanged
+            if kind == "demote":
+                demoted.setdefault(next_tier, []).append(h)
+            elif self._tier_of(h) is not None:
+                continue  # another tier still holds it
+            else:
+                removed.append(h)
+        for tier, hashes in demoted.items():
+            self.kv.emit_tiered(tier, hashes)
+        self.kv.emit_removed(removed)
+
+    def local_prefix_blocks(self, token_ids: List[int], salt: Optional[str] = None,
+                            blocks: Optional[List[Any]] = None) -> int:
+        """Leading complete blocks restorable from ANY local tier (device,
+        host, disk, object store).  ``blocks`` lets a caller that already
+        hashed the chain skip a second walk."""
+        if blocks is None:
+            blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)
+        n = 0
+        for tb in blocks:
+            h = tb.sequence_hash
+            if h in self.kv._by_hash or self._tier_of(h) is not None:
+                n += 1
+            else:
+                break
+        return n
+
+    def block_nbytes(self) -> int:
+        """Bytes of one KV block (all layers) in the page dtype."""
+        return int(self.cache.pages.nbytes // max(1, self.cfg.num_blocks))
+
+    def kv_tier_summary(self) -> Dict[str, Any]:
+        """Per-tier bytes/blocks gauges for /metrics (KvTierMetrics's
+        source)."""
+        bb = self.block_nbytes()
+        out: Dict[str, Any] = {
+            "hbm": {"blocks": len(self.kv._by_hash), "bytes": len(self.kv._by_hash) * bb},
+            "prefix_hit_rate": self.kv.hit_rate,
+        }
+        for name, tier in (("host", self.host_kv), ("disk", self.disk_kv),
+                           ("objstore", self.object_kv)):
+            if tier is not None:
+                out[name] = {"blocks": len(tier), "bytes": tier.used_bytes}
+        return out
+
+    def copy_summary(self) -> Dict[str, Any]:
+        """Device↔host block copies so far: bytes and stream time (on CUDA
+        the copy stream's events; waits for the copies in flight)."""
+        with self._copy_lock:
+            return {
+                "h2d_bytes": self.h2d_bytes, "h2d_ms": self.h2d_spans.seconds * 1e3,
+                "h2d_copies": self.h2d_spans.count,
+                "d2h_bytes": self.d2h_bytes, "d2h_ms": self.d2h_spans.seconds * 1e3,
+                "d2h_copies": self.d2h_spans.count,
+            }
+
     # -------------------------------------------------------------- the loop
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.get_running_loop().create_task(self._run_loop())
+        if self.host_kv is not None and (self._offload_task is None or self._offload_task.done()):
+            self._offload_task = asyncio.get_running_loop().create_task(self._offload_pump())
 
     async def _run_loop(self) -> None:
         while not self._closed:

@@ -65,6 +65,13 @@ class KvBlockManager:
         self._event_callback = event_callback
         self._event_id = 0
         self._enable_prefix_caching = enable_prefix_caching
+        # Tiered KV cache (engine/{host_cache,disk_cache,object_store}.py):
+        # maps a sequence hash to the lower tier still holding its contents
+        # ("host"/"disk"/"objstore") or None.  When set, device eviction of
+        # a block a lower tier retains emits a TIER-TAGGED event instead of
+        # Removed — the router keeps scoring the worker for that prefix,
+        # discounted by restore cost, instead of forgetting it.
+        self.tier_lookup: Optional[Callable[[int], Optional[str]]] = None
         # cumulative counters for metrics
         self.lookup_blocks = 0
         self.matched_blocks = 0
@@ -94,6 +101,19 @@ class KvBlockManager:
     def _next_event_id(self) -> int:
         self._event_id += 1
         return self._event_id
+
+    def emit_tiered(self, tier: str, block_hashes: Sequence[int]) -> None:
+        """Publish a tier change for blocks this manager does not hold on
+        the device (host→disk demotion, disk→host promotion) — the engine's
+        tier stores have no event plane of their own."""
+        if block_hashes and self._enable_prefix_caching:
+            self._emit(KvCacheEvent.tiered(self._next_event_id(), tier, list(block_hashes)))
+
+    def emit_removed(self, block_hashes: Sequence[int]) -> None:
+        """Publish the loss of blocks evicted from the LAST tier holding
+        them (see emit_tiered)."""
+        if block_hashes and self._enable_prefix_caching:
+            self._emit(KvCacheEvent.removed(self._next_event_id(), list(block_hashes)))
 
     # ------------------------------------------------------------- allocation
     def match_prefix(self, token_blocks: Sequence[TokenBlock]) -> List[int]:
@@ -166,12 +186,59 @@ class KvBlockManager:
             ids.append(bid)
         return ids, len(matched) * self.block_size
 
+    def acquire_prefix(self, token_blocks: Sequence[TokenBlock]) -> Optional[List[int]]:
+        """Take references on the resident leading blocks WITHOUT touching
+        the hit-rate counters (pre-admission pinning is bookkeeping, not a
+        cache lookup — counting it would double-count every pinned prefix
+        and inflate gpu_prefix_cache_hit_rate)."""
+        matched = self.match_prefix(token_blocks)
+        if not matched:
+            return None
+        ids: List[int] = []
+        for bid in matched:
+            blk = self._blocks[bid]
+            if blk.ref_count == 0:
+                self._free_reusable.pop(bid, None)
+            blk.ref_count += 1
+            ids.append(bid)
+        return ids
+
     def allocate_block(self) -> Optional[int]:
         """One fresh anonymous block (decode growth)."""
         bid = self._take_free_block()
         if bid is not None:
             self._blocks[bid].ref_count = 1
         return bid
+
+    def evict_hashes(self, seq_hashes: Sequence[int]) -> int:
+        """Force-evict specific REUSABLE (ref==0, sealed-hash) blocks as if
+        allocation pressure had recycled them: contents forgotten, the
+        tier-aware Removed/tiered event emitted, the block returned to the
+        anonymous pool.  Deterministic device-memory pressure for tests and
+        harnesses — the real LRU path runs end to end, so event semantics
+        cannot drift from organic eviction.  Active (referenced) blocks are
+        never touched."""
+        n = 0
+        for h in list(seq_hashes):
+            bid = self._by_hash.get(h)
+            if bid is None:
+                continue
+            blk = self._blocks[bid]
+            if blk.ref_count > 0 or bid not in self._free_reusable:
+                continue
+            # Rotate the victim to the LRU head and mask the anonymous
+            # pool (the allocator prefers it); _take_free_block then
+            # evicts exactly this block through the ordinary path.
+            self._free_reusable.move_to_end(bid, last=False)
+            anon, self._free_anon = self._free_anon, []
+            try:
+                got = self._take_free_block()
+            finally:
+                self._free_anon = anon
+            if got is not None:
+                self._free_anon.append(got)
+                n += 1
+        return n
 
     def _take_free_block(self) -> Optional[int]:
         if self._free_anon:
@@ -181,9 +248,13 @@ class KvBlockManager:
             blk = self._blocks[bid]
             if blk.sequence_hash is not None:
                 self._by_hash.pop(blk.sequence_hash, None)
-                self._emit(
-                    KvCacheEvent.removed(self._next_event_id(), [blk.sequence_hash])
-                )
+                # Tiered cache: a lower tier still holding the contents
+                # demotes the router's view instead of erasing it.
+                tier = self.tier_lookup(blk.sequence_hash) if self.tier_lookup is not None else None
+                if tier is not None:
+                    self._emit(KvCacheEvent.tiered(self._next_event_id(), tier, [blk.sequence_hash]))
+                else:
+                    self._emit(KvCacheEvent.removed(self._next_event_id(), [blk.sequence_hash]))
             blk.sequence_hash = blk.parent_hash = blk.tokens_hash = None
             return bid
         return None

@@ -704,8 +704,12 @@ class DecodePipelineMixin:
         hashed = len(seq.block_seq.blocks)
         while seq.num_sealed_blocks < min(complete, hashed):
             idx = seq.num_sealed_blocks
-            self.kv.seal_block(seq.block_ids[idx], seq.block_seq.blocks[idx])
+            tb = seq.block_seq.blocks[idx]
+            self.kv.seal_block(seq.block_ids[idx], tb)
             seq.num_sealed_blocks += 1
+            # Write-behind to the host tier (engine/offload.py drains it).
+            if self.host_kv is not None and not self.host_kv.contains(tb.sequence_hash):
+                self._offload_queue.append((seq.block_ids[idx], tb))
 
     def _accept_chunk(self, members, pos0, sampled, logp, top_ids, top_lp,
                       finished: List[SequenceState]) -> None:

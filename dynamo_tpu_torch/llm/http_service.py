@@ -53,7 +53,16 @@ from ..runtime.resilience import (
 )
 from ..runtime.resilience import metrics as resilience_metrics
 from ..runtime.tracing import tracing_metrics
-from .metrics import Metrics, Status, engine_dispatch_metrics, qos_metrics, spec_metrics
+from .metrics import (
+    Metrics,
+    Status,
+    engine_dispatch_metrics,
+    kv_integrity_metrics,
+    kv_tier_metrics,
+    objstore_metrics,
+    qos_metrics,
+    spec_metrics,
+)
 from .openai import SSE_DONE, aggregate_chunks, sse_encode
 from .protocols import ModelNotFoundError
 from .qos import (
@@ -514,6 +523,9 @@ class HttpService:
             + spec_metrics.render(prefix).encode()
             + qos_metrics.render(prefix).encode()
             + engine_dispatch_metrics.render(prefix).encode()
+            + kv_tier_metrics.render(prefix).encode()
+            + kv_integrity_metrics.render(prefix).encode()
+            + objstore_metrics.render(prefix).encode()
         )
         return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")
 

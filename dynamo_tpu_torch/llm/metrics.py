@@ -17,9 +17,11 @@ scraper reads both packages.  ``EngineDispatchMetrics`` is the colocated
 engine's dispatch-health group, ``SpecDecodeMetrics`` its speculative
 decoding group and ``QosMetrics`` the edge's quota and brownout group; the
 resilience and tracing groups live beside their producers
-(runtime/resilience.py, runtime/tracing.py).  The metric groups of
-subsystems the port does not have yet (KV tiers, migration, ...) are not
-here.
+(runtime/resilience.py, runtime/tracing.py).  ``KvTierMetrics``,
+``KvIntegrityMetrics`` and ``ObjstoreMetrics`` are the KV memory tiers'
+groups (engine/offload.py and the tier stores; the pull counters stay at 0
+until the cross-worker pull is ported).  The metric groups of subsystems
+the port does not have yet (migration, bulk plane, ...) are not here.
 """
 
 from __future__ import annotations
@@ -589,3 +591,278 @@ class SpecDecodeMetrics:
 
 
 spec_metrics = SpecDecodeMetrics()
+
+
+class KvTierMetrics:
+    """Tiered-KV-cache counters + gauges: per-tier bytes/blocks,
+    restore/demote/promote/pull activity, restore + pull latency
+    percentiles.  Module-level singleton rendered as Prometheus
+    text and appended to ``/metrics`` (same pattern as ``spec_metrics``).
+
+    Counters are updated inline by the engine (the pull counters by the
+    cross-worker puller, not ported yet, so they stay 0); the per-tier
+    bytes/blocks GAUGES come from a source callable
+    (``engine.kv_tier_summary`` — wired like EngineDispatchMetrics by
+    whoever colocates an engine with the HTTP edge), so remote-engine
+    edges render counters only."""
+
+    def __init__(self):
+        self._source = None
+        # restore path (host/disk → HBM ahead of admission)
+        self.restore_hits_total = 0      # requests that restored ≥1 block
+        self.restore_misses_total = 0    # tiered restore attempts, 0 blocks
+        self.restored_blocks_total = 0   # host→HBM scatters
+        self.promoted_blocks_total = 0   # disk→host promotions
+        self.prefetched_blocks_total = 0  # promotions driven by kv_prefetch
+        # cross-worker pull (the JAX package's llm/kv_router/pull.py)
+        self.pulls_started_total = 0
+        self.pulls_completed_total = 0
+        self.pulls_failed_total = 0      # any degraded-to-local outcome
+        self.pulled_blocks_total = 0
+        self.pulled_bytes_total = 0
+        self.restore_latency_ms = RollingWindow(maxlen=1024)
+        self.pull_latency_ms = RollingWindow(maxlen=512)
+
+    def set_source(self, source) -> None:
+        """``source() -> engine.kv_tier_summary()`` dict, or None."""
+        self._source = source
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def tier_summary(self) -> Dict[str, object]:
+        """The engine's per-tier gauges ({} without a wired source) —
+        shared by render() and the edge SLO publication."""
+        if self._source is None:
+            return {}
+        try:
+            return self._source() or {}
+        except Exception:  # noqa: BLE001 — engine mid-teardown
+            return {}
+
+    def snapshot(self) -> Dict[str, float]:
+        out = {
+            k: float(v) for k, v in vars(self).items() if isinstance(v, (int, float))
+        }
+        out["restore_latency_ms_p50"] = self.restore_latency_ms.percentile(0.5)
+        out["restore_latency_ms_p99"] = self.restore_latency_ms.percentile(0.99)
+        out["pull_latency_ms_p50"] = self.pull_latency_ms.percentile(0.5)
+        out["pull_latency_ms_p99"] = self.pull_latency_ms.percentile(0.99)
+        return out
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_kv_tier"
+        lines = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        summary = self.tier_summary()
+        tiers = [t for t in ("hbm", "host", "disk", "objstore") if t in summary]
+        if tiers:
+            lines.append(f"# HELP {ns}_blocks Sealed KV blocks per tier")
+            lines.append(f"# TYPE {ns}_blocks gauge")
+            for t in tiers:  # bounded constant label set
+                lines.append(
+                    f'{ns}_blocks{{tier="{escape_label(t)}"}} '
+                    f'{summary[t]["blocks"]}'
+                )
+            lines.append(f"# HELP {ns}_bytes KV bytes per tier")
+            lines.append(f"# TYPE {ns}_bytes gauge")
+            for t in tiers:
+                lines.append(
+                    f'{ns}_bytes{{tier="{escape_label(t)}"}} '
+                    f'{summary[t]["bytes"]}'
+                )
+            emit("prefix_hit_rate", "gauge",
+                 "Engine prefix-cache hit rate (matched/looked-up blocks)",
+                 round(float(summary.get("prefix_hit_rate", 0.0)), 6))
+        emit("restore_hits_total", "counter",
+             "Requests that restored >=1 prefix block from a lower tier",
+             self.restore_hits_total)
+        emit("restore_misses_total", "counter",
+             "Tiered restore attempts that found nothing restorable",
+             self.restore_misses_total)
+        emit("restored_blocks_total", "counter",
+             "Blocks scattered host->HBM ahead of admission",
+             self.restored_blocks_total)
+        emit("promoted_blocks_total", "counter",
+             "Blocks promoted disk->host", self.promoted_blocks_total)
+        emit("prefetched_blocks_total", "counter",
+             "disk->host promotions driven by the kv_prefetch plane",
+             self.prefetched_blocks_total)
+        emit("pulls_started_total", "counter",
+             "Cross-worker prefix pulls attempted", self.pulls_started_total)
+        emit("pulls_completed_total", "counter",
+             "Cross-worker prefix pulls that landed blocks",
+             self.pulls_completed_total)
+        emit("pulls_failed_total", "counter",
+             "Pulls degraded to local prefill (timeout/refusal/error)",
+             self.pulls_failed_total)
+        emit("pulled_blocks_total", "counter",
+             "Blocks imported by cross-worker pulls", self.pulled_blocks_total)
+        emit("pulled_bytes_total", "counter",
+             "Bytes imported by cross-worker pulls", self.pulled_bytes_total)
+        emit("restore_latency_ms_p50", "gauge",
+             "Rolling p50 of tier-restore latency",
+             round(self.restore_latency_ms.percentile(0.5), 3))
+        emit("restore_latency_ms_p99", "gauge",
+             "Rolling p99 of tier-restore latency",
+             round(self.restore_latency_ms.percentile(0.99), 3))
+        emit("pull_latency_ms_p50", "gauge",
+             "Rolling p50 of cross-worker pull latency",
+             round(self.pull_latency_ms.percentile(0.5), 3))
+        emit("pull_latency_ms_p99", "gauge",
+             "Rolling p99 of cross-worker pull latency",
+             round(self.pull_latency_ms.percentile(0.99), 3))
+        return "\n".join(lines) + "\n"
+
+
+kv_tier_metrics = KvTierMetrics()
+
+# The integrity plane's verification boundaries (engine/integrity.py):
+# ``disk`` = .kvblk envelope reads, ``host`` = host-tier entries verified
+# before the HBM scatter (plus demotion-time re-verification), ``wire`` =
+# transfer-plane payloads verified before sealing (no producer in the
+# port yet: the transfer plane is not ported), ``objstore`` = durable-object envelope
+# reads (engine/object_store.py).
+INTEGRITY_PLANES = ("disk", "host", "wire", "objstore")
+
+
+class KvIntegrityMetrics:
+    """KV integrity-plane counters: per-plane verified/corrupt, plus the
+    quarantine machinery's activity — negative-cache hits, chained-descendant drops, recompute fallbacks,
+    and corruption-attributed worker quarantines.  Module-level singleton
+    rendered as Prometheus text and appended to ``/metrics``."""
+
+    def __init__(self):
+        self.verified_total: Dict[str, int] = {p: 0 for p in INTEGRITY_PLANES}
+        self.corrupt_total: Dict[str, int] = {p: 0 for p in INTEGRITY_PLANES}
+        # blocks dropped from the tiers because their chain passes through
+        # a corrupt block (the corrupt block itself is not counted here)
+        self.descendants_dropped_total = 0
+        # restore/promotion/pull attempts skipped on a negative-cached hash
+        self.negative_cache_hits_total = 0
+        # corruption events that degraded a live request to recompute
+        # (the disagg degraded-mode shape — never a drop, never a wrong token)
+        self.recomputed_total = 0
+        # watchdog quarantines attributed to repeated KV corruption
+        self.quarantined_total = 0
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def corrupt_sum(self) -> int:
+        return sum(self.corrupt_total.values())
+
+    def verified_sum(self) -> int:
+        return sum(self.verified_total.values())
+
+    def snapshot(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for p in INTEGRITY_PLANES:
+            out[f"verified_{p}_total"] = float(self.verified_total[p])
+            out[f"corrupt_{p}_total"] = float(self.corrupt_total[p])
+        out["descendants_dropped_total"] = float(self.descendants_dropped_total)
+        out["negative_cache_hits_total"] = float(self.negative_cache_hits_total)
+        out["recomputed_total"] = float(self.recomputed_total)
+        out["quarantined_total"] = float(self.quarantined_total)
+        return out
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_kv_integrity"
+        lines = []
+
+        def per_plane(name: str, help_: str, values: Dict[str, int]) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} counter")
+            for p in INTEGRITY_PLANES:  # bounded constant label set
+                lines.append(
+                    f'{ns}_{name}{{plane="{escape_label(p)}"}} {values[p]}'
+                )
+
+        def emit(name: str, help_: str, value: int) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} counter")
+            lines.append(f"{ns}_{name} {value}")
+
+        per_plane("verified_total",
+                  "KV blocks whose checksum verified at this plane's boundary",
+                  self.verified_total)
+        per_plane("corrupt_total",
+                  "KV blocks that FAILED checksum verification at this plane",
+                  self.corrupt_total)
+        emit("descendants_dropped_total",
+             "Tier blocks dropped because their chain passes through a "
+             "corrupt block", self.descendants_dropped_total)
+        emit("negative_cache_hits_total",
+             "Restore/promotion/pull attempts skipped on a negative-cached "
+             "(recently corrupt) hash", self.negative_cache_hits_total)
+        emit("recomputed_total",
+             "Corruption events degraded to local recompute (streams stay "
+             "byte-identical)", self.recomputed_total)
+        emit("quarantined_total",
+             "Worker quarantines attributed to repeated KV corruption",
+             self.quarantined_total)
+        return "\n".join(lines) + "\n"
+
+
+kv_integrity_metrics = KvIntegrityMetrics()
+
+
+class ObjstoreMetrics:
+    """Durable object-store tier counters (engine/object_store.py): put/get
+    traffic in blocks and bytes plus byte-budgeted GC evictions.  Module-level
+    singleton rendered as Prometheus text and appended to ``/metrics``."""
+
+    def __init__(self):
+        self.puts_total = 0
+        self.put_bytes_total = 0
+        self.gets_total = 0
+        self.get_bytes_total = 0
+        # objects evicted by the byte-budgeted GC (coldest-first); corrupt
+        # drops are counted on the integrity plane, not here
+        self.gc_evictions_total = 0
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "puts_total": float(self.puts_total),
+            "put_bytes_total": float(self.put_bytes_total),
+            "gets_total": float(self.gets_total),
+            "get_bytes_total": float(self.get_bytes_total),
+            "gc_evictions_total": float(self.gc_evictions_total),
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_objstore"
+        lines = []
+
+        def emit(name: str, help_: str, value: int) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} counter")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("puts_total",
+             "Objects published to the durable store (demotions + explicit "
+             "persists)", self.puts_total)
+        emit("put_bytes_total",
+             "Envelope bytes published to the durable store",
+             self.put_bytes_total)
+        emit("gets_total",
+             "Objects read back from the durable store (restores + "
+             "promotions)", self.gets_total)
+        emit("get_bytes_total",
+             "Envelope bytes read back from the durable store",
+             self.get_bytes_total)
+        emit("gc_evictions_total",
+             "Objects evicted by the byte-budgeted GC (coldest-first)",
+             self.gc_evictions_total)
+        return "\n".join(lines) + "\n"
+
+
+objstore_metrics = ObjstoreMetrics()

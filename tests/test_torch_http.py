@@ -554,8 +554,8 @@ def test_cli_serves_http_out_torch():
     assert p.returncode == 0
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--host-cache-mb", "8"],
-                                  ["--disk-cache-mb", "8"], ["--lora", "a=random"], ["--nnodes", "2"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--kv-pull-mb", "8"],
+                                  ["--sp", "2"], ["--lora", "a=random"], ["--nnodes", "2"],
                                   ["--tokenizer", "tok.json"]])
 def test_cli_refuses_options_the_port_lacks(flag):
     from dynamo_tpu_torch import cli
