@@ -123,9 +123,30 @@ Phases, any failure exits non-zero:
      ``torch.cuda.synchronize`` runs while serving.  Then phase 6's 8
      concurrent requests on a host-tier engine and on one without tiers,
      in turns (the pump's cost on TTFT and ITL, not gated);
+  h. the README's distributed stack (``cli hub``; ``run in=dyn://…
+     out=torch`` workers; ``http --router kv``) serving llama-3.1-8b at
+     phase 6's geometry: the hub, a KV-routed and a round-robin frontend
+     and worker B are subprocesses of the CLI; worker A runs the CLI's own
+     ``run in=dyn://`` code in this process (its launches counted), warmed
+     before traffic; both draw the weights from seed 0.  8 greedy prompts
+     of 1024 ids, 64 new tokens, one at a time through the kv frontend,
+     each identical to the colocated engine's stream served alone (its
+     text, and the output ids through the sealed blocks' chained hashes
+     on the kv_events subject); then each 1024-id prefix plus 32 new ids,
+     which the router's ``KVHitRateEvent`` must send to the worker of its
+     first pass with at least 64 blocks of overlap, that worker's prefix
+     hits rising; repeat TTFT through kv against round_robin on fresh
+     prefixes in 3 turns (reported); 16 concurrent streams of 512–2048
+     ids, all whole, each worker taking at least 4; then 4 greedy streams
+     whose prefixes live on B, B SIGKILLed once each has 8 tokens: all 4
+     finish whole on A, the frontend's resume counter rises by 4, B leaves
+     discovery within the lease TTL plus 1 s and the router's index holds
+     none of its blocks; on A no graph is captured and no
+     ``torch.cuda.synchronize`` runs while serving, and both kernels
+     launch; the router's hashing of 2048 ids is timed on this host;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f and g beside phase 6's and 7's), then the device line
-     last.
+     phases c, d, e, f, g and h beside phase 6's and 7's), then the device
+     line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -138,8 +159,10 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1207,11 +1230,12 @@ class CliServer:
             raise self.task.exception()
 
 
-async def http_call(port, method, path, body=None, headers=None):
+async def http_call(port, method, path, body=None, headers=None, on_event=None):
     """One HTTP/1.1 request over a fresh connection (standard library
     only), with extra request ``headers``.  Returns (status, headers, body
     bytes, SSE events) with each SSE event stamped on arrival, in seconds
-    after the request was sent."""
+    after the request was sent; ``on_event(t, event)`` sees each as it
+    arrives."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     payload = b"" if body is None else json.dumps(body).encode()
     extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
@@ -1244,6 +1268,8 @@ async def http_call(port, method, path, body=None, headers=None):
                 while b"\n\n" in pending:
                     ev, pending = pending.split(b"\n\n", 1)
                     events.append((now, ev.decode()))
+                    if on_event is not None:
+                        on_event(now, events[-1][1])
         else:
             data = await reader.readexactly(int(headers.get("content-length", "0")))
         return status, headers, data, events
@@ -2826,6 +2852,550 @@ def spec_phase(torch, dev):
     return ok, res
 
 
+# ------------------------------------------------- h. the distributed serving path
+
+DIST_MODEL = "llama-3.1-8b"
+DIST_ENDPOINT = "dyn://dynamo.TorchWorker.generate"
+# Phase 6's geometry, as CLI flags (seed 0 is the CLI's default, so both
+# workers draw identical weights).
+DIST_ENGINE_ARGV = [
+    "out=torch", "--arch", "llama-3.1-8b", "--model", DIST_MODEL, "--dtype", "bfloat16",
+    "--block-size", "16", "--num-blocks", "2048", "--max-batch", "16",
+    "--max-model-len", "4096", "--prefill-chunk", "512", "--decode-steps", "8",
+    "--pipeline-depth", "2",
+]
+DIST_PROMPTS, DIST_ISL, DIST_OSL = 8, 1024, 64
+DIST_REPEAT_NEW, DIST_REPEAT_OSL = 32, 8
+DIST_TURNS, DIST_TURN_PROMPTS = 3, 4
+DIST_LOAD, DIST_LOAD_MIN_PER_WORKER = 16, 4
+DIST_LOAD_ISL = (512, 2048)
+DIST_FAILOVER, DIST_KILL_AFTER = 4, 8
+DIST_LEASE_TTL_S = 10.0  # the runtime's DEFAULT_LEASE_TTL
+DIST_HASH_IDS, DIST_HASH_CALLS = 2048, 50
+DIST_VOCAB = 128000  # prompt ids are drawn below this
+
+
+class Child:
+    """A CLI subprocess of this checkout; its output lines are collected by
+    a thread (the pipe never fills) and searched with ``wait_line``."""
+
+    def __init__(self, name, argv):
+        self.name = name
+        self.p = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.cli", *argv],
+                                  cwd=str(REPO), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.p.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_line(self, prefix, timeout):
+        end = time.time() + timeout
+        while time.time() < end:
+            for line in self.lines:
+                if line.startswith(prefix):
+                    return line
+            if self.p.poll() is not None:
+                break
+            time.sleep(0.1)
+        raise RuntimeError(f"{self.name}: no {prefix!r} line; last output {self.lines[-15:]}")
+
+    def stop(self, sig=signal.SIGTERM):
+        if self.p.poll() is None:
+            self.p.send_signal(sig)
+            try:
+                self.p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait(timeout=30)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_prompts(n, isl, seed):
+    rng = random.Random(seed)
+    return [[rng.randrange(1, DIST_VOCAB) for _ in range(isl)] for _ in range(n)]
+
+
+def dist_text(tokens):
+    """The text the edge streams for ``tokens`` of a ``max_tokens`` =
+    len(tokens) request (the Backend's Decoder over the byte tokenizer:
+    text held back at the length limit is not sent)."""
+    from dynamo_tpu_torch.llm.backend import Decoder
+    from dynamo_tpu_torch.llm.protocols import StopConditions
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    dec = Decoder(ByteTokenizer(), StopConditions(max_tokens=len(tokens), ignore_eos=True))
+    text = []
+    for t in tokens:
+        delta, finish = dec.step(t)
+        text.append(delta)
+        if finish is not None:
+            break
+    return "".join(text)
+
+
+async def dist_engine_alone(engine, prompt, n):
+    """``prompt`` served alone on the colocated engine, under a KV salt so
+    that it neither hits nor leaves a prefix the router could match.
+    Returns (tokens, ttft_s, itl_s)."""
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    req = PreprocessedRequest(
+        token_ids=list(prompt), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0),
+        annotations={"kv_salt": "colocated-reference"},
+    ).to_dict()
+    t0 = time.perf_counter()
+    toks, stamps = [], []
+    async for item in await engine.generate(Context(req)):
+        now = time.perf_counter() - t0
+        for tok in item["token_ids"]:
+            toks.append(tok)
+            stamps.append(now)
+    return toks, stamps[0], (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1)
+
+
+async def dist_complete(port, prompt, max_tokens, on_text=None):
+    """A streamed greedy completion; returns (status, text, finish, usage
+    tokens, ttft_s, itl_s, longest gap between content chunks in s).
+    ``on_text(text so far)`` runs on every chunk."""
+    text = []
+    stamps = []
+
+    def on_event(t, ev):
+        if not ev.startswith("data: ") or ev == "data: [DONE]":
+            return
+        c = json.loads(ev[len("data: "):])
+        for ch in c.get("choices") or []:
+            if ch.get("text"):
+                text.append(ch["text"])
+                stamps.append(t)
+        if on_text is not None:
+            on_text("".join(text))
+
+    st, _, body, events = await http_call(port, "POST", "/v1/completions", {
+        "model": DIST_MODEL, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+        "stream": True, "nvext": {"ignore_eos": True}}, on_event=on_event)
+    finish, used = None, None
+    try:
+        chunks, _ = sse_data(events)
+        final = chunks[-1][1] if chunks else {}
+        finish = (final.get("choices") or [{}])[0].get("finish_reason")
+        used = (final.get("usage") or {}).get("completion_tokens")
+    except ValueError:
+        pass
+    ttft = stamps[0] if stamps else float("nan")
+    itl = (stamps[-1] - stamps[0]) / max(1, max_tokens - 1) if stamps else float("nan")
+    gap = max((b - a for a, b in zip(stamps, stamps[1:])), default=float("nan"))
+    return st, "".join(text), finish, used, ttft, itl, gap
+
+
+async def dist_colocated_http(engine, prompts):
+    """``prompts`` one at a time through an HttpService on ``engine``'s own
+    loop (preprocessor → backend → engine, no hop); (TTFT ms, ITL ms)."""
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.pipeline import build_pipeline
+
+    tok = ByteTokenizer()
+    service = await HttpService(host="127.0.0.1", port=0).start()
+    service.models.add_completion_model(
+        DIST_MODEL, build_pipeline([OpenAIPreprocessor(tok, DIST_MODEL), Backend(tok)], engine))
+    ttft, itl = [], []
+    try:
+        for p in prompts:
+            r = await dist_complete(service.port, p, DIST_OSL)
+            ttft.append(r[4] * 1e3)
+            itl.append(r[5] * 1e3)
+    finally:
+        await service.close()
+    return ttft, itl
+
+
+def dist_path(torch):
+    """Phase h: the README's distributed stack on the card.  Returns (ok,
+    launches, numbers)."""
+    from dynamo_tpu_torch import tokens as tok_mod
+    from dynamo_tpu_torch.llm.kv_router.router import KvRouterCore
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.transports.hub import HubClient
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"dist check FAILED: {what}")
+
+    hub_port = _free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    children, server = [], None
+    real_sync = torch.cuda.synchronize
+    syncs = [0]
+
+    def counting_sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    t_phase = time.perf_counter()
+    try:
+        children.append(Child("hub", ["hub", "--host", "127.0.0.1", "--port", str(hub_port)]))
+        children[-1].wait_line("hub listening", 120)
+        worker_b = Child("worker B", ["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV,
+                                      "--hub", hub_addr])
+        children.append(worker_b)
+        fronts = {}
+        for router in ("kv", "round_robin"):
+            c = Child(f"http {router}", ["http", "--hub", hub_addr, "--host", "127.0.0.1",
+                                         "--port", "0", "--router", router])
+            children.append(c)
+            fronts[router] = c
+        for router, c in fronts.items():
+            fronts[router] = int(c.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
+        # Worker A: the CLI's own ``run in=dyn://`` code in this process,
+        # so its kernel launches are counted; warmed before any traffic.
+        t = time.perf_counter()
+        server = CliServer(["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV, "--hub", hub_addr])
+        wid_a = server.service.worker_id
+        graphs = server.warmup()
+        out["a_up_s"] = time.perf_counter() - t
+        wid_b = int(worker_b.wait_line("worker ", 300).split()[1])
+        out["b_up_s"] = time.perf_counter() - t_phase
+        engine = server.engine
+        log(f"dist: hub {hub_addr}, frontends kv :{fronts['kv']} round_robin "
+            f":{fronts['round_robin']}, worker A {wid_a} (in this process, up and warmed in "
+            f"{out['a_up_s']:.1f} s, graphs {graphs}), worker B {wid_b} (pid {worker_b.p.pid}, "
+            f"registered {out['b_up_s']:.1f} s after the phase began)")
+        name = {wid_a: "A", wid_b: "B"}
+
+        # The router's hot path on this host: fast_sequence_hashes at 2048
+        # ids, on the path this host takes and on the numpy one (the path
+        # without xxhash).
+        ids = dist_prompts(1, DIST_HASH_IDS, 3)[0]
+        out["hash_path"] = "xxhash" if tok_mod.USING_XXHASH else "numpy lanes + Python chain"
+        installed = tok_mod.USING_XXHASH
+        for key, flag in (("hash_ms", installed), ("hash_numpy_ms", False)):
+            tok_mod.USING_XXHASH = flag
+            times = []
+            try:
+                for _ in range(DIST_HASH_CALLS):
+                    t = time.perf_counter()
+                    tok_mod.fast_sequence_hashes(ids, PS)
+                    times.append(time.perf_counter() - t)
+            finally:
+                tok_mod.USING_XXHASH = installed
+            out[key] = statistics.median(times) * 1e3
+
+        prompts = dist_prompts(DIST_PROMPTS, DIST_ISL, 11)
+
+        async def phase():
+            rt = await DistributedRuntime.connect(hub_addr)
+            hub = rt.hub
+            ns, comp, ep = parse_endpoint_path(DIST_ENDPOINT)
+            endpoint = rt.namespace(ns).component(comp).endpoint(ep)
+            client = await endpoint.client()
+            # A router core of this process on the same event stream: its
+            # index is what the kv frontend's holds, and can be read here.
+            core = await KvRouterCore(endpoint.component, client, PS,
+                                      publish_hit_rate=False).start()
+            hits = await endpoint.component.subscribe("kv-hit-rate")
+            kv_sub = await endpoint.component.subscribe("kv_events")
+            fpm_sub = await endpoint.component.subscribe("kv_metrics")
+            stored = {wid_a: set(), wid_b: set()}
+            latest = {}
+
+            async def pump_events():
+                async for _, msg in kv_sub:
+                    data = (msg.get("event") or {}).get("data") or {}
+                    for blk in (data.get("stored") or {}).get("blocks", ()):
+                        stored.setdefault(msg["worker_id"], set()).add(blk["block_hash"])
+
+            async def pump_metrics():
+                async for _, msg in fpm_sub:
+                    latest[msg["worker_id"]] = msg["metrics"]
+
+            tasks = [asyncio.ensure_future(pump_events()), asyncio.ensure_future(pump_metrics())]
+
+            async def next_hit():
+                _, h = await asyncio.wait_for(hits.__anext__(), 120)
+                return h
+
+            try:
+                for _ in range(600):
+                    if set(client.instance_ids) == {wid_a, wid_b}:
+                        break
+                    await asyncio.sleep(0.1)
+                check(set(client.instance_ids) == {wid_a, wid_b},
+                      f"both workers discovered ({client.instance_ids})")
+                core.select(prompts[0])  # the core learns the live set
+                kv, rr = fronts["kv"], fronts["round_robin"]
+                st, _, body, _ = await http_call(kv, "GET", "/health")
+                health = json.loads(body) if st == 200 else {}
+                check(health.get("hub_shards") == [{"shard": hub_addr, "connected": True}],
+                      f"/health hub_shards ({st} {body[:200]!r})")
+
+                # The colocated references, served alone before any traffic.
+                refs = [await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    dist_engine_alone(engine, p, DIST_OSL), server.loop)) for p in prompts]
+                # The same traffic through a colocated HTTP edge on A's
+                # engine (fresh prompts of the same length, one at a time):
+                # the distributed path's cost over it is the hop's.
+                colocated = asyncio.run_coroutine_threadsafe(
+                    dist_colocated_http(engine, dist_prompts(DIST_PROMPTS, DIST_ISL, 13)),
+                    server.loop)
+                out["colocated_http_ttft_ms"], out["colocated_http_itl_ms"] = (
+                    await asyncio.wrap_future(colocated))
+                # Warm B's programs (it captures at first use) and both
+                # workers' paths: the round-robin frontend alternates.
+                warm = dist_prompts(4, DIST_ISL, 5)
+                for p in warm:
+                    await dist_complete(rr, p, DIST_OSL)
+                await asyncio.sleep(1.5)
+
+                graphs0 = dict(engine.compile_counts())
+                zero_kernel_counts()
+                torch.cuda.synchronize = counting_sync
+                t_traffic = time.perf_counter()
+
+                # 1. prefix routing: first passes, then each prefix again.
+                first, first_ttft, first_itl = [], [], []
+                for i, p in enumerate(prompts):
+                    st, text, fin, used, ttft, itl, _ = await dist_complete(kv, p, DIST_OSL)
+                    h = await next_hit()
+                    first.append(h["worker_id"])
+                    first_ttft.append(ttft)
+                    first_itl.append(itl)
+                    check(st == 200 and fin == "length" and used == DIST_OSL,
+                          f"first pass {i}: {st} {fin}/{used}")
+                    ref_toks = refs[i][0]
+                    same_text = text == dist_text(ref_toks)
+                    # The sealed blocks of prompt + output (the last token
+                    # is never fed back) name the output ids through their
+                    # chained hashes; wait for the worker's last events.
+                    chain = set(tok_mod.fast_sequence_hashes(p + ref_toks[:DIST_OSL - 1], PS))
+                    for _ in range(50):
+                        if chain <= stored.get(h["worker_id"], set()):
+                            break
+                        await asyncio.sleep(0.1)
+                    same_chain = chain <= stored.get(h["worker_id"], set())
+                    check(same_text and same_chain,
+                          f"first pass {i} on {name.get(h['worker_id'])}: identical to the "
+                          f"colocated stream (text {same_text}, sealed chain of "
+                          f"{len(chain)} blocks {same_chain})")
+                before_b = (latest.get(wid_b) or {}).get("gpu_prefix_cache_hit_rate", 0.0)
+                repeats = []
+                for i, p in enumerate(prompts):
+                    a0 = engine.kv.matched_blocks
+                    rp = p + dist_prompts(1, DIST_REPEAT_NEW, 100 + i)[0]
+                    st, _, fin, used, ttft, _, _ = await dist_complete(kv, rp, DIST_REPEAT_OSL)
+                    h = await next_hit()
+                    repeats.append((h["worker_id"], h["overlap_blocks"], ttft))
+                    gained = engine.kv.matched_blocks - a0
+                    check(st == 200 and h["worker_id"] == first[i]
+                          and h["overlap_blocks"] >= DIST_ISL // PS,
+                          f"repeat {i}: routed to {name.get(h['worker_id'])} with "
+                          f"{h['overlap_blocks']} blocks (first pass on {name.get(first[i])})")
+                    if first[i] == wid_a:
+                        check(gained >= DIST_ISL // PS, f"repeat {i}: A's prefix hits +{gained}")
+                    else:
+                        check(gained == 0, f"repeat {i}: A's prefix hits unchanged ({gained})")
+                if wid_b in first:
+                    await asyncio.sleep(1.5)  # one metrics period
+                    after_b = (latest.get(wid_b) or {}).get("gpu_prefix_cache_hit_rate", 0.0)
+                    check(after_b > before_b, f"B's prefix hit rate rose ({before_b} -> {after_b})")
+                out["first"] = [name.get(w) for w in first]
+                out["first_ttft_ms"] = [x * 1e3 for x in first_ttft]
+                out["first_itl_ms"] = [x * 1e3 for x in first_itl]
+                out["repeats"] = [(name.get(w), o, t * 1e3) for w, o, t in repeats]
+                out["colocated_ttft_ms"] = [r[1] * 1e3 for r in refs]
+                out["colocated_itl_ms"] = [r[2] * 1e3 for r in refs]
+
+                # Repeat TTFT, kv against round_robin, on fresh prefixes.
+                turns = []
+                for turn in range(DIST_TURNS):
+                    fresh = dist_prompts(DIST_TURN_PROMPTS, DIST_ISL, 200 + turn)
+                    for p in fresh:
+                        await dist_complete(kv, p, 1)
+                        await next_hit()
+                    ttfts = {"kv": [], "round_robin": []}
+                    order = ("round_robin", "kv") if turn % 2 == 0 else ("kv", "round_robin")
+                    for router in order:
+                        for j, p in enumerate(fresh):
+                            rp = p + dist_prompts(1, DIST_REPEAT_NEW, 300 + 10 * turn + j)[0]
+                            r = await dist_complete(fronts[router], rp, DIST_REPEAT_OSL)
+                            check(r[0] == 200, f"turn {turn} {router} repeat {j}: {r[0]}")
+                            ttfts[router].append(r[4] * 1e3)
+                            if router == "kv":
+                                await next_hit()
+                    turns.append({k: statistics.median(v) for k, v in ttfts.items()})
+                out["turns"] = turns
+
+                # 2. load: concurrent streams of 512-2048 ids.
+                await asyncio.sleep(1.5)  # idle metrics before the burst
+                rng = random.Random(21)
+                load = [dist_prompts(1, rng.randrange(DIST_LOAD_ISL[0], DIST_LOAD_ISL[1] + 1), 400 + i)[0]
+                        for i in range(DIST_LOAD)]
+                t = time.perf_counter()
+                results = await asyncio.gather(*(dist_complete(kv, p, DIST_OSL) for p in load))
+                out["load_wall_s"] = time.perf_counter() - t
+                load_hits = [await next_hit() for _ in load]
+                per = {n: sum(1 for h in load_hits if h["worker_id"] == w) for w, n in name.items()}
+                out["load_per_worker"] = per
+                out["load_tok_s"] = DIST_LOAD * DIST_OSL / out["load_wall_s"]
+                for i, r in enumerate(results):
+                    check(r[0] == 200 and r[2] == "length" and r[3] == DIST_OSL,
+                          f"load stream {i}: {r[0]} {r[2]}/{r[3]}")
+                check(all(v >= DIST_LOAD_MIN_PER_WORKER for v in per.values()),
+                      f"each worker took at least {DIST_LOAD_MIN_PER_WORKER} streams ({per})")
+                out["launches"] = kernel_counts()
+                out["traffic_s"] = time.perf_counter() - t_traffic
+
+                # 3. failover: streams whose prefixes live on B (by the
+                # index), one greedy stream each; B is killed mid-stream.
+                def on_b(p):
+                    scores = core.indexer.find_matches(p).scores
+                    return scores.get(wid_b, 0) >= len(p) // PS - 1 and not scores.get(wid_a)
+
+                victims = [p for p in load + prompts if on_b(p)][:DIST_FAILOVER]
+                check(len(victims) == DIST_FAILOVER, f"{len(victims)} prefixes on B to fail over")
+                b_blocks = len(core.indexer._index._by_worker.get(wid_b, ()))
+                st, _, body, _ = await http_call(kv, "GET", "/metrics")
+                resumes0 = parse_prometheus(body.decode()).get(
+                    ("dynamo_tpu_resilience_stream_resumes_total", ()), 0.0)
+                glyphs = [0] * len(victims)
+                killed = {}
+
+                def on_text(i):
+                    def f(text):
+                        glyphs[i] = len(text)
+                        if not killed and min(glyphs) >= DIST_KILL_AFTER:
+                            worker_b.p.send_signal(signal.SIGKILL)
+                            killed["at"] = time.monotonic()
+                            killed["glyphs"] = list(glyphs)
+                    return f
+
+                ref_fail = [await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    dist_engine_alone(engine, p, DIST_OSL), server.loop)) for p in victims]
+                t = time.perf_counter()
+                fo = await asyncio.gather(*(dist_complete(kv, p, DIST_OSL, on_text(i))
+                                            for i, p in enumerate(victims)))
+                out["failover_wall_s"] = time.perf_counter() - t
+                fo_hits = [await next_hit() for _ in victims]
+                check(all(h["worker_id"] == wid_b for h in fo_hits),
+                      f"the failover streams were routed to B "
+                      f"({[name.get(h['worker_id']) for h in fo_hits]})")
+                check(bool(killed), "B was killed mid-stream")
+                for i, r in enumerate(fo):
+                    check(r[0] == 200 and r[2] == "length" and r[3] == DIST_OSL,
+                          f"failover stream {i}: {r[0]} {r[2]}/{r[3]}")
+                out["failover_identical"] = [r[1] == dist_text(ref[0])
+                                             for r, ref in zip(fo, ref_fail)]
+                # The resume's stall as the client sees it: each stream's
+                # longest wait between content chunks (B's death, the
+                # re-dispatch, A's prefill of prompt + delivered tokens).
+                out["failover_gap_ms"] = [r[6] * 1e3 for r in fo]
+                out["failover_kill_glyphs"] = killed.get("glyphs")
+                st, _, body, _ = await http_call(kv, "GET", "/metrics")
+                resumes1 = parse_prometheus(body.decode()).get(
+                    ("dynamo_tpu_resilience_stream_resumes_total", ()), 0.0)
+                out["resumes"] = resumes1 - resumes0
+                check(resumes1 - resumes0 == DIST_FAILOVER,
+                      f"/metrics stream resumes rose by {DIST_FAILOVER} ({resumes0} -> {resumes1})")
+                out["graphs"] = (graphs0, dict(engine.compile_counts()))
+                out["syncs"] = syncs[0]
+                torch.cuda.synchronize = real_sync
+                # B leaves discovery within the lease TTL plus 1 s.
+                gone = None
+                while killed and time.monotonic() - killed["at"] < DIST_LEASE_TTL_S + 5:
+                    keys = await hub.kv_get_prefix(f"instances/{ns}/{comp}/{ep}/")
+                    if not any(k.endswith(f"/{wid_b}") for k in keys):
+                        gone = time.monotonic() - killed["at"]
+                        break
+                    await asyncio.sleep(0.1)
+                out["b_gone_s"] = gone
+                check(gone is not None and gone <= DIST_LEASE_TTL_S + 1,
+                      f"B left discovery within {DIST_LEASE_TTL_S + 1} s of the kill ({gone})")
+                for _ in range(50):
+                    if wid_b not in client.instance_ids:
+                        break
+                    await asyncio.sleep(0.1)
+                core.select(victims[0])  # the router prunes departed workers here
+                left = len(core.indexer._index._by_worker.get(wid_b, ()))
+                out["b_index_blocks"] = (b_blocks, left)
+                check(b_blocks > 0 and left == 0,
+                      f"the router index holds no block of B afterwards ({b_blocks} -> {left})")
+                r = await dist_complete(kv, victims[0], 8)
+                h = await next_hit()
+                check(r[0] == 200 and h["worker_id"] == wid_a,
+                      f"after B left, its prefix routes to A ({r[0]}, {name.get(h['worker_id'])})")
+            finally:
+                torch.cuda.synchronize = real_sync
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                for sub in (hits, kv_sub, fpm_sub):
+                    await sub.aclose()
+                await core.stop()
+                await client.close()
+                await rt.close()
+
+        asyncio.run(phase())
+    finally:
+        torch.cuda.synchronize = real_sync
+        try:
+            if server is not None:
+                server.stop()
+        finally:
+            for c in reversed(children):
+                c.stop()
+    launches = out.get("launches") or {"decode_attention": 0, "prefill_attention": 0}
+    check(all(v > 0 for v in launches.values()), f"worker A launched both kernels ({launches})")
+    g0, g1 = out.get("graphs", ({}, {}))
+    check(g0 == g1, f"worker A captured no graph while serving ({g0} -> {g1})")
+    check(out.get("syncs") == 0, f"no torch.cuda.synchronize on worker A while serving "
+                                 f"({out.get('syncs')})")
+    out["wall_s"] = time.perf_counter() - t_phase
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    numbers = {
+        "card": CARD, "hash_ms_2048_ids": out.get("hash_ms"), "hash_path": out.get("hash_path"),
+        "hash_numpy_ms_2048_ids": out.get("hash_numpy_ms"),
+        "colocated_http_ttft_ms_p50": med(out.get("colocated_http_ttft_ms", [])),
+        "colocated_http_itl_ms_p50": med(out.get("colocated_http_itl_ms", [])),
+        "first_pass_workers": out.get("first"),
+        "first_pass_ttft_ms_p50": med(out.get("first_ttft_ms", [])),
+        "first_pass_itl_ms_p50": med(out.get("first_itl_ms", [])),
+        "colocated_alone_ttft_ms_p50": med(out.get("colocated_ttft_ms", [])),
+        "colocated_alone_itl_ms_p50": med(out.get("colocated_itl_ms", [])),
+        "repeats": out.get("repeats"), "repeat_ttft_turns_ms": out.get("turns"),
+        "load_tok_s": out.get("load_tok_s"), "load_per_worker": out.get("load_per_worker"),
+        "failover_resumes": out.get("resumes"),
+        "failover_identical": out.get("failover_identical"),
+        "failover_wall_s": out.get("failover_wall_s"),
+        "failover_gap_ms": out.get("failover_gap_ms"),
+        "failover_kill_glyphs": out.get("failover_kill_glyphs"), "b_gone_s": out.get("b_gone_s"),
+        "b_index_blocks": out.get("b_index_blocks"), "launches_a": launches,
+        "graphs_a": out.get("graphs"), "syncs_a": out.get("syncs"),
+        "phase_s": out["wall_s"],
+    }
+    log("dist " + json.dumps(numbers))
+    return not fails, launches, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2892,9 +3462,17 @@ def main() -> int:
         ok_bench, bench = bench_serve(torch, dev, quant=True)
         ok_loadgen, loadgen = loadgen_http(torch, dev)
         ok_spec, spec = spec_phase(torch, dev)
+        # Phase h runs two llama-3.1-8b workers on this card (one in this
+        # process): free what the earlier phases left first.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the distributed phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        ok_dist, dist_launches, _ = dist_path(torch)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
-                    "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers}
+                    "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
+                    "distributed (h)": ok_dist}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -2923,6 +3501,7 @@ def main() -> int:
             kernels[-1]["spec_forced_launches"] = spec[("repetitive", "forced")]["launches"][name]
             kernels[-1]["edge_launches"] = edge["launches"][name]
             kernels[-1]["tier_launches"] = tiers["launches"][name]
+            kernels[-1]["dist_launches"] = dist_launches[name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

@@ -1,5 +1,7 @@
-"""CLI launcher for the port — the ``run`` command of the JAX package's
-``cli.py`` (reference: launch/dynamo-run, ``dynamo-run in=… out=…``).
+"""CLI launcher for the port — the ``hub``, ``http`` and ``run`` commands
+of the JAX package's ``cli.py`` (reference: launch/dynamo-run,
+``dynamo-run in=… out=…``; components/http, the standalone frontend; the
+hub stands in for the docker-compose etcd + NATS).
 
 Usage:
   python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
@@ -8,19 +10,31 @@ Usage:
   python -m dynamo_tpu_torch.cli run in=stdin out=torch ...      # one prompt
   python -m dynamo_tpu_torch.cli run in=batch:FILE.jsonl out=torch ...
   python -m dynamo_tpu_torch.cli run in=http out=echocore        # no model
+  python -m dynamo_tpu_torch.cli hub [--host H] [--port 6650] [--persist FILE]
+  python -m dynamo_tpu_torch.cli run in=dyn://ns.comp.ep out=torch --hub H:P \\
+        --model NAME --arch ARCH     # worker: serve the engine, register the model
+  python -m dynamo_tpu_torch.cli http --hub H:P [--port 8000] [--router kv]
 
 ``out=torch`` is ``TorchEngine`` on the first CUDA device unless
 ``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.
-``in=http`` reads the edge's ``qos`` and ``tracing`` sections from the
-layered config (``DYN_RUNTIME_CONFIG`` file, then ``DYN_QOS__*`` /
-``DYN_TRACING__*`` env), as the JAX ``run in=http`` does: per-tenant
-quotas and the brownout ladder fed by the engine's KV usage, and a
-colocated span exporter feeding the ``/traces`` aggregator.  The
-flags keep the JAX parser's names and defaults.  Its options that the port
-does not have yet fail when set (engine/__init__.py UNSUPPORTED_OPTIONS);
-the other JAX subcommands (hub, http over a hub, workers, planner, deploy)
-are not ported.  The tokenizer is the self-contained byte tokenizer, the
-JAX CLI's default without ``--tokenizer`` or ``--checkpoint``.
+``in=http`` and the ``http`` command read the edge's ``qos`` and
+``tracing`` sections from the layered config (``DYN_RUNTIME_CONFIG`` file,
+then ``DYN_QOS__*`` / ``DYN_TRACING__*`` env), as the JAX commands do;
+``http`` also reads ``resilience`` under its own flags.  A worker
+(``in=dyn://``) serves its engine on the service plane under its lease,
+publishes KV events and ``ForwardPassMetrics`` for the KV router, registers
+the model with the engine's block size, reports its tiers' integrity
+detections, and with tracing on publishes its spans on the namespace's
+``traces`` subject, which the ``http`` edge's aggregator assembles at
+``/traces/{id}``.  The flags keep the JAX parser's names and defaults.
+Options the port does not have yet fail when set
+(engine/__init__.py UNSUPPORTED_OPTIONS, ``--disagg`` among them; the bulk
+plane's ``DYN_BULK_PLANE``); the worker's live migration, ``kv_export``
+and prefix pull, the planner's ``EdgeSloPublisher`` and the other JAX
+subcommands (model, metrics, mock-worker, planner, deploy) are not ported
+(ROADMAP queue 1 item 10 and after).  The tokenizer is the self-contained
+byte tokenizer, the JAX CLI's default without ``--tokenizer`` or
+``--checkpoint``.
 """
 
 from __future__ import annotations
@@ -29,17 +43,21 @@ import argparse
 import asyncio
 import logging
 import os
+import signal
 from typing import Callable, Optional
 
 from .engine import build_torch_engine
 from .llm.backend import Backend
 from .llm.engines import EchoEngineCore, EchoEngineFull
+from .llm.discovery import ModelWatcher, register_model
 from .llm.http_service import HttpService
 from .llm.metrics import engine_dispatch_metrics, kv_tier_metrics
 from .llm.preprocessor import OpenAIPreprocessor
 from .llm.tokenizer import ByteTokenizer
+from .runtime.component import DistributedRuntime, parse_endpoint_path
 from .runtime.config import RuntimeConfig
 from .runtime.pipeline import build_pipeline
+from .runtime.transports.hub import HubServer
 
 logger = logging.getLogger(__name__)
 
@@ -81,32 +99,227 @@ def _edge_tracing():
     return TraceSampler(cfg), TraceAggregator(ttl_s=cfg.ttl_s), cfg
 
 
-def _edge_qos():
+def _edge_qos(args=None):
     """QosController for the HTTP edge from the layered ``qos`` config
-    section (llm/qos.py; the JAX ``http`` command's --qos-*/--brownout
-    overrides come with that command, ROADMAP queue 1 item 10).  Returns
-    None when neither quotas nor the brownout ladder are enabled — zero
-    behaviour change by default."""
+    section under explicit --qos-*/--brownout flags (llm/qos.py; the
+    ``http`` command has them, ``run`` does not).  Returns None when
+    neither quotas nor the brownout ladder are enabled — zero behaviour
+    change by default."""
     from .llm.qos import QosConfig, QosController
 
     section = dict(RuntimeConfig.from_layers().qos)
     for key in ("tenant_weights", "default_weight", "batch_every"):
         section.pop(key, None)  # scheduler half (engine/__init__.py)
+    if getattr(args, "qos_rate", None) is not None:
+        section["rate"] = args.qos_rate
+    if getattr(args, "qos_burst", None) is not None:
+        section["burst"] = args.qos_burst
+    if getattr(args, "brownout", False) and not section.get("brownout"):
+        # The explicit flag wins over an absent/disabled config value, but
+        # a configured brownout DICT (custom thresholds) is kept as-is.
+        section["brownout"] = True
     cfg = QosConfig.from_dict(section)
     if cfg.rate is None and cfg.brownout is None:
         return None
     return QosController(cfg)
 
 
-async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None) -> None:
+async def _wait_forever() -> None:
+    """Until SIGINT/SIGTERM (handled where the loop runs in the main
+    thread), or until this task is cancelled."""
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass  # not the main thread: cancellation ends the wait
+    try:
+        await stop.wait()
+    finally:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.remove_signal_handler(sig)
+            except (NotImplementedError, RuntimeError, ValueError):
+                pass
+
+
+async def _run_hub(args) -> None:
+    server = await HubServer(host=args.host, port=args.port, persist_path=args.persist).start()
+    print(f"hub listening on {server.address}", flush=True)
+    try:
+        await _wait_forever()
+    finally:
+        await server.close()
+
+
+def _refuse_bulk_plane() -> None:
+    if os.environ.get("DYN_BULK_PLANE", "0").lower() not in ("", "0", "false", "no", "off"):
+        raise SystemExit(
+            "DYN_BULK_PLANE: the bulk data plane is not ported yet (ROADMAP queue 1 item 10)"
+        )
+
+
+async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], None]] = None) -> None:
+    """The ``http`` command: an OpenAI edge whose models are the hub's
+    registrations (llm/discovery.ModelWatcher), routed by ``--router``."""
+    from .runtime.client import RouterMode
+
+    _refuse_bulk_plane()
+    runtime = await DistributedRuntime.connect(args.hub)
+    # CLI flags win over the layered config's `resilience` section
+    # (DYN_RESILIENCE__HTTP_MAX_INFLIGHT=64 etc.), which wins over defaults.
+    layers = RuntimeConfig.from_layers()
+    res = layers.resilience
+    raw_inflight = res.get("http_max_inflight")
+    sampler, aggregator, tracing_cfg = _edge_tracing()
+    service = HttpService(
+        host=args.host,
+        port=args.port,
+        max_inflight=(
+            args.max_inflight
+            if args.max_inflight is not None
+            else int(raw_inflight) if raw_inflight else None
+        ),
+        admission_queue=(
+            args.admission_queue
+            if args.admission_queue
+            else int(res.get("http_admission_queue", 0))
+        ),
+        admission_timeout_s=(
+            args.admission_timeout_s
+            if args.admission_timeout_s != 1.0
+            else float(res.get("http_admission_timeout_s", 1.0))
+        ),
+        default_deadline_s=(
+            args.deadline_s
+            if args.deadline_s is not None
+            else res.get("request_deadline_s")
+        ),
+        qos=_edge_qos(args),
+        tracing=sampler,
+        trace_aggregator=aggregator,
+        hub=runtime.hub,
+    )
+    watcher = exporter = None
+    try:
+        watcher = await ModelWatcher(runtime, service.models, router_mode=RouterMode(args.router)).start()
+        await service.start()
+        if aggregator is not None:
+            # Span plane: workers publish span batches on the namespace's
+            # ``traces`` subject; the aggregator subscribes and assembles
+            # them with the edge's own spans (client.route, the
+            # edge.request root), which export straight into it.
+            from .runtime.tracing import SpanExporter
+
+            await aggregator.start(runtime.namespace(layers.namespace))
+            exporter = await SpanExporter(
+                [aggregator], interval_s=tracing_cfg.export_interval_s, proc="edge"
+            ).start()
+        print(f"OpenAI frontend on http://{service.host}:{service.port}", flush=True)
+        if on_serving is not None:
+            on_serving(service)
+        await _wait_forever()
+    finally:
+        if exporter is not None:
+            await exporter.stop()
+        if aggregator is not None:
+            await aggregator.stop()
+        if watcher is not None:
+            await watcher.stop()
+        await service.close()
+        await runtime.close()
+
+
+async def _serve_worker(args, engine, on_serving) -> None:
+    """``run in=dyn://ns.comp.ep``: the decode role of the JAX package's
+    ``WorkerRoles.start_decode`` without ``--disagg``.  Serves the engine
+    at the endpoint under the runtime's lease, publishes its KV events and
+    ``ForwardPassMetrics`` (the KV router's inputs), feeds its tiers'
+    integrity detections to the ``kv_corruption`` ledger, and registers
+    the model with the engine's block size.  With tracing on, its spans
+    publish on the namespace's ``traces`` subject."""
+    from .llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
+    from .runtime.health import kv_corruption
+    from .runtime.tracing import TRACES_TOPIC, SpanExporter, TracingConfig
+    from .runtime.tracing import collector as trace_collector
+
+    if not args.hub:
+        raise SystemExit("worker mode requires --hub HOST:PORT")
+    _refuse_bulk_plane()
+    runtime = await DistributedRuntime.connect(args.hub)
+    layers = RuntimeConfig.from_layers()
+    ns, comp, ep = parse_endpoint_path(args.inp)
+    endpoint = runtime.namespace(ns).component(comp).endpoint(ep)
+    trace_exporter = served = metrics_pub = None
+    model_key = None
+    try:
+        tcfg = TracingConfig.from_config(layers.tracing)
+        if tcfg.enabled:
+            if tcfg.ring != trace_collector._ring.maxlen:
+                trace_collector.set_capacity(tcfg.ring)
+            namespace = runtime.namespace(layers.namespace)
+
+            async def _publish_spans(payload):
+                await namespace.publish(TRACES_TOPIC, payload)
+
+            trace_exporter = await SpanExporter(
+                [_publish_spans], interval_s=tcfg.export_interval_s,
+                proc=f"worker-{runtime.worker_id}",
+            ).start()
+        served = await endpoint.serve_endpoint(engine)
+        kv_block_size = 16
+        if hasattr(engine, "set_event_callback"):  # TorchEngine
+            kv_block_size = engine.cfg.block_size
+            engine.set_event_callback(KvEventPublisher(endpoint.component, runtime.worker_id))
+            metrics_pub = await KvMetricsPublisher(
+                endpoint.component, runtime.worker_id, engine.metrics
+            ).start()
+            wid = runtime.worker_id
+            engine.set_integrity_reporter(lambda plane, _wid=wid: kv_corruption.record(_wid))
+            kv_tier_metrics.set_source(engine.kv_tier_summary)
+        model_key = await register_model(
+            runtime, args.model, endpoint.path, tokenizer={"kind": "byte"},
+            kv_block_size=kv_block_size,
+        )
+        print(f"worker {runtime.worker_id} serving {args.inp} (model {args.model!r})", flush=True)
+        if on_serving is not None:
+            on_serving(runtime)
+        await _wait_forever()
+    finally:
+        if hasattr(engine, "set_event_callback"):
+            engine.set_event_callback(None)
+            engine.set_integrity_reporter(None)
+            kv_tier_metrics.set_source(None)
+        if metrics_pub is not None:
+            await metrics_pub.stop()
+        if model_key is not None:
+            await runtime.unregister_key(model_key)
+        if served is not None:
+            await served.stop()
+        if trace_exporter is not None:
+            # Final flush ships the last spans before the hub client closes
+            # (best effort: a dead hub just counts an export error).
+            await trace_exporter.stop()
+        await runtime.close()
+
+
+async def _run(args, on_serving: Optional[Callable] = None) -> None:
     """Serve ``args.inp`` through the pipeline onto ``args.out``.  With
     ``in=http``, ``on_serving`` is called with the service once it listens
-    (its ``port`` resolved); the server runs until this task is cancelled."""
+    (its ``port`` resolved); with ``in=dyn://…``, with the worker's
+    ``DistributedRuntime`` once the model is registered.  Servers run until
+    this task is cancelled (or SIGINT/SIGTERM in the main thread)."""
     inp = args.inp
-    if inp not in INPUTS and not inp.startswith("batch:"):
+    if inp not in INPUTS and not inp.startswith(("batch:", "dyn://")):
         raise SystemExit(
-            f"in={inp} is not supported by the port (it has in=http|text|stdin|batch:FILE|none; "
-            "workers over a hub are ROADMAP queue 1 item 10)"
+            f"in={inp} is not supported by the port "
+            "(it has in=http|text|stdin|batch:FILE|none|dyn://ns.comp.ep)"
+        )
+    if getattr(args, "disagg", None):
+        raise SystemExit(
+            f"--disagg {args.disagg}: disaggregated prefill/decode is not ported yet "
+            "(ROADMAP queue 1 item 10)"
         )
     tokenizer = _tokenizer(args)
     engine, level = _build_engine(args.out, args)
@@ -117,7 +330,9 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
     else:
         pipeline = engine
     try:
-        if inp == "http":
+        if inp.startswith("dyn://"):
+            await _serve_worker(args, engine, on_serving)
+        elif inp == "http":
             # Colocated engine: its live KV usage feeds the brownout ladder,
             # and its decode-dispatch health rides /metrics
             # (dynamo_tpu_engine_dispatch_*; llm/metrics.py).
@@ -185,8 +400,58 @@ async def _run(args, on_serving: Optional[Callable[[HttpService], None]] = None)
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_hub = sub.add_parser("hub", help="run the control-plane hub")
+    p_hub.add_argument("--host", default="0.0.0.0")
+    p_hub.add_argument("--port", type=int, default=6650)
+    p_hub.add_argument(
+        "--persist", default=None,
+        help="snapshot file: durable KV + queues survive hub restart",
+    )
+
+    p_http = sub.add_parser("http", help="standalone OpenAI frontend w/ discovery")
+    p_http.add_argument("--hub", required=True)
+    p_http.add_argument("--host", default="0.0.0.0")
+    p_http.add_argument("--port", type=int, default=8000, help="0 takes a free port")
+    p_http.add_argument(
+        "--router", default="round_robin", choices=["random", "round_robin", "kv"],
+        help="worker selection policy (kv = cache-aware)",
+    )
+    # Admission control / deadlines (runtime/resilience.py); defaults keep
+    # both disabled.
+    p_http.add_argument(
+        "--max-inflight", type=int, default=None, dest="max_inflight",
+        help="in-flight request cap (unset = unlimited)",
+    )
+    p_http.add_argument(
+        "--admission-queue", type=int, default=0, dest="admission_queue",
+        help="bounded wait queue beyond the cap; overflow sheds 429",
+    )
+    p_http.add_argument(
+        "--admission-timeout-s", type=float, default=1.0, dest="admission_timeout_s",
+        help="max queue wait before shedding 503",
+    )
+    p_http.add_argument(
+        "--deadline-s", type=float, default=None, dest="deadline_s",
+        help="default per-request deadline (504 on exhaustion)",
+    )
+    # QoS / overload control (llm/qos.py); defaults keep both disabled.
+    p_http.add_argument(
+        "--qos-rate", type=float, default=None, dest="qos_rate",
+        help="per-tenant sustained requests/s (token bucket; unset = off)",
+    )
+    p_http.add_argument(
+        "--qos-burst", type=float, default=None, dest="qos_burst",
+        help="per-tenant burst allowance (default 2x rate)",
+    )
+    p_http.add_argument(
+        "--brownout", action="store_true",
+        help="enable the brownout degradation ladder",
+    )
+
     p_run = sub.add_parser("run", help="in=… out=… launcher")
     p_run.add_argument("inout", nargs=2, metavar="in=/out=")
+    p_run.add_argument("--hub", default=None, help="host:port of the hub (in=dyn://…)")
     p_run.add_argument("--host", default="0.0.0.0")
     p_run.add_argument("--port", type=int, default=8000, help="0 takes a free port")
     p_run.add_argument("--model", default="echo", help="the served model name")
@@ -268,11 +533,14 @@ def build_parser() -> argparse.ArgumentParser:
                  "--lora-max-adapters", "--lora-rank"):
         p_run.add_argument(flag, type=int, default=None)
     p_run.add_argument("--lora", action="append", default=None, metavar="NAME=SPEC")
+    p_run.add_argument("--disagg", default=None, choices=["decode", "prefill"])
     return parser
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
+    if args.cmd != "run":
+        return args
     io = {}
     for part in args.inout:
         key, sep, value = part.partition("=")
@@ -291,8 +559,9 @@ def main(argv: Optional[list] = None) -> None:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     args = parse_args(argv)
+    run = {"hub": _run_hub, "http": _run_http_frontend, "run": _run}[args.cmd]
     try:
-        asyncio.run(_run(args))
+        asyncio.run(run(args))
     except KeyboardInterrupt:
         pass
 

@@ -610,6 +610,45 @@ class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncE
 
         return ResponseStream(gen(), request.ctx)
 
+    def set_event_callback(
+        self, callback: Optional[Callable[[KvCacheEvent], None]]
+    ) -> None:
+        """Attach/replace the KV event sink (e.g. a KvEventPublisher) after
+        construction — the CLI builds the engine before the runtime exists.
+
+        The sink is called on the running event loop's thread, in emission
+        order: an event emitted from a device thread (``asyncio.to_thread``)
+        hops over with ``call_soon_threadsafe``, and while such a hop is
+        pending, events emitted on the loop queue behind it (``call_soon``
+        shares the loop's FIFO ready queue).  None detaches."""
+        if callback is None:
+            self.kv._event_callback = None
+            return
+        loop = asyncio.get_running_loop()
+        loop_thread = threading.get_ident()
+        lock = threading.Lock()
+        pending = [0]  # hops scheduled and not yet delivered
+
+        def deliver(event: KvCacheEvent) -> None:
+            with lock:
+                pending[0] -= 1
+            callback(event)
+
+        def emit(event: KvCacheEvent) -> None:
+            with lock:
+                on_loop = threading.get_ident() == loop_thread
+                if on_loop and pending[0] == 0:
+                    hop = None
+                else:
+                    pending[0] += 1
+                    hop = loop.call_soon if on_loop else loop.call_soon_threadsafe
+            if hop is None:
+                callback(event)
+            else:
+                hop(deliver, event)
+
+        self.kv._event_callback = emit
+
     def metrics(self) -> ForwardPassMetrics:
         return ForwardPassMetrics(
             request_active_slots=self.scheduler.num_running,

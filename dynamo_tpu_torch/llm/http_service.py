@@ -18,16 +18,16 @@ included: admission control (``max_inflight`` and a bounded wait queue;
 (``x-deadline-s`` or body ``deadline_s``; the edge bounds every chunk
 wait and answers 504 mid-generation, or an SSE error event mid-stream;
 the 504 at dispatch answers an engine that raises
-``DeadlineExceededError`` from ``generate``, which takes a hop that
-enforces deadlines, the routed client of ROADMAP queue 1 item 10: the
-colocated engine of ``run`` enforces none), QoS (per-tenant quotas, priority
-classes and the brownout ladder, llm/qos.py) and request tracing
+``DeadlineExceededError`` from ``generate``, as the routed client does:
+the colocated engine of ``run`` enforces none), QoS (per-tenant quotas,
+priority classes and the brownout ladder, llm/qos.py), request tracing
 (``x-trace`` / ``nvext.trace``, ``GET /traces?recent=N`` and
-``/traces/{id}``).  Not ported yet: hub health (``/health``'s
-``hub_shards``), which needs the distributed runtime.
+``/traces/{id}``) and, behind a hub (the ``http`` command), the hub's
+health as ``/health``'s ``hub_shards`` and 503 while no worker is live.
 
 The ``ModelManager`` maps model name → chat/completion pipelines
-(http/service.rs:59-120).
+(http/service.rs:59-120); the ``http`` command's ModelWatcher
+(llm/discovery.py) adds and removes them as workers come and go.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Set
 from urllib.parse import parse_qs, unquote
 
 from ..labels import bounded_label
+from ..runtime.client import NoInstancesError, RemoteEngineError
 from ..runtime.engine import AsyncEngine, Context
 from ..runtime.resilience import (
     AdmissionController,
@@ -53,6 +54,7 @@ from ..runtime.resilience import (
 )
 from ..runtime.resilience import metrics as resilience_metrics
 from ..runtime.tracing import tracing_metrics
+from ..runtime.transports.shard import shard_metrics
 from .metrics import (
     Metrics,
     Status,
@@ -116,6 +118,10 @@ class ModelManager:
 
     def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
         self._completion[name] = engine
+
+    def remove_model(self, name: str) -> None:
+        self._chat.pop(name, None)
+        self._completion.pop(name, None)
 
     def chat_engine(self, name: str) -> Optional[AsyncEngine]:
         return self._chat.get(name)
@@ -316,6 +322,7 @@ class HttpService:
         kv_usage_fn=None,
         tracing=None,
         trace_aggregator=None,
+        hub=None,
     ):
         self.host = host
         self.port = port
@@ -348,6 +355,8 @@ class HttpService:
         # the CLI as a direct exporter sink: the engine is colocated).
         self.tracing = tracing
         self.trace_aggregator = trace_aggregator
+        # Hub client (``http`` command): /health reports its connectivity.
+        self.hub = hub
         self._server: Optional[asyncio.AbstractServer] = None
         self._connections: Set[asyncio.Task] = set()
         # path → (method, handler(conn, req) -> response, or None when the
@@ -512,6 +521,20 @@ class HttpService:
         body = {"status": "ok", "models": self.models.model_names()}
         if self.qos is not None and self.qos.ladder is not None:
             body["brownout"] = self.qos.ladder.state()
+        if self.hub is not None:
+            # Sharded client → per-shard connectivity; plain HubClient →
+            # one synthetic shard so the schema is the same either way.
+            shard_health = getattr(self.hub, "shard_health", None)
+            if shard_health is not None:
+                shards = shard_health()
+            else:
+                shards = [{
+                    "shard": getattr(self.hub, "address", ""),
+                    "connected": bool(getattr(self.hub, "connected", False)),
+                }]
+            body["hub_shards"] = shards
+            if not all(s["connected"] for s in shards):
+                body["status"] = "degraded"
         return _json_response(body)
 
     async def _metrics(self, conn: _Connection, req: _Request) -> _Response:
@@ -526,6 +549,7 @@ class HttpService:
             + kv_tier_metrics.render(prefix).encode()
             + kv_integrity_metrics.render(prefix).encode()
             + objstore_metrics.render(prefix).encode()
+            + shard_metrics.render(prefix).encode()
         )
         return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")
 
@@ -735,6 +759,15 @@ class HttpService:
         except ModelNotFoundError as e:
             guard.finish(Status.REJECTED)
             return _model_not_found(e.model, rid=ctx.id)
+        except RemoteEngineError as e:
+            # A worker's rejection, shipped over the service plane with its
+            # error kind (transports/service.py).
+            if e.kind == ModelNotFoundError.error_kind:
+                guard.finish(Status.REJECTED)
+                return _model_not_found(model, rid=ctx.id)
+            guard.finish(Status.ERROR)
+            logger.exception("engine rejected request")
+            return _error_response(500, str(e), rid=ctx.id)
         except ValueError as e:
             # Request-shape errors (bad fields, oversize prompt) are the
             # client's fault: 400, not 500.
@@ -745,6 +778,12 @@ class HttpService:
             guard.finish(Status.ERROR)
             logger.warning("request %s deadline exceeded at dispatch", ctx.id)
             return _error_response(504, str(e) or "deadline exceeded", rid=ctx.id)
+        except NoInstancesError as e:
+            # No live worker right now — transient capacity problem, not an
+            # internal fault: 503 so clients retry, never 500.
+            guard.finish(Status.REJECTED)
+            logger.warning("no instances for %s: %s", model, e)
+            return _error_response(503, str(e), rid=ctx.id, retry_after_s=1.0)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 — edge boundary
@@ -790,6 +829,9 @@ class HttpService:
             guard.finish(Status.ERROR)
             logger.warning("request %s deadline exceeded mid-generation", ctx.id)
             return _error_response(504, str(e) or "deadline exceeded", rid=ctx.id)
+        except NoInstancesError as e:
+            guard.finish(Status.REJECTED)
+            return _error_response(503, str(e), rid=ctx.id, retry_after_s=1.0)
         except Exception as e:  # noqa: BLE001
             guard.finish(Status.ERROR)
             logger.exception("stream failed")

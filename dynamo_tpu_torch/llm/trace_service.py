@@ -1,13 +1,13 @@
 """Trace assembly + the edge's request-trace glue.
 
-A copy of the JAX package's ``llm/trace_service.py`` for a colocated edge
-and engine.  ``TraceAggregator`` takes span batches from a
-``SpanExporter`` sink (runtime/tracing.py), assembles them by trace_id
+A copy of the JAX package's ``llm/trace_service.py``.  ``TraceAggregator``
+takes span batches from the hub event plane's ``traces`` subject
+(``start``; workers' ``SpanExporter``s publish there) or directly as a
+``SpanExporter`` sink (a colocated engine), assembles them by trace_id
 with a TTL, and serves the ``/traces/{id}`` / ``/traces?recent=N`` JSON
 views plus the per-hop TTFT decomposition rollup (DistServe-style
-TTFT-vs-TPOT attribution per phase).  Left for the distributed runtime:
-the hub event-plane subscription (``TraceAggregator.start``) and the bulk
-plane's ``make_bulk_span_sink`` / ``start_bulk_ingest``.
+TTFT-vs-TPOT attribution per phase).  Not ported yet: the bulk plane's
+``make_bulk_span_sink`` / ``start_bulk_ingest`` (ROADMAP queue 1 item 10).
 
 ``EdgeRequestTrace`` is the HTTP edge's per-request handle: it owns the
 root span (``edge.request``), the admission-wait span, the first-token
@@ -20,6 +20,8 @@ retroactively).
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import time
 from typing import Any, Dict, List, Optional
 
@@ -30,6 +32,8 @@ from ..runtime.tracing import (
     span,
     tracing_metrics,
 )
+
+logger = logging.getLogger(__name__)
 
 # The TTFT decomposition hops, in request order.  Each maps a rollup key to
 # the span names that attribute it (first match wins per span).
@@ -113,8 +117,9 @@ def ttft_decomposition(spans: List[Dict[str, Any]]) -> Dict[str, Any]:
 class TraceAggregator:
     """Assemble exported span batches by trace_id with TTL eviction.
 
-    Fed directly as an exporter sink (``ingest``): edge and engine share
-    a process.  A trace is ROOTED once a span with ``parent_id == None``
+    Feed it either by subscribing to the event plane (``start``) or
+    directly as an exporter sink (``ingest``) when edge and engine share a
+    process.  A trace is ROOTED once a span with ``parent_id == None``
     arrives (the edge/loadgen root); a trace whose TTL expires without one
     counts its spans as orphans — the cross-process-assembly health signal
     the goodput ladder's ``tracing`` block reports."""
@@ -133,6 +138,8 @@ class TraceAggregator:
         self._traces: Dict[str, Dict[str, Any]] = {}
         self.orphan_spans_total = 0
         self.evicted_total = 0
+        self._sub = None
+        self._task: Optional[asyncio.Task] = None
         tracing_metrics.set_aggregator_source(self.stats)
 
     # ------------------------------------------------------------- ingest
@@ -226,7 +233,42 @@ class TraceAggregator:
             "evicted": self.evicted_total,
         }
 
+    # ---------------------------------------------------------- event plane
+    async def start(self, namespace) -> "TraceAggregator":
+        """Subscribe to ``{namespace}.traces`` and assemble everything the
+        fleet publishes (the hub client re-arms the subscription across
+        hub restarts — transports/hub.py)."""
+        from ..runtime.tracing import TRACES_TOPIC
+
+        self._sub = await namespace.subscribe(TRACES_TOPIC)
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    async def _run(self) -> None:
+        from .kv_router.publisher import unpack_message
+
+        try:
+            async for msg in self._sub:
+                try:
+                    self.ingest(unpack_message(msg))
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 — malformed batch
+                    logger.warning("malformed span batch", exc_info=True)
+        except asyncio.CancelledError:
+            pass
+
     async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        if self._sub is not None and hasattr(self._sub, "aclose"):
+            await self._sub.aclose()
+            self._sub = None
         # Detach the /metrics gauge source IF it is still ours (a newer
         # aggregator may have replaced it): a stopped aggregator must not
         # keep feeding /metrics or be pinned in memory by the singleton.

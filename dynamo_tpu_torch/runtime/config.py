@@ -1,14 +1,14 @@
 """Layered runtime configuration: defaults < config file < environment.
 
 A trimmed copy of the JAX package's ``runtime/config.py``, as far as the
-sections something in this package reads: ``spec_decode``
-(engine/__init__.py), ``qos`` (the scheduler half in engine/__init__.py,
-the edge half in cli.py) and ``tracing`` (cli.py).  The ``resilience``
-section comes with its readers, the ``http`` command and the routed
-client (ROADMAP queue 1 item 10).  ``RuntimeConfig.from_layers()``
-merges an optional JSON file named by ``DYN_RUNTIME_CONFIG`` and then
-``DYN_*`` environment variables, later layers winning per key; every other
-section is ignored.
+keys something in this package reads: ``namespace`` (the event-plane
+namespace of the ``http`` edge's trace subscription and the worker's span
+export, cli.py), ``resilience`` (the routed client and the ``http``
+command), ``spec_decode`` (engine/__init__.py), ``qos`` (the scheduler
+half in engine/__init__.py, the edge half in cli.py) and ``tracing``
+(cli.py).  ``RuntimeConfig.from_layers()`` merges an optional JSON file
+named by ``DYN_RUNTIME_CONFIG`` and then ``DYN_*`` environment variables,
+later layers winning per key; every other key is ignored.
 
 Env mapping: ``DYN_<FIELD>`` (case-insensitive) sets a top-level field;
 double underscores nest (``DYN_SPEC_DECODE__K=8`` → ``spec_decode.k``).
@@ -68,7 +68,15 @@ def env_overrides(
 
 @dataclass
 class RuntimeConfig:
-    """The layered sections this package reads so far."""
+    """The layered keys this package reads so far."""
+
+    namespace: str = "dynamo"
+    # request-resilience knobs (runtime/resilience.py): retry_max_attempts,
+    # retry_base_delay_s, retry_max_delay_s, breaker_failure_threshold,
+    # breaker_reset_s, http_max_inflight, http_admission_queue,
+    # http_admission_timeout_s, request_deadline_s.  Nested env works:
+    # ``DYN_RESILIENCE__RETRY_MAX_ATTEMPTS=5``.
+    resilience: Dict[str, Any] = field(default_factory=dict)
 
     # Draft-free speculative decoding defaults (engine/config.py
     # SpecDecodeConfig keys).  build_torch_engine (out=torch) merges this section
@@ -100,4 +108,5 @@ class RuntimeConfig:
         if path:
             merged = _deep_merge(merged, _load_file(path))
         merged = _deep_merge(merged, env_overrides(environ))
-        return cls(**{f: dict(merged.get(f) or {}) for f in cls.__dataclass_fields__})
+        sections = {f: dict(merged.get(f) or {}) for f in cls.__dataclass_fields__ if f != "namespace"}
+        return cls(namespace=str(merged.get("namespace") or cls.namespace), **sections)

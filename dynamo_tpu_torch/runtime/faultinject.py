@@ -1,22 +1,55 @@
 """Deterministic fault injection, a copy of the JAX package's
-``runtime/faultinject.py`` registry.
+``runtime/faultinject.py`` registry with the hooks the port has so far.
 
-The port hooks one point so far, ``kv_corrupt``, a *data* fault: it flips
-one payload byte past the structural checks' vantage point, and the system
-under test is the KV integrity plane (engine/integrity.py) — detection
-before any scatter, descendant drop and negative cache, and a recompute
-that gives the same stream.  ``match`` names the plane: ``disk`` =
-``DiskKvStore.read`` after the OS read, ``objstore`` =
-``ObjectKvStore.read`` after the read, ``host`` = ``_restore_pass`` before
-the host→device copy.  Arm one plane (``kv_corrupt:disk``) or
-``kv_corrupt`` for all.
+Fault points (hooked where the failure would really occur, behind
+``faults.enabled`` so the disabled path costs one attribute read):
 
-Arming: programmatic (``faults.arm("kv_corrupt", match="disk", count=1)``)
-or from the environment — ``DYN_FAULTS`` is a comma-separated list of
-``point[:match][@level][#count]`` specs (``*`` matches everything; no
-``#count`` = until disarmed).  A ``count``-armed fault expires after
-firing ``count`` times.  ``faults.enabled`` is the single hot-path guard:
-every hook site reads it first, so nothing armed costs one attribute load.
+=================  =========================================  ==============
+point              hooked in                                  simulates
+=================  =========================================  ==============
+``connect_error``  ``transports/service.MuxConnection``       dead worker /
+                                                              refused dial
+``delay``          ``transports/service.ServiceServer``       slow worker
+                   (before the response prologue)             (stalls TTFB)
+``error_prologue`` ``transports/service.ServiceServer``       worker sick at
+                                                              stream setup
+``drop_mid_stream`` ``transports/service.ServiceServer``      worker killed
+                   (connection aborted after an item)         after 1st token
+``watch_stall``    ``transports/hub.HubState._notify``        hub partition:
+                                                              watchers stale
+``watch_error``    ``transports/hub.Watcher``                 watch stream
+                                                              crash
+``worker_crash``   ``transports/service.ServiceServer``       whole worker
+                   (aborts EVERY connection + stops           dies mid-step
+                   accepting; fires ``on_crash``)
+``hub_outage``     ``transports/hub.HubServer``               control plane
+                   (drops new + established connections       down
+                   while armed; disarm = hub back up)
+``slow_stream``    ``transports/service.ServiceServer``       straggler: ITL
+                   (``delay_s`` sleep before each item)       outlier worker
+``kv_corrupt``     the KV integrity boundaries (``match``     KV payload
+                   names the plane): ``disk`` =               bit-rot on the
+                   ``DiskKvStore.read`` after the OS read,    named medium;
+                   ``objstore`` = ``ObjectKvStore.read``,     the checksum
+                   ``host`` = ``_restore_pass`` before the    plane must
+                   host→device copy                           detect it
+=================  =========================================  ==============
+
+``kv_corrupt`` is a *data* fault: it flips one payload byte past the
+structural checks' vantage point, and the system under test is the KV
+integrity plane (engine/integrity.py) — detection before any scatter,
+descendant drop and negative cache, and a recompute that gives the same
+stream.  The JAX package's other points (``kv_pressure``, ``tenant_flood``,
+``hub_shard_kill``, the bulk plane's) come with the code they hook.
+
+Arming: programmatic (``faults.arm("connect_error", match=addr, count=2)``)
+or env-driven for subprocess workers — ``DYN_FAULTS`` is a comma-separated
+list of ``point[:match][@level][#count]`` specs (``match`` substring-matches
+the hook's key, and may itself contain ``:`` as in ``host:port``; ``*``
+matches everything; no ``#count`` = until disarmed), e.g.
+``DYN_FAULTS='connect_error:127.0.0.1:9001#2,delay:*'``.  A ``count``-armed
+fault expires after firing ``count`` times, so a test can kill exactly the
+first N dials and then watch recovery.
 """
 
 from __future__ import annotations
@@ -36,6 +69,7 @@ class _Fault:
     point: str
     match: str = "*"
     count: Optional[int] = None  # None = until disarmed
+    delay_s: float = 0.05  # only meaningful for the "delay" point
     fired: int = field(default=0)
 
     def matches(self, key: str) -> bool:
@@ -65,8 +99,9 @@ class FaultInjector:
         point: str,
         match: str = "*",
         count: Optional[int] = None,
+        delay_s: float = 0.05,
     ) -> _Fault:
-        fault = _Fault(point=point, match=match, count=count)
+        fault = _Fault(point=point, match=match, count=count, delay_s=delay_s)
         self._points.setdefault(point, []).append(fault)
         self.enabled = True
         logger.warning("fault armed: %s match=%r count=%s", point, match, count)
@@ -96,6 +131,10 @@ class FaultInjector:
                 return fault
         return None
 
+    def is_armed(self, point: str, key: str = "") -> bool:
+        """Non-consuming check (for faults that hold, e.g. watch_stall)."""
+        return self._find(point, key) is not None
+
     def should(self, point: str, key: str = "") -> bool:
         """Consuming check: counts one firing against a count-limited fault."""
         fault = self._find(point, key)
@@ -106,6 +145,16 @@ class FaultInjector:
             self._prune(point)
         logger.warning("fault fired: %s key=%r (%d)", point, key, fault.fired)
         return True
+
+    def delay_for(self, point: str, key: str = "") -> float:
+        """Consuming delay lookup: seconds to stall, or 0.0 if not armed."""
+        fault = self._find(point, key)
+        if fault is None:
+            return 0.0
+        fault.fired += 1
+        if fault.exhausted:
+            self._prune(point)
+        return fault.delay_s
 
     def _prune(self, point: str) -> None:
         kept = [f for f in self._points.get(point, []) if not f.exhausted]
@@ -118,9 +167,7 @@ class FaultInjector:
     # -- env ----------------------------------------------------------------
 
     def load_env(self, raw: Optional[str] = None) -> None:
-        """Parse ``DYN_FAULTS`` (``point[:match][@level][#count]`` list; a
-        level, the JAX package's magnitude for its transport points, is
-        parsed off and unused here)."""
+        """Parse ``DYN_FAULTS`` (``point[:match][@level][#count]`` list)."""
         raw = os.environ.get(ENV_VAR, "") if raw is None else raw
         for spec in filter(None, (s.strip() for s in raw.split(","))):
             count: Optional[int] = None
@@ -129,15 +176,15 @@ class FaultInjector:
                 spec, _, count_s = spec.rpartition("#")
                 if count_s.isdigit():
                     count = int(count_s)
+            delay_s = 0.05
             if "@" in spec:
-                head, _, level_s = spec.rpartition("@")
+                spec, _, level_s = spec.rpartition("@")
                 try:
-                    float(level_s)
-                    spec = head
+                    delay_s = float(level_s)
                 except ValueError:
-                    pass  # not a level: part of the match
+                    spec = f"{spec}@{level_s}"  # not a level; restore
             point, _, match = spec.partition(":")
-            self.arm(point, match=match or "*", count=count)
+            self.arm(point, match=match or "*", count=count, delay_s=delay_s)
 
 
 faults = FaultInjector()

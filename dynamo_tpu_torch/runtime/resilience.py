@@ -1,23 +1,32 @@
-"""Request-resilience primitives of the HTTP edge: deadlines, admission.
+"""Request-resilience primitives: retries, deadlines, breakers, admission.
 
-The part of the JAX package's ``runtime/resilience.py`` that the edge
-uses: ``Deadline``, ``AdmissionController`` and ``ResilienceMetrics``.
-``RetryPolicy``, ``CircuitBreaker`` and the config-built admission
-controller come with their reader, the routed client (ROADMAP queue 1
-item 10).
+A copy of the JAX package's ``runtime/resilience.py``.
 
+Reference semantics: SURVEY §5 "Failure detection / elastic".  The lease
+plane (transports/hub.py) detects a dead worker only after its TTL expires;
+between the crash and the expiry every routed request would land on a corpse.
+This module closes that window at the request level:
+
+- ``RetryPolicy``     — bounded attempts, exponential backoff with FULL
+  jitter (the AWS-architecture-blog shape: ``sleep = rand(0, min(cap,
+  base * 2**attempt))``), so a thundering herd of failing clients decorrelates
+  instead of synchronizing on the backoff ladder.
 - ``Deadline``        — a wall-clock budget carried on the request context and
   decremented across hops (client pick → connect → first token → disagg
   transfer wait); the HTTP edge maps exhaustion to 504.
+- ``CircuitBreaker``  — per-worker-address connect/prologue health: CLOSED →
+  OPEN after N consecutive failures, then a single HALF_OPEN probe after the
+  reset window; success closes, failure re-opens.  Routing skips OPEN workers
+  so a corpse stops eating retry budget after the first few requests.
 - ``AdmissionController`` — HTTP-edge load shedding: an in-flight cap plus a
   bounded FIFO wait queue.  Queue overflow sheds immediately with 429; a
   queued request that cannot get a slot within the wait budget sheds with
   503.  Both carry ``Retry-After`` (lib/llm http service returns 429 on
   model-busy; the cap here is service-wide).
-- ``ResilienceMetrics`` — process-global counters rendered as Prometheus
-  text and appended to the existing ``/metrics`` exposition
-  (llm/http_service.py), so shed counts are observable without a new
-  scrape target.
+- ``ResilienceMetrics`` — process-global counters + breaker-state gauges
+  rendered as Prometheus text and appended to the existing ``/metrics``
+  exposition (llm/http_service.py), so breaker opens and shed counts are
+  observable without a new scrape target.
 
 Everything here is pure host-side asyncio/stdlib — no device work, no new deps.
 """
@@ -25,11 +34,14 @@ Everything here is pure host-side asyncio/stdlib — no device work, no new deps
 from __future__ import annotations
 
 import asyncio
+import enum
+import random
 import time
 from collections import deque
+from dataclasses import dataclass
 
 from ..labels import escape_label
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 
 # --------------------------------------------------------------------------
@@ -75,6 +87,123 @@ class Deadline:
 def deadline_of(ctx) -> Optional[Deadline]:
     """The Deadline attached to an AsyncEngineContext (or None)."""
     return getattr(ctx, "deadline", None)
+
+
+# --------------------------------------------------------------------------
+# Retry policy
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded retries with exponential backoff and full jitter."""
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    # Injectable jitter source: seeded chaos-ladder / sim runs pass a
+    # random.Random(seed) so backoff schedules replay exactly; production
+    # keeps full-jitter from the process RNG.
+    rng: Optional[random.Random] = None
+
+    def backoff(self, attempt: int) -> float:
+        """Sleep before retry ``attempt`` (1-based): rand(0, min(cap, base·2ⁿ))."""
+        cap = min(self.max_delay_s, self.base_delay_s * (2 ** max(attempt - 1, 0)))
+        return (self.rng or random).uniform(0.0, cap)
+
+    @classmethod
+    def from_config(cls, cfg: Optional[Mapping[str, Any]]) -> "RetryPolicy":
+        cfg = cfg or {}
+        return cls(
+            max_attempts=int(cfg.get("retry_max_attempts", cls.max_attempts)),
+            base_delay_s=float(cfg.get("retry_base_delay_s", cls.base_delay_s)),
+            max_delay_s=float(cfg.get("retry_max_delay_s", cls.max_delay_s)),
+        )
+
+
+# --------------------------------------------------------------------------
+# Circuit breaker
+# --------------------------------------------------------------------------
+
+
+class BreakerState(enum.Enum):
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half_open"
+
+
+class CircuitBreaker:
+    """Per-worker connect/stream-prologue health with a half-open probe.
+
+    Only CONNECT-time and prologue failures trip the breaker — an engine
+    raising on a malformed request is the request's fault, not the worker's.
+    """
+
+    def __init__(
+        self,
+        key: str = "",
+        failure_threshold: int = 3,
+        reset_timeout_s: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.key = key
+        self.failure_threshold = max(1, failure_threshold)
+        self.reset_timeout_s = reset_timeout_s
+        self._clock = clock
+        self._state = BreakerState.CLOSED
+        self._consecutive_failures = 0
+        self._opened_at = 0.0
+
+    @property
+    def state(self) -> BreakerState:
+        return self._state
+
+    def can_attempt(self) -> bool:
+        """Pure check: may this worker receive a request right now?"""
+        if self._state is BreakerState.CLOSED:
+            return True
+        if self._state is BreakerState.OPEN:
+            return (self._clock() - self._opened_at) >= self.reset_timeout_s
+        return False  # HALF_OPEN: one probe already in flight
+
+    def on_attempt(self) -> None:
+        """Mark a request dispatched; OPEN past the reset window → HALF_OPEN
+        (this attempt IS the probe; concurrent picks skip the worker)."""
+        if self._state is BreakerState.OPEN and self.can_attempt():
+            self._transition(BreakerState.HALF_OPEN)
+
+    def record_success(self) -> None:
+        self._consecutive_failures = 0
+        if self._state is not BreakerState.CLOSED:
+            self._transition(BreakerState.CLOSED)
+
+    def release_probe(self) -> None:
+        """The in-flight half-open probe ended inconclusively (deadline hit,
+        caller cancelled, non-retryable request error — none of which prove
+        the WORKER sick or healthy): return to OPEN keeping the original
+        open timestamp, so the next pick may probe immediately.  Without
+        this the breaker wedges in HALF_OPEN (can_attempt always False) and
+        a recovered worker is excluded from routing forever."""
+        if self._state is BreakerState.HALF_OPEN:
+            self._transition(BreakerState.OPEN)
+
+    def record_failure(self) -> None:
+        self._consecutive_failures += 1
+        if self._state is BreakerState.HALF_OPEN:
+            self._opened_at = self._clock()
+            self._transition(BreakerState.OPEN)
+        elif (
+            self._state is BreakerState.CLOSED
+            and self._consecutive_failures >= self.failure_threshold
+        ):
+            self._opened_at = self._clock()
+            self._transition(BreakerState.OPEN)
+
+    def _transition(self, state: BreakerState) -> None:
+        self._state = state
+        metrics.breaker_transitions[(self.key, state.value)] = (
+            metrics.breaker_transitions.get((self.key, state.value), 0) + 1
+        )
 
 
 # --------------------------------------------------------------------------
@@ -226,13 +355,14 @@ class AdmissionController:
             pass
 
 
+
 # --------------------------------------------------------------------------
 # Metrics (appended to the existing Prometheus exposition)
 # --------------------------------------------------------------------------
 
 
 class ResilienceMetrics:
-    """Process-global resilience counters.
+    """Process-global resilience counters + breaker gauges.
 
     Rendered as Prometheus text by ``render()`` and appended to the HTTP
     service's ``/metrics`` body — plain ints, no prometheus_client registry,
@@ -259,6 +389,20 @@ class ResilienceMetrics:
         self.hub_sessions_resumed_total = 0
         self.hub_requeued_items_total = 0
         self.admission_shed: Dict[str, int] = {}
+        self.breaker_transitions: Dict[Tuple[str, str], int] = {}
+        self._breakers: Dict[str, CircuitBreaker] = {}
+
+    def register_breaker(self, breaker: CircuitBreaker) -> CircuitBreaker:
+        self._breakers[breaker.key] = breaker
+        return breaker
+
+    def unregister_breaker(self, key: str) -> None:
+        """Drop a departed worker's gauge (clients prune on instance removal
+        so restart-churned ephemeral addresses don't accumulate forever)."""
+        self._breakers.pop(key, None)
+
+    def breaker_states(self) -> Dict[str, str]:
+        return {k: b.state.value for k, b in self._breakers.items()}
 
     def reset(self) -> None:
         self.__init__()
@@ -306,13 +450,22 @@ class ResilienceMetrics:
         lines.append(f"# TYPE {ns}_admission_shed_total counter")
         for code, n in sorted(self.admission_shed.items()):
             lines.append(f'{ns}_admission_shed_total{{status="{escape_label(code)}"}} {n}')
-        # The breaker families, empty until the routed client registers
-        # breakers (ROADMAP queue 1 item 10); kept so the exposition is the
-        # JAX edge's line for line.
+        # Breaker state gauge: 0=closed 1=half_open 2=open
+        state_code = {"closed": 0, "half_open": 1, "open": 2}
         lines.append(f"# HELP {ns}_breaker_state Circuit state (0=closed 1=half-open 2=open)")
         lines.append(f"# TYPE {ns}_breaker_state gauge")
+        for key, b in sorted(self._breakers.items()):
+            lines.append(
+                f'{ns}_breaker_state{{worker="{escape_label(key)}"}} '
+                f"{state_code[b.state.value]}"
+            )
         lines.append(f"# HELP {ns}_breaker_transitions_total Breaker state transitions")
         lines.append(f"# TYPE {ns}_breaker_transitions_total counter")
+        for (key, state), n in sorted(self.breaker_transitions.items()):
+            lines.append(
+                f'{ns}_breaker_transitions_total{{worker="{escape_label(key)}",'
+                f'to="{escape_label(state)}"}} {n}'
+            )
         return "\n".join(lines) + "\n"
 
 

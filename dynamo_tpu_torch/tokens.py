@@ -24,6 +24,8 @@ import struct
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 HASH_SEED = 1337
 
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -78,13 +80,89 @@ def xxh64(data: bytes, seed: int = 0) -> int:
 try:
     import xxhash
 
+    USING_XXHASH = True
+
     def _hash_bytes(data: bytes) -> int:
         return xxhash.xxh64_intdigest(data, seed=HASH_SEED)
 
 except ImportError:  # the same function, in Python
+    USING_XXHASH = False
 
     def _hash_bytes(data: bytes) -> int:
         return xxh64(data, HASH_SEED)
+
+
+# -- XXH64 over many equal-length blocks at once (numpy uint64 lanes) --------
+
+_U = np.uint64
+
+
+def _rotl_np(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << _U(r)) | (x >> _U(64 - r))
+
+
+def _round_np(acc: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    return _rotl_np(acc + lane * _U(_P2), 31) * _U(_P1)
+
+
+def block_hashes_np(tokens: Sequence[int], block_size: int) -> List[int]:
+    """Local hashes of every complete ``block_size`` block of ``tokens``:
+    ``compute_block_hash`` of each block, computed for all blocks at once
+    with one uint64 lane per block (uint64 arithmetic wraps mod 2**64, as
+    XXH64's does)."""
+    nb = len(tokens) // block_size
+    if nb == 0:
+        return []
+    toks = np.asarray(tokens[: nb * block_size], dtype="<u4").reshape(nb, block_size)
+    n = 4 * block_size
+    words = np.ascontiguousarray(toks[:, : 2 * (block_size // 2)]).view("<u8")
+    seed = _U(HASH_SEED)
+    with np.errstate(over="ignore"):
+        i = 0  # next 8-byte word
+        if n >= 32:
+            v = [np.full(nb, (HASH_SEED + _P1 + _P2) & _M64, dtype=_U),
+                 np.full(nb, (HASH_SEED + _P2) & _M64, dtype=_U),
+                 np.full(nb, seed, dtype=_U),
+                 np.full(nb, (HASH_SEED - _P1) & _M64, dtype=_U)]
+            while 8 * i + 32 <= n:
+                v = [_round_np(v[k], words[:, i + k]) for k in range(4)]
+                i += 4
+            h = _rotl_np(v[0], 1) + _rotl_np(v[1], 7) + _rotl_np(v[2], 12) + _rotl_np(v[3], 18)
+            for a in v:
+                h = (h ^ _round_np(_U(0), a)) * _U(_P1) + _U(_P4)
+        else:
+            h = np.full(nb, (HASH_SEED + _P5) & _M64, dtype=_U)
+        h = h + _U(n)
+        while 8 * i + 8 <= n:
+            h ^= _round_np(_U(0), words[:, i])
+            h = _rotl_np(h, 27) * _U(_P1) + _U(_P4)
+            i += 1
+        if 8 * i + 4 <= n:  # an odd block size leaves one token
+            h ^= toks[:, -1].astype(_U) * _U(_P1)
+            h = _rotl_np(h, 23) * _U(_P2) + _U(_P3)
+        h ^= h >> _U(33)
+        h = h * _U(_P2)
+        h ^= h >> _U(29)
+        h = h * _U(_P3)
+        h ^= h >> _U(32)
+    return h.tolist()
+
+
+_CHAIN_INIT = (HASH_SEED + _P5 + 16) & _M64
+
+
+def _chain16(parent: int, local: int) -> int:
+    """``chain_hash`` in Python: XXH64 of the 16 bytes parent || local."""
+    h = _CHAIN_INIT
+    for lane in (parent, local):  # _round and _rotl, inlined
+        lane = (lane * _P2) & _M64
+        h ^= ((((lane << 31) | (lane >> 33)) & _M64) * _P1) & _M64
+        h = ((((h << 27) | (h >> 37)) & _M64) * _P1 + _P4) & _M64
+    h ^= h >> 33
+    h = (h * _P2) & _M64
+    h ^= h >> 29
+    h = (h * _P3) & _M64
+    return h ^ (h >> 32)
 
 
 def _pack_tokens(tokens: Sequence[int]) -> bytes:
@@ -199,3 +277,25 @@ def hash_token_blocks(
 ) -> List[TokenBlock]:
     """One-shot helper: hash all complete blocks of ``tokens``."""
     return TokenBlockSequence(tokens, block_size, salt).blocks
+
+
+def fast_sequence_hashes(
+    tokens: Sequence[int], block_size: int, salt: Optional[str] = None
+) -> List[int]:
+    """Chained sequence hashes of all complete blocks — the router's hot path
+    (one call per routed request over the full prompt), bit-identical to
+    ``hash_token_blocks``.  Without xxhash the blocks' local hashes are
+    computed at once in numpy lanes (``block_hashes_np``) and the chain
+    step, which is sequential, runs the 16-byte XXH64 in Python."""
+    parent = salt_hash(salt)
+    out: List[int] = []
+    if USING_XXHASH:
+        for local in (compute_block_hash(tokens[i:i + block_size])
+                      for i in range(0, len(tokens) - block_size + 1, block_size)):
+            parent = chain_hash(parent, local)
+            out.append(parent)
+        return out
+    for local in block_hashes_np(tokens, block_size):
+        parent = _chain16(parent or 0, local)
+        out.append(parent)
+    return out

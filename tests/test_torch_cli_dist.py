@@ -1,0 +1,356 @@
+"""The port's distributed stack as real processes, as the README deploys it.
+
+``python -m dynamo_tpu_torch.cli hub``, ``run in=dyn://… out=…`` workers
+and ``http --router kv`` (``tests/test_cli_e2e.py``'s three-process
+serving, on the port):
+
+- with echo workers, the port's stack answers the same requests as the
+  JAX package's three-process stack: statuses, texts, finish reasons and
+  usage (the echo engine makes the answers engine-independent; the
+  engines' own parity is tests/test_torch_router.py's);
+- with ``out=torch --device cpu`` workers (debug-tiny, f32): a completion
+  of 5 tokens, ``/metrics`` and ``/health``'s ``hub_shards``; then a
+  second worker, and the worker serving a greedy stream is SIGKILLed
+  mid-stream: the stream completes on the survivor, identical to the
+  uninterrupted stream, the frontend's resume counter rises, and the dead
+  instance leaves discovery within the lease TTL plus 1 s.
+
+The port's children run in interpreters where aiohttp, pydantic,
+prometheus_client, jinja2, tokenizers, xxhash and msgpack cannot be
+imported, as on the card's machine.  Every child gets
+``conftest.hermetic_child_env`` and every wait its own timeout; all
+children are killed at the end.
+"""
+
+import asyncio
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+pytestmark = pytest.mark.torch_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENDPOINT = "in=dyn://dynamo.TorchWorker.generate"
+TINY = ["--arch", "debug-tiny", "--dtype", "float32", "--device", "cpu", "--block-size", "4",
+        "--num-blocks", "64", "--max-batch", "2", "--max-model-len", "128",
+        "--prefill-chunk", "32", "--decode-steps", "1"]
+LEASE_TTL_S = 10.0  # DistributedRuntime.DEFAULT_LEASE_TTL
+# The card's machine has none of these; the port's processes run without
+# them (the codec writes msgpack itself, tokens.py hashes without xxhash).
+WITHOUT_ABSENT_PACKAGES = (
+    "import sys\n"
+    "for m in ('aiohttp', 'pydantic', 'prometheus_client', 'jinja2', 'tokenizers', 'xxhash',\n"
+    "          'msgpack'):\n"
+    "    sys.modules[m] = None\n"
+    "from dynamo_tpu_torch.cli import main\n"
+    "main()\n"
+)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Proc:
+    """A CLI child whose output is collected by a thread (the pipe never
+    fills) and can be waited on line by line."""
+
+    def __init__(self, pkg, *args, env=None):
+        from conftest import hermetic_child_env
+
+        entry = (["-c", WITHOUT_ABSENT_PACKAGES] if pkg == "dynamo_tpu_torch"
+                 else ["-m", f"{pkg}.cli"])
+        self.p = subprocess.Popen(
+            [sys.executable, *entry, *args],
+            env=hermetic_child_env(REPO) | {"DYN_LOG": "warning"} | (env or {}),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        self.lines = []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.p.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_line(self, prefix, timeout=60.0):
+        end = time.time() + timeout
+        while time.time() < end:
+            for line in self.lines:
+                if line.startswith(prefix):
+                    return line
+            if self.p.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"no {prefix!r} line: {self.lines[-20:]}")
+
+    def kill(self):
+        if self.p.poll() is None:
+            self.p.kill()
+        try:
+            self.p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def _wait_tcp(port, timeout=30.0):
+    end = time.time() + timeout
+    while time.time() < end:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            time.sleep(0.1)
+    raise AssertionError(f"port {port} never accepted connections")
+
+
+def _http(base, method, path, body=None, timeout=60):
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _wait_model(base, name, timeout=60.0):
+    end = time.time() + timeout
+    while time.time() < end:
+        try:
+            status, raw = _http(base, "GET", "/v1/models", timeout=5)
+            if status == 200 and any(m["id"] == name for m in json.loads(raw)["data"]):
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"model {name!r} never registered at {base}")
+
+
+def _stack(pkg, worker_args, env=None, router="kv"):
+    """hub + one worker + http frontend of ``pkg``; returns (procs, hub, base)."""
+    hub_port, http_port = _free_port(), _free_port()
+    procs = [Proc(pkg, "hub", "--host", "127.0.0.1", "--port", str(hub_port))]
+    _wait_tcp(hub_port)
+    hub = f"127.0.0.1:{hub_port}"
+    procs.append(Proc(pkg, "run", ENDPOINT, *worker_args, "--hub", hub, env=env))
+    procs.append(Proc(pkg, "http", "--hub", hub, "--host", "127.0.0.1", "--port", str(http_port),
+                      "--router", router))
+    return procs, hub, f"http://127.0.0.1:{http_port}"
+
+
+def _mask(obj):
+    """Drop per-response ids and timestamps."""
+    if isinstance(obj, dict):
+        return {k: _mask(v) for k, v in obj.items() if k not in ("id", "created")}
+    if isinstance(obj, list):
+        return [_mask(v) for v in obj]
+    return obj
+
+
+REQUESTS = [
+    ("POST", "/v1/completions", {"model": "echo", "prompt": [72, 101, 108, 108, 111, 33],
+                                 "max_tokens": 5, "nvext": {"ignore_eos": True}}),
+    ("POST", "/v1/completions", {"model": "echo", "prompt": [72, 105], "max_tokens": 5,
+                                 "stream": True, "nvext": {"ignore_eos": True}}),
+    ("POST", "/v1/chat/completions", {"model": "echo", "max_tokens": 8,
+                                      "messages": [{"role": "user", "content": "hello there"}]}),
+    ("POST", "/v1/completions", {"model": "nope", "prompt": "x", "max_tokens": 2}),
+    ("POST", "/v1/completions", {"model": "echo", "max_tokens": 2}),
+    ("GET", "/v1/models", None),
+]
+
+
+def _answers(base):
+    out = []
+    for method, path, body in REQUESTS:
+        status, raw = _http(base, method, path, body)
+        if body is not None and body.get("stream"):
+            events = [ln[len("data: "):] for ln in raw.decode().splitlines() if ln.startswith("data: ")]
+            parsed = [e if e == "[DONE]" else _mask(json.loads(e)) for e in events]
+        else:
+            parsed = _mask(json.loads(raw))
+        if status == 400:
+            # Validation wording is pydantic's on the JAX edge, the port's
+            # own validator's here (tests/test_torch_llm.py holds the two).
+            parsed["error"].pop("message")
+        out.append((status, parsed))
+    return out
+
+
+def test_three_process_stacks_answer_alike():
+    stacks = {}
+    try:
+        for pkg in ("dynamo_tpu", "dynamo_tpu_torch"):
+            stacks[pkg] = _stack(pkg, ["out=echocore", "--model", "echo"])
+        answers = {}
+        for pkg, (procs, hub, base) in stacks.items():
+            _wait_model(base, "echo")
+            answers[pkg] = _answers(base)
+            status, raw = _http(base, "GET", "/health")
+            health = json.loads(raw)
+            assert status == 200 and health["status"] == "ok"
+            assert health["hub_shards"] == [{"shard": hub, "connected": True}]
+        assert answers["dynamo_tpu_torch"] == answers["dynamo_tpu"]
+        statuses = [s for s, _ in answers["dynamo_tpu_torch"]]
+        assert statuses == [200, 200, 200, 404, 400, 200]
+        unary = answers["dynamo_tpu_torch"][0][1]
+        assert unary["choices"][0]["finish_reason"] == "length"
+        assert unary["usage"]["completion_tokens"] == 5
+    finally:
+        for procs, _, _ in stacks.values():
+            for p in procs:
+                p.kill()
+
+
+def _instances(hub):
+    """worker ids under the endpoint's instance prefix (the port's hub client)."""
+    from dynamo_tpu_torch.runtime.transports.hub import HubClient
+
+    async def go():
+        c = await HubClient(hub).connect()
+        try:
+            keys = await c.kv_get_prefix("instances/dynamo/TorchWorker/generate/")
+            return {int(k.rsplit("/", 1)[1]) for k in keys}
+        finally:
+            await c.close()
+
+    return asyncio.run(go())
+
+
+def _resumes(base):
+    _, raw = _http(base, "GET", "/metrics")
+    for line in raw.decode().splitlines():
+        if line.startswith("dynamo_tpu_resilience_stream_resumes_total "):
+            return float(line.split()[1])
+    raise AssertionError("no resume counter on /metrics")
+
+
+def _stream(base, body, on_chunk=None, timeout=120):
+    """A streamed completion read chunk by chunk; returns (text, finish)."""
+    req = urllib.request.Request(base + "/v1/completions", method="POST",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    text, finish, n = "", None, 0
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[len("data: "):])
+            for c in chunk.get("choices", []):
+                text += c.get("text") or ""
+                finish = c.get("finish_reason") or finish
+            n += 1
+            if on_chunk is not None:
+                on_chunk(n)
+    return text, finish
+
+
+def test_torch_workers_serve_and_resume_after_sigkill():
+    # Each streamed item waits 50 ms on the worker (the slow_stream fault
+    # point), so a kill after a few chunks lands mid-stream.
+    slow = {"DYN_FAULTS": "slow_stream:*@0.05"}
+    procs, hub, base = _stack("dynamo_tpu_torch", ["out=torch", "--model", "tiny", *TINY],
+                              env=slow)
+    try:
+        first = int(procs[1].wait_line("worker ").split()[1])
+        _wait_model(base, "tiny")
+        status, raw = _http(base, "POST", "/v1/completions", {
+            "model": "tiny", "prompt": [5, 17, 33, 2, 250, 9, 61], "max_tokens": 5,
+            "nvext": {"ignore_eos": True}})
+        body = json.loads(raw)
+        assert status == 200 and body["choices"][0]["finish_reason"] == "length"
+        assert body["usage"]["completion_tokens"] == 5
+        status, raw = _http(base, "GET", "/metrics")
+        assert status == 200 and b"dynamo_tpu_http_service_requests_total" in raw
+        health = json.loads(_http(base, "GET", "/health")[1])
+        assert health["hub_shards"] == [{"shard": hub, "connected": True}]
+
+        procs.append(Proc("dynamo_tpu_torch", "run", ENDPOINT, "out=torch", "--model", "tiny",
+                          *TINY, "--hub", hub, env=slow))
+        second = int(procs[3].wait_line("worker ").split()[1])
+        by_id = {first: procs[1], second: procs[3]}
+        end = time.time() + 60
+        while _instances(hub) != {first, second}:
+            assert time.time() < end, "the second worker never registered"
+            time.sleep(0.2)
+
+        greedy = {"model": "tiny", "prompt": list(range(40, 64)), "max_tokens": 30,
+                  "temperature": 0.0, "nvext": {"ignore_eos": True}}
+        want = _stream(base, greedy)
+        assert want[1] == "length"
+        # The repeat routes to the worker holding its prefix; which one that
+        # is, the router's hit-rate event says.
+        from dynamo_tpu_torch.runtime.transports.hub import HubClient
+
+        async def next_hit(started):
+            c = await HubClient(hub).connect()
+            try:
+                sub = await c.subscribe("dynamo.TorchWorker.kv-hit-rate")
+                started.set()
+                _, hit = await asyncio.wait_for(sub.__anext__(), 60)
+                await sub.aclose()
+                return hit
+            finally:
+                await c.close()
+
+        started, hit = threading.Event(), {}
+        t = threading.Thread(target=lambda: hit.update(asyncio.run(next_hit(started))))
+        t.start()
+        assert started.wait(30)
+        time.sleep(0.2)
+        before = _resumes(base)
+        killed = {}
+
+        def kill_after(n):
+            if n == 4 and not killed:
+                t.join(30)
+                victim = hit["worker_id"]
+                by_id[victim].p.send_signal(signal.SIGKILL)
+                killed.update(worker=victim, at=time.monotonic())
+
+        got = _stream(base, greedy, on_chunk=kill_after)
+        assert killed, "the stream ended before the kill"
+        assert hit["overlap_blocks"] == len(greedy["prompt"]) // 4
+        assert got == want
+        assert _resumes(base) == before + 1
+        survivor = (set(by_id) - {killed["worker"]}).pop()
+        while _instances(hub) != {survivor}:
+            assert time.monotonic() - killed["at"] < LEASE_TTL_S + 1.0, _instances(hub)
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            p.kill()
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1", "--disagg", "decode"], {}),
+    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}),
+    (["http", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}),
+], ids=["disagg", "bulk-plane-worker", "bulk-plane-http"])
+def test_cli_refuses_what_waits(argv, env, monkeypatch):
+    """Options of the JAX commands whose code is not ported fail, naming
+    where they wait, before anything dials the hub."""
+    from dynamo_tpu_torch import cli
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    args = cli.parse_args(argv)
+    run = cli._run if args.cmd == "run" else cli._run_http_frontend
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 10"):
+        asyncio.run(run(args))

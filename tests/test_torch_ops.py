@@ -408,9 +408,10 @@ def test_package_imports_no_jax_and_no_module_level_triton():
     files = list((root / "dynamo_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the
-    # disk tier names bf16/fp8 by string, never through ml_dtypes).
+    # disk tier names bf16/fp8 by string, never through ml_dtypes; the
+    # service plane's codec writes msgpack itself).
     absent = {"aiohttp", "pydantic", "prometheus_client", "jinja2", "tokenizers", "xxhash",
-              "ml_dtypes"}
+              "ml_dtypes", "msgpack"}
     allowed = {("tokens.py", "xxhash")}
     bad = []
     for path in files:
