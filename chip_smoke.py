@@ -144,9 +144,34 @@ Phases, any failure exits non-zero:
      none of its blocks; on A no graph is captured and no
      ``torch.cuda.synchronize`` runs while serving, and both kernels
      launch; the router's hashing of 2048 ids is timed on this host;
+  i. the README's disaggregated deployment (``cli hub``; ``run
+     in=dyn://… --disagg prefill``; ``run in=dyn://… --disagg decode
+     --max-local-prefill 512``; ``http``) at phase 6's geometry: the hub,
+     the frontend and the prefill worker P are subprocesses of the CLI; the
+     decode worker D runs the CLI's own ``--disagg decode`` code in this
+     process (its launches counted), warmed before traffic.  8 greedy
+     prompts of 2040 ids (127 full blocks and an 8-id tail), 64 new tokens,
+     one at a time through the frontend: each prefilled on P, its blocks
+     pushed chunk by chunk into D's pages, 8 remote prefills and none
+     local or degraded, 8 x 127 blocks wire-verified, each stream
+     identical to D's engine serving the prompt alone in the same shapes,
+     and an imported block's pages bitwise equal to D's own; the live
+     threshold (``publish_config`` 4096, then 512: 4 prompts local, 4
+     remote); 4 remote prompts while a long stream decodes (decode
+     dispatches between D's inject entries; each inject's lock hold beside
+     the fused dispatch); a byte flipped on the wire in one chunk (the
+     verified prefix seals and hits, D prefills the rest, the stream
+     identical, one corruption on the integrity /metrics group); no graph
+     captured and no ``torch.cuda.synchronize`` on D, both kernels
+     launched.  Then, P stopped, a prefill engine P' in this process and
+     ``transfer_blocks_device`` of 127 blocks into D: pages bitwise equal,
+     no host bytes, no graph, no sync; timed beside the host-staged path
+     for the same blocks (P''s export, the wire into D's ``kv_import``,
+     D's inject, by part), with the remote against local TTFT and the
+     chunk sizes P's adaptive sizing reached;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g and h beside phase 6's and 7's), then the device
-     line last.
+     phases c, d, e, f, g, h and i beside phase 6's and 7's), then the
+     device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -3396,6 +3421,423 @@ def dist_path(torch):
     return not fails, launches, numbers
 
 
+DISAGG_PREFILL_ENDPOINT = "dyn://dynamo.TorchWorker.prefill"
+DISAGG_THRESHOLD = 512  # --max-local-prefill of the decode worker
+DISAGG_ISL = 2040  # 127 full blocks and an 8-id tail: D prefills the tail
+DISAGG_OSL = 64
+DISAGG_PROMPTS, DISAGG_LIVE, DISAGG_OVERLAP, DISAGG_WARM = 8, 4, 4, 2
+DISAGG_LONG_ISL, DISAGG_LONG_OSL = 256, 1536  # the stream decoding under the imports
+DISAGG_CHECK_BLOCK = 100  # the block whose pages are held bitwise
+DISAGG_CHUNK_RE = re.compile(r"next chunk to \S+: (\d+) blocks")
+
+
+def disagg_path(torch):
+    """Phase i: the README's disaggregated deployment on the card.  Returns
+    (ok, launches, numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.integrity import block_checksum
+    from dynamo_tpu_torch.engine.transfer import transfer_blocks_device
+    from dynamo_tpu_torch.llm.disagg import KV_IMPORT_ENDPOINT, DisaggConfig, publish_config
+    from dynamo_tpu_torch.llm.metrics import kv_integrity_metrics
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.client import Client
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+    from dynamo_tpu_torch.runtime.faultinject import faults
+    from dynamo_tpu_torch.tokens import hash_token_blocks
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"disagg check FAILED: {what}")
+
+    hub_port = _free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    children, server, prefill = [], None, None
+    real_sync = torch.cuda.synchronize
+    syncs = [0]
+
+    def counting_sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    def on_d(coro, timeout=600):
+        """Run ``coro`` on D's event loop (its engine's locks live there)."""
+        return asyncio.run_coroutine_threadsafe(coro, server.loop).result(timeout)
+
+    async def alone(engine, prompt, n, salt=None):
+        req = PreprocessedRequest(
+            token_ids=list(prompt), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0),
+            annotations={"kv_salt": salt} if salt else {},
+        ).to_dict()
+        return [t for item in await collect(await engine.generate(Context(req)))
+                for t in item["token_ids"]]
+
+    t_phase = time.perf_counter()
+    try:
+        children.append(Child("hub", ["hub", "--host", "127.0.0.1", "--port", str(hub_port)]))
+        children[-1].wait_line("hub listening", 120)
+        front = Child("http", ["http", "--hub", hub_addr, "--host", "127.0.0.1", "--port", "0"])
+        children.append(front)
+        prefill = Child("prefill worker P", ["run", f"in={DISAGG_PREFILL_ENDPOINT}",
+                                             *DIST_ENGINE_ARGV, "--hub", hub_addr,
+                                             "--disagg", "prefill"])
+        children.append(prefill)
+        fport = int(front.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
+        # D: the CLI's own ``--disagg decode`` code in this process, so its
+        # kernel launches are counted; warmed before any traffic.
+        t = time.perf_counter()
+        server = CliServer(["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV, "--hub", hub_addr,
+                            "--disagg", "decode", "--max-local-prefill", str(DISAGG_THRESHOLD)])
+        graphs = server.warmup()
+        out["d_up_s"] = time.perf_counter() - t
+        engine = server.engine
+        wid_p = int(prefill.wait_line("worker ", 300).split()[1])
+        out["p_up_s"] = time.perf_counter() - t_phase
+        log(f"disagg: hub {hub_addr}, frontend :{fport}, decode worker D "
+            f"{server.service.worker_id} (in this process, up and warmed in {out['d_up_s']:.1f} "
+            f"s, graphs {graphs}), prefill worker P {wid_p} (pid {prefill.p.pid}, registered "
+            f"{out['p_up_s']:.1f} s after the phase began)")
+
+        prompts = dist_prompts(DISAGG_PROMPTS, DISAGG_ISL, 31)
+        live = dist_prompts(2 * DISAGG_LIVE, DISAGG_ISL, 32)
+        overlap = dist_prompts(DISAGG_OVERLAP, DISAGG_ISL, 33)
+        fault_prompt = dist_prompts(1, DISAGG_ISL, 34)[0]
+        warm = dist_prompts(DISAGG_WARM, DISAGG_ISL, 35)
+        long_prompt = dist_prompts(1, DISAGG_LONG_ISL, 36)[0]
+        chain0 = [tb.sequence_hash for tb in hash_token_blocks(prompts[0], PS)]
+        salt = "disagg-reference"
+        full = DISAGG_ISL // PS
+
+        async def reference(p, hit_blocks=None, pages_of=None):
+            """D's engine serving ``p`` alone, under a KV salt (no prefix
+            the traffic could hit), in the shapes the path under test gives
+            it (the card's GEMMs are not batch-invariant): with
+            ``hit_blocks`` None one pass, prefilling the whole prompt in
+            512-id chunks (local prefill); otherwise a first pass prefills
+            it so in P's chunking and seals its blocks, those from
+            ``hit_blocks`` on are evicted, and the stream then hits the
+            rest and prefills the remainder (the remote path: all full
+            blocks hit, the 8-id tail prefilled).  ``pages_of``: a block
+            whose pages after the first pass are returned too."""
+            pages = None
+            if hit_blocks is not None:
+                await alone(engine, p, 1, salt=salt)
+                chain = [tb.sequence_hash for tb in hash_token_blocks(p, PS, salt)]
+                if pages_of is not None:
+                    pages = await block_pages(engine, chain[pages_of])
+                engine.kv.evict_hashes(chain[hit_blocks:])
+            return await alone(engine, p, DISAGG_OSL, salt=salt), pages
+
+        refs = {}
+        t = time.perf_counter()
+        refs[tuple(prompts[0])], ref_pages = on_d(reference(prompts[0], full, DISAGG_CHECK_BLOCK))
+        check(ref_pages is not None, "the reference block's pages were read")
+        for p in prompts[1:] + live[DISAGG_LIVE:] + overlap:
+            refs[tuple(p)] = on_d(reference(p, full))[0]
+        for p in live[:DISAGG_LIVE]:
+            refs[tuple(p)] = on_d(reference(p))[0]
+        out["refs_s"] = time.perf_counter() - t
+
+        async def phase():
+            rt = await DistributedRuntime.connect(hub_addr)
+            ns, comp, _ = parse_endpoint_path(DIST_ENDPOINT)
+            stats_client = await rt.namespace(ns).component(comp).endpoint(
+                "disagg_stats").client()
+            await stats_client.wait_for_instances(30)
+
+            async def stats():
+                return (await collect(await stats_client.generate(Context({}))))[0]
+
+            async def serve(p, n=DISAGG_OSL, what=""):
+                r = await dist_complete(fport, p, n)
+                check(r[0] == 200 and r[2] == "length" and r[3] == n,
+                      f"{what}: {r[0]} {r[2]}/{r[3]}")
+                return r
+
+            def same(r, p, what):
+                ok = r[1] == dist_text(refs[tuple(p)])
+                check(ok, f"{what}: identical to D's local-prefill stream served alone")
+                return ok
+
+            try:
+                for _ in range(300):
+                    if (await rt.hub.kv_get_prefix("models/")):
+                        break
+                    await asyncio.sleep(0.1)
+                # Warm P's programs (it captures at first use) through the
+                # remote path.
+                for p in warm:
+                    await serve(p, 8, "warm-up")
+                s0 = await stats()
+                v0 = kv_integrity_metrics.verified_total["wire"]
+                graphs0 = dict(engine.compile_counts())
+                n_parts0 = len(engine.transfer_parts)
+                zero_kernel_counts()
+                torch.cuda.synchronize = counting_sync
+                t_traffic = time.perf_counter()
+
+                # 1. remote prefill, one prompt at a time.
+                remote_ttft, remote_itl, identical = [], [], []
+                for i, p in enumerate(prompts):
+                    r = await serve(p, what=f"remote {i}")
+                    remote_ttft.append(r[4] * 1e3)
+                    remote_itl.append(r[5] * 1e3)
+                    identical.append(same(r, p, f"remote {i}"))
+                    if i == 0:
+                        got = await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                            block_pages(engine, chain0[DISAGG_CHECK_BLOCK]), server.loop))
+                        out["pages_equal"] = (
+                            got is not None and ref_pages is not None
+                            and block_checksum(got) == block_checksum(ref_pages)
+                            and torch.equal(got.view(torch.uint8), ref_pages.view(torch.uint8)))
+                        check(out["pages_equal"], f"imported block {DISAGG_CHECK_BLOCK}'s "
+                                                  "pages bitwise equal to D's own")
+                s1 = await stats()
+                v1 = kv_integrity_metrics.verified_total["wire"]
+                out["remote"] = {k: s1[k] - s0[k] for k in
+                                 ("remote_prefills", "local_prefills", "degraded_fallbacks")}
+                check(out["remote"] == {"remote_prefills": DISAGG_PROMPTS, "local_prefills": 0,
+                                        "degraded_fallbacks": 0},
+                      f"{DISAGG_PROMPTS} remote prefills, none local or degraded ({out['remote']})")
+                out["wire_verified"] = v1 - v0
+                check(v1 - v0 == DISAGG_PROMPTS * (DISAGG_ISL // PS),
+                      f"wire-verified blocks {v1 - v0} == {DISAGG_PROMPTS} x {DISAGG_ISL // PS}")
+                parts = list(engine.transfer_parts)[n_parts0:]
+                out["chunks"] = [n for kind, n, _ in parts if kind == "inject"]
+                out["inject_parts_ms"] = {
+                    k: statistics.median(pp[k] for kind, _, pp in parts if kind == "inject") * 1e3
+                    for k in ("parse", "verify", "upload", "hold")}
+                out["remote_ttft_ms"], out["remote_itl_ms"] = remote_ttft, remote_itl
+
+                # 2. the live threshold: 4096 (local), then back to 512.
+                live_ttft = {"local": [], "remote": []}
+                for j, (limit, kind) in enumerate(((4096, "local"), (DISAGG_THRESHOLD, "remote"))):
+                    await publish_config(rt.hub, DIST_MODEL,
+                                         DisaggConfig(max_local_prefill_length=limit))
+                    await asyncio.sleep(0.5)  # the hub's watch delivers the new threshold
+                    sa = await stats()
+                    for p in live[j * DISAGG_LIVE:(j + 1) * DISAGG_LIVE]:
+                        r = await serve(p, what=f"live {kind}")
+                        live_ttft[kind].append(r[4] * 1e3)
+                        same(r, p, f"live {kind}")
+                    sb = await stats()
+                    moved = (sb["remote_prefills"] - sa["remote_prefills"],
+                             sb["local_prefills"] - sa["local_prefills"])
+                    want = (0, DISAGG_LIVE) if kind == "local" else (DISAGG_LIVE, 0)
+                    check(moved == want, f"threshold {limit}: (remote, local) {moved} == {want}")
+                out["live_ttft_ms"] = live_ttft
+
+                # 3. the overlap: imports while a long stream decodes.
+                engine.step_trace.clear()
+                long_task = asyncio.ensure_future(dist_complete(fport, long_prompt, DISAGG_LONG_OSL))
+                await asyncio.sleep(1.0)
+                for p in overlap:
+                    r = await serve(p, what="overlap")
+                    same(r, p, "overlap")
+                long_done = long_task.done()
+                lr = await long_task
+                check(lr[0] == 200 and lr[3] == DISAGG_LONG_OSL, f"the long stream: {lr[0]} {lr[3]}")
+                check(not long_done, "the long stream was still decoding after the imports")
+                trace = list(engine.step_trace)
+                kinds = [k for k, *_ in trace]
+                inj = [i for i, k in enumerate(kinds) if k == "inject"]
+                between = [k for k in kinds[inj[0]:inj[-1]] if k in ("decode_dispatch", "decode_wait")] \
+                    if inj else []
+                check(len(inj) >= DISAGG_OVERLAP and between,
+                      f"decode dispatches between D's inject entries ({len(inj)} injects, "
+                      f"{len(between)} decode entries between)")
+                holds = [t for k, t, *_ in trace if k == "inject"]
+                waits = [t for k, t, *_ in trace if k == "decode_wait"]
+                out["overlap"] = {"injects": len(inj), "decode_between": len(between),
+                                  "hold_ms_max": max(holds) * 1e3 if holds else None,
+                                  "hold_ms_p50": statistics.median(holds) * 1e3 if holds else None,
+                                  "decode_wait_ms_p50": statistics.median(waits) * 1e3 if waits else None,
+                                  "fused_ms": engine.decode_spans.seconds * 1e3
+                                  / max(1, engine.decode_spans.count)}
+
+                # 4. the wire fault: a byte flipped in the second chunk.
+                calls, armed = [0], {}
+                inject = engine.inject_blocks
+
+                async def faulty(tokens, payload, salt=None, donor=None):
+                    calls[0] += 1
+                    last = int(payload.get("start_block", 0)) + int(payload["n_blocks"]) >= \
+                        DISAGG_ISL // PS
+                    if not armed and (calls[0] == 2 or last):
+                        armed["start"] = int(payload.get("start_block", 0))
+                        faults.arm("kv_corrupt", match="wire", count=1)
+                    return await inject(tokens, payload, salt, donor)
+
+                engine.inject_blocks = faulty
+                refs.pop(tuple(fault_prompt), None)
+                wire_key = ("dynamo_tpu_kv_integrity_corrupt_total", (("plane", "wire"),))
+                c0 = kv_integrity_metrics.corrupt_total["wire"]
+                mc0 = parse_prometheus(kv_integrity_metrics.render()).get(wire_key)
+                m0 = engine.kv.matched_blocks
+                try:
+                    r = await serve(fault_prompt, what="wire fault")
+                finally:
+                    engine.inject_blocks = inject
+                    faults.reset()
+                prefix = engine.kv.matched_blocks - m0
+                fault_stream = r
+                # The integrity group as this process's /metrics renders it.
+                mc1 = parse_prometheus(kv_integrity_metrics.render()).get(wire_key)
+                out["fault"] = {"armed_at_block": armed.get("start"), "prefix_hit": prefix,
+                                "corrupt": kv_integrity_metrics.corrupt_total["wire"] - c0,
+                                "metrics_corrupt": None if mc0 is None else mc1 - mc0}
+                check(out["fault"]["corrupt"] == 1 and prefix == armed.get("start"),
+                      f"the wire fault: the verified prefix ({armed.get('start')} blocks) sealed "
+                      f"and hit ({prefix}), one corruption counted ({out['fault']['corrupt']})")
+                check(out["fault"]["metrics_corrupt"] == 1,
+                      f"the wire corruption on the integrity /metrics group "
+                      f"({out['fault']['metrics_corrupt']})")
+                s2 = await stats()
+                out["degraded_total"] = s2["degraded_fallbacks"] - s0["degraded_fallbacks"]
+                check(out["degraded_total"] == 0, f"no degraded fallback ({out['degraded_total']})")
+                out["launches"] = kernel_counts()
+                out["graphs"] = (graphs0, dict(engine.compile_counts()))
+                out["syncs"] = syncs[0]
+                torch.cuda.synchronize = real_sync
+                out["traffic_s"] = time.perf_counter() - t_traffic
+                # The fault's reference (after the counted window): the
+                # verified prefix hit, the rest prefilled.
+                refs[tuple(fault_prompt)] = (await asyncio.wrap_future(
+                    asyncio.run_coroutine_threadsafe(
+                        reference(fault_prompt, armed.get("start", 0)), server.loop)))[0]
+                same(fault_stream, fault_prompt, "wire fault")
+                out["import_path"] = (await rt.hub.kv_get_prefix(
+                    f"instances/{ns}/{comp}/{KV_IMPORT_ENDPOINT}/"))
+            finally:
+                torch.cuda.synchronize = real_sync
+                await stats_client.close()
+                await rt.close()
+
+        asyncio.run(phase())
+        # The largest chunk P's adaptive sizing reached, from its log.
+        sizes = [int(m.group(1)) for line in prefill.lines
+                 for m in [DISAGG_CHUNK_RE.search(line)] if m]
+        out["p_chunk_sizes"] = sizes
+        prefill.stop()
+
+        # 5. the same-process direct path: P' beside D in this process.
+        t = time.perf_counter()
+        src = TorchEngine(EngineConfig(**SERVE_CFG), device=engine.device)
+        out["p2_up_s"] = time.perf_counter() - t
+        direct = dist_prompts(1, DISAGG_ISL, 37)[0]
+        info = next(iter(out["import_path"].values()))
+
+        async def direct_phase():
+            await alone(src, direct, 1)
+            chain = [tb.sequence_hash for tb in hash_token_blocks(direct, PS)]
+            g0 = (dict(src.compile_counts()), dict(engine.compile_counts()))
+            c0 = (src.copy_summary(), engine.copy_summary())
+            torch.cuda.synchronize = counting_sync
+            s0 = syncs[0]
+            try:
+                # Twice: cold (the first gather of this shape), then warm,
+                # D's copy dropped in between.
+                t_direct = []
+                for _ in range(2):
+                    engine.kv.evict_hashes(chain)
+                    t0 = time.perf_counter()
+                    covered = await transfer_blocks_device(src, engine, direct)
+                    t_direct.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                torch.cuda.synchronize = real_sync
+            res = {"covered_blocks": covered // PS, "direct_ms": t_direct,
+                   "syncs": syncs[0] - s0,
+                   "graphs_same": g0 == (dict(src.compile_counts()), dict(engine.compile_counts()))}
+            c1 = (src.copy_summary(), engine.copy_summary())
+            res["host_bytes"] = sum(b[k] - a[k] for a, b in zip(c0, c1)
+                                    for k in ("h2d_bytes", "d2h_bytes"))
+            mism = 0
+            for h in chain:
+                a = await block_pages(src, h)
+                b = await block_pages(engine, h)
+                mism += int(a is None or b is None or not torch.equal(
+                    a.view(torch.uint8), b.view(torch.uint8)))
+            res["pages_mismatched"] = mism
+            # The host-staged path for the same 127 blocks: P''s export,
+            # then the wire into D's kv_import endpoint (codec and TCP),
+            # then D's inject; D's copy dropped first.
+            engine.kv.evict_hashes(chain)
+            n0 = len(engine.transfer_parts)
+            t0 = time.perf_counter()
+            payload = await src.export_prompt_blocks(direct)
+            t_export = time.perf_counter() - t0
+            client = Client.static(info["address"], info["path"])
+            t0 = time.perf_counter()
+            acks = await collect(await client.generate(Context({
+                "transfer_id": "direct-vs-host", "token_ids": list(direct),
+                "payload": payload, "last": True})))
+            t_wire_inject = time.perf_counter() - t0
+            inj = [pp for kind, _, pp in list(engine.transfer_parts)[n0:] if kind == "inject"]
+            exp = [pp for kind, _, pp in list(src.transfer_parts) if kind == "export"][-1]
+            inject_s = sum(inj[-1].values()) if inj else float("nan")
+            res.update(host_export_ms=t_export * 1e3,
+                       host_export_parts_ms={k: v * 1e3 for k, v in exp.items()},
+                       host_wire_ms=(t_wire_inject - inject_s) * 1e3,
+                       host_inject_parts_ms={k: v * 1e3 for k, v in (inj[-1] if inj else {}).items()},
+                       host_total_ms=(t_export + t_wire_inject) * 1e3,
+                       host_acked_tokens=acks[0].get("tokens_covered") if acks else None,
+                       payload_mib=2 * len(payload["k"]) / 2**20)
+            await src.close()
+            return res
+
+        out["direct"] = on_d(direct_phase())
+        d = out["direct"]
+        check(d["covered_blocks"] == DISAGG_ISL // PS,
+              f"direct transfer covered {d['covered_blocks']} blocks")
+        check(d["pages_mismatched"] == 0, f"direct: pages bitwise equal "
+                                          f"({d['pages_mismatched']} blocks differ)")
+        check(d["host_bytes"] == 0, f"direct: no host bytes copied ({d['host_bytes']})")
+        check(d["graphs_same"], "direct: no graph captured")
+        check(d["syncs"] == 0, f"direct: no torch.cuda.synchronize ({d['syncs']})")
+        check(d["host_acked_tokens"] == (DISAGG_ISL // PS) * PS,
+              f"host-staged: D acked {d['host_acked_tokens']} tokens")
+    finally:
+        torch.cuda.synchronize = real_sync
+        try:
+            if server is not None:
+                server.stop()
+        finally:
+            for c in reversed(children):
+                c.stop()
+    launches = out.get("launches") or {"decode_attention": 0, "prefill_attention": 0}
+    check(all(v > 0 for v in launches.values()), f"D launched both kernels ({launches})")
+    g0, g1 = out.get("graphs", ({}, {}))
+    check(g0 == g1, f"D captured no graph while serving ({g0} -> {g1})")
+    check(out.get("syncs") == 0, f"no torch.cuda.synchronize on D while serving "
+                                 f"({out.get('syncs')})")
+    out["wall_s"] = time.perf_counter() - t_phase
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    live = out.get("live_ttft_ms", {})
+    numbers = {
+        "card": CARD, "remote": out.get("remote"), "wire_verified": out.get("wire_verified"),
+        "pages_equal": out.get("pages_equal"),
+        "remote_ttft_ms_p50": med(out.get("remote_ttft_ms", [])),
+        "remote_itl_ms_p50": med(out.get("remote_itl_ms", [])),
+        "live_local_ttft_ms_p50": med(live.get("local", [])),
+        "live_remote_ttft_ms_p50": med(live.get("remote", [])),
+        "chunks_at_d": out.get("chunks"), "p_chunk_sizes": out.get("p_chunk_sizes"),
+        "inject_parts_ms_p50": out.get("inject_parts_ms"), "overlap": out.get("overlap"),
+        "fault": out.get("fault"), "direct": out.get("direct"), "launches_d": launches,
+        "graphs_d": out.get("graphs"), "syncs_d": out.get("syncs"),
+        "d_up_s": out.get("d_up_s"), "p_up_s": out.get("p_up_s"), "phase_s": out["wall_s"],
+    }
+    log("disagg " + json.dumps(numbers))
+    return not fails, launches, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -3469,10 +3911,17 @@ def main() -> int:
         log(f"memory before the distributed phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
             f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         ok_dist, dist_launches, _ = dist_path(torch)
+        # Phase i runs two llama-3.1-8b workers on this card again.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the disaggregated phase: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        ok_disagg, disagg_launches, _ = disagg_path(torch)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
-                    "distributed (h)": ok_dist}
+                    "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -3502,6 +3951,7 @@ def main() -> int:
             kernels[-1]["edge_launches"] = edge["launches"][name]
             kernels[-1]["tier_launches"] = tiers["launches"][name]
             kernels[-1]["dist_launches"] = dist_launches[name]
+            kernels[-1]["disagg_launches"] = disagg_launches[name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

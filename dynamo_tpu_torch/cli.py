@@ -14,6 +14,11 @@ Usage:
   python -m dynamo_tpu_torch.cli run in=dyn://ns.comp.ep out=torch --hub H:P \\
         --model NAME --arch ARCH     # worker: serve the engine, register the model
   python -m dynamo_tpu_torch.cli http --hub H:P [--port 8000] [--router kv]
+  # disaggregated prefill/decode: a prefill worker and a decode worker
+  python -m dynamo_tpu_torch.cli run in=dyn://dynamo.TorchWorker.prefill out=torch \
+        --hub H:P --disagg prefill ...
+  python -m dynamo_tpu_torch.cli run in=dyn://dynamo.TorchWorker.generate out=torch \
+        --hub H:P --disagg decode [--max-local-prefill 512] ...
 
 ``out=torch`` is ``TorchEngine`` on the first CUDA device unless
 ``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.
@@ -26,13 +31,20 @@ publishes KV events and ``ForwardPassMetrics`` for the KV router, registers
 the model with the engine's block size, reports its tiers' integrity
 detections, and with tracing on publishes its spans on the namespace's
 ``traces`` subject, which the ``http`` edge's aggregator assembles at
-``/traces/{id}``.  The flags keep the JAX parser's names and defaults.
-Options the port does not have yet fail when set
-(engine/__init__.py UNSUPPORTED_OPTIONS, ``--disagg`` among them; the bulk
-plane's ``DYN_BULK_PLANE``); the worker's live migration, ``kv_export``
-and prefix pull, the planner's ``EdgeSloPublisher`` and the other JAX
-subcommands (model, metrics, mock-worker, planner, deploy) are not ported
-(ROADMAP queue 1 item 10 and after).  The tokenizer is the self-contained
+``/traces/{id}``.  With ``--disagg decode`` the worker serves its engine
+through ``DisaggDecodeWorker`` (llm/disagg): prompts whose uncached part
+exceeds ``--max-local-prefill`` (live-updated from the hub) are prefilled
+by a ``--disagg prefill`` worker, which pulls them from the model's prefill
+queue and pushes their KV blocks to the decode worker's ``kv_import``
+endpoint; ``disagg_stats`` serves its counters.  The flags keep the JAX
+parser's names and defaults.  Options the port does not have yet fail when
+set (engine/__init__.py UNSUPPORTED_OPTIONS; the bulk plane's
+``DYN_BULK_PLANE``); the worker's live migration (the decode role's
+migration wrap and drain, ROADMAP queue 1 item 10.4), ``kv_export`` and
+prefix pull, the planner's role flips (``RoleFlipWatcher``, item 10.7) and
+``EdgeSloPublisher``, and the other JAX subcommands (model, metrics,
+mock-worker, planner, deploy) are not ported (ROADMAP queue 1 item 10 and
+after).  The tokenizer is the self-contained
 byte tokenizer, the JAX CLI's default without ``--tokenizer`` or
 ``--checkpoint``.
 """
@@ -232,27 +244,26 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
 
 
 async def _serve_worker(args, engine, on_serving) -> None:
-    """``run in=dyn://ns.comp.ep``: the decode role of the JAX package's
-    ``WorkerRoles.start_decode`` without ``--disagg``.  Serves the engine
-    at the endpoint under the runtime's lease, publishes its KV events and
-    ``ForwardPassMetrics`` (the KV router's inputs), feeds its tiers'
-    integrity detections to the ``kv_corruption`` ledger, and registers
-    the model with the engine's block size.  With tracing on, its spans
-    publish on the namespace's ``traces`` subject."""
-    from .llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
-    from .runtime.health import kv_corruption
+    """``run in=dyn://ns.comp.ep``: the JAX package's worker.  Without
+    ``--disagg`` or with ``--disagg decode`` it serves the decode role
+    (``WorkerRoles.start_decode``); with ``--disagg prefill`` the prefill
+    role (``start_prefill``).  With tracing on, its spans publish on the
+    namespace's ``traces`` subject.  Shutdown drains the roles."""
     from .runtime.tracing import TRACES_TOPIC, SpanExporter, TracingConfig
     from .runtime.tracing import collector as trace_collector
 
     if not args.hub:
         raise SystemExit("worker mode requires --hub HOST:PORT")
+    role = getattr(args, "disagg", None)
+    if role and not hasattr(engine, "inject_blocks"):
+        raise SystemExit(
+            f"--disagg {role} requires the native engine (out=torch), not out={args.out}")
     _refuse_bulk_plane()
     runtime = await DistributedRuntime.connect(args.hub)
     layers = RuntimeConfig.from_layers()
     ns, comp, ep = parse_endpoint_path(args.inp)
     endpoint = runtime.namespace(ns).component(comp).endpoint(ep)
-    trace_exporter = served = metrics_pub = None
-    model_key = None
+    trace_exporter = roles = None
     try:
         tcfg = TracingConfig.from_config(layers.tracing)
         if tcfg.enabled:
@@ -267,41 +278,158 @@ async def _serve_worker(args, engine, on_serving) -> None:
                 [_publish_spans], interval_s=tcfg.export_interval_s,
                 proc=f"worker-{runtime.worker_id}",
             ).start()
-        served = await endpoint.serve_endpoint(engine)
-        kv_block_size = 16
-        if hasattr(engine, "set_event_callback"):  # TorchEngine
-            kv_block_size = engine.cfg.block_size
-            engine.set_event_callback(KvEventPublisher(endpoint.component, runtime.worker_id))
-            metrics_pub = await KvMetricsPublisher(
-                endpoint.component, runtime.worker_id, engine.metrics
-            ).start()
-            wid = runtime.worker_id
-            engine.set_integrity_reporter(lambda plane, _wid=wid: kv_corruption.record(_wid))
-            kv_tier_metrics.set_source(engine.kv_tier_summary)
-        model_key = await register_model(
-            runtime, args.model, endpoint.path, tokenizer={"kind": "byte"},
-            kv_block_size=kv_block_size,
-        )
-        print(f"worker {runtime.worker_id} serving {args.inp} (model {args.model!r})", flush=True)
+        roles = WorkerRoles(args, runtime, endpoint, engine)
+        if role == "prefill":
+            await roles.start_prefill()
+        else:
+            await roles.start_decode(disagg=role == "decode")
+        if role:
+            logger.info(
+                "disagg %s role: the planner's role flips (RoleFlipWatcher, ROADMAP queue 1 "
+                "item 10.7) and the decode role's live migration (item 10.4) are not ported",
+                role)
+        print(f"worker {runtime.worker_id} serving {args.inp} (model {args.model!r}"
+              + (f", disagg={role}" if role else "") + ")", flush=True)
         if on_serving is not None:
             on_serving(runtime)
         await _wait_forever()
     finally:
-        if hasattr(engine, "set_event_callback"):
-            engine.set_event_callback(None)
-            engine.set_integrity_reporter(None)
-            kv_tier_metrics.set_source(None)
-        if metrics_pub is not None:
-            await metrics_pub.stop()
-        if model_key is not None:
-            await runtime.unregister_key(model_key)
-        if served is not None:
-            await served.stop()
+        if roles is not None:
+            await roles.shutdown()
         if trace_exporter is not None:
             # Final flush ships the last spans before the hub client closes
             # (best effort: a dead hub just counts an export error).
             await trace_exporter.stop()
         await runtime.close()
+
+
+class WorkerRoles:
+    """The decode and prefill roles of one ``dyn://`` worker on its one
+    resident engine (the JAX package's ``WorkerRoles`` without the live
+    migration wrap of the decode role and the planner's role flips)."""
+
+    def __init__(self, args, runtime, endpoint, engine):
+        self.args = args
+        self.runtime = runtime
+        self.endpoint = endpoint
+        self.engine = engine
+        self._handles: dict = {}
+
+    async def start_decode(self, disagg: bool) -> None:
+        """Serve the engine at the endpoint under the runtime's lease
+        (through ``DisaggDecodeWorker`` when ``disagg``, with its
+        ``kv_import`` and ``disagg_stats`` endpoints and ``role: decode``
+        metadata), publish its KV events and ``ForwardPassMetrics`` (the KV
+        router's inputs), feed its tiers' integrity detections to the
+        ``kv_corruption`` ledger, and register the model with the engine's
+        block size."""
+        from .llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
+        from .runtime.health import kv_corruption
+
+        args, runtime, endpoint, engine = self.args, self.runtime, self.endpoint, self.engine
+        h: dict = {"serveds": []}
+        self._handles["decode"] = h
+        served_engine = engine
+        metadata: dict = {"role": "decode"} if disagg else {}
+        if disagg:
+            from .llm.disagg import (
+                KV_IMPORT_ENDPOINT,
+                DisaggConfig,
+                DisaggDecodeWorker,
+                DisaggregatedRouter,
+                PrefillQueue,
+            )
+
+            server = await runtime.service_server()
+            import_ep = endpoint.component.endpoint(KV_IMPORT_ENDPOINT)
+            h["router"] = await DisaggregatedRouter(
+                args.model, DisaggConfig(max_local_prefill_length=args.max_local_prefill),
+            ).watch_config(runtime.hub)
+            worker = DisaggDecodeWorker(
+                engine, PrefillQueue(runtime.hub, args.model), h["router"],
+                import_address=server.address, import_path=import_ep.path,
+            )
+            h["serveds"].append(await import_ep.serve_endpoint(worker.kv_import_handler))
+            stats_ep = endpoint.component.endpoint("disagg_stats")
+            h["serveds"].append(await stats_ep.serve_endpoint(worker.stats_handler))
+            h["disagg"] = worker
+            served_engine = worker
+        h["serveds"].append(await endpoint.serve_endpoint(served_engine, metadata=metadata or None))
+        kv_block_size = 16
+        if hasattr(engine, "set_event_callback"):  # TorchEngine
+            kv_block_size = engine.cfg.block_size
+            h["events"] = KvEventPublisher(endpoint.component, runtime.worker_id)
+            engine.set_event_callback(h["events"])
+            h["metrics_pub"] = await KvMetricsPublisher(
+                endpoint.component, runtime.worker_id, engine.metrics
+            ).start()
+            wid = runtime.worker_id
+            engine.set_integrity_reporter(lambda plane, _wid=wid: kv_corruption.record(_wid))
+            kv_tier_metrics.set_source(engine.kv_tier_summary)
+        h["model_key"] = await register_model(
+            runtime, args.model, endpoint.path, tokenizer={"kind": "byte"},
+            kv_block_size=kv_block_size,
+        )
+
+    async def stop_decode(self) -> None:
+        h = self._handles.pop("decode", None)
+        if h is None:
+            return
+        if h.get("disagg") is not None:
+            await h["disagg"].drain(timeout=10.0)
+        for served in reversed(h["serveds"]):
+            await served.stop()
+        if hasattr(self.engine, "set_event_callback"):
+            self.engine.set_event_callback(None)
+            self.engine.set_integrity_reporter(None)
+            kv_tier_metrics.set_source(None)
+        if h.get("events") is not None:
+            # The events already queued reach the hub before its client
+            # closes (bounded: a dead hub must not hold the shutdown).
+            try:
+                await asyncio.wait_for(h["events"].flush(), 5.0)
+            except asyncio.TimeoutError:
+                logger.warning("KV events still queued at shutdown were dropped")
+        if h.get("metrics_pub") is not None:
+            await h["metrics_pub"].stop()
+        if h.get("router") is not None:
+            await h["router"].stop()
+        if h.get("model_key") is not None:
+            await self.runtime.unregister_key(h["model_key"])
+
+    async def start_prefill(self) -> None:
+        """Dedicated prefill worker: drains the model's prefill queue and
+        serves no endpoint.  It still registers a lease-bound heartbeat
+        under its endpoint path (metadata ``role: prefill``) so prefill-pool
+        membership and its death are observable — nothing routes to it."""
+        from .llm.disagg import PrefillQueue, PrefillWorkerLoop
+
+        ploop = await PrefillWorkerLoop(
+            self.engine, PrefillQueue(self.runtime.hub, self.args.model)
+        ).start()
+        self._handles["prefill"] = {"ploop": ploop}
+        await self.runtime.register_key(
+            self.endpoint.instance_key(self.runtime.worker_id),
+            {
+                "address": "",
+                "path": self.endpoint.path,
+                "worker_id": self.runtime.worker_id,
+                "metadata": {"role": "prefill"},
+            },
+        )
+
+    async def stop_prefill(self) -> None:
+        h = self._handles.pop("prefill", None)
+        if h is None:
+            return
+        # Finish the in-flight queue item (bounded), then stop pulling; a
+        # cancel that lands mid-dequeue requeues at-least-once.
+        await h["ploop"].drain(timeout=10.0)
+        await self.runtime.unregister_key(self.endpoint.instance_key(self.runtime.worker_id))
+
+    async def shutdown(self) -> None:
+        await self.stop_decode()
+        await self.stop_prefill()
 
 
 async def _run(args, on_serving: Optional[Callable] = None) -> None:
@@ -315,11 +443,6 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
         raise SystemExit(
             f"in={inp} is not supported by the port "
             "(it has in=http|text|stdin|batch:FILE|none|dyn://ns.comp.ep)"
-        )
-    if getattr(args, "disagg", None):
-        raise SystemExit(
-            f"--disagg {args.disagg}: disaggregated prefill/decode is not ported yet "
-            "(ROADMAP queue 1 item 10)"
         )
     tokenizer = _tokenizer(args)
     engine, level = _build_engine(args.out, args)
@@ -533,7 +656,14 @@ def build_parser() -> argparse.ArgumentParser:
                  "--lora-max-adapters", "--lora-rank"):
         p_run.add_argument(flag, type=int, default=None)
     p_run.add_argument("--lora", action="append", default=None, metavar="NAME=SPEC")
-    p_run.add_argument("--disagg", default=None, choices=["decode", "prefill"])
+    p_run.add_argument(
+        "--disagg", default=None, choices=["decode", "prefill"],
+        help="disaggregated role for this worker (requires --hub)",
+    )
+    p_run.add_argument(
+        "--max-local-prefill", type=int, default=512, dest="max_local_prefill",
+        help="prefills longer than this (minus prefix hit) go remote",
+    )
     return parser
 
 

@@ -34,9 +34,12 @@ so are its request-tracing spans (``engine.queue_wait``, ``engine.prefill``,
 every captured graph), and its local KV memory tiers (engine/offload.py):
 a host tier in pinned memory, a disk tier and the durable object store,
 each block CRC-32 verified at every tier boundary, restored ahead of
-admission by an in-place scatter into the pages the graphs hold.
-Out of this engine so far: LoRA, grammar constraints, KV transfer, the
-cross-worker prefix pull and migration, tp/sp and multi-host.
+admission by an in-place scatter into the pages the graphs hold, and the
+JAX engine's KV block transfer (engine/transfer.py): the checksummed
+host-staged export and import of disaggregated prefill, and the
+same-process device-to-device path.
+Out of this engine so far: LoRA, grammar constraints, the cross-worker
+prefix pull and migration, tp/sp and multi-host.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from .offload import HostOffloadMixin
 from .pipeline import _FINISHED, DecodePipelineMixin, HostSampling
 from .scheduler import Scheduler, SequenceState, StepPlan
 from .spec import AcceptanceController, SpecDecodeMixin
+from .transfer import KvTransferMixin
 
 logger = logging.getLogger(__name__)
 
@@ -127,7 +131,8 @@ class StreamSpans:
         return self._total_s
 
 
-class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncEngine):
+class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin,
+                  AsyncEngine):
     """Token-in/token-out engine on one device."""
 
     def __init__(
@@ -201,6 +206,7 @@ class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncE
         self.prefill_spans = StreamSpans(self.device)
         self.decode_spans = StreamSpans(self.device)
         self._init_tiers()
+        self._init_transfer()
 
         # --- device state -------------------------------------------------
         dev = self.device
@@ -278,10 +284,10 @@ class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncE
         # the serving layer may wire to a health watchdog.
         self.integrity = CorruptionCache(ttl_s=cfg.kv_corrupt_ttl_s)
         self._integrity_reporter: Optional[Callable[[str], None]] = None
-        # Device↔host block copies: a side stream on CUDA, with their bytes
-        # and stream time (copy_summary()).
-        self._copy_stream = (
-            torch.cuda.Stream(self.device) if cuda and cfg.host_cache_bytes > 0 else None)
+        # Device↔host block copies (the tiers' and the KV transfer's): a
+        # side stream on CUDA, with their bytes and stream time
+        # (copy_summary()).
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self.h2d_spans = StreamSpans(self.device)
         self.d2h_spans = StreamSpans(self.device)
         self.h2d_bytes = 0
@@ -731,13 +737,15 @@ class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncE
         self._integrity_reporter = reporter
 
     def _record_corruption(self, plane: str, seq_hash: Optional[int],
-                           chain: Optional[List[int]] = None) -> None:
+                           chain: Optional[List[int]] = None,
+                           donor: Optional[int] = None) -> None:
         """Corruption quarantine, one entry point for every plane: count
         it, negative-cache the hash (TTL — restore loops must not thrash on
         it), drop the block and every CHAINED DESCENDANT still held by the
-        local tiers (their chain passes through poison), and report the
-        local-tier rot.  The caller flushes tier events afterwards (this may
-        run in a thread; events are emitted on the loop)."""
+        local tiers (their chain passes through poison), attribute a wire
+        ``donor`` to the health ledger, and report local-tier rot.  The
+        caller flushes tier events afterwards (this may run in a thread;
+        events are emitted on the loop)."""
         kv_integrity_metrics.corrupt_total[plane] += 1
         logger.warning(
             "KV corruption detected on plane %r (block %s): dropped before "
@@ -761,7 +769,11 @@ class TorchEngine(HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin, AsyncE
                 if hit and d != seq_hash:
                     dropped += 1
             kv_integrity_metrics.descendants_dropped_total += dropped
-        if self._integrity_reporter is not None:
+        if donor is not None:
+            from ..runtime.health import kv_corruption
+
+            kv_corruption.record(donor)
+        elif plane != "wire" and self._integrity_reporter is not None:
             try:
                 self._integrity_reporter(plane)
             except Exception:  # noqa: BLE001 — reporting must never break serving

@@ -1,8 +1,7 @@
-"""KV integrity plane: content checksums at every tier boundary.
+"""KV integrity plane: content checksums at every tier and wire boundary.
 
-A copy of the JAX package's ``engine/integrity.py`` for the local tiers
-(the wire plane's per-block payload stamps come with the KV transfer
-plane).  The verification points:
+A copy of the JAX package's ``engine/integrity.py``.  The verification
+points:
 
 - ``host``: stamped by ``HostKvStore.put`` (offload commit), verified by
   ``_restore_pass`` before the scatter;
@@ -11,7 +10,10 @@ plane).  The verification points:
   promotion;
 - ``objstore``: the disk stamp carried into the ``.obj`` envelope
   (``ingest_kvblk``), verified by ``ObjectKvStore.read`` before a
-  promotion.
+  promotion;
+- ``wire``: stamped per block by ``export_prompt_blocks`` from a fresh
+  device gather (engine/transfer.py), verified by ``inject_blocks`` before
+  anything is allocated or sealed — the disaggregated prefill transfer.
 
 The checksum is CRC-32 (zlib) over a block's raw bytes, byte for byte the
 JAX package's: a bf16 block is hashed through a same-width integer view,
@@ -68,13 +70,53 @@ def block_checksums(blocks: Sequence, executor: Optional[Executor] = None) -> Li
     return list(executor.map(block_checksum, blocks))
 
 
-def flip_array_byte(block: torch.Tensor) -> torch.Tensor:
-    """Fault-injection helper (``kv_corrupt``): copy ``block`` and flip one
-    byte in the middle — a deterministic stand-in for media/DMA rot.  The
-    copy matters: the source buffer (a host-tier entry) must stay pristine
-    so the fault models corruption in flight."""
-    a = block.clone()
-    flat = raw_bytes(a)
+def payload_block_checksums(k, v, executor: Optional[Executor] = None) -> List[int]:
+    """Per-block wire checksums over a transfer payload's split K/V
+    arrays (``[L, n, ps, KV, hd]`` each, CPU tensors or numpy arrays of
+    any dtype): block i's CRC chains K then V over the bytes of
+    ``k[:, i]`` and ``v[:, i]`` in C order — the JAX function's integers
+    for the same pages.  Each block's K and V are L strided runs; the CRC
+    chains over them in place instead of copying them together.  Per block
+    (not per payload) so the importer can seal the verified prefix.
+    Blocks spread over ``executor``'s threads when given (zlib releases the
+    GIL)."""
+    kb, vb = _byte_view(k), _byte_view(v)
+
+    def one(i: int) -> int:
+        c = 0
+        for arr in (kb, vb):
+            for layer in arr[:, i]:
+                c = zlib.crc32(layer, c)
+        return c & 0xFFFFFFFF
+
+    n = kb.shape[1]
+    if executor is None or n <= 1:
+        return [one(i) for i in range(n)]
+    return list(executor.map(one, range(n)))
+
+
+def _byte_view(a) -> np.ndarray:
+    """``a`` (a CPU tensor or a numpy array) as C-ordered uint8 with one
+    more trailing axis of the itemsize — its bytes, never cast."""
+    if isinstance(a, torch.Tensor):
+        a = a.contiguous()
+        return a.view(torch.uint8).numpy().reshape(*a.shape, a.element_size())
+    a = np.ascontiguousarray(a)
+    return a.view(np.uint8).reshape(*a.shape, a.itemsize)
+
+
+def flip_array_byte(block):
+    """Fault-injection helper (``kv_corrupt``): copy ``block`` (a CPU
+    tensor or a numpy array) and flip one byte in the middle — a
+    deterministic stand-in for media/DMA rot.  The copy matters: the
+    source buffer (a host-tier entry, a wire view) must stay pristine so
+    the fault models corruption in flight."""
+    if isinstance(block, torch.Tensor):
+        a = block.clone()
+        flat = raw_bytes(a)
+    else:
+        a = np.ascontiguousarray(block).copy()
+        flat = a.reshape(-1).view(np.uint8)
     flat[flat.size // 2] ^= 0xFF
     return a
 

@@ -45,6 +45,14 @@ from .integrity import block_checksums, flip_array_byte
 
 logger = logging.getLogger(__name__)
 
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for fp8 its same-width integer view: page gathers and
+    scatters move bytes, and the CPU has no fp8 index kernels."""
+    return t.view(torch.uint8) if t.dtype in _FP8 else t
+
 
 class HostOffloadMixin:
     """TorchEngine's tier methods.  Expects ``cfg``, ``device``, ``cache``,
@@ -114,7 +122,9 @@ class HostOffloadMixin:
         with torch.inference_mode():
             idx = self._page_index(ids)
             # [n, L, ps, 2KV, D]: block i is one contiguous run of bytes.
-            gathered = self.cache.pages.transpose(0, 1).index_select(0, idx).contiguous()
+            pages = self.cache.pages
+            gathered = as_bits(pages).transpose(0, 1).index_select(0, idx).contiguous().view(
+                pages.dtype)
             self.d2h_bytes += gathered.nbytes
             if self.device.type != "cuda":
                 return [b.clone() for b in gathered.unbind(0)], None
@@ -420,4 +430,5 @@ class HostOffloadMixin:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(done)
                 buf.record_stream(stream)
-            self.cache.pages.index_copy_(1, self._page_index(ids), buf.transpose(0, 1))
+            as_bits(self.cache.pages).index_copy_(1, self._page_index(ids),
+                                                  as_bits(buf.transpose(0, 1)))

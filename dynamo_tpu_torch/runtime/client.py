@@ -129,6 +129,9 @@ class Client(AsyncEngine):
         self._watcher = None
         self._watch_task: Optional[asyncio.Task] = None
         self._ready = asyncio.Event()
+        # A static client (``Client.static``) talks to one fixed address
+        # with no discovery, retries or failover.
+        self._static_engine: Optional[RemoteEngine] = None
         # Degraded-mode routing cache: the instance table above IS the
         # cache — picks never block on hub RTT.  While the watch is down
         # (hub/shard outage, failover window) the cache serves stale with
@@ -136,8 +139,18 @@ class Client(AsyncEngine):
         # clears it.
         self._stale_since: Optional[float] = None
 
+    @classmethod
+    def static(cls, address: str, path: str) -> "Client":
+        """A client of one known instance (an address and path handed over
+        out of band, e.g. a disaggregated decode worker's ``kv_import``
+        reply target): no hub, no discovery."""
+        client = cls(hub=None, instance_prefix="")
+        client._static_engine = RemoteEngine(address, path)
+        client._ready.set()
+        return client
+
     async def start(self) -> "Client":
-        if self._watch_task is not None:
+        if self._static_engine is not None or self._watch_task is not None:
             return self
         self._watcher = await self.hub.watch_prefix(self.instance_prefix)
         self._watch_task = asyncio.create_task(self._watch_loop())
@@ -496,6 +509,8 @@ class Client(AsyncEngine):
         worker_id: Optional[int] = None,
         mode: Optional[RouterMode] = None,
     ) -> ResponseStream:
+        if self._static_engine is not None:
+            return await self._static_engine.generate(request)
         mode = mode if mode is not None else self.router_mode
         deadline = getattr(request.ctx, "deadline", None)
         state: Dict[str, Any] = {"attempt": 0, "tried": set()}

@@ -13,7 +13,13 @@ serving, on the port):
   second worker, and the worker serving a greedy stream is SIGKILLed
   mid-stream: the stream completes on the survivor, identical to the
   uninterrupted stream, the frontend's resume counter rises, and the dead
-  instance leaves discovery within the lease TTL plus 1 s.
+  instance leaves discovery within the lease TTL plus 1 s;
+- the disaggregated stack (``tests/test_cli_e2e.py``'s four processes):
+  ``hub``, ``run … --disagg prefill``, ``run … --disagg decode
+  --max-local-prefill 16`` and ``http``, with ``out=torch --device cpu``
+  workers: a 60-id prompt completes through the remote-prefill path
+  (``disagg_stats``: remote prefills, no local one), with the text of the
+  JAX package's four-process stack.
 
 The port's children run in interpreters where aiohttp, pydantic,
 prometheus_client, jinja2, tokenizers, xxhash and msgpack cannot be
@@ -34,6 +40,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 pytestmark = pytest.mark.torch_port
@@ -46,11 +53,24 @@ TINY = ["--arch", "debug-tiny", "--dtype", "float32", "--device", "cpu", "--bloc
 LEASE_TTL_S = 10.0  # DistributedRuntime.DEFAULT_LEASE_TTL
 # The card's machine has none of these; the port's processes run without
 # them (the codec writes msgpack itself, tokens.py hashes without xxhash).
+# With JAX_WEIGHTS_NPZ set, an ``out=torch`` child draws the JAX engine's
+# seeded weights from that file (numpy only) instead of its own, so its
+# answers can be held against the JAX stack's.
 WITHOUT_ABSENT_PACKAGES = (
-    "import sys\n"
+    "import os, sys\n"
     "for m in ('aiohttp', 'pydantic', 'prometheus_client', 'jinja2', 'tokenizers', 'xxhash',\n"
     "          'msgpack'):\n"
     "    sys.modules[m] = None\n"
+    "if os.environ.get('JAX_WEIGHTS_NPZ'):\n"
+    "    import numpy as np\n"
+    "    from dynamo_tpu_torch.engine import engine as _engine\n"
+    "    from dynamo_tpu_torch.models.llama import params_from_jax\n"
+    "    _z = np.load(os.environ['JAX_WEIGHTS_NPZ'])\n"
+    "    _tree = {}\n"
+    "    for _k in _z.files:\n"
+    "        _g, _, _n = _k.rpartition('.')\n"
+    "        (_tree.setdefault(_g, {}) if _g else _tree)[_n] = _z[_k]\n"
+    "    _engine.init_params = lambda mc, seed, dev: params_from_jax(_tree, dev)\n"
     "from dynamo_tpu_torch.cli import main\n"
     "main()\n"
 )
@@ -338,19 +358,131 @@ def test_torch_workers_serve_and_resume_after_sigkill():
             p.kill()
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1", "--disagg", "decode"], {}),
-    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}),
-    (["http", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}),
+def _disagg_stats(pkg, hub, component):
+    """The decode worker's ``disagg_stats`` endpoint, over the hub."""
+    import importlib
+
+    comp = importlib.import_module(f"{pkg}.runtime.component")
+    eng = importlib.import_module(f"{pkg}.runtime.engine")
+
+    async def go():
+        rt = await comp.DistributedRuntime.connect(hub)
+        try:
+            client = await rt.namespace("dynamo").component(component).endpoint(
+                "disagg_stats").client()
+            await client.wait_for_instances(30)
+            items = await eng.collect(await client.generate(eng.Context({})))
+            await client.close()
+            return items[0]
+        finally:
+            await rt.close()
+
+    return asyncio.run(go())
+
+
+DISAGG_PROMPT = [((i * 7) % 250) + 1 for i in range(60)]  # 15 blocks of 4
+
+
+def _jax_weights_npz(path):
+    """The JAX CLI's debug-tiny f32 weights at seed 0, flattened to an npz
+    (``layers.wq`` etc.) for the port's children."""
+    import jax
+
+    from dynamo_tpu.models.config import get_config
+    from dynamo_tpu.models.llama import init_params
+
+    tree = init_params(get_config("debug-tiny").with_overrides(dtype="float32"),
+                       jax.random.PRNGKey(0))
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update({f"{k}.{n}": np.asarray(x) for n, x in v.items()})
+        else:
+            flat[k] = np.asarray(v)
+    np.savez(path, **flat)
+    return str(path)
+
+
+def _disagg_stack(pkg, env=None):
+    """hub, a prefill worker, a decode worker and the http frontend of
+    ``pkg``; returns (procs, hub, base, worker component)."""
+    out, comp = ("out=torch", "TorchWorker") if pkg == "dynamo_tpu_torch" else ("out=tpu",
+                                                                              "TpuWorker")
+    flags = ["--model", "tiny", "--arch", "debug-tiny", "--dtype", "float32", "--block-size",
+             "4", "--num-blocks", "128", "--max-batch", "2", "--max-model-len", "128",
+             "--prefill-chunk", "64"]
+    if pkg == "dynamo_tpu_torch":
+        flags += ["--device", "cpu"]
+    hub_port, http_port = _free_port(), _free_port()
+    procs = [Proc(pkg, "hub", "--host", "127.0.0.1", "--port", str(hub_port))]
+    _wait_tcp(hub_port)
+    hub = f"127.0.0.1:{hub_port}"
+    procs.append(Proc(pkg, "run", f"in=dyn://dynamo.{comp}.prefill", out, "--hub", hub,
+                      "--disagg", "prefill", *flags, env=env))
+    procs.append(Proc(pkg, "run", f"in=dyn://dynamo.{comp}.generate", out, "--hub", hub,
+                      "--disagg", "decode", "--max-local-prefill", "16", *flags, env=env))
+    procs.append(Proc(pkg, "http", "--hub", hub, "--host", "127.0.0.1", "--port",
+                      str(http_port)))
+    return procs, hub, f"http://127.0.0.1:{http_port}", comp
+
+
+def test_disaggregated_four_process_stacks_answer_alike(tmp_path):
+    stacks = {}
+    weights = {"JAX_WEIGHTS_NPZ": _jax_weights_npz(tmp_path / "weights.npz")}
+    try:
+        for pkg in ("dynamo_tpu_torch", "dynamo_tpu"):
+            stacks[pkg] = _disagg_stack(pkg, weights if pkg == "dynamo_tpu_torch" else None)
+        answers = {}
+        for pkg, (procs, hub, base, comp) in stacks.items():
+            if pkg == "dynamo_tpu_torch":
+                procs[1].wait_line("worker ")  # the prefill worker is up
+            _wait_model(base, "tiny", timeout=120)
+            status, raw = _http(base, "POST", "/v1/completions", {
+                "model": "tiny", "prompt": DISAGG_PROMPT, "max_tokens": 5,
+                "nvext": {"ignore_eos": True}}, timeout=120)
+            body = json.loads(raw)
+            assert status == 200, body
+            assert body["choices"][0]["finish_reason"] == "length"
+            assert body["usage"]["completion_tokens"] == 5
+            assert body["usage"]["prompt_tokens"] == 60
+            stats = _disagg_stats(pkg, hub, comp)
+            # Completing is not enough: a timed-out transfer falls back to
+            # local prefill and still completes.
+            assert stats["remote_prefills"] >= 1, (pkg, stats)
+            assert stats["local_prefills"] == 0, (pkg, stats)
+            assert stats["transfer_ms_last"] is not None
+            answers[pkg] = body["choices"][0]["text"]
+        assert answers["dynamo_tpu_torch"] == answers["dynamo_tpu"]
+    finally:
+        for procs, *_ in stacks.values():
+            for p in procs:
+                p.kill()
+
+
+@pytest.mark.parametrize("argv,env,match", [
+    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1", "--disagg", "decode"], {},
+     "--disagg decode requires the native engine"),
+    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"},
+     "ROADMAP queue 1 item 10"),
+    (["http", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}, "ROADMAP queue 1 item 10"),
 ], ids=["disagg", "bulk-plane-worker", "bulk-plane-http"])
-def test_cli_refuses_what_waits(argv, env, monkeypatch):
-    """Options of the JAX commands whose code is not ported fail, naming
-    where they wait, before anything dials the hub."""
+def test_cli_refuses_what_waits(argv, env, match, monkeypatch):
+    """Options of the JAX commands the port refuses fail before anything
+    dials the hub: ``--disagg`` on an engine without ``inject_blocks``
+    (as the JAX CLI refuses it), and the code not ported, naming where it
+    waits."""
     from dynamo_tpu_torch import cli
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     args = cli.parse_args(argv)
     run = cli._run if args.cmd == "run" else cli._run_http_frontend
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(SystemExit, match=match):
         asyncio.run(run(args))
+    if "--disagg" in argv:
+        from dynamo_tpu import cli as jax_cli
+        from dynamo_tpu.runtime import logging_config
+
+        monkeypatch.setattr(logging_config, "setup_logging", lambda: None)
+        with pytest.raises(SystemExit, match="--disagg decode requires the native"):
+            jax_cli.main(argv)
