@@ -169,9 +169,32 @@ Phases, any failure exits non-zero:
      for the same blocks (P''s export, the wire into D's ``kv_import``,
      D's inject, by part), with the remote against local TTFT and the
      chunk sizes P's adaptive sizing reached;
+  j. the sampler's noise kernel (csrc/threefry_gumbel.cu, ``jax.random``'s
+     threefry Gumbel noise bit for bit) against its plain version at 16 and
+     256 rows over the 128256-id vocabulary: uint32 bits exactly equal,
+     values within 2 ulp at the scale max(|g|, 1), the sampled tokens of
+     random logits equal; timed beside its plain version and its bound.
+     Then the distributed stack again (``cli hub``, ``http --router kv``
+     and worker B as subprocesses, worker A the CLI's own ``run in=dyn://``
+     code in this process with ``--kv-pull-mb 192``): a greedy and a
+     sampled fused dispatch's device time on A; 4 streams of 2048-id
+     prompts (2 greedy, 2 seeded at temperature 0.7) through the frontend
+     on A, migrated to B by A's ``migrate_out`` once each has 32 tokens:
+     every stream whole, 4 splices on the frontend's /metrics, A's rows and
+     blocks released, sampled migrated blocks bitwise equal on B, each
+     stream equal to its resume request served on B (how many also equal
+     the never-migrated stream is reported), no graph and no
+     ``torch.cuda.synchronize`` on A, all three kernels launched there;
+     copy rounds, blocks, freeze-to-quiescence, the stall across the
+     cutover and the wall to cutover reported; then B holds a 2048-id
+     prefix and A, hinted with ``kv_pull``, pulls it at 64 and 192 MiB: the
+     pulled count min(peer - local, budget), pages bitwise B's, the stream
+     equal to the same split computed on A, TTFT beside A's recompute and
+     B's prefix hit; a dead peer's pull prefills locally; then A is stopped
+     with 2 live streams and drains them to B through migration, whole;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h and i beside phase 6's and 7's), then the
-     device line last.
+     phases c, d, e, f, g, h, i and j beside phase 6's and 7's; the noise
+     kernel's in phases j and e), then the device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -362,7 +385,7 @@ class Tally:
     max-abs error per kernel and the labels of those that failed."""
 
     def __init__(self):
-        self.worst = {"decode_attention": 0.0, "prefill_attention": 0.0}
+        self.worst = {"decode_attention": 0.0, "prefill_attention": 0.0, "threefry_gumbel": 0.0}
         self.failures = []
 
     def compare(self, torch, name, label, got, want, tol, zero_rows=()):
@@ -2784,19 +2807,22 @@ def spec_phase(torch, dev):
                     await spec_run(engine, prompts, BENCH_OSL, temp)
                     spec_metrics.reset()
                     zero_kernel_counts()
+                    zero_noise_launches()
                     before = engine.compile_counts()
                     toks, dt, out = await spec_run(engine, prompts, BENCH_OSL, temp)
                     snap = spec_metrics.snapshot()
                     captured = sum(engine.compile_counts().values()) - sum(before.values())
                     res[(kind, mode)] = dict(tok_s=toks / dt, tokens=toks, wall=dt,
-                                             launches=kernel_counts(), captured=captured, **snap)
+                                             launches=kernel_counts(), noise=noise_launches(),
+                                             captured=captured, **snap)
                     streams[(kind, mode)] = out
                     log(f"spec {kind}/{mode}: {n} requests, {toks} tokens in {dt:.3f} s "
                         f"({toks / dt:.2f} tok/s), acceptance {snap['acceptance_rate']:.3f}, "
                         f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, verification "
                         f"dispatches {int(snap['dispatches_total'])}, fallbacks "
                         f"{int(snap['fallback_total'])}, launches {res[(kind, mode)]['launches']}, "
-                        f"graphs captured in the timed pass {captured}")
+                        f"noise kernel launches {res[(kind, mode)]['noise']}, graphs captured in "
+                        f"the timed pass {captured}")
                 if mode == "on":
                     await forced(engine, vocab)
             finally:
@@ -2856,8 +2882,12 @@ def spec_phase(torch, dev):
     # repetitive; it is reported, the streams and launches are checked.
     launched = all(all(v > 0 for v in res[(k, m)]["launches"].values())
                    for k in ("repetitive", "random") for m in ("off", "on"))
+    # The sampled (random) passes draw their noise from the threefry kernel;
+    # the all-greedy (repetitive) passes do no key work at all.
+    noise_ok = all(res[("random", m)]["noise"] > 0 and res[("repetitive", m)]["noise"] == 0
+                   for m in ("off", "on"))
     forced_ok = all(res[(k, "forced")]["ok"] for k in ("repetitive", "random"))
-    ok = ok and launched and forced_ok
+    ok = ok and launched and forced_ok and noise_ok
     rep = res[("repetitive", "on")]
     # What the proposer can match: output positions whose bigram (previous
     # token, token) already occurred in the prompt or earlier output.
@@ -2869,7 +2899,8 @@ def spec_phase(torch, dev):
             pair = (hist[j - 1], hist[j])
             hits += pair in seen
             seen.add(pair)
-    log(f"spec: both kernels launched in every timed pass {launched}; verification dispatches "
+    log(f"spec: both kernels launched in every timed pass {launched}; the noise kernel in the "
+        f"sampled passes only {noise_ok}; verification dispatches "
         f"on the repetitive traffic {int(rep['dispatches_total'])}, acceptance "
         f"{rep['acceptance_rate']:.3f}, tokens/dispatch {rep['tokens_per_dispatch']:.2f}; output "
         f"tokens whose bigram was already in the history {hits} of {n * BENCH_OSL} "
@@ -2990,10 +3021,12 @@ async def dist_engine_alone(engine, prompt, n):
     return toks, stamps[0], (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1)
 
 
-async def dist_complete(port, prompt, max_tokens, on_text=None):
-    """A streamed greedy completion; returns (status, text, finish, usage
-    tokens, ttft_s, itl_s, longest gap between content chunks in s).
-    ``on_text(text so far)`` runs on every chunk."""
+async def dist_complete(port, prompt, max_tokens, on_text=None, temperature=0, seed=None,
+                        logprobs=None):
+    """A streamed completion (greedy unless ``temperature``; with
+    ``logprobs`` every token's chunk is sent, text or not); returns
+    (status, text, finish, usage tokens, ttft_s, itl_s, longest gap between
+    content chunks in s).  ``on_text(text so far)`` runs on every chunk."""
     text = []
     stamps = []
 
@@ -3008,9 +3041,14 @@ async def dist_complete(port, prompt, max_tokens, on_text=None):
         if on_text is not None:
             on_text("".join(text))
 
-    st, _, body, events = await http_call(port, "POST", "/v1/completions", {
-        "model": DIST_MODEL, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
-        "stream": True, "nvext": {"ignore_eos": True}}, on_event=on_event)
+    body = {"model": DIST_MODEL, "prompt": prompt, "max_tokens": max_tokens,
+            "temperature": temperature, "stream": True, "nvext": {"ignore_eos": True}}
+    if seed is not None:
+        body["seed"] = seed
+    if logprobs is not None:
+        body["logprobs"] = logprobs
+    st, _, body, events = await http_call(port, "POST", "/v1/completions", body,
+                                          on_event=on_event)
     finish, used = None, None
     try:
         chunks, _ = sse_data(events)
@@ -3838,6 +3876,558 @@ def disagg_path(torch):
     return not fails, launches, numbers
 
 
+# ------------------------------ j. live migration, the prefix pull, the noise
+
+
+NOISE_V = 128256  # llama-3.1-8b's vocabulary
+NOISE_ROWS = (16, 256)  # a serve dispatch's rows and phase c/e's
+NOISE_ULP = 2.0  # Gumbel values: within 2 ulp at the scale max(|g|, 1)
+F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+# Operations of one noise element: threefry-2x32's 20 rounds (add, rotate,
+# xor: 3 each), 5 key injections (3 each) and the 2 counter adds, the xor of
+# the halves, the uniform (shift, or, subtract, multiply-add, max) and the
+# Gumbel (two logs, two negations).
+NOISE_OPS = 20 * 3 + 5 * 3 + 2 + 1 + 5 + 4
+
+
+def noise_launches():
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    return smp.gumbel_noise_cuda.launches
+
+
+def zero_noise_launches():
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    smp.gumbel_noise_cuda.launches = 0
+
+
+def check_noise_kernel(torch, dev, tally):
+    """Phase j, part 1: csrc/threefry_gumbel.cu against its plain version
+    at B = 16 and 256 over the llama-3.1-8b vocabulary, on ragged seeds and
+    steps (0 and 2**32 - 1 among them): the uint32 bits exactly, the Gumbel
+    values within NOISE_ULP ulp at the scale max(|g|, 1), and the sampled
+    token of ``argmax(logits + g)`` on random logits; then timed (rounds of
+    20 launches, L2 flushed) beside the plain version and the bound (the
+    [B, V] f32 write against NOISE_OPS operations an element).  Returns
+    {B: timings}."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for B in NOISE_ROWS:
+        seeds = torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
+        steps = torch.randint(0, 4096, (B,), generator=gen, device=dev, dtype=torch.int64)
+        seeds[0], steps[0] = 2**32 - 1, 0
+        seeds[1], steps[1] = 0, 2**32 - 1
+        bits = torch.empty((B, NOISE_V), dtype=torch.int32, device=dev)
+        got = smp.gumbel_noise_cuda(seeds, steps, NOISE_V, bits=bits)
+        want_bits = smp.random_bits_plain(seeds, steps, NOISE_V)
+        want = smp.gumbel_from_bits(want_bits)
+        torch.cuda.synchronize()
+        bits_ok = torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, want_bits)
+        scale = torch.maximum(want.abs(), torch.ones_like(want))
+        ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+        ulps = float(((got.double() - want.double()).abs() / ulp.double()).max())
+        err = float((got - want).abs().max())
+        logits = torch.randn((B, NOISE_V), generator=gen, device=dev) * 3
+        tokens_ok = torch.equal((logits + got).argmax(-1), (logits + want).argmax(-1))
+        ok = bits_ok and ulps <= NOISE_ULP and tokens_ok and bool(torch.isfinite(got).all())
+        tally.worst["threefry_gumbel"] = max(tally.worst["threefry_gumbel"], err)
+        log(f"check threefry_gumbel B={B} V={NOISE_V}: bits equal {bits_ok}, gumbel "
+            f"max_abs_err={err:.3e} ({ulps:.2f} ulp at max(|g|,1), tol {NOISE_ULP}), "
+            f"categorical tokens equal {tokens_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            tally.failures.append(f"threefry_gumbel B={B}")
+        del bits, want_bits, want, scale, ulp, logits, got
+
+        def kernel():
+            return smp.gumbel_noise_cuda(seeds, steps, NOISE_V)
+
+        def plain():
+            return smp.gumbel_noise_plain(seeds, steps, NOISE_V)
+
+        rounds = [cuda_ms(torch, kernel, 20, flush) for _ in range(TIMING_ROUNDS)]
+        nbytes = B * NOISE_V * 4 + 2 * B * 8
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = B * NOISE_V * NOISE_OPS / F32_FLOPS * 1e3
+        r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 plain_ms=cuda_ms(torch, plain, 3, flush, spin=False), library_ms=None)
+        log(f"time threefry_gumbel [B={B} V={NOISE_V}, int64 seeds/steps -> f32]: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none (PyTorch has no "
+            f"threefry), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.1f} MB "
+            f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms, {NOISE_OPS} operations "
+            f"an element at {F32_FLOPS / 1e12:.0f} TFLOP/s = {t_ops:.4f} ms); rounds "
+            f"{[round(x, 4) for x in rounds]}")
+        out[B] = r
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+MIGRATE_STREAMS, MIGRATE_ISL, MIGRATE_OSL, MIGRATE_AFTER = 4, 2048, 2040, 32
+MIGRATE_TEMPERATURE = 0.7
+MIGRATE_LOGPROBS = 1  # every token's chunk reaches the client: the stall is timed by token
+MIGRATE_SEEDS = (None, None, 4242, 4343)  # 2 greedy, 2 seeded at MIGRATE_TEMPERATURE
+MIGRATE_CHECK_BLOCKS = (0, 64)  # plus each stream's last full block B did not rewrite
+DRAIN_STREAMS, DRAIN_OSL, DRAIN_AFTER = 2, 1024, 16
+PULL_ISL, PULL_NEW, PULL_OSL = 2048, 32, 16
+PULL_BUDGETS_MB = (64, 192)  # the EngineConfig default, then A's --kv-pull-mb 192
+DISPATCH_PROMPTS, DISPATCH_ISL, DISPATCH_OSL = 4, 256, 64
+
+
+def migrate_pull_path(torch, noise_times):
+    """Phase j: live migration through the KV frontend, the cross-worker
+    prefix pull and the drain through migration, on the README's
+    distributed stack at phase 6's geometry: the hub, the KV frontend and
+    worker B are CLI subprocesses; worker A runs the CLI's own ``run
+    in=dyn://`` code in this process (its launches counted), started with
+    ``--kv-pull-mb 192``.  Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.llm.metrics import kv_tier_metrics, migration_metrics
+    from dynamo_tpu_torch.llm.migration import request_migrate_out, target_from_instance
+    from dynamo_tpu_torch.llm.migration.worker import MigratableWorker
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+
+    fails = []
+    out = {"noise": {B: {k: v for k, v in r.items() if k != "rounds"}
+                     for B, r in noise_times.items()}}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"migrate check FAILED: {what}")
+
+    hub_port = _free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    children, server, stopped = [], None, []
+    real_sync = torch.cuda.synchronize
+    syncs = [0]
+
+    def counting_sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    # Harness instrumentation of A's migrations (this process): per stream
+    # the wall of ``migrate_out``, its pushes (copy rounds, then the final
+    # delta) and blocks, and the freeze's wait for quiescence.
+    per_rid, current = {}, {}
+    real_migrate_out, real_push = MigratableWorker.migrate_out, MigratableWorker._push_blocks
+
+    async def timed_migrate_out(self, request_id, target):
+        current["rid"] = request_id
+        rec = per_rid.setdefault(request_id, {"pushes": 0, "blocks": 0})
+        rec["t0"] = time.perf_counter()
+        ok = await real_migrate_out(self, request_id, target)
+        rec.update(t1=time.perf_counter(), ok=ok)
+        return ok
+
+    async def counted_push(self, target, tokens, cursor, salt=None, trace=None):
+        n = await real_push(self, target, tokens, cursor, salt, trace)
+        rec = per_rid.get(current.get("rid"))
+        if rec is not None:
+            rec["pushes"] += 1
+            rec["blocks"] += n
+        return n
+
+    def request(prompt, n, temperature=0.0, seed=None, annotations=None, logprobs=None):
+        return PreprocessedRequest(
+            token_ids=list(prompt), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=temperature, seed=seed,
+                                             logprobs=logprobs),
+            annotations=dict(annotations or {}),
+        ).to_dict()
+
+    t_phase = time.perf_counter()
+    MigratableWorker.migrate_out, MigratableWorker._push_blocks = timed_migrate_out, counted_push
+    import logging
+
+    mig_log = logging.getLogger("dynamo_tpu_torch.llm.migration")
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("migration log: %(levelname)s %(message)s"))
+    mig_log.addHandler(handler)
+    mig_log.setLevel(logging.INFO)
+    try:
+        children.append(Child("hub", ["hub", "--host", "127.0.0.1", "--port", str(hub_port)]))
+        children[-1].wait_line("hub listening", 120)
+        worker_b = Child("worker B", ["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV,
+                                      "--hub", hub_addr])
+        children.append(worker_b)
+        front = Child("http kv", ["http", "--hub", hub_addr, "--host", "127.0.0.1", "--port",
+                                  "0", "--router", "kv"])
+        children.append(front)
+        fport = int(front.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
+        t = time.perf_counter()
+        server = CliServer(["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV, "--hub", hub_addr,
+                            "--kv-pull-mb", str(PULL_BUDGETS_MB[1])])
+        wid_a = server.service.worker_id
+        graphs = server.warmup()
+        engine = server.engine
+        out["a_up_s"] = time.perf_counter() - t
+        wid_b = int(worker_b.wait_line("worker ", 300).split()[1])
+        log(f"migrate: hub {hub_addr}, kv frontend :{fport}, worker A {wid_a} (in this "
+            f"process, up and warmed in {out['a_up_s']:.1f} s, graphs {graphs}), worker B "
+            f"{wid_b} (pid {worker_b.p.pid})")
+        released, freezes = {}, {}
+        real_finish, real_freeze = engine.finish_migrated, engine.freeze_sequence
+
+        def recording_finish(request_id, item=None):
+            released[request_id] = item
+            return real_finish(request_id, item)
+
+        async def timed_freeze(request_id, timeout=10.0):
+            t0 = time.perf_counter()
+            seq = await real_freeze(request_id, timeout)
+            freezes[request_id] = (time.perf_counter() - t0) * 1e3
+            return seq
+
+        engine.finish_migrated, engine.freeze_sequence = recording_finish, timed_freeze
+
+        async def on_a(coro):
+            """Await ``coro`` on A's event loop (its engine lives there)."""
+            return await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(coro, server.loop))
+
+        async def a_state(fn):
+            async def read():
+                return fn()
+            return await on_a(read())
+
+        async def alone(req):
+            """``req`` on A's engine directly; its tokens."""
+            return [t for item in await collect(await engine.generate(Context(req)))
+                    for t in item.get("token_ids", [])]
+
+        async def together(reqs):
+            """``reqs`` on A's engine at once; their tokens."""
+            return await asyncio.gather(*(alone(r) for r in reqs))
+
+        async def phase():
+            rt = await DistributedRuntime.connect(hub_addr)
+            ns, comp, ep = parse_endpoint_path(DIST_ENDPOINT)
+            endpoint = rt.namespace(ns).component(comp).endpoint(ep)
+            client = await endpoint.client()
+            export = await endpoint.component.endpoint("kv_export").client()
+
+            async def direct(wid, req, first=None):
+                """``req`` direct-routed to worker ``wid``: (tokens, TTFT s)."""
+                t0 = time.perf_counter()
+                toks, ttft = [], None
+                async for item in await client.generate(Context(req), worker_id=wid):
+                    if ttft is None and item.get("token_ids"):
+                        ttft = time.perf_counter() - t0
+                        if first is not None:
+                            first.set()
+                    toks += item.get("token_ids", [])
+                return toks, ttft
+
+            async def b_block(tokens, i):
+                """Block ``i`` of ``tokens`` exported from B's kv_export."""
+                items = await collect(await export.generate(Context(
+                    {"token_ids": list(tokens), "start_block": i, "max_blocks": 1}),
+                    worker_id=wid_b))
+                return (items[0] or {}).get("payload") if items else None
+
+            async def same_block(tokens, i):
+                pa_ = await on_a(engine.export_prompt_blocks(list(tokens), start_block=i,
+                                                             max_blocks=1))
+                pb_ = await b_block(tokens, i)
+                return (pa_ is not None and pb_ is not None
+                        and int(pa_["n_blocks"]) == int(pb_["n_blocks"]) == 1
+                        and pa_["k"] == pb_["k"] and pa_["v"] == pb_["v"])
+
+            async def splices(name="migration_splices_total"):
+                _, _, body, _ = await http_call(fport, "GET", "/metrics")
+                return parse_prometheus(body.decode()).get(
+                    (f"dynamo_tpu_resilience_{name}", ()), 0.0)
+
+            async def wait_live(n, after):
+                def enough():
+                    rids = engine.live_request_ids()
+                    seqs = [engine.find_sequence(r) for r in rids]
+                    return len(rids) == n and all(
+                        s is not None and s.num_output_tokens >= after for s in seqs)
+                for _ in range(3000):
+                    if await a_state(enough):
+                        return True
+                    await asyncio.sleep(0.01)
+                return False
+
+            try:
+                for _ in range(600):
+                    if set(client.instance_ids) == {wid_a, wid_b}:
+                        break
+                    await asyncio.sleep(0.1)
+                check(set(client.instance_ids) == {wid_a, wid_b},
+                      f"both workers discovered ({client.instance_ids})")
+                infos = {v["worker_id"]: v for v in
+                         (await rt.hub.kv_get_prefix(f"instances/{ns}/{comp}/{ep}/")).values()}
+                target_b = target_from_instance(infos.get(wid_b) or {})
+                check(target_b is not None
+                      and bool(((infos.get(wid_a) or {}).get("metadata") or {}).get("migrate")),
+                      "both workers advertise migrate")
+
+                # -- the sampler in a fused dispatch, on A's engine --------
+                async def dispatch_ms(temperature):
+                    spans = engine.decode_spans
+                    s0, c0 = spans.seconds, spans.count
+                    prompts = dist_prompts(DISPATCH_PROMPTS, DISPATCH_ISL, 60)
+                    await together([request(p, DISPATCH_OSL, temperature,
+                                            100 + i if temperature else None)
+                                    for i, p in enumerate(prompts)])
+                    return (spans.seconds - s0) / max(1, spans.count - c0) * 1e3, spans.count - c0
+
+                # The first sampled pass captures the sampled programs' graphs;
+                # the second of each is the one reported.
+                n_disp = {}
+                for temp in (0.0, MIGRATE_TEMPERATURE) * 2:
+                    key = "dispatch_greedy_ms" if temp == 0.0 else "dispatch_sampled_ms"
+                    out[key], n_disp[key] = await on_a(dispatch_ms(temp))
+                n_g, n_s = n_disp["dispatch_greedy_ms"], n_disp["dispatch_sampled_ms"]
+                log(f"migrate: a fused dispatch ({DISPATCH_PROMPTS} live rows of 16, 8 steps) "
+                    f"greedy {out['dispatch_greedy_ms']:.3f} ms ({n_g} dispatches), sampled at "
+                    f"temperature {MIGRATE_TEMPERATURE} {out['dispatch_sampled_ms']:.3f} ms "
+                    f"({n_s}); the noise kernel at 16 rows {noise_times[16]['ms']:.4f} ms a step")
+
+                # -- live migration through the KV frontend ----------------
+                prompts = dist_prompts(MIGRATE_STREAMS, MIGRATE_ISL, 61)
+                temps = [0.0 if s is None else MIGRATE_TEMPERATURE for s in MIGRATE_SEEDS]
+                # A holds each prompt's blocks, so the router sends the
+                # streams there, and has captured the programs this traffic
+                # reaches (the same prompts, sampled and greedy, together).
+                # Each alone twice (a prefill, then a prefix hit: greedy-only
+                # and sampled-only steps and fused dispatches), then all
+                # together (mixed ones).
+                warm = [request(p, 40, temps[i], MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
+                        for i, p in enumerate(prompts)]
+                for r in warm + warm:
+                    await on_a(alone(r))
+                await on_a(together(warm))
+                # B captures its graphs at first use: the same traffic on
+                # other prompts first, so the cutovers do not wait on
+                # captures there.
+                warm_b = [request(p, 40, temps[i], MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
+                          for i, p in enumerate(dist_prompts(MIGRATE_STREAMS, MIGRATE_ISL, 62))]
+                for r in warm_b + warm_b:
+                    await direct(wid_b, r)
+                await asyncio.gather(*(direct(wid_b, r) for r in warm_b))
+                await asyncio.sleep(1.5)  # the router's index takes A's events
+                splices0 = await splices()
+                migration_metrics.reset()
+                graphs0 = dict(engine.compile_counts())
+                zero_kernel_counts()
+                zero_noise_launches()
+                torch.cuda.synchronize = counting_sync
+                stamps = [[] for _ in prompts]
+
+                def on_text(i):
+                    return lambda text: stamps[i].append(time.perf_counter())
+
+                t_streams = time.perf_counter()
+                streams = [asyncio.ensure_future(dist_complete(
+                    fport, p, MIGRATE_OSL, on_text(i), temps[i], MIGRATE_SEEDS[i],
+                    MIGRATE_LOGPROBS)) for i, p in enumerate(prompts)]
+                check(await wait_live(MIGRATE_STREAMS, MIGRATE_AFTER),
+                      f"the {MIGRATE_STREAMS} streams live on A with {MIGRATE_AFTER}+ tokens")
+                rids = await a_state(lambda: list(engine.live_request_ids()))
+                t_req = time.perf_counter()
+                resp = await request_migrate_out(infos[wid_a], target_b)
+                out["migrate_request_s"] = time.perf_counter() - t_req
+                results = await asyncio.gather(*streams)
+                out["streams_wall_s"] = time.perf_counter() - t_streams
+                out["launches"] = {**kernel_counts(), "threefry_gumbel": noise_launches()}
+                out["graphs"] = (graphs0, dict(engine.compile_counts()))
+                out["syncs"] = syncs[0]
+                torch.cuda.synchronize = real_sync
+                check(resp.get("ok") and sorted(resp.get("migrated") or []) == sorted(rids)
+                      and not resp.get("failed"), f"migrate_out moved all {len(rids)} ({resp})")
+                for i, r in enumerate(results):
+                    check(r[0] == 200 and r[2] == "length" and r[3] == MIGRATE_OSL,
+                          f"migrated stream {i}: {r[0]} {r[2]}/{r[3]}")
+                n_spliced = await splices() - splices0
+                check(n_spliced == MIGRATE_STREAMS,
+                      f"{MIGRATE_STREAMS} splices on the frontend's /metrics ({n_spliced})")
+                held = await a_state(lambda: (engine.scheduler.num_running,
+                                              engine.scheduler.num_waiting,
+                                              engine.kv.active_blocks))
+                check(held == (0, 0, 0), f"A released the rows and blocks (running, waiting, "
+                                         f"active blocks: {held})")
+                # Each stream's resume request, as A's cutover marker sent it.
+                resumes = {rid: ((released.get(rid) or {}).get("migrated") or {}).get("request")
+                           for rid in rids}
+                check(all(resumes.values()), "every cutover carried its resume request")
+                log(f"migrate: per stream {[(r[:8], per_rid.get(r), freezes.get(r)) for r in rids]}")
+                rids = [r for r in rids if resumes.get(r)]
+                order = sorted(rids, key=lambda r: per_rid.get(r, {}).get("t0", 0.0))
+                by_prompt = {tuple(r["token_ids"][:MIGRATE_ISL]): rid
+                             for rid, r in resumes.items() if r}
+                stream_rid = [by_prompt.get(tuple(p)) for p in prompts]
+                # Pages: migrated blocks on B against A's, bitwise.  The last
+                # full block of a resume that ends on a block boundary is
+                # rewritten at its last position by B's admission (the
+                # resumed prompt's logits), so the block before it is taken.
+                pages_ok = []
+                for rid in order:
+                    toks = (resumes.get(rid) or {}).get("token_ids") or []
+                    last = len(toks) // PS - (1 if len(toks) % PS else 2)
+                    for i in (*MIGRATE_CHECK_BLOCKS, last):
+                        pages_ok.append(await same_block(toks, i))
+                check(bool(pages_ok) and all(pages_ok),
+                      f"migrated blocks bitwise equal on B ({pages_ok})")
+                # References: each resume request served on B, where the
+                # same blocks are resident, submitted in cutover order once
+                # the previous one's first token is out (as the cutovers
+                # arrived); and the never-migrated requests on A (reported).
+                firsts = []
+                for rid in order:
+                    ev = asyncio.Event()
+                    firsts.append(asyncio.ensure_future(direct(wid_b, dict(resumes[rid]), ev)))
+                    await asyncio.wait_for(ev.wait(), 120)
+                never = asyncio.ensure_future(on_a(together([request(
+                    p, MIGRATE_OSL, temps[i], MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
+                    for i, p in enumerate(prompts)])))
+                refs = {rid: (await task)[0] for rid, task in zip(order, firsts)}
+                never = await never
+                same, same_never = [], []
+                for i, r in enumerate(results):
+                    rid = stream_rid[i]
+                    if rid is None:
+                        continue  # not migrated (failed above)
+                    full = resumes[rid]["token_ids"][MIGRATE_ISL:] + refs.get(rid, [])
+                    same.append(len(full) == MIGRATE_OSL and r[1] == dist_text(full))
+                    same_never.append(r[1] == dist_text(never[i]))
+                check(all(same), f"each stream equals its resume request served on B ({same})")
+                recs = [per_rid.get(rid, {}) for rid in order]
+                out.update(
+                    identical_to_resume_reference=same,
+                    identical_to_never_migrated=sum(same_never),
+                    temperatures=[temps[prompts.index(list(resumes[rid]["token_ids"][
+                        :MIGRATE_ISL]))] for rid in order],
+                    copy_rounds=[x.get("pushes", 0) - 1 for x in recs],
+                    blocks_pushed=[x.get("blocks", 0) for x in recs],
+                    freeze_to_quiescence_ms=[freezes.get(rid) for rid in order],
+                    cutover_pause_ms=[migration_metrics.cutover_pause_ms.percentile(q)
+                                      for q in (0.5, 1.0)],
+                    migrate_out_s=[x.get("t1", 0.0) - x.get("t0", 0.0) for x in recs],
+                    request_to_cutover_s=[x.get("t1", 0.0) - t_req for x in recs],
+                    stall_ms=[max((b - a for a, b in zip(s, s[1:])), default=float("nan")) * 1e3
+                              for s in stamps],
+                    spliced=n_spliced,
+                )
+
+                # -- the prefix pull: B holds a prefix, A pulls it ---------
+                puller = await a_state(lambda: engine._prefix_puller)
+                check(puller is not None and puller.max_bytes == PULL_BUDGETS_MB[1] << 20,
+                      "A's puller at --kv-pull-mb 192")
+                pulls = []
+                for j, mb in enumerate(PULL_BUDGETS_MB):
+                    puller.max_bytes = mb << 20  # the default budget first, then the flag's
+                    prefix = dist_prompts(1, PULL_ISL, 70 + j)[0]
+                    full_req = prefix + dist_prompts(1, PULL_NEW, 80 + j)[0]
+                    await direct(wid_b, request(prefix, 1))
+                    # B's prefix hit, the second run (the first may capture).
+                    for _ in range(2):
+                        _, hit_ttft = await direct(wid_b, request(full_req, 1))
+                    local = await a_state(lambda: engine.local_prefix_blocks(full_req))
+                    want = min(PULL_ISL // PS - local, (mb << 20) // engine.block_nbytes())
+                    b0, f0 = kv_tier_metrics.pulled_blocks_total, kv_tier_metrics.pulls_failed_total
+                    toks, ttft = await direct(wid_a, request(full_req, PULL_OSL, annotations={
+                        "kv_pull": {"worker_id": wid_b, "blocks": PULL_ISL // PS}}))
+                    got = kv_tier_metrics.pulled_blocks_total - b0
+                    check(got == want and kv_tier_metrics.pulls_failed_total == f0,
+                          f"pull at {mb} MiB: {got} blocks (min(peer - local, budget) = {want})")
+                    page_ok = [await same_block(full_req, i) for i in (0, want // 2, want - 1)]
+                    check(all(page_ok), f"pull at {mb} MiB: pulled pages bitwise B's ({page_ok})")
+                    # The same split on A: its first ``want`` blocks computed
+                    # as B computed them (512-id chunks), under a salt, then
+                    # the request over them.
+                    salt = {"kv_salt": f"pull-reference-{j}"}
+                    await on_a(alone(request(full_req[: want * PS], 1, annotations=salt)))
+                    ref = await on_a(alone(request(full_req, PULL_OSL, annotations=salt)))
+                    check(len(toks) == PULL_OSL and toks == ref,
+                          f"pull at {mb} MiB: the stream whole and equal to the same-split "
+                          f"reference ({len(toks)} tokens)")
+                    # A's recompute: a fresh prompt of the same shape, no hint.
+                    _, recompute = await direct(wid_a, request(
+                        dist_prompts(1, PULL_ISL + PULL_NEW, 90 + j)[0], 1))
+                    pulls.append({"budget_mb": mb, "blocks": got, "want": want,
+                                  "frame_mib": got * engine.block_nbytes() / 2**20,
+                                  "ttft_pull_ms": ttft * 1e3,
+                                  "ttft_a_recompute_ms": recompute * 1e3,
+                                  "ttft_b_prefix_hit_ms": hit_ttft * 1e3})
+                f0 = kv_tier_metrics.pulls_failed_total
+                toks, dead_ttft = await direct(wid_a, request(
+                    dist_prompts(1, PULL_ISL + PULL_NEW, 99)[0], PULL_OSL,
+                    annotations={"kv_pull": {"worker_id": wid_b + 7919, "blocks": 128}}))
+                check(len(toks) == PULL_OSL and kv_tier_metrics.pulls_failed_total == f0 + 1,
+                      f"a pull from a dead peer prefilled locally ({len(toks)} tokens, failed "
+                      f"+{kv_tier_metrics.pulls_failed_total - f0})")
+                out["pulls"] = pulls
+                out["dead_peer_ttft_ms"] = dead_ttft * 1e3
+
+                # -- the drain: A stopped with live streams -----------------
+                drain = dist_prompts(DRAIN_STREAMS, MIGRATE_ISL, 95)
+                for p in drain:
+                    await on_a(alone(request(p, 1)))
+                await asyncio.sleep(1.5)
+                splices0 = await splices()
+                resumes0 = await splices("stream_resumes_total")
+                dstreams = [asyncio.ensure_future(dist_complete(fport, p, DRAIN_OSL))
+                            for p in drain]
+                check(await wait_live(DRAIN_STREAMS, DRAIN_AFTER),
+                      f"the {DRAIN_STREAMS} drain streams live on A")
+                drain_rids = await a_state(lambda: list(engine.live_request_ids()))
+                t0 = time.perf_counter()
+                await asyncio.get_running_loop().run_in_executor(None, server.stop)
+                stopped.append(True)
+                out["drain_stop_s"] = time.perf_counter() - t0
+                for i, r in enumerate(await asyncio.gather(*dstreams)):
+                    check(r[0] == 200 and r[2] == "length" and r[3] == DRAIN_OSL,
+                          f"drained stream {i}: {r[0]} {r[2]}/{r[3]}")
+                # Both cut over to B; the frontend splices each, unless A's
+                # shutdown right after the drain cuts a marker off, when the
+                # stream resumes on B instead (reported).
+                moved = [per_rid.get(r, {}).get("ok") for r in drain_rids]
+                check(moved == [True] * DRAIN_STREAMS, f"the drain moved both to B ({moved})")
+                out["drain_spliced"] = await splices() - splices0
+                out["drain_resumed"] = await splices("stream_resumes_total") - resumes0
+                check(out["drain_spliced"] + out["drain_resumed"] == DRAIN_STREAMS,
+                      f"the frontend spliced or resumed both ({out['drain_spliced']} + "
+                      f"{out['drain_resumed']})")
+            finally:
+                torch.cuda.synchronize = real_sync
+                await export.close()
+                await client.close()
+                await rt.close()
+
+        asyncio.run(phase())
+    finally:
+        torch.cuda.synchronize = real_sync
+        MigratableWorker.migrate_out, MigratableWorker._push_blocks = real_migrate_out, real_push
+        mig_log.removeHandler(handler)
+        try:
+            if server is not None and not stopped:
+                server.stop()
+        finally:
+            for c in reversed(children):
+                c.stop()
+    launches = out.get("launches") or {"decode_attention": 0, "prefill_attention": 0,
+                                       "threefry_gumbel": 0}
+    check(all(v > 0 for v in launches.values()), f"A launched all three kernels ({launches})")
+    g0, g1 = out.get("graphs", ({}, {}))
+    check(g0 == g1, f"A captured no graph while serving ({g0} -> {g1})")
+    check(out.get("syncs") == 0, f"no torch.cuda.synchronize on A while serving "
+                                 f"({out.get('syncs')})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = CARD
+    log("migrate " + json.dumps(out, default=str))
+    return not fails, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -3918,10 +4508,20 @@ def main() -> int:
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         ok_disagg, disagg_launches, _ = disagg_path(torch)
+        # Phase j: the sampler's noise kernel, then two workers again.
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            noise_times = check_noise_kernel(torch, dev, tally)
+        log(f"memory before the migration phase: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        ok_migrate, migrate_launches, _ = migrate_pull_path(torch, noise_times)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
-                    "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg}
+                    "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg,
+                    "migration and pull (j)": ok_migrate}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -3952,12 +4552,31 @@ def main() -> int:
             kernels[-1]["tier_launches"] = tiers["launches"][name]
             kernels[-1]["dist_launches"] = dist_launches[name]
             kernels[-1]["disagg_launches"] = disagg_launches[name]
+            kernels[-1]["migrate_launches"] = migrate_launches[name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
                                    mixed_step_bound_ms=tm["mixed"]["bound_ms"],
                                    mixed_step_library_ms=None,
                                    mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])
+        # The sampler's noise kernel has no Pallas counterpart (the JAX
+        # package draws jax.random's noise in XLA); its path is the sampled
+        # traffic, so its launches are phase j's (worker A) and phase e's.
+        nt = noise_times[max(NOISE_ROWS)]
+        kernels.append({
+            "name": "threefry_gumbel", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/threefry_gumbel.cu",
+            "replaces": "dynamo_tpu/ops/sampling.py:105 (jax.random in XLA, no Pallas kernel)",
+            "launches": migrate_launches["threefry_gumbel"],
+            "max_abs_err": tally.worst["threefry_gumbel"],
+            "ms": nt["ms"], "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
+            "bound_by": nt["bound_by"], "library_ms": None,
+            "checks_passed": not any(f.startswith("threefry_gumbel") for f in tally.failures),
+            "shape": f"B={max(NOISE_ROWS)} V={NOISE_V}",
+            "rows16": {k: noise_times[16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "spec_launches": {k: spec[(k, "on")]["noise"] for k in ("repetitive", "random")},
+            "migrate_launches": migrate_launches["threefry_gumbel"],
+        })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(
                 slice_ok.values()):

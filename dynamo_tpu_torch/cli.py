@@ -36,15 +36,21 @@ through ``DisaggDecodeWorker`` (llm/disagg): prompts whose uncached part
 exceeds ``--max-local-prefill`` (live-updated from the hub) are prefilled
 by a ``--disagg prefill`` worker, which pulls them from the model's prefill
 queue and pushes their KV blocks to the decode worker's ``kv_import``
-endpoint; ``disagg_stats`` serves its counters.  The flags keep the JAX
+endpoint; ``disagg_stats`` serves its counters.  A decode-role worker on
+``out=torch`` also serves live migration (llm/migration): the engine goes
+through ``MigratableWorker`` with ``migrate_in`` / ``migrate_out``
+endpoints, advertised as ``metadata["migrate"]``, and shutdown drains its
+live streams to a peer through migration before it stops; the routed
+client splices each moved stream.  It serves its sealed blocks to peers at
+``kv_export``, pulls a deeper peer prefix at admission when the KV router
+stamps a ``kv_pull`` hint (``--kv-pull-mb`` budget), and with a disk tier
+consumes the router's ``kv_prefetch`` plane.  The flags keep the JAX
 parser's names and defaults.  Options the port does not have yet fail when
 set (engine/__init__.py UNSUPPORTED_OPTIONS; the bulk plane's
-``DYN_BULK_PLANE``); the worker's live migration (the decode role's
-migration wrap and drain, ROADMAP queue 1 item 10.4), ``kv_export`` and
-prefix pull, the planner's role flips (``RoleFlipWatcher``, item 10.7) and
-``EdgeSloPublisher``, and the other JAX subcommands (model, metrics,
-mock-worker, planner, deploy) are not ported (ROADMAP queue 1 item 10 and
-after).  The tokenizer is the self-contained
+``DYN_BULK_PLANE``, ROADMAP queue 1 item 10.2); the planner's role flips
+(``RoleFlipWatcher``, item 10.7) and ``EdgeSloPublisher``, and the other
+JAX subcommands (model, metrics, mock-worker, planner, deploy) are not
+ported (ROADMAP queue 1 items 10.6–10.8).  The tokenizer is the self-contained
 byte tokenizer, the JAX CLI's default without ``--tokenizer`` or
 ``--checkpoint``.
 """
@@ -168,7 +174,7 @@ async def _run_hub(args) -> None:
 def _refuse_bulk_plane() -> None:
     if os.environ.get("DYN_BULK_PLANE", "0").lower() not in ("", "0", "false", "no", "off"):
         raise SystemExit(
-            "DYN_BULK_PLANE: the bulk data plane is not ported yet (ROADMAP queue 1 item 10)"
+            "DYN_BULK_PLANE: the bulk data plane is not ported yet (ROADMAP queue 1 item 10.2)"
         )
 
 
@@ -286,8 +292,7 @@ async def _serve_worker(args, engine, on_serving) -> None:
         if role:
             logger.info(
                 "disagg %s role: the planner's role flips (RoleFlipWatcher, ROADMAP queue 1 "
-                "item 10.7) and the decode role's live migration (item 10.4) are not ported",
-                role)
+                "item 10.7) are not ported", role)
         print(f"worker {runtime.worker_id} serving {args.inp} (model {args.model!r}"
               + (f", disagg={role}" if role else "") + ")", flush=True)
         if on_serving is not None:
@@ -305,8 +310,11 @@ async def _serve_worker(args, engine, on_serving) -> None:
 
 class WorkerRoles:
     """The decode and prefill roles of one ``dyn://`` worker on its one
-    resident engine (the JAX package's ``WorkerRoles`` without the live
-    migration wrap of the decode role and the planner's role flips)."""
+    resident engine (the JAX package's ``WorkerRoles`` without the
+    planner's role flips, ROADMAP queue 1 item 10.7).  The decode role's
+    stop hook drains via LIVE MIGRATION first (llm/migration): sequences
+    move to a peer in O(KV transfer) instead of being waited out in
+    O(sequence length)."""
 
     def __init__(self, args, runtime, endpoint, engine):
         self.args = args
@@ -319,10 +327,13 @@ class WorkerRoles:
         """Serve the engine at the endpoint under the runtime's lease
         (through ``DisaggDecodeWorker`` when ``disagg``, with its
         ``kv_import`` and ``disagg_stats`` endpoints and ``role: decode``
+        metadata), through ``MigratableWorker`` on the native engine (with
+        its ``migrate_in`` / ``migrate_out`` endpoints and ``migrate``
         metadata), publish its KV events and ``ForwardPassMetrics`` (the KV
-        router's inputs), feed its tiers' integrity detections to the
-        ``kv_corruption`` ledger, and register the model with the engine's
-        block size."""
+        router's inputs), serve ``kv_export`` and pull router-hinted peer
+        prefixes, consume ``kv_prefetch`` when the disk tier is on, feed its
+        tiers' integrity detections to the ``kv_corruption`` ledger, and
+        register the model with the engine's block size."""
         from .llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
         from .runtime.health import kv_corruption
 
@@ -354,7 +365,31 @@ class WorkerRoles:
             h["serveds"].append(await stats_ep.serve_endpoint(worker.stats_handler))
             h["disagg"] = worker
             served_engine = worker
+        if hasattr(engine, "inject_blocks"):  # TorchEngine
+            # Live-migration surface: peers (and the drain path) move
+            # running sequences here preemption-free.  The instance
+            # metadata advertises the capability so target discovery
+            # (llm/migration/coordinator.py) finds this worker.
+            from .llm.migration import (
+                MIGRATE_IN_ENDPOINT,
+                MIGRATE_OUT_ENDPOINT,
+                MigratableWorker,
+            )
+
+            mig = MigratableWorker(engine, serve=served_engine)
+            mig_in = endpoint.component.endpoint(MIGRATE_IN_ENDPOINT)
+            mig_out = endpoint.component.endpoint(MIGRATE_OUT_ENDPOINT)
+            h["serveds"].append(await mig_in.serve_endpoint(mig.migrate_in_handler))
+            h["serveds"].append(await mig_out.serve_endpoint(mig.migrate_out_handler))
+            metadata["migrate"] = {
+                "import_path": mig_in.path,
+                "out_path": mig_out.path,
+                "generate_path": endpoint.path,
+            }
+            served_engine = mig
+            h["mig"] = mig
         h["serveds"].append(await endpoint.serve_endpoint(served_engine, metadata=metadata or None))
+        h["metadata"] = metadata
         kv_block_size = 16
         if hasattr(engine, "set_event_callback"):  # TorchEngine
             kv_block_size = engine.cfg.block_size
@@ -363,6 +398,25 @@ class WorkerRoles:
             h["metrics_pub"] = await KvMetricsPublisher(
                 endpoint.component, runtime.worker_id, engine.metrics
             ).start()
+            # Fleet-wide prefix reuse: serve this worker's sealed blocks to
+            # peers at kv_export, pull a deeper peer prefix at admission
+            # (router-stamped kv_pull hints), and — when the disk tier is
+            # on — consume the router's kv_prefetch plane to warm
+            # predicted prefixes disk→host.
+            from .llm.kv_router.pull import (
+                KV_EXPORT_ENDPOINT,
+                KvPrefetchConsumer,
+                PrefixPuller,
+                make_client_exporter,
+                make_kv_export_handler,
+            )
+
+            export_ep = endpoint.component.endpoint(KV_EXPORT_ENDPOINT)
+            h["serveds"].append(await export_ep.serve_endpoint(make_kv_export_handler(engine)))
+            h["pull_client"] = await export_ep.client()
+            engine.set_prefix_puller(PrefixPuller(engine, make_client_exporter(h["pull_client"])))
+            if engine.disk_kv is not None:
+                h["prefetch"] = await KvPrefetchConsumer(endpoint.component, engine).start()
             wid = runtime.worker_id
             engine.set_integrity_reporter(lambda plane, _wid=wid: kv_corruption.record(_wid))
             kv_tier_metrics.set_source(engine.kv_tier_summary)
@@ -375,10 +429,38 @@ class WorkerRoles:
         h = self._handles.pop("decode", None)
         if h is None:
             return
+        if h.get("mig") is not None:
+            # Close the drain race at BOTH ends.  (1) Accept-time gate:
+            # refuse migrate-in from here on — even a peer holding a stale
+            # hub snapshot that still advertises us gets refused when its
+            # push arrives.  (2) De-advertise the migrate capability so
+            # fresh target discovery stops picking us.
+            from .llm.migration import drain_via_migration
+
+            h["mig"].stop_accepting()
+            try:
+                md = {k: v for k, v in (h.get("metadata") or {}).items() if k != "migrate"}
+                await self.endpoint.update_metadata(md)
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — best effort; drain anyway
+                logger.warning("could not de-advertise migrate capability", exc_info=True)
+            # Drain via migration: live sequences hand off to a peer in
+            # O(transfer); anything that could not move (no peer, rollback)
+            # simply keeps decoding here until it finishes.
+            await drain_via_migration(
+                h["mig"], self.runtime.hub, self.endpoint.instance_prefix,
+                self.runtime.worker_id,
+            )
         if h.get("disagg") is not None:
             await h["disagg"].drain(timeout=10.0)
         for served in reversed(h["serveds"]):
             await served.stop()
+        if h.get("prefetch") is not None:
+            await h["prefetch"].stop()
+        if h.get("pull_client") is not None:
+            self.engine.set_prefix_puller(None)
+            await h["pull_client"].close()
         if hasattr(self.engine, "set_event_callback"):
             self.engine.set_event_callback(None)
             self.engine.set_integrity_reporter(None)
@@ -645,12 +727,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="object layout root for the durable KV tier (required with "
         "--object-store-mb: the store outlives the process)",
     )
+    p_run.add_argument(
+        "--kv-pull-mb", type=int, default=None, dest="kv_pull_mb",
+        help="cross-worker prefix pull byte budget in MiB (the router "
+        "hints a peer holding a deeper prefix; the engine pulls the "
+        "delta over the KV transfer plane instead of recomputing)",
+    )
     # The JAX parser's options that out=torch lacks: accepted so that
     # setting one fails with where it waits (build_torch_engine).
     p_run.add_argument("--checkpoint", default=None)
     for flag in ("--tp", "--dp", "--ep", "--sp", "--nnodes"):
         p_run.add_argument(flag, type=int, default=1)
-    p_run.add_argument("--kv-pull-mb", type=int, default=None)
     p_run.add_argument("--spec-decode", action="store_true", default=None)
     for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max",
                  "--lora-max-adapters", "--lora-rank"):

@@ -10,7 +10,6 @@ UNSUPPORTED_OPTIONS = (
     ("ep", 1, "--ep", "queue 1 item 7, tp/sp and multi-host"),
     ("sp", 1, "--sp", "queue 1 item 7, tp/sp and multi-host"),
     ("nnodes", 1, "--nnodes", "queue 1 item 7, tp/sp and multi-host"),
-    ("kv_pull_mb", None, "--kv-pull-mb", "queue 1 item 10, the cross-worker prefix pull"),
     ("lora", None, "--lora", "queue 1 item 6, LoRA"),
     ("lora_max_adapters", None, "--lora-max-adapters", "queue 1 item 6, LoRA"),
     ("lora_rank", None, "--lora-rank", "queue 1 item 6, LoRA"),
@@ -49,6 +48,8 @@ def build_torch_engine(args):
         object_store_bytes=(getattr(args, "object_store_mb", 0) or 0) << 20,
         object_store_dir=getattr(args, "object_store_dir", None),
     )
+    if getattr(args, "kv_pull_mb", None) is not None:
+        cfg.kv_pull_max_bytes = int(args.kv_pull_mb) << 20
     return TorchEngine(cfg, device=getattr(args, "device", None))
 
 

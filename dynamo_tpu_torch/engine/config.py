@@ -1,7 +1,7 @@
 """Engine configuration knobs.
 
 The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
-a knob it would silently ignore (meshes, LoRA, the prefix pull) is absent, so
+a knob it would silently ignore (meshes, LoRA) is absent, so
 passing one fails at construction instead of serving something else.
 """
 
@@ -193,6 +193,15 @@ class EngineConfig:
     # block hash stays negative-cached (restore and promotion treat it as
     # a miss meanwhile).
     kv_corrupt_ttl_s: float = 30.0
+    # Cross-worker prefix pull (llm/kv_router/pull.py): when the router's
+    # index says a peer holds a strictly longer prefix than every local
+    # tier, the engine pulls the sealed delta blocks over the KV transfer
+    # plane instead of recomputing prefill.  Budgets bound the worst case:
+    # a pull never moves more than ``kv_pull_max_bytes`` and never waits
+    # longer than ``kv_pull_timeout_s`` — past either, local prefill runs
+    # (the disagg degraded-mode shape; the request is never lost).
+    kv_pull_max_bytes: int = 64 << 20
+    kv_pull_timeout_s: float = 5.0
     # Decode-stall watchdog threshold in seconds (engine/pipeline.py
     # _await_device): a token fetch or device dispatch exceeding it logs the
     # recent dispatch trace and bumps dynamo_tpu_engine_stall_total.  None

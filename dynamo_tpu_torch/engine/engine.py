@@ -37,9 +37,12 @@ each block CRC-32 verified at every tier boundary, restored ahead of
 admission by an in-place scatter into the pages the graphs hold, and the
 JAX engine's KV block transfer (engine/transfer.py): the checksummed
 host-staged export and import of disaggregated prefill, and the
-same-process device-to-device path.
-Out of this engine so far: LoRA, grammar constraints, the cross-worker
-prefix pull and migration, tp/sp and multi-host.
+same-process device-to-device path.  The same transfer carries the
+cross-worker prefix pull at admission (``set_prefix_puller``, the
+``engine.kv_pull`` span) and live migration's copy rounds; the migration
+primitives (snapshot, freeze, cutover) are engine/migrate.py's.
+Out of this engine so far: LoRA (ROADMAP queue 1 item 6.4), grammar
+constraints (6.5), tp/sp and multi-host (item 7).
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ from .graphs import DevicePrograms, FetchRing
 from .host_cache import HostKvStore
 from .integrity import CorruptionCache
 from .kv_manager import KvBlockManager
+from .migrate import MigrationMixin
 from .object_store import ObjectKvStore
 from .offload import HostOffloadMixin
 from .pipeline import _FINISHED, DecodePipelineMixin, HostSampling
@@ -132,7 +136,7 @@ class StreamSpans:
 
 
 class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipelineMixin,
-                  AsyncEngine):
+                  MigrationMixin, AsyncEngine):
     """Token-in/token-out engine on one device."""
 
     def __init__(
@@ -159,6 +163,9 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         self._wake = asyncio.Event()
         self._closed = False
         self._loop_task: Optional[asyncio.Task] = None
+        # Cross-worker prefix puller (llm/kv_router/pull.py), set by the
+        # serving layer; None = no pull at admission.
+        self._prefix_puller = None
         # Serialises device dispatches (each runs in a worker thread).
         self._device_lock = asyncio.Lock()
         # Mixed-phase cadence: prefill chunks run since the last decode burst.
@@ -176,7 +183,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # Deferred token fetches (FIFO): (kind, task, *meta), applied at
         # harvest points (engine/pipeline.py _harvest_pending).
         self._pending_fetches: List[Tuple] = []
-        # Request ids with fused dispatches possibly in flight.
+        # Request ids with fused dispatches possibly in flight (a migration
+        # freeze polls it for quiescence, engine/migrate.py).
         self._pipeline_members: set = set()
         # Continuous-batching pipeline health, on /metrics as
         # dynamo_tpu_engine_dispatch_* (llm/metrics.py).
@@ -568,22 +576,34 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # None keeps every instrumentation point a single attr check.
         trace = parse_trace(pre.annotations.get("trace")) or getattr(request.ctx, "trace", None)
         self._ensure_loop()
+        salt = pre.annotations.get("kv_salt") or None
+        salt = None if salt is None else str(salt)
         if self.host_kv is not None and self._tiers_hold_blocks():
             # Pull any evicted prefix blocks back from the tiers BEFORE
             # admission, so the scheduler sees them as prefix-cache hits.
             # The tiers index blocks by the (salted) hashes they sealed
             # under, so a tenant's restore hits exactly its own blocks.
-            salt = pre.annotations.get("kv_salt") or None
             t0 = time.perf_counter()
             with span(trace, "engine.kv_restore", "engine") as rs:
-                restored = await self._restore_from_host(
-                    list(pre.token_ids), None if salt is None else str(salt))
+                restored = await self._restore_from_host(list(pre.token_ids), salt)
                 rs.set(restored_tokens=restored)
             if restored:
                 kv_tier_metrics.restore_latency_ms.observe((time.perf_counter() - t0) * 1e3)
                 kv_tier_metrics.restore_hits_total += 1
             else:
                 kv_tier_metrics.restore_misses_total += 1
+        if self._prefix_puller is not None and pre.annotations.get("kv_pull"):
+            # Cross-worker prefix pull (llm/kv_router/pull.py): the router
+            # stamped a peer that holds a strictly longer prefix than any
+            # local tier; pull the sealed delta blocks over the transfer
+            # plane instead of recomputing prefill.  Bounded by the
+            # configured byte/latency budgets; ANY failure degrades to
+            # local prefill (the disagg degraded-mode shape).
+            with span(trace, "engine.kv_pull", "engine") as ps:
+                pulled = await self._prefix_puller.pull(
+                    list(pre.token_ids), salt, pre.annotations["kv_pull"], trace=trace,
+                )
+                ps.set(pulled_tokens=pulled)
         seq = SequenceState.from_request(request.id, pre, self.cfg)
         if trace is not None:
             # Anchors the queue-wait (scheduler._record_admission) and
@@ -826,6 +846,12 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             else:
                 break
         return n
+
+    def set_prefix_puller(self, puller) -> None:
+        """Attach the cross-worker prefix puller (llm/kv_router/pull.py);
+        None detaches.  The serving layer owns peer discovery — the engine
+        only calls ``puller.pull(tokens, salt, hint)`` at admission."""
+        self._prefix_puller = puller
 
     def block_nbytes(self) -> int:
         """Bytes of one KV block (all layers) in the page dtype."""

@@ -51,6 +51,7 @@ import torch
 
 from ..ops.decode_attention import decode_attention_cuda
 from ..ops.prefill_attention import prefill_attention_cuda
+from ..ops.sampling import gumbel_noise_cuda
 
 ALIGN = 64  # byte alignment of every field in a staging buffer / arena
 
@@ -63,7 +64,8 @@ _TORCH = {
 
 # The hand-written kernels' wrappers, whose ``launches`` counters replays
 # advance.
-KERNELS = {"decode_attention": decode_attention_cuda, "prefill_attention": prefill_attention_cuda}
+KERNELS = {"decode_attention": decode_attention_cuda, "prefill_attention": prefill_attention_cuda,
+           "threefry_gumbel": gumbel_noise_cuda}
 
 
 def kernel_launches() -> Dict[str, int]:

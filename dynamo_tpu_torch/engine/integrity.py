@@ -179,3 +179,10 @@ class CorruptionCache:
                     self._banned.pop(seq_hash, None)
                 return False if d is None else self._clock() < d
         return True
+
+    def any_banned(self, seq_hashes: Sequence[int]) -> Optional[int]:
+        """First banned hash in ``seq_hashes``, or None."""
+        for h in seq_hashes:
+            if self.banned(h):
+                return h
+        return None

@@ -18,10 +18,13 @@ kind of deferred fetch, applied by ``_harvest_spec``, and the session probe
 that leaves a fused session once its output turns repetitive enough for
 speculation to beat it.  Request tracing enters at the first accepted
 token (``_trace_first_token``: the ``engine.prefill`` span) and once per
-fused dispatch (``_trace_decode_chunk``), on host clocks only.  Left out,
-with the later slices that port them: migration freeze entry points and the
-multi-host publisher.  The ``frozen`` and ``grammar`` guards stay as the
-copied modules have them.
+fused dispatch (``_trace_decode_chunk``), on host clocks only.  Live
+migration (engine/migrate.py) enters through ``_pipeline_members``, which a
+session publishes before its first dispatch, and the freeze park: a frozen
+row leaves a live session at its write barrier, its unharvested chunk
+tokens dropped, while the session keeps fusing for the other rows.  Left
+out: the multi-host publisher (ROADMAP queue 1 item 7).  The ``grammar``
+guards stay as the copied modules have them.
 """
 
 from __future__ import annotations
@@ -333,6 +336,8 @@ class DecodePipelineMixin:
         bs = cfg.block_size
         S, T = cfg.max_batch, cfg.decode_steps
         continuous = self._continuous_decode
+        # Visible to freeze_sequence (engine/migrate.py) BEFORE the first
+        # suspension point; maintained as membership changes below.
         self._pipeline_members = {s.request_id for s in members}
         self.pipeline_sessions += 1
         session_t0 = time.perf_counter()
@@ -351,7 +356,10 @@ class DecodePipelineMixin:
         inflight: deque = deque()  # (fetch, pos0, chunk_id, need_lp)
         chunk_id = 0  # monotone dispatch counter: the write-barrier clock
         harvested = 0  # highest chunk id applied so far
-        retired: List[Tuple[SequenceState, int, int]] = []  # (seq, slot, barrier)
+        # (seq, slot, barrier, remove): remove=False parks a FROZEN row out
+        # of the session (migration quiescence) without releasing it from
+        # the scheduler — the row stays resident, just unplanned.
+        retired: List[Tuple[SequenceState, int, int, bool]] = []
         prefilling: List[SequenceState] = []  # admitted in-loop, prompt computing
         # Sequences joining the chain at the next chain-break merge; the
         # initial members seed through the same merge.
@@ -375,9 +383,10 @@ class DecodePipelineMixin:
             chained = False
 
         def sweep_retire() -> int:
-            """Retire finished (and, continuous, cancelled) rows: excluded
-            from future dispatches now, slot and blocks released once the
-            write barrier passes."""
+            """Retire finished (and, continuous, cancelled and
+            migration-frozen) rows: excluded from future dispatches now,
+            slot (and blocks, unless frozen) released once the write
+            barrier passes."""
             m = 0
             for i, seq in slots.active():
                 if continuous and self._stopped(seq):
@@ -386,30 +395,48 @@ class DecodePipelineMixin:
                 if seq.finished:
                     slots.retire(i)
                     pos_disp[i] = -1
-                    retired.append((seq, i, chunk_id))
+                    retired.append((seq, i, chunk_id, True))
                     if continuous:
                         self.continuous_retired += 1
+                    m += 1
+                elif continuous and seq.frozen:
+                    # Migration freeze: park the row OUT of the session.
+                    # Its slot goes None, so any not-yet-harvested chunk
+                    # tokens for the row are DROPPED at accept (recomputed
+                    # identically on resume — seeded sampler), keeping the
+                    # snapshot frontier equal to the emitted stream; the
+                    # barrier hands quiescence to freeze_sequence via the
+                    # _pipeline_members discard — the session keeps fusing
+                    # for everyone else.  Static membership drains instead
+                    # (want_rebuild).
+                    slots.retire(i)
+                    pos_disp[i] = -1
+                    retired.append((seq, i, chunk_id, False))
                     m += 1
             return m
 
         def flush_retired() -> None:
-            """Release retirements whose write barrier has passed."""
+            """Release retirements whose write barrier has passed: nothing
+            in flight can still write the row's blocks (or, for a frozen
+            row, still advance it — quiescence)."""
             while retired and retired[0][2] <= harvested:
-                seq, i, _ = retired.pop(0)
-                self.scheduler.remove(seq)
+                seq, i, _, remove = retired.pop(0)
+                if remove:
+                    self.scheduler.remove(seq)
                 self._pipeline_members.discard(seq.request_id)
                 slots.free(i)
 
         def rejoin_strays() -> None:
             """Running decode rows outside the session rejoin at the next
-            chain break."""
+            chain break — a migration rollback's unfreeze is the one way a
+            planned row falls out of membership."""
             nonlocal rebuild
             known = slots.num_active + len(prefilling) + len(ready) + len(retired)
             if len(self.scheduler.running) == known:
                 return
             in_session = (
                 {id(s) for _, s in slots.active()} | {id(s) for s in prefilling}
-                | {id(s) for s in ready} | {id(s) for s, _, _ in retired}
+                | {id(s) for s in ready} | {id(s) for s, _, _, _ in retired}
             )
             for seq in self.scheduler.running:
                 if id(seq) in in_session or seq.frozen or seq.finished or seq.awaiting_fetch:
@@ -424,6 +451,8 @@ class DecodePipelineMixin:
             if self._closed:
                 return True
             if any(s.frozen for s in prefilling) or any(s.frozen for s in ready):
+                # A freeze landing in the join window (rare): drain — the
+                # joining row has no slot to park out of.
                 return True
             if not continuous:
                 # Static membership: ANY change drains the session.

@@ -233,6 +233,16 @@ class SequenceState:
                 else pre.annotations.get("priority")
             ),
         )
+        spec = resume.get("spec") if isinstance(resume, dict) else None
+        if isinstance(spec, dict):
+            # Speculation controller state travels with the sequence — the
+            # acceptance history is a property of the traffic, not of which
+            # worker holds the KV (same rationale as surviving preemption).
+            seq.spec_k = int(spec.get("k", seq.spec_k))
+            seq.spec_ewma = float(spec.get("ewma", seq.spec_ewma))
+            seq.spec_bench_until = int(spec.get("bench_until", seq.spec_bench_until))
+            seq.spec_next_try = int(spec.get("next_try", seq.spec_next_try))
+            seq.spec_miss = int(spec.get("miss", seq.spec_miss))
         return seq
 
 
@@ -648,10 +658,18 @@ class Scheduler:
                 break
             if not self._try_admit(seq):
                 own_pins = len(seq.pin_ids or [])
-                if not self.running and self.kv.active_blocks <= own_pins:
+                if (
+                    not self.running
+                    and self.kv.active_blocks <= own_pins
+                    and not self._pressure_reserve()
+                ):
                     # Pool entirely free (apart from this request's OWN
                     # pre-admission pin) and it still doesn't fit: this
                     # request can never run — reject instead of deadlocking.
+                    # (Not under an armed kv_pressure squeeze: that pool is
+                    # SYNTHETICALLY small and the right behaviour is to
+                    # stall until the fault clears, exactly like waiting
+                    # out a real tenant's HBM.)
                     self.waiting.popleft()
                     self._release_pin(seq)
                     self.rejected.append(seq)
@@ -700,6 +718,9 @@ class Scheduler:
         if seq.frozen:
             return False  # mid-migration: schedule() will not admit it
         prompt_blocks = (len(seq.prompt) + self.cfg.block_size) // self.cfg.block_size
+        reserve = self._pressure_reserve()
+        if reserve and prompt_blocks + reserve > self.kv.free_blocks:
+            return False  # squeezed pool: the head cannot land right now
         if prompt_blocks <= self.kv.free_blocks:
             return True  # fits even with zero prefix hits: skip the hashing
         # The fused pipeline polls this twice per chunk at saturation; the
@@ -750,10 +771,27 @@ class Scheduler:
             limit -= 1
         return admitted
 
+    def _pressure_reserve(self) -> int:
+        """Blocks withheld from ADMISSION by the ``kv_pressure`` fault point
+        (chaos ladder): a squeezed pool stalls newcomers — queue depth and
+        TTFT rise exactly as they would when real tenants hold the HBM —
+        without destabilizing already-running sequences."""
+        from ..runtime.faultinject import faults
+
+        if not faults.enabled:
+            return 0
+        level = faults.level_for("kv_pressure")
+        if level <= 0:
+            return 0
+        return int(self.kv.num_blocks * min(level, 1.0))
+
     def _try_admit(self, seq: SequenceState) -> bool:
         """Allocate prompt blocks (sharing any cached prefix)."""
         prompt_blocks = (len(seq.prompt) + self.cfg.block_size) // self.cfg.block_size
         # ^ +1 slack block so the first decode token always has a slot.
+        reserve = self._pressure_reserve()
+        if reserve and prompt_blocks + reserve > self.kv.free_blocks:
+            return False  # kv_pressure fault: pool squeezed, head waits
         seq.block_seq.extend(seq.prompt)
         alloc = self.kv.allocate_sequence(seq.block_seq.blocks, prompt_blocks)
         if alloc is None:

@@ -61,6 +61,7 @@ from .metrics import (
     engine_dispatch_metrics,
     kv_integrity_metrics,
     kv_tier_metrics,
+    migration_metrics,
     objstore_metrics,
     qos_metrics,
     spec_metrics,
@@ -544,6 +545,7 @@ class HttpService:
             + resilience_metrics.render(prefix).encode()
             + tracing_metrics.render(prefix).encode()
             + spec_metrics.render(prefix).encode()
+            + migration_metrics.render(prefix).encode()
             + qos_metrics.render(prefix).encode()
             + engine_dispatch_metrics.render(prefix).encode()
             + kv_tier_metrics.render(prefix).encode()

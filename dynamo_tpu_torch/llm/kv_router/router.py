@@ -1,11 +1,11 @@
 """KvRouter: KV-cache-aware request routing as an AsyncEngine.
 
-A copy of the JAX package's ``llm/kv_router/router.py`` without the parts
-whose consumers are not ported yet (ROADMAP queue 1 item 10): the
+A copy of the JAX package's ``llm/kv_router/router.py``, with the
 ``kv_prefetch`` publisher the core starts, the ``kv_pull`` hint the push
-router stamps for the cross-worker prefix pull, and the planner's
-``PlannerDirectiveWatcher``.  ``HotChainTracker`` still records the routed
-chains the prefetch plane will read.
+router stamps for the cross-worker prefix pull (llm/kv_router/pull.py) and
+``warm_hot_chains``.  The planner's ``PlannerDirectiveWatcher`` and
+``apply_tier_weights``, its other consumer, come with the planner (ROADMAP
+queue 1 item 10.7).
 
 Reference semantics: lib/llm/src/kv_router.rs:52-169 — the router subscribes
 the worker fleet's ``kv_events``, keeps the global prefix index, and answers
@@ -146,14 +146,23 @@ class KvRouterCore:
         # Prefetch plane input: decayed hit counts over routed prefix
         # chains (KvPrefetchPublisher reads top()).
         self.hot_chains = HotChainTracker()
+        self._prefetch_pub = None
 
     async def start(self) -> "KvRouterCore":
         self._event_sub = await self.component.subscribe(KV_EVENTS_TOPIC)
         self._event_task = asyncio.get_running_loop().create_task(self._event_loop())
         await self.aggregator.start()
+        # Prefetch plane: push the hottest routed chains so workers with a
+        # disk tier warm them ahead of arrivals.
+        from .pull import KvPrefetchPublisher
+
+        self._prefetch_pub = await KvPrefetchPublisher(self).start()
         return self
 
     async def stop(self) -> None:
+        if self._prefetch_pub is not None:
+            await self._prefetch_pub.stop()
+            self._prefetch_pub = None
         if self._event_task is not None:
             self._event_task.cancel()
             try:
@@ -208,8 +217,9 @@ class KvRouterCore:
     def select_with_scores(
         self, token_ids, salt: Optional[str] = None
     ) -> Tuple[Optional[WorkerId], OverlapScores]:
-        """``select`` plus the full per-worker overlap (what the JAX push
-        router reads to stamp cross-worker pull hints)."""
+        """``select`` plus the full per-worker overlap — what the push
+        router needs to stamp cross-worker pull hints (a peer with a
+        strictly deeper RAW prefix than the winner's)."""
         live = set(self.client.instance_ids)
         if live != self._known_workers:
             self._prune_dead_workers(live)
@@ -219,7 +229,7 @@ class KvRouterCore:
         self.hot_chains.record(hashes)
         overlap = self.indexer.find_matches_for_hashes(hashes)
         # Dead workers may linger in the index until their Removed/watch
-        # events land; never route toward one.
+        # events land; never hint (or route) toward one.
         overlap = OverlapScores(
             {w: n for w, n in overlap.scores.items() if w in live},
             {w: d for w, d in overlap.discounted.items() if w in live},
@@ -227,6 +237,15 @@ class KvRouterCore:
         workers = self.aggregator.endpoints(sorted(live))
         winner = self.scheduler.schedule(len(token_ids), overlap, workers)
         return winner, overlap
+
+    async def warm_hot_chains(
+        self, top_n: Optional[int] = None, persist: bool = False
+    ) -> None:
+        """Enact a ``kv_prefetch`` directive: push the hottest routed
+        chains NOW (out of band of the publisher's own cadence), with
+        ``persist=True`` pinning them into the durable object-store tier."""
+        if self._prefetch_pub is not None:
+            await self._prefetch_pub.publish_once(top_n=top_n, persist=persist)
 
 
 class KvRouter(AsyncEngine):
@@ -263,9 +282,29 @@ class KvPushRouter(AsyncEngine):
         # the engine seals their blocks under the same salt, so routing
         # overlap only means anything when hashed identically.
         annotations = request.data.get("annotations") or {}
-        worker_id, _ = self.core.select(token_ids, annotations.get("kv_salt"))
+        worker_id, overlap = self.core.select_with_scores(
+            token_ids, annotations.get("kv_salt")
+        )
         if worker_id is None:
             return await self.core.client.generate(request)
+        # Cross-worker prefix pull hint: when a PEER holds a strictly
+        # deeper RAW prefix than the winner (the winner won on tier heat /
+        # load), tell the winner who to pull the sealed delta blocks from
+        # instead of recomputing prefill.  The engine still compares
+        # against its own tiers at admission — the hint is advisory and
+        # bounded by the pull budgets.
+        donor = overlap.deepest()
+        if (
+            donor is not None
+            and donor != worker_id
+            and overlap.scores.get(donor, 0) > overlap.scores.get(worker_id, 0)
+        ):
+            annotations = dict(annotations)
+            annotations["kv_pull"] = {
+                "worker_id": donor,
+                "blocks": overlap.scores[donor],
+            }
+            request.data["annotations"] = annotations
         return await self.core.client.generate(request, worker_id=worker_id)
 
 

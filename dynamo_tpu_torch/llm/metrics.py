@@ -19,9 +19,10 @@ decoding group and ``QosMetrics`` the edge's quota and brownout group; the
 resilience and tracing groups live beside their producers
 (runtime/resilience.py, runtime/tracing.py).  ``KvTierMetrics``,
 ``KvIntegrityMetrics`` and ``ObjstoreMetrics`` are the KV memory tiers'
-groups (engine/offload.py and the tier stores; the pull counters stay at 0
-until the cross-worker pull is ported).  The metric groups of subsystems
-the port does not have yet (migration, bulk plane, ...) are not here.
+groups (engine/offload.py, the tier stores and the cross-worker prefix
+pull, llm/kv_router/pull.py), ``MigrationMetrics`` live migration's
+(llm/migration).  The metric groups of subsystems the port does not have
+yet (bulk plane, health watchdog, planner, tenancy) are not here.
 """
 
 from __future__ import annotations
@@ -593,6 +594,76 @@ class SpecDecodeMetrics:
 spec_metrics = SpecDecodeMetrics()
 
 
+class MigrationMetrics:
+    """Live-sequence-migration counters (llm/migration).
+
+    Module-level singleton rendered as Prometheus text and appended to the
+    ``/metrics`` exposition (same pattern as ``spec_metrics``): the worker
+    process updates plain attributes; no registry dependency."""
+
+    def __init__(self):
+        self.started_total = 0       # migrate_out attempts begun
+        self.completed_total = 0     # cutovers that landed
+        self.rolled_back_total = 0   # phase-2 failures (source kept authority)
+        self.aborted_total = 0       # phase-1 aborts (seq finished / target cold)
+        self.migrated_in_total = 0   # commits accepted on the target side
+        self.blocks_total = 0        # KV blocks pushed (phase 1 + final delta)
+        self.bytes_total = 0         # payload bytes pushed
+        self.cutover_pause_ms = RollingWindow(maxlen=512)  # freeze→cutover wall
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "started_total": float(self.started_total),
+            "completed_total": float(self.completed_total),
+            "rolled_back_total": float(self.rolled_back_total),
+            "aborted_total": float(self.aborted_total),
+            "migrated_in_total": float(self.migrated_in_total),
+            "blocks_total": float(self.blocks_total),
+            "bytes_total": float(self.bytes_total),
+            "cutover_pause_ms_p50": self.cutover_pause_ms.percentile(0.5),
+            "cutover_pause_ms_p95": self.cutover_pause_ms.percentile(0.95),
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_migration"
+        lines = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("started_total", "counter",
+             "Live migrations begun (source side)", self.started_total)
+        emit("completed_total", "counter",
+             "Live migrations cut over successfully", self.completed_total)
+        emit("rolled_back_total", "counter",
+             "Migrations rolled back in the final-delta phase "
+             "(source stayed authoritative)", self.rolled_back_total)
+        emit("aborted_total", "counter",
+             "Migrations abandoned in the copy phase", self.aborted_total)
+        emit("migrated_in_total", "counter",
+             "Migration commits accepted (target side)",
+             self.migrated_in_total)
+        emit("kv_blocks_total", "counter",
+             "KV blocks pushed by migrations", self.blocks_total)
+        emit("kv_bytes_total", "counter",
+             "KV payload bytes pushed by migrations", self.bytes_total)
+        emit("cutover_pause_ms_p50", "gauge",
+             "Rolling p50 of the freeze-to-cutover pause",
+             round(self.cutover_pause_ms.percentile(0.5), 3))
+        emit("cutover_pause_ms_p95", "gauge",
+             "Rolling p95 of the freeze-to-cutover pause",
+             round(self.cutover_pause_ms.percentile(0.95), 3))
+        return "\n".join(lines) + "\n"
+
+
+migration_metrics = MigrationMetrics()
+
+
 class KvTierMetrics:
     """Tiered-KV-cache counters + gauges: per-tier bytes/blocks,
     restore/demote/promote/pull activity, restore + pull latency
@@ -600,7 +671,7 @@ class KvTierMetrics:
     text and appended to ``/metrics`` (same pattern as ``spec_metrics``).
 
     Counters are updated inline by the engine (the pull counters by the
-    cross-worker puller, not ported yet, so they stay 0); the per-tier
+    cross-worker puller, llm/kv_router/pull.py); the per-tier
     bytes/blocks GAUGES come from a source callable
     (``engine.kv_tier_summary`` — wired like EngineDispatchMetrics by
     whoever colocates an engine with the HTTP edge), so remote-engine
@@ -725,8 +796,8 @@ kv_tier_metrics = KvTierMetrics()
 # The integrity plane's verification boundaries (engine/integrity.py):
 # ``disk`` = .kvblk envelope reads, ``host`` = host-tier entries verified
 # before the HBM scatter (plus demotion-time re-verification), ``wire`` =
-# transfer-plane payloads verified before sealing (no producer in the
-# port yet: the transfer plane is not ported), ``objstore`` = durable-object envelope
+# transfer-plane payloads verified before sealing (disaggregated imports,
+# prefix pulls, migration pushes), ``objstore`` = durable-object envelope
 # reads (engine/object_store.py).
 INTEGRITY_PLANES = ("disk", "host", "wire", "objstore")
 

@@ -8,20 +8,28 @@ with on-device ``lax.cond``, this port branches on flags the host already
 knows when it builds the step (``SamplingParams``), so no branch waits on
 the device.
 
-Randomness: row ``i`` draws its Gumbel noise from a counter-based hash of
-``(seed_i, step_i, token id)``, where ``step`` is the row's output-token
-index — so a request's sampled tokens are reproducible per (seed, step)
-whatever batch row or dispatch it rode in, and the draw never leaves the
-device.  The stream is this package's own: it does not reproduce
-``jax.random`` (a bit-exact threefry port is later work).
+Randomness: row ``i`` draws from ``fold_in(PRNGKey(seed_i), step_i)``,
+where ``step`` is the row's output-token index — so a request's sampled
+tokens are reproducible per (seed, step) whatever batch row or dispatch it
+rode in — and its Gumbel noise is ``jax.random``'s, bit for bit: the
+threefry-2x32 construction of ``jax.random.categorical`` under
+``jax_threefry_partitionable=True`` (the default of the JAX package's
+jax), ``gumbel``'s "low" mode.  A sampled stream therefore continues
+exactly across the two packages (a resumed or migrated stream may land on
+either).  ``gumbel_noise`` routes by device: CUDA tensors launch
+``csrc/threefry_gumbel.cu``, CPU tensors take ``gumbel_noise_plain``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional
+import ctypes
+import functools
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import _build
 
 NEG_INF = -1e30
 # Top-k logprobs returned when logprobs are requested (the OpenAI API's
@@ -154,26 +162,118 @@ def _filtered_logits(
 
 
 _M32 = 0xFFFFFFFF
+# jax's threefry2x32 (jax/_src/prng.py ``_threefry2x32_lowering``): two
+# rotation schedules alternating over five groups of four rounds, with a key
+# injection after each group.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+# ``jnp.finfo(jnp.float32).tiny``: ``_gumbel``'s "low" mode draws uniforms
+# on [tiny, 1).
+_F32_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """32-bit avalanche hash on int64 tensors holding uint32 values.  The
-    multipliers are below 2**31, so no product leaves int64."""
-    x = x & _M32
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x46C3A68B) & _M32
-    return x ^ (x >> 16)
+def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 on int64 tensors holding uint32 values (broadcasting
+    key halves ``k0, k1`` against counter halves ``x0, x1``); the pair of
+    outputs, as ``threefry2x32_p`` returns them."""
+    def rotl(v, r):
+        return ((v << r) | (v >> (32 - r))) & _M32
+
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & _M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _M32
+    return x0, x1
+
+
+def row_keys(seeds: torch.Tensor, steps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fold_in(PRNGKey(seed), step)`` per row (the JAX package's
+    ``_row_keys``): ``PRNGKey`` of a uint32 seed is ``[0, seed]``, and
+    ``fold_in(key, d)`` is threefry of ``key`` over the counter ``[0, d]``."""
+    seeds = seeds.to(torch.int64) & _M32
+    steps = steps.to(torch.int64) & _M32
+    return threefry2x32(torch.zeros_like(seeds), seeds, torch.zeros_like(steps), steps)
+
+
+def random_bits_plain(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, V] uint32 bits (in int64) of ``jax.random.bits(row_key, (V,))``:
+    threefry of the row key over the counters ``(hi, lo)`` of the flat
+    index (``iota_2x32_shape``; hi is 0 below 2**32), the halves xored."""
+    k0, k1 = row_keys(seeds, steps)
+    ids = torch.arange(V, device=seeds.device, dtype=torch.int64)[None, :]
+    b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(ids), ids)
+    return b0 ^ b1
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax's ``_uniform`` on [tiny, 1) from 32 random bits — the top 23 as
+    the mantissa of a float in [1, 2), minus 1, scaled and floored at tiny
+    — then ``_gumbel``'s "low" mode ``-log(-log(u))``."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(f * (1.0 - _F32_TINY) + _F32_TINY, _F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise_plain(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, V] f32 Gumbel(0, 1) noise of ``jax.random.gumbel(row_key, (V,))``,
+    in plain PyTorch (int64 tensors holding uint32 values)."""
+    return gumbel_from_bits(random_bits_plain(seeds, steps, V))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("threefry_gumbel")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.threefry_gumbel_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.threefry_gumbel_launch.restype = ci
+    return lib
+
+
+def gumbel_noise_cuda(seeds: torch.Tensor, steps: torch.Tensor, V: int,
+                      bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/threefry_gumbel.cu on the current stream (no sync): one
+    thread per (row, id).  ``bits`` (a [B, V] int32 tensor, tests and
+    chip_smoke.py) also receives the raw uint32 bits."""
+    dev = seeds.device
+    if dev.type != "cuda" or steps.device != dev:
+        raise ValueError(f"CUDA kernel given tensors on {seeds.device}/{steps.device}")
+    B = seeds.shape[0]
+    if seeds.shape != (B,) or steps.shape != (B,):
+        raise ValueError(f"seeds {tuple(seeds.shape)} / steps {tuple(steps.shape)} are not [B]")
+    if seeds.dtype != torch.int64 or steps.dtype != torch.int64:
+        raise TypeError(f"seeds/steps must be int64, got {seeds.dtype}/{steps.dtype}")
+    if not (seeds.is_contiguous() and steps.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    if bits is not None and (bits.shape != (B, V) or bits.dtype != torch.int32
+                             or bits.device != dev or not bits.is_contiguous()):
+        raise ValueError("bits must be a contiguous [B, V] int32 tensor on the same device")
+    out = torch.empty((B, V), dtype=torch.float32, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    code = lib.threefry_gumbel_launch(p(seeds), p(steps), p(out), p(bits), B, V,
+                                      _build.stream_ptr(dev))
+    _build.check(lib, code, "threefry_gumbel")
+    gumbel_noise_cuda.launches += 1
+    return out
+
+
+gumbel_noise_cuda.launches = 0  # kernel launches (chip_smoke.py reads it)
 
 
 def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
-    """[B, V] f32 Gumbel(0, 1) noise, a pure function of (seed, step, id)."""
-    key = _mix32(seeds ^ _mix32(steps + 0x3C6EF372))  # [B]
-    ids = torch.arange(V, device=seeds.device, dtype=torch.int64)
-    bits = _mix32(key[:, None] ^ _mix32(ids * 2 + 1)[None, :])
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))  # (0, 1)
-    return -torch.log(-torch.log(u))
+    """[B, V] f32 Gumbel(0, 1) noise, ``jax.random``'s bit for bit.  Routes
+    by device: CUDA tensors launch the kernel (or raise), CPU tensors take
+    the plain version.  No fallback."""
+    if seeds.device.type == "cuda":
+        return gumbel_noise_cuda(seeds, steps, V)
+    if seeds.device.type == "cpu":
+        return gumbel_noise_plain(seeds, steps, V)
+    raise ValueError(f"no Gumbel noise for device {seeds.device}")
 
 
 def sample_tokens(

@@ -1,9 +1,7 @@
 """Routed client: discovery-watching AsyncEngine with pluggable routing.
 
-A copy of the JAX package's ``runtime/client.py`` without the live-
-migration splice, which comes with ``llm/migration`` (ROADMAP queue 1
-item 10): a cutover marker (a ``migrated`` item) ends the stream with an
-error that says so.
+A copy of the JAX package's ``runtime/client.py``, the live-migration
+splice (``_StreamGuard._splice``) included.
 
 Reference semantics: lib/runtime/src/component/client.rs — the client watches
 the instance prefix, maintains the live instance set (shrinking on lease
@@ -517,11 +515,13 @@ class Client(AsyncEngine):
         wid, address, stream = await self._acquire(
             request, worker_id, mode, state, deadline
         )
-        # Every routed stream gets the guard: it resumes seeded and greedy
-        # streams after mid-flight crashes.  Direct routing (the KV router
-        # already chose a worker) keeps its no-failover contract for
-        # pre-first-token failures — allow_failover gates only those; a
-        # resume is a deterministic continuation, safe on any instance.
+        # Every routed stream gets the guard: it consumes live-migration
+        # ``migrated`` markers (splicing the target's continuation into one
+        # client-visible stream) and resumes seeded streams after mid-flight
+        # crashes.  Direct routing (the KV router already chose a worker)
+        # keeps its no-failover contract for pre-first-token failures —
+        # allow_failover gates only those; the migration splice and seeded
+        # resume are deterministic continuations, safe on any instance.
         return ResponseStream(
             _StreamGuard(self, request, mode, state, deadline,
                          wid, address, stream,
@@ -541,16 +541,20 @@ class Client(AsyncEngine):
 
 
 class _StreamGuard:
-    """Stream wrapper: failover and seeded resume.
+    """Stream wrapper: failover, live-migration splice, seeded resume.
 
-    Two recovery surfaces, in order of when they can fire (the JAX
-    package's third, the live-migration splice, waits for llm/migration;
-    a cutover marker ends the stream with an error):
+    Three distinct recovery surfaces, in order of when they can fire:
 
     - **Before the first token** a worker that accepted the prologue can
       still die; nothing user-visible has happened, so the request is
       safely replayable on another instance (bounded attempts shared with
       the connect phase).  Disabled for direct (KV-router-chosen) routing.
+    - **A ``migrated`` item** mid-stream is the source worker's cutover
+      marker (llm/migration): it carries a self-contained resume request
+      plus the target's address.  The guard re-dispatches there (falling
+      back to any instance — the resume request is deterministic) and
+      splices the continuation in; the caller sees one uninterrupted,
+      token-identical stream and never observes the marker.
     - **After the first token** a crash is recoverable only when replaying
       cannot change what the caller already saw: the resume request needs
       deterministic continuation.  Explicit-seed requests always have it;
@@ -648,16 +652,13 @@ class _StreamGuard:
                 self._reset_latency_anchor()
                 continue
             if isinstance(item, dict) and "resolved_seed" in item:
-                # Captured (and stripped) before anything else.
+                # Captured (and stripped) before anything else: the stamp
+                # may ride the migrated marker when cutover precedes the
+                # first token.
                 self._resolved_seed = int(item.pop("resolved_seed"))
             if isinstance(item, dict) and item.get("migrated"):
-                await self.aclose()
-                raise RemoteEngineError(
-                    f"worker {self._wid} handed the stream to a migration target; "
-                    "the live-migration splice is not ported yet (ROADMAP queue 1 "
-                    "item 10)",
-                    retryable=False,
-                )
+                await self._splice(item["migrated"])
+                continue
             now = time.monotonic()
             if not self._got_first:
                 worker_latency.record_ttft(
@@ -684,7 +685,7 @@ class _StreamGuard:
 
     def _reset_latency_anchor(self) -> None:
         """Re-anchor the per-worker latency observations after any
-        re-dispatch (failover, resume): the recovery gap belongs to
+        re-dispatch (failover, resume, splice): the recovery gap belongs to
         the WORKER THAT FAILED, not to the replacement — charging it there
         would make the watchdog's straggler scan quarantine the healthy
         failover target exactly when the fleet is already degraded."""
@@ -786,6 +787,114 @@ class _StreamGuard:
         self._reset_latency_anchor()
         metrics.stream_resumes_total += 1
         return True
+
+    async def _splice(self, mig: Dict[str, Any]) -> None:
+        """Cutover marker: re-dispatch the resume request to the migration
+        target and continue the stream there.  A dead target is survivable
+        — the resume request is deterministic, so any instance will do."""
+        # Splice span: the cutover's client-visible cost (source stream
+        # release + target re-dispatch).  The resume request carries the
+        # trace in its annotations (migration snapshot), so the target's
+        # engine spans join the SAME trace — one migrated stream, one
+        # timeline.
+        wid = mig.get("worker_id")
+        sspan = trace_span(
+            self._trace(), "client.splice", "client",
+            attrs={"target_worker": wid},
+        )
+        try:
+            await self._splice_inner(mig, sspan)
+        except BaseException as e:
+            # The raise paths (deadline exhausted, non-retryable target
+            # error) are exactly the failed cutovers whose cost matters —
+            # record the span instead of leaking it (finish is idempotent).
+            sspan.set(error=type(e).__name__)
+            raise
+        finally:
+            sspan.finish()
+
+    async def _splice_inner(self, mig: Dict[str, Any], sspan) -> None:
+        req_data = mig.get("request") or {}
+        request = Context(req_data, self._request.ctx)
+        client = self._client
+        wid = mig.get("worker_id")
+        try:
+            # The marker is the source stream's last payload by protocol —
+            # release its mux slot before splicing in the continuation.
+            # NOT aclose(): that would stop_generating() the ctx the resume
+            # request shares, cancelling the continuation it sets up.
+            await self._stream._close_inner()
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — source is done with us either way
+            pass
+        target_addr: Optional[str] = None
+        try:
+            info = client._instances.get(wid) if wid is not None else None
+            if info is not None:
+                engine = client._engine_for(wid, info)
+                target_addr = info["address"]
+            elif mig.get("address") and mig.get("path"):
+                # The target may not be in the instance set (e.g. a static
+                # deployment); dial it directly from the marker's address.
+                engine = RemoteEngine(mig["address"], mig["path"])
+                target_addr = mig["address"]
+            else:
+                raise RemoteEngineError("migration target unspecified")
+            if self._deadline is not None:
+                stream = await self._deadline.bound(
+                    engine.generate(request), "migration splice"
+                )
+            else:
+                stream = await engine.generate(request)
+            # Track the TARGET's identity (even when it is not in the
+            # instance set): a later mid-stream failure must evict and
+            # blacklist the worker that actually failed, not the (healthy)
+            # pre-migration source.
+            self._wid, self._address = wid, target_addr
+        except asyncio.CancelledError:
+            raise
+        except DeadlineExceededError:
+            # Budget ran out mid-splice: the request's problem, not the
+            # target's — no breaker poison, and no fallback dispatch (it
+            # would be bounded by the same exhausted deadline).
+            metrics.deadline_exceeded_total += 1
+            raise
+        except Exception as e:  # noqa: BLE001 — classified below
+            if not _is_retryable(e):
+                raise
+            # Blacklist the TARGET before falling back — self._wid/_address
+            # still name the pre-migration source here, and without the
+            # bookkeeping the picker could hand the same dead target
+            # straight back, burning a second attempt from the shared
+            # budget on a known-dead worker.
+            if wid is not None:
+                client._evict(wid)
+                self._state["tried"].add(wid)
+            if target_addr:
+                client._breaker(target_addr).record_failure()
+            logger.warning(
+                "request %s: migration target %s unreachable (%s); "
+                "resuming on any instance", self._request.id, wid, e,
+            )
+            sspan.event("target_unreachable", error=type(e).__name__)
+            self._wid, self._address, stream = await client._acquire(
+                request, None, self._mode, self._state, self._deadline
+            )
+        self._stream = stream
+        # Task-confined: _StreamGuard is owned by the one consumer task
+        # driving this stream, so the request swap cannot race a peer.
+        self._request = request  # dynalint: disable=DYN101
+        self._reset_latency_anchor()
+        # The target's view of the fed stream is authoritative from here.
+        self._track_request(req_data)
+        # The in-flight request is now the self-contained resolved-seed
+        # resume request — safe on ANY instance, so a direct-routed
+        # stream's no-failover contract no longer applies: if the target
+        # dies before its first post-splice token, fail over rather than
+        # kill a request whose source already released the sequence.
+        self._allow_failover = True
+        metrics.migration_splices_total += 1
 
     async def aclose(self) -> None:
         await self._stream.aclose()

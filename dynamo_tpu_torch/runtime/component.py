@@ -309,6 +309,19 @@ class Endpoint:
             "metadata": metadata or {},
         }
 
+    async def update_metadata(
+        self, metadata: Optional[Dict[str, Any]] = None
+    ) -> None:
+        """Rewrite this worker's live instance registration with new
+        metadata (e.g. de-advertising a capability mid-drain), keeping the
+        record shape in one place."""
+        runtime = self.runtime
+        server = await runtime.service_server()
+        await runtime.register_key(
+            self.instance_key(runtime.worker_id),
+            self._instance_info(server.address, metadata),
+        )
+
     async def client(self, router_mode: RouterMode = RouterMode.ROUND_ROBIN) -> Client:
         client = Client(self.runtime.hub, self.instance_prefix, router_mode=router_mode)
         await client.start()

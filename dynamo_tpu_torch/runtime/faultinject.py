@@ -27,6 +27,8 @@ point              hooked in                                  simulates
                    while armed; disarm = hub back up)
 ``slow_stream``    ``transports/service.ServiceServer``       straggler: ITL
                    (``delay_s`` sleep before each item)       outlier worker
+``kv_pressure``    ``engine/scheduler`` free-block view       KV pool squeeze
+                   (``delay_s`` = fraction withheld)          → preemptions
 ``kv_corrupt``     the KV integrity boundaries (``match``     KV payload
                    names the plane): ``disk`` =               bit-rot on the
                    ``DiskKvStore.read`` after the OS read,    named medium;
@@ -39,7 +41,7 @@ point              hooked in                                  simulates
 structural checks' vantage point, and the system under test is the KV
 integrity plane (engine/integrity.py) — detection before any scatter,
 descendant drop and negative cache, and a recompute that gives the same
-stream.  The JAX package's other points (``kv_pressure``, ``tenant_flood``,
+stream.  The JAX package's other points (``tenant_flood``,
 ``hub_shard_kill``, the bulk plane's) come with the code they hook.
 
 Arming: programmatic (``faults.arm("connect_error", match=addr, count=2)``)
@@ -155,6 +157,14 @@ class FaultInjector:
         if fault.exhausted:
             self._prune(point)
         return fault.delay_s
+
+    def level_for(self, point: str, key: str = "") -> float:
+        """Non-consuming magnitude lookup: the armed fault's ``delay_s``
+        reinterpreted as a level (e.g. ``kv_pressure`` = fraction of the
+        free-block pool withheld), or 0.0 when not armed.  Holding faults
+        read this every pass, so it never counts against ``count``."""
+        fault = self._find(point, key)
+        return 0.0 if fault is None else fault.delay_s
 
     def _prune(self, point: str) -> None:
         kept = [f for f in self._points.get(point, []) if not f.exhausted]

@@ -554,7 +554,7 @@ def test_cli_serves_http_out_torch():
     assert p.returncode == 0
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--kv-pull-mb", "8"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--dp", "2"],
                                   ["--sp", "2"], ["--lora", "a=random"], ["--nnodes", "2"],
                                   ["--tokenizer", "tok.json"]])
 def test_cli_refuses_options_the_port_lacks(flag):

@@ -253,3 +253,29 @@ def test_failed_capture_raises(cuda):
     with torch.inference_mode(), pytest.raises(RuntimeError):
         eng._run_step(rb, eng._sampling_arrays([]))
     assert eng.compile_counts()["step"] == 0
+
+
+@pytest.mark.parametrize("B,V", [(1, 300), (16, 128256), (5, 1025)])
+def test_threefry_gumbel_kernel_matches_plain(cuda, B, V):
+    """csrc/threefry_gumbel.cu against ``gumbel_noise_plain``: the uint32
+    bits exactly, the Gumbel values within 2 ulp at the scale max(|g|, 1)
+    (logf on the card, the CPU's log in the plain version), on ragged
+    seeds and steps that include 0 and 2**32 - 1."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    gen = torch.Generator(device=cuda).manual_seed(B * 7 + V)
+    seeds = torch.randint(0, 2**32, (B,), generator=gen, device=cuda, dtype=torch.int64)
+    steps = torch.randint(0, 2**32, (B,), generator=gen, device=cuda, dtype=torch.int64)
+    seeds[0], steps[0] = 2**32 - 1, 0
+    if B > 1:
+        seeds[1], steps[1] = 0, 2**32 - 1
+    bits = torch.empty((B, V), dtype=torch.int32, device=cuda)
+    got = smp.gumbel_noise_cuda(seeds, steps, V, bits=bits)
+    torch.cuda.synchronize()
+    want_bits = smp.random_bits_plain(seeds.cpu(), steps.cpu(), V)
+    assert torch.equal(bits.cpu().to(torch.int64) & 0xFFFFFFFF, want_bits)
+    want = smp.gumbel_from_bits(want_bits)
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+    assert ((got.cpu().double() - want.double()).abs() / ulp.double()).max() <= 2.0
+    assert smp.gumbel_noise(seeds, steps, V).device == seeds.device  # routed to the kernel

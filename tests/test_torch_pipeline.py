@@ -403,3 +403,75 @@ def test_decode_steps_1_plans_hold_every_live_row(jax_split, spec):
     assert after and all(n == live for n, live, _ in after), after
     assert _count(engine, "unified", "unified_fetch") <= ref_unified
     assert _count(engine, "spec_verify") <= ref_verify
+
+
+# ----------------------------------------------- the kv_pressure fault point
+
+@pytest.mark.parametrize("pkg", ["dynamo_tpu", "dynamo_tpu_torch"])
+def test_faultinject_level_for_parses_and_never_consumes(pkg):
+    """``tests/test_chaos.py``'s parse check of ``level_for``, on each
+    package's registry."""
+    faults = importlib.import_module(f"{pkg}.runtime.faultinject").FaultInjector()
+    faults.load_env("slow_stream:127.0.0.1:9001@0.25,kv_pressure@0.6,worker_crash:*#1")
+    assert faults.level_for("slow_stream", "127.0.0.1:9001") == 0.25
+    assert faults.level_for("slow_stream", "other") == 0.0
+    assert faults.level_for("kv_pressure") == 0.6
+    assert faults.should("worker_crash", "anything")
+    assert not faults.should("worker_crash", "anything")  # count=1 expired
+    for _ in range(5):  # non-consuming: the holding fault survives reads
+        assert faults.level_for("kv_pressure") == 0.6
+
+
+async def test_kv_pressure_squeezes_admission_like_tpu_engine():
+    """Under ``DYN_FAULTS=kv_pressure@0.8`` both schedulers withhold 80 %
+    of the pool from admission: on four 30-id prompts (16 tokens each,
+    debug-tiny, 64 blocks of 4, ``max_batch`` 4) the peak number of
+    running rows is the same in both engines (1), against 3 or 4 with the
+    fault disarmed, and every stream is whole."""
+    cfg = dict(CFG, num_blocks=64, max_model_len=128)
+    params = jax_init_params(jax_get_config("debug-tiny").with_overrides(dtype="float32"),
+                             jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    prompts = [_prompt(i, 30) for i in range(4)]
+
+    async def serve(engine, faults, armed):
+        peak = [0]
+        record = engine.scheduler._record_admission
+
+        def counting(seq):
+            peak[0] = max(peak[0], len(engine.scheduler.running))
+            return record(seq)
+
+        engine.scheduler._record_admission = counting
+        faults.reset()
+        if armed:
+            faults.load_env("kv_pressure@0.8")
+
+        async def one(p):
+            req = PreprocessedRequest(
+                token_ids=p, stop_conditions=StopConditions(max_tokens=16, ignore_eos=True),
+            ).to_dict()
+            items = await collect(await engine.generate(Context(req)))
+            return [t for it in items for t in it["token_ids"]]
+
+        try:
+            outs = await asyncio.gather(*(one(p) for p in prompts))
+        finally:
+            faults.reset()
+            await engine.close()
+        assert [len(o) for o in outs] == [16] * 4
+        return peak[0], outs
+
+    jax_faults = importlib.import_module("dynamo_tpu.runtime.faultinject").faults
+    port_faults = importlib.import_module("dynamo_tpu_torch.runtime.faultinject").faults
+    peaks = {}
+    for armed in (True, False):
+        jpeak, jout = await serve(TpuEngine(JaxEngineConfig(**cfg), params=params),
+                                  jax_faults, armed)
+        tpeak, tout = await serve(
+            TorchEngine(EngineConfig(**cfg), params=params_from_jax(tree, device="cpu"),
+                        device="cpu"), port_faults, armed)
+        assert tout == jout
+        peaks[armed] = (jpeak, tpeak)
+    assert peaks[True] == (1, 1)
+    assert peaks[False][1] > 1

@@ -11,7 +11,8 @@
   client.
 - The service plane and the routed client: ``tests/test_distributed.py``'s
   cases on the port, and across packages; the mid-stream resume of a
-  greedy stream; a migration cutover marker ends the stream with an error.
+  greedy stream; the live-migration splice of a ``migrated`` marker, and a
+  refusing target's error ending the stream, in both packages alike.
 - The resilience/config/health pieces copied for the client, under one
   injected clock.
 """
@@ -850,26 +851,86 @@ async def test_greedy_stream_resumes_on_another_worker_after_a_crash():
 
 
 @pytest.mark.asyncio
-async def test_migration_cutover_marker_ends_the_stream_with_an_error():
-    """The port has no live-migration splice yet: a ``migrated`` item is
-    never dropped silently, it ends the stream with an error naming where
-    the splice waits."""
-    runtime = await PORT.component.DistributedRuntime.detached()
+@pytest.mark.parametrize("P", [PORT, JAX], ids=["port", "jax"])
+async def test_migration_cutover_marker_ends_the_stream_with_an_error(P):
+    """A ``migrated`` item is never dropped silently: the client splices
+    the stream to the target the marker names (one splice counted), and
+    when that target answers with an application error (not retryable),
+    the stream ends with that error — in both packages alike."""
+    runtime = await P.component.DistributedRuntime.detached()
     try:
+        async def refusing(request):
+            raise ValueError("target refuses the resume request")
+            yield  # pragma: no cover
+
+        comp = runtime.namespace("t").component("w")
+        target_ep = comp.endpoint("refuse")
+        await target_ep.serve_endpoint(refusing)
+        server = await runtime.service_server()
+
         async def migrating(request):
             yield {"token_ids": [1]}
-            yield {"migrated": {"worker_id": 5, "request": {"token_ids": [1]}}}
+            yield {"migrated": {"worker_id": None, "address": server.address,
+                                "path": target_ep.path, "request": {"token_ids": [1]}}}
 
-        ep = runtime.namespace("t").component("w").endpoint("m")
+        ep = comp.endpoint("m")
         await ep.serve_endpoint(migrating)
         client = await ep.client()
-        await client.wait_for_instances(2)
-        stream = await client.generate(PORT.engine.Context({"token_ids": [0]}))
-        with pytest.raises(PORT.service.RemoteEngineError, match="ROADMAP queue 1 item 10"):
-            await PORT.engine.collect(stream)
+        await client.wait_for_instances(1)
+        splices0 = P.resilience.metrics.migration_splices_total
+        stream = await client.generate(P.engine.Context({"token_ids": [0]}))
+        with pytest.raises(P.service.RemoteEngineError, match="refuses the resume"):
+            await P.engine.collect(stream)
+        assert P.resilience.metrics.migration_splices_total == splices0 + 1
         await client.close()
     finally:
         await runtime.close()
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("S,C", PAIRS, ids=PAIR_IDS)
+async def test_migration_cutover_marker_splices_the_target_stream(S, C):
+    """The live-migration splice: the source's ``migrated`` marker carries
+    a resume request and the target's address; the client re-dispatches
+    it there and the caller sees one stream (the marker never surfaces),
+    counted in ``migration_splices_total`` — the port's client on either
+    package's servers, and the JAX client on the port's."""
+    hub = await S.hub.HubServer().start()
+    server_rt = await S.component.DistributedRuntime.connect(hub.address)
+    client_rt = await C.component.DistributedRuntime.connect(hub.address)
+    try:
+        comp = server_rt.namespace("t").component("w")
+        target_ep = comp.endpoint("target")
+
+        async def target(request):
+            # The resume request folds the emitted token into the prompt.
+            assert request.data["token_ids"] == [0, 1]
+            yield {"token_ids": [2]}
+            yield {"token_ids": [3], "finish_reason": "length"}
+
+        await target_ep.serve_endpoint(target)
+        server = await server_rt.service_server()
+
+        async def source(request):
+            yield {"token_ids": [1]}
+            yield {"token_ids": [], "migrated": {
+                "worker_id": None, "address": server.address, "path": target_ep.path,
+                "request": {"token_ids": [0, 1]}}}
+
+        await comp.endpoint("src").serve_endpoint(source)
+        client = await client_rt.namespace("t").component("w").endpoint("src").client()
+        await client.wait_for_instances(1)
+        splices0 = C.resilience.metrics.migration_splices_total
+        items = await C.engine.collect(await client.generate(C.engine.Context({"token_ids": [0]})))
+        assert [t for it in items for t in it.get("token_ids", [])] == [1, 2, 3]
+        assert not any("migrated" in it for it in items)
+        assert items[-1]["finish_reason"] == "length"
+        assert C.resilience.metrics.migration_splices_total == splices0 + 1
+        await client.close()
+    finally:
+        await client_rt.close()
+        await server_rt.close()
+        await hub.close()
 
 
 # ------------------------------------------- resilience, config and health

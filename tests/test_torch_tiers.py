@@ -853,6 +853,9 @@ async def test_tier_metrics_groups_match_the_jax_edge(tmp_path):
 
 
 def test_cli_maps_the_tier_flags_and_still_refuses_the_pull(tmp_path):
+    """The tier flags map onto the engine's config, and so, since the
+    prefix pull was ported, does ``--kv-pull-mb`` (it was refused while
+    the pull waited; the name is kept)."""
     from dynamo_tpu_torch import cli
     from dynamo_tpu_torch.engine import build_torch_engine
 
@@ -871,5 +874,13 @@ def test_cli_maps_the_tier_flags_and_still_refuses_the_pull(tmp_path):
     finally:
         asyncio.run(engine.close())
     args = cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu", "--kv-pull-mb", "8"])
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 10"):
-        asyncio.run(cli._run(args))
+    engine = build_torch_engine(args)
+    try:
+        assert engine.cfg.kv_pull_max_bytes == 8 << 20
+    finally:
+        asyncio.run(engine.close())
+    engine = build_torch_engine(cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu"]))
+    try:
+        assert engine.cfg.kv_pull_max_bytes == 64 << 20  # the JAX default
+    finally:
+        asyncio.run(engine.close())
