@@ -190,11 +190,44 @@ Phases, any failure exits non-zero:
      prefix and A, hinted with ``kv_pull``, pulls it at 64 and 192 MiB: the
      pulled count min(peer - local, budget), pages bitwise B's, the stream
      equal to the same split computed on A, TTFT beside A's recompute and
-     B's prefix hit; a dead peer's pull prefills locally; then A is stopped
-     with 2 live streams and drains them to B through migration, whole;
+     B's prefix hit; a dead peer's pull prefills locally; then (after
+     phase k) A is stopped with 2 live streams and drains them to B
+     through migration, whole.  Phase j's transfers ride the service
+     plane although every process runs with ``DYN_BULK_PLANE=1``: A's two
+     bulk producers are switched to the service plane for it;
+  k. on phase j's stack, before its drain, A's producers on the bulk
+     plane (``bulk_health_path``): A's and B's ``bulk/addr`` and the
+     frontend's ``bulk/sink/traces`` in the hub; B's kv_export fetches
+     under ``bulk_conn_drop`` (B started with ``DYN_FAULTS``): dropped
+     after every chunk, one fallback tick and the service plane pulls the
+     same pages; dropped once, resumed with no fallback; A pulls 32 and 96
+     blocks of a 2048-id prefix B holds, in turns over the bulk plane and
+     the service plane (3 each): the count min(peer - local, budget), pages
+     bitwise B's, the stream equal to the same split on A, the bulk bytes
+     on ``dynamo_tpu_bulk_bytes_total`` with no fallback, TTFT and the
+     pull's wall, and during each 96-block pull the gaps of a stream
+     decoding on B (the donor) and B's resident memory; 2 streams (greedy,
+     seeded at 0.7) migrated A -> B over the bulk plane through the
+     frontend: whole, 2 splices, blocks bitwise on B, each equal to its
+     resume request on B, the copy stream's bytes on the bulk counter and
+     not on the hub's publish bytes, move times and stalls beside phase
+     j's; traced requests on B with B's spans at the frontend's /traces
+     through the bulk sink and no fallback; a ``HealthWatchdog`` in this
+     process (default prober, drainer and latency source, fed by this
+     process's routed client; an echo worker is the fleet's third member,
+     since the fleet median of two workers is the slower one's own p50):
+     ``slow_stream`` on A with A's decode paced to its slowed wire while A
+     serves 2 streams: A quarantined as a straggler, its marker written,
+     the default drainer moving both streams to B over the bulk plane,
+     whole; disarmed, A reinstated before the grace ends, the marker
+     cleared; then A's ``__health__`` stalled past the probe timeout with a
+     1 s grace: A ejected, its registration deleted, the frontend routing
+     only to B (all 200), the marker ``ejected``; A re-registered and reset;
+     the ``dynamo_tpu_health_*`` counters equal to the transitions; no
+     graph and no sync on A, all three kernels launched;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i and j beside phase 6's and 7's; the noise
-     kernel's in phases j and e), then the device line last.
+     phases c, d, e, f, g, h, i, j and k beside phase 6's and 7's; the noise
+     kernel's in phases j, k and e), then the device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -218,6 +251,7 @@ import threading
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -2935,11 +2969,12 @@ class Child:
     """A CLI subprocess of this checkout; its output lines are collected by
     a thread (the pipe never fills) and searched with ``wait_line``."""
 
-    def __init__(self, name, argv):
+    def __init__(self, name, argv, env=None):
         self.name = name
         self.p = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.cli", *argv],
                                   cwd=str(REPO), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=None if env is None else {**os.environ, **env})
         self.lines = []
         threading.Thread(target=self._read, daemon=True).start()
 
@@ -3981,12 +4016,20 @@ DISPATCH_PROMPTS, DISPATCH_ISL, DISPATCH_OSL = 4, 256, 64
 
 
 def migrate_pull_path(torch, noise_times):
-    """Phase j: live migration through the KV frontend, the cross-worker
-    prefix pull and the drain through migration, on the README's
-    distributed stack at phase 6's geometry: the hub, the KV frontend and
-    worker B are CLI subprocesses; worker A runs the CLI's own ``run
-    in=dyn://`` code in this process (its launches counted), started with
-    ``--kv-pull-mb 192``.  Returns (ok, launches, numbers)."""
+    """Phases j and k on one stack: live migration through the KV
+    frontend, the cross-worker prefix pull and the drain through migration
+    (j), and the bulk plane with its three consumers and the health
+    watchdog (k, ``bulk_health_path``, before j's drain), on the README's
+    distributed stack at phase 6's geometry with ``DYN_BULK_PLANE=1`` in
+    every process: the hub, the KV frontend, worker B and an echo worker
+    are CLI subprocesses; worker A runs the CLI's own ``run in=dyn://``
+    code in this process (its launches counted), started with
+    ``--kv-pull-mb 192``.  Phase j's transfers ride the service plane: A's
+    two bulk producers (the puller's exporter, ``MigratableWorker.bulk``)
+    are switched to it for j and to the bulk plane for k.  Returns
+    ((ok, launches, numbers) of j, the same of k)."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.kv_router.pull import make_client_exporter
     from dynamo_tpu_torch.llm.metrics import kv_tier_metrics, migration_metrics
     from dynamo_tpu_torch.llm.migration import request_migrate_out, target_from_instance
     from dynamo_tpu_torch.llm.migration.worker import MigratableWorker
@@ -4045,6 +4088,18 @@ def migrate_pull_path(torch, noise_times):
 
     t_phase = time.perf_counter()
     MigratableWorker.migrate_out, MigratableWorker._push_blocks = timed_migrate_out, counted_push
+    # Every process of the stack runs with the bulk plane (A reads it
+    # when the CLI wires its worker, the children inherit it).
+    env_bulk = os.environ.get("DYN_BULK_PLANE")
+    os.environ["DYN_BULK_PLANE"] = "1"
+    roles_seen, real_start_decode = [], cli.WorkerRoles.start_decode
+
+    async def recording_start_decode(self, disagg):
+        roles_seen.append(self)
+        return await real_start_decode(self, disagg)
+
+    cli.WorkerRoles.start_decode = recording_start_decode
+    k_result = (False, None, {})
     import logging
 
     mig_log = logging.getLogger("dynamo_tpu_torch.llm.migration")
@@ -4055,12 +4110,17 @@ def migrate_pull_path(torch, noise_times):
     try:
         children.append(Child("hub", ["hub", "--host", "127.0.0.1", "--port", str(hub_port)]))
         children[-1].wait_line("hub listening", 120)
+        # B's kv_export bulk fetches meet BULK_FAULT_SPEC's drops (phase k).
         worker_b = Child("worker B", ["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV,
-                                      "--hub", hub_addr])
+                                      "--hub", hub_addr], env={"DYN_FAULTS": BULK_FAULT_SPEC})
         children.append(worker_b)
         front = Child("http kv", ["http", "--hub", hub_addr, "--host", "127.0.0.1", "--port",
                                   "0", "--router", "kv"])
         children.append(front)
+        # The watchdog's third fleet member (phase k): an echo worker.
+        echo = Child("echo worker", ["run", f"in={ECHO_ENDPOINT}", "out=echocore", "--hub",
+                                     hub_addr, "--model", "echo"])
+        children.append(echo)
         fport = int(front.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
         t = time.perf_counter()
         server = CliServer(["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV, "--hub", hub_addr,
@@ -4070,6 +4130,7 @@ def migrate_pull_path(torch, noise_times):
         engine = server.engine
         out["a_up_s"] = time.perf_counter() - t
         wid_b = int(worker_b.wait_line("worker ", 300).split()[1])
+        wid_echo = int(echo.wait_line("worker ", 120).split()[1])
         log(f"migrate: hub {hub_addr}, kv frontend :{fport}, worker A {wid_a} (in this "
             f"process, up and warmed in {out['a_up_s']:.1f} s, graphs {graphs}), worker B "
             f"{wid_b} (pid {worker_b.p.pid})")
@@ -4087,6 +4148,17 @@ def migrate_pull_path(torch, noise_times):
             return seq
 
         engine.finish_migrated, engine.freeze_sequence = recording_finish, timed_freeze
+        # A's two bulk producers, and their service-plane counterparts.
+        handles = roles_seen[0]._handles["decode"]
+        mig_a = handles["mig"]
+        puller_a = engine._prefix_puller
+        planes = {"bulk": (mig_a.bulk, puller_a.exporter),
+                  "service": (None, make_client_exporter(handles["pull_client"]))}
+
+        def set_plane(name):
+            mig_a.bulk, puller_a.exporter = planes[name]
+
+        set_plane("service")
 
         async def on_a(coro):
             """Await ``coro`` on A's event loop (its engine lives there)."""
@@ -4107,6 +4179,7 @@ def migrate_pull_path(torch, noise_times):
             return await asyncio.gather(*(alone(r) for r in reqs))
 
         async def phase():
+            nonlocal k_result
             rt = await DistributedRuntime.connect(hub_addr)
             ns, comp, ep = parse_endpoint_path(DIST_ENDPOINT)
             endpoint = rt.namespace(ns).component(comp).endpoint(ep)
@@ -4156,6 +4229,51 @@ def migrate_pull_path(torch, noise_times):
                         return True
                     await asyncio.sleep(0.01)
                 return False
+
+            async def verify_moved(rids, prompts, results, label, also=None):
+                """Streams ``rids`` (of ``prompts``; ``results`` the
+                client's) moved A -> B, against B: every cutover carried
+                its resume request; the moved blocks are bitwise B's (the
+                last full block of a resume that ends on a block boundary
+                is rewritten at its last position by B's admission, so the
+                block before it is taken); each stream equals its resume
+                request served on B, submitted in cutover order once the
+                previous one's first token is out (as the cutovers
+                arrived).  ``also()`` runs beside those references.
+                Returns (rids in cutover order, resumes, stream -> rid,
+                equal per stream, what ``also`` returned)."""
+                resumes = {rid: ((released.get(rid) or {}).get("migrated") or {}).get("request")
+                           for rid in rids}
+                check(all(resumes.values()), f"{label}: every cutover carried its resume request")
+                order = sorted([r for r in rids if resumes.get(r)],
+                               key=lambda r: per_rid.get(r, {}).get("t0", 0.0))
+                by_prompt = {tuple(resumes[rid]["token_ids"][:MIGRATE_ISL]): rid for rid in order}
+                stream_rid = [by_prompt.get(tuple(p)) for p in prompts]
+                pages_ok = []
+                for rid in order:
+                    toks = resumes[rid]["token_ids"]
+                    last = len(toks) // PS - (1 if len(toks) % PS else 2)
+                    for i in (*MIGRATE_CHECK_BLOCKS, last):
+                        pages_ok.append(await same_block(toks, i))
+                check(bool(pages_ok) and all(pages_ok),
+                      f"{label}: migrated blocks bitwise equal on B ({pages_ok})")
+                firsts = []
+                for rid in order:
+                    ev = asyncio.Event()
+                    firsts.append(asyncio.ensure_future(direct(wid_b, dict(resumes[rid]), ev)))
+                    await asyncio.wait_for(ev.wait(), 120)
+                extra = asyncio.ensure_future(also()) if also is not None else None
+                refs = {rid: (await task)[0] for rid, task in zip(order, firsts)}
+                extra = await extra if extra is not None else None
+                same = []
+                for i, r in enumerate(results):
+                    rid = stream_rid[i]
+                    if rid is not None:
+                        full = resumes[rid]["token_ids"][MIGRATE_ISL:] + refs.get(rid, [])
+                        same.append(len(full) == MIGRATE_OSL and r[1] == dist_text(full))
+                check(len(same) == len(prompts) and all(same),
+                      f"{label}: each stream equals its resume request served on B ({same})")
+                return order, resumes, stream_rid, same, extra
 
             try:
                 for _ in range(600):
@@ -4256,51 +4374,15 @@ def migrate_pull_path(torch, noise_times):
                                               engine.kv.active_blocks))
                 check(held == (0, 0, 0), f"A released the rows and blocks (running, waiting, "
                                          f"active blocks: {held})")
-                # Each stream's resume request, as A's cutover marker sent it.
-                resumes = {rid: ((released.get(rid) or {}).get("migrated") or {}).get("request")
-                           for rid in rids}
-                check(all(resumes.values()), "every cutover carried its resume request")
                 log(f"migrate: per stream {[(r[:8], per_rid.get(r), freezes.get(r)) for r in rids]}")
-                rids = [r for r in rids if resumes.get(r)]
-                order = sorted(rids, key=lambda r: per_rid.get(r, {}).get("t0", 0.0))
-                by_prompt = {tuple(r["token_ids"][:MIGRATE_ISL]): rid
-                             for rid, r in resumes.items() if r}
-                stream_rid = [by_prompt.get(tuple(p)) for p in prompts]
-                # Pages: migrated blocks on B against A's, bitwise.  The last
-                # full block of a resume that ends on a block boundary is
-                # rewritten at its last position by B's admission (the
-                # resumed prompt's logits), so the block before it is taken.
-                pages_ok = []
-                for rid in order:
-                    toks = (resumes.get(rid) or {}).get("token_ids") or []
-                    last = len(toks) // PS - (1 if len(toks) % PS else 2)
-                    for i in (*MIGRATE_CHECK_BLOCKS, last):
-                        pages_ok.append(await same_block(toks, i))
-                check(bool(pages_ok) and all(pages_ok),
-                      f"migrated blocks bitwise equal on B ({pages_ok})")
-                # References: each resume request served on B, where the
-                # same blocks are resident, submitted in cutover order once
-                # the previous one's first token is out (as the cutovers
-                # arrived); and the never-migrated requests on A (reported).
-                firsts = []
-                for rid in order:
-                    ev = asyncio.Event()
-                    firsts.append(asyncio.ensure_future(direct(wid_b, dict(resumes[rid]), ev)))
-                    await asyncio.wait_for(ev.wait(), 120)
-                never = asyncio.ensure_future(on_a(together([request(
-                    p, MIGRATE_OSL, temps[i], MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
-                    for i, p in enumerate(prompts)])))
-                refs = {rid: (await task)[0] for rid, task in zip(order, firsts)}
-                never = await never
-                same, same_never = [], []
-                for i, r in enumerate(results):
-                    rid = stream_rid[i]
-                    if rid is None:
-                        continue  # not migrated (failed above)
-                    full = resumes[rid]["token_ids"][MIGRATE_ISL:] + refs.get(rid, [])
-                    same.append(len(full) == MIGRATE_OSL and r[1] == dist_text(full))
-                    same_never.append(r[1] == dist_text(never[i]))
-                check(all(same), f"each stream equals its resume request served on B ({same})")
+                # Beside the references on B: the never-migrated requests
+                # on A (reported).
+                order, resumes, stream_rid, same, never = await verify_moved(
+                    rids, prompts, results, "migrate", also=lambda: on_a(together([request(
+                        p, MIGRATE_OSL, temps[i], MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
+                        for i, p in enumerate(prompts)])))
+                same_never = [r[1] == dist_text(never[i]) for i, r in enumerate(results)
+                              if stream_rid[i] is not None]
                 recs = [per_rid.get(rid, {}) for rid in order]
                 out.update(
                     identical_to_resume_reference=same,
@@ -4369,6 +4451,20 @@ def migrate_pull_path(torch, noise_times):
                 out["pulls"] = pulls
                 out["dead_peer_ttft_ms"] = dead_ttft * 1e3
 
+                # -- phase k on this stack, then j's drain on the service plane
+                k_result = await bulk_health_path(torch, SimpleNamespace(
+                    engine=engine, server=server, wid_a=wid_a, wid_b=wid_b, wid_echo=wid_echo,
+                    worker_b=worker_b, fport=fport, rt=rt, client=client, infos=infos,
+                    target_b=target_b, endpoint=(ns, comp, ep), request=request,
+                    direct=direct, on_a=on_a, a_state=a_state, alone=alone,
+                    together=together, same_block=same_block, splices=splices,
+                    wait_live=wait_live, verify_moved=verify_moved, per_rid=per_rid,
+                    freezes=freezes, set_plane=set_plane, puller=puller_a,
+                    mig=mig_a, bulk_srv=handles.get("bulk_srv"), syncs=syncs,
+                    counting_sync=counting_sync, real_sync=real_sync,
+                    j_out=out))
+                await a_state(lambda: set_plane("service"))
+
                 # -- the drain: A stopped with live streams -----------------
                 drain = dist_prompts(DRAIN_STREAMS, MIGRATE_ISL, 95)
                 for p in drain:
@@ -4408,6 +4504,11 @@ def migrate_pull_path(torch, noise_times):
     finally:
         torch.cuda.synchronize = real_sync
         MigratableWorker.migrate_out, MigratableWorker._push_blocks = real_migrate_out, real_push
+        cli.WorkerRoles.start_decode = real_start_decode
+        if env_bulk is None:
+            os.environ.pop("DYN_BULK_PLANE", None)
+        else:
+            os.environ["DYN_BULK_PLANE"] = env_bulk
         mig_log.removeHandler(handler)
         try:
             if server is not None and not stopped:
@@ -4425,7 +4526,541 @@ def migrate_pull_path(torch, noise_times):
     out["phase_s"] = time.perf_counter() - t_phase
     out["card"] = CARD
     log("migrate " + json.dumps(out, default=str))
+    return (not fails, launches, out), k_result
+
+
+BULK_FAULT_SPEC = "bulk_conn_drop:kv_export#5"  # B's: 4 drops end its first bulk fetch, 1 the next
+BULK_PULL_BUDGETS_MB = (64, 192)  # 32 and 96 blocks of llama-3.1-8b
+BULK_PULL_TURNS = ("bulk", "service", "service", "bulk", "bulk", "service")
+BULK_STALL_ISL, BULK_STALL_OSL = 256, 256  # B's stream during each 96-block pull
+BULK_MIGRATE_SEEDS = (None, 4444)  # greedy, and seeded at MIGRATE_TEMPERATURE
+SPAN_REQUESTS, SPAN_ISL, SPAN_OSL = 3, 512, 8
+ECHO_ENDPOINT = "dyn://dynamo.EchoWorker.generate"
+WATCH_ISL, WATCH_OSL = 512, 400
+# slow_stream on A: before every item it sends.  An item is a fused
+# dispatch's tokens, ~75 ms apart on a healthy worker, so 0.3 s is past
+# straggler_factor 3.0 times the fleet median.
+WATCH_STREAM_DELAY_S = 0.3
+WATCH_PACE_S = 0.35  # A's decode paced so that its slowed wire keeps up
+WATCH_FAST, WATCH_FAST_ISL, WATCH_FAST_OSL = 4, 64, 32
+WATCH_CFG = dict(probe_interval_s=0.25, probe_timeout_s=0.5, eject_grace_s=60.0)
+WATCH_EJECT_GRACE_S = 1.0
+WATCH_HEALTH_DELAY_S = 2.0  # A's __health__ answers after the probe's timeout: A stays sick
+
+
+class RssPeak:
+    """Peak resident set of process ``pid`` between ``start`` and
+    ``stop`` (``/proc/<pid>/status`` read every 5 ms), beside its value at
+    ``start``, in MiB."""
+
+    def __init__(self, pid):
+        self.path = f"/proc/{pid}/status"
+        self.peak = self.base = 0.0
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _read(self):
+        with open(self.path) as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+        return 0.0
+
+    def start(self):
+        self.base = self.peak = self._read()
+
+        def run():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self._read())
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+        return self.base, self.peak
+
+
+async def bulk_health_path(torch, c):
+    """Phase k, on phase j's stack (``migrate_pull_path``) before j's
+    drain, with A's producers on the bulk plane.  Returns (ok, launches,
+    numbers)."""
+    from dynamo_tpu_torch.llm.metrics import bulk_metrics, kv_tier_metrics, migration_metrics
+    from dynamo_tpu_torch.llm.migration import request_migrate_out
+    from dynamo_tpu_torch.llm.trace_service import BULK_TRACES_SINK
+    from dynamo_tpu_torch.runtime.transports.bulk import bulk_addr_key, bulk_sink_prefix
+    from dynamo_tpu_torch.runtime.transports.shard import shard_metrics
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"bulk check FAILED: {what}")
+
+    async def until(cond, timeout):
+        end = time.perf_counter() + timeout
+        while not cond():
+            if time.perf_counter() > end:
+                return False
+            await asyncio.sleep(0.02)
+        return True
+
+    engine, rt, client, request = c.engine, c.rt, c.client, c.request
+    wid_a, wid_b = c.wid_a, c.wid_b
+    ns, comp, ep = c.endpoint
+    nb = engine.block_nbytes()
+    t_phase = time.perf_counter()
+    next_seed = [200]
+    stall_prompts = {}
+
+    def b_fallback_lines():
+        return sum("falling back to the hub path" in line for line in c.worker_b.lines)
+
+    # The pull's own walls on A: the exporter's (the transfer) and the
+    # puller's (the transfer and the inject).
+    export_walls, pull_walls = [], []
+    real_pull = c.puller.pull
+
+    async def timed_pull(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return await real_pull(*a, **kw)
+        finally:
+            pull_walls.append(time.perf_counter() - t0)
+
+    def use(plane, mb):
+        c.set_plane(plane)
+        inner = c.puller.exporter
+
+        async def timed_exporter(worker_id, data):
+            t0 = time.perf_counter()
+            try:
+                return await inner(worker_id, data)
+            finally:
+                export_walls.append(time.perf_counter() - t0)
+
+        c.puller.exporter = timed_exporter
+        c.puller.max_bytes = mb << 20
+        c.puller.pull = timed_pull
+
+    async def pull(mb, plane, stall=False):
+        """A pulls a fresh 2048-id prefix B holds, at ``mb`` MiB, over
+        ``plane``; with ``stall``, a stream decodes on B meanwhile."""
+        await c.a_state(lambda: use(plane, mb))
+        j = next_seed[0]
+        next_seed[0] += 1
+        prefix = dist_prompts(1, PULL_ISL, 1000 + j)[0]
+        full = prefix + dist_prompts(1, PULL_NEW, 2000 + j)[0]
+        await c.direct(wid_b, request(prefix, 1))
+        local = await c.a_state(lambda: engine.local_prefix_blocks(full))
+        want = min(PULL_ISL // PS - local, (mb << 20) // nb)
+        m0, b0 = bulk_metrics.snapshot(), kv_tier_metrics.pulled_blocks_total
+        f0 = kv_tier_metrics.pulls_failed_total
+        del export_walls[:], pull_walls[:]
+        bstream = rss = None
+        if stall:
+            # A stream decoding on B meanwhile, through the frontend (its
+            # prompt's prefix is B's): an SSE event per token.
+            first, st = asyncio.Event(), []
+
+            def on_event(text):
+                st.append(time.perf_counter())
+                first.set()
+
+            bstream = asyncio.ensure_future(dist_complete(
+                c.fport, stall_prompts[(mb, j)], BULK_STALL_OSL, on_event,
+                logprobs=MIGRATE_LOGPROBS))
+            await asyncio.wait_for(first.wait(), 60)
+            await asyncio.sleep(0.3)
+            rss = RssPeak(c.worker_b.p.pid).start()
+        t0 = time.perf_counter()
+        toks, ttft = await c.direct(wid_a, request(full, PULL_OSL, annotations={
+            "kv_pull": {"worker_id": wid_b, "blocks": PULL_ISL // PS}}))
+        m1 = bulk_metrics.snapshot()
+        rec = {"plane": plane, "budget_mb": mb, "blocks": kv_tier_metrics.pulled_blocks_total - b0,
+               "want": want, "failed": kv_tier_metrics.pulls_failed_total - f0,
+               "ttft_ms": ttft * 1e3, "export_ms": sum(export_walls) * 1e3,
+               "pull_ms": sum(pull_walls) * 1e3, "tokens": len(toks),
+               **{k: m1[k] - m0[k] for k in m1}}
+        if stall:
+            base, peak = rss.stop()
+            r = await bstream
+            check(r[0] == 200 and r[3] == BULK_STALL_OSL, f"B's stream during the pull: {r[:4]}")
+            gaps = [(b - a, a, b) for a, b in zip(st, st[1:])]
+            during = [g for g, a, b in gaps if b >= t0 and a <= t0 + ttft]
+            before = sorted(g for g, a, b in gaps if b < t0)
+            rec.update(donor_itl_max_during_ms=max(during, default=float("nan")) * 1e3,
+                       donor_itl_p50_before_ms=(before[len(before) // 2] * 1e3 if before
+                                                else float("nan")),
+                       donor_itl_max_before_ms=max(before, default=float("nan")) * 1e3,
+                       donor_rss_mib=(round(base, 1), round(peak, 1)))
+        return rec, full, toks
+
+    async def pages_equal(full, n):
+        return [await c.same_block(full, i) for i in sorted({0, n // 2, max(0, n - 1)})]
+
+    await c.a_state(lambda: c.set_plane("bulk"))
+    graphs0 = dict(engine.compile_counts())
+    keys0 = {n: set(getattr(engine.programs, n)._signatures) for n in engine.programs.NAMES}
+    zero_kernel_counts()
+    zero_noise_launches()
+    c.syncs[0] = 0
+    torch.cuda.synchronize = c.counting_sync
+    try:
+        # -- 1. rendezvous ------------------------------------------------
+        addrs = {n: await rt.hub.kv_get(bulk_addr_key(w)) for n, w in (("A", wid_a), ("B", wid_b))}
+        sinks = await rt.hub.kv_get_prefix(bulk_sink_prefix(BULK_TRACES_SINK))
+        check(all(isinstance(r, dict) and r.get("address") for r in addrs.values())
+              and addrs["A"]["address"] == c.bulk_srv.address,
+              f"bulk/addr of A and B in the hub ({addrs})")
+        check(len(sinks) == 1 and all(r.get("address") for r in sinks.values()),
+              f"the frontend's bulk/sink/traces in the hub ({sinks})")
+        out["rendezvous"] = {"A": addrs["A"], "B": addrs["B"], "traces": sinks}
+
+        # -- 3. faults on B's kv_export (BULK_FAULT_SPEC) ------------------
+        fired0 = sum("fault fired: bulk_conn_drop" in line for line in c.worker_b.lines)
+        faults_out = {}
+        for case, want_fb, want_res in (("every chunk", 1, 3), ("once", 0, 1)):
+            rec, full, toks = await pull(BULK_PULL_BUDGETS_MB[0], "bulk")
+            pages = await pages_equal(full, rec["want"])
+            check(rec["fallbacks_total"] == want_fb and rec["resumes_total"] == want_res
+                  and rec["blocks"] == rec["want"] and rec["failed"] == 0 and all(pages)
+                  and rec["tokens"] == PULL_OSL,
+                  f"bulk_conn_drop {case}: fallbacks {rec['fallbacks_total']} (want {want_fb}), "
+                  f"resumes {rec['resumes_total']} (want {want_res}), {rec['blocks']} of "
+                  f"{rec['want']} blocks, pages {pages}, {rec['tokens']} tokens")
+            faults_out[case] = rec
+        fired = sum("fault fired: bulk_conn_drop" in line for line in c.worker_b.lines) - fired0
+        check(fired == 5, f"B's bulk_conn_drop fired 5 times ({fired})")
+        out["faults"] = faults_out
+
+        # -- 2. the pull over the bulk plane, in turns with the service plane
+        pulls = {}
+        for mb in BULK_PULL_BUDGETS_MB:
+            if mb == BULK_PULL_BUDGETS_MB[-1]:
+                # The streams that decode on B during the 96-block pulls:
+                # their prompts prefilled on B (with their programs), so the
+                # frontend's KV router sends them there.
+                stall_prompts.update(((mb, j), p) for j, p in zip(
+                    range(next_seed[0], next_seed[0] + len(BULK_PULL_TURNS)),
+                    dist_prompts(len(BULK_PULL_TURNS), BULK_STALL_ISL, 3000 + mb)))
+                for p in stall_prompts.values():
+                    await c.direct(wid_b, request(p, 1, logprobs=MIGRATE_LOGPROBS))
+                await asyncio.sleep(1.5)
+            for turn, plane in enumerate(BULK_PULL_TURNS):
+                rec, full, toks = await pull(mb, plane, stall=mb == BULK_PULL_BUDGETS_MB[-1])
+                ok = rec["blocks"] == rec["want"] and rec["failed"] == 0 and len(toks) == PULL_OSL
+                if plane == "bulk":
+                    ok = ok and rec["fallbacks_total"] == 0 and rec["bytes_total"] >= rec["blocks"] * nb
+                else:
+                    ok = ok and rec["bytes_total"] == 0
+                check(ok, f"pull at {mb} MiB over {plane} (turn {turn}): {rec}")
+                if turn == 0:
+                    pages = await pages_equal(full, rec["want"])
+                    salt = {"kv_salt": f"bulk-pull-reference-{mb}"}
+                    await c.on_a(c.alone(request(full[: rec["want"] * PS], 1, annotations=salt)))
+                    ref = await c.on_a(c.alone(request(full, PULL_OSL, annotations=salt)))
+                    check(all(pages) and toks == ref,
+                          f"bulk pull at {mb} MiB: pages bitwise B's ({pages}), the stream "
+                          f"equal to the same-split reference")
+                pulls.setdefault(mb, []).append(rec)
+        out["pulls"] = pulls
+        await c.a_state(lambda: c.set_plane("bulk"))
+
+        # -- 4. migration over the bulk plane ------------------------------
+        mprompts = dist_prompts(2, MIGRATE_ISL, 66)
+        temps = [0.0 if s is None else MIGRATE_TEMPERATURE for s in BULK_MIGRATE_SEEDS]
+        # A holds the prompts and has run their programs (as in phase j:
+        # each alone twice, then together).
+        warm = [request(p, 40, temps[i], BULK_MIGRATE_SEEDS[i], logprobs=MIGRATE_LOGPROBS)
+                for i, p in enumerate(mprompts)]
+        for r in warm + warm:
+            await c.on_a(c.alone(r))
+        await c.on_a(c.together(warm))
+        await asyncio.sleep(1.5)  # the router's index takes A's events
+        splices0 = await c.splices()
+        bb0, mm0 = bulk_metrics.snapshot(), (migration_metrics.blocks_total,
+                                             migration_metrics.bytes_total)
+        pub0 = sum(shard_metrics.publish_bytes.values())
+        stamps = [[] for _ in mprompts]
+        streams = [asyncio.ensure_future(dist_complete(
+            c.fport, p, MIGRATE_OSL, lambda text, i=i: stamps[i].append(time.perf_counter()),
+            temps[i], BULK_MIGRATE_SEEDS[i], MIGRATE_LOGPROBS)) for i, p in enumerate(mprompts)]
+        check(await c.wait_live(len(mprompts), MIGRATE_AFTER),
+              f"the {len(mprompts)} streams live on A with {MIGRATE_AFTER}+ tokens")
+        rids = await c.a_state(lambda: list(engine.live_request_ids()))
+        t_req = time.perf_counter()
+        resp = await request_migrate_out(c.infos[wid_a], c.target_b)
+        results = await asyncio.gather(*streams)
+        bb1 = bulk_metrics.snapshot()
+        pub = sum(shard_metrics.publish_bytes.values()) - pub0
+        mig_blocks = migration_metrics.blocks_total - mm0[0]
+        mig_bytes = migration_metrics.bytes_total - mm0[1]
+        check(resp.get("ok") and sorted(resp.get("migrated") or []) == sorted(rids)
+              and not resp.get("failed"), f"migrate_out moved both over the bulk plane ({resp})")
+        for i, r in enumerate(results):
+            check(r[0] == 200 and r[2] == "length" and r[3] == MIGRATE_OSL,
+                  f"bulk-migrated stream {i}: {r[0]} {r[2]}/{r[3]}")
+        n_spliced = await c.splices() - splices0
+        check(n_spliced == len(mprompts), f"{len(mprompts)} splices ({n_spliced})")
+        bulk_bytes = bb1["bytes_total"] - bb0["bytes_total"]
+        check(bb1["fallbacks_total"] == bb0["fallbacks_total"] and bulk_bytes >= mig_bytes > 0
+              and pub * 100 < bulk_bytes,
+              f"the copy stream on the bulk plane: {bulk_bytes} bulk bytes for {mig_bytes} KV "
+              f"bytes, {pub} hub publish bytes, fallbacks "
+              f"{bb1['fallbacks_total'] - bb0['fallbacks_total']}")
+        order, _, _, same, _ = await c.verify_moved(rids, mprompts, results, "bulk migration")
+        recs = [c.per_rid.get(rid, {}) for rid in order]
+        out["migrate"] = dict(
+            blocks_pushed=[x.get("blocks", 0) for x in recs],
+            copy_rounds=[x.get("pushes", 0) - 1 for x in recs],
+            migrate_out_s=[x.get("t1", 0.0) - x.get("t0", 0.0) for x in recs],
+            request_to_cutover_s=[x.get("t1", 0.0) - t_req for x in recs],
+            freeze_to_quiescence_ms=[c.freezes.get(rid) for rid in order],
+            stall_ms=[max((b - a for a, b in zip(s, s[1:])), default=float("nan")) * 1e3
+                      for s in stamps],
+            bulk_bytes=bulk_bytes, bulk_transfers=bb1["transfers_total"] - bb0["transfers_total"],
+            kv_bytes=mig_bytes, kv_blocks=mig_blocks, hub_publish_bytes=pub, spliced=n_spliced,
+            identical_to_resume_reference=same,
+            service_plane_j={k: c.j_out.get(k) for k in ("migrate_out_s", "stall_ms",
+                                                         "blocks_pushed")})
+
+        # -- 5. spans over the bulk sink -----------------------------------
+        fb_lines0, fb0 = b_fallback_lines(), bulk_metrics.fallbacks_total
+        sprompts = dist_prompts(SPAN_REQUESTS, SPAN_ISL, 71)
+        for p in sprompts:
+            await c.direct(wid_b, request(p, 1))
+        await asyncio.sleep(1.5)
+        spans_out = []
+        for p in sprompts:
+            st, hdrs, _, _ = await http_call(c.fport, "POST", "/v1/completions", {
+                "model": DIST_MODEL, "prompt": p + [11, 12, 13, 14], "max_tokens": SPAN_OSL,
+                "nvext": {"ignore_eos": True}}, headers={"x-trace": "1"})
+            tid = hdrs.get("x-trace-id")
+            trace = None
+            for _ in range(200):
+                s_, _, body, _ = await http_call(c.fport, "GET", f"/traces/{tid}")
+                trace = json.loads(body) if s_ == 200 else None
+                if trace and f"worker-{wid_b}" in trace.get("procs", []):
+                    break
+                await asyncio.sleep(0.05)
+            procs = (trace or {}).get("procs", [])
+            spans_out.append({"status": st, "trace_id": tid, "procs": procs,
+                              "b_spans": sum(s.get("proc") == f"worker-{wid_b}"
+                                             for s in (trace or {}).get("spans", []))})
+        # The router sends each to B, which holds its prefix; a trace the
+        # router sent to A carries A's spans instead (through A's sink).
+        check(all(s["status"] == 200 and any(p.startswith("worker-") for p in s["procs"])
+                  for s in spans_out) and any(s["b_spans"] > 0 for s in spans_out)
+              and b_fallback_lines() == fb_lines0 and bulk_metrics.fallbacks_total == fb0,
+              f"traced requests: the serving worker's spans at /traces through the bulk sink, "
+              f"B's among them, no fallback ({spans_out}; B's fallback log lines "
+              f"+{b_fallback_lines() - fb_lines0})")
+        out["spans"] = spans_out
+
+        # -- 6. the watchdog, on A's loop ------------------------------------
+        # Two event loops of one process must not talk to one service
+        # address at once (the service plane keeps one connection per
+        # address per process, and a loop dialing it closes the other
+        # loop's): the watchdog, its client and the streams it watches run
+        # on A's loop, beside A's own clients.
+        await c.on_a(watch_step(c, check, until, out, temps))
+
+    finally:
+        torch.cuda.synchronize = c.real_sync
+        c.puller.__dict__.pop("pull", None)
+    launches = {**kernel_counts(), "threefry_gumbel": noise_launches()}
+    check(all(v > 0 for v in launches.values()), f"A launched all three kernels ({launches})")
+    graphs1 = dict(engine.compile_counts())
+    new_keys = {n: [str(k) for k in set(getattr(engine.programs, n)._signatures) - keys0[n]]
+                for n in engine.programs.NAMES}
+    check(graphs0 == graphs1, f"A captured no graph while serving ({graphs0} -> {graphs1}, new "
+                              f"keys {new_keys})")
+    check(c.syncs[0] == 0, f"no torch.cuda.synchronize on A while serving ({c.syncs[0]})")
+    out.update(launches=launches, syncs=c.syncs[0], phase_s=time.perf_counter() - t_phase,
+               card=CARD, failures=fails)
+    log("bulk " + json.dumps(out, default=str))
     return not fails, launches, out
+
+
+async def watch_step(c, check, until, out, temps):
+    """Phase k, step 6, on worker A's event loop: a ``HealthWatchdog``
+    over the stack's generate instances with its default prober, drainer
+    and latency source, fed by a routed client on this loop; A made a
+    straggler, quarantined, drained, reinstated, then made sick, ejected
+    and re-registered."""
+    from dynamo_tpu_torch.llm.metrics import bulk_metrics
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+    from dynamo_tpu_torch.runtime.faultinject import faults
+    from dynamo_tpu_torch.runtime.health import (
+        HealthConfig, HealthWatchdog, health_metrics, quarantine_key, worker_latency)
+    from dynamo_tpu_torch.runtime.resilience import metrics as res_metrics
+
+    engine, request, art = c.engine, c.request, c.server.service
+    wid_a, wid_b = c.wid_a, c.wid_b
+    ns, comp, ep = c.endpoint
+    client = await art.namespace(ns).component(comp).endpoint(ep).client()
+    echo_client = await art.namespace("dynamo").component("EchoWorker").endpoint(
+        "generate").client()
+    dog = None
+
+    async def direct(wid, req):
+        return await collect(await client.generate(Context(dict(req)), worker_id=wid))
+
+    try:
+        await echo_client.wait_for_instances(30)
+        wprompts = dist_prompts(2, WATCH_ISL, 75)
+        wseeds = (None, 4545)
+        wreqs = [request(p, WATCH_OSL, temps[i], wseeds[i], logprobs=MIGRATE_LOGPROBS)
+                 for i, p in enumerate(wprompts)]
+        warm = [request(p, 40, temps[i], wseeds[i], logprobs=MIGRATE_LOGPROBS)
+                for i, p in enumerate(wprompts)]
+        for r in warm + warm:
+            await c.alone(r)
+        await c.together(warm)
+        pace_prompts = dist_prompts(2 * WATCH_FAST + 1, WATCH_FAST_ISL, 76)
+        await direct(wid_b, request(pace_prompts[0], 24))  # B's programs for this shape
+
+        async def fleet_pace(prompts):
+            """A fresh latency window: the fleet's pace as this client sees
+            it, B's and the echo worker's."""
+            worker_latency.reset()
+            for p in prompts:
+                await direct(wid_b, request(p, 24))
+            await collect(await echo_client.generate(Context(request(list(range(1, 25)), 24))))
+
+        health_metrics.reset()
+        await fleet_pace(pace_prompts[1:WATCH_FAST + 1])
+        a_addr = c.infos[wid_a]["address"]
+        splices0 = res_metrics.migration_splices_total
+        bw0 = bulk_metrics.snapshot()
+
+        async def pace():
+            await asyncio.sleep(WATCH_PACE_S)
+
+        engine.pace_hook = pace
+        faults.arm("slow_stream", match=a_addr, delay_s=WATCH_STREAM_DELAY_S)
+        t_arm = time.perf_counter()
+        wres = [[] for _ in wreqs]
+
+        async def consume(i):
+            async for item in await client.generate(Context(dict(wreqs[i])), worker_id=wid_a):
+                wres[i].append(item)
+
+        wtasks = [asyncio.ensure_future(consume(i)) for i in range(len(wreqs))]
+        dog = await HealthWatchdog(art.hub, f"instances/{ns}/{comp}/{ep}/",
+                                   config=HealthConfig(**WATCH_CFG)).start()
+
+        def state(wid):
+            rec = dog.workers.get(wid)
+            return rec.state if rec is not None else None
+
+        check(await until(lambda: state(wid_a) == "quarantined", 60),
+              f"A quarantined as a straggler ({state(wid_a)})")
+        t_q = time.perf_counter()
+        snap = worker_latency.snapshot()
+        marker = await art.hub.kv_get(quarantine_key(wid_a))
+        check((marker or {}).get("state") == "quarantined"
+              and dog.workers[wid_a].reason == "latency_outlier",
+              f"A's quarantine marker ({marker}, {dog.workers[wid_a].reason})")
+        check(await until(lambda: health_metrics.drained_sequences_total >= 2, 120),
+              f"the default drainer moved A's 2 live streams "
+              f"({health_metrics.drained_sequences_total})")
+        t_drained = time.perf_counter()
+        bw1 = bulk_metrics.snapshot()
+        check(bw1["transfers_total"] > bw0["transfers_total"]
+              and bw1["fallbacks_total"] == bw0["fallbacks_total"],
+              f"the drain's copy stream rode the bulk plane ({bw0} -> {bw1})")
+        engine.pace_hook = None
+        faults.disarm("slow_stream")
+        await asyncio.gather(*wtasks)
+        for i, items in enumerate(wres):
+            n = sum(len(it.get("token_ids", [])) for it in items)
+            check(n == WATCH_OSL and items and items[-1].get("finish_reason") == "length",
+                  f"drained stream {i} whole ({n} tokens)")
+        spliced = res_metrics.migration_splices_total - splices0
+        check(spliced == 2, f"this client spliced both drained streams ({spliced})")
+        check(state(wid_b) == "healthy", f"B healthy ({state(wid_b)})")
+        # A's own streams are back at the fleet's pace; the window that
+        # held its slow samples (and the drained streams' catch-up) is
+        # replaced by a fresh one.
+        await fleet_pace(pace_prompts[WATCH_FAST + 1:])
+        for i in range(WATCH_FAST):
+            await direct(wid_a, request(dist_prompts(1, WATCH_FAST_ISL, 77 + i)[0],
+                                        WATCH_FAST_OSL))
+        check(await until(lambda: state(wid_a) == "healthy", 30), f"A reinstated ({state(wid_a)})")
+        t_r = time.perf_counter()
+        check(t_r - t_q < WATCH_CFG["eject_grace_s"]
+              and await art.hub.kv_get(quarantine_key(wid_a)) is None,
+              "A reinstated before the grace ended, its marker cleared")
+        # Ejection: A's __health__ answers only after the probe's timeout.
+        dog.config.eject_grace_s = WATCH_EJECT_GRACE_S
+        akey = sorted(dog.workers[wid_a].keys)[0]
+        calls = [0]
+        real_generate = engine.generate
+
+        async def counting_generate(req):
+            calls[0] += 1
+            return await real_generate(req)
+
+        engine.generate = counting_generate
+        faults.arm("delay", match="__health__", delay_s=WATCH_HEALTH_DELAY_S)
+        t_sick = time.perf_counter()
+        check(await until(lambda: state(wid_a) == "ejected", 30), f"A ejected ({state(wid_a)})")
+        t_e = time.perf_counter()
+        marker = await art.hub.kv_get(quarantine_key(wid_a))
+        gone = await art.hub.kv_get(akey) is None
+        check(gone and (marker or {}).get("state") == "ejected" and state(wid_b) == "healthy",
+              f"A's registration deleted ({gone}), its marker ejected ({marker}), B "
+              f"{state(wid_b)}")
+        calls0 = calls[0]
+        eresults = [await dist_complete(c.fport, dist_prompts(1, WATCH_FAST_ISL, 77 + i)[0], 8)
+                    for i in range(WATCH_FAST)]
+        check(all(r[0] == 200 and r[3] == 8 for r in eresults) and calls[0] == calls0,
+              f"after the eject the frontend routes to B only: {[r[0] for r in eresults]}, "
+              f"A served {calls[0] - calls0}")
+        del engine.generate
+        faults.disarm("delay")
+        # The operator brings A back: its registration is put again.
+        await art.register_key(akey, art._registrations[akey])
+        check(await until(lambda: state(wid_a) == "healthy", 10)
+              and await art.hub.kv_get(quarantine_key(wid_a)) is None,
+              f"re-registration reset A ({state(wid_a)})")
+        hm = health_metrics
+        counts = dict(quarantines=hm.quarantines_total, recoveries=hm.recoveries_total,
+                      ejections=hm.ejections_total, drains=hm.drains_total,
+                      drained_sequences=hm.drained_sequences_total,
+                      stragglers_detected=hm.stragglers_detected_total,
+                      probes=hm.probes_total, probe_failures=hm.probe_failures_total,
+                      corruption_quarantines=hm.corruption_quarantines_total,
+                      states=dict(hm.state_counts))
+        check(counts["quarantines"] == 2 and counts["recoveries"] == 1
+              and counts["ejections"] == 1 and counts["drains"] == 2
+              and counts["drained_sequences"] == 2 and counts["stragglers_detected"] >= 2
+              and counts["probe_failures"] >= 2 and counts["corruption_quarantines"] == 0
+              and counts["states"] == {"healthy": 2},
+              f"dynamo_tpu_health_* match the transitions ({counts})")
+        out["watchdog"] = dict(
+            counts=counts, a_itl_p50_ms=(snap.get(wid_a) or {}).get("itl_p50_ms"),
+            a_ttft_p50_ms=(snap.get(wid_a) or {}).get("ttft_p50_ms"),
+            fleet_itl_p50_ms={str(w): (v or {}).get("itl_p50_ms") for w, v in snap.items()},
+            fleet_ttft_p50_ms={str(w): (v or {}).get("ttft_p50_ms") for w, v in snap.items()},
+            drain_bulk_bytes=bw1["bytes_total"] - bw0["bytes_total"],
+            arm_to_quarantine_s=t_q - t_arm, quarantine_to_drained_s=t_drained - t_q,
+            quarantine_to_reinstated_s=t_r - t_q, sick_to_ejected_s=t_e - t_sick,
+            render_lines=len(hm.render().splitlines()))
+    finally:
+        engine.pace_hook = None
+        engine.__dict__.pop("generate", None)
+        faults.disarm("slow_stream")
+        faults.disarm("delay")
+        if dog is not None:
+            await dog.stop()
+        await echo_client.close()
+        await client.close()
 
 
 def main() -> int:
@@ -4516,12 +5151,14 @@ def main() -> int:
         log(f"memory before the migration phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        ok_migrate, migrate_launches, _ = migrate_pull_path(torch, noise_times)
+        (ok_migrate, migrate_launches, _), (ok_bulk, bulk_launches, _) = migrate_pull_path(
+            torch, noise_times)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
                     "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg,
-                    "migration and pull (j)": ok_migrate}
+                    "migration and pull (j)": ok_migrate,
+                    "bulk plane and watchdog (k)": ok_bulk}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -4553,6 +5190,7 @@ def main() -> int:
             kernels[-1]["dist_launches"] = dist_launches[name]
             kernels[-1]["disagg_launches"] = disagg_launches[name]
             kernels[-1]["migrate_launches"] = migrate_launches[name]
+            kernels[-1]["bulk_launches"] = bulk_launches[name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -4576,6 +5214,7 @@ def main() -> int:
             "rows16": {k: noise_times[16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "spec_launches": {k: spec[(k, "on")]["noise"] for k in ("repetitive", "random")},
             "migrate_launches": migrate_launches["threefry_gumbel"],
+            "bulk_launches": bulk_launches["threefry_gumbel"],
         })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(

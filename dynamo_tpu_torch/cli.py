@@ -44,13 +44,18 @@ live streams to a peer through migration before it stops; the routed
 client splices each moved stream.  It serves its sealed blocks to peers at
 ``kv_export``, pulls a deeper peer prefix at admission when the KV router
 stamps a ``kv_pull`` hint (``--kv-pull-mb`` budget), and with a disk tier
-consumes the router's ``kv_prefetch`` plane.  The flags keep the JAX
-parser's names and defaults.  Options the port does not have yet fail when
-set (engine/__init__.py UNSUPPORTED_OPTIONS; the bulk plane's
-``DYN_BULK_PLANE``, ROADMAP queue 1 item 10.2); the planner's role flips
-(``RoleFlipWatcher``, item 10.7) and ``EdgeSloPublisher``, and the other
-JAX subcommands (model, metrics, mock-worker, planner, deploy) are not
-ported (ROADMAP queue 1 items 10.6–10.8).  The tokenizer is the self-contained
+consumes the router's ``kv_prefetch`` plane.  With ``DYN_BULK_PLANE=1``
+(runtime/transports/bulk.py) such a worker also runs a ``BulkServer``
+(the ``kv_export`` source and the ``migrate_in`` sink), registers its
+address under ``bulk/addr/<worker id>``, and moves prefix pulls, migration
+copy rounds and its span batches worker to worker, with the service plane
+and the hub beneath as the fallback; the ``http`` edge with tracing on
+runs the bulk span ingest.  The flags keep the JAX parser's names and
+defaults.  Options the port does not have yet fail when set
+(engine/__init__.py UNSUPPORTED_OPTIONS); the planner's role flips
+(``RoleFlipWatcher``, ROADMAP queue 1 item 10.7) and ``EdgeSloPublisher``,
+and the other JAX subcommands (model, metrics, mock-worker, planner,
+deploy) are not ported (ROADMAP queue 1 items 10.6–10.8).  The tokenizer is the self-contained
 byte tokenizer, the JAX CLI's default without ``--tokenizer`` or
 ``--checkpoint``.
 """
@@ -171,19 +176,11 @@ async def _run_hub(args) -> None:
         await server.close()
 
 
-def _refuse_bulk_plane() -> None:
-    if os.environ.get("DYN_BULK_PLANE", "0").lower() not in ("", "0", "false", "no", "off"):
-        raise SystemExit(
-            "DYN_BULK_PLANE: the bulk data plane is not ported yet (ROADMAP queue 1 item 10.2)"
-        )
-
-
 async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], None]] = None) -> None:
     """The ``http`` command: an OpenAI edge whose models are the hub's
     registrations (llm/discovery.ModelWatcher), routed by ``--router``."""
     from .runtime.client import RouterMode
 
-    _refuse_bulk_plane()
     runtime = await DistributedRuntime.connect(args.hub)
     # CLI flags win over the layered config's `resilience` section
     # (DYN_RESILIENCE__HTTP_MAX_INFLIGHT=64 etc.), which wins over defaults.
@@ -219,7 +216,7 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
         trace_aggregator=aggregator,
         hub=runtime.hub,
     )
-    watcher = exporter = None
+    watcher = exporter = bulk_ingest = None
     try:
         watcher = await ModelWatcher(runtime, service.models, router_mode=RouterMode(args.router)).start()
         await service.start()
@@ -229,8 +226,17 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
             # them with the edge's own spans (client.route, the
             # edge.request root), which export straight into it.
             from .runtime.tracing import SpanExporter
+            from .runtime.transports.bulk import bulk_enabled
 
             await aggregator.start(runtime.namespace(layers.namespace))
+            if bulk_enabled():
+                # Bulk span ingest: worker exporters push batches straight
+                # here instead of fanning through the hub's pub/sub plane;
+                # the subscription above stays live as the fallback path
+                # (and the A/B oracle).
+                from .llm.trace_service import start_bulk_ingest
+
+                bulk_ingest = await start_bulk_ingest(aggregator, runtime)
             exporter = await SpanExporter(
                 [aggregator], interval_s=tracing_cfg.export_interval_s, proc="edge"
             ).start()
@@ -241,6 +247,8 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
     finally:
         if exporter is not None:
             await exporter.stop()
+        if bulk_ingest is not None:
+            await bulk_ingest.close()
         if aggregator is not None:
             await aggregator.stop()
         if watcher is not None:
@@ -264,7 +272,6 @@ async def _serve_worker(args, engine, on_serving) -> None:
     if role and not hasattr(engine, "inject_blocks"):
         raise SystemExit(
             f"--disagg {role} requires the native engine (out=torch), not out={args.out}")
-    _refuse_bulk_plane()
     runtime = await DistributedRuntime.connect(args.hub)
     layers = RuntimeConfig.from_layers()
     ns, comp, ep = parse_endpoint_path(args.inp)
@@ -280,8 +287,19 @@ async def _serve_worker(args, engine, on_serving) -> None:
             async def _publish_spans(payload):
                 await namespace.publish(TRACES_TOPIC, payload)
 
+            span_sink = _publish_spans
+            from .runtime.transports.bulk import BulkRendezvous, bulk_enabled
+
+            if bulk_enabled():
+                # Bulk span export: batches push directly to the edge
+                # aggregator's bulk sink; the hub publish above stays wired
+                # as the fallback rung.
+                from .llm.trace_service import make_bulk_span_sink
+
+                span_sink = make_bulk_span_sink(
+                    BulkRendezvous(runtime.hub, lease=runtime.primary_lease), _publish_spans)
             trace_exporter = await SpanExporter(
-                [_publish_spans], interval_s=tcfg.export_interval_s,
+                [span_sink], interval_s=tcfg.export_interval_s,
                 proc=f"worker-{runtime.worker_id}",
             ).start()
         roles = WorkerRoles(args, runtime, endpoint, engine)
@@ -332,7 +350,8 @@ class WorkerRoles:
         metadata), publish its KV events and ``ForwardPassMetrics`` (the KV
         router's inputs), serve ``kv_export`` and pull router-hinted peer
         prefixes, consume ``kv_prefetch`` when the disk tier is on, feed its
-        tiers' integrity detections to the ``kv_corruption`` ledger, and
+        tiers' integrity detections to the ``kv_corruption`` ledger, under
+        ``DYN_BULK_PLANE`` start the bulk plane (``_start_bulk``), and
         register the model with the engine's block size."""
         from .llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
         from .runtime.health import kv_corruption
@@ -420,10 +439,53 @@ class WorkerRoles:
             wid = runtime.worker_id
             engine.set_integrity_reporter(lambda plane, _wid=wid: kv_corruption.record(_wid))
             kv_tier_metrics.set_source(engine.kv_tier_summary)
+        from .runtime.transports.bulk import bulk_enabled
+
+        if bulk_enabled() and hasattr(engine, "inject_blocks"):
+            await self._start_bulk(h)
         h["model_key"] = await register_model(
             runtime, args.model, endpoint.path, tokenizer={"kind": "byte"},
             kv_block_size=kv_block_size,
         )
+
+    async def _start_bulk(self, h: dict) -> None:
+        """Bulk data plane (``DYN_BULK_PLANE``): run this worker's
+        peer-to-peer stream server with the ``kv_export`` source and the
+        ``migrate_in`` sink, register its address under the primary lease
+        for hub rendezvous, and repoint the bulk producers (the prefix
+        pull's exporter, migration's copy stream) at it.  Every producer
+        keeps its service-plane transport beneath as the fallback rung, so
+        a dead bulk peer costs a fallback tick, never a stream."""
+        from .llm.kv_router.pull import (
+            KV_EXPORT_ENDPOINT,
+            PrefixPuller,
+            make_bulk_export_source,
+            make_bulk_exporter,
+            make_client_exporter,
+        )
+        from .llm.migration import MIGRATE_IN_ENDPOINT
+        from .llm.migration.worker import make_migrate_in_sink
+        from .runtime.transports.bulk import BulkRendezvous, BulkServer, bulk_addr_key
+
+        runtime, engine = self.runtime, self.engine
+        bulk_srv = BulkServer(runtime._host, worker_id=runtime.worker_id, hub=runtime.hub)
+        bulk_srv.register_source(KV_EXPORT_ENDPOINT, make_bulk_export_source(engine))
+        if h.get("mig") is not None:
+            bulk_srv.register_sink(MIGRATE_IN_ENDPOINT, make_migrate_in_sink(h["mig"]))
+        await bulk_srv.start()
+        h["bulk_srv"] = bulk_srv
+        await runtime.register_key(
+            bulk_addr_key(runtime.worker_id),
+            {"address": bulk_srv.address, "worker_id": str(runtime.worker_id)},
+        )
+        rendezvous = BulkRendezvous(runtime.hub, lease=runtime.primary_lease)
+        if h.get("mig") is not None:
+            h["mig"].bulk = rendezvous
+        if h.get("pull_client") is not None:
+            engine.set_prefix_puller(PrefixPuller(engine, make_bulk_exporter(
+                rendezvous, make_client_exporter(h["pull_client"]),
+                max_bytes=engine.cfg.kv_pull_max_bytes,
+            )))
 
     async def stop_decode(self) -> None:
         h = self._handles.pop("decode", None)
@@ -456,6 +518,14 @@ class WorkerRoles:
             await h["disagg"].drain(timeout=10.0)
         for served in reversed(h["serveds"]):
             await served.stop()
+        if h.get("bulk_srv") is not None:
+            # De-advertise BEFORE closing so a rendezvous racing the close
+            # resolves to nothing (a caller falls back) instead of dialing
+            # a dead address until its resume budget runs out.
+            from .runtime.transports.bulk import bulk_addr_key
+
+            await self.runtime.unregister_key(bulk_addr_key(self.runtime.worker_id))
+            await h["bulk_srv"].close()
         if h.get("prefetch") is not None:
             await h["prefetch"].stop()
         if h.get("pull_client") is not None:

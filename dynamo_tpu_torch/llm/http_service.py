@@ -52,12 +52,14 @@ from ..runtime.resilience import (
     Deadline,
     DeadlineExceededError,
 )
+from ..runtime.health import health_metrics
 from ..runtime.resilience import metrics as resilience_metrics
 from ..runtime.tracing import tracing_metrics
 from ..runtime.transports.shard import shard_metrics
 from .metrics import (
     Metrics,
     Status,
+    bulk_metrics,
     engine_dispatch_metrics,
     kv_integrity_metrics,
     kv_tier_metrics,
@@ -546,11 +548,13 @@ class HttpService:
             + tracing_metrics.render(prefix).encode()
             + spec_metrics.render(prefix).encode()
             + migration_metrics.render(prefix).encode()
+            + health_metrics.render(prefix).encode()
             + qos_metrics.render(prefix).encode()
             + engine_dispatch_metrics.render(prefix).encode()
             + kv_tier_metrics.render(prefix).encode()
             + kv_integrity_metrics.render(prefix).encode()
             + objstore_metrics.render(prefix).encode()
+            + bulk_metrics.render(prefix).encode()
             + shard_metrics.render(prefix).encode()
         )
         return _Response(200, body, "text/plain; version=0.0.4; charset=utf-8")

@@ -1,8 +1,9 @@
 """Cross-worker prefix pull + planner-led prefetch (a port of the JAX
 package's llm/kv_router/pull.py; its docs/kv_tiering.md has the design).
-The pull moves over the service plane; the bulk plane's exporter
-(``make_bulk_export_source`` / ``make_bulk_exporter``) comes with the bulk
-plane, ROADMAP queue 1 item 10.2.
+The pull moves over the service plane (``make_client_exporter``), or under
+``DYN_BULK_PLANE`` worker to worker over the bulk plane
+(``make_bulk_export_source`` / ``make_bulk_exporter``) with the service
+plane beneath it as the fallback.
 
 Fleet-wide prefix reuse, layer by layer:
 
@@ -220,6 +221,75 @@ def make_client_exporter(client):
         async for item in stream:
             return (item or {}).get("payload")
         return None
+
+    return exporter
+
+
+def make_bulk_export_source(engine):
+    """Donor-side bulk *source* for ``KV_EXPORT_ENDPOINT``: the same
+    restore+export the service handler runs, codec-encoded to one blob for
+    the peer-to-peer plane (a ``None`` export encodes/decodes to ``None``)."""
+    from ...runtime.tracing import parse_trace, span as trace_span
+    from ...runtime.transports import codec
+
+    async def source(meta: Dict[str, Any]) -> bytes:
+        tokens = list(meta["token_ids"])
+        salt = meta.get("salt")
+        tc = parse_trace(meta.get("trace"))
+        with trace_span(tc, "kv.export", "kv_donor") as espan:
+            if getattr(engine, "host_kv", None) is not None:
+                await engine.restore_prefix(tokens, salt)
+            payload = await engine.export_prompt_blocks(
+                tokens,
+                start_block=int(meta.get("start_block", 0)),
+                max_blocks=int(meta.get("max_blocks", 0)),
+                salt=salt,
+            )
+            espan.set(blocks=int(payload["n_blocks"]) if payload else 0)
+        return codec.encode(payload)
+
+    return source
+
+
+def make_bulk_exporter(rendezvous, fallback, max_bytes: int = 0):
+    """Exporter over the bulk plane (``DYN_BULK_PLANE``): hub rendezvous
+    mints the one-shot ticket, the payload itself moves worker↔worker over
+    ``transports/bulk.py``.  ANY miss — peer runs no bulk server, ticket
+    refused, transfer dead after resumes — counts one
+    ``dynamo_tpu_bulk_fallbacks_total`` and delegates to ``fallback`` (the
+    hub-path exporter, the byte-identity A/B oracle); the puller's own
+    degraded mode (local prefill) stays the final rung."""
+    from ...runtime.transports import codec
+    from ...runtime.transports.bulk import bulk_fetch
+    from ..metrics import bulk_metrics
+
+    async def exporter(worker_id: int, data: Dict[str, Any]):
+        salt = data.get("salt")
+        try:
+            # Budget: the pull byte budget plus framing/metadata slack.
+            prep = await rendezvous.prepare(
+                worker_id,
+                salt=salt,
+                budget=(int(max_bytes) * 2 + (1 << 20)) if max_bytes else 0,
+            )
+            if prep is None:
+                raise RuntimeError("bulk rendezvous unavailable")
+            address, ticket = prep
+            blob = await bulk_fetch(
+                address, KV_EXPORT_ENDPOINT, ticket, meta=data, salt=salt
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — fallback ladder: hub path next
+            logger.warning(
+                "bulk prefix pull from %s failed; falling back to the hub "
+                "path",
+                worker_id,
+                exc_info=True,
+            )
+            bulk_metrics.fallbacks_total += 1
+            return await fallback(worker_id, data)
+        return codec.decode(blob) if blob else None
 
     return exporter
 

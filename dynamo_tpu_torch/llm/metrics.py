@@ -21,8 +21,11 @@ resilience and tracing groups live beside their producers
 ``KvIntegrityMetrics`` and ``ObjstoreMetrics`` are the KV memory tiers'
 groups (engine/offload.py, the tier stores and the cross-worker prefix
 pull, llm/kv_router/pull.py), ``MigrationMetrics`` live migration's
-(llm/migration).  The metric groups of subsystems the port does not have
-yet (bulk plane, health watchdog, planner, tenancy) are not here.
+(llm/migration), ``BulkMetrics`` the bulk data plane's
+(runtime/transports/bulk.py and its three consumers).  The health
+watchdog's group lives beside it (runtime/health.py ``health_metrics``).
+The metric groups of subsystems the port does not have yet (planner,
+tenancy) are not here.
 """
 
 from __future__ import annotations
@@ -881,6 +884,58 @@ class KvIntegrityMetrics:
 
 
 kv_integrity_metrics = KvIntegrityMetrics()
+
+
+class BulkMetrics:
+    """Bulk data-plane counters (runtime/transports/bulk.py): bytes and
+    transfers moved peer-to-peer (off the hub control plane), resumes after
+    peer connection drops, and fallbacks onto the hub path.  Module-level
+    singleton rendered as Prometheus text and appended to ``/metrics``."""
+
+    def __init__(self):
+        self.bytes_total = 0
+        self.transfers_total = 0
+        # bulk attempts that fell back to the hub path (dead peer, expired
+        # ticket, rendezvous outage) — the stream survives either way
+        self.fallbacks_total = 0
+        # reconnects that continued from the last verified chunk
+        self.resumes_total = 0
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "bytes_total": float(self.bytes_total),
+            "transfers_total": float(self.transfers_total),
+            "fallbacks_total": float(self.fallbacks_total),
+            "resumes_total": float(self.resumes_total),
+        }
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_bulk"
+        lines = []
+
+        def emit(name: str, help_: str, value: int) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} counter")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("bytes_total",
+             "Payload bytes moved over the peer-to-peer bulk plane "
+             "(KV pulls, migration copies, span batches)", self.bytes_total)
+        emit("transfers_total",
+             "Completed bulk transfers (fetch + push)", self.transfers_total)
+        emit("fallbacks_total",
+             "Bulk attempts that fell back to the hub path (stream "
+             "survives; bytes ride the control plane)", self.fallbacks_total)
+        emit("resumes_total",
+             "Transfers resumed from the last verified chunk after a peer "
+             "connection drop", self.resumes_total)
+        return "\n".join(lines) + "\n"
+
+
+bulk_metrics = BulkMetrics()
 
 
 class ObjstoreMetrics:

@@ -8,8 +8,8 @@ engine/transfer.py's hash-addressed export/inject; the decode state rides a
 (runtime/client.py consumes the ``migrated`` marker and re-dispatches).
 
 A port of the JAX package's ``llm/migration`` (its docs/migration.md has
-the protocol and failure matrix).  The copy stream rides the service plane;
-the bulk data plane, its faster transport, is ROADMAP queue 1 item 10.2.
+the protocol and failure matrix).  The copy stream rides the service
+plane, or the bulk data plane under ``DYN_BULK_PLANE`` (worker.py).
 """
 
 from .coordinator import (

@@ -1,7 +1,7 @@
 """MigratableWorker: source/target halves of live sequence migration (a
-port of the JAX package's llm/migration/worker.py over the service plane;
-its bulk-plane push, ``_send_bulk`` and ``make_migrate_in_sink``, comes
-with the bulk plane, ROADMAP queue 1 item 10.2).
+port of the JAX package's llm/migration/worker.py; the copy stream rides
+the service plane, or under ``DYN_BULK_PLANE`` the bulk plane, with
+``make_migrate_in_sink`` the target's end).
 
 Protocol (Llumnix-style two-phase commit over the service plane):
 
@@ -87,6 +87,10 @@ class MigratableWorker(AsyncEngine):
         # short-circuit the service plane (tests; single-process fleets).
         self.direct = direct or {}
         self._clients: Dict[str, Client] = {}
+        # Bulk data plane (transports/bulk.py, DYN_BULK_PLANE): when the
+        # CLI wires a BulkRendezvous here, phase-1 copy payloads move
+        # worker↔worker instead of through the hub; None = hub path only.
+        self.bulk = None
         # Injectable copy-round barrier: awaited once after every phase-1
         # copy round as ``hook(cursor, final=False)`` and once more —
         # ``hook(cursor, final=True)`` — after the loop breaks, immediately
@@ -423,6 +427,16 @@ class MigratableWorker(AsyncEngine):
     async def _send(
         self, target: Dict[str, Any], data: Dict[str, Any]
     ) -> Dict[str, Any]:
+        if self.bulk is not None and data.get("kind") == "blocks":
+            # Bulk plane (DYN_BULK_PLANE): the KV copy stream — the only
+            # bulk-sized migrate_in payload — moves worker↔worker; commits
+            # stay on the service plane (control-sized, ordering-critical).
+            resp = await self._send_bulk(target, data)
+            if resp is not None:
+                return resp
+            from ..metrics import bulk_metrics
+
+            bulk_metrics.fallbacks_total += 1
         peer = self.direct.get(target.get("address", ""))
         if peer is not None:
             return await peer._migrate_in(data)
@@ -433,9 +447,54 @@ class MigratableWorker(AsyncEngine):
             resp = item
         return resp
 
+    async def _send_bulk(
+        self, target: Dict[str, Any], data: Dict[str, Any]
+    ) -> Optional[Dict[str, Any]]:
+        """Push one copy-stream payload over the bulk plane; None means
+        'use the hub path' (peer without a bulk server, rendezvous outage,
+        transfer dead after resumes) — never an error, the stream survives
+        on the fallback."""
+        from ...runtime.transports import codec
+        from ...runtime.transports.bulk import bulk_push
+
+        wid = target.get("worker_id")
+        if wid is None:
+            return None
+        salt = data.get("salt")
+        blob = codec.encode(data)
+        try:
+            prep = await self.bulk.prepare(wid, salt=salt, budget=len(blob))
+            if prep is None:
+                return None
+            address, ticket = prep
+            reply = await bulk_push(
+                address, MIGRATE_IN_ENDPOINT, ticket, blob, salt=salt
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — fallback ladder: hub path next
+            logger.warning(
+                "bulk migrate push to worker %s failed; falling back to the "
+                "hub path", wid, exc_info=True,
+            )
+            return None
+        return reply if isinstance(reply, dict) else None
+
     def _client_for(self, address: str, path: str) -> Client:
         key = f"{address}/{path}"
         if key not in self._clients:
             self._clients[key] = Client.static(address, path)
         return self._clients[key]
 
+
+def make_migrate_in_sink(worker: MigratableWorker):
+    """Target-side bulk *sink* for ``MIGRATE_IN_ENDPOINT``: the blob is the
+    codec-encoded migrate_in data dict; the reply is ``_migrate_in``'s
+    verdict (ok / tokens_covered), which the source consumes exactly as it
+    would a service-plane response."""
+    from ...runtime.transports import codec
+
+    async def sink(blob: bytes, meta: Dict[str, Any]) -> Dict[str, Any]:
+        return await worker._migrate_in(codec.decode(blob))
+
+    return sink

@@ -6,8 +6,9 @@ takes span batches from the hub event plane's ``traces`` subject
 ``SpanExporter`` sink (a colocated engine), assembles them by trace_id
 with a TTL, and serves the ``/traces/{id}`` / ``/traces?recent=N`` JSON
 views plus the per-hop TTFT decomposition rollup (DistServe-style
-TTFT-vs-TPOT attribution per phase).  Not ported yet: the bulk plane's
-``make_bulk_span_sink`` / ``start_bulk_ingest`` (ROADMAP queue 1 item 10).
+TTFT-vs-TPOT attribution per phase).  Under ``DYN_BULK_PLANE`` workers
+push their batches straight to the edge's bulk ingest
+(``make_bulk_span_sink`` / ``start_bulk_ingest``) instead of the hub.
 
 ``EdgeRequestTrace`` is the HTTP edge's per-request handle: it owns the
 root span (``edge.request``), the admission-wait span, the first-token
@@ -274,6 +275,69 @@ class TraceAggregator:
         # keep feeding /metrics or be pinned in memory by the singleton.
         if tracing_metrics._aggregator_source == self.stats:
             tracing_metrics.set_aggregator_source(None)
+
+
+#: Bulk-sink kind the edge aggregator registers under (``bulk_sink_key``);
+#: worker SpanExporters rendezvous on it when ``DYN_BULK_PLANE`` is on.
+BULK_TRACES_SINK = "traces"
+
+
+def make_bulk_span_sink(rendezvous, fallback):
+    """SpanExporter sink over the bulk plane (``DYN_BULK_PLANE``): the
+    batch pushes directly to a registered ``traces`` bulk sink (the edge
+    aggregator's ingest) instead of fanning through the hub's pub/sub
+    plane.  Any miss counts one ``dynamo_tpu_bulk_fallbacks_total`` and
+    delegates to ``fallback`` (the hub-publish sink, the A/B oracle) — a
+    span batch is never dropped by the bulk plane."""
+    from ..runtime.transports import codec
+    from ..runtime.transports.bulk import bulk_push
+    from .metrics import bulk_metrics
+
+    async def sink(payload: Dict[str, Any]) -> None:
+        blob = codec.encode(payload)
+        try:
+            prep = await rendezvous.prepare_sink(
+                BULK_TRACES_SINK, budget=len(blob)
+            )
+            if prep is None:
+                raise RuntimeError("no bulk traces sink registered")
+            address, ticket = prep
+            await bulk_push(address, BULK_TRACES_SINK, ticket, blob)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — fallback ladder: hub path next
+            logger.warning(
+                "bulk span export failed; falling back to the hub path",
+                exc_info=True,
+            )
+            bulk_metrics.fallbacks_total += 1
+            await fallback(payload)
+
+    return sink
+
+
+async def start_bulk_ingest(aggregator: TraceAggregator, runtime,
+                            host: str = "127.0.0.1"):
+    """Run a bulk *sink* server in front of ``aggregator`` and register it
+    in the hub under ``bulk/sink/traces/<worker>`` so worker exporters can
+    rendezvous with it; returns the started ``BulkServer``."""
+    from ..runtime.transports import codec
+    from ..runtime.transports.bulk import BulkServer, bulk_sink_key
+
+    async def sink(blob: bytes, meta: Dict[str, Any]) -> Dict[str, Any]:
+        aggregator.ingest(codec.decode(blob))
+        return {"ok": True}
+
+    server = BulkServer(
+        host, worker_id=runtime.worker_id, hub=runtime.hub
+    )
+    server.register_sink(BULK_TRACES_SINK, sink)
+    await server.start()
+    await runtime.register_key(
+        bulk_sink_key(BULK_TRACES_SINK, runtime.worker_id),
+        {"address": server.address, "worker_id": str(runtime.worker_id)},
+    )
+    return server
 
 
 class EdgeRequestTrace:

@@ -35,6 +35,14 @@ point              hooked in                                  simulates
                    ``objstore`` = ``ObjectKvStore.read``,     the checksum
                    ``host`` = ``_restore_pass`` before the    plane must
                    host→device copy                           detect it
+``bulk_conn_drop`` ``transports/bulk.BulkServer``             bulk peer dies
+                   (aborts the peer connection between        mid-transfer;
+                   chunks; cached transfer state survives     the client
+                   for resume)                                resumes, else
+                                                              falls back
+``bulk_slow_peer`` ``transports/bulk.BulkServer``             straggler bulk
+                   (``delay_s`` stall before each chunk)      peer stalls
+                                                              each chunk
 =================  =========================================  ==============
 
 ``kv_corrupt`` is a *data* fault: it flips one payload byte past the
@@ -42,7 +50,19 @@ structural checks' vantage point, and the system under test is the KV
 integrity plane (engine/integrity.py) — detection before any scatter,
 descendant drop and negative cache, and a recompute that gives the same
 stream.  The JAX package's other points (``tenant_flood``,
-``hub_shard_kill``, the bulk plane's) come with the code they hook.
+``hub_shard_kill``) come with the code they hook.
+
+``bulk_conn_drop`` / ``bulk_slow_peer`` are *bulk data-plane* faults
+(transports/bulk.py): hook keys are ``<bulk address>/<source>``, so a
+fault can target one peer's KV export stream (``bulk_conn_drop:kv_export``)
+or every bulk transfer (``*``).  ``bulk_conn_drop`` aborts the TCP
+connection between chunks while the server's live transfer state
+survives — the system under test is resume-from-last-verified-chunk plus
+the fallback ladder (service-plane path, then local recompute): streams
+stay byte-identical and none drop.  ``bulk_slow_peer`` stalls ``delay_s``
+before each chunk (a straggling peer NIC); the client's per-attempt
+timeout converts a hopeless straggler into a service-plane fallback
+instead of a hung pull.
 
 Arming: programmatic (``faults.arm("connect_error", match=addr, count=2)``)
 or env-driven for subprocess workers — ``DYN_FAULTS`` is a comma-separated

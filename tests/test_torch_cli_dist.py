@@ -19,7 +19,10 @@ serving, on the port):
   --max-local-prefill 16`` and ``http``, with ``out=torch --device cpu``
   workers: a 60-id prompt completes through the remote-prefill path
   (``disagg_stats``: remote prefills, no local one), with the text of the
-  JAX package's four-process stack.
+  JAX package's four-process stack;
+- ``DYN_BULK_PLANE=1`` honoured in this process: a ``run in=dyn://
+  out=torch`` worker registers ``bulk/addr/<wid>``, serves, and answers a
+  ticketed bulk ``kv_export`` fetch; ``http`` runs the bulk span ingest.
 
 The port's children run in interpreters where aiohttp, pydantic,
 prometheus_client, jinja2, tokenizers, xxhash and msgpack cannot be
@@ -459,22 +462,98 @@ def test_disaggregated_four_process_stacks_answer_alike(tmp_path):
                 p.kill()
 
 
+async def _bulk_plane_case(case):
+    """``DYN_BULK_PLANE=1`` on the port's CLI, in this process over a port
+    hub: a ``run in=dyn:// out=torch`` worker registers ``bulk/addr/<wid>``
+    under its lease, serves a request, and its bulk server answers a
+    ticketed ``kv_export`` fetch of the blocks it sealed; ``http`` (tracing
+    on by default) registers its span ingest under ``bulk/sink/traces/``
+    and a worker's batch pushed there lands in its aggregator.  Both
+    registrations are gone once the command stops."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, StopConditions
+    from dynamo_tpu_torch.llm.trace_service import BULK_TRACES_SINK, make_bulk_span_sink
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+    from dynamo_tpu_torch.runtime.transports import bulk, codec
+    from dynamo_tpu_torch.runtime.transports.hub import HubServer
+
+    hub = await HubServer(host="127.0.0.1").start()
+    rt = await DistributedRuntime.connect(hub.address)
+    loop = asyncio.get_running_loop()
+    ready = loop.create_future()
+    if case == "bulk-plane-worker":
+        args = cli.parse_args(["run", ENDPOINT, "out=torch", *TINY, "--model", "tiny",
+                               "--hub", hub.address])
+        task = asyncio.ensure_future(cli._run(args, on_serving=ready.set_result))
+    else:
+        args = cli.parse_args(["http", "--hub", hub.address, "--host", "127.0.0.1", "--port", "0"])
+        task = asyncio.ensure_future(cli._run_http_frontend(args, on_serving=ready.set_result))
+    try:
+        await asyncio.wait({ready, task}, timeout=120, return_when=asyncio.FIRST_COMPLETED)
+        assert ready.done(), task.exception() if task.done() else "not serving in 120 s"
+        served = ready.result()
+        if case == "bulk-plane-worker":
+            wid = served.worker_id
+            rec = await rt.hub.kv_get(bulk.bulk_addr_key(wid))
+            assert rec["worker_id"] == str(wid) and rec["address"]
+            ns, comp, ep = parse_endpoint_path(ENDPOINT.split("=", 1)[1])
+            client = await rt.namespace(ns).component(comp).endpoint(ep).client()
+            await client.wait_for_instances(30)
+            prompt = list(range(1, 13))
+            req = PreprocessedRequest(token_ids=prompt, stop_conditions=StopConditions(
+                max_tokens=3, ignore_eos=True)).to_dict()
+            items = await collect(await client.generate(Context(req), worker_id=wid))
+            assert sum(len(i.get("token_ids", [])) for i in items) == 3
+            await client.close()
+            address, ticket = await bulk.BulkRendezvous(rt.hub).prepare(wid)
+            assert address == rec["address"]
+            blob = await bulk.bulk_fetch(address, "kv_export", ticket,
+                                         meta={"token_ids": prompt, "start_block": 0})
+            assert codec.decode(blob)["n_blocks"] == len(prompt) // 4
+            gone = bulk.bulk_addr_key(wid)
+        else:
+            recs = await rt.hub.kv_get_prefix(bulk.bulk_sink_prefix(BULK_TRACES_SINK))
+            assert len(recs) == 1
+            published = []
+
+            async def hub_path(payload):
+                published.append(payload)
+
+            span = {"trace_id": "t-cli", "span_id": "s1", "parent_id": None, "name": "w",
+                    "component": "engine", "proc": "worker-1", "start_ms": 0.0, "dur_ms": 1.0}
+            await make_bulk_span_sink(bulk.BulkRendezvous(rt.hub), hub_path)(
+                {"proc": "worker-1", "spans": [span]})
+            assert published == []
+            assert served.trace_aggregator.get("t-cli")["spans"] == [span]
+            gone = next(iter(recs))
+    finally:
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+    assert await rt.hub.kv_get(gone) is None
+    await rt.close()
+    await hub.close()
+
+
 @pytest.mark.parametrize("argv,env,match", [
     (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1", "--disagg", "decode"], {},
      "--disagg decode requires the native engine"),
-    (["run", ENDPOINT, "out=echocore", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"},
-     "ROADMAP queue 1 item 10"),
-    (["http", "--hub", "127.0.0.1:1"], {"DYN_BULK_PLANE": "1"}, "ROADMAP queue 1 item 10"),
+    (None, {"DYN_BULK_PLANE": "1"}, None),
+    (None, {"DYN_BULK_PLANE": "1"}, None),
 ], ids=["disagg", "bulk-plane-worker", "bulk-plane-http"])
-def test_cli_refuses_what_waits(argv, env, match, monkeypatch):
+def test_cli_refuses_what_waits(argv, env, match, monkeypatch, request):
     """Options of the JAX commands the port refuses fail before anything
     dials the hub: ``--disagg`` on an engine without ``inject_blocks``
-    (as the JAX CLI refuses it), and the code not ported, naming where it
-    waits."""
+    (as the JAX CLI refuses it).  The bulk plane's cases, refused until the
+    port had it, now hold ``DYN_BULK_PLANE=1`` honoured by a worker and by
+    the ``http`` edge (``_bulk_plane_case``)."""
     from dynamo_tpu_torch import cli
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if argv is None:
+        asyncio.run(_bulk_plane_case(request.node.callspec.id))
+        return
     args = cli.parse_args(argv)
     run = cli._run if args.cmd == "run" else cli._run_http_frontend
     with pytest.raises(SystemExit, match=match):
