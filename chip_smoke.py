@@ -125,7 +125,8 @@ Phases, any failure exits non-zero:
      in turns (the pump's cost on TTFT and ITL, not gated);
   h. the README's distributed stack (``cli hub``; ``run in=dyn://…
      out=torch`` workers; ``http --router kv``) serving llama-3.1-8b at
-     phase 6's geometry: the hub, a KV-routed and a round-robin frontend
+     phase 6's geometry but 16 of its 32 layers (PATH_CUT_LAYERS, as in
+     phases j and k: the script's time): the hub, a KV-routed and a round-robin frontend
      and worker B are subprocesses of the CLI; worker A runs the CLI's own
      ``run in=dyn://`` code in this process (its launches counted), warmed
      before traffic; both draw the weights from seed 0.  8 greedy prompts
@@ -169,6 +170,31 @@ Phases, any failure exits non-zero:
      for the same blocks (P''s export, the wire into D's ``kv_import``,
      D's inject, by part), with the remote against local TTFT and the
      chunk sizes P's adaptive sizing reached;
+  l. on phase i's stack, before P stops (``planner_path``): a fresh
+     ``http`` frontend F (the edge's rolling windows are counted, not
+     timed), a second decode worker D2, the ``metrics`` aggregator and the
+     planner (``python -m dynamo_tpu_torch.planner run --autopilot
+     --interval 0.5``, local actuation, ``DYN_PLANNER__*``: max_prefill 1,
+     min_decode 1, a TTFT target below phase i's remote TTFT, an ITL target
+     never reached, no scale-down in the phase), all CLI subprocesses; D
+     (still this process's CLI worker, warmed for both roles first) holds
+     one stream seeded at 0.7 and D2 two greedy ones; a burst of 2040-id
+     prompts through F breaches the TTFT target; the planner, started
+     after it, must see the pools {P} and {D, D2} and the edge's
+     percentiles, then write ``flip_role(D, prefill)``: D's
+     ``RoleFlipWatcher`` migrates its stream to D2 (whole, spliced or
+     resumed), starts the prefill loop and acks; the pools then read {P, D}
+     and {D2}; 4 prompts of 2040 ids straight to D2 are all prefilled
+     remotely and identical to the same shapes served alone; the planner
+     is stopped, a ``LocalActuator`` here flips D back, D's decode surface
+     and ``kv_import`` return under its lease and a remote prompt on D is
+     identical; the aggregator serves D's and D2's rows and the router's
+     series, F's /metrics the planner group; a ``PlannerDirectiveWatcher``
+     over a ``KvRouterCore`` here enacts a ``set_tier_weights`` directive;
+     on D no graph is captured and no ``torch.cuda.synchronize`` runs, and
+     all three kernels launch (prefill launches while D is a prefill
+     worker counted apart); each tick's pressures, the put-to-ack wall, the
+     drain's move and TTFT p95 before and after the flip reported;
   j. the sampler's noise kernel (csrc/threefry_gumbel.cu, ``jax.random``'s
      threefry Gumbel noise bit for bit) against its plain version at 16 and
      256 rows over the 128256-id vocabulary: uint32 bits exactly equal,
@@ -226,8 +252,8 @@ Phases, any failure exits non-zero:
      the ``dynamo_tpu_health_*`` counters equal to the transitions; no
      graph and no sync on A, all three kernels launched;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j and k beside phase 6's and 7's; the noise
-     kernel's in phases j, k and e), then the device line last.
+     phases c, d, e, f, g, h, i, j, k and l beside phase 6's and 7's; the
+     noise kernel's in phases j, k, l and e), then the device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -236,6 +262,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -2965,13 +2992,47 @@ DIST_HASH_IDS, DIST_HASH_CALLS = 2048, 50
 DIST_VOCAB = 128000  # prompt ids are drawn below this
 
 
+# Phases h and j (with k on j's stack) run llama-3.1-8b at this many of its
+# 32 layers, at full width, to keep the script inside its time: the in-
+# process workers through ``model_depth``, the CLI children through
+# DEPTH_ENV, which CHILD_PRELUDE reads before it runs the module.
+PATH_CUT_LAYERS = 16
+DEPTH_ENV = "CHIP_SMOKE_LAYERS"
+CHILD_PRELUDE = (
+    "import os, runpy, sys\n"
+    "module = sys.argv.pop(1)\n"
+    f"layers = os.environ.get({DEPTH_ENV!r})\n"
+    "if layers:\n"
+    "    from dynamo_tpu_torch.models import config as mc\n"
+    f"    mc._REGISTRY[{DIST_MODEL!r}] = mc._REGISTRY[{DIST_MODEL!r}].with_overrides(\n"
+    "        num_layers=int(layers))\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+)
+
+
+@contextlib.contextmanager
+def model_depth(layers):
+    """llama-3.1-8b at ``layers`` layers in this process and in the CLI
+    children started meanwhile."""
+    from dynamo_tpu_torch.models import config as mc
+
+    full = mc._REGISTRY[DIST_MODEL]
+    mc._REGISTRY[DIST_MODEL] = full.with_overrides(num_layers=layers)
+    os.environ[DEPTH_ENV] = str(layers)
+    try:
+        yield
+    finally:
+        mc._REGISTRY[DIST_MODEL] = full
+        os.environ.pop(DEPTH_ENV, None)
+
+
 class Child:
     """A CLI subprocess of this checkout; its output lines are collected by
     a thread (the pipe never fills) and searched with ``wait_line``."""
 
-    def __init__(self, name, argv, env=None):
+    def __init__(self, name, argv, env=None, module="dynamo_tpu_torch.cli"):
         self.name = name
-        self.p = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.cli", *argv],
+        self.p = subprocess.Popen([sys.executable, "-c", CHILD_PRELUDE, module, *argv],
                                   cwd=str(REPO), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True,
                                   env=None if env is None else {**os.environ, **env})
@@ -3529,7 +3590,8 @@ def disagg_path(torch):
 
     hub_port = _free_port()
     hub_addr = f"127.0.0.1:{hub_port}"
-    children, server, prefill = [], None, None
+    ns_d, comp_d, _ = parse_endpoint_path(DIST_ENDPOINT)
+    children, server, prefill, planner_result = [], None, None, (False, None, None)
     real_sync = torch.cuda.synchronize
     syncs = [0]
 
@@ -3586,7 +3648,7 @@ def disagg_path(torch):
         salt = "disagg-reference"
         full = DISAGG_ISL // PS
 
-        async def reference(p, hit_blocks=None, pages_of=None):
+        async def reference(p, hit_blocks=None, pages_of=None, n=DISAGG_OSL):
             """D's engine serving ``p`` alone, under a KV salt (no prefix
             the traffic could hit), in the shapes the path under test gives
             it (the card's GEMMs are not batch-invariant): with
@@ -3604,7 +3666,7 @@ def disagg_path(torch):
                 if pages_of is not None:
                     pages = await block_pages(engine, chain[pages_of])
                 engine.kv.evict_hashes(chain[hit_blocks:])
-            return await alone(engine, p, DISAGG_OSL, salt=salt), pages
+            return await alone(engine, p, n, salt=salt), pages
 
         refs = {}
         t = time.perf_counter()
@@ -3792,6 +3854,21 @@ def disagg_path(torch):
                 await rt.close()
 
         asyncio.run(phase())
+        # Phase l rides this stack while it is up and warm; D's kv_import
+        # is registered anew by its flip back, so its address is read after.
+        planner_result = planner_path(torch, SimpleNamespace(
+            server=server, engine=engine, hub_addr=hub_addr, front=front, children=children,
+            wid_p=wid_p, reference=reference))
+
+        async def d_import():
+            rt = await DistributedRuntime.connect(hub_addr)
+            try:
+                return await rt.hub.kv_get_prefix(f"instances/{ns_d}/{comp_d}/{KV_IMPORT_ENDPOINT}/"
+                                                  f"{server.service.worker_id}")
+            finally:
+                await rt.close()
+
+        out["import_path"] = asyncio.run(d_import())
         # The largest chunk P's adaptive sizing reached, from its log.
         sizes = [int(m.group(1)) for line in prefill.lines
                  for m in [DISAGG_CHUNK_RE.search(line)] if m]
@@ -3908,6 +3985,474 @@ def disagg_path(torch):
         "d_up_s": out.get("d_up_s"), "p_up_s": out.get("p_up_s"), "phase_s": out["wall_s"],
     }
     log("disagg " + json.dumps(numbers))
+    return not fails, launches, numbers, planner_result
+
+
+# ----------------------------------------- l. the planner's role flip
+
+
+PLAN_STREAM_ISL, PLAN_STREAM_OSL = 256, 2048  # D's one and D2's two live streams
+PLAN_SEED = 4545  # D's stream: seeded at MIGRATE_TEMPERATURE, so the noise kernel runs
+PLAN_BURST, PLAN_BURST_OSL = 3, 8  # 2040-id prompts at once through the fresh frontend
+PLAN_WARM_OSL = 400  # D's seeded warm-up stream, live while remote prompts land beside it
+PLAN_AFTER, PLAN_AFTER_OSL = 4, 16  # remote prompts after the flip, one at a time
+PLAN_INTERVAL_S = 0.5
+PLAN_TTFT_SLO_MS = 1000.0  # below phase i's remote TTFT: the remote burst breaches it
+PLAN_ITL_SLO_MS = 60000.0  # never reached: the decode pool reads cold
+PLAN_ENV = {
+    "DYN_PLANNER__MAX_PREFILL": "1",  # P alone fills the prefill pool: a breach flips
+    "DYN_PLANNER__MIN_DECODE": "1",
+    "DYN_PLANNER__TTFT_P95_MS": str(PLAN_TTFT_SLO_MS),
+    "DYN_PLANNER__ITL_P95_MS": str(PLAN_ITL_SLO_MS),
+    # Nothing enacts pool targets here (no supervisor), and a decode
+    # scale-down's cooldown would hold the flip: no scale-down in the phase.
+    "DYN_PLANNER__CONFIRM_DOWN_TICKS": "100000",
+}
+PLAN_TIER_WEIGHTS = {"hbm": 1.0, "host": 0.6, "disk": 0.3, "objstore": 0.1}
+
+
+def planner_path(torch, ctx):
+    """Phase l, on phase i's stack while it is up and warm (the hub, prefill
+    worker P, decode worker D in this process): a fresh ``http`` frontend F
+    (the edge's rolling windows are counted, not timed, so phase i's
+    samples would read as load forever), a second decode worker D2, the
+    ``metrics`` aggregator and the planner (``python -m
+    dynamo_tpu_torch.planner run --autopilot``, local actuation), all CLI
+    subprocesses.  D holds 1 live seeded stream and D2 2 greedy ones; a
+    burst of 2040-id prompts through F breaches the TTFT target; the
+    planner, started after it, flips D (the decode pool's coldest) to
+    prefill: D's watcher drains its stream to D2 through migration and
+    starts the prefill worker loop.  4 remote prompts are then prefilled
+    by P or D; an operator's ``LocalActuator`` flips D back, and a remote
+    prompt decodes on D; a ``PlannerDirectiveWatcher`` here enacts a
+    ``set_tier_weights`` directive.  Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.llm.kv_router.router import PlannerDirectiveWatcher, make_kv_router
+    from dynamo_tpu_torch.llm.migration.worker import MigratableWorker
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.planner.actuate import (
+        DIRECTIVE_PREFIX, LocalActuator, role_key)
+    from dynamo_tpu_torch.planner.policy import Action, Decision, flip_role
+    from dynamo_tpu_torch.planner.signals import SignalCollector
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+    from dynamo_tpu_torch.runtime.resilience import metrics as res_metrics
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"planner check FAILED: {what}")
+
+    server, engine, hub_addr = ctx.server, ctx.engine, ctx.hub_addr
+    wid_d, wid_p = server.service.worker_id, ctx.wid_p
+    ns, comp, ep = parse_endpoint_path(DIST_ENDPOINT)
+    real_sync, syncs = torch.cuda.synchronize, [0]
+
+    def counting_sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    def on_d(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, server.loop).result(timeout)
+
+    def request(p, n, seed=None):
+        return PreprocessedRequest(
+            token_ids=list(p), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(
+                temperature=MIGRATE_TEMPERATURE if seed is not None else 0.0, seed=seed),
+        ).to_dict()
+
+    # The drain's move, timed where D's watcher runs it.
+    moves = []
+    migrate_all = MigratableWorker.migrate_all
+
+    async def timed_migrate_all(self, target, *a, **k):
+        t0 = time.perf_counter()
+        moved = await migrate_all(self, target, *a, **k)
+        moves.append({"t0": t0, "t1": time.perf_counter(), "moved": len(moved)})
+        return moved
+
+    t_phase = time.perf_counter()
+    ctx.front.stop()
+    front = Child("http (phase l)", ["http", "--hub", hub_addr, "--host", "127.0.0.1",
+                                      "--port", "0"])
+    ctx.children.append(front)
+    d2 = Child("decode worker D2", ["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV,
+                                     "--hub", hub_addr, "--disagg", "decode",
+                                     "--max-local-prefill", str(DISAGG_THRESHOLD)])
+    ctx.children.append(d2)
+    agg = Child("metrics", ["metrics", "--hub", hub_addr, "--component", comp,
+                            "--host", "127.0.0.1", "--port", "0"])
+    ctx.children.append(agg)
+    fport = int(front.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
+    aport = int(agg.wait_line("metrics aggregator on", 120).split(":")[-1].split("/")[0])
+    wid_d2 = int(d2.wait_line("worker ", 300).split()[1])
+    out["d2_up_s"] = time.perf_counter() - t_phase
+    log(f"planner: fresh frontend :{fport}, aggregator :{aport}, D {wid_d}, D2 {wid_d2} "
+        f"(up {out['d2_up_s']:.1f} s after the phase began), P {wid_p}")
+
+    streams_d2 = dist_prompts(2, PLAN_STREAM_ISL, 41)
+    stream_d = dist_prompts(1, PLAN_STREAM_ISL, 42)[0]
+    burst = dist_prompts(PLAN_BURST, DISAGG_ISL, 43)
+    after = dist_prompts(PLAN_AFTER + 1, DISAGG_ISL, 44)
+    warm_long = dist_prompts(2, DISAGG_ISL, 45)
+    full = DISAGG_ISL // PS
+    planner = None
+    state = SimpleNamespace(rt=None, client=None, stats=None)
+
+    async def d_setup():
+        """On D's loop (one loop per process dials each worker: the
+        service plane keeps one connection per address)."""
+        state.rt = await DistributedRuntime.connect(hub_addr)
+        state.client = await state.rt.namespace(ns).component(comp).endpoint(ep).client()
+        state.stats = await state.rt.namespace(ns).component(comp).endpoint(
+            "disagg_stats").client()
+        await state.client.wait_for_instances(30)
+        for _ in range(300):
+            if wid_d2 in state.client.instance_ids and wid_d2 in state.stats.instance_ids:
+                return
+            await asyncio.sleep(0.1)
+        raise RuntimeError(f"D2 {wid_d2} never registered")
+
+    async def d_stream(wid, p, n, seed=None):
+        items = []
+        async for item in await state.client.generate(Context(request(p, n, seed)),
+                                                      worker_id=wid):
+            items.append(item)
+        toks = [t for it in items for t in it.get("token_ids", [])]
+        return toks, (items[-1].get("finish_reason") if items else None)
+
+    async def d_stats(wid):
+        return (await collect(await state.stats.generate(Context({}), worker_id=wid)))[0]
+
+    async def d_timed(wid, p, n):
+        t0 = time.perf_counter()
+        first, toks = None, []
+        async for item in await state.client.generate(Context(request(p, n)), worker_id=wid):
+            if item.get("token_ids") and first is None:
+                first = time.perf_counter() - t0
+            toks += item.get("token_ids", [])
+        return toks, first
+
+    async def prefill_role_warm(p):
+        """D's engine serving ``p`` as its prefill worker loop will (the
+        loop's request: no sampling options, one token), so the keys the
+        prefill role runs are captured before the counted window."""
+        pre = PreprocessedRequest(token_ids=list(p))
+        pre.stop_conditions.max_tokens = 1
+        pre.stop_conditions.ignore_eos = True
+        await collect(await engine.generate(Context(pre.to_dict())))
+
+    async def warm_beside_seeded(prompts):
+        seeded = asyncio.ensure_future(d_stream(wid_d, stream_d, PLAN_WARM_OSL, PLAN_SEED))
+        await asyncio.gather(*(d_stream(wid_d, p, PLAN_BURST_OSL) for p in prompts))
+        await seeded
+
+    def graph_keys():
+        return {name: set(getattr(engine.programs, name)._signatures)
+                for name in ("step", "multi")}
+
+    async def d_teardown():
+        for c in (state.client, state.stats):
+            if c is not None:
+                await c.close()
+        if state.rt is not None:
+            await state.rt.close()
+
+    MigratableWorker.migrate_all = timed_migrate_all
+    try:
+        on_d(d_setup())
+        # Warm-up, before the counted window: D2 captures at first use, so
+        # it serves a greedy and a seeded stream first (the burst warms its
+        # remote path); D serves a seeded stream (its sampled graph keys),
+        # a prompt as its prefill loop will run it, and remote prompts
+        # beside a seeded row; the references run on D's engine (phase i's same-shape
+        # reference: the whole prompt in P's chunking, then the 8-id tail
+        # over its 127 sealed blocks).
+        t = time.perf_counter()
+        on_d(d_stream(wid_d2, streams_d2[0], 24))
+        on_d(d_stream(wid_d2, stream_d, 24, PLAN_SEED))
+        on_d(d_stream(wid_d, stream_d, 24, PLAN_SEED))
+        on_d(prefill_role_warm(warm_long[0]))
+        # The burst's prompts that land on D run their tail prefill beside
+        # the seeded row: steps keyed by a small bucket with sampling on.
+        on_d(warm_beside_seeded(warm_long))
+        refs = {tuple(p): on_d(ctx.reference(p, full, n=PLAN_AFTER_OSL))[0] for p in after}
+        out["warm_s"] = time.perf_counter() - t
+
+        async def phase():
+            nonlocal planner
+            rt = await DistributedRuntime.connect(hub_addr)
+            component = rt.namespace(ns).component(comp)
+            watcher = core = None
+            collector = await SignalCollector(component, model=DIST_MODEL).start()
+            try:
+                graphs0 = dict(engine.compile_counts())
+                keys0 = graph_keys()
+                zero_kernel_counts()
+                zero_noise_launches()
+                torch.cuda.synchronize = counting_sync
+                splices0 = res_metrics.migration_splices_total
+                resumes0 = res_metrics.stream_resumes_total
+                t_window = time.perf_counter()
+
+                # 1. the live streams: 1 on D (seeded), 2 on D2 (greedy).
+                def start(wid, p, seed=None):
+                    return asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                        d_stream(wid, p, PLAN_STREAM_OSL, seed), server.loop))
+
+                live = [start(wid_d, stream_d, PLAN_SEED)] + [start(wid_d2, p) for p in streams_d2]
+                # 2. the burst through the fresh frontend (P alone prefills it).
+                t = time.perf_counter()
+                br = await asyncio.gather(*(dist_complete(fport, p, PLAN_BURST_OSL) for p in burst))
+                out["burst_s"] = time.perf_counter() - t
+                check(all(r[0] == 200 and r[3] == PLAN_BURST_OSL for r in br),
+                      f"the burst: {[(r[0], r[3]) for r in br]}")
+                out["burst_ttft_ms"] = sorted(r[4] * 1e3 for r in br)
+                async def d_live():
+                    return list(engine.live_request_ids())
+
+                live_now = await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    d_live(), server.loop))
+                check(len(live_now) == 1, f"D holds its one live stream ({len(live_now)})")
+                # 3. the planner, live: its first ticks see the pools and the
+                # edge's percentiles, then the breach.
+                planner = Child("planner", ["run", "--hub", hub_addr, "--component", comp,
+                                            "--model", DIST_MODEL, "--interval",
+                                            str(PLAN_INTERVAL_S), "--autopilot", "--host",
+                                            "127.0.0.1", "--port", "0"],
+                                env=PLAN_ENV, module="dynamo_tpu_torch.planner")
+                ctx.children.append(planner)
+                pport = int(planner.wait_line("planner on", 120).split(":")[2].split("/")[0])
+                t_planner = time.perf_counter()
+                ticks, first_pools, put, ack = {}, None, None, None
+                end = time.time() + 60
+                while time.time() < end and ack is None:
+                    st, _, body, _ = await http_call(pport, "GET", "/state")
+                    stt = json.loads(body) if st == 200 else {}
+                    last = stt.get("last_decision") or {}
+                    if last.get("tick") and last["tick"] not in ticks:
+                        ticks[last["tick"]] = {"t_s": time.perf_counter() - t_planner,
+                                               "pressures": last.get("pressures"),
+                                               "signals": last.get("signals"),
+                                               "actions": [a.get("kind") for a in
+                                                           last.get("actions", [])]}
+                    if first_pools is None and ticks:
+                        snap = await collector.snapshot()
+                        first_pools = {k: list(v.workers) for k, v in snap.pools.items()}
+                    v = await rt.hub.kv_get(role_key(wid_d))
+                    if put is None and v:
+                        put = (time.perf_counter(), v)
+                    if v and v.get("acked"):
+                        ack = (time.perf_counter(), v)
+                        after_counts = kernel_counts()
+                    await asyncio.sleep(0.05)
+                out["ticks"] = ticks
+                out["first_pools"] = first_pools
+                check(first_pools == {"prefill": [wid_p], "decode": sorted([wid_d, wid_d2])},
+                      f"the pools before the flip ({first_pools})")
+                sig = [t_["signals"] for t_ in ticks.values() if t_.get("signals")]
+                check(any(s.get("prefill_workers") == 1 and s.get("decode_workers") == 2
+                          for s in sig), "the planner's /state: 1 prefill and 2 decode workers")
+                check(any(isinstance(s.get("ttft_p95_ms"), (int, float)) and s["ttft_p95_ms"] > 0
+                          and isinstance(s.get("itl_p95_ms"), (int, float)) for s in sig),
+                      "the edge's TTFT and ITL percentiles reached the planner")
+                flips = [(k, v) for k, v in ticks.items() if "flip_role" in v["actions"]]
+                check(put is not None and put[1].get("role") == "prefill",
+                      f"the planner wrote flip_role(D, prefill) ({put and put[1]})")
+                check(ack is not None and ack[1].get("from") == "decode",
+                      f"D acked the flip ({ack and ack[1]})")
+                if put is None or ack is None:
+                    return
+                out["flip_tick"] = put[1].get("tick")
+                out["put_to_ack_s"] = ack[0] - put[0]
+                out["planner_to_put_s"] = put[0] - t_planner
+                breaching = {k: v["pressures"] for k, v in ticks.items()
+                             if (v.get("pressures") or {}).get("prefill", 0) >= 1.15}
+                out["breaching_ticks"] = breaching
+                check(flips or breaching, f"breaching ticks seen ({ticks})")
+                out["moves"] = [{"move_s": m["t1"] - m["t0"], "moved": m["moved"]} for m in moves]
+                check(len(moves) == 1 and moves[0]["moved"] == 1,
+                      f"D's drain migrated its one live stream ({out['moves']})")
+                # The planner's view after the flip.
+                for _ in range(40):
+                    snap = await collector.snapshot()
+                    pools = {k: sorted(v.workers) for k, v in snap.pools.items()}
+                    if pools.get("prefill") == sorted([wid_p, wid_d]):
+                        break
+                    await asyncio.sleep(0.25)
+                out["pools_after"] = pools
+                check(pools == {"prefill": sorted([wid_p, wid_d]), "decode": [wid_d2]},
+                      f"the pools after the flip ({pools})")
+                for _ in range(40):
+                    st, _, body, _ = await http_call(pport, "GET", "/state")
+                    stt = json.loads(body)
+                    sig_after = ((stt.get("last_decision") or {}).get("signals") or {})
+                    if sig_after.get("prefill_workers") == 2:
+                        break
+                    await asyncio.sleep(0.25)
+                out["planner_state_decisions"] = stt.get("decisions")
+                check(sig_after.get("prefill_workers") == 2 and sig_after.get("decode_workers") == 1,
+                      f"the planner's /state after the flip ({sig_after})")
+                # 4. the next remote prompts, one at a time, to D2.
+                counts_ack = after_counts
+                after_ttft = []
+                stats0 = {wid_d2: await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    d_stats(wid_d2), server.loop))}
+                for i, p in enumerate(after[:PLAN_AFTER]):
+                    toks, first = await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                        d_timed(wid_d2, p, PLAN_AFTER_OSL), server.loop))
+                    after_ttft.append(first * 1e3 if first is not None else float("nan"))
+                    check(toks == refs[tuple(p)],
+                          f"remote prompt {i} after the flip identical to the same shapes alone")
+                out["after_ttft_ms"] = after_ttft
+                s1 = await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    d_stats(wid_d2), server.loop))
+                out["d2_remote"] = {k: s1[k] - stats0[wid_d2][k] for k in
+                                    ("remote_prefills", "local_prefills", "degraded_fallbacks")}
+                check(out["d2_remote"] == {"remote_prefills": PLAN_AFTER, "local_prefills": 0,
+                                           "degraded_fallbacks": 0},
+                      f"the {PLAN_AFTER} prompts prefilled remotely ({out['d2_remote']})")
+                # The directives the planner wrote, then the planner stops
+                # (its edge window stays high: it would flip D again).
+                out["planner_directives"] = {
+                    k[len(DIRECTIVE_PREFIX):]: {"tick": v.get("tick"), "reason": v.get("reason")}
+                    for k, v in (await rt.hub.kv_get_prefix(DIRECTIVE_PREFIX)).items()}
+                st, _, mbody, _ = await http_call(pport, "GET", "/metrics")
+                out["planner_metrics_ok"] = st == 200 and b"dynamo_tpu_planner_ticks_total" in mbody
+                check(out["planner_metrics_ok"], "the planner's /metrics")
+                planner.stop()
+                # 5. the flip back, by an operator's LocalActuator.
+                counts_back = kernel_counts()
+                out["prefill_role_launches"] = {k: counts_back[k] - counts_ack[k]
+                                                for k in counts_back}
+                t = time.perf_counter()
+                await LocalActuator(rt.hub).apply(Decision(
+                    tick=0, actions=[flip_role(wid_d, "decode", "operator: flip back")],
+                    pressures={}))
+                back = None
+                for _ in range(600):
+                    v = await rt.hub.kv_get(role_key(wid_d))
+                    if v and v.get("acked") and v.get("from") == "prefill":
+                        back = v
+                        break
+                    await asyncio.sleep(0.05)
+                out["flip_back_s"] = time.perf_counter() - t
+                check(back is not None, "D acked the flip back to decode")
+                for _ in range(200):
+                    infos = await rt.hub.kv_get_prefix(f"instances/{ns}/{comp}/{ep}/{wid_d}")
+                    info = next(iter(infos.values()), {})
+                    imports = await rt.hub.kv_get_prefix(f"instances/{ns}/{comp}/kv_import/{wid_d}")
+                    if info.get("address") and imports:
+                        break
+                    await asyncio.sleep(0.05)
+                check((info.get("metadata") or {}).get("role") == "decode" and info.get("address")
+                      and imports, f"D's decode surface and kv_import back under its lease ({info})")
+                await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    state.client.wait_for_instances(5), server.loop))
+                p = after[PLAN_AFTER]
+                toks, first = await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    d_timed(wid_d, p, PLAN_AFTER_OSL), server.loop))
+                check(toks == refs[tuple(p)],
+                      f"a remote prompt decoded on D after the flip back, whole and identical "
+                      f"({len(toks)} tokens)")
+                # The live streams, whole.
+                results = await asyncio.gather(*live)
+                for i, (toks, finish) in enumerate(results):
+                    check(len(toks) == PLAN_STREAM_OSL and finish == "length",
+                          f"live stream {i} whole ({len(toks)}, {finish})")
+                out["spliced"] = res_metrics.migration_splices_total - splices0
+                out["resumed"] = res_metrics.stream_resumes_total - resumes0
+                check(out["spliced"] + out["resumed"] == 1,
+                      f"D's stream spliced or resumed once ({out['spliced']} + {out['resumed']})")
+                out["launches"] = {**kernel_counts(), "threefry_gumbel": noise_launches()}
+                out["graphs"] = (graphs0, dict(engine.compile_counts()))
+                out["new_keys"] = {k: sorted(map(str, v - keys0[k]))
+                                   for k, v in graph_keys().items() if v - keys0[k]}
+                out["syncs"] = syncs[0]
+                torch.cuda.synchronize = real_sync
+                out["window_s"] = time.perf_counter() - t_window
+                # The signal plane's other ends: the aggregator's rows and
+                # the router's series; the edge's planner group.
+                st, _, body, _ = await http_call(aport, "GET", "/metrics")
+                m = parse_prometheus(body.decode())
+                rows = sorted(int(dict(lb)["worker_id"]) for (name, lb) in m
+                              if name == "dynamo_tpu_worker_total_slots")
+                out["aggregator_rows"] = rows
+                check(st == 200 and {wid_d, wid_d2} <= set(rows)
+                      and ("dynamo_tpu_router_isl_blocks", ()) in m,
+                      f"the aggregator's ForwardPassMetrics rows for D and D2 and the router's "
+                      f"hit-rate series ({rows})")
+                st, _, body, _ = await http_call(fport, "GET", "/metrics")
+                check(st == 200 and b"dynamo_tpu_planner_ticks_total" in body,
+                      "the edge's /metrics has the planner group")
+                # 6. the autopilot's router directive.
+                core = await make_kv_router(component.endpoint(ep), PS)
+                watcher = await PlannerDirectiveWatcher(rt.hub, core).start()
+                applied0 = watcher.applied
+                await LocalActuator(rt.hub).apply(Decision(tick=0, actions=[Action(
+                    "set_tier_weights", reason="phase l",
+                    params={"weights": dict(PLAN_TIER_WEIGHTS)})], pressures={}))
+                for _ in range(100):
+                    if watcher.applied > applied0:
+                        break
+                    await asyncio.sleep(0.05)
+                tiers = dict(getattr(core.indexer, "_index", core.indexer).tier_weights)
+                out["tier_weights"] = tiers
+                check(tiers == PLAN_TIER_WEIGHTS,
+                      f"the router's tier table equals the directive ({tiers})")
+            finally:
+                torch.cuda.synchronize = real_sync
+                if watcher is not None:
+                    await watcher.stop()
+                if core is not None:
+                    await core.stop()
+                await collector.stop()
+                await rt.close()
+
+        asyncio.run(phase())
+    finally:
+        MigratableWorker.migrate_all = migrate_all
+        torch.cuda.synchronize = real_sync
+        if planner is not None:
+            planner.stop()
+        try:
+            on_d(d_teardown())
+        finally:
+            for c in (agg, d2):
+                c.stop()
+    launches = out.get("launches") or {"decode_attention": 0, "prefill_attention": 0,
+                                       "threefry_gumbel": 0}
+    check(all(v > 0 for v in launches.values()), f"D launched all three kernels ({launches})")
+    g0, g1 = out.get("graphs", ({}, {}))
+    check(g0 == g1, f"D captured no graph while serving ({g0} -> {g1})")
+    check(out.get("syncs") == 0, f"no torch.cuda.synchronize on D ({out.get('syncs')})")
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    def p95(xs):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(len(xs) * 0.95))] if xs else float("nan")
+
+    numbers = {
+        "card": CARD, "ticks": out.get("ticks"), "breaching_ticks": out.get("breaching_ticks"),
+        "flip_tick": out.get("flip_tick"), "planner_to_put_s": out.get("planner_to_put_s"),
+        "put_to_ack_s": out.get("put_to_ack_s"), "moves": out.get("moves"),
+        "ttft_p95_ms_before": p95(out.get("burst_ttft_ms", [])),
+        "ttft_p95_ms_after": p95(out.get("after_ttft_ms", [])),
+        "burst_ttft_ms": out.get("burst_ttft_ms"), "after_ttft_ms": out.get("after_ttft_ms"),
+        "d2_remote": out.get("d2_remote"), "spliced": out.get("spliced"),
+        "resumed": out.get("resumed"), "flip_back_s": out.get("flip_back_s"),
+        "first_pools": out.get("first_pools"), "pools_after": out.get("pools_after"),
+        "planner_decisions": out.get("planner_state_decisions"),
+        "planner_directives": out.get("planner_directives"),
+        "aggregator_rows": out.get("aggregator_rows"), "tier_weights": out.get("tier_weights"),
+        "launches_d": launches, "prefill_role_launches": out.get("prefill_role_launches"),
+        "graphs_d": out.get("graphs"), "new_keys_d": out.get("new_keys"),
+        "syncs_d": out.get("syncs"), "d2_up_s": out.get("d2_up_s"), "warm_s": out.get("warm_s"),
+        "window_s": out.get("window_s"), "phase_s": out["phase_s"],
+    }
+    log("planner " + json.dumps(numbers))
     return not fails, launches, numbers
 
 
@@ -4910,6 +5455,16 @@ async def watch_step(c, check, until, out, temps):
     async def direct(wid, req):
         return await collect(await client.generate(Context(dict(req)), worker_id=wid))
 
+    async def marker_settles(want, timeout=5.0):
+        """The watchdog sets a worker's state before it writes the hub
+        marker that follows it: wait for the write."""
+        end = time.perf_counter() + timeout
+        while not want(await art.hub.kv_get(quarantine_key(wid_a))):
+            if time.perf_counter() > end:
+                return False
+            await asyncio.sleep(0.02)
+        return True
+
     try:
         await echo_client.wait_for_instances(30)
         wprompts = dist_prompts(2, WATCH_ISL, 75)
@@ -4994,7 +5549,7 @@ async def watch_step(c, check, until, out, temps):
         check(await until(lambda: state(wid_a) == "healthy", 30), f"A reinstated ({state(wid_a)})")
         t_r = time.perf_counter()
         check(t_r - t_q < WATCH_CFG["eject_grace_s"]
-              and await art.hub.kv_get(quarantine_key(wid_a)) is None,
+              and await marker_settles(lambda m: m is None),
               "A reinstated before the grace ended, its marker cleared")
         # Ejection: A's __health__ answers only after the probe's timeout.
         dog.config.eject_grace_s = WATCH_EJECT_GRACE_S
@@ -5011,6 +5566,7 @@ async def watch_step(c, check, until, out, temps):
         t_sick = time.perf_counter()
         check(await until(lambda: state(wid_a) == "ejected", 30), f"A ejected ({state(wid_a)})")
         t_e = time.perf_counter()
+        await marker_settles(lambda m: (m or {}).get("state") == "ejected")
         marker = await art.hub.kv_get(quarantine_key(wid_a))
         gone = await art.hub.kv_get(akey) is None
         check(gone and (marker or {}).get("state") == "ejected" and state(wid_b) == "healthy",
@@ -5135,14 +5691,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the distributed phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
             f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        ok_dist, dist_launches, _ = dist_path(torch)
+        log(f"phases h and j (k on j's stack) at {PATH_CUT_LAYERS} of llama-3.1-8b's 32 layers")
+        with model_depth(PATH_CUT_LAYERS):
+            ok_dist, dist_launches, _ = dist_path(torch)
         # Phase i runs two llama-3.1-8b workers on this card again.
         gc.collect()
         torch.cuda.empty_cache()
         log(f"memory before the disaggregated phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        ok_disagg, disagg_launches, _ = disagg_path(torch)
+        ok_disagg, disagg_launches, _, (ok_planner, planner_launches, _) = disagg_path(torch)
         # Phase j: the sampler's noise kernel, then two workers again.
         gc.collect()
         torch.cuda.empty_cache()
@@ -5151,14 +5709,15 @@ def main() -> int:
         log(f"memory before the migration phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        (ok_migrate, migrate_launches, _), (ok_bulk, bulk_launches, _) = migrate_pull_path(
-            torch, noise_times)
+        with model_depth(PATH_CUT_LAYERS):
+            (ok_migrate, migrate_launches, _), (ok_bulk, bulk_launches, _) = migrate_pull_path(
+                torch, noise_times)
         slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
                     "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg,
                     "migration and pull (j)": ok_migrate,
-                    "bulk plane and watchdog (k)": ok_bulk}
+                    "bulk plane and watchdog (k)": ok_bulk, "planner (l)": ok_planner}
 
         sources = {
             "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -5191,6 +5750,7 @@ def main() -> int:
             kernels[-1]["disagg_launches"] = disagg_launches[name]
             kernels[-1]["migrate_launches"] = migrate_launches[name]
             kernels[-1]["bulk_launches"] = bulk_launches[name]
+            kernels[-1]["planner_launches"] = planner_launches[name]
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -5215,6 +5775,7 @@ def main() -> int:
             "spec_launches": {k: spec[(k, "on")]["noise"] for k in ("repetitive", "random")},
             "migrate_launches": migrate_launches["threefry_gumbel"],
             "bulk_launches": bulk_launches["threefry_gumbel"],
+            "planner_launches": planner_launches["threefry_gumbel"],
         })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(

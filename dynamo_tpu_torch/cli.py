@@ -1,7 +1,8 @@
-"""CLI launcher for the port — the ``hub``, ``http`` and ``run`` commands
-of the JAX package's ``cli.py`` (reference: launch/dynamo-run,
-``dynamo-run in=… out=…``; components/http, the standalone frontend; the
-hub stands in for the docker-compose etcd + NATS).
+"""CLI launcher for the port — the ``hub``, ``http``, ``run``, ``metrics``
+and ``mock-worker`` commands of the JAX package's ``cli.py`` (reference:
+launch/dynamo-run, ``dynamo-run in=… out=…``; components/http, the
+standalone frontend; components/metrics and its mock worker; the hub stands
+in for the docker-compose etcd + NATS).
 
 Usage:
   python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
@@ -19,13 +20,18 @@ Usage:
         --hub H:P --disagg prefill ...
   python -m dynamo_tpu_torch.cli run in=dyn://dynamo.TorchWorker.generate out=torch \
         --hub H:P --disagg decode [--max-local-prefill 512] ...
+  python -m dynamo_tpu_torch.cli metrics --hub H:P [--port 9091]  # aggregator
+  python -m dynamo_tpu_torch.cli mock-worker --hub H:P   # synthetic metrics
+  python -m dynamo_tpu_torch.planner run --hub H:P ...   # the SLA planner
 
 ``out=torch`` is ``TorchEngine`` on the first CUDA device unless
 ``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.
 ``in=http`` and the ``http`` command read the edge's ``qos`` and
 ``tracing`` sections from the layered config (``DYN_RUNTIME_CONFIG`` file,
 then ``DYN_QOS__*`` / ``DYN_TRACING__*`` env), as the JAX commands do;
-``http`` also reads ``resilience`` under its own flags.  A worker
+``http`` also reads ``resilience`` under its own flags, and publishes its
+rolling TTFT/ITL percentiles on the namespace's ``slo_metrics`` subject
+(the planner's SLO input, planner/signals.py ``EdgeSloPublisher``).  A worker
 (``in=dyn://``) serves its engine on the service plane under its lease,
 publishes KV events and ``ForwardPassMetrics`` for the KV router, registers
 the model with the engine's block size, reports its tiers' integrity
@@ -50,14 +56,17 @@ consumes the router's ``kv_prefetch`` plane.  With ``DYN_BULK_PLANE=1``
 address under ``bulk/addr/<worker id>``, and moves prefix pulls, migration
 copy rounds and its span batches worker to worker, with the service plane
 and the hub beneath as the fallback; the ``http`` edge with tracing on
-runs the bulk span ingest.  The flags keep the JAX parser's names and
-defaults.  Options the port does not have yet fail when set
-(engine/__init__.py UNSUPPORTED_OPTIONS); the planner's role flips
-(``RoleFlipWatcher``, ROADMAP queue 1 item 10.7) and ``EdgeSloPublisher``,
-and the other JAX subcommands (model, metrics, mock-worker, planner,
-deploy) are not ported (ROADMAP queue 1 items 10.6–10.8).  The tokenizer is the self-contained
-byte tokenizer, the JAX CLI's default without ``--tokenizer`` or
-``--checkpoint``.
+runs the bulk span ingest.  A ``--disagg decode|prefill`` worker also
+runs the planner's ``RoleFlipWatcher`` (planner/actuate.py): a put on
+``planner/roles/<worker id>`` naming the other role drains the current
+role (decode: through live migration) and starts the new one on the same
+resident engine, then acks the key.  ``run --record FILE`` taps every
+stream to JSONL (runtime/recorder.py).  The flags keep the JAX parser's
+names and defaults.  Options the port does not have yet fail when set
+(engine/__init__.py UNSUPPORTED_OPTIONS); the other JAX subcommands
+(model, prepare, operator, api-store, deploy) are not ported (ROADMAP
+queue 1 item 10.8).  The tokenizer is the self-contained byte tokenizer,
+the JAX CLI's default without ``--tokenizer`` or ``--checkpoint``.
 """
 
 from __future__ import annotations
@@ -65,7 +74,6 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
-import os
 import signal
 from typing import Callable, Optional
 
@@ -188,6 +196,7 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
     res = layers.resilience
     raw_inflight = res.get("http_max_inflight")
     sampler, aggregator, tracing_cfg = _edge_tracing()
+    qos_ctl = _edge_qos(args)
     service = HttpService(
         host=args.host,
         port=args.port,
@@ -211,15 +220,22 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
             if args.deadline_s is not None
             else res.get("request_deadline_s")
         ),
-        qos=_edge_qos(args),
+        qos=qos_ctl,
         tracing=sampler,
         trace_aggregator=aggregator,
         hub=runtime.hub,
     )
-    watcher = exporter = bulk_ingest = None
+    watcher = exporter = bulk_ingest = slo_pub = None
     try:
         watcher = await ModelWatcher(runtime, service.models, router_mode=RouterMode(args.router)).start()
         await service.start()
+        # Publish the edge's rolling TTFT/ITL percentiles on the namespace's
+        # slo_metrics subject — the planner's SLO input (planner/signals.py).
+        from .planner.signals import EdgeSloPublisher
+
+        slo_pub = await EdgeSloPublisher(
+            runtime.namespace(layers.namespace), service.metrics, qos=qos_ctl
+        ).start()
         if aggregator is not None:
             # Span plane: workers publish span batches on the namespace's
             # ``traces`` subject; the aggregator subscribes and assembles
@@ -251,6 +267,8 @@ async def _run_http_frontend(args, on_serving: Optional[Callable[[HttpService], 
             await bulk_ingest.close()
         if aggregator is not None:
             await aggregator.stop()
+        if slo_pub is not None:
+            await slo_pub.stop()
         if watcher is not None:
             await watcher.stop()
         await service.close()
@@ -261,8 +279,10 @@ async def _serve_worker(args, engine, on_serving) -> None:
     """``run in=dyn://ns.comp.ep``: the JAX package's worker.  Without
     ``--disagg`` or with ``--disagg decode`` it serves the decode role
     (``WorkerRoles.start_decode``); with ``--disagg prefill`` the prefill
-    role (``start_prefill``).  With tracing on, its spans publish on the
-    namespace's ``traces`` subject.  Shutdown drains the roles."""
+    role (``start_prefill``).  A ``--disagg`` worker flips between the two
+    on the planner's role key (``RoleFlipWatcher``).  With tracing on, its
+    spans publish on the namespace's ``traces`` subject.  Shutdown stops
+    the flip watcher, then drains the roles."""
     from .runtime.tracing import TRACES_TOPIC, SpanExporter, TracingConfig
     from .runtime.tracing import collector as trace_collector
 
@@ -276,7 +296,7 @@ async def _serve_worker(args, engine, on_serving) -> None:
     layers = RuntimeConfig.from_layers()
     ns, comp, ep = parse_endpoint_path(args.inp)
     endpoint = runtime.namespace(ns).component(comp).endpoint(ep)
-    trace_exporter = roles = None
+    trace_exporter = roles = flipper = None
     try:
         tcfg = TracingConfig.from_config(layers.tracing)
         if tcfg.enabled:
@@ -308,15 +328,30 @@ async def _serve_worker(args, engine, on_serving) -> None:
         else:
             await roles.start_decode(disagg=role == "decode")
         if role:
-            logger.info(
-                "disagg %s role: the planner's role flips (RoleFlipWatcher, ROADMAP queue 1 "
-                "item 10.7) are not ported", role)
+            # Planner role flips (planner/actuate.py LocalActuator →
+            # planner/roles/{worker_id}) work BOTH directions on the same
+            # resident engine: decode→prefill migrates live sequences out
+            # then starts a queue-drain loop; prefill→decode finishes the
+            # in-flight queue item then brings up the full decode surface
+            # (kv_import endpoint included).
+            from .planner.actuate import RoleFlipWatcher
+
+            async def _switch_decode() -> None:
+                await roles.start_decode(disagg=True)
+
+            flipper = await RoleFlipWatcher(
+                runtime.hub, runtime.worker_id, role,
+                drain={"decode": roles.stop_decode, "prefill": roles.stop_prefill},
+                switch={"prefill": roles.start_prefill, "decode": _switch_decode},
+            ).start()
         print(f"worker {runtime.worker_id} serving {args.inp} (model {args.model!r}"
               + (f", disagg={role}" if role else "") + ")", flush=True)
         if on_serving is not None:
             on_serving(runtime)
         await _wait_forever()
     finally:
+        if flipper is not None:
+            await flipper.stop()
         if roles is not None:
             await roles.shutdown()
         if trace_exporter is not None:
@@ -328,11 +363,11 @@ async def _serve_worker(args, engine, on_serving) -> None:
 
 class WorkerRoles:
     """The decode and prefill roles of one ``dyn://`` worker on its one
-    resident engine (the JAX package's ``WorkerRoles`` without the
-    planner's role flips, ROADMAP queue 1 item 10.7).  The decode role's
-    stop hook drains via LIVE MIGRATION first (llm/migration): sequences
-    move to a peer in O(KV transfer) instead of being waited out in
-    O(sequence length)."""
+    resident engine (the JAX package's ``WorkerRoles``): weights never
+    reload across the planner's role flips.  The decode role's stop hook
+    drains via LIVE MIGRATION first (llm/migration): sequences move to a
+    peer in O(KV transfer) instead of being waited out in O(sequence
+    length), which is what makes planner scale-down/flip actuation cheap."""
 
     def __init__(self, args, runtime, endpoint, engine):
         self.args = args
@@ -598,6 +633,15 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
         )
     tokenizer = _tokenizer(args)
     engine, level = _build_engine(args.out, args)
+    if getattr(args, "record", None):
+        # Tap every request/response stream to JSONL (reference:
+        # recorder.rs) — replayable via runtime.recorder.replay_into.
+        # Wrapped HERE so every input mode records (in=http included).
+        from .runtime.recorder import RecordingEngine, StreamRecorder
+
+        recorder = StreamRecorder(args.record)
+        engine = RecordingEngine(engine, recorder)
+        print(f"recording streams to {args.record}", flush=True)
     if level == "core":
         pipeline = build_pipeline(
             [OpenAIPreprocessor(tokenizer, args.model), Backend(tokenizer)], engine
@@ -672,6 +716,40 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
             await close()
 
 
+async def _run_metrics(args) -> None:
+    """Namespace metrics aggregator (reference: components/metrics)."""
+    from .llm.metrics_service import MetricsAggregatorService
+
+    runtime = await DistributedRuntime.connect(args.hub)
+    component = runtime.namespace(args.namespace).component(args.component)
+    service = await MetricsAggregatorService(
+        component, host=args.host, port=args.port
+    ).start()
+    print(f"metrics aggregator on http://{args.host}:{service.port}/metrics", flush=True)
+    try:
+        await _wait_forever()
+    finally:
+        await service.stop()
+        await runtime.close()
+
+
+async def _run_mock_worker(args) -> None:
+    """Synthetic metrics/KV-event publisher (reference: mock_worker.rs)."""
+    from .llm.metrics_service import MockWorker
+
+    runtime = await DistributedRuntime.connect(args.hub)
+    component = runtime.namespace(args.namespace).component(args.component)
+    worker = await MockWorker(
+        component, runtime.worker_id, interval=args.interval
+    ).start()
+    print(f"mock worker {runtime.worker_id} publishing", flush=True)
+    try:
+        await _wait_forever()
+    finally:
+        await worker.stop()
+        await runtime.close()
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -723,6 +801,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--brownout", action="store_true",
         help="enable the brownout degradation ladder",
     )
+
+    p_metrics = sub.add_parser("metrics", help="namespace metrics aggregator")
+    p_metrics.add_argument("--hub", required=True)
+    p_metrics.add_argument("--namespace", default="dynamo")
+    p_metrics.add_argument("--component", default="TpuWorker")
+    p_metrics.add_argument("--host", default="0.0.0.0")
+    p_metrics.add_argument("--port", type=int, default=9091, help="0 takes a free port")
+
+    p_mock = sub.add_parser("mock-worker", help="synthetic metrics/KV events")
+    p_mock.add_argument("--hub", required=True)
+    p_mock.add_argument("--namespace", default="dynamo")
+    p_mock.add_argument("--component", default="TpuWorker")
+    p_mock.add_argument("--interval", type=float, default=0.5)
 
     p_run = sub.add_parser("run", help="in=… out=… launcher")
     p_run.add_argument("inout", nargs=2, metavar="in=/out=")
@@ -814,6 +905,11 @@ def build_parser() -> argparse.ArgumentParser:
         p_run.add_argument(flag, type=int, default=None)
     p_run.add_argument("--lora", action="append", default=None, metavar="NAME=SPEC")
     p_run.add_argument(
+        "--record", default=None,
+        help="capture every request/response stream to this JSONL file "
+        "(replayable — runtime/recorder.py)",
+    )
+    p_run.add_argument(
         "--disagg", default=None, choices=["decode", "prefill"],
         help="disaggregated role for this worker (requires --hub)",
     )
@@ -841,12 +937,15 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[list] = None) -> None:
-    logging.basicConfig(
-        level=os.environ.get("DYN_LOG", "info").upper(),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
+    # DYN_LOG / DYN_LOG_FORMAT / DYN_LOG_FILE (reference logging.rs)
+    from .runtime.logging_config import setup_logging
+
+    setup_logging()
     args = parse_args(argv)
-    run = {"hub": _run_hub, "http": _run_http_frontend, "run": _run}[args.cmd]
+    run = {
+        "hub": _run_hub, "http": _run_http_frontend, "run": _run,
+        "metrics": _run_metrics, "mock-worker": _run_mock_worker,
+    }[args.cmd]
     try:
         asyncio.run(run(args))
     except KeyboardInterrupt:

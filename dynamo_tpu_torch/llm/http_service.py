@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Set
 from urllib.parse import parse_qs, unquote
 
 from ..labels import bounded_label
+from ..planner.pmetrics import metrics as planner_metrics
 from ..runtime.client import NoInstancesError, RemoteEngineError
 from ..runtime.engine import AsyncEngine, Context
 from ..runtime.resilience import (
@@ -308,6 +309,88 @@ class _Connection:
         await self._write(b"0\r\n\r\n")
 
 
+async def _serve_connection(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
+                            connections: Set[asyncio.Task], serve) -> None:
+    """One client connection: read requests and ``await serve(conn, req)``
+    each until the peer closes, asks to, or breaks the connection.  The
+    task is in ``connections`` meanwhile, so a server's close cancels it."""
+    task = asyncio.current_task()
+    connections.add(task)
+    conn = _Connection(reader, writer)
+    try:
+        while True:
+            try:
+                req = await conn.read_request()
+            except _BadRequest as e:
+                await conn.send(_error_response(e.status, e.message), keep_alive=False)
+                break
+            if req is None:
+                break
+            await serve(conn, req)
+            if conn.broken or not req.keep_alive:
+                break
+    except (ConnectionError, OSError):
+        pass  # the peer went away
+    except Exception:  # noqa: BLE001 — connection boundary
+        logger.exception("HTTP connection handler failed")
+    finally:
+        connections.discard(task)
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except (ConnectionError, OSError):
+            pass
+
+
+async def _close_server(server, connections: Set[asyncio.Task]) -> None:
+    """Stop listening, cancel the connections' tasks, wait for both."""
+    server.close()
+    conns = list(connections)
+    for t in conns:
+        t.cancel()
+    await asyncio.gather(*conns, return_exceptions=True)
+    await server.wait_closed()
+
+
+class RouteServer:
+    """A GET-only HTTP/1.1 server over a fixed route table, on the edge's
+    connection plumbing: the port's metrics aggregator
+    (llm/metrics_service.py) and the planner's endpoints
+    (planner/service.py), which the JAX package serves on aiohttp.  Each
+    route maps a path to a handler returning a ``_Response``; another path
+    answers 404 and another method 405, with aiohttp's bodies."""
+
+    def __init__(self, routes: Dict[str, Any], host: str, port: int):
+        self._routes = dict(routes)
+        self.host = host
+        self.port = port
+        self._server: Optional[asyncio.base_events.Server] = None
+        self._connections: Set[asyncio.Task] = set()
+
+    async def start(self) -> "RouteServer":
+        self._server = await asyncio.start_server(self._on_connection, self.host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]  # resolve port 0
+        return self
+
+    async def close(self) -> None:
+        if self._server is not None:
+            await _close_server(self._server, self._connections)
+            self._server = None
+
+    async def _on_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        await _serve_connection(reader, writer, self._connections, self._serve)
+
+    async def _serve(self, conn: _Connection, req: _Request) -> None:
+        handler = self._routes.get(req.path)
+        if handler is None:
+            resp = _text_response(404, "404: Not Found")
+        elif req.method != "GET":
+            resp = _text_response(405, "405: Method Not Allowed", {"Allow": "GET"})
+        else:
+            resp = handler()
+        await conn.send(resp, req.keep_alive)
+
+
 class HttpService:
     """The OpenAI ingress service."""
 
@@ -395,12 +478,7 @@ class HttpService:
             self._qos_task = None
         if self._server is None:
             return
-        self._server.close()
-        conns = list(self._connections)
-        for t in conns:
-            t.cancel()
-        await asyncio.gather(*conns, return_exceptions=True)
-        await self._server.wait_closed()
+        await _close_server(self._server, self._connections)
         self._server = None
 
     async def _qos_tick_loop(self) -> None:
@@ -457,32 +535,7 @@ class HttpService:
     # -- connections ----------------------------------------------------------
 
     async def _on_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        self._connections.add(task)
-        conn = _Connection(reader, writer)
-        try:
-            while True:
-                try:
-                    req = await conn.read_request()
-                except _BadRequest as e:
-                    await conn.send(_error_response(e.status, e.message), keep_alive=False)
-                    break
-                if req is None:
-                    break
-                await self._serve(conn, req)
-                if conn.broken or not req.keep_alive:
-                    break
-        except (ConnectionError, OSError):
-            pass  # the peer went away
-        except Exception:  # noqa: BLE001 — connection boundary
-            logger.exception("HTTP connection handler failed")
-        finally:
-            self._connections.discard(task)
-            writer.close()
-            try:
-                await writer.wait_closed()
-            except (ConnectionError, OSError):
-                pass
+        await _serve_connection(reader, writer, self._connections, self._serve)
 
     async def _serve(self, conn: _Connection, req: _Request) -> None:
         route = self._routes.get(req.path)
@@ -546,6 +599,7 @@ class HttpService:
             self.metrics.render()
             + resilience_metrics.render(prefix).encode()
             + tracing_metrics.render(prefix).encode()
+            + planner_metrics.render(prefix).encode()
             + spec_metrics.render(prefix).encode()
             + migration_metrics.render(prefix).encode()
             + health_metrics.render(prefix).encode()

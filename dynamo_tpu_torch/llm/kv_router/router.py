@@ -2,10 +2,10 @@
 
 A copy of the JAX package's ``llm/kv_router/router.py``, with the
 ``kv_prefetch`` publisher the core starts, the ``kv_pull`` hint the push
-router stamps for the cross-worker prefix pull (llm/kv_router/pull.py) and
-``warm_hot_chains``.  The planner's ``PlannerDirectiveWatcher`` and
-``apply_tier_weights``, its other consumer, come with the planner (ROADMAP
-queue 1 item 10.7).
+router stamps for the cross-worker prefix pull (llm/kv_router/pull.py),
+and the planner's ``PlannerDirectiveWatcher``, which enacts the
+autopilot's directives through ``warm_hot_chains`` and
+``apply_tier_weights``.
 
 Reference semantics: lib/llm/src/kv_router.rs:52-169 — the router subscribes
 the worker fleet's ``kv_events``, keeps the global prefix index, and answers
@@ -247,6 +247,11 @@ class KvRouterCore:
         if self._prefetch_pub is not None:
             await self._prefetch_pub.publish_once(top_n=top_n, persist=persist)
 
+    def apply_tier_weights(self, weights: Dict[str, float]) -> None:
+        """Enact a ``set_tier_weights`` directive: replace the cold-start
+        restore-cost table with the autopilot's measured weights."""
+        self.indexer.set_tier_weights(weights)
+
 
 class KvRouter(AsyncEngine):
     """Standalone routing service (reference: components/router)."""
@@ -322,3 +327,78 @@ async def make_kv_router(
         endpoint.component, client, block_size, selector=selector, sharded=sharded
     )
     return await core.start()
+
+
+class PlannerDirectiveWatcher:
+    """Router-side consumer of the autopilot's directive slots
+    (planner/actuate.py ``directive_key``): watches
+    ``planner/directives/`` and enacts the router-enactable kinds —
+    ``kv_prefetch`` (publish the hottest chains now, optionally pinning
+    them into the durable object-store tier) and ``set_tier_weights``
+    (live restore-cost retune).  ``migrate_out`` / ``tune_decode`` are
+    supervisor/operator directives and pass through untouched.
+
+    The watch replays standing slots on start, so a freshly (re)started
+    router inherits the fleet's current measured tier weights instead of
+    routing on the cold-start table until the next retune."""
+
+    def __init__(self, hub, core: KvRouterCore):
+        self.hub = hub
+        self.core = core
+        self.applied = 0
+        self._task: Optional[asyncio.Task] = None
+        self._watcher = None
+
+    async def start(self) -> "PlannerDirectiveWatcher":
+        from ...planner.actuate import DIRECTIVE_PREFIX
+
+        self._watcher = await self.hub.watch_prefix(DIRECTIVE_PREFIX)
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        await self._watcher.synced.wait()
+        return self
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        if self._watcher is not None:
+            await self._watcher.aclose()
+            self._watcher = None
+
+    async def _run(self) -> None:
+        try:
+            async for event in self._watcher:
+                if event.type != "put" or not isinstance(event.value, dict):
+                    continue
+                await self._apply(event.value)
+        except asyncio.CancelledError:
+            pass
+
+    async def _apply(self, directive: Dict[str, Any]) -> None:
+        kind = directive.get("kind")
+        params = directive.get("params") or {}
+        try:
+            if kind == "kv_prefetch":
+                top_n = params.get("top_n")
+                await self.core.warm_hot_chains(
+                    top_n=int(top_n) if top_n is not None else None,
+                    persist=bool(params.get("persist")),
+                )
+            elif kind == "set_tier_weights":
+                weights = params.get("weights")
+                if not isinstance(weights, dict):
+                    return
+                self.core.apply_tier_weights(
+                    {str(t): float(w) for t, w in weights.items()}
+                )
+            else:
+                return
+            self.applied += 1
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — a bad directive must not kill the watch
+            logger.warning("planner directive %r failed", kind, exc_info=True)

@@ -24,8 +24,11 @@ pull, llm/kv_router/pull.py), ``MigrationMetrics`` live migration's
 (llm/migration), ``BulkMetrics`` the bulk data plane's
 (runtime/transports/bulk.py and its three consumers).  The health
 watchdog's group lives beside it (runtime/health.py ``health_metrics``).
-The metric groups of subsystems the port does not have yet (planner,
-tenancy) are not here.
+The planner's group lives beside it (planner/pmetrics.py); the tenancy
+group, whose subsystem the port does not have yet, is not here.
+``Metrics.edge_slo_snapshot`` and ``EngineDispatchMetrics.host_gap_frac``
+feed the edge's ``slo_metrics`` publication (planner/signals.py
+``EdgeSloPublisher``).
 """
 
 from __future__ import annotations
@@ -286,6 +289,25 @@ class Metrics:
             self.itl_p50_gauge.labels(model, endpoint).set(itl_w.percentile(0.5))
             self.itl_p95_gauge.labels(model, endpoint).set(itl_w.percentile(0.95))
 
+    def edge_slo_snapshot(self) -> Dict[str, float]:
+        """Merged-over-models rolling percentiles in ms (what the edge
+        publishes to the planner on the ``slo_metrics`` subject)."""
+        ttft_all = RollingWindow(maxlen=4096)
+        itl_all = RollingWindow(maxlen=4096)
+        for ttft_w, itl_w in self._windows.values():
+            for x in ttft_w._xs:
+                ttft_all.observe(x)
+            for x in itl_w._xs:
+                itl_all.observe(x)
+        return {
+            "ttft_p50_ms": ttft_all.percentile(0.5) * 1e3,
+            "ttft_p95_ms": ttft_all.percentile(0.95) * 1e3,
+            "itl_p50_ms": itl_all.percentile(0.5) * 1e3,
+            "itl_p95_ms": itl_all.percentile(0.95) * 1e3,
+            "ttft_samples": float(len(ttft_all)),
+            "itl_samples": float(len(itl_all)),
+        }
+
     def render(self) -> bytes:
         self._update_quantile_gauges()
         lines = [line for fam in self._families for line in fam.render()]
@@ -440,6 +462,19 @@ class EngineDispatchMetrics:
         """``source() -> engine.dispatch_summary()`` dict, or None to
         detach."""
         self._source = source
+
+    def host_gap_frac(self) -> Optional[float]:
+        """The colocated engine's fused-decode host-gap fraction, or None
+        without a wired source (remote-engine edge) — the planner-side
+        drift signal (EdgeSloPublisher ``host_gap``)."""
+        if self._source is None:
+            return None
+        try:
+            s = self._source()
+        except Exception:  # noqa: BLE001 — engine mid-teardown
+            return None
+        gap = (s.get("pipeline") or {}).get("host_gap_frac")
+        return float(gap) if isinstance(gap, (int, float)) else None
 
     def render(self, prefix: str = "dynamo_tpu") -> str:
         if self._source is None:

@@ -1,7 +1,8 @@
 """AsyncEngine, Context, ResponseStream.
 
-The health plane is exported here as the JAX package's runtime exports it
-(``runtime/health.py``); the other modules are imported by path.
+The health plane and the logging setup are exported here as the JAX
+package's runtime exports them (``runtime/health.py``,
+``runtime/logging_config.py``); the other modules are imported by path.
 """
 
 from .health import (
@@ -12,8 +13,12 @@ from .health import (
     probe_address,
     worker_latency,
 )
+from .logging_config import JsonlFormatter, parse_filter, setup_logging  # noqa: F401
 
 __all__ = [
+    "JsonlFormatter",
+    "parse_filter",
+    "setup_logging",
     "HealthConfig",
     "HealthWatchdog",
     "WorkerLatencyTracker",

@@ -77,6 +77,11 @@ class RuntimeConfig:
     # http_admission_timeout_s, request_deadline_s.  Nested env works:
     # ``DYN_RESILIENCE__RETRY_MAX_ATTEMPTS=5``.
     resilience: Dict[str, Any] = field(default_factory=dict)
+    # SLA planner section (planner/policy.py): SLO targets (ttft_p95_ms,
+    # itl_p95_ms, kv_headroom) + policy bounds (min/max_prefill,
+    # min/max_decode, band_up/band_down, confirm/cooldown ticks).  Nested
+    # env works: ``DYN_PLANNER__TTFT_P95_MS=1500``.
+    planner: Dict[str, Any] = field(default_factory=dict)
 
     # Draft-free speculative decoding defaults (engine/config.py
     # SpecDecodeConfig keys).  build_torch_engine (out=torch) merges this section

@@ -349,10 +349,12 @@ def _tokens(items):
     return [t for i in items for t in i.get("token_ids", [])]
 
 
-async def _spawn(hub_address):
+async def _spawn(hub_address, engine):
+    """Serve ``engine`` as a migratable worker.  The engine is built before
+    the runtime connects: building blocks the loop, and a loop held past
+    the lease's TTL loses the lease."""
     M = P[PORT]
     rt = await M.component.DistributedRuntime.connect(hub_address)
-    engine = _engine()
     mig = M.migration.MigratableWorker(engine, chunk_blocks=4)
     component = rt.namespace("hw").component("w")
     gen_ep, in_ep, out_ep = (component.endpoint(n) for n in ("gen", "migrate_in", "migrate_out"))
@@ -364,15 +366,32 @@ async def _spawn(hub_address):
     return SimpleNamespace(rt=rt, engine=engine, mig=mig, address=server.address)
 
 
+# A's pace: every decode dispatch waits STRAGGLER_PACE_S and every item it
+# sends waits STRAGGLER_DELAY_S on the wire, so A's items come ~0.3 s apart
+# whatever the host's load, while a peer's come one CPU dispatch apart
+# (tens of ms even on a loaded host); the quarantine needs A over three
+# times the fleet median.  Paced so, a 160-token stream (80 items) stays
+# live on A for ~24 s, far past the quarantine (5 samples, two scans).
+STRAGGLER_DELAY_S = 0.3
+STRAGGLER_PACE_S = 0.3
+STRAGGLER_TEST_LIMIT_S = 120.0
+
+
 async def test_default_drainer_moves_a_stragglers_live_streams():
-    """Three workers; ``slow_stream`` on A's address makes A's streams a
-    straggler's in the routed client's tracker.  The watchdog (default
-    prober, drainer and latency source) quarantines A, its default drainer
-    migrates A's two live streams to a healthy peer, and both streams end
-    whole and equal to their never-migrated streams."""
+    """Three workers; ``slow_stream`` on A's address, with A's decode paced
+    to its slowed wire, makes A's streams a straggler's in the routed
+    client's tracker.  The watchdog (default prober, drainer and latency
+    source) quarantines A, its default drainer migrates A's two live
+    streams to a healthy peer, and both streams end whole and equal to
+    their never-migrated streams.  The whole test has its own time limit."""
+    await asyncio.wait_for(_straggler_drain(), STRAGGLER_TEST_LIMIT_S)
+
+
+async def _straggler_drain():
     M = P[PORT]
+    engines = [_engine() for _ in range(3)]
     hub = await M.hub.HubServer().start()
-    workers = [await _spawn(hub.address) for _ in range(3)]
+    workers = [await _spawn(hub.address, e) for e in engines]
     a = workers[0]
     client_rt = await M.component.DistributedRuntime.connect(hub.address)
     dog = None
@@ -387,7 +406,12 @@ async def test_default_drainer_moves_a_stragglers_live_streams():
         for w in workers[1:]:
             await M.engine.collect(await client.generate(
                 M.engine.Context(_req(range(40, 50), 24)), worker_id=w.rt.worker_id))
-        M.faults.arm("slow_stream", match=a.address, delay_s=0.06)
+
+        async def pace():
+            await asyncio.sleep(STRAGGLER_PACE_S)
+
+        a.engine.pace_hook = pace
+        M.faults.arm("slow_stream", match=a.address, delay_s=STRAGGLER_DELAY_S)
         results = [[] for _ in reqs]
 
         async def consume(i):
@@ -404,6 +428,7 @@ async def test_default_drainer_moves_a_stragglers_live_streams():
         while not (M.health.health_metrics.drained_sequences_total >= 2):
             assert asyncio.get_running_loop().time() < deadline, M.health.health_metrics.render()
             await asyncio.sleep(0.05)
+        a.engine.pace_hook = None
         M.faults.reset()
         await asyncio.gather(*tasks)
         assert dog.workers[a.rt.worker_id].state == "quarantined"
@@ -417,6 +442,7 @@ async def test_default_drainer_moves_a_stragglers_live_streams():
         assert M.resilience.metrics.migration_splices_total >= 2
         await client.close()
     finally:
+        a.engine.pace_hook = None
         if dog is not None:
             await dog.stop()
         for w in workers:

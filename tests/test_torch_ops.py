@@ -406,10 +406,16 @@ def test_seeded_sampling_is_per_seed_step_and_row_independent():
 def test_package_imports_no_jax_and_no_module_level_triton():
     root = pathlib.Path(__file__).resolve().parent.parent
     files = list((root / "dynamo_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    # The modules each slice adds are in the scan (the bulk plane and the
-    # whole health watchdog among them).
+    # The modules each slice adds are in the scan (the bulk plane, the
+    # whole health watchdog, the planner and the auxiliary services among
+    # them).
+    planner = ("signals", "policy", "pmetrics", "actuate", "autopilot", "sim", "service",
+               "supervisor", "__init__", "__main__")
     for module in ("runtime/transports/bulk.py", "runtime/health.py",
-                   "llm/kv_router/pull.py", "llm/migration/worker.py", "llm/trace_service.py"):
+                   "llm/kv_router/pull.py", "llm/migration/worker.py", "llm/trace_service.py",
+                   "llm/metrics_service.py", "llm/billing.py", "runtime/recorder.py",
+                   "llm/kv_router/recorder.py", "runtime/logging_config.py",
+                   *(f"planner/{m}.py" for m in planner)):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the
