@@ -126,7 +126,7 @@ Phases, any failure exits non-zero:
   h. the README's distributed stack (``cli hub``; ``run in=dyn://…
      out=torch`` workers; ``http --router kv``) serving llama-3.1-8b at
      phase 6's geometry but 16 of its 32 layers (PATH_CUT_LAYERS, as in
-     phases j and k: the script's time): the hub, a KV-routed and a round-robin frontend
+     phases i, j, k and l: the script's time): the hub, a KV-routed and a round-robin frontend
      and worker B are subprocesses of the CLI; worker A runs the CLI's own
      ``run in=dyn://`` code in this process (its launches counted), warmed
      before traffic; both draw the weights from seed 0.  8 greedy prompts
@@ -147,7 +147,8 @@ Phases, any failure exits non-zero:
      launch; the router's hashing of 2048 ids is timed on this host;
   i. the README's disaggregated deployment (``cli hub``; ``run
      in=dyn://… --disagg prefill``; ``run in=dyn://… --disagg decode
-     --max-local-prefill 512``; ``http``) at phase 6's geometry: the hub,
+     --max-local-prefill 512``; ``http``) at phase 6's geometry (16 of
+     the 32 layers, as phase h): the hub,
      the frontend and the prefill worker P are subprocesses of the CLI; the
      decode worker D runs the CLI's own ``--disagg decode`` code in this
      process (its launches counted), warmed before traffic.  8 greedy
@@ -251,9 +252,33 @@ Phases, any failure exits non-zero:
      only to B (all 200), the marker ``ejected``; A re-registered and reset;
      the ``dynamo_tpu_health_*`` counters equal to the transitions; no
      graph and no sync on A, all three kernels launched;
+  m. checkpoints, the sentencepiece tokenizer and batched multi-LoRA: the
+     seeded llama-3.1-8b init written at full width and depth as bf16
+     safetensors shards with config.json (``save_params_hf``, 16.06 GB),
+     loaded back in bf16 and under ``quant="int8"`` (each leaf bitwise
+     equal to the init tree and to ``quantize_params`` of it; write and
+     load seconds, peak device memory over each load); a sentencepiece
+     ``tokenizer.model`` of 128256 pieces (``llm/sp.build_model_proto``)
+     whose texts round-trip; 4 requests one at a time through ``run
+     in=http out=torch --checkpoint DIR --tokenizer X.model`` (3 of ids, 1
+     of text), each text equal to the tokenizer's decode of the same seeded
+     init's stream served directly; then ``run in=http out=torch
+     --lora-max-adapters 4 --lora-rank 16`` with five ``--lora
+     aN=random:N`` adapters and one PEFT directory, warmed, 16 concurrent
+     requests of 1024 ids and 64 new over the base and all six adapters
+     (all whole, idle residents evicted for the fifth and sixth, no graph
+     captured after warmup), a fresh prompt under a0 then a1 (no block
+     shared) then a0 (its prefix hit), base rows of a mixed 16-row prefill
+     and decode bitwise equal to the LoRA-off forward of the same batch, a
+     fused decode dispatch and a 512-id prefill step timed with every row
+     on an adapter, every row base and on an engine without banks; and
+     ``forward_ragged`` in f32 at full width and 2 layers with slots -1..3
+     in one batch against a dense reference with per-row merged weights at
+     1e-4;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k and l beside phase 6's and 7's; the
-     noise kernel's in phases j, k, l and e), then the device line last.
+     phases c, d, e, f, g, h, i, j, k, l and m beside phase 6's and 7's;
+     the noise kernel's in phases j, k, l and e), then the device line
+     last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -299,8 +324,16 @@ SERVE_CFG = dict(
 CARD = "not read"
 
 
+_FAIL_RE = re.compile(r"\bFAIL")
+
+
 def log(*a):
+    """A line of the report on stdout; a line that reports a failed check
+    goes to stderr as well, so the end of stderr names what failed."""
     print(*a, flush=True)
+    line = " ".join(map(str, a))
+    if _FAIL_RE.search(line):
+        print(line, file=sys.stderr, flush=True)
 
 
 # ------------------------------------------------------------------ inputs
@@ -446,7 +479,8 @@ class Tally:
     max-abs error per kernel and the labels of those that failed."""
 
     def __init__(self):
-        self.worst = {"decode_attention": 0.0, "prefill_attention": 0.0, "threefry_gumbel": 0.0}
+        self.worst = {"decode_attention": 0.0, "prefill_attention": 0.0, "threefry_gumbel": 0.0,
+                      "crc32_blocks": 0.0}
         self.failures = []
 
     def compare(self, torch, name, label, got, want, tol, zero_rows=()):
@@ -1955,11 +1989,9 @@ class TierTimers:
     puts set off)."""
 
     PARTS = ("promote", "disk_read", "objstore_read", "demote_to_disk", "demote_to_objstore",
-             "host_verify", "upload_enqueue", "scatter_enqueue")
+             "upload_enqueue", "verify", "scatter_enqueue")
 
     def __init__(self, engine):
-        from dynamo_tpu_torch.engine import offload
-
         self.ms = dict.fromkeys(self.PARTS, 0.0)
         self._undo = []
 
@@ -1981,8 +2013,8 @@ class TierTimers:
         wrap(engine.object_kv, "read", "objstore_read")
         wrap(engine.host_kv, "on_evict", "demote_to_disk")
         wrap(engine.disk_kv, "on_evict", "demote_to_objstore")
-        wrap(offload, "block_checksums", "host_verify")
         wrap(engine, "_restore_upload", "upload_enqueue")
+        wrap(engine, "_restore_verify", "verify")
         wrap(engine, "_restore_scatter", "scatter_enqueue")
 
     def take(self):
@@ -1992,6 +2024,76 @@ class TierTimers:
     def close(self):
         for obj, attr, fn in reversed(self._undo):
             setattr(obj, attr, fn)
+
+
+# The restore's CRC kernel at phase g's shape: a 128-block prefix of
+# llama-3.1-8b blocks [L, ps, 2KV, D] in bf16 (2 MiB each); its edges: int8
+# pages, a short last slice, bytes off an 8-byte boundary.
+CRC_CASES = (("prefix", 128, (32, PS, 2 * KV, D), "bfloat16", 0),
+             ("int8 pages", 7, (32, PS, 2 * KV, D), "int8", 0),
+             ("short slice", 5, (4100,), "uint8", 0),
+             ("unaligned", 3, (2053,), "uint8", 1))
+CRC_OPS_PER_8_BYTES = 23  # 1 xor in, 7 shifts and 8 masks to index, 7 xors to combine
+
+
+def check_crc_kernel(torch, dev, tally):
+    """Phase g, part 0: csrc/crc32_blocks.cu against its plain version
+    (zlib over each block's bytes on the host, the port's check before this
+    kernel) on CRC_CASES, exactly; then timed at the prefix (rounds of 20
+    launches, L2 flushed) beside the plain version on the host (the
+    engine's 8 CRC threads) and the bound (the blocks read once against
+    CRC_OPS_PER_8_BYTES integer operations at the f32 peak).  Returns the
+    timings."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.ops import crc32
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    prefix = None
+    for label, n, shape, dtype, off in CRC_CASES:
+        dt = getattr(torch, dtype)
+        nbytes = n * math.prod(shape) * torch.empty((), dtype=dt).element_size()
+        raw = torch.randint(0, 256, (nbytes + 8,), generator=gen, device=dev, dtype=torch.uint8)
+        blocks = raw[off:off + nbytes].view(dt).view(n, *shape)
+        got = crc32.block_crc32_cuda(blocks)
+        want = crc32.block_crc32_plain(blocks.cpu())
+        err = int((got.cpu() - want).abs().max())
+        ok = err == 0
+        tally.worst["crc32_blocks"] = max(tally.worst["crc32_blocks"], float(err))
+        log(f"check crc32_blocks {label} [{n} x {shape} {dtype}, offset {off}]: max_abs_err="
+            f"{err} (exact) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            tally.failures.append(f"crc32_blocks {label}")
+        if label == "prefix":
+            prefix = blocks
+        del raw, got
+    host = prefix.cpu()
+    nbytes = host.numel() * host.element_size()
+    rounds = [cuda_ms(torch, lambda: crc32.block_crc32_cuda(prefix), 20, flush)
+              for _ in range(TIMING_ROUNDS)]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        crc32.block_crc32_plain(host, pool)
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            crc32.block_crc32_plain(host, pool)
+            plain.append((time.perf_counter() - t0) * 1e3)
+    t_bytes = (nbytes + 4 * prefix.shape[0]) / HBM_BYTES_PER_S * 1e3
+    t_ops = nbytes / 8 * CRC_OPS_PER_8_BYTES / F32_FLOPS * 1e3
+    r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             plain_ms=statistics.median(plain), library_ms=None,
+             shape=f"{prefix.shape[0]} x {list(prefix.shape[1:])} bf16")
+    log(f"time crc32_blocks [{r['shape']}, {nbytes / 2**20:.0f} MiB]: kernel {r['ms']:.4f} ms, "
+        f"plain (zlib on the host, 8 threads) {r['plain_ms']:.3f} ms {[round(x, 3) for x in plain]}, "
+        f"library none (PyTorch has no CRC), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{t_bytes:.4f} ms of bytes, {t_ops:.4f} ms of {CRC_OPS_PER_8_BYTES} operations per 8 "
+        f"bytes at {F32_FLOPS / 1e12:.0f} T/s); rounds {[round(x, 4) for x in rounds]}")
+    del flush, prefix, host
+    torch.cuda.empty_cache()
+    return r
 
 
 async def tier_path(torch, phase6):
@@ -2009,6 +2111,7 @@ async def tier_path(torch, phase6):
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm import metrics as tm
+    from dynamo_tpu_torch.ops import crc32
     from dynamo_tpu_torch.runtime.faultinject import faults
     from dynamo_tpu_torch.tokens import hash_token_blocks
 
@@ -2048,6 +2151,7 @@ async def tier_path(torch, phase6):
         for m in (tm.kv_tier_metrics, tm.kv_integrity_metrics, tm.objstore_metrics):
             m.reset()
         zero_kernel_counts()
+        crc32.block_crc32_cuda.launches = 0
         torch.cuda.synchronize = counting_sync
         t = time.perf_counter()
         for i, p in enumerate(prompts):
@@ -2179,10 +2283,11 @@ async def tier_path(torch, phase6):
             finally:
                 torch.cuda.synchronize = real_sync
                 await fresh.close()
-        out["launches"] = kernel_counts()
+        out["launches"] = dict(kernel_counts(), crc32_blocks=crc32.block_crc32_cuda.launches)
         out["syncs"] = syncs[0]
         check(syncs[0] == 0, f"no torch.cuda.synchronize() while serving ({syncs[0]} calls)")
-        check(all(v > 0 for v in out["launches"].values()), f"tiers: both kernels launched "
+        check(all(v > 0 for v in out["launches"].values()), f"tiers: the attention kernels and "
+                                                            f"the restore's CRC kernel launched "
                                                             f"({out['launches']})")
         out["pump"] = await pump_ab(torch, dev, params)
     finally:
@@ -2992,10 +3097,10 @@ DIST_HASH_IDS, DIST_HASH_CALLS = 2048, 50
 DIST_VOCAB = 128000  # prompt ids are drawn below this
 
 
-# Phases h and j (with k on j's stack) run llama-3.1-8b at this many of its
-# 32 layers, at full width, to keep the script inside its time: the in-
-# process workers through ``model_depth``, the CLI children through
-# DEPTH_ENV, which CHILD_PRELUDE reads before it runs the module.
+# Phases h, i and j (with k on j's stack and l on i's) run llama-3.1-8b at
+# this many of its 32 layers, at full width, to keep the script inside its
+# time: the in-process workers through ``model_depth``, the CLI children
+# through DEPTH_ENV, which CHILD_PRELUDE reads before it runs the module.
 PATH_CUT_LAYERS = 16
 DEPTH_ENV = "CHIP_SMOKE_LAYERS"
 CHILD_PRELUDE = (
@@ -3560,7 +3665,11 @@ DISAGG_THRESHOLD = 512  # --max-local-prefill of the decode worker
 DISAGG_ISL = 2040  # 127 full blocks and an 8-id tail: D prefills the tail
 DISAGG_OSL = 64
 DISAGG_PROMPTS, DISAGG_LIVE, DISAGG_OVERLAP, DISAGG_WARM = 8, 4, 4, 2
-DISAGG_LONG_ISL, DISAGG_LONG_OSL = 256, 1536  # the stream decoding under the imports
+# The stream decoding under the imports.  It must outlast them: a 1 s lead
+# and DISAGG_OVERLAP remote prompts took up to ~9 s on a slow host, and at
+# PATH_CUT_LAYERS a fused dispatch of 8 tokens takes ~40 ms, so 3072 tokens
+# decode for ~15 s (1536 did at the full 32 layers).
+DISAGG_LONG_ISL, DISAGG_LONG_OSL = 256, 3072
 DISAGG_CHECK_BLOCK = 100  # the block whose pages are held bitwise
 DISAGG_CHUNK_RE = re.compile(r"next chunk to \S+: (\d+) blocks")
 
@@ -5619,6 +5728,599 @@ async def watch_step(c, check, until, out, temps):
         await client.close()
 
 
+# ------------------------------------------------------------------ phase m
+# Checkpoints, the sentencepiece tokenizer and batched multi-LoRA.
+CKPT_MODEL = "llama-3.1-8b"
+# The checkpoint is written at full depth: 16.06 GB of bf16 shards.
+CKPT_SHARD_BYTES = 5 << 30
+CKPT_ISLS = (300, 517, 1024)  # the id prompts; the fourth request is a text
+CKPT_OSL = 32
+SP_PIECES = 128256  # llama-3.1-8b's vocabulary, laid out as its ids are
+SP_TEXTS = (
+    "Name three colours of the sea.",
+    "The quick brown fox jumps over the lazy dog, 42 times!",
+    "tokenizers round-trip: ids -> text -> ids (sentencepiece unigram)",
+    "A",
+)
+LORA_RANK = 16
+LORA_SLOTS = 4
+LORA_RANDOM = 5  # adapters drawn by --lora NAME=random:SEED; one more is a PEFT directory
+LORA_REQUESTS = 16
+LORA_ISL = 1024
+LORA_OSL = 64
+LORA_ARGV = [
+    "run", "in=http", "out=torch", "--arch", CKPT_MODEL, "--dtype", "bfloat16",
+    "--block-size", "16", "--num-blocks", "2048", "--max-batch", "16",
+    "--max-model-len", "2048", "--prefill-chunk", "512", "--decode-steps", "8",
+    "--port", "0", "--model", "base", "--lora-max-adapters", str(LORA_SLOTS),
+    "--lora-rank", str(LORA_RANK),
+]
+LORA_SOLO = (0, 1, 5, 6)  # burst requests served again alone: base, a0, a4, peft
+LORA_CHECK_LAYERS = 2
+LORA_CHECK_TOL = 1e-4
+LORA_TIME_ITERS = 20
+
+
+def sp_model_proto(n, seed):
+    """A sentencepiece unigram ``ModelProto`` of ``n`` pieces written by
+    ``llm/sp.build_model_proto``, laid out as llama-3.1's ids are: <unk>,
+    the 128 ASCII byte pieces, every printable ASCII character (so any
+    ASCII text is covered), random words up to id 128000, then 256 control
+    pieces with <|begin_of_text|> (bos) at 128000 and <|end_of_text|>
+    (eos) at 128001.  No byte piece above 0x7f: a random stream decodes to
+    valid UTF-8 piece by piece."""
+    from dynamo_tpu_torch.llm.sp import BYTE, CONTROL, NORMAL, UNKNOWN, WS, build_model_proto
+
+    rng = random.Random(seed)
+    pieces = [("<unk>", 0.0, UNKNOWN)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(128)]
+    pieces += [(WS, -10.0, NORMAL)] + [(chr(c), -10.0, NORMAL) for c in range(33, 127)]
+    seen = {p for p, _, _ in pieces}
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(pieces) < 128000:
+        w = "".join(rng.choice(letters) for _ in range(rng.randint(2, 7)))
+        if rng.random() < 0.5:
+            w = WS + w
+        if w not in seen:
+            seen.add(w)
+            pieces.append((w, -1.0 - rng.random() * 8.0, NORMAL))
+    specials = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{i}|>" for i in range(n - 128002)]
+    pieces += [(p, 0.0, CONTROL) for p in specials]
+    return build_model_proto(pieces, unk_id=0, bos_id=128000, eos_id=128001)
+
+
+def leaves_equal(torch, got, want, label):
+    """Leaf-by-leaf bitwise equality of two params trees; logs the first
+    mismatches.  Returns (ok, leaves compared)."""
+    bad, n = [], 0
+    flat = lambda t: {**{k: v for k, v in t.items() if k != "layers"},  # noqa: E731
+                      **{f"layers.{k}": v for k, v in t["layers"].items()}}
+    g, w = flat(got), flat(want)
+    if set(g) != set(w):
+        log(f"{label}: leaves differ: {sorted(set(g) ^ set(w))}")
+        return False, 0
+    for k in sorted(w):
+        n += 1
+        a, b = g[k], w[k]
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad.append(k)
+    if bad:
+        log(f"{label}: {len(bad)} leaves differ, first {bad[:4]}")
+    return not bad, n
+
+
+async def engine_one_at_a_time(engine, prompts, max_tokens):
+    """Greedy streams of ``prompts`` served one after another (a batch of
+    one each): the shapes an HTTP client sending one at a time gets."""
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+
+    out = []
+    for p in prompts:
+        req = PreprocessedRequest(
+            token_ids=list(p), stop_conditions=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0)).to_dict()
+        items = await collect(await engine.generate(Context(req)))
+        out.append([t for it in items for t in it["token_ids"]])
+    return out
+
+
+def checkpoint_path(torch, dev, tmp):
+    """Phase m, steps 1-3: write llama-3.1-8b's seeded init as a sharded
+    bf16 checkpoint with its config.json, load it back in bf16 and under
+    ``quant="int8"`` (each held leaf by leaf, bitwise, against the init
+    tree and ``quantize_params`` of it), then serve 4 requests one at a
+    time through ``run in=http out=torch --checkpoint DIR --tokenizer
+    X.model``: texts equal to the sentencepiece decode of the same seeded
+    init's streams served directly, prompt lengths and round trips as the
+    tokenizer gives them.  Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import SentencePieceTokenizer
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.llama import init_params
+    from dynamo_tpu_torch.models.loader import load_params, save_params_hf
+    from dynamo_tpu_torch.models.quant import quantize_params
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"checkpoint check FAILED: {what}")
+
+    mc = get_config(CKPT_MODEL)
+    ckpt = os.path.join(tmp, "ckpt")
+    with torch.inference_mode():
+        init = init_params(mc, 0, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = save_params_hf(init, ckpt, max_shard_bytes=CKPT_SHARD_BYTES, config=mc)
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes"] = sum(os.path.getsize(f) for f in files)
+        for quant in (None, "int8"):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loaded = load_params(mc, ckpt, quant=quant, device=dev)
+            torch.cuda.synchronize()
+            key = quant or "bf16"
+            out[f"load_{key}_s"] = time.perf_counter() - t0
+            out[f"load_{key}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            out[f"load_{key}_tree_gib"] = (torch.cuda.memory_allocated() - base) / 2**30
+            want = init if quant is None else quantize_params(init)
+            ok, n = leaves_equal(torch, loaded, want, f"checkpoint {key}")
+            check(ok and n > 0, f"{key} load equals the {'init tree' if quant is None else 'quantize_params of it'} bitwise ({n} leaves)")
+            out[f"{key}_leaves"] = n
+            del loaded, want
+            torch.cuda.empty_cache()
+    log(f"checkpoint: {len(files)} files, {out['bytes'] / 1e9:.3f} GB written in "
+        f"{out['write_s']:.1f} s; load bf16 {out['load_bf16_s']:.1f} s (tree "
+        f"{out['load_bf16_tree_gib']:.2f} GiB, peak {out['load_bf16_peak_gib']:.2f} GiB over it), "
+        f"load int8 {out['load_int8_s']:.1f} s (tree {out['load_int8_tree_gib']:.2f} GiB, peak "
+        f"{out['load_int8_peak_gib']:.2f} GiB); {out['bf16_leaves']} + {out['int8_leaves']} "
+        f"leaves compared")
+
+    # The sentencepiece tokenizer at llama-3.1's vocabulary size.
+    sp_path = os.path.join(tmp, "tokenizer.model")
+    with open(sp_path, "wb") as f:
+        f.write(sp_model_proto(SP_PIECES, 14))
+    tok = SentencePieceTokenizer(sp_path)
+    check(tok.vocab_size == SP_PIECES and tok.bos_token_id == 128000
+          and tok.eos_token_id == 128001, f"tokenizer: {tok.vocab_size} pieces, bos/eos ids")
+    for text in SP_TEXTS:
+        ids = tok.encode(text)
+        check(tok.decode(ids) == text and ids[0] == 128000 and max(ids) < SP_PIECES,
+              f"tokenizer round trip of {text!r}: {tok.decode(ids)!r}")
+    gen = torch.Generator().manual_seed(15)
+    prompts = [torch.randint(1, 128000, (n,), generator=gen).tolist() for n in CKPT_ISLS]
+    text_prompt = SP_TEXTS[1]
+    prompts.append(tok.encode(text_prompt))
+
+    # The same seeded init served directly, one request at a time.
+    cfg = EngineConfig(model=CKPT_MODEL, dtype="bfloat16", block_size=PS, num_blocks=512,
+                       max_batch=4, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0)
+    engine = TorchEngine(cfg, params=init, device=dev)
+    del init
+
+    async def direct():
+        try:
+            return await engine_one_at_a_time(engine, prompts, CKPT_OSL)
+        finally:
+            await engine.close()
+
+    want = asyncio.run(direct())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = ["run", "in=http", "out=torch", "--checkpoint", ckpt, "--tokenizer", sp_path,
+            "--dtype", "bfloat16", "--block-size", "16", "--num-blocks", "512", "--max-batch", "4",
+            "--max-model-len", "2048", "--prefill-chunk", "512", "--decode-steps", "8",
+            "--port", "0", "--model", "ckpt"]
+    t0 = time.perf_counter()
+    server = CliServer(argv)
+    out["server_up_s"] = time.perf_counter() - t0
+    port = server.service.port
+    check(server.engine.model_config.num_layers == mc.num_layers
+          and server.engine.model_config.vocab_size == mc.vocab_size,
+          f"architecture from config.json: {server.engine.model_config}")
+    zero_kernel_counts()
+    try:
+        async def phase():
+            got = []
+            for i, p in enumerate(prompts):
+                body = {"model": "ckpt", "max_tokens": CKPT_OSL, "temperature": 0,
+                        "nvext": {"ignore_eos": True}}
+                body["prompt"] = text_prompt if i == len(prompts) - 1 else p
+                st, _, raw, _ = await http_call(port, "POST", "/v1/completions", body)
+                res = json.loads(raw) if st == 200 else {}
+                check(st == 200, f"checkpoint request {i}: status {st} {raw[:200]!r}")
+                got.append(res)
+            return got
+
+        got = asyncio.run(phase())
+    finally:
+        launches = kernel_counts()
+        server.stop()
+    same = 0
+    for i, (res, ids) in enumerate(zip(got, want)):
+        if not res:
+            continue
+        text = res["choices"][0]["text"]
+        usage = res["usage"]
+        good = (text == tok.decode(ids) and usage["completion_tokens"] == len(ids) == CKPT_OSL
+                and usage["prompt_tokens"] == len(prompts[i]))
+        same += good
+        check(good, f"checkpoint request {i}: text equals the direct stream's decode "
+                    f"({usage}, {text[:60]!r} vs {tok.decode(ids)[:60]!r})")
+    log(f"checkpoint serve: {same}/{len(prompts)} streams through --checkpoint --tokenizer equal "
+        f"the seeded init's served directly (prompts {[len(p) for p in prompts]}, the last the "
+        f"text {text_prompt!r}); server up in {out['server_up_s']:.1f} s (load and build); "
+        f"launches {launches}")
+    out["launches"] = launches
+    return not fails and all(v > 0 for v in launches.values()), launches, out
+
+
+def lora_prompts(torch, n, isl, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, 128000, (isl,), generator=gen).tolist() for _ in range(n)]
+
+
+def lora_rows_check(torch, engine):
+    """Base rows under LoRA equal LoRA-off rows in the same batch: the
+    LoRA engine's own weights and banks (adapters resident), a 16-row
+    prefill step of 64 ids a row, rows cycling through slots -1, 0, 1, 2,
+    3, then a decode step of the same rows, forwarded once with the
+    per-token slots and once without (the path of an engine without
+    banks).  Base rows' logits must be bitwise equal; adapter rows must
+    move.  Returns ok."""
+    from dynamo_tpu_torch.models.llama import PagedKVCache, RaggedBatch, forward_ragged
+
+    mc, dev, r = engine.model_config, engine.device, engine.cfg.lora.rank
+    S, n = 16, 64
+    prompts = lora_prompts(torch, S, n, 21)
+    slots = [(i % (LORA_SLOTS + 1)) - 1 for i in range(S)]
+    tables = [[i * 5 + j for j in range(5)] for i in range(S)]
+    ok = True
+    with torch.inference_mode():
+        caches = [PagedKVCache.create(mc, 5 * S, PS, torch.bfloat16, dev) for _ in range(2)]
+        rb = rows_batch(torch, dev, prompts, tables)
+        tok_slots = torch.tensor([s for s in slots for _ in range(n)], dtype=torch.int32,
+                                 device=dev)
+        steps = [("prefill", rb._replace(adapter_slots=tok_slots), False)]
+        nxt = torch.randint(1, 128000, (S,), generator=torch.Generator().manual_seed(22)).tolist()
+
+        def t(v):
+            return torch.tensor(v, dtype=torch.int32, device=dev)
+
+        drb = RaggedBatch(token_ids=t(nxt), positions=t([n] * S),
+                          slot_mapping=t([tb[n // PS] * PS + n % PS for tb in tables]),
+                          kv_lens=t([n + 1] * S), page_indices=t(tables),
+                          cu_q_lens=t(list(range(S + 1))), num_seqs=t([S]),
+                          adapter_slots=t(slots))
+        steps.append(("decode", drb, True))
+        for label, b, decode in steps:
+            on = forward_ragged(engine.params, mc, b, caches[0], decode=decode, lora_rank=r)
+            off = forward_ragged(engine.params, mc, b._replace(adapter_slots=None), caches[1],
+                                 decode=decode, lora_rank=r)
+            base = [i for i, s in enumerate(slots) if s < 0]
+            lora = [i for i, s in enumerate(slots) if s >= 0]
+            same = torch.equal(on[base], off[base])
+            moved = min(float((on[i] - off[i]).abs().max()) for i in lora)
+            good = same and moved > 0 and bool(torch.isfinite(on).all())
+            ok = ok and good
+            log(f"lora rows {label}: base rows {base} bitwise equal to the LoRA-off forward "
+                f"{same}; adapter rows move the logits by >= {moved:.3e} "
+                f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def lora_dense_check(torch, dev):
+    """Phase m, step 5: llama-3.1-8b in f32 at full width and
+    LORA_CHECK_LAYERS layers, banks of LORA_SLOTS rank-LORA_RANK slots
+    holding adapters of ranks 16, 8, 4 and 16: a prefill step of 5 rows
+    (slots -1, 0..3, 40..72 ids) then a decode step, each row's logits
+    against a dense reference whose attention weights are merged per row
+    (W + A_s B_s), at rtol = atol = LORA_CHECK_TOL.  Returns ok."""
+    from dynamo_tpu_torch.llm.tenancy.lora import LORA_TARGETS, LoraAdapter, padded_factors
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.llama import (
+        PagedKVCache, RaggedBatch, forward_ragged, fuse_projections, init_params,
+    )
+    import numpy as np
+
+    mc = get_config(CKPT_MODEL).with_overrides(dtype="float32", num_layers=LORA_CHECK_LAYERS)
+    base = init_params(mc, 0, dev)
+    adapters = [LoraAdapter.random(mc, f"m{i}", rank=rk, seed=300 + i)
+                for i, rk in enumerate((16, 8, 4, 16))]
+    layers = dict(fuse_projections(base)["layers"])
+    for tgt in LORA_TARGETS:
+        pads = [padded_factors(a, mc, tgt, LORA_RANK) for a in adapters]
+        layers[f"lora_a_{tgt}"] = torch.from_numpy(np.concatenate([p[0] for p in pads], 2)).to(dev)
+        layers[f"lora_b_{tgt}"] = torch.from_numpy(np.concatenate([p[1] for p in pads], 1)).to(dev)
+    paged = dict(fuse_projections(base), layers=layers)
+    slots = [-1, 0, 1, 2, 3]
+    lens = [40, 48, 56, 64, 72]
+    gen = torch.Generator().manual_seed(31)
+    prompts = [torch.randint(1, 128000, (n + 1,), generator=gen).tolist() for n in lens]
+    S = 16
+    tables = [[i * 6 + j for j in range(6)] for i in range(len(prompts))]
+    tables += [[0] * 6] * (S - len(prompts))
+    ok = True
+    with torch.inference_mode():
+        want = []
+        for p, sl in zip(prompts, slots):
+            merged = {k: v for k, v in base.items() if k != "layers"}
+            ml = dict(base["layers"])
+            if sl >= 0:
+                for tgt in LORA_TARGETS:
+                    a, b = adapters[sl].factors[tgt]
+                    ml[tgt] = ml[tgt] + torch.from_numpy(np.einsum("lir,lro->lio", a, b)).to(dev)
+            merged["layers"] = ml
+            want.append(reference_logits(torch, merged, mc, p))
+        cache = PagedKVCache.create(mc, 6 * len(prompts), PS, torch.float32, dev)
+        heads = [p[:-1] for p in prompts]
+        rb = rows_batch(torch, dev, heads, tables[:len(prompts)])
+        tok_slots = torch.tensor([s for s, h in zip(slots, heads) for _ in h], dtype=torch.int32,
+                                 device=dev)
+        T = rb.token_ids.shape[0]
+        tok_slots = torch.cat([tok_slots, torch.full((T - tok_slots.numel(),), -1,
+                                                     dtype=torch.int32, device=dev)])
+        cu = rb.cu_q_lens.tolist() + [rb.cu_q_lens[-1].item()] * (S - len(prompts))
+        pad = S - len(prompts)
+
+        def t(v):
+            return torch.tensor(v, dtype=torch.int32, device=dev)
+
+        rb = rb._replace(kv_lens=t(rb.kv_lens.tolist() + [0] * pad), page_indices=t(tables),
+                         cu_q_lens=t(cu), adapter_slots=tok_slots)
+        got = forward_ragged(paged, mc, rb, cache, lora_rank=LORA_RANK)
+        drb = RaggedBatch(
+            token_ids=t([p[-1] for p in prompts] + [0] * pad),
+            positions=t(lens + [0] * pad),
+            slot_mapping=t([tb[n // PS] * PS + n % PS for tb, n in zip(tables, lens)] + [-1] * pad),
+            kv_lens=t([n + 1 for n in lens] + [1] * pad), page_indices=t(tables),
+            cu_q_lens=t(list(range(S + 1))), num_seqs=t([S]),
+            adapter_slots=t(slots + [-1] * pad))
+        dgot = forward_ragged(paged, mc, drb, cache, decode=True, lora_rank=LORA_RANK)
+        worst = 0.0
+        for i, n in enumerate(lens):
+            for label, g, w in (("prefill", got[i], want[i][n - 1]), ("decode", dgot[i], want[i][n])):
+                err = float((g - w).abs().max())
+                worst = max(worst, err)
+                good = bool(torch.isfinite(g).all()) and torch.allclose(
+                    g, w, rtol=LORA_CHECK_TOL, atol=LORA_CHECK_TOL)
+                ok = ok and good
+                if not good:
+                    log(f"lora f32 row {i} (slot {slots[i]}) {label}: max_abs_err {err:.3e} FAIL")
+        # Not blind: the adapters move the reference by far more than the tolerance.
+        spread = min(float((want[i][lens[i]] - reference_logits(torch, base, mc, prompts[i])[lens[i]])
+                           .abs().max()) for i in range(1, len(prompts)))
+    sensitive = spread > 10 * LORA_CHECK_TOL
+    log(f"lora f32 {LORA_CHECK_LAYERS} layers at full width, slots {slots} in one batch: worst "
+        f"max_abs_err {worst:.3e} vs the per-row merged dense reference, tol {LORA_CHECK_TOL} "
+        f"{'ok' if ok else 'FAIL'}; adapters move the reference by >= {spread:.3e} "
+        f"({'ok' if sensitive else 'blind — FAIL'})")
+    del base, paged, layers, cache
+    torch.cuda.empty_cache()
+    return ok and sensitive
+
+
+def lora_dispatch_times(torch, on, off):
+    """Phase m, step 6: a fused decode dispatch (16 rows at 1024 ids of
+    context) and a 512-token prefill step (16 rows of 32 ids over 1024),
+    each replayed on the LoRA engine with every row on an adapter, with
+    every row on the base model (slot -1: the LoRA matmuls still run),
+    and on an engine without banks sharing its weights, in turns.  CUDA
+    events around LORA_TIME_ITERS dispatches.  Returns {label: ms}."""
+    import numpy as np
+
+    cfg = on.cfg
+    S, PP, bs = cfg.max_batch, cfg.max_blocks_per_seq, cfg.block_size
+    ctx, new = 1024, 32
+    tables = np.zeros((S, PP), np.int32)
+    per = (ctx + new) // bs + 1
+    for i in range(S):
+        tables[i, :per] = np.arange(i * per, (i + 1) * per)
+    adapters = np.arange(S, dtype=np.int32) % LORA_SLOTS
+    tok0 = np.ones((S,), np.int64)
+    pos0 = np.full((S,), ctx, np.int32)
+    limits = np.full((S,), per * bs, np.int32)
+    T = S * new
+    rb = dict(
+        token_ids=np.ones((T,), np.int64),
+        positions=np.tile(np.arange(ctx, ctx + new, dtype=np.int32), S),
+        slot_mapping=np.concatenate([tables[i, (ctx + np.arange(new)) // bs] * bs
+                                     + (ctx + np.arange(new)) % bs for i in range(S)]).astype(np.int32),
+        kv_lens=np.full((S,), ctx + new, np.int32), page_indices=tables,
+        cu_q_lens=np.arange(0, T + 1, new, dtype=np.int32), num_seqs=np.asarray([S], np.int32))
+
+    def runs(eng, slots):
+        samp = eng._sampling_arrays([])
+        if slots is not None:
+            samp = samp._replace(adapter_slots=slots)
+        step = dict(rb)
+        if slots is not None:
+            step["adapter_slots"] = np.repeat(slots, new)
+        return (lambda: eng._run_multi(tok0, pos0, tables, limits, samp),
+                lambda: eng._run_step(step, samp))
+
+    cases = {"lora": runs(on, adapters), "lora_base_rows": runs(on, np.full((S,), -1, np.int32)),
+             "no_lora": runs(off, None)}
+    times = {f"{k}_{w}": [] for k in cases for w in ("decode", "prefill")}
+    with torch.inference_mode():
+        for turn in ("lora", "no_lora", "lora_base_rows", "lora_base_rows", "no_lora", "lora"):
+            for w, fn in zip(("decode", "prefill"), cases[turn]):
+                fn()
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(LORA_TIME_ITERS):
+                    fn()
+                b.record()
+                b.synchronize()
+                times[f"{turn}_{w}"].append(a.elapsed_time(b) / LORA_TIME_ITERS)
+    return {k: min(v) for k, v in times.items()}
+
+
+def lora_path(torch, dev, tmp):
+    """Phase m, steps 4 and 6: llama-3.1-8b in bf16 served by ``run in=http
+    out=torch --lora-max-adapters 4 --lora-rank 16`` with five adapters by
+    ``--lora aN=random:N`` and one PEFT directory (rank 16, written by
+    ``save_lora_adapter``) by ``--lora peft=DIR``; warmed, then 16
+    concurrent greedy /v1/completions of 1024-id prompts, 64 new ids each,
+    over the base model and all six adapters (more adapters than slots:
+    promotions wait for slots to free).  Every stream whole; no graph
+    captured after warmup; one prompt under two adapters shares no prefix
+    block and under one adapter it does; base rows equal LoRA-off rows
+    (``lora_rows_check``); the dispatch times with and without LoRA.
+    Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tenancy.lora import LoraAdapter, kv_salt_for_adapter, save_lora_adapter
+    from dynamo_tpu_torch.models.config import get_config
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"lora check FAILED: {what}")
+
+    peft = os.path.join(tmp, "peft")
+    save_lora_adapter(LoraAdapter.random(get_config(CKPT_MODEL), "peft", rank=LORA_RANK, seed=77),
+                      peft)
+    names = [f"a{i}" for i in range(LORA_RANDOM)] + ["peft"]
+    argv = list(LORA_ARGV)
+    for i in range(LORA_RANDOM):
+        argv += ["--lora", f"a{i}=random:{i + 1}"]
+    argv += ["--lora", f"peft={peft}"]
+    t0 = time.perf_counter()
+    server = CliServer(argv)
+    port = server.service.port
+    engine = server.engine
+    warm = server.warmup()
+    log(f"lora: server up and warmed in {time.perf_counter() - t0:.1f} s, graphs {warm}, "
+        f"adapters {engine.adapter_names()}")
+    check(sorted(engine.adapter_names()) == sorted(names), f"adapters {engine.adapter_names()}")
+    models = (["base"] + names) * 3
+    prompts = lora_prompts(torch, LORA_REQUESTS, LORA_ISL, 19)
+    fresh = lora_prompts(torch, 2, LORA_ISL, 20)
+
+    async def complete(model, p, osl=LORA_OSL):
+        st, _, raw, _ = await http_call(port, "POST", "/v1/completions", {
+            "model": model, "prompt": p, "max_tokens": osl, "temperature": 0,
+            "nvext": {"ignore_eos": True}})
+        return st, json.loads(raw) if st == 200 else raw
+
+    try:
+        zero_kernel_counts()
+        promos0 = None
+
+        async def burst():
+            return await asyncio.gather(*(complete(models[i], p) for i, p in enumerate(prompts)))
+
+        from dynamo_tpu_torch.llm.metrics import tenancy_metrics
+
+        promos0 = (tenancy_metrics.adapter_promotions, tenancy_metrics.adapter_evictions)
+        t0 = time.perf_counter()
+        res = asyncio.run(burst())
+        out["burst_s"] = time.perf_counter() - t0
+        out["launches"] = kernel_counts()
+        whole = sum(st == 200 and r["usage"]["completion_tokens"] == LORA_OSL for st, r in res)
+        check(whole == LORA_REQUESTS, f"{whole}/{LORA_REQUESTS} LoRA streams whole")
+        texts = {}
+        for (st, r), m in zip(res, models):
+            if st == 200:
+                texts.setdefault(m, []).append(r["choices"][0]["text"])
+        promos = (tenancy_metrics.adapter_promotions - promos0[0],
+                  tenancy_metrics.adapter_evictions - promos0[1])
+        log(f"lora burst: {LORA_REQUESTS} concurrent requests of {LORA_ISL} ids, {LORA_OSL} new, "
+            f"over {sorted(set(models))}: {whole} whole in {out['burst_s']:.2f} s; promotions "
+            f"{promos[0]}, evictions {promos[1]}; launches {out['launches']}")
+        check(promos[1] > 0, f"more adapters than slots evicted idle residents ({promos})")
+
+        # Batched vs solo in bf16: reported, not gated (cuBLAS picks GEMM
+        # kernels by row count, so a row's logits move with the batch).
+        async def solo():
+            return [await complete(models[i], prompts[i]) for i in LORA_SOLO]
+
+        same = sum(st == 200 and r["choices"][0]["text"] == res[i][1]["choices"][0]["text"]
+                   for i, (st, r) in zip(LORA_SOLO, asyncio.run(solo())))
+        out["solo_equal"] = same
+        log(f"lora bf16 batched vs solo (not gated): {same}/{len(LORA_SOLO)} streams of the burst "
+            f"({[models[i] for i in LORA_SOLO]}) equal the same request served alone")
+
+        # Prefix isolation: a fresh prompt under a0, then a1, then a0 again.
+        async def isolation():
+            kv = engine.kv
+            got = {}
+            for label, model, p in (("a0", "a0", fresh[0]), ("a1 after a0", "a1", fresh[0]),
+                                    ("a0 again", "a0", fresh[0])):
+                m0 = kv.matched_blocks
+                st, _ = await complete(model, p, 8)
+                got[label] = (st, kv.matched_blocks - m0)
+            return got
+
+        iso = asyncio.run(isolation())
+        s0, s1 = kv_salt_for_adapter("a0"), kv_salt_for_adapter("a1")
+        hit0 = engine.estimate_prefix_hit(fresh[0], s0)
+        hit1 = engine.estimate_prefix_hit(fresh[0], s1)
+        hit_base = engine.estimate_prefix_hit(fresh[0])
+        log(f"lora prefix isolation: matched blocks {iso}; resident prefix under a0 {hit0}, "
+            f"a1 {hit1}, base {hit_base} ids")
+        check(iso["a1 after a0"] == (200, 0), f"a1 shares no block of a0's prompt ({iso})")
+        check(iso["a0 again"][0] == 200 and iso["a0 again"][1] >= (LORA_ISL // PS) - 1,
+              f"a0 hits its own prefix ({iso})")
+        check(hit_base == 0, f"the base model sees none of the adapters' blocks ({hit_base})")
+        after = engine.compile_counts()
+        check(after == warm, f"no graph captured after warmup ({warm} -> {after})")
+        out["graphs"] = after
+        check(lora_rows_check(torch, engine), "base rows under LoRA equal LoRA-off rows")
+
+        # Dispatch times on and off: an engine without banks on the same weights.
+        shared = dict(engine.params, layers={k: v for k, v in engine.params["layers"].items()
+                                             if not k.startswith("lora_")})
+        off_cfg = EngineConfig(model=CKPT_MODEL, dtype="bfloat16", block_size=PS,
+                               num_blocks=engine.cfg.num_blocks, max_batch=16,
+                               max_model_len=2048, prefill_chunk=512, decode_steps=8)
+        off = TorchEngine(off_cfg, params=shared, device=dev)
+        times = lora_dispatch_times(torch, engine, off)
+        out["times"] = times
+        asyncio.run(off.close())
+        del off, shared
+        for w in ("decode", "prefill"):
+            log(f"lora time {w} (16 rows{', 8 fused steps' if w == 'decode' else ', 512 ids'}): "
+                f"every row on an adapter {times['lora_' + w]:.3f} ms, every row base "
+                f"{times['lora_base_rows_' + w]:.3f} ms, no banks {times['no_lora_' + w]:.3f} ms "
+                f"(overhead {times['lora_' + w] / times['no_lora_' + w] - 1:+.1%}) [{CARD}]")
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = not fails and all(v > 0 for v in out.get("launches", {0: 0}).values())
+    return ok, out.get("launches", {}), out
+
+
+def checkpoint_lora_path(torch, dev):
+    """Phase m: checkpoints, the sentencepiece tokenizer and batched
+    multi-LoRA.  Returns (ok, {"ckpt": launches, "lora": launches},
+    numbers)."""
+    import tempfile
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp:
+        ok_ckpt, ckpt_launches, res["ckpt"] = checkpoint_path(torch, dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok_lora, lora_launches, res["lora"] = lora_path(torch, dev, tmp)
+    ok_dense = lora_dense_check(torch, dev)
+    return (ok_ckpt and ok_lora and ok_dense,
+            {"ckpt": ckpt_launches, "lora": lora_launches}, res)
+
+
 def main() -> int:
     try:
         import torch
@@ -5665,6 +6367,7 @@ def main() -> int:
         with torch.inference_mode():
             check_kernels(torch, dev, cfg, tally)
             times = time_kernels(torch, dev, cfg, tally)
+            crc_times = check_crc_kernel(torch, dev, tally)
             ok_model = model_check(torch, dev, cfg)
         ok_path, launches, ok_edge, edge, ok_tiers, tiers = main_path(torch, dev)
         # Phase 7 builds its own engine: free the direct serve's first
@@ -5691,7 +6394,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the distributed phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
             f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        log(f"phases h and j (k on j's stack) at {PATH_CUT_LAYERS} of llama-3.1-8b's 32 layers")
+        log(f"phases h, i and j (l on i's stack, k on j's) at {PATH_CUT_LAYERS} of "
+            f"llama-3.1-8b's 32 layers")
         with model_depth(PATH_CUT_LAYERS):
             ok_dist, dist_launches, _ = dist_path(torch)
         # Phase i runs two llama-3.1-8b workers on this card again.
@@ -5700,7 +6404,8 @@ def main() -> int:
         log(f"memory before the disaggregated phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        ok_disagg, disagg_launches, _, (ok_planner, planner_launches, _) = disagg_path(torch)
+        with model_depth(PATH_CUT_LAYERS):
+            ok_disagg, disagg_launches, _, (ok_planner, planner_launches, _) = disagg_path(torch)
         # Phase j: the sampler's noise kernel, then two workers again.
         gc.collect()
         torch.cuda.empty_cache()
@@ -5712,7 +6417,14 @@ def main() -> int:
         with model_depth(PATH_CUT_LAYERS):
             (ok_migrate, migrate_launches, _), (ok_bulk, bulk_launches, _) = migrate_pull_path(
                 torch, noise_times)
-        slice_ok = {"w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
+        # Phase m: checkpoints, the sentencepiece tokenizer, multi-LoRA.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the checkpoint and LoRA phase: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        ok_m, m_launches, _ = checkpoint_lora_path(torch, dev)
+        slice_ok = {"checkpoints, tokenizer and LoRA (m)": ok_m,
+                    "w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
                     "distributed (h)": ok_dist, "disaggregated (i)": ok_disagg,
@@ -5751,6 +6463,8 @@ def main() -> int:
             kernels[-1]["migrate_launches"] = migrate_launches[name]
             kernels[-1]["bulk_launches"] = bulk_launches[name]
             kernels[-1]["planner_launches"] = planner_launches[name]
+            kernels[-1]["ckpt_launches"] = m_launches["ckpt"].get(name, 0)
+            kernels[-1]["lora_launches"] = m_launches["lora"].get(name, 0)
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -5776,6 +6490,21 @@ def main() -> int:
             "migrate_launches": migrate_launches["threefry_gumbel"],
             "bulk_launches": bulk_launches["threefry_gumbel"],
             "planner_launches": planner_launches["threefry_gumbel"],
+        })
+        # The restore's CRC kernel has no Pallas counterpart (the JAX
+        # package verifies a host block with zlib on the host); its path is
+        # phase g's restores.
+        kernels.append({
+            "name": "crc32_blocks", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/crc32_blocks.cu",
+            "replaces": "dynamo_tpu/engine/offload.py:422 (zlib on the host, no Pallas kernel)",
+            "launches": tiers["launches"]["crc32_blocks"],
+            "max_abs_err": tally.worst["crc32_blocks"],
+            "ms": crc_times["ms"], "plain_ms": crc_times["plain_ms"],
+            "bound_ms": crc_times["bound_ms"], "bound_by": crc_times["bound_by"],
+            "library_ms": None,
+            "checks_passed": not any(f.startswith("crc32_blocks") for f in tally.failures),
+            "shape": crc_times["shape"],
         })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(

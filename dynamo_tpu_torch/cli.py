@@ -7,6 +7,8 @@ in for the docker-compose etcd + NATS).
 Usage:
   python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
         --model llama-3.1-8b [--port 8000] [--device cpu]   # OpenAI server
+  python -m dynamo_tpu_torch.cli run in=http out=torch --checkpoint DIR|FILE.gguf \
+        [--tokenizer X.model] [--lora NAME=DIR --lora-max-adapters R --lora-rank r]
   python -m dynamo_tpu_torch.cli run in=text out=torch ...       # chat REPL
   python -m dynamo_tpu_torch.cli run in=stdin out=torch ...      # one prompt
   python -m dynamo_tpu_torch.cli run in=batch:FILE.jsonl out=torch ...
@@ -65,8 +67,15 @@ stream to JSONL (runtime/recorder.py).  The flags keep the JAX parser's
 names and defaults.  Options the port does not have yet fail when set
 (engine/__init__.py UNSUPPORTED_OPTIONS); the other JAX subcommands
 (model, prepare, operator, api-store, deploy) are not ported (ROADMAP
-queue 1 item 10.8).  The tokenizer is the self-contained byte tokenizer,
-the JAX CLI's default without ``--tokenizer`` or ``--checkpoint``.
+queue 1 item 10.8).  Weights come from ``--checkpoint`` (a local HF
+safetensors directory, a ``.gguf`` file or a pre-staged copy; the
+architecture from its ``config.json`` or GGUF metadata) or a seeded random
+init.  The tokenizer is ``--tokenizer X.model`` (sentencepiece), else the
+checkpoint's own ``tokenizer.model``, else the self-contained byte
+tokenizer; HF and GGUF tokenizers are refused (no ``tokenizers``).
+``--lora NAME=SPEC`` serves adapters as extra model names on the same
+engine, batched in one forward pass; a worker registers each as an adapter
+entry the frontend's watcher routes.
 """
 
 from __future__ import annotations
@@ -74,17 +83,17 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import signal
 from typing import Callable, Optional
 
 from .engine import build_torch_engine
 from .llm.backend import Backend
 from .llm.engines import EchoEngineCore, EchoEngineFull
-from .llm.discovery import ModelWatcher, register_model
+from .llm.discovery import ModelWatcher, make_tokenizer, register_model
 from .llm.http_service import HttpService
 from .llm.metrics import engine_dispatch_metrics, kv_tier_metrics
 from .llm.preprocessor import OpenAIPreprocessor
-from .llm.tokenizer import ByteTokenizer
 from .runtime.component import DistributedRuntime, parse_endpoint_path
 from .runtime.config import RuntimeConfig
 from .runtime.pipeline import build_pipeline
@@ -106,13 +115,31 @@ def _build_engine(out: str, args):
     raise SystemExit(f"unknown out= engine: {out!r} (the port has torch, echocore, echofull)")
 
 
-def _tokenizer(args):
-    if getattr(args, "tokenizer", None):
-        raise SystemExit(
-            "--tokenizer: HF and sentencepiece tokenizers are not ported yet "
-            "(ROADMAP queue 1 item 6); the port serves with the byte tokenizer"
-        )
-    return ByteTokenizer()
+def _tokenizer_spec(args) -> dict:
+    tok = getattr(args, "tokenizer", None)
+    if tok:
+        if tok.endswith(".gguf"):
+            return {"kind": "gguf", "file": tok}
+        if tok.endswith(".model"):
+            # Explicit sentencepiece file.
+            return {"kind": "sp", "file": tok}
+        if os.path.isdir(tok):
+            return {"kind": "hf", "dir": tok}
+        return {"kind": "hf", "file": tok}
+    ckpt = getattr(args, "checkpoint", None)
+    if ckpt:
+        # build_torch_engine resolved the checkpoint spec to a local path;
+        # serve its own tokenizer when it ships one.  The ORIGINAL spec
+        # rides along so a frontend on another host can re-resolve it.
+        from .models.hub import tokenizer_spec
+
+        spec = tokenizer_spec(ckpt)
+        if spec is not None:
+            source = getattr(args, "checkpoint_source", None)
+            if source:
+                spec["source"] = source
+            return spec
+    return {"kind": "byte"}
 
 
 def _edge_tracing():
@@ -322,7 +349,7 @@ async def _serve_worker(args, engine, on_serving) -> None:
                 [span_sink], interval_s=tcfg.export_interval_s,
                 proc=f"worker-{runtime.worker_id}",
             ).start()
-        roles = WorkerRoles(args, runtime, endpoint, engine)
+        roles = WorkerRoles(args, runtime, endpoint, engine, _tokenizer_spec(args))
         if role == "prefill":
             await roles.start_prefill()
         else:
@@ -369,11 +396,12 @@ class WorkerRoles:
     peer in O(KV transfer) instead of being waited out in O(sequence
     length), which is what makes planner scale-down/flip actuation cheap."""
 
-    def __init__(self, args, runtime, endpoint, engine):
+    def __init__(self, args, runtime, endpoint, engine, tokenizer_spec=None):
         self.args = args
         self.runtime = runtime
         self.endpoint = endpoint
         self.engine = engine
+        self.tokenizer_spec = tokenizer_spec or {"kind": "byte"}
         self._handles: dict = {}
 
     async def start_decode(self, disagg: bool) -> None:
@@ -479,9 +507,20 @@ class WorkerRoles:
         if bulk_enabled() and hasattr(engine, "inject_blocks"):
             await self._start_bulk(h)
         h["model_key"] = await register_model(
-            runtime, args.model, endpoint.path, tokenizer={"kind": "byte"},
+            runtime, args.model, endpoint.path, tokenizer=self.tokenizer_spec,
             kv_block_size=kv_block_size,
         )
+        # LoRA adapters register as additional model names on the SAME
+        # endpoint: the frontend's watcher builds adapter-stamping
+        # pipelines for them, and tenant KV salting keeps router overlap
+        # exact.
+        h["adapter_keys"] = [
+            await register_model(
+                runtime, adapter, endpoint.path, tokenizer=self.tokenizer_spec,
+                kv_block_size=kv_block_size, lora={"adapter": adapter, "base": args.model},
+            )
+            for adapter in (engine.adapter_names() if hasattr(engine, "adapter_names") else [])
+        ]
 
     async def _start_bulk(self, h: dict) -> None:
         """Bulk data plane (``DYN_BULK_PLANE``): run this worker's
@@ -583,6 +622,8 @@ class WorkerRoles:
             await h["router"].stop()
         if h.get("model_key") is not None:
             await self.runtime.unregister_key(h["model_key"])
+        for key in h.get("adapter_keys", ()):
+            await self.runtime.unregister_key(key)
 
     async def start_prefill(self) -> None:
         """Dedicated prefill worker: drains the model's prefill queue and
@@ -631,8 +672,8 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
             f"in={inp} is not supported by the port "
             "(it has in=http|text|stdin|batch:FILE|none|dyn://ns.comp.ep)"
         )
-    tokenizer = _tokenizer(args)
     engine, level = _build_engine(args.out, args)
+    tokenizer = make_tokenizer(_tokenizer_spec(args))
     if getattr(args, "record", None):
         # Tap every request/response stream to JSONL (reference:
         # recorder.rs) — replayable via runtime.recorder.replay_into.
@@ -682,9 +723,23 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
             )
             service.models.add_chat_model(args.model, pipeline)
             service.models.add_completion_model(args.model, pipeline)
+            # LoRA adapters serve as additional MODEL NAMES on the same
+            # resident engine, each through a preprocessor that stamps the
+            # adapter id + KV salt.
+            adapters = engine.adapter_names() if hasattr(engine, "adapter_names") else []
+            if level == "core":
+                for name in adapters:
+                    apipe = build_pipeline(
+                        [OpenAIPreprocessor(tokenizer, name, adapter=name), Backend(tokenizer)],
+                        engine,
+                    )
+                    service.models.add_chat_model(name, apipe)
+                    service.models.add_completion_model(name, apipe)
             try:
                 await service.start()
-                print(f"serving {args.model!r} on http://{args.host}:{service.port}", flush=True)
+                print(f"serving {args.model!r}"
+                      + (f" + adapters {adapters}" if adapters else "")
+                      + f" on http://{args.host}:{service.port}", flush=True)
                 if on_serving is not None:
                     on_serving(service)
                 await asyncio.Event().wait()
@@ -824,7 +879,11 @@ def build_parser() -> argparse.ArgumentParser:
     # Console input modes (in=text/stdin/batch:FILE) sampling defaults.
     p_run.add_argument("--max-tokens", type=int, default=None, dest="max_tokens")
     p_run.add_argument("--temperature", type=float, default=None)
-    p_run.add_argument("--tokenizer", default=None, help="not ported yet")
+    p_run.add_argument(
+        "--tokenizer", default=None,
+        help="a sentencepiece tokenizer.model (HF tokenizer.json and GGUF "
+        "tokenizers need the `tokenizers` package and are refused)",
+    )
     # out=torch engine knobs (reference: launch/dynamo-run/src/flags.rs)
     p_run.add_argument("--arch", default=None, help="model architecture name (out=torch)")
     p_run.add_argument(
@@ -894,16 +953,29 @@ def build_parser() -> argparse.ArgumentParser:
         "hints a peer holding a deeper prefix; the engine pulls the "
         "delta over the KV transfer plane instead of recomputing)",
     )
+    p_run.add_argument(
+        "--checkpoint", default=None,
+        help="local HF safetensors checkpoint dir, a .gguf file, or a model "
+        "name pre-staged under DYN_MODEL_CACHE (nothing is downloaded)",
+    )
+    p_run.add_argument("--model-config", default=None, dest="model_config",
+                       help="model config json (HF config.json format)")
     # The JAX parser's options that out=torch lacks: accepted so that
     # setting one fails with where it waits (build_torch_engine).
-    p_run.add_argument("--checkpoint", default=None)
     for flag in ("--tp", "--dp", "--ep", "--sp", "--nnodes"):
         p_run.add_argument(flag, type=int, default=1)
     p_run.add_argument("--spec-decode", action="store_true", default=None)
-    for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max",
-                 "--lora-max-adapters", "--lora-rank"):
+    for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max"):
         p_run.add_argument(flag, type=int, default=None)
-    p_run.add_argument("--lora", action="append", default=None, metavar="NAME=SPEC")
+    p_run.add_argument(
+        "--lora", action="append", default=None, metavar="NAME=SPEC",
+        help="serve a LoRA adapter under model name NAME (repeatable; SPEC is a "
+        "PEFT directory, a name pre-staged under DYN_MODEL_CACHE, or random[:seed])",
+    )
+    p_run.add_argument("--lora-max-adapters", type=int, default=None, dest="lora_max_adapters",
+                       help="resident adapter slots in the device banks")
+    p_run.add_argument("--lora-rank", type=int, default=None, dest="lora_rank",
+                       help="per-slot LoRA rank ceiling")
     p_run.add_argument(
         "--record", default=None,
         help="capture every request/response stream to this JSONL file "

@@ -1,7 +1,7 @@
 """Engine configuration knobs.
 
 The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
-a knob it would silently ignore (meshes, LoRA) is absent, so
+a knob it would silently ignore (meshes) is absent, so
 passing one fails at construction instead of serving something else.
 """
 
@@ -126,6 +126,51 @@ class SpecDecodeConfig:
 
 
 @dataclass
+class LoraConfig:
+    """Batched multi-LoRA serving (llm/tenancy/lora.py — S-LoRA).
+
+    ``max_adapters`` resident DEVICE slots of rank ceiling ``rank`` are
+    allocated as fixed-shape banks at engine init, so registering /
+    promoting / evicting adapters never changes a captured graph — a
+    hot-swap is an in-place column write.  The host-side registry can hold
+    arbitrarily many adapters; only the resident set is bounded.
+    """
+
+    enable: bool = False
+    # Resident device slots (concurrent distinct adapters in one batch).
+    max_adapters: int = 4
+    # Per-slot rank ceiling; adapters with smaller rank zero-pad up.
+    rank: int = 8
+    # How long acquire() waits for a pinned slot to free before failing
+    # the request (all residents actively serving sequences).
+    promote_timeout_s: float = 30.0
+
+    def __post_init__(self) -> None:
+        if self.max_adapters < 1:
+            raise ValueError("lora max_adapters must be >= 1")
+        if self.rank < 1:
+            raise ValueError("lora rank must be >= 1")
+
+    @classmethod
+    def normalize(cls, v: Any) -> "LoraConfig":
+        """Accept the section in any layered-config shape (see
+        SpecDecodeConfig.normalize)."""
+        if v is None:
+            return cls()
+        if isinstance(v, cls):
+            return v
+        if isinstance(v, bool):
+            return cls(enable=v)
+        if isinstance(v, dict):
+            known = set(cls.__dataclass_fields__)
+            bad = set(v) - known
+            if bad:
+                raise ValueError(f"unknown lora keys: {sorted(bad)}")
+            return cls(**v)
+        raise ValueError(f"bad lora section: {v!r}")
+
+
+@dataclass
 class EngineConfig:
     model: str = "debug-tiny"
     block_size: int = 16  # tokens per KV page
@@ -141,6 +186,9 @@ class EngineConfig:
     # int8 needs a real scale: at 1.0, sub-unit activations round to 0.
     cache_dtype: Any = None
     kv_scale: Any = 1.0
+    # Local checkpoint (an HF safetensors directory or a .gguf file,
+    # models/loader.py), loaded at engine init in place of random weights.
+    checkpoint_path: Optional[str] = None
     # Weight quantization: "int8" = W8A8-dynamic (per-output-channel int8
     # weights, per-row dynamic int8 activations, int8 products into int32
     # — models/quant.py, ops/quant_matmul.py).  None = float weights.
@@ -216,12 +264,17 @@ class EngineConfig:
     # Draft-free speculative decoding (SpecDecodeConfig; accepts a dict,
     # a bool or None).
     spec_decode: Any = None
+    # Batched multi-LoRA section (LoraConfig; accepts dict/bool).  Requests
+    # select an adapter via the OpenAI ``model`` field; rows without one run
+    # the base model unchanged.
+    lora: Any = None
 
     def __post_init__(self) -> None:
         if self.cache_dtype is None:
             self.cache_dtype = self.dtype
         self.qos = QosSchedConfig.normalize(self.qos)
         self.spec_decode = SpecDecodeConfig.normalize(self.spec_decode)
+        self.lora = LoraConfig.normalize(self.lora)
         if self.weight_quant not in (None, "int8"):
             raise ValueError(f"unknown weight_quant {self.weight_quant!r} (None or 'int8')")
         if isinstance(self.kv_scale, str) and self.kv_scale != "auto":

@@ -41,8 +41,15 @@ same-process device-to-device path.  The same transfer carries the
 cross-worker prefix pull at admission (``set_prefix_puller``, the
 ``engine.kv_pull`` span) and live migration's copy rounds; the migration
 primitives (snapshot, freeze, cutover) are engine/migrate.py's.
-Out of this engine so far: LoRA (ROADMAP queue 1 item 6.4), grammar
-constraints (6.5), tp/sp and multi-host (item 7).
+Weights come from a local checkpoint (``checkpoint_path``: HF safetensors
+or GGUF, models/loader.py) or from a seeded random init.  Batched
+multi-LoRA is the JAX engine's (``lora``): fixed-shape adapter banks in
+the params the graphs read, per-row slot ids staged with every dispatch,
+an ``AdapterRegistry`` promoting adapters by in-place column writes
+ordered on the stream the graphs replay on, and the adapter's KV salt
+isolating its blocks in every tier.  Out of this engine so far: grammar
+constraints (ROADMAP queue 1 item 6.5), MoE (6.6), tp/sp and multi-host
+(item 7).
 """
 
 from __future__ import annotations
@@ -63,8 +70,8 @@ import torch
 
 from ..device import default_device
 from ..llm.kv_router.protocols import ForwardPassMetrics, KvCacheEvent
-from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics
-from ..llm.protocols import FinishReason, PreprocessedRequest
+from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics, tenancy_metrics
+from ..llm.protocols import FinishReason, ModelNotFoundError, PreprocessedRequest
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
 from ..models.quant import fuse_projections, init_params_quantized, quantize_params
@@ -208,6 +215,11 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # Awaited before every device op, outside the device lock, when set
         # (tests throttle decode with it).
         self.pace_hook: Optional[Callable[[], Any]] = None
+        # Multi-tenancy (llm/tenancy): the LoRA adapter registry (None =
+        # LoRA disabled) and the optional served-model allowlist (unknown
+        # names → ModelNotFoundError → 404 at the edge).
+        self._lora_registry = None
+        self._served_models: Optional[set] = None
         # Device time and count of prefill steps and fused decode
         # dispatches, timed on the stream: a dispatch returns once queued,
         # so host walls would misplace its work.
@@ -218,7 +230,14 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
 
         # --- device state -------------------------------------------------
         dev = self.device
-        if params is None:
+        if params is None and cfg.checkpoint_path:
+            from ..models.loader import load_params
+
+            # Each leaf allocated once on the device, quantized and fused as
+            # the tensors arrive: no float transient of the whole tree.
+            params = load_params(self.model_config, cfg.checkpoint_path, quant=cfg.weight_quant,
+                                 device=dev, fuse=cfg.fuse_projections)
+        elif params is None:
             if cfg.weight_quant:
                 # Int8 drawn directly: full-depth 8B in bf16 would be 16 GB
                 # before it could be quantized.
@@ -233,6 +252,27 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             if cfg.weight_quant:
                 params = quantize_params(params)  # a no-op on a quantized tree
         self.params = fuse_projections(params) if cfg.fuse_projections else params
+        self._lora_rank = cfg.lora.rank if cfg.lora.enable else 0
+        if cfg.lora.enable:
+            # Fixed-shape multi-LoRA device banks (llm/tenancy/lora.py): R
+            # resident slots x rank-r A/B factors per attention projection,
+            # zero (an all-zero slot is exactly the base model), added after
+            # quantize/fuse: adapters are merge-free.  The graphs capture
+            # their addresses, so promotions write into them in place.
+            from ..llm.tenancy.lora import AdapterRegistry, target_dims
+
+            L, Rr = self.model_config.num_layers, cfg.lora.max_adapters * cfg.lora.rank
+            layers = dict(self.params["layers"])
+            for tgt, (din, dout) in target_dims(self.model_config).items():
+                layers[f"lora_a_{tgt}"] = torch.zeros((L, din, Rr), dtype=torch_dtype(cfg.dtype),
+                                                      device=dev)
+                layers[f"lora_b_{tgt}"] = torch.zeros((L, Rr, dout), dtype=torch_dtype(cfg.dtype),
+                                                      device=dev)
+            self.params = dict(self.params, layers=layers)
+            self._lora_registry = AdapterRegistry(
+                cfg.lora.max_adapters, cfg.lora.rank, self._lora_apply,
+                promote_timeout_s=cfg.lora.promote_timeout_s,
+            )
         cache_dtype = torch_dtype(cfg.cache_dtype)
         self.cache = PagedKVCache.create(
             self.model_config, cfg.num_blocks, cfg.block_size, cache_dtype, dev
@@ -382,7 +422,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
     def _step(self, rb: RaggedBatch, samp: SamplingParams) -> SampleOut:
         """One unified ragged step: forward + sample (device, no sync)."""
         logits = forward_ragged(
-            self.params, self.model_config, rb, self.cache, kv_scale=self.kv_scale
+            self.params, self.model_config, rb, self.cache, kv_scale=self.kv_scale,
+            lora_rank=self._lora_rank,
         )
         return sample_tokens(logits, samp)
 
@@ -395,6 +436,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         tables: torch.Tensor,  # [S, PP] int32
         limits: torch.Tensor,  # [S] int32 allocated KV capacity
         samp: SamplingParams,
+        adapter_slots: Optional[torch.Tensor] = None,  # [S] int32, -1 = base
     ) -> Tuple[SampleOut, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """``decode_steps`` fused decode iterations in one dispatch: each
         sampled token feeds the next iteration on the device.  Returns the
@@ -422,10 +464,11 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 page_indices=tables,
                 cu_q_lens=self._decode_cu,
                 num_seqs=self._decode_num,
+                adapter_slots=adapter_slots,
             )
             logits = forward_ragged(
                 self.params, self.model_config, rb, self.cache,
-                kv_scale=self.kv_scale, decode=True,
+                kv_scale=self.kv_scale, decode=True, lora_rank=self._lora_rank,
             )
             out = sample_tokens(logits, samp, steps=steps, counts=counts)
             outs.append(out)
@@ -450,7 +493,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         flags = samp.flags
 
         def fn(x):
-            batch = RaggedBatch(*(x[f] for f in RaggedBatch._fields))
+            batch = RaggedBatch(*(x.get(f) for f in RaggedBatch._fields))
             return self._step(batch, self._samp_params(x, flags))
 
         return self.programs.step((int(rb["token_ids"].shape[0]), *flags), fn, host)
@@ -464,6 +507,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         flags = samp.flags
         chained = tok0 is None
         host = {"pos0": pos0, "tables": tables, "limits": limits, **samp.arrays}
+        if samp.adapter_slots is not None:
+            host["adapter_slots"] = samp.adapter_slots
         dev: Dict[str, torch.Tensor] = {}
         if chained:
             dev = {"carry_tok": self._carry[0], "carry_steps": self._carry[1]}
@@ -480,7 +525,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 carry = (x["carry_tok"], x["carry_steps"], x.get("carry_counts", sp.counts))
             else:
                 carry = (x["tok0"], sp.steps, sp.counts)
-            return self._multi(*carry, x["pos0"], x["tables"], x["limits"], sp)
+            return self._multi(*carry, x["pos0"], x["tables"], x["limits"], sp,
+                               x.get("adapter_slots"))
 
         outs, (last, steps_f, counts_f) = self.programs.multi((*flags, chained), fn, host, dev)
         self._carry[0].copy_(last)
@@ -536,6 +582,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                     cu_q_lens=cu,
                     num_seqs=np.asarray([1], np.int32),
                 )
+                if self._lora_registry is not None:
+                    rb["adapter_slots"] = np.full((T,), -1, np.int32)
                 out = self._run_step(rb, samp)
             if cfg.decode_steps > 1:
                 args = (np.full((S,), -1, np.int32), np.zeros((S, PP), np.int32),
@@ -567,10 +615,16 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             # An id past the embedding would fault the step of every row in
             # the batch (on CUDA, the device context): refuse it here.
             raise ValueError(f"prompt token id {bad} is outside the vocabulary [0, {V})")
+        # Multi-tenancy resolution BEFORE admission: the adapter decides the
+        # KV salt, which must root the block-hash chain from the first
+        # sealed block (and key every tier lookup below).
+        adapter = self._resolve_adapter(pre)
         if pre.grammar:
             raise ValueError("grammar-constrained requests are not supported by this engine yet")
-        if pre.annotations.get("adapter"):
-            raise ValueError("LoRA adapters are not supported by this engine yet")
+        if adapter is not None:
+            from ..llm.tenancy.lora import kv_salt_for_adapter
+
+            pre.annotations.setdefault("kv_salt", kv_salt_for_adapter(adapter))
         # Request tracing (runtime/tracing.py): the context arrives in
         # annotations.trace (the preprocessor) or on request.ctx.trace;
         # None keeps every instrumentation point a single attr check.
@@ -609,6 +663,17 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             # Anchors the queue-wait (scheduler._record_admission) and
             # prefill (pipeline._trace_first_token) spans.
             seq.trace = SeqTrace(trace)
+        if adapter is not None:
+            seq.adapter = adapter
+            try:
+                # A resident device slot (promotion, LRU eviction of idle
+                # residents); the ref pins the slot until _finish, so a
+                # running row's slot is never rewritten.
+                seq.adapter_slot = await self._lora_registry.acquire(adapter)
+            except KeyError:
+                tenancy_metrics.adapter_not_found_total += 1
+                raise ModelNotFoundError(adapter) from None
+            tenancy_metrics.adapter_requests_total += 1
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[request.id] = queue
         self._contexts[request.id] = request.ctx
@@ -635,6 +700,91 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 self._contexts.pop(request.id, None)
 
         return ResponseStream(gen(), request.ctx)
+
+    # ----------------------------------------------------------- tenancy API
+    def register_adapter(self, adapter) -> None:
+        """Host-register a LoraAdapter (llm/tenancy/lora.py): no restart and
+        no new graph; promotion to a device slot happens at first use."""
+        if self._lora_registry is None:
+            raise RuntimeError("LoRA serving is disabled (EngineConfig.lora.enable)")
+        self._lora_registry.register(adapter, self.model_config)
+        if self._served_models is not None:
+            self._served_models.add(adapter.name)
+
+    def unregister_adapter(self, name: str) -> None:
+        if self._lora_registry is not None:
+            self._lora_registry.unregister(name)
+            # A name left in the allowlist would let requests for the
+            # removed adapter silently run the base model.
+            if self._served_models is not None:
+                self._served_models.discard(name)
+
+    def adapter_names(self) -> List[str]:
+        return self._lora_registry.names() if self._lora_registry else []
+
+    def set_served_models(self, names) -> None:
+        """Optional allowlist of model names this engine serves (base +
+        adapters): a request naming anything else fails with
+        ModelNotFoundError (the 404 model_not_found body at the edge)."""
+        self._served_models = set(names) if names is not None else None
+
+    def _write_lora_slot(self, slot: int, adapter) -> None:
+        """Write one slot's rank-padded factors into the banks IN PLACE (the
+        captured graphs hold the banks' addresses).  The copies are queued
+        on the current stream, behind every replay already dispatched, from
+        pinned host memory: a dispatch still carrying a finished row of the
+        slot's previous adapter reads the old factors, and only that row's
+        discarded output could see the new ones."""
+        from ..llm.tenancy.lora import LORA_TARGETS, padded_factors
+
+        r = self.cfg.lora.rank
+        lo, hi = slot * r, (slot + 1) * r
+        layers = self.params["layers"]
+        pin = self.device.type == "cuda"
+        with torch.inference_mode():
+            for tgt in LORA_TARGETS:
+                a, b = padded_factors(adapter, self.model_config, tgt, r)
+                for name, fac, cols in (
+                    (f"lora_a_{tgt}", a, (slice(None), slice(None), slice(lo, hi))),
+                    (f"lora_b_{tgt}", b, (slice(None), slice(lo, hi), slice(None))),
+                ):
+                    src = torch.from_numpy(fac).to(layers[name].dtype)
+                    if pin:
+                        src = src.pin_memory()
+                    layers[name][cols].copy_(src, non_blocking=pin)
+
+    async def _lora_apply(self, slot: int, adapter) -> None:
+        """Registry promotion hook: the slot's factors into the banks, under
+        the device lock (the JAX engine's ``_lora_apply``); the registry
+        guarantees the slot has no live rows."""
+        async with self._device_lock:
+            await asyncio.to_thread(self._write_lora_slot, slot, adapter)
+
+    def _resolve_adapter(self, pre: PreprocessedRequest) -> Optional[str]:
+        """Adapter name for this request, or None for the base model.
+        Raises ModelNotFoundError for names nobody serves: never a silent
+        fall-through to the base model."""
+        name = pre.annotations.get("adapter")
+        if not isinstance(name, str) or not name:
+            name = None
+        if name is None and pre.model:
+            if self._lora_registry is not None and self._lora_registry.has(pre.model):
+                name = pre.model
+            elif self._served_models is not None:
+                if pre.model not in self._served_models:
+                    tenancy_metrics.adapter_not_found_total += 1
+                    raise ModelNotFoundError(pre.model)
+            elif self._lora_registry is not None and pre.model != self.cfg.model:
+                # A LoRA-enabled engine serves many logical models by name:
+                # one that is neither the base nor a registered adapter is a
+                # routing mistake.  (LoRA-less engines keep the model field
+                # advisory.)
+                tenancy_metrics.adapter_not_found_total += 1
+                raise ModelNotFoundError(pre.model)
+        if name is not None and (self._lora_registry is None or not self._lora_registry.has(name)):
+            tenancy_metrics.adapter_not_found_total += 1
+            raise ModelNotFoundError(name)
+        return name
 
     def set_event_callback(
         self, callback: Optional[Callable[[KvCacheEvent], None]]

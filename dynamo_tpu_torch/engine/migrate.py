@@ -117,7 +117,7 @@ class MigrationMixin:
             # Tenant identity (llm/tenancy): the adapter + KV salt travel
             # with the sequence; the grammar automaton ships serialized and
             # the target re-derives its state from the resumed tokens.
-            adapter=None,  # LoRA adapters: ROADMAP queue 1 item 6.4
+            adapter=seq.adapter,
             kv_salt=seq.kv_salt,
             tenant=seq.tenant or None,
             priority=seq.priority or None,
@@ -193,9 +193,10 @@ class MigrationMixin:
                 self._chunks_since_burst = 0
             seq.finished = True
             seq.frozen = False
-            # The JAX engine drops the sequence's LoRA adapter-slot ref here
-            # (cutover bypasses pipeline._finish); it comes with the port of
-            # the adapter banks (ROADMAP queue 1 item 6.4).
+            # Cutover bypasses pipeline._finish, so the adapter-slot ref
+            # must drop here too or a migrated-out LoRA sequence pins its
+            # slot on the source forever.
+            self._release_adapter(seq)
             self.scheduler.remove(seq)
         queue = self._queues.get(request_id)
         if queue is not None:

@@ -39,6 +39,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics
+from ..ops.crc32 import block_crc32
 from ..runtime.faultinject import faults
 from ..tokens import hash_token_blocks
 from .integrity import block_checksums, flip_array_byte
@@ -325,8 +326,11 @@ class HostOffloadMixin:
         # Candidates: the leading host-resident run, peeked (no LRU touch:
         # the run may be truncated below).  The host→device boundary
         # verifies each offload stamp before the scatter (host RAM rots
-        # too, and the block may have round-tripped disk); the checksums
-        # run on a thread pool, off the event loop.
+        # too, and the block may have round-tripped disk).  The candidates
+        # are uploaded first and their copies checked (ops/crc32.py: the
+        # kernel on CUDA, zlib on the CPU), so the check covers the copy and
+        # a restore never waits on the host's cores; the verified prefix
+        # scatters from the same buffer.
         cands: List[Tuple[Any, torch.Tensor, Optional[int]]] = []
         for tb in blocks[resident:]:
             if self.integrity.banned(tb.sequence_hash):
@@ -344,9 +348,11 @@ class HostOffloadMixin:
             cands.append((tb, host, stamp))
             if flipped:
                 break
-        stamped = [host for _, host, stamp in cands if stamp is not None]
-        sums = iter(await asyncio.to_thread(block_checksums, stamped, self._crc_pool)
-                    if stamped else ())
+        if not cands:
+            return 0
+        staged = await asyncio.to_thread(self._restore_upload, [host for _, host, _ in cands])
+        rows = [i for i, (_, _, stamp) in enumerate(cands) if stamp is not None]
+        sums = iter(await asyncio.to_thread(self._restore_verify, staged, rows) if rows else ())
         run: List[Tuple[Any, torch.Tensor]] = []
         for tb, host, stamp in cands:
             if stamp is not None:
@@ -377,9 +383,9 @@ class HostOffloadMixin:
                 self.kv.free_sequence(ids)
                 return 0
             n = len(run)
-            staged = await asyncio.to_thread(self._restore_upload, [h for _, h in run])
+            buf, done = staged
             async with self._device_lock:
-                await asyncio.to_thread(self._restore_scatter, ids, staged)
+                await asyncio.to_thread(self._restore_scatter, ids, (buf[:n], done))
             # Candidate selection peeked; refresh recency for the blocks
             # restored.  touch(), not get(): this runs on the event loop and
             # must never wait behind a thread holding the lock through a
@@ -420,6 +426,27 @@ class HostOffloadMixin:
                 done.record(stream)
                 self.h2d_bytes += buf.nbytes
             return buf, done
+
+    def _restore_verify(self, staged: Tuple[torch.Tensor, Any], rows: List[int]) -> List[int]:
+        """CRC-32 of the uploaded blocks ``rows`` (ops/crc32.py).  On CUDA
+        the kernel runs on the copy stream behind the upload and its [n]
+        results come back through pinned memory: the wait is on that
+        stream's event, never on the replay stream."""
+        buf, _ = staged
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                sel = buf if len(rows) == buf.shape[0] else buf[rows]
+                return block_crc32(sel, self._crc_pool).tolist()
+            stream = self._copy_stream
+            with torch.cuda.stream(stream):
+                sums = block_crc32(buf)
+                host = torch.empty(sums.shape, dtype=sums.dtype, pin_memory=True)
+                host.copy_(sums, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            ready.synchronize()
+            got = host.tolist()
+            return [got[i] for i in rows]
 
     def _restore_scatter(self, ids: List[int], staged: Tuple[torch.Tensor, Any]) -> None:
         """Scatter the uploaded blocks into pages ``ids`` in place, on the

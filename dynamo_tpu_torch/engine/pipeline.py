@@ -53,11 +53,13 @@ _FINISHED = object()  # queue sentinel (engine.py imports this)
 class HostSampling(NamedTuple):
     """Per-row sampling state for one dispatch, on the host: the arrays of
     ``SAMPLING_DTYPES``, the [S, V] penalty counts when some row uses a
-    penalty (else None: the device zeros serve), and the flags."""
+    penalty (else None: the device zeros serve), the flags, and each row's
+    LoRA adapter slot (-1 = base; None on engines without LoRA)."""
 
     arrays: Dict[str, np.ndarray]
     counts: Optional[np.ndarray]
     flags: SamplingFlags
+    adapter_slots: Optional[np.ndarray] = None
 
 
 class DecodePipelineMixin:
@@ -105,7 +107,15 @@ class DecodePipelineMixin:
                 gen = np.asarray((seq.prompt + seq.output)[seq.orig_prompt_len:], np.int64)
                 if gen.size:
                     np.add.at(counts[i], gen % V, 1)
-        return HostSampling(a, counts, flags)
+        aslots = None
+        if self._lora_registry is not None:
+            # Every dispatch of a LoRA engine stages the slots (padding and
+            # free rows -1), so the captured programs never change.
+            aslots = np.full((S,), -1, np.int32)
+            for i, seq in enumerate(seqs):
+                if seq is not None:
+                    aslots[i] = seq.adapter_slot
+        return HostSampling(a, counts, flags, aslots)
 
     def _tables_row(self, out: np.ndarray, i: int, seq: SequenceState) -> None:
         ids = seq.block_ids[: out.shape[1]]
@@ -125,6 +135,7 @@ class DecodePipelineMixin:
         kv_lens = np.zeros((S,), np.int32)
         tables = np.zeros((S, PP), np.int32)
         cu = np.zeros((S + 1,), np.int32)
+        aslots = np.full((T,), -1, np.int32) if self._lora_registry is not None else None
         at = 0
         for i, (seq, start, n) in enumerate(items):
             all_toks = seq.prompt + seq.output
@@ -133,15 +144,20 @@ class DecodePipelineMixin:
             pos[at: at + n] = p
             blk = np.asarray(seq.block_ids, np.int32)
             slots[at: at + n] = blk[p // bs] * bs + p % bs
+            if aslots is not None:
+                aslots[at: at + n] = seq.adapter_slot
             self._tables_row(tables, i, seq)
             kv_lens[i] = start + n
             at += n
             cu[i + 1] = at
         cu[len(items) + 1:] = at
-        return dict(
+        rb = dict(
             token_ids=tok, positions=pos, slot_mapping=slots, kv_lens=kv_lens,
             page_indices=tables, cu_q_lens=cu, num_seqs=np.asarray([len(items)], np.int32),
         )
+        if aslots is not None:
+            rb["adapter_slots"] = aslots
+        return rb
 
     # ------------------------------------------------------ deferred fetches
     def _start_d2h(self, out, need_lp: bool) -> HostFetch:
@@ -871,6 +887,12 @@ class DecodePipelineMixin:
                 queue.put_nowait(LLMEngineOutput.tokens(pending))
             pending.clear()
 
+    def _release_adapter(self, seq: SequenceState) -> None:
+        """Drop ``seq``'s adapter-slot ref once (finish or cutover)."""
+        if self._lora_registry is not None and seq.adapter is not None and not seq.adapter_released:
+            seq.adapter_released = True
+            self._lora_registry.release(seq.adapter)
+
     def _check_stop(self, seq: SequenceState, token: int) -> Optional[FinishReason]:
         n_out = seq.num_output_tokens  # survives preemption's prompt-folding
         min_ok = seq.min_new_tokens is None or n_out >= seq.min_new_tokens
@@ -885,6 +907,10 @@ class DecodePipelineMixin:
         return None
 
     def _finish(self, seq: SequenceState, reason: FinishReason) -> None:
+        # Drop the adapter-slot pin BEFORE the queue check: every finish
+        # path funnels here (cancelled and failed streams too), and a leaked
+        # ref would pin the slot forever.
+        self._release_adapter(seq)
         queue = self._queues.get(seq.request_id)
         if queue is None:
             return

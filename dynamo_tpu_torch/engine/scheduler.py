@@ -125,6 +125,12 @@ class SequenceState:
     # sealing, host offload, transfer plane and kv_router all key on the
     # salted hashes, so one field isolates every tier.
     kv_salt: Optional[str] = None
+    # LoRA adapter (None = base model) + its resident device-bank slot.
+    adapter: Optional[str] = None
+    adapter_slot: int = -1
+    # Registry ref dropped (engine _finish is reachable from several paths;
+    # the flag makes the release idempotent).
+    adapter_released: bool = False
     # Grammar constraint: TokenMaskAutomaton + the sequence's current
     # state, advanced host-side per ACCEPTED token.  Constrained rows are
     # excluded from the fused multi-step decode programs (the mask must be

@@ -25,8 +25,9 @@ harvest, so no fused dispatch or retirement touches it meanwhile.
 The per-sequence adaptive controller moves each sequence's draft length
 inside [k_min, k] and benches collapsed proposers; when no sequence drafts,
 or the expected tokens per round trip fall below the fused pipeline's, the
-engine runs the fused pipeline unchanged.  Grammar and LoRA rows, which the
-JAX version also handles, are refused by this engine's ``generate``.
+engine runs the fused pipeline unchanged.  LoRA rows verify under their
+own adapter slot; grammar rows, which the JAX version also handles, are
+refused by this engine's ``generate`` (ROADMAP queue 1 item 6.5).
 """
 
 from __future__ import annotations
@@ -277,6 +278,7 @@ class SpecDecodeMixin:
         offsets: List[int] = []
         spec_groups: List[Tuple[SequenceState, int, List[int]]] = []
         plain_rows: List[Tuple[SequenceState, int, int, int]] = []
+        aslot_l: List[int] = []
         at = row = 0
         for seq, start, n in plan.items:
             d = drafts.get(seq.request_id) if n == 1 and start >= len(seq.prompt) else None
@@ -289,6 +291,7 @@ class SpecDecodeMixin:
                     tok_l.append(int(t))
                     pos_l.append(p)
                     slot_l.append(int(blk[p // bs]) * bs + p % bs)
+                    aslot_l.append(seq.adapter_slot)
                     self._tables_row(tables, row, seq)
                     kv_lens[row] = p + 1
                     at += 1
@@ -303,6 +306,7 @@ class SpecDecodeMixin:
                 p = np.arange(start, start + n, dtype=np.int32)
                 pos_l.extend(p.tolist())
                 slot_l.extend((blk[p // bs] * bs + p % bs).tolist())
+                aslot_l.extend([seq.adapter_slot] * n)
                 self._tables_row(tables, row, seq)
                 kv_lens[row] = start + n
                 at += n
@@ -323,6 +327,11 @@ class SpecDecodeMixin:
         slots[:at] = slot_l
         rb = dict(token_ids=tok, positions=pos, slot_mapping=slots, kv_lens=kv_lens,
                   page_indices=tables, cu_q_lens=cu, num_seqs=np.asarray([row], np.int32))
+        if self._lora_registry is not None:
+            # Verification rows apply each row's OWN adapter.
+            aslots = np.full((T,), -1, np.int32)
+            aslots[:at] = aslot_l
+            rb["adapter_slots"] = aslots
         samp = self._sampling_arrays(row_seqs, step_offsets=offsets)
         need_lp = samp.flags.need_logprobs
         prefill_tokens = sum(min(n, len(seq.prompt) - start) for seq, start, n in plan.items

@@ -11,16 +11,20 @@ locally (the reference ships this in the ModelDeploymentCard).
 Entry key: ``models/{model_name}/{worker_id}`` so multiple workers can back
 one model; the engine is added on the first entry, removed with the last.
 
-Not ported yet: the ``hf``, ``sp`` and ``gguf`` tokenizer specs (ROADMAP
-queue 1 item 6; ``make_tokenizer`` refuses them), the watcher's
-``GrammarCompiler`` (item 6.5; the preprocessor answers grammar requests
-with its 400) and LoRA adapter entries.
+LoRA adapter entries (``register_model(lora=...)``) build adapter-stamping
+pipelines onto the base model's endpoint.  Tokenizer specs: ``byte`` and
+``sp`` (the sentencepiece ``tokenizer.model``, llm/sp.py); the ``hf`` and
+``gguf`` kinds need the ``tokenizers`` package, which the port does not
+use, and ``make_tokenizer`` refuses them.  Not ported yet: the watcher's
+``GrammarCompiler`` (ROADMAP queue 1 item 6.5; the preprocessor answers
+grammar requests with its 400).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from typing import Any, Dict, Optional
 
 from ..runtime.client import RouterMode
@@ -51,10 +55,23 @@ def make_tokenizer(spec: Dict[str, Any]) -> BaseTokenizer:
     kind = (spec or {}).get("kind", "byte")
     if kind == "byte":
         return ByteTokenizer()
-    if kind in ("hf", "sp", "gguf"):
+    if kind == "sp":
+        from .tokenizer import SentencePieceTokenizer
+
+        f = spec["file"]
+        if not os.path.exists(f) and spec.get("source"):
+            # Registered paths are the REGISTERING worker's; a frontend on
+            # another host re-resolves the original model spec (a
+            # pre-staged copy, models/hub.py).
+            from ..models.hub import resolve_model
+
+            f = os.path.join(resolve_model(spec["source"]), "tokenizer.model")
+        return SentencePieceTokenizer(f)
+    if kind in ("hf", "gguf"):
         raise ValueError(
-            f"tokenizer kind {kind!r} is not ported yet (ROADMAP queue 1 item 6); "
-            "the port serves with the byte tokenizer"
+            f"tokenizer kind {kind!r} needs the `tokenizers` package, which this "
+            "package does not use; serve a sentencepiece tokenizer.model instead "
+            "(--tokenizer X.model)"
         )
     raise ValueError(f"unknown tokenizer kind {kind!r}")
 
@@ -68,8 +85,14 @@ async def register_model(
     lease: Optional[int] = None,
     kv_block_size: int = 16,
     static: bool = False,  # no lease: survives the registrar (llmctl mode)
+    lora: Optional[Dict[str, Any]] = None,  # adapter entry: {"adapter", "base"}
 ) -> str:
-    """Worker-side model registration (reference: llmctl + ModelEntry)."""
+    """Worker-side model registration (reference: llmctl + ModelEntry).
+
+    ``lora`` marks the entry as a LoRA adapter alias (llm/tenancy): the
+    frontend's ModelWatcher builds its pipeline with an adapter-stamping
+    preprocessor, so requests naming this model route to the base engine
+    with tenant identity (adapter id + KV salt) attached."""
     key = model_key(name, runtime.worker_id)
     entry = {
         "name": name,
@@ -79,6 +102,8 @@ async def register_model(
         # Routers must hash with the engine's block size or overlap is zero.
         "kv_block_size": kv_block_size,
     }
+    if lora:
+        entry["lora"] = dict(lora)
     if static:
         await runtime.hub.kv_put(key, entry)  # persistent, no liveness tie
         return key
@@ -192,8 +217,6 @@ class ModelWatcher:
         self._refcount = {}
 
     async def _handle_put(self, name: str, entry: Dict[str, Any]) -> None:
-        if entry.get("lora"):
-            raise ValueError(f"{name!r} is a LoRA adapter entry; multi-LoRA is not ported yet")
         self._refcount[name] = self._refcount.get(name, 0) + 1
         if name in self._clients:
             # Already built (refcount > 1, or a post-resync snapshot replay
@@ -215,8 +238,12 @@ class ModelWatcher:
             self._router_cores[name] = core
             sink = KvPushRouter(core)
         tokenizer = make_tokenizer(entry.get("tokenizer"))
+        # Adapter-alias entries (llm/tenancy): the preprocessor stamps the
+        # adapter id + KV salt so the engine (and the KV router above, when
+        # router_mode == KV) resolves tenant identity per request.
+        adapter = (entry.get("lora") or {}).get("adapter")
         pipeline = build_pipeline(
-            [OpenAIPreprocessor(tokenizer, name), Backend(tokenizer)], sink
+            [OpenAIPreprocessor(tokenizer, name, adapter=adapter), Backend(tokenizer)], sink
         )
         model_type = entry.get("model_type", "both")
         if model_type in ("chat", "both"):

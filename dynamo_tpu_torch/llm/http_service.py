@@ -68,6 +68,7 @@ from .metrics import (
     objstore_metrics,
     qos_metrics,
     spec_metrics,
+    tenancy_metrics,
 )
 from .openai import SSE_DONE, aggregate_chunks, sse_encode
 from .protocols import ModelNotFoundError
@@ -602,6 +603,7 @@ class HttpService:
             + planner_metrics.render(prefix).encode()
             + spec_metrics.render(prefix).encode()
             + migration_metrics.render(prefix).encode()
+            + tenancy_metrics.render(prefix).encode()
             + health_metrics.render(prefix).encode()
             + qos_metrics.render(prefix).encode()
             + engine_dispatch_metrics.render(prefix).encode()

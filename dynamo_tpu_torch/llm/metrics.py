@@ -24,8 +24,10 @@ pull, llm/kv_router/pull.py), ``MigrationMetrics`` live migration's
 (llm/migration), ``BulkMetrics`` the bulk data plane's
 (runtime/transports/bulk.py and its three consumers).  The health
 watchdog's group lives beside it (runtime/health.py ``health_metrics``).
-The planner's group lives beside it (planner/pmetrics.py); the tenancy
-group, whose subsystem the port does not have yet, is not here.
+The planner's group lives beside it (planner/pmetrics.py).
+``TenancyMetrics`` holds the multi-LoRA counters of the JAX package's
+tenancy group (llm/tenancy/lora.py); its grammar counters come with
+structured output (ROADMAP queue 1 item 6.5).
 ``Metrics.edge_slo_snapshot`` and ``EngineDispatchMetrics.host_gap_frac``
 feed the edge's ``slo_metrics`` publication (planner/signals.py
 ``EdgeSloPublisher``).
@@ -700,6 +702,50 @@ class MigrationMetrics:
 
 
 migration_metrics = MigrationMetrics()
+
+
+class TenancyMetrics:
+    """Multi-LoRA counters of the JAX package's tenancy group
+    (llm/tenancy/lora.py), rendered under the same names."""
+
+    def __init__(self):
+        self.adapters_registered = 0      # gauge: host-pool size
+        self.adapter_promotions = 0       # host→device slot writes
+        self.adapter_evictions = 0        # resident slots reclaimed
+        self.adapter_requests_total = 0   # requests routed to an adapter
+        self.adapter_not_found_total = 0  # unknown-model rejections
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def snapshot(self) -> Dict[str, float]:
+        return {k: float(v) for k, v in vars(self).items()}
+
+    def render(self, prefix: str = "dynamo_tpu") -> str:
+        ns = f"{prefix}_tenancy"
+        lines = []
+
+        def emit(name: str, kind: str, help_: str, value) -> None:
+            lines.append(f"# HELP {ns}_{name} {help_}")
+            lines.append(f"# TYPE {ns}_{name} {kind}")
+            lines.append(f"{ns}_{name} {value}")
+
+        emit("lora_adapters_registered", "gauge",
+             "Adapters in the host pool", self.adapters_registered)
+        emit("lora_promotions_total", "counter",
+             "Adapter host-to-device slot promotions", self.adapter_promotions)
+        emit("lora_evictions_total", "counter",
+             "Resident adapter slots reclaimed", self.adapter_evictions)
+        emit("lora_requests_total", "counter",
+             "Requests served through a LoRA adapter",
+             self.adapter_requests_total)
+        emit("lora_model_not_found_total", "counter",
+             "Requests naming an unregistered model/adapter",
+             self.adapter_not_found_total)
+        return "\n".join(lines) + "\n"
+
+
+tenancy_metrics = TenancyMetrics()
 
 
 class KvTierMetrics:

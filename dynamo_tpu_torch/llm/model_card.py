@@ -1,7 +1,7 @@
 """ModelDeploymentCard: serving metadata published on the control plane.
 
-A copy of the JAX package's ``llm/model_card.py`` (the LoRA adapter card
-comes with multi-LoRA serving, ROADMAP queue 1).
+A copy of the JAX package's ``llm/model_card.py``, the LoRA adapter card
+(``for_adapter``) included.
 
 Reference semantics: lib/llm/src/model_card/model.rs:15-201 + create.rs —
 a card describes everything a frontend needs to serve a model (display
@@ -79,6 +79,20 @@ class ModelDeploymentCard:
                 tc = json.load(fh)
             if tc.get("chat_template"):
                 card.prompt_template = tc["chat_template"]
+        return card
+
+    @classmethod
+    def for_adapter(
+        cls, base: "ModelDeploymentCard", adapter: str
+    ) -> "ModelDeploymentCard":
+        """Card for a LoRA adapter served as its own model name
+        (llm/tenancy): everything a frontend needs is the BASE model's
+        (tokenizer, template, context length) — the card only differs in
+        name and in ``extra["lora"]`` recording the adapter→base link."""
+        card = cls.from_dict(base.to_dict())
+        card.name = adapter
+        card.extra = dict(base.extra)
+        card.extra["lora"] = {"adapter": adapter, "base": base.name}
         return card
 
     # ------------------------------------------------------------- publishing

@@ -11,17 +11,19 @@ A traced request (``ctx.trace``, sampled at the HTTP edge) records the
 ``edge.preprocess`` span and carries its trace to the engine in
 ``annotations["trace"]``.
 
-Not ported yet: structured output (``response_format`` other than text,
-``nvext.grammar``) and LoRA adapters, which the engine lacks.  A request
-asking for structured output is rejected with a ``ValueError`` (400 at the
-edge), never served unconstrained.
+When the pipeline fronts a LoRA adapter (``adapter=``, one pipeline per
+served name), every request is stamped with the adapter id and its KV-hash
+salt.  Not ported yet: structured output (``response_format`` other than
+text, ``nvext.grammar``; ROADMAP queue 1 item 6.5).  A request asking for
+it is rejected with a ``ValueError`` (400 at the edge), never served
+unconstrained.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
-from typing import Any, AsyncIterator, Dict, Union
+from typing import Any, AsyncIterator, Dict, Optional, Union
 
 from ..engine.scheduler import normalize_priority
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, ResponseStream
@@ -35,9 +37,11 @@ from .trace_service import preprocess_span
 class OpenAIPreprocessor(Operator):
     """Chat/completions requests → token-level requests → OpenAI chunks."""
 
-    def __init__(self, tokenizer: BaseTokenizer, model_name: str = ""):
+    def __init__(self, tokenizer: BaseTokenizer, model_name: str = "",
+                 adapter: Optional[str] = None):
         self._tokenizer = tokenizer
         self.model_name = model_name
+        self.adapter = adapter
 
     # -- forward ------------------------------------------------------------
 
@@ -98,6 +102,14 @@ class OpenAIPreprocessor(Operator):
                 annotations["formatted_prompt"] = prompt
             if "token_ids" in oai.nvext.annotations:
                 annotations["token_ids"] = token_ids
+        if self.adapter:
+            from .tenancy.lora import kv_salt_for_adapter
+
+            # Tenant identity rides the request: the engine resolves the
+            # adapter to a device slot, and the KV router salts its overlap
+            # hashing with the same value the engine seals blocks under.
+            annotations["adapter"] = self.adapter
+            annotations["kv_salt"] = kv_salt_for_adapter(self.adapter)
         # QoS identity: an explicit nvext.tenant overrides the scheduler's
         # default fairness key (the model name); priority rides its own
         # PreprocessedRequest field.

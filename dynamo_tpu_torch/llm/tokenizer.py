@@ -1,15 +1,16 @@
 """Tokenizers + incremental detokenization.
 
-Copy of the JAX package's ``llm/tokenizer.py`` for what needs no model
-files: ``BaseTokenizer`` with its role-tagged chat fallback,
-``ByteTokenizer`` and ``DecodeStream``.  Reference semantics:
+Copy of the JAX package's ``llm/tokenizer.py`` for what needs no package
+the card's machine lacks: ``BaseTokenizer`` with its role-tagged chat
+fallback, ``ByteTokenizer``, ``SentencePieceTokenizer`` (over the pure
+Python ``llm/sp.py``) and ``DecodeStream``.  Reference semantics:
 lib/llm/src/tokenizers.rs (Encoding, incremental ``DecodeStream``) and the
 preprocessor's prompt templating (lib/llm/src/preprocessor/prompt/).
 
-The HuggingFace and sentencepiece tokenizers are not ported yet: they need
-the ``tokenizers`` package and a checkpoint's tokenizer files, neither of
-which the port has (ROADMAP queue 1).  Chat templates need jinja2, so a
-tokenizer with a template cannot render it here; ``ByteTokenizer`` has none.
+``HFTokenizer`` needs the ``tokenizers`` package and chat templates need
+jinja2, neither of which the port uses.  A sentencepiece checkpoint that
+ships a chat template is served with the role-tagged fallback, and says so
+once in the log.
 
 ``DecodeStream`` performs incremental detokenization by decoding a sliding
 window of accumulated ids and diffing against the previously emitted prefix,
@@ -18,8 +19,13 @@ holding back trailing bytes that form an incomplete UTF-8 sequence.
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Sequence
+
+logger = logging.getLogger(__name__)
 
 
 class BaseTokenizer(ABC):
@@ -74,6 +80,92 @@ class BaseTokenizer(ABC):
 
     def decode_stream(self, skip_special_tokens: bool = True) -> "DecodeStream":
         return DecodeStream(self, skip_special_tokens=skip_special_tokens)
+
+
+class SentencePieceTokenizer(BaseTokenizer):
+    """``tokenizer.model``-only checkpoints (older Llama/Mistral) served
+    through the vendored sentencepiece runtime (llm/sp.py; reference:
+    lib/llm/src/tokenizers/sp.rs).  Special tokens come from a sibling
+    tokenizer_config.json when present; its chat template is recorded but
+    rendered with the role-tagged fallback (no jinja2 here)."""
+
+    def __init__(self, model_file: str, config_file: Optional[str] = None):
+        from .sp import SentencePieceModel
+
+        self._sp = SentencePieceModel.from_file(model_file)
+        self._chat_template: Optional[str] = None
+        self._template_noted = False
+        self.bos_token: Optional[str] = None
+        self.eos_token: Optional[str] = None
+        if config_file is None:
+            candidate = os.path.join(os.path.dirname(model_file), "tokenizer_config.json")
+            config_file = candidate if os.path.exists(candidate) else None
+        if config_file is not None:
+            with open(config_file) as f:
+                cfg = json.load(f)
+            self._chat_template = cfg.get("chat_template")
+            self.bos_token = _token_str(cfg.get("bos_token"))
+            self.eos_token = _token_str(cfg.get("eos_token"))
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids = self._sp.encode(text)
+        if add_special_tokens and self._sp.bos_id >= 0:
+            ids = [self._sp.bos_id] + ids
+        return ids
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        # sp.decode always drops CONTROL/UNKNOWN pieces (sentencepiece
+        # semantics); NORMAL pieces are never "special".
+        return self._sp.decode(list(ids))
+
+    def decode_window(
+        self, ids: Sequence[int], skip_special_tokens: bool = True,
+        *, sequence_start: bool = True,
+    ) -> str:
+        """Window decode for incremental detokenization: a window that does
+        not begin the sequence keeps its leading ▁-space so prefix-diff
+        deltas preserve inter-token spaces (DecodeStream)."""
+        return self._sp.decode(list(ids), sequence_start=sequence_start)
+
+    def apply_chat_template(
+        self,
+        messages: List[Dict[str, Any]],
+        add_generation_prompt: bool = True,
+        **kwargs: Any,
+    ) -> str:
+        if self._chat_template is not None and not self._template_noted:
+            self._template_noted = True
+            logger.warning(
+                "the tokenizer's chat template needs jinja2, which this package does "
+                "not use; chat prompts are rendered with the role-tagged fallback"
+            )
+        parts = [f"<|{m['role']}|>\n{m.get('content') or ''}" for m in messages]
+        if add_generation_prompt:
+            parts.append("<|assistant|>\n")
+        return "\n".join(parts)
+
+    @property
+    def eos_token_id(self) -> Optional[int]:
+        return self._sp.eos_id if self._sp.eos_id >= 0 else None
+
+    @property
+    def bos_token_id(self) -> Optional[int]:
+        return self._sp.bos_id if self._sp.bos_id >= 0 else None
+
+    @property
+    def vocab_size(self) -> int:
+        return self._sp.vocab_size
+
+    @property
+    def chat_template(self) -> Optional[str]:
+        return self._chat_template
+
+
+def _token_str(value: Any) -> Optional[str]:
+    """tokenizer_config tokens are either "..." or {"content": "..."}."""
+    if isinstance(value, dict):
+        return value.get("content")
+    return value
 
 
 class ByteTokenizer(BaseTokenizer):
@@ -154,6 +246,16 @@ class DecodeStream:
         self._read_offset = 0  # ids before this are already emitted
 
     def _decode(self, ids: List[int]) -> str:
+        # Mid-stream windows must keep a leading ▁-space (sentencepiece
+        # dummy prefix) or the prefix-diff silently eats inter-token
+        # spaces; tokenizers exposing decode_window get told whether the
+        # window starts the sequence.
+        win = getattr(self._tok, "decode_window", None)
+        if win is not None:
+            return win(
+                ids, skip_special_tokens=self._skip,
+                sequence_start=self._prefix_offset == 0,
+            )
         return self._tok.decode(ids, skip_special_tokens=self._skip)
 
     def step(self, token_id: int) -> str:

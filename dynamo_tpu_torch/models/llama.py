@@ -153,6 +153,9 @@ class RaggedBatch(NamedTuple):
     page_indices: torch.Tensor  # [S, pages_per_seq]
     cu_q_lens: torch.Tensor  # [S+1]
     num_seqs: torch.Tensor  # [1]
+    # Per-token LoRA adapter slot (llm/tenancy/lora.py), -1 = base model;
+    # None on engines without adapter banks.
+    adapter_slots: Optional[torch.Tensor] = None  # [T]
 
 
 def init_params(
@@ -201,10 +204,12 @@ def init_params(
 
 _TOP_LEAVES = {"embed", "final_norm", "lm_head", "embed_scale", "lm_head_scale"}
 _QUANT_LAYER_LEAVES = {"wo", "w_down", "wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gateup"}
+_LORA_TARGETS = ("wq", "wk", "wv", "wo")  # llm/tenancy/lora.py LORA_TARGETS
 _LAYER_LEAVES = (
     {"attn_norm", "mlp_norm", "bq", "bk", "bv", "bqkv"}
     | _QUANT_LAYER_LEAVES
     | {n + "_scale" for n in _QUANT_LAYER_LEAVES}
+    | {f"lora_{ab}_{t}" for ab in "ab" for t in _LORA_TARGETS}
 )
 
 
@@ -220,8 +225,9 @@ def params_from_jax(tree: Mapping[str, Any], device: Optional[torch.device] = No
     → this package's dict of tensors on ``device``, shapes unchanged
     (weights stay ``[in, out]``).  Accepts unfused (wq/wk/wv, w_gate/w_up)
     and fused (wqkv, w_gateup) leaves, float or int8 with their ``*_scale``
-    siblings (int8 weights are stored column-major, models/quant.py);
-    refuses leaves it cannot serve (MoE, LoRA banks)."""
+    siblings (int8 weights are stored column-major, models/quant.py), and
+    the LoRA banks (``lora_a_*`` / ``lora_b_*``); refuses leaves it cannot
+    serve (MoE)."""
     dev = default_device(device)
 
     def conv(name: str, x: Any, group: Mapping[str, Any]) -> torch.Tensor:
@@ -252,6 +258,10 @@ def forward_ragged(
     *,
     kv_scale=None,  # quantized pages: a float or an [L] per-layer sequence
     decode: bool = False,  # every row is a single-token decode row
+    # Per-slot rank of the LoRA device banks (llm/tenancy/lora.py); 0 = no
+    # LoRA.  Active only when the params carry bank leaves AND the batch
+    # carries adapter_slots.
+    lora_rank: int = 0,
 ) -> torch.Tensor:
     """Unified mixed prefill+decode forward over a flat ragged token run.
 
@@ -259,7 +269,15 @@ def forward_ragged(
     (rows past num_seqs give garbage the caller ignores) — and writes the
     step's K/V into ``cache`` in place.  ``kv_scale`` goes to the attention
     kernels, which dequantize in-kernel; the write side stores
-    value / scale."""
+    value / scale.
+
+    Batched segmented multi-LoRA (the JAX forward's): every resident
+    adapter's A/B factors lie concatenated along an ``R*r`` rank axis, and
+    a per-token segment mask (``arange(R*r) // r == slot``) zeroes every
+    adapter's columns but the token's own, so ``(x @ A_all) * mask @ B_all``
+    serves rows of many adapters in one forward; slot -1 matches nothing.
+    The q, k and v deltas are added before rope, the o delta after the
+    output projection; base weights (possibly int8) are untouched."""
     T = rb.token_ids.shape[0]
     H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
     dev = rb.token_ids.device
@@ -274,11 +292,30 @@ def forward_ragged(
     plan = kv_write_plan(rb.slot_mapping)
     rows = None if decode else single_row_plan(rb.kv_lens, rb.cu_q_lens, rb.num_seqs, T)
 
-    h = embed_lookup(params, rb.token_ids, torch_dtype(config.dtype))  # [T, D]
+    dt = torch_dtype(config.dtype)
+    lora_mask = None
+    if lora_rank > 0 and rb.adapter_slots is not None and "lora_a_wq" in layers:
+        Rr = layers["lora_a_wq"].shape[-1]
+        seg = torch.arange(Rr, dtype=torch.int32, device=dev) // lora_rank  # column → slot
+        lora_mask = (rb.adapter_slots[:, None] == seg[None, :]).to(dt)  # [T, R*r]
+
+    def lora_delta(x_in: torch.Tensor, lp: Params, name: str) -> Optional[torch.Tensor]:
+        a = lp.get("lora_a_" + name)
+        if a is None:
+            return None
+        xa = (x_in @ a) * lora_mask  # own-adapter columns only
+        return (xa @ lp["lora_b_" + name]).to(x_in.dtype)
+
+    h = embed_lookup(params, rb.token_ids, dt)  # [T, D]
     for l in range(L):
         lp = {name: w[l] for name, w in layers.items()}
         x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
         q, k, v = qkv_proj(x, lp, H * hd, KV * hd)
+        if lora_mask is not None:
+            dq, dk, dv = lora_delta(x, lp, "wq"), lora_delta(x, lp, "wk"), lora_delta(x, lp, "wv")
+            q = q if dq is None else q + dq
+            k = k if dk is None else k + dk
+            v = v if dv is None else v + dv
         q = rotate(q.reshape(T, H, hd), cos, sin)
         k = rotate(k.reshape(T, KV, hd), cos, sin)
         v = v.reshape(T, KV, hd)
@@ -289,7 +326,12 @@ def forward_ragged(
             q, pages, rb.kv_lens, rb.page_indices, rb.cu_q_lens, rb.num_seqs,
             sm_scale=sm_scale, kv_scale=s_l, decode=decode, rows=rows,
         )
-        h = h + linear(attn.reshape(T, H * hd), lp, "wo")
+        attn_flat = attn.reshape(T, H * hd)
+        o = linear(attn_flat, lp, "wo")
+        if lora_mask is not None:
+            do = lora_delta(attn_flat, lp, "wo")
+            o = o if do is None else o + do
+        h = h + o
         x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
         h = h + mlp(x, lp)
     h = rms_norm(h, params["final_norm"], config.rms_norm_eps)

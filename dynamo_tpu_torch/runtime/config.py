@@ -99,6 +99,13 @@ class RuntimeConfig:
     # sample, ring, export_interval_s, ttl_s, tail_keep, tail_slo_ttft_ms).
     # Nested env works: ``DYN_TRACING__SAMPLE=0.1``.
     tracing: Dict[str, Any] = field(default_factory=dict)
+    # Batched multi-LoRA section (engine/config.py LoraConfig keys: enable,
+    # max_adapters, rank, promote_timeout_s, plus ``adapters``: a
+    # {name: spec} map of boot adapters, spec = a PEFT dir or
+    # ``random[:seed]``) read by build_torch_engine at engine start.  CLI
+    # --lora* flags win per key; nested env works:
+    # ``DYN_LORA__MAX_ADAPTERS=8``.
+    lora: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_layers(

@@ -554,12 +554,23 @@ def test_cli_serves_http_out_torch():
     assert p.returncode == 0
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "x"], ["--dp", "2"],
-                                  ["--sp", "2"], ["--lora", "a=random"], ["--nnodes", "2"],
-                                  ["--tokenizer", "tok.json"]])
+# What each refused option fails with: meshes wait in ROADMAP; a remote
+# checkpoint or adapter cannot be downloaded; an HF tokenizer needs the
+# `tokenizers` package.
+_REFUSALS = {
+    "--checkpoint": (FileNotFoundError, "does not download"),
+    "--lora": (FileNotFoundError, "does not download"),
+    "--tokenizer": (ValueError, "`tokenizers` package"),
+}
+
+
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "org/remote-model"], ["--dp", "2"],
+                                  ["--sp", "2"], ["--lora", "a=org/remote-adapter"],
+                                  ["--nnodes", "2"], ["--tokenizer", "tok.json"]])
 def test_cli_refuses_options_the_port_lacks(flag):
     from dynamo_tpu_torch import cli
 
     args = cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu", *flag])
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    err, match = _REFUSALS.get(flag[0], (SystemExit, "ROADMAP"))
+    with pytest.raises(err, match=match):
         asyncio.run(cli._run(args))

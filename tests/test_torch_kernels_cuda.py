@@ -279,3 +279,29 @@ def test_threefry_gumbel_kernel_matches_plain(cuda, B, V):
     ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
     assert ((got.cpu().double() - want.double()).abs() / ulp.double()).max() <= 2.0
     assert smp.gumbel_noise(seeds, steps, V).device == seeds.device  # routed to the kernel
+
+
+@pytest.mark.parametrize("n,shape,dtype", [
+    (128, (32, 16, 16, 128), torch.bfloat16),  # a llama-3.1-8b block, a 128-block prefix
+    (7, (32, 16, 16, 128), torch.int8),
+    (5, (4100,), torch.uint8),  # a short last slice
+    (3, (2053,), torch.uint8),  # bytes not a multiple of 8: the byte loop only
+    (2, (1,), torch.uint8),
+])
+def test_crc32_blocks_kernel_matches_plain(cuda, n, shape, dtype):
+    """csrc/crc32_blocks.cu against zlib over each block's bytes, exactly,
+    also on a buffer that starts off an 8-byte boundary."""
+    from dynamo_tpu_torch.ops import crc32
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = n * torch.Size(shape).numel() * esize
+    raw = torch.randint(0, 256, (nbytes + esize,), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    for off in (0, esize):
+        blocks = raw[off:off + nbytes].view(dtype).view(n, *shape)
+        got = crc32.block_crc32_cuda(blocks)
+        torch.cuda.synchronize()
+        assert got.device == blocks.device
+        assert torch.equal(got.cpu(), crc32.block_crc32_plain(blocks.cpu()))
+    assert crc32.block_crc32(blocks).device == blocks.device  # routed to the kernel

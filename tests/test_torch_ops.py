@@ -415,14 +415,17 @@ def test_package_imports_no_jax_and_no_module_level_triton():
                    "llm/kv_router/pull.py", "llm/migration/worker.py", "llm/trace_service.py",
                    "llm/metrics_service.py", "llm/billing.py", "runtime/recorder.py",
                    "llm/kv_router/recorder.py", "runtime/logging_config.py",
-                   *(f"planner/{m}.py" for m in planner)):
+                   *(f"planner/{m}.py" for m in planner),
+                   "models/loader.py", "models/gguf.py", "models/hub.py", "llm/sp.py",
+                   "llm/tenancy/__init__.py", "llm/tenancy/lora.py"):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the
     # disk tier names bf16/fp8 by string, never through ml_dtypes; the
-    # service plane's codec writes msgpack itself).
+    # service plane's codec writes msgpack itself; the loader reads and
+    # writes safetensors itself and never downloads).
     absent = {"aiohttp", "pydantic", "prometheus_client", "jinja2", "tokenizers", "xxhash",
-              "ml_dtypes", "msgpack"}
+              "ml_dtypes", "msgpack", "safetensors", "huggingface_hub"}
     allowed = {("tokens.py", "xxhash")}
     bad = []
     for path in files:
