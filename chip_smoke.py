@@ -71,7 +71,9 @@ Phases, any failure exits non-zero:
   c. bench.py's geometry on one W8A8 + int8-KV ``auto`` engine (max_batch
      256, max_model_len 256, 4160 pages, prefill_chunk 512, decode_steps 8,
      pipeline_depth 8): 256 greedy requests, ISL 128, OSL 64, after
-     ``run_warmup()``, with no graph captured during the serve;
+     ``run_warmup()``, with no graph captured during the serve; then a
+     256-row unified step and the sampler with and without its grammar
+     mask stage, which every unified step runs (all-ones words here);
   d. benchmarks/loadgen.py's self-hosted geometry through the port's
      HttpService → preprocessor → backend (W8A8 + int8 KV ``auto``,
      max_batch 24, max_model_len 4096, 6208 pages, prefill_chunk 2048,
@@ -275,10 +277,43 @@ Phases, any failure exits non-zero:
      ``forward_ragged`` in f32 at full width and 2 layers with slots -1..3
      in one batch against a dense reference with per-row merged weights at
      1e-4;
+  n. structured output: phase m's sentencepiece model (128256 pieces)
+     behind ``run in=http out=torch --tokenizer`` at phase 6's geometry;
+     the compile seconds of a small JSON schema (a string, an integer and
+     an enum), an enum of three words and a digits-and-letters regex at
+     that vocabulary; the schema alone (a compile), again (a compile-cache
+     hit), the enum and the regex alone; then one burst of 8 streamed chat
+     requests under the schema, 2 under the enum, 1 under the
+     ``nvext.grammar`` regex and 8 unconstrained, 64 new each: every
+     constrained output a prefix of its language, parsed and matched when
+     it stops, whole when it ends ``length``, the enum's ending ``stop``
+     (parsed on the card); no violation; the masked
+     rows equal to the constrained tokens; no graph captured after warmup;
+     both kernels launched; the constrained against the unconstrained
+     TTFT and ITL, a unified step's time with and without constrained
+     rows and the sampler's with and without its mask stage
+     (``--grammar-compile`` alone: the schema, the regex and json_object
+     compiled at that vocabulary, timed);
+  o. mixture-of-experts: the f32 mixtral-8x7b at full width and 2 layers
+     against a dense reference running each token through its chosen
+     experts (1e-4); a 1-layer Mixtral-layout checkpoint written from the
+     seeded init and loaded with ``quant="int8"``, bitwise equal to the
+     device quantizer's; then ``TorchEngine`` with
+     ``EngineConfig(model="mixtral-8x7b", weight_quant="int8")`` at full
+     width and depth (int8 experts drawn on the card, bf16 pages, 16 rows,
+     1024 pages, 512-token chunks, 8 decode steps, depth 2): resident and
+     peak memory, 8 greedy requests of 512..2045 ids with 64 new each
+     (whole, no graph captured after warmup, both kernels launched),
+     finite logits, graph replays bitwise equal to eager calls,
+     ``qdot_batched``'s int32 accumulators exact against their plain
+     product, and a fused decode dispatch and a 512-token prefill step
+     beside their bound, the larger of the weights' bytes and the int8
+     operations the routing needs (the dropless layout's operations
+     reported beside it);
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l and m beside phase 6's and 7's;
-     the noise kernel's in phases j, k, l and e), then the device line
-     last.
+     phases c, d, e, f, g, h, i, j, k, l, m, n and o beside phase 6's and
+     7's; the noise kernel's in phases j, k, l and e), then the device
+     line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -299,6 +334,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -870,9 +906,10 @@ def time_int8_kernels(torch, dev, tally):
 # ------------------------------------------------------------- the model
 
 
-def reference_logits(torch, params, mc, tokens):
+def reference_logits(torch, params, mc, tokens, ffn=None):
     """Dense (unpaged) forward of one prompt through plain PyTorch math,
-    attention in f32: the logits at every position, [n, vocab]."""
+    attention in f32: the logits at every position, [n, vocab].  ``ffn(x,
+    lp)`` replaces the dense SwiGLU FFN (phase o's per-token experts)."""
     from dynamo_tpu_torch.models import llama as tl
     from dynamo_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -895,7 +932,7 @@ def reference_logits(torch, params, mc, tokens):
         s = s.masked_fill(~causal, float("-inf")).softmax(-1)
         a = torch.einsum("htu,uhd->thd", s, v).to(h.dtype)
         h = h + tl.linear(a.reshape(n, nh * hd), lp, "wo")
-        h = h + tl.mlp(tl.rms_norm(h, lp["mlp_norm"], mc.rms_norm_eps), lp)
+        h = h + (ffn or tl.mlp)(tl.rms_norm(h, lp["mlp_norm"], mc.rms_norm_eps), lp)
     h = tl.rms_norm(h, p["final_norm"], mc.rms_norm_eps)
     return tl.lm_logits(p, h)
 
@@ -938,24 +975,35 @@ MODEL_CHECK_TOL = 1e-4
 def model_check(torch, dev, cfg):
     """Phase 5: the paged model path in f32 — llama-3.1-8b at full width,
     its first MODEL_CHECK_LAYERS layers, f32 weights (seed 0) and f32
-    pages — against the dense reference: a 300-token prompt prefilled in two chunks (the
-    second over a 200-token prior prefix), then two fused-decode-shaped
-    steps, through both kernels at the serve phase's row count.  Returns
-    ok.  The check must not be blind: a run whose row is told one position
-    fewer than it has (as a kernel that drops the newest K/V would compute)
-    is made too, and must miss the reference by 10x the tolerance."""
+    pages — against the dense reference (``paged_vs_reference``).
+    Returns ok."""
     from dynamo_tpu_torch.models.config import get_config
-    from dynamo_tpu_torch.models.llama import (
-        PagedKVCache, forward_ragged, fuse_projections, init_params,
-    )
+    from dynamo_tpu_torch.models.llama import fuse_projections, init_params
 
     mc = get_config("llama-3.1-8b").with_overrides(dtype="float32", num_layers=MODEL_CHECK_LAYERS)
     params = fuse_projections(init_params(mc, 0, dev))
-    S, PP = cfg.max_batch, 32
+    ok = paged_vs_reference(torch, dev, mc, params, cfg.max_batch, "model f32")
+    del params
+    torch.cuda.empty_cache()
+    return ok
+
+
+def paged_vs_reference(torch, dev, mc, params, S, label, ffn=None):
+    """``forward_ragged`` of ``params`` in f32 against ``reference_logits``
+    (with ``ffn`` in place of the dense FFN when given): a 300-token prompt
+    prefilled in two chunks (the second over a 200-token prior prefix),
+    then two fused-decode-shaped steps, through both kernels at ``S`` rows,
+    each within MODEL_CHECK_TOL.  The check must not be blind: a run whose
+    row is told one position fewer than it has (as a kernel that drops the
+    newest K/V would compute) is made too, and must miss the reference by
+    10x the tolerance.  Returns ok."""
+    from dynamo_tpu_torch.models.llama import PagedKVCache, forward_ragged
+
+    PP = 32
     cache = PagedKVCache.create(mc, 2 * PP, PS, torch.float32, dev)
     table = torch.randperm(2 * PP, generator=torch.Generator().manual_seed(3))[:PP].tolist()
     tokens = torch.randint(1, mc.vocab_size, (302,), generator=torch.Generator().manual_seed(4)).tolist()
-    want = reference_logits(torch, params, mc, tokens)
+    want = reference_logits(torch, params, mc, tokens, ffn)
 
     def run(part, start, decode, kv_len=None):
         rb = one_row_batch(torch, dev, S, table, part, start, decode, kv_len)
@@ -968,13 +1016,13 @@ def model_check(torch, dev, cfg):
         ("decode at 300", run(tokens[300:301], 300, True), 300),
         ("decode at 301", run(tokens[301:302], 301, True), 301),
     ]
-    for label, got, row in steps:
+    for step, got, row in steps:
         w = want[row]
         err = float((got - w).abs().max())
         good = bool(torch.isfinite(got).all()) and got.shape == w.shape and torch.allclose(
             got, w, rtol=MODEL_CHECK_TOL, atol=MODEL_CHECK_TOL)
         ok = ok and good
-        log(f"model f32 {MODEL_CHECK_LAYERS} layers, {label}: max_abs_err {err:.3e} "
+        log(f"{label} {mc.num_layers} layers, {step}: max_abs_err {err:.3e} "
             f"(logits max |x| {float(w.abs().max()):.3f}) tol {MODEL_CHECK_TOL} "
             f"{'ok' if good else 'FAIL'}")
     # Sensitivity: the last decode step again, its row told one position
@@ -982,9 +1030,9 @@ def model_check(torch, dev, cfg):
     off = run(tokens[301:302], 301, True, kv_len=301)
     miss = float((off - want[301]).abs().max())
     sensitive = miss > 10 * MODEL_CHECK_TOL
-    log(f"model f32 sensitivity: dropping the newest position moves the logits by {miss:.3e} "
+    log(f"{label} sensitivity: dropping the newest position moves the logits by {miss:.3e} "
         f"({'> 10x tol, ok' if sensitive else 'within 10x tol: the check is blind — FAIL'})")
-    del params, cache, want
+    del cache, want
     torch.cuda.empty_cache()
     return ok and sensitive
 
@@ -1041,13 +1089,13 @@ def zero_kernel_counts():
 GRAPH_CHECK_TOL = 1e-3
 
 
-def graph_check(torch, dev, engine):
+def graph_check(torch, dev, engine, bitwise_only=False):
     """A captured prefill bucket and the captured fused decode, seeded from
     the host and chained to the device carry, each against the eager call
     on the same inputs, every write dropped (prefill slots -1; decode
     limits at the rows' positions, so no step is writable), with and
     without logprobs.  Tokens must be equal, logprobs within
-    GRAPH_CHECK_TOL.  Returns ok."""
+    GRAPH_CHECK_TOL (``bitwise_only``: equal).  Returns ok."""
     import numpy as np
 
     from dynamo_tpu_torch.models.llama import RaggedBatch
@@ -1067,9 +1115,10 @@ def graph_check(torch, dev, engine):
         same = bool(torch.equal(got.tokens, want.tokens))
         err = float((got.logprob - want.logprob).abs().max()) if lp else 0.0
         top = float((got.top_logprobs - want.top_logprobs).abs().max()) if lp else 0.0
-        good = same and err <= GRAPH_CHECK_TOL and top <= GRAPH_CHECK_TOL
         bitwise = same and (not lp or (torch.equal(got.logprob, want.logprob)
                                        and torch.equal(got.top_logprobs, want.top_logprobs)))
+        good = bitwise if bitwise_only else (
+            same and err <= GRAPH_CHECK_TOL and top <= GRAPH_CHECK_TOL)
         ok = ok and good
         log(f"graph {label}: tokens equal {same}, logprob max_abs_err {err:.3e}, top-20 "
             f"{top:.3e} (tol {GRAPH_CHECK_TOL}), bitwise {bitwise} {'ok' if good else 'FAIL'}")
@@ -2692,6 +2741,9 @@ def bench_serve(torch, dev, quant):
             out["fused_step_ms"] = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
             out["prefill_step_ms"] = pre.seconds / max(1, pre.count) * 1e3
             out["summary"] = engine.dispatch_summary()
+            # Every unified step applies the grammar mask (all-ones words
+            # here): its cost at this geometry's row count.
+            out["mask"] = mask_stage_times(torch, engine, BENCH_ISL)
             return results
         finally:
             await engine.close()
@@ -2720,6 +2772,9 @@ def bench_serve(torch, dev, quant):
         f"sessions {pipe['sessions']} rebuilds {pipe['rebuilds']}; launches {out['launches']}; "
         f"per replay {out['per_replay']}; graphs after the serve {out['after']}; streams whole "
         f"{whole} {'ok' if ok else 'FAIL'}")
+    log(f"bench {label} mask stage: a {cfg.max_batch}-row decode-shaped unified step (graph "
+        f"replay, the all-ones mask applied) {out['mask']['step_plain']:.3f} ms; "
+        f"{mask_stage_text(out['mask'])} [{CARD}]")
     return ok, out
 
 
@@ -5695,6 +5750,9 @@ async def watch_step(c, check, until, out, temps):
               and await art.hub.kv_get(quarantine_key(wid_a)) is None,
               f"re-registration reset A ({state(wid_a)})")
         hm = health_metrics
+        # A tick resets a re-registered record at its start and recounts
+        # the state gauge at its end, after that tick's probes: wait for it.
+        await until(lambda: hm.state_counts == {"healthy": 2}, 10)
         counts = dict(quarantines=hm.quarantines_total, recoveries=hm.recoveries_total,
                       ejections=hm.ejections_total, drains=hm.drains_total,
                       drained_sequences=hm.drained_sequences_total,
@@ -6304,21 +6362,718 @@ def lora_path(torch, dev, tmp):
     return ok, out.get("launches", {}), out
 
 
-def checkpoint_lora_path(torch, dev):
-    """Phase m: checkpoints, the sentencepiece tokenizer and batched
-    multi-LoRA.  Returns (ok, {"ckpt": launches, "lora": launches},
-    numbers)."""
-    import tempfile
-
+def checkpoint_lora_path(torch, dev, tmp):
+    """Phase m: checkpoints, the sentencepiece tokenizer (left in ``tmp``
+    as ``tokenizer.model``) and batched multi-LoRA.  Returns (ok, {"ckpt":
+    launches, "lora": launches}, numbers)."""
     res = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp:
-        ok_ckpt, ckpt_launches, res["ckpt"] = checkpoint_path(torch, dev, tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        ok_lora, lora_launches, res["lora"] = lora_path(torch, dev, tmp)
+    ok_ckpt, ckpt_launches, res["ckpt"] = checkpoint_path(torch, dev, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok_lora, lora_launches, res["lora"] = lora_path(torch, dev, tmp)
     ok_dense = lora_dense_check(torch, dev)
     return (ok_ckpt and ok_lora and ok_dense,
             {"ckpt": ckpt_launches, "lora": lora_launches}, res)
+
+
+# ------------------------------------------------------------------ phase n
+# Structured output: grammar-constrained decoding behind HttpService.
+GRAMMAR_MODEL = "structured"
+GRAMMAR_OSL = 64
+# One small schema (an object of a string, an integer and an enum) and one
+# regex.  Phase m's vocabulary holds random words, half of them
+# "▁"-prefixed, so the keys, the enum words and the regex's letters are
+# where a piece indexed without its rendered space would leave the
+# language.
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "age": {"type": "integer"},
+    "kind": {"enum": ["cat", "dog", "bird"]}}}
+GRAMMAR_REGEX = "[0-9]{3}-[a-z]{4}"
+# A schema whose language a random model must close within GRAMMAR_OSL
+# tokens (every path ends in a state that admits only the end), so that
+# its requests end ``stop`` and their outputs are parsed on the card.
+GRAMMAR_ENUM_SCHEMA = {"enum": ["cat", "dog", "bird"]}
+GRAMMAR_SCHEMA_REQUESTS = 8
+GRAMMAR_ENUM_REQUESTS = 2
+GRAMMAR_PLAIN_REQUESTS = 8
+GRAMMAR_TIME_ITERS = 20
+
+
+def grammar_argv(sp_path):
+    """Phase 6's geometry behind ``run in=http out=torch``, with phase m's
+    sentencepiece tokenizer."""
+    argv = list(HTTP_ARGV)
+    argv[argv.index("--model") + 1] = GRAMMAR_MODEL
+    return argv + ["--tokenizer", sp_path]
+
+
+def enum_value_ok(v):
+    """Whether a parsed value is one of GRAMMAR_ENUM_SCHEMA's words."""
+    return isinstance(v, str) and v in GRAMMAR_ENUM_SCHEMA["enum"]
+
+
+def schema_value_ok(v):
+    """Whether a parsed value satisfies GRAMMAR_SCHEMA: an object of all
+    its properties in order (the schema regex requires each), each of its
+    type."""
+    props = GRAMMAR_SCHEMA["properties"]
+    if not isinstance(v, dict) or list(v) != list(props):
+        return False
+    return (isinstance(v["name"], str) and isinstance(v["age"], int)
+            and not isinstance(v["age"], bool) and v["kind"] in props["kind"]["enum"])
+
+
+def mask_stage_times(torch, engine, ctx, automaton=None):
+    """A decode-shaped unified step of ``engine``'s max_batch rows (one
+    token a row at ``ctx`` ids of context, writes dropped), replayed with
+    no constrained row and, given ``automaton``, with half the rows under
+    its start mask (staged into the step's buffer), in turns; and the
+    sampler alone on [rows, V] f32 logits with and without its mask stage
+    (what every unified step adds over a sampler without masks), each with
+    the bytes it allocates above what was allocated before it (the
+    transient the step's graph pool holds for it).  CUDA events around
+    GRAMMAR_TIME_ITERS calls.  Returns {label: ms} and {label + "_peak_mb":
+    MB} for the sampler cases, with "rows" and "vocab"."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.sampling import sample_tokens
+
+    cfg = engine.cfg
+    S, PP, bs, V = cfg.max_batch, cfg.max_blocks_per_seq, cfg.block_size, engine.model_config.vocab_size
+    tables = np.zeros((S, PP), np.int32)
+    per = ctx // bs + 1
+    for i in range(S):
+        tables[i, :per] = np.arange(i * per, (i + 1) * per) % cfg.num_blocks
+    rb = dict(token_ids=np.ones((S,), np.int64), positions=np.full((S,), ctx, np.int32),
+              slot_mapping=np.full((S,), -1, np.int32), kv_lens=np.full((S,), ctx + 1, np.int32),
+              page_indices=tables, cu_q_lens=np.arange(S + 1, dtype=np.int32),
+              num_seqs=np.asarray([S], np.int32))
+    plain = engine._sampling_arrays([])
+    words = np.full((S, (V + 31) // 32), 0xFFFFFFFF, np.int64)
+    cases = {"step_plain": lambda: engine._run_step(rb, plain)}
+    if automaton is not None:
+        automaton.set_mask_context(V, engine.model_config.eos_token_ids)
+        words[: S // 2] = automaton.packed_mask(automaton.start)
+        masked = plain._replace(mask_words=words)
+        cases["step_constrained"] = lambda: engine._run_step(rb, masked)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(engine.device)  # noqa: E731
+    sp = engine._samp_params({k: d(v) for k, v in plain.arrays.items()}, plain.flags)
+    sp_mask = sp._replace(mask_words=d(words), any_mask=True)
+    logits = torch.randn((S, V), generator=torch.Generator(device=engine.device).manual_seed(1),
+                         device=engine.device)
+    cases["sampler_no_mask"] = lambda: sample_tokens(logits, sp)
+    cases["sampler_mask"] = lambda: sample_tokens(logits, sp_mask)
+    times = {k: [] for k in cases}
+    out = {"rows": S, "vocab": V}
+    with torch.inference_mode():
+        for k in ("sampler_no_mask", "sampler_mask"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cases[k]()
+            torch.cuda.synchronize()
+            out[k + "_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        for turn in [k for k in cases if k.startswith("step")] * 2 + [
+                "sampler_no_mask", "sampler_mask", "sampler_mask", "sampler_no_mask"]:
+            fn = cases[turn]
+            fn()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(GRAMMAR_TIME_ITERS):
+                fn()
+            b.record()
+            b.synchronize()
+            times[turn].append(a.elapsed_time(b) / GRAMMAR_TIME_ITERS)
+        engine._stage_mask(None)  # leave all-ones words for the next step
+    out.update({k: min(v) for k, v in times.items()})
+    return out
+
+
+def mask_stage_text(times):
+    """mask_stage_times' sampler numbers as a sentence."""
+    return (f"the sampler on [{times['rows']}, {times['vocab']}] f32 "
+            f"logits {times['sampler_no_mask']:.3f} ms without its mask stage, "
+            f"{times['sampler_mask']:.3f} ms with it (eager); allocated above the start "
+            f"{times['sampler_no_mask_peak_mb']:.1f} MB without, {times['sampler_mask_peak_mb']:.1f} "
+            f"MB with")
+
+
+def grammar_path(torch, dev, sp_path):
+    """Phase n: structured output on llama-3.1-8b at phase 6's geometry
+    behind ``run in=http out=torch --tokenizer`` phase m's 128256-piece
+    sentencepiece model.  The compile seconds at that vocabulary (a fresh
+    compiler, off the server); warmed, one schema request alone (a
+    compile), the same schema again (a compile-cache hit), the enum schema
+    and the regex alone; then one burst of 8 streamed chat requests under
+    the schema, 2 under the enum schema, 1 under the ``nvext.grammar``
+    regex and 8 unconstrained, 64 new tokens each.  Every constrained
+    output is a viable prefix of its language, parses and matches when it
+    ends ``stop`` and is whole when it ends ``length``; the enum requests
+    end ``stop``, their outputs parsed and matched; no violation; the masked rows equal the constrained tokens
+    sampled; no graph captured after warmup; both attention kernels
+    launched.  Reports the constrained against the unconstrained TTFT and
+    ITL, and a unified step's time with and without constrained rows.
+    Returns (ok, launches, numbers)."""
+    import re as _re
+
+    from dynamo_tpu_torch.llm.metrics import tenancy_metrics
+    from dynamo_tpu_torch.llm.tenancy.grammar import GrammarCompiler, _CharDFA, spec_regex
+    from dynamo_tpu_torch.llm.tokenizer import SentencePieceTokenizer
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"grammar check FAILED: {what}")
+
+    specs = {"schema": {"kind": "json_schema", "schema": GRAMMAR_SCHEMA},
+             "enum": {"kind": "json_schema", "schema": GRAMMAR_ENUM_SCHEMA},
+             "regex": {"kind": "regex", "pattern": GRAMMAR_REGEX}}
+    value_ok = {"schema": schema_value_ok, "enum": enum_value_ok}
+    tok = SentencePieceTokenizer(sp_path)
+    comp = GrammarCompiler(tok)
+    auts = {}
+    for kind, spec in specs.items():
+        t0 = time.perf_counter()
+        auts[kind] = comp.compile(spec)
+        out[f"compile_{kind}_s"] = time.perf_counter() - t0
+    log(f"grammar compile at {tok.vocab_size} pieces on this host: schema "
+        f"{out['compile_schema_s']:.2f} s (the vocabulary's decode included; "
+        f"{len(auts['schema'].edges)} states, {sum(map(len, auts['schema'].edges))} token edges), "
+        f"enum {out['compile_enum_s']:.2f} s ({len(auts['enum'].edges)} states), "
+        f"regex {out['compile_regex_s']:.2f} s ({len(auts['regex'].edges)} states); host clock")
+    dfas = {kind: _CharDFA(spec_regex(spec)) for kind, spec in specs.items()}
+
+    t0 = time.perf_counter()
+    server = CliServer(grammar_argv(sp_path))
+    port, engine = server.service.port, server.engine
+    warm = server.warmup()
+    log(f"grammar: server up and warmed in {time.perf_counter() - t0:.1f} s, graphs {warm}")
+    rf = {"type": "json_schema", "json_schema": {"name": "pet", "schema": GRAMMAR_SCHEMA}}
+
+    def body(i, kind):
+        b = {"model": GRAMMAR_MODEL, "max_tokens": GRAMMAR_OSL, "temperature": 0, "stream": True,
+             "messages": [{"role": "user", "content": f"Describe pet number {i} in JSON."}]}
+        if kind == "schema":
+            b["response_format"] = rf
+        elif kind == "enum":
+            b["response_format"] = {"type": "json_schema",
+                                    "json_schema": {"name": "pick", "schema": GRAMMAR_ENUM_SCHEMA}}
+        elif kind == "regex":
+            b["nvext"] = {"grammar": GRAMMAR_REGEX}
+        else:
+            b["nvext"] = {"ignore_eos": True}
+        return b
+
+    async def call(b):
+        st, headers, raw, events = await http_call(port, "POST", "/v1/chat/completions", b)
+        if st != 200:
+            return {"status": st, "error": raw[:200]}
+        chunks, done = sse_data(events)
+        content = [(t, c["choices"][0]["delta"].get("content") or "") for t, c in chunks
+                   if c.get("choices") and c["choices"][0]["delta"].get("content")]
+        final = chunks[-1][1] if chunks else {}
+        return {"status": st, "done": done, "text": "".join(c for _, c in content),
+                "finish": (final.get("choices") or [{}])[0].get("finish_reason"),
+                "tokens": (final.get("usage") or {}).get("completion_tokens"),
+                "first": content[0][0] if content else None,
+                "last": chunks[-1][0] if chunks else None}
+
+    def judge(label, kind, r):
+        if r["status"] != 200:
+            check(False, f"{label}: status {r['status']} {r.get('error')!r}")
+            return
+        check(r["done"], f"{label}: stream ends with [DONE]")
+        text, fin = r["text"], r["finish"]
+        st = dfas[kind].walk(dfas[kind].start, text)
+        check(st is not None, f"{label}: the output is a prefix of its language ({text[:80]!r})")
+        if kind == "enum":
+            check(fin == "stop", f"{label}: a language closed within {GRAMMAR_OSL} tokens ends "
+                                 f"stop ({fin}/{r['tokens']}, {text!r})")
+        if fin == "stop":
+            if kind in value_ok:
+                try:
+                    good = value_ok[kind](json.loads(text))
+                except ValueError:
+                    good = False
+            else:
+                good = _re.fullmatch(GRAMMAR_REGEX, text) is not None
+            check(good, f"{label}: a stopped output parses and matches ({text!r})")
+        else:
+            check(fin == "length" and r["tokens"] == GRAMMAR_OSL,
+                  f"{label}: ends stop or length/{GRAMMAR_OSL} ({fin}/{r['tokens']})")
+
+    try:
+        counters = lambda: {k: getattr(tenancy_metrics, k) for k in (  # noqa: E731
+            "grammar_compiles_total", "grammar_cache_hits_total", "grammar_masked_rows_total",
+            "grammar_violations_total", "grammar_hash_hits_total", "grammar_hash_misses_total",
+            "grammar_full_resends_total", "grammar_stub_dispatches_total")}
+        c0 = counters()
+        solo = {}
+        for label, kind in (("cold", "schema"), ("warm", "schema"), ("enum", "enum"),
+                            ("regex", "regex")):
+            t0 = time.perf_counter()
+            solo[label] = asyncio.run(call(body(100, kind)))
+            solo[label]["wall"] = time.perf_counter() - t0
+            judge(f"solo {label}", kind, solo[label])
+        c1 = counters()
+        check(c1["grammar_compiles_total"] - c0["grammar_compiles_total"] == 3
+              and c1["grammar_cache_hits_total"] - c0["grammar_cache_hits_total"] == 1,
+              f"the first schema, the enum and the regex compile, the second schema hits the cache "
+              f"({c0} -> {c1})")
+        # Reported, not gated: the second request's prefill is a prefix-cache
+        # hit, so its steps have other shapes than the first's (PERF.md §7).
+        out["solo_same_text"] = solo["warm"].get("text") == solo["cold"].get("text")
+        kinds = (["schema"] * GRAMMAR_SCHEMA_REQUESTS + ["enum"] * GRAMMAR_ENUM_REQUESTS
+                 + ["regex"] + ["plain"] * GRAMMAR_PLAIN_REQUESTS)
+        graphs0 = dict(engine.compile_counts())
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+
+        async def burst():
+            return await asyncio.gather(*(call(body(i, k)) for i, k in enumerate(kinds)))
+
+        res = asyncio.run(burst())
+        out["burst_s"] = time.perf_counter() - t0
+        out["launches"] = kernel_counts()
+        c2 = counters()
+        graphs1 = dict(engine.compile_counts())
+        for i, (k, r) in enumerate(zip(kinds, res)):
+            if k == "plain":
+                check(r["status"] == 200 and r["finish"] == "length"
+                      and r["tokens"] == GRAMMAR_OSL,
+                      f"unconstrained request {i}: length/{GRAMMAR_OSL} ({r.get('finish')}/"
+                      f"{r.get('tokens')})")
+            else:
+                judge(f"burst request {i} ({k})", k, r)
+        sampled = sum(r.get("tokens") or 0 for k, r in zip(kinds, res) if k != "plain")
+        masked = c2["grammar_masked_rows_total"] - c1["grammar_masked_rows_total"]
+        check(masked == sampled, f"masked rows {masked} == constrained tokens sampled {sampled}")
+        check(c2["grammar_violations_total"] == 0, f"no violation ({c2})")
+        check(c2["grammar_compiles_total"] == c1["grammar_compiles_total"],
+              f"the burst compiles nothing ({c1} -> {c2})")
+        check(graphs1 == graphs0 == dict(warm), f"no graph captured after warmup "
+                                                f"({warm} -> {graphs0} -> {graphs1})")
+        check(all(v > 0 for v in out["launches"].values()),
+              f"both attention kernels launched ({out['launches']})")
+        st, _, raw, _ = asyncio.run(http_call(port, "GET", "/metrics"))
+        samples = parse_prometheus(raw.decode()) if st == 200 else {}
+        got = {n: v for (n, _), v in samples.items() if n.startswith("dynamo_tpu_tenancy_grammar")}
+        check(len(got) == 9 and got.get("dynamo_tpu_tenancy_grammar_violations_total") == 0,
+              f"/metrics has the nine grammar counters, violations 0 ({got})")
+
+        def stats(sel):
+            rs = [r for k, r in zip(kinds, res) if sel(k) and r.get("first") is not None]
+            ttft = sorted(r["first"] for r in rs)
+            itl = sorted((r["last"] - r["first"]) / max(1, r["tokens"] - 1) for r in rs
+                         if r.get("tokens"))
+            return {"n": len(rs), "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3 if ttft else None,
+                    "itl_p50_ms": itl[len(itl) // 2] * 1e3 if itl else None,
+                    "finishes": sorted(str(r["finish"]) for r in rs)}
+
+        out["constrained"] = stats(lambda k: k != "plain")
+        out["unconstrained"] = stats(lambda k: k == "plain")
+        out["counters"] = {k: c2[k] - c0[k] for k in c2}
+        summ = engine.dispatch_summary()
+        log(f"grammar burst: {len(kinds)} streamed chat requests ({GRAMMAR_SCHEMA_REQUESTS} "
+            f"json_schema, {GRAMMAR_ENUM_REQUESTS} json_schema enum, 1 nvext.grammar regex, "
+            f"{GRAMMAR_PLAIN_REQUESTS} unconstrained), "
+            f"{GRAMMAR_OSL} new each, wall {out['burst_s']:.2f} s; constrained {out['constrained']}, "
+            f"unconstrained {out['unconstrained']} (TTFT: request sent -> first content chunk; "
+            f"ITL: (finish chunk - first content chunk) / (tokens - 1)); counters over the phase "
+            f"{out['counters']}; masked rows {masked} == constrained tokens {sampled}; dispatches "
+            f"by kind { {k: v['dispatches'] for k, v in summ['kinds'].items()} }; launches "
+            f"{out['launches']}; graphs {graphs1}; solo walls "
+            f"{ {k: round(v['wall'], 3) for k, v in solo.items()} } s (cold includes the compile); "
+            f"the schema request again (its prefix cached) gives the same text "
+            f"{out['solo_same_text']} (not gated); host clock, one call [{CARD}]")
+        for k, r in zip(kinds, res):
+            if k != "plain" and r.get("finish") == "stop":
+                log(f"grammar stopped output ({k}): {r['text']!r}")
+        out["times"] = times = mask_stage_times(torch, engine, 600, auts["schema"])
+        log(f"grammar time: a {engine.cfg.max_batch}-row decode-shaped unified step (graph "
+            f"replay) {times['step_plain']:.3f} ms with no constrained row, "
+            f"{times['step_constrained']:.3f} ms with {engine.cfg.max_batch // 2} (the mask rows "
+            f"staged); {mask_stage_text(times)} [{CARD}]")
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return not fails, out.get("launches", {}), out
+
+
+def grammar_compile_times():
+    """``chip_smoke.py --grammar-compile``: the host seconds of compiling
+    phase n's schema, its regex and ``json_object`` against phase m's
+    128256-piece sentencepiece vocabulary, each on a fresh compiler (the
+    vocabulary's decode included) and again on a compiler that has already
+    decoded it; states and token edges of each automaton.  Returns ok."""
+    import tempfile
+
+    from dynamo_tpu_torch.llm.tenancy.grammar import GrammarCompiler
+    from dynamo_tpu_torch.llm.tokenizer import SentencePieceTokenizer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as tmp:
+        path = os.path.join(tmp, "tokenizer.model")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            f.write(sp_model_proto(SP_PIECES, 14))
+        tok = SentencePieceTokenizer(path)
+        log(f"grammar compile: tokenizer of {tok.vocab_size} pieces built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        shared = GrammarCompiler(tok)
+        shared.compile({"kind": "regex", "pattern": "[0-9]"})  # decode the vocabulary once
+        for kind, spec in (("schema", {"kind": "json_schema", "schema": GRAMMAR_SCHEMA}),
+                           ("regex", {"kind": "regex", "pattern": GRAMMAR_REGEX}),
+                           ("json_object", {"kind": "json_object"})):
+            t0 = time.perf_counter()
+            GrammarCompiler(tok).compile(spec)
+            fresh = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            a = shared.compile(spec)
+            warm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wire = a.to_dict()
+            wire_s = time.perf_counter() - t0
+            log(f"grammar compile {kind}: {fresh:.2f} s on a fresh compiler, {warm:.2f} s with "
+                f"the vocabulary decoded; {len(a.edges)} states, {sum(map(len, a.edges))} token "
+                f"edges, wire dict built in {wire_s:.2f} s; host clock [{CARD}]")
+    return True
+
+
+# ------------------------------------------------------------------ phase o
+# Mixture-of-experts: mixtral-8x7b under W8A8 on one card.
+MOE_MODEL = "mixtral-8x7b"
+MOE_CFG = dict(
+    model=MOE_MODEL, dtype="bfloat16", weight_quant="int8", block_size=PS, num_blocks=1024,
+    max_batch=16, max_model_len=4096, prefill_chunk=512, decode_steps=8, pipeline_depth=2,
+    seed=0,
+)
+MOE_CHECK_LAYERS = 2
+MOE_TIME_ITERS = 10
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+
+
+def moe_prompts(torch, vocab):
+    """Phase o's 8 prompts: 512, 731, ..., 2045 random ids below the
+    vocabulary (seed 7)."""
+    rng = torch.Generator().manual_seed(7)
+    return [torch.randint(1, vocab, (512 + 219 * i,), generator=rng).tolist() for i in range(8)]
+
+
+def moe_reference_ffn(torch, mc):
+    """The experts' FFN token by token: each token's router logits in f32,
+    its top-k experts, the softmax over them, and each chosen expert's
+    SwiGLU run on the token alone — the plain loop the batched dropless
+    dispatch must equal."""
+    import torch.nn.functional as F
+
+    K = mc.num_experts_per_token
+
+    def ffn(x, lp):
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for t in range(x.shape[0]):
+            logits = (x[t] @ lp["router"]).float()
+            w, e = logits.topk(K)
+            w = w.softmax(-1)
+            for k in range(K):
+                ex = int(e[k])
+                g = F.silu((x[t] @ lp["moe_gate"][ex]).float()).to(x.dtype)
+                u = x[t] @ lp["moe_up"][ex]
+                out[t] += w[k] * ((g * u) @ lp["moe_down"][ex]).float()
+        return out.to(x.dtype)
+
+    return ffn
+
+
+def moe_qdot_check(torch, engine, C):
+    """``qdot_batched``'s int32 accumulators at mixtral's gate shape (8
+    experts, C rows, 4096 -> 14336) against the plain product of the same
+    int8 operands in float64 (exact: |acc| < 2**53); the rescaled output
+    against f32 math on the exact accumulators.  Returns (ok, numbers)."""
+    from dynamo_tpu_torch.ops.quant_matmul import int_mm, qdot_batched, quantize_rows
+
+    lp = engine.params["layers"]
+    w, s = lp["moe_gate"][0], lp["moe_gate_scale"][0]
+    E, K, N = w.shape
+    x = torch.randn((E, C, K), generator=torch.Generator(device=engine.device).manual_seed(5),
+                    device=engine.device).to(torch.bfloat16)
+    with torch.inference_mode():
+        xq, ax = quantize_rows(x)
+        acc = torch.stack([int_mm(xq[e], w[e]) for e in range(E)])
+        exact = True
+        for e in range(E):
+            plain = (xq[e].double() @ w[e].double()).round().to(torch.int32)
+            exact = exact and bool(torch.equal(acc[e], plain))
+        got = qdot_batched(x, w, s)
+        want = (acc.float() * ax * s[:, None, :]).to(torch.bfloat16)
+        err = float((got.float() - want.float()).abs().max())
+    torch.cuda.synchronize()
+    return exact and err == 0.0, {"exact": exact, "max_abs_err": err, "shape": (E, C, K, N)}
+
+
+def moe_checkpoint_check(torch, dev, tmp):
+    """A 1-layer mixtral-8x7b (full width) from the seeded bf16 init,
+    written as a Mixtral-layout checkpoint with its config.json and loaded
+    with ``quant="int8"``: every leaf bitwise equal to the device
+    quantizer's (``quantize_params`` of the init).  Returns (ok, numbers)."""
+    from dynamo_tpu_torch.models.config import ModelConfig, get_config
+    from dynamo_tpu_torch.models.llama import init_params
+    from dynamo_tpu_torch.models.loader import load_params, save_params_hf
+    from dynamo_tpu_torch.models.quant import quantize_params
+
+    mc = get_config(MOE_MODEL).with_overrides(num_layers=1)
+    path = os.path.join(tmp, "mixtral-1l")
+    out = {}
+    with torch.inference_mode():
+        init = init_params(mc, 0, dev)
+        t0 = time.perf_counter()
+        files = save_params_hf(init, path, config=mc)
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes"] = sum(os.path.getsize(f) for f in files)
+        back = ModelConfig.from_local_path(path)
+        arch_ok = (back.num_experts, back.num_experts_per_token, back.num_layers) == (8, 2, 1)
+        t0 = time.perf_counter()
+        loaded = load_params(back, path, quant="int8", device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        want = quantize_params(init)
+        ok, n = leaves_equal(torch, loaded, want, "mixtral checkpoint int8")
+        experts = all(torch.equal(loaded["layers"][k], want["layers"][k])
+                      for k in ("moe_gate", "moe_up", "moe_down", "moe_gate_scale",
+                                "moe_up_scale", "moe_down_scale"))
+    del init, loaded, want
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update(leaves=n, experts_equal=experts, arch_ok=arch_ok)
+    return ok and experts and arch_ok, out
+
+
+def moe_bounds(engine, ctx_rows, new_tokens, prefill):
+    """The least time the card could take for one step of ``engine`` from
+    this run's shapes: every weight byte read once (and the KV rows read
+    and written), over the HBM rate; the int8 operations of the products
+    as the dropless layout computes them (every expert over all T rows) and
+    as the routing needs them (K of E experts a row), and the bf16
+    attention and router operations, over their peaks.  The bound is the
+    larger of the bytes and the routed operations; the dropless operations
+    are the layout's waste, reported beside it.  Returns (weight bytes,
+    bytes ms, dropless ms, useful ms)."""
+    mc = engine.model_config
+    p = engine.params
+    weights = sum(t.numel() * t.element_size() for k, t in p.items() if k not in ("layers", "embed"))
+    weights += sum(t.numel() * t.element_size() for t in p["layers"].values())
+    T = sum(new_tokens)
+    kv_tok = 2 * mc.num_kv_heads * mc.head_dim * 2 * mc.num_layers  # bf16 K and V, every layer
+    nbytes = weights + kv_tok * (sum(c + n for c, n in zip(ctx_rows, new_tokens)) + T)
+    D, E, K = mc.hidden_size, mc.num_experts, mc.num_experts_per_token
+    F = mc.moe_intermediate_size
+    attn_w = D * (mc.q_size + 2 * mc.kv_size) + mc.q_size * D
+    rows = T if prefill else engine.cfg.max_batch  # a fused decode step runs every row
+    int8 = mc.num_layers * 2 * rows * attn_w + 2 * engine.cfg.max_batch * D * mc.vocab_size
+    experts = mc.num_layers * 2 * 3 * D * F
+    attn = mc.num_layers * 4 * mc.num_heads * mc.head_dim * sum(
+        n * (c + (n + 1) / 2) for c, n in zip(ctx_rows, new_tokens))
+    bf16 = attn + mc.num_layers * 2 * rows * D * E
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dropless = (int8 + experts * rows * E) / INT8_OPS * 1e3 + bf16 / BF16_FLOPS * 1e3
+    useful = (int8 + experts * T * K) / INT8_OPS * 1e3 + bf16 / BF16_FLOPS * 1e3
+    return weights, bytes_ms, dropless, useful
+
+
+def moe_dispatch_times(torch, engine):
+    """A fused decode dispatch (16 rows at 1024 ids of context, 8 steps)
+    and a 512-token prefill step (one row over a 512-token prefix), each a
+    graph replay timed with CUDA events over MOE_TIME_ITERS calls, beside
+    moe_bounds.  Returns {label: ...}."""
+    import numpy as np
+
+    cfg = engine.cfg
+    S, PP, bs = cfg.max_batch, cfg.max_blocks_per_seq, cfg.block_size
+    ctx = 1024
+    per = (ctx + cfg.decode_steps) // bs + 1
+    tables = np.zeros((S, PP), np.int32)
+    for i in range(S):
+        tables[i, :per] = (np.arange(i * per, (i + 1) * per)) % cfg.num_blocks
+    samp = engine._sampling_arrays([])
+    tok0 = np.ones((S,), np.int64)
+    pos0 = np.full((S,), ctx, np.int32)
+    limits = np.full((S,), ctx, np.int32)  # nothing written
+    n, prior = 512, 512
+    T = cfg.bucket_tokens(n)
+    tab = np.zeros((S, PP), np.int32)
+    tab[0] = tables[0]
+    cu = np.zeros(S + 1, np.int32)
+    cu[1:] = n
+    pos = np.zeros(T, np.int32)
+    pos[:n] = np.arange(prior, prior + n)
+    rb = dict(token_ids=np.ones((T,), np.int64), positions=pos,
+              slot_mapping=np.full((T,), -1, np.int32),
+              kv_lens=np.asarray([prior + n] + [0] * (S - 1), np.int32), page_indices=tab,
+              cu_q_lens=cu, num_seqs=np.asarray([1], np.int32))
+    cases = {"decode": lambda: engine._run_multi(tok0, pos0, tables, limits, samp),
+             "prefill": lambda: engine._run_step(rb, samp)}
+    times = {k: [] for k in cases}
+    with torch.inference_mode():
+        for turn in ("decode", "prefill", "prefill", "decode"):
+            fn = cases[turn]
+            fn()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(MOE_TIME_ITERS):
+                fn()
+            b.record()
+            b.synchronize()
+            times[turn].append(a.elapsed_time(b) / MOE_TIME_ITERS)
+    out = {k: min(v) for k, v in times.items()}
+    steps = cfg.decode_steps
+    w, dec_bytes, dec_drop, dec_use = moe_bounds(engine, [ctx] * S, [1] * S, False)
+    _, pre_bytes, pre_drop, pre_use = moe_bounds(engine, [prior], [n], True)
+    out.update(weight_gb=w / 1e9,
+               decode_bound_ms=steps * max(dec_bytes, dec_use), decode_bytes_ms=steps * dec_bytes,
+               decode_dropless_ops_ms=steps * dec_drop, decode_useful_ops_ms=steps * dec_use,
+               prefill_bound_ms=max(pre_bytes, pre_use), prefill_bytes_ms=pre_bytes,
+               prefill_dropless_ops_ms=pre_drop, prefill_useful_ops_ms=pre_use, prefill_T=T)
+    return out
+
+
+def moe_path(torch, dev):
+    """Phase o: mixtral-8x7b served by ``TorchEngine`` under W8A8
+    (``EngineConfig(model="mixtral-8x7b", weight_quant="int8")``, the int8
+    experts drawn on the card) at full width and depth, bf16 pages, 16 rows,
+    1024 pages, 512-token chunks, 8 decode steps, depth 2.  First the f32
+    MoE model at full width and MOE_CHECK_LAYERS layers against the dense
+    reference with per-token experts (1e-4), and a 1-layer Mixtral-layout
+    checkpoint loaded with quant="int8" bitwise equal to the device
+    quantizer's.  Then the engine: resident memory, warmup and its peak, 8
+    greedy requests of 512..2045 ids with 64 new each (whole, no graph
+    captured, both kernels launched), finite logits, graph replays bitwise
+    equal to eager calls, ``qdot_batched``'s accumulators exact against
+    their plain product, and a fused decode dispatch and a 512-token
+    prefill step beside their bounds.  Returns (ok, launches, numbers)."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.llama import forward_ragged, init_params
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"moe check FAILED: {what}")
+
+    # The f32 model at full width, MOE_CHECK_LAYERS layers.
+    mc = get_config(MOE_MODEL).with_overrides(dtype="float32", num_layers=MOE_CHECK_LAYERS)
+    with torch.inference_mode():
+        params = init_params(mc, 0, dev)
+        check(paged_vs_reference(torch, dev, mc, params, MOE_CFG["max_batch"], "moe f32",
+                                 moe_reference_ffn(torch, mc)),
+              "the f32 MoE model against the per-token expert reference")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_o_") as tmp:
+        ok_ckpt, out["ckpt"] = moe_checkpoint_check(torch, dev, tmp)
+    check(ok_ckpt, f"1-layer Mixtral checkpoint under int8 equals the device quantizer "
+                   f"({out['ckpt']})")
+    log(f"moe checkpoint: 1 layer at full width, {out['ckpt']['bytes'] / 1e9:.3f} GB written in "
+        f"{out['ckpt']['write_s']:.1f} s, loaded with quant=int8 in {out['ckpt']['load_s']:.1f} s; "
+        f"{out['ckpt']['leaves']} leaves bitwise equal, experts {out['ckpt']['experts_equal']}, "
+        f"architecture from config.json {out['ckpt']['arch_ok']}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchEngine(EngineConfig(**MOE_CFG), device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["resident_gib"] = (torch.cuda.memory_allocated() - base) / 2**30
+    out["params_gb"] = sum(t.numel() * t.element_size() for k, t in engine.params.items()
+                           if k != "layers") / 1e9 + sum(
+        t.numel() * t.element_size() for t in engine.params["layers"].values()) / 1e9
+    prompts = moe_prompts(torch, engine.model_config.vocab_size)
+    lens = [len(p) for p in prompts]
+
+    async def run():
+        try:
+            t = time.perf_counter()
+            out["warm"] = await engine.run_warmup()
+            out["warm_s"] = time.perf_counter() - t
+            out["peak_warm_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            zero_kernel_counts()
+            t = time.perf_counter()
+            results = await serve(torch, engine, prompts, SERVE_MAX_TOKENS)
+            out["wall"] = time.perf_counter() - t
+            out["launches"] = kernel_counts()
+            out["after"] = engine.compile_counts()
+            out["peak_serve_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            out["results"] = results
+            out["dispatch"] = engine.dispatch_summary()
+            out["graph_ok"] = graph_check(torch, dev, engine, bitwise_only=True)
+            out["qdot_ok"], out["qdot"] = moe_qdot_check(torch, engine, engine.cfg.bucket_tokens(
+                engine.cfg.prefill_chunk + engine.cfg.max_batch))
+            out["times"] = moe_dispatch_times(torch, engine)
+            with torch.inference_mode():
+                table = list(range(engine.cfg.max_blocks_per_seq))
+                rb = one_row_batch(torch, dev, engine.cfg.max_batch, table, prompts[0][:100], 0,
+                                   False)
+                logits = forward_ragged(engine.params, engine.model_config, rb, engine.cache)[0]
+                out["finite"] = bool(torch.isfinite(logits).all())
+                out["logits_shape"] = tuple(logits.shape)
+        finally:
+            await engine.close()
+
+    asyncio.run(run())
+    results = out.pop("results")
+    whole = sum(len(t) == SERVE_MAX_TOKENS and f == "length" for t, _, f in results)
+    check(whole == len(prompts), f"{whole}/{len(prompts)} mixtral streams whole")
+    check(out["after"] == out["warm"], f"no graph captured after warmup ({out['warm']} -> "
+                                       f"{out['after']})")
+    check(all(v > 0 for v in out["launches"].values()),
+          f"both attention kernels launched ({out['launches']})")
+    check(out["finite"] and out["logits_shape"] == (engine.model_config.vocab_size,),
+          f"finite logits of shape ({engine.model_config.vocab_size},) ({out['logits_shape']})")
+    check(out["graph_ok"], "graph replays bitwise equal to eager calls")
+    check(out["qdot_ok"], f"qdot_batched accumulators exact, output equal ({out['qdot']})")
+    ttft = sorted(s[0] for _, s, _ in results if s)
+    itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
+    total = sum(len(t) for t, _, _ in results)
+    pipe = out["dispatch"]["pipeline"]
+    tm = out["times"]
+    log(f"moe engine: {MOE_MODEL} W8A8, {engine.model_config.num_layers} layers, "
+        f"{engine.model_config.num_experts} experts top-{engine.model_config.num_experts_per_token},"
+        f" init {out['init_s']:.1f} s; params {out['params_gb']:.2f} GB; resident "
+        f"{out['resident_gib']:.2f} GiB (params, 1024 bf16 pages, buffers); warmup "
+        f"{out['warm_s']:.1f} s, graphs {out['warm']}, peak {out['peak_warm_gib']:.2f} GiB; "
+        f"peak after the serve {out['peak_serve_gib']:.2f} GiB (max_memory_allocated over the "
+        f"engine's start) [{CARD}]")
+    log(f"moe serve: 8 requests, prompts {lens[0]}..{lens[-1]} ids, {SERVE_MAX_TOKENS} new each: "
+        f"{whole} whole, wall {out['wall']:.3f} s, {total / out['wall']:.2f} output tok/s; TTFT "
+        f"p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; ITL mean "
+        f"{sum(itl) / len(itl) * 1e3:.2f} ms; host_gap_frac {pipe['host_gap_frac']}; launches "
+        f"{out['launches']}; graphs {out['after']}; qdot_batched {out['qdot']}; finite logits "
+        f"{out['finite']}; host clock, one call [{CARD}]")
+    log(f"moe time: fused decode dispatch (16 rows at 1024 ids, 8 steps) {tm['decode']:.3f} ms, "
+        f"bound {tm['decode_bound_ms']:.3f} ms, the larger of the weights' "
+        f"{tm['weight_gb']:.2f} GB a step over HBM {tm['decode_bytes_ms']:.3f} ms and the int8 "
+        f"operations the routing needs {tm['decode_useful_ops_ms']:.3f} ms (the dropless layout "
+        f"computes {tm['decode_dropless_ops_ms']:.3f} ms of them); prefill step (512 ids over 512, "
+        f"bucket {tm['prefill_T']}) {tm['prefill']:.3f} ms, bound {tm['prefill_bound_ms']:.3f} ms "
+        f"(bytes {tm['prefill_bytes_ms']:.3f} ms, routed operations "
+        f"{tm['prefill_useful_ops_ms']:.3f} ms; the dropless layout's operations "
+        f"{tm['prefill_dropless_ops_ms']:.3f} ms) [{CARD}]")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return not fails, out.get("launches", {}), out
 
 
 def main() -> int:
@@ -6358,6 +7113,8 @@ def main() -> int:
             return 0 if serve_ab(torch, dev) else 1
         if sys.argv[1:] == ["--quant-ab"]:
             return 0 if quant_ab(torch, dev) else 1
+        if sys.argv[1:] == ["--grammar-compile"]:
+            return 0 if grammar_compile_times() else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -6422,8 +7179,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the checkpoint and LoRA phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        ok_m, m_launches, _ = checkpoint_lora_path(torch, dev)
-        slice_ok = {"checkpoints, tokenizer and LoRA (m)": ok_m,
+        # Phase n serves with the sentencepiece model that phase m writes.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp:
+            ok_m, m_launches, _ = checkpoint_lora_path(torch, dev, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ok_n, n_launches, _ = grammar_path(torch, dev, os.path.join(tmp, "tokenizer.model"))
+        # Phase o: mixtral-8x7b under W8A8 (~47 GB resident).
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the MoE phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated")
+        ok_o, o_launches, _ = moe_path(torch, dev)
+        slice_ok = {"structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
+                    "checkpoints, tokenizer and LoRA (m)": ok_m,
                     "w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
                     "speculation (e)": ok_spec, "edge (f)": ok_edge, "kv tiers (g)": ok_tiers,
@@ -6465,6 +7234,8 @@ def main() -> int:
             kernels[-1]["planner_launches"] = planner_launches[name]
             kernels[-1]["ckpt_launches"] = m_launches["ckpt"].get(name, 0)
             kernels[-1]["lora_launches"] = m_launches["lora"].get(name, 0)
+            kernels[-1]["grammar_launches"] = n_launches.get(name, 0)
+            kernels[-1]["moe_launches"] = o_launches.get(name, 0)
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

@@ -94,6 +94,7 @@ from .llm.discovery import ModelWatcher, make_tokenizer, register_model
 from .llm.http_service import HttpService
 from .llm.metrics import engine_dispatch_metrics, kv_tier_metrics
 from .llm.preprocessor import OpenAIPreprocessor
+from .llm.tenancy.grammar import GrammarCompiler
 from .runtime.component import DistributedRuntime, parse_endpoint_path
 from .runtime.config import RuntimeConfig
 from .runtime.pipeline import build_pipeline
@@ -683,9 +684,17 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
         recorder = StreamRecorder(args.record)
         engine = RecordingEngine(engine, recorder)
         print(f"recording streams to {args.record}", flush=True)
+    # One grammar compile cache for every core-level pipeline on this
+    # tokenizer (base model and adapter aliases alike): constraint →
+    # automaton indexing is the expensive step (llm/tenancy/grammar.py).
+    grammar_compiler = GrammarCompiler(tokenizer) if level == "core" else None
     if level == "core":
         pipeline = build_pipeline(
-            [OpenAIPreprocessor(tokenizer, args.model), Backend(tokenizer)], engine
+            [
+                OpenAIPreprocessor(tokenizer, args.model, grammar_compiler=grammar_compiler),
+                Backend(tokenizer),
+            ],
+            engine,
         )
     else:
         pipeline = engine
@@ -730,7 +739,12 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
             if level == "core":
                 for name in adapters:
                     apipe = build_pipeline(
-                        [OpenAIPreprocessor(tokenizer, name, adapter=name), Backend(tokenizer)],
+                        [
+                            OpenAIPreprocessor(
+                                tokenizer, name, adapter=name, grammar_compiler=grammar_compiler
+                            ),
+                            Backend(tokenizer),
+                        ],
                         engine,
                     )
                     service.models.add_chat_model(name, apipe)

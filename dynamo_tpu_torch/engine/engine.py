@@ -47,9 +47,14 @@ multi-LoRA is the JAX engine's (``lora``): fixed-shape adapter banks in
 the params the graphs read, per-row slot ids staged with every dispatch,
 an ``AdapterRegistry`` promoting adapters by in-place column writes
 ordered on the stream the graphs replay on, and the adapter's KV salt
-isolating its blocks in every tier.  Out of this engine so far: grammar
-constraints (ROADMAP queue 1 item 6.5), MoE (6.6), tp/sp and multi-host
-(item 7).
+isolating its blocks in every tier.  Grammar-constrained requests
+(llm/tenancy/grammar.py) carry a token-mask automaton: a constrained row
+samples one token a unified step under its packed mask row, which every
+step program reads from one static buffer (``_stage_mask``), and never
+rides a fused dispatch.  MoE configs (mixtral-8x7b, debug-tiny-moe) run
+models/moe.py in place of the dense FFN, with static shapes, so their
+steps are captured like the dense ones.  Out of this engine so far: tp/sp
+and multi-host (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from ..device import default_device
 from ..llm.kv_router.protocols import ForwardPassMetrics, KvCacheEvent
 from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics, tenancy_metrics
 from ..llm.protocols import FinishReason, ModelNotFoundError, PreprocessedRequest
+from ..llm.tenancy.grammar import GrammarCacheMissError, TokenMaskAutomaton
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
 from ..models.quant import fuse_projections, init_params_quantized, quantize_params
@@ -82,7 +88,7 @@ from ..runtime.tracing import SeqTrace, parse_trace, span
 from ..tokens import hash_token_blocks
 from .config import EngineConfig
 from .disk_cache import DiskKvStore
-from .graphs import DevicePrograms, FetchRing
+from .graphs import DevicePrograms, FetchRing, Layout
 from .host_cache import HostKvStore
 from .integrity import CorruptionCache
 from .kv_manager import KvBlockManager
@@ -156,8 +162,6 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         self.cfg = cfg
         self.device = default_device(device)
         self.model_config: ModelConfig = get_config(cfg.model).with_overrides(dtype=cfg.dtype)
-        if self.model_config.is_moe:
-            raise NotImplementedError("MoE models are not supported by this engine yet")
         self.kv = KvBlockManager(
             cfg.num_blocks,
             cfg.block_size,
@@ -220,6 +224,10 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # names → ModelNotFoundError → 404 at the edge).
         self._lora_registry = None
         self._served_models: Optional[set] = None
+        # The deserialized grammar-automaton LRU (requests ship automata by
+        # content hash; llm/tenancy/grammar.py).
+        self._grammar_lru: "collections.OrderedDict[str, TokenMaskAutomaton]" = (
+            collections.OrderedDict())
         # Device time and count of prefill steps and fused decode
         # dispatches, timed on the stream: a dispatch returns once queued,
         # so host walls would misplace its work.
@@ -230,13 +238,16 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
 
         # --- device state -------------------------------------------------
         dev = self.device
+        # No fused projections for MoE trees, as the JAX engine: the
+        # unfused q/k/v path serves their attention.
+        fuse = cfg.fuse_projections and not self.model_config.is_moe
         if params is None and cfg.checkpoint_path:
             from ..models.loader import load_params
 
             # Each leaf allocated once on the device, quantized and fused as
             # the tensors arrive: no float transient of the whole tree.
             params = load_params(self.model_config, cfg.checkpoint_path, quant=cfg.weight_quant,
-                                 device=dev, fuse=cfg.fuse_projections)
+                                 device=dev, fuse=fuse)
         elif params is None:
             if cfg.weight_quant:
                 # Int8 drawn directly: full-depth 8B in bf16 would be 16 GB
@@ -251,7 +262,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             }
             if cfg.weight_quant:
                 params = quantize_params(params)  # a no-op on a quantized tree
-        self.params = fuse_projections(params) if cfg.fuse_projections else params
+        self.params = fuse_projections(params) if fuse else params
         self._lora_rank = cfg.lora.rank if cfg.lora.enable else 0
         if cfg.lora.enable:
             # Fixed-shape multi-LoRA device banks (llm/tenancy/lora.py): R
@@ -312,6 +323,15 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # slots of deferred fetches: pipeline_depth chunks, up to two burst
         # chunks, and one first-token fetch per parked row at most.
         self.programs = DevicePrograms(dev)
+        # The grammar mask every ``step`` program applies: [S, ceil(V/32)]
+        # packed admissible-token words (int64 holding uint32), all-ones
+        # for unconstrained rows, at a fixed address the graphs read
+        # (``_stage_mask`` writes it in place before a constrained step).
+        self._mask_layout = Layout({"mask_words": np.zeros((S, (V + 31) // 32), np.int64)})
+        self._mask_arena = torch.empty(self._mask_layout.nbytes, dtype=torch.uint8, device=dev)
+        self._mask_words = self._mask_layout.views(self._mask_arena)["mask_words"]
+        self._mask_words.fill_(0xFFFFFFFF)
+        self._mask_dirty = False
         self._fetch_ring = FetchRing(dev, cfg.pipeline_depth + 2 + S)
 
     def _init_tiers(self) -> None:
@@ -491,12 +511,32 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         if samp.counts is not None:
             host["counts"] = samp.counts
         flags = samp.flags
+        self._stage_mask(samp.mask_words)
 
         def fn(x):
             batch = RaggedBatch(*(x.get(f) for f in RaggedBatch._fields))
-            return self._step(batch, self._samp_params(x, flags))
+            sp = self._samp_params(x, flags)._replace(mask_words=self._mask_words, any_mask=True)
+            return self._step(batch, sp)
 
         return self.programs.step((int(rb["token_ids"].shape[0]), *flags), fn, host)
+
+    def _stage_mask(self, mask_words: Optional[np.ndarray]) -> None:
+        """Write a step's grammar mask rows into the static ``_mask_words``
+        buffer that every ``step`` program reads, in place and ordered on
+        the stream the program runs on (one staged copy on CUDA); a step
+        with no constrained row needs all-ones words, restored once after
+        the last constrained step."""
+        if mask_words is None:
+            if self._mask_dirty:
+                self._mask_words.fill_(0xFFFFFFFF)
+                self._mask_dirty = False
+            return
+        if self.programs.cuda:
+            self.programs.staging.copy_in(self._mask_layout, {"mask_words": mask_words},
+                                          self._mask_arena)
+        else:
+            self._mask_words.copy_(torch.from_numpy(mask_words))
+        self._mask_dirty = True
 
     def _run_multi(self, tok0: Optional[np.ndarray], pos0: np.ndarray, tables: np.ndarray,
                    limits: np.ndarray, samp: HostSampling) -> SampleOut:
@@ -555,12 +595,13 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
 
     def warmup(self) -> Dict[str, int]:
         """Capture every program the serving loop dispatches at the greedy
-        defaults — one unified step per reachable token bucket, and the
-        fused decode seeded from the host and chained to the device carry —
-        so no capture lands inside a request.  Every slot is -1 and every
-        fused row inactive, so no cache write lands.  Sampled, penalised or
-        logprob traffic keys other programs, captured at first use.
-        Returns compile_counts()."""
+        defaults — one unified step per reachable token bucket (grammar-
+        constrained rows ride the same programs: the mask is a static
+        buffer), and the fused decode seeded from the host and chained to
+        the device carry — so no capture lands inside a request.  Every
+        slot is -1 and every fused row inactive, so no cache write lands.
+        Sampled, penalised or logprob traffic keys other programs, captured
+        at first use.  Returns compile_counts()."""
         cfg = self.cfg
         S, PP = cfg.max_batch, cfg.max_blocks_per_seq
         samp = self._sampling_arrays([])
@@ -619,8 +660,10 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # KV salt, which must root the block-hash chain from the first
         # sealed block (and key every tier lookup below).
         adapter = self._resolve_adapter(pre)
+        automaton = None
         if pre.grammar:
-            raise ValueError("grammar-constrained requests are not supported by this engine yet")
+            automaton = self._grammar_automaton(pre.grammar)
+            tenancy_metrics.grammar_requests_total += 1
         if adapter is not None:
             from ..llm.tenancy.lora import kv_salt_for_adapter
 
@@ -663,6 +706,19 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             # Anchors the queue-wait (scheduler._record_admission) and
             # prefill (pipeline._trace_first_token) spans.
             seq.trace = SeqTrace(trace)
+        if automaton is not None:
+            seq.grammar = automaton
+            # Resumed sequences (a migration splice, seeded crash recovery)
+            # fold already-delivered OUTPUT into the prompt: the automaton
+            # state is the start state advanced through those tokens (every
+            # delivered token was mask-admissible, so the walk only fails
+            # on a corrupt resume — a request error).
+            state: Optional[int] = automaton.start
+            for t in seq.prompt[seq.orig_prompt_len:]:
+                state = automaton.advance(state, int(t))
+                if state is None:
+                    raise ValueError("resume stream violates its grammar constraint")
+            seq.grammar_state = state
         if adapter is not None:
             seq.adapter = adapter
             try:
@@ -702,6 +758,31 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         return ResponseStream(gen(), request.ctx)
 
     # ----------------------------------------------------------- tenancy API
+    def _grammar_automaton(self, g: Dict[str, Any]) -> TokenMaskAutomaton:
+        """Deserialize (or LRU-hit) a request's token-mask automaton and fix
+        its mask geometry to this engine's vocab/eos.
+
+        Hash-first wire protocol: the preprocessor ships a hash-only stub
+        by default; a content-hash LRU hit resolves it with zero table
+        bytes on the wire, a miss raises GrammarCacheMissError (prologue
+        kind ``grammar_miss``) and the preprocessor re-sends the full edge
+        table exactly once."""
+        key = g.get("hash")
+        automaton = self._grammar_lru.pop(key, None) if key else None
+        if automaton is None:
+            if g.get("stub") or "edges" not in g:
+                tenancy_metrics.grammar_hash_misses_total += 1
+                raise GrammarCacheMissError(str(key))
+            automaton = TokenMaskAutomaton.from_dict(g)
+        elif g.get("stub"):
+            tenancy_metrics.grammar_hash_hits_total += 1
+        self._grammar_lru[automaton.hash] = automaton  # LRU refresh/insert
+        while len(self._grammar_lru) > 32:
+            self._grammar_lru.pop(next(iter(self._grammar_lru)))
+        automaton.set_mask_context(self.model_config.vocab_size,
+                                   self.model_config.eos_token_ids)
+        return automaton
+
     def register_adapter(self, adapter) -> None:
         """Host-register a LoraAdapter (llm/tenancy/lora.py): no restart and
         no new graph; promotion to a device slot happens at first use."""
@@ -1107,12 +1188,22 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                     # burst advancing every decode row.
                     decode_items = [it for it in plan.items if it[1] >= len(it[0].prompt)]
                     prefill_items = [it for it in plan.items if it[1] < len(it[0].prompt)]
-                    if decode_items and prefill_items:
-                        await self._run_unified(StepPlan(prefill_items))
+                    # Grammar-constrained decode rows never burst — their
+                    # mask advances host-side per token — so they ride the
+                    # prefill steps one token a step, while unconstrained
+                    # rows keep the fused-burst cadence.  Without prefill
+                    # in the plan, the plain unified step below gives every
+                    # row one token a round trip.
+                    burstable = [it for it in decode_items if it[0].grammar is None]
+                    step_extra = [it for it in decode_items if it[0].grammar is not None]
+                    if burstable and prefill_items:
+                        await self._run_unified(StepPlan(prefill_items + step_extra))
                         self._chunks_since_burst += 1
                         if self._chunks_since_burst >= self.cfg.prefill_chunks_per_burst:
                             self._chunks_since_burst = 0
-                            burst_items = [it for it in decode_items
+                            # Replan against freezes/finishes that landed
+                            # during the awaited prefill step.
+                            burst_items = [it for it in burstable
                                            if not it[0].finished and not it[0].frozen]
                             if burst_items and not await self._decode_burst(
                                 [s for s, _, _ in burst_items]

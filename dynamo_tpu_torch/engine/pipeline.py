@@ -23,8 +23,11 @@ migration (engine/migrate.py) enters through ``_pipeline_members``, which a
 session publishes before its first dispatch, and the freeze park: a frozen
 row leaves a live session at its write barrier, its unharvested chunk
 tokens dropped, while the session keeps fusing for the other rows.  Left
-out: the multi-host publisher (ROADMAP queue 1 item 7).  The ``grammar``
-guards stay as the copied modules have them.
+out: the multi-host publisher (ROADMAP queue 1 item 7).
+
+Grammar-constrained rows (llm/tenancy/grammar.py) never ride a fused
+dispatch: each samples one token a unified step under its packed mask row
+(``_sampling_arrays``), and its automaton advances in ``_accept_token``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..llm.metrics import tenancy_metrics
 from ..llm.protocols import FinishReason, LLMEngineOutput
 from ..ops.sampling import SAMPLING_DTYPES, SamplingFlags
 from ..runtime.tracing import _wall_ms
@@ -60,6 +64,9 @@ class HostSampling(NamedTuple):
     counts: Optional[np.ndarray]
     flags: SamplingFlags
     adapter_slots: Optional[np.ndarray] = None
+    # [S, ceil(V/32)] packed admissible-token words (int64 holding uint32)
+    # when some row is grammar-constrained, else None.
+    mask_words: Optional[np.ndarray] = None
 
 
 class DecodePipelineMixin:
@@ -72,12 +79,15 @@ class DecodePipelineMixin:
 
     # ------------------------------------------------------------ batch build
     def _sampling_arrays(self, seqs: List[Optional[SequenceState]],
-                         step_offsets: Optional[List[int]] = None) -> HostSampling:
+                         step_offsets: Optional[List[int]] = None,
+                         grammar_states: Optional[List[Optional[int]]] = None) -> HostSampling:
         """Per-row sampling state for one step, one entry per batch row
         (None = padding or a free row slot, greedy defaults).  A sequence
         may own several rows (a speculative verification step):
         ``step_offsets[i]`` then shifts row i's rng-stream position to the
-        output index it scores (engine/spec.py)."""
+        output index it scores, and ``grammar_states[i]`` (when not None)
+        is the automaton state that row samples under; -1 leaves the row
+        unconstrained (engine/spec.py)."""
         S = self.cfg.max_batch
         V = self.model_config.vocab_size
         a = {k: np.zeros((S,), dt) for k, dt in SAMPLING_DTYPES.items()}
@@ -107,6 +117,24 @@ class DecodePipelineMixin:
                 gen = np.asarray((seq.prompt + seq.output)[seq.orig_prompt_len:], np.int64)
                 if gen.size:
                     np.add.at(counts[i], gen % V, 1)
+        # Grammar masks: packed admissible-token bits for constrained rows;
+        # every other row gets all-ones words (0xFFFFFFFF: the words are
+        # int64 holding uint32, so all-ones is not -1).
+        masked_rows = [
+            i for i, seq in enumerate(seqs)
+            if seq is not None and seq.grammar is not None
+            and (grammar_states is None or grammar_states[i] != -1)
+        ]
+        mask_words = None
+        if masked_rows:
+            mask_words = np.full((S, (V + 31) // 32), 0xFFFFFFFF, np.int64)
+            for i in masked_rows:
+                seq = seqs[i]
+                state = seq.grammar_state
+                if grammar_states is not None and grammar_states[i] is not None:
+                    state = grammar_states[i]
+                mask_words[i] = seq.grammar.packed_mask(state)
+            tenancy_metrics.grammar_masked_rows_total += len(masked_rows)
         aslots = None
         if self._lora_registry is not None:
             # Every dispatch of a LoRA engine stages the slots (padding and
@@ -115,7 +143,7 @@ class DecodePipelineMixin:
             for i, seq in enumerate(seqs):
                 if seq is not None:
                     aslots[i] = seq.adapter_slot
-        return HostSampling(a, counts, flags, aslots)
+        return HostSampling(a, counts, flags, aslots, mask_words)
 
     def _tables_row(self, out: np.ndarray, i: int, seq: SequenceState) -> None:
         ids = seq.block_ids[: out.shape[1]]
@@ -863,9 +891,31 @@ class DecodePipelineMixin:
             self._trace_first_token(seq)
         seq.output.append(token)
         reason = self._check_stop(seq, token)
+        # Grammar advance: the automaton state moves per ACCEPTED token —
+        # constrained rows only flow through this accept path (never a
+        # fused chunk), so this is the single place their state advances.
+        emit_with_stop = False
+        violation = False
+        if seq.grammar is not None and reason is not FinishReason.STOP:
+            nxt = seq.grammar.advance(seq.grammar_state, token)
+            if nxt is None:
+                # Defensive — the logit mask makes this unreachable; if it
+                # ever fires, fail the stream rather than emit output that
+                # cannot parse under the schema.
+                tenancy_metrics.grammar_violations_total += 1
+                violation = True
+                reason = reason or FinishReason.ERROR
+            else:
+                seq.grammar_state = nxt
+                if reason is None and seq.grammar.is_terminal(nxt):
+                    # The value is complete and only EOS could follow: this
+                    # token is real content, so it is emitted AND the
+                    # stream finishes.
+                    reason = FinishReason.STOP
+                    emit_with_stop = True
         queue = self._queues.get(seq.request_id)
         # Stop-triggering tokens (eos / stop_token_ids) are not emitted.
-        if reason is not FinishReason.STOP:
+        if not violation and (reason is not FinishReason.STOP or emit_with_stop):
             if pending is not None:
                 pending.append(token)
             elif queue is not None:
@@ -895,6 +945,12 @@ class DecodePipelineMixin:
 
     def _check_stop(self, seq: SequenceState, token: int) -> Optional[FinishReason]:
         n_out = seq.num_output_tokens  # survives preemption's prompt-folding
+        if seq.grammar is not None and token in self.model_config.eos_token_ids:
+            # Grammar completion ends the stream regardless of ignore_eos /
+            # min_tokens: the mask admits EOS only in accepting states, and
+            # an un-advanceable eos "content" token would wedge the
+            # automaton (eos has no edge).
+            return FinishReason.STOP
         min_ok = seq.min_new_tokens is None or n_out >= seq.min_new_tokens
         if min_ok and token in seq.stop_token_ids:
             return FinishReason.STOP

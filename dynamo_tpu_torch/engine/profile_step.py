@@ -1,10 +1,12 @@
 """Where a serving step's time goes on the card: one fused decode dispatch
 and one prefill chunk of TorchEngine on llama-3.1-8b, under torch.profiler,
 each as the eager calls and as the replay of its captured CUDA graph (what
-the serving loop dispatches), for bf16 weights with bf16 KV pages and for
-W8A8 int8 weights with int8 KV pages under calibrated scales.
+the serving loop dispatches), for bf16 weights with bf16 KV pages, for
+W8A8 int8 weights with int8 KV pages under calibrated scales, and for
+mixtral-8x7b under W8A8 with bf16 KV pages (``mixtral-w8a8``).
 
-    python -m dynamo_tpu_torch.engine.profile_step [--rows 8] [--steps 8] [--configs bf16,w8a8]
+    python -m dynamo_tpu_torch.engine.profile_step [--rows 8] [--steps 8] \
+        [--configs bf16,w8a8,mixtral-w8a8]
 
 Prints, for each, the host wall time of an unprofiled run (ending in a
 device synchronize), the summed device time of the kernels of a profiled
@@ -13,7 +15,9 @@ kernels a run holds, whether the two attention kernels are among them, and
 the kernels with the most device time.  Under W8A8 the eager runs also
 report the int8 linears' three parts on their own — the activation
 quantize, the int8 GEMM and the rescale — from the profiler ranges that
-``ops/quant_matmul.qdot`` opens around each part.  Random seeded weights at
+``ops/quant_matmul.qdot`` opens around each part — and an MoE model its
+experts' three parts, the routing, the expert products and the combine
+(``models/moe.MOE_PARTS``).  Random seeded weights at
 full width and depth; the KV pages the rows attend over are written by real
 prefill steps first.  Needs a CUDA device.
 """
@@ -28,6 +32,7 @@ import torch
 
 from ..device import default_device
 from ..models.llama import RaggedBatch
+from ..models.moe import MOE_PARTS
 from ..ops.quant_matmul import QDOT_PARTS
 from .config import EngineConfig
 from .engine import TorchEngine
@@ -65,7 +70,7 @@ def _profile(label: str, fn, top: int) -> None:
     rows = [
         e for e in prof.key_averages()
         if getattr(e, "device_type", None) == cuda and _device_us(e) > 0
-        and e.key not in QDOT_PARTS  # the ranges' device-side spans are not kernels
+        and e.key not in RANGES  # the ranges' device-side spans are not kernels
     ]
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
     launches = sum(e.count for e in rows)
@@ -77,22 +82,27 @@ def _profile(label: str, fn, top: int) -> None:
     # Each range's kernels: the device time of the kernels launched inside
     # its host-side event (children included), not the range's span on the
     # device, which also holds the device's waits for the host.
-    parts = {name: [0.0, 0] for name in QDOT_PARTS}
+    parts = {name: [0.0, 0] for name in RANGES}
     for e in prof.events():
         if e.name in parts and getattr(e, "device_type", None) != cuda:
             parts[e.name][0] += _kernel_us(e)
             parts[e.name][1] += 1
     for name, (us, calls) in parts.items():
         if calls:
-            print(f"  {name:14s} {us / 1e3:9.3f} ms of kernels in {calls} calls, "
+            print(f"  {name:19s} {us / 1e3:9.3f} ms of kernels in {calls} calls, "
                   f"{us / 1e3 / busy_ms if busy_ms else 0.0:.3f} of device busy")
     for e in sorted(rows, key=_device_us, reverse=True)[:top]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+RANGES = QDOT_PARTS + MOE_PARTS
+
 CONFIGS = {
     "bf16": dict(),
     "w8a8": dict(weight_quant="int8", cache_dtype="int8", kv_scale="auto"),
+    # Mixtral fits one card only under W8A8 (~47 GB resident); 1024 pages
+    # of bf16 KV are ~2 GB.
+    "mixtral-w8a8": dict(model="mixtral-8x7b", weight_quant="int8", num_blocks=1024),
 }
 
 
@@ -100,11 +110,10 @@ def profile_config(name: str, rows: int, steps: int, top: int) -> None:
     """Profile one prefill chunk and one fused decode dispatch of an engine
     at ``CONFIGS[name]``, eager and as a graph replay."""
     dev = default_device()
-    cfg = EngineConfig(
+    cfg = EngineConfig(**{**dict(
         model="llama-3.1-8b", dtype="bfloat16", block_size=16, num_blocks=2048,
         max_batch=16, max_model_len=4096, prefill_chunk=512,
-        decode_steps=steps, seed=0, **CONFIGS[name],
-    )
+        decode_steps=steps, seed=0), **CONFIGS[name]})
     eng = TorchEngine(cfg, device=dev)
     print(f"== {name}: kv_scale {'none' if eng.kv_scale is None else 'calibrated'}"
           f"{'' if eng.kv_scale is None else f' {np.min(eng.kv_scale):.4g}..{np.max(eng.kv_scale):.4g}'}")
@@ -123,7 +132,7 @@ def profile_config(name: str, rows: int, steps: int, top: int) -> None:
         T = cfg.bucket_tokens(n)
         pos = np.arange(start, start + n, dtype=np.int32)
         tok = np.zeros(T, np.int64)
-        tok[:n] = rng.integers(1, 128000, size=n)
+        tok[:n] = rng.integers(1, eng.model_config.vocab_size, size=n)
         posp = np.zeros(T, np.int32)
         posp[:n] = pos
         slots = np.full(T, -1, np.int32)

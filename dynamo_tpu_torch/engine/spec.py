@@ -26,8 +26,8 @@ The per-sequence adaptive controller moves each sequence's draft length
 inside [k_min, k] and benches collapsed proposers; when no sequence drafts,
 or the expected tokens per round trip fall below the fused pipeline's, the
 engine runs the fused pipeline unchanged.  LoRA rows verify under their
-own adapter slot; grammar rows, which the JAX version also handles, are
-refused by this engine's ``generate`` (ROADMAP queue 1 item 6.5).
+own adapter slot; grammar rows verify under a mask at every position, the
+automaton state advanced through the draft (``_run_spec_unified``).
 """
 
 from __future__ import annotations
@@ -276,6 +276,7 @@ class SpecDecodeMixin:
         cu = np.zeros((S + 1,), np.int32)
         row_seqs: List[SequenceState] = []
         offsets: List[int] = []
+        gstates: List[Optional[int]] = []
         spec_groups: List[Tuple[SequenceState, int, List[int]]] = []
         plain_rows: List[Tuple[SequenceState, int, int, int]] = []
         aslot_l: List[int] = []
@@ -285,6 +286,23 @@ class SpecDecodeMixin:
             all_toks = seq.prompt + seq.output
             blk = np.asarray(seq.block_ids, np.int32)
             if d:
+                # Grammar × spec: the mask must hold at EVERY draft-verify
+                # position — row j samples output position j, whose
+                # automaton state is the current state advanced through
+                # draft[0..j-1] (acceptance implies the committed tokens ARE
+                # the draft tokens, so these states are exact for every
+                # committable position).  A draft token the automaton
+                # rejects makes all later states -1 = unconstrained: their
+                # samples can never commit, but they must not draw from an
+                # all-masked distribution.
+                st: Optional[int] = seq.grammar_state if seq.grammar is not None else None
+                row_states: List[Optional[int]] = []
+                for dt in d:
+                    row_states.append(st)
+                    if st is not None and st != -1:
+                        nxt = seq.grammar.advance(st, int(dt))
+                        st = -1 if nxt is None else nxt
+                row_states.append(st)
                 row0 = row
                 for j, t in enumerate([all_toks[start]] + list(d)):
                     p = start + j
@@ -298,6 +316,7 @@ class SpecDecodeMixin:
                     cu[row + 1] = at
                     row_seqs.append(seq)
                     offsets.append(j)  # row j samples output index +j
+                    gstates.append(row_states[j])
                     row += 1
                 seq.awaiting_fetch = True
                 spec_groups.append((seq, row0, list(d)))
@@ -313,6 +332,7 @@ class SpecDecodeMixin:
                 cu[row + 1] = at
                 row_seqs.append(seq)
                 offsets.append(0)
+                gstates.append(None)  # plain row: its current automaton state
                 plain_rows.append((seq, start, n, row))
                 if start + n >= len(seq.prompt):
                     seq.awaiting_fetch = True  # parked before the dispatch
@@ -332,7 +352,7 @@ class SpecDecodeMixin:
             aslots = np.full((T,), -1, np.int32)
             aslots[:at] = aslot_l
             rb["adapter_slots"] = aslots
-        samp = self._sampling_arrays(row_seqs, step_offsets=offsets)
+        samp = self._sampling_arrays(row_seqs, step_offsets=offsets, grammar_states=gstates)
         need_lp = samp.flags.need_logprobs
         prefill_tokens = sum(min(n, len(seq.prompt) - start) for seq, start, n in plan.items
                              if start < len(seq.prompt))

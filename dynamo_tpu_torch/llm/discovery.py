@@ -15,14 +15,15 @@ LoRA adapter entries (``register_model(lora=...)``) build adapter-stamping
 pipelines onto the base model's endpoint.  Tokenizer specs: ``byte`` and
 ``sp`` (the sentencepiece ``tokenizer.model``, llm/sp.py); the ``hf`` and
 ``gguf`` kinds need the ``tokenizers`` package, which the port does not
-use, and ``make_tokenizer`` refuses them.  Not ported yet: the watcher's
-``GrammarCompiler`` (ROADMAP queue 1 item 6.5; the preprocessor answers
-grammar requests with its 400).
+use, and ``make_tokenizer`` refuses them.  The watcher keeps one
+``GrammarCompiler`` per tokenizer spec, shared by every pipeline of that
+tokenizer (llm/tenancy/grammar.py).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 from typing import Any, Dict, Optional
@@ -34,6 +35,7 @@ from ..runtime.transports.shard import hub_key, hub_prefix
 from .backend import Backend
 from .http_service import ModelManager
 from .preprocessor import OpenAIPreprocessor
+from .tenancy.grammar import GrammarCompiler
 from .tokenizer import BaseTokenizer, ByteTokenizer
 
 logger = logging.getLogger(__name__)
@@ -128,6 +130,12 @@ class ModelWatcher:
         self.router_mode = router_mode
         self._refcount: Dict[str, int] = {}
         self._clients: Dict[str, Any] = {}
+        # One grammar compile cache per tokenizer spec (llm/tenancy):
+        # constraint→automaton indexing costs seconds on big vocabularies,
+        # and the base model plus its adapter aliases share a tokenizer —
+        # per-pipeline caches would recompile the same schema per served
+        # name and lose the warm cache on every watch rebuild.
+        self._grammar_compilers: Dict[str, Any] = {}
         self._router_cores: Dict[str, Any] = {}
         self._task: Optional[asyncio.Task] = None
         self._watcher = None
@@ -242,8 +250,16 @@ class ModelWatcher:
         # adapter id + KV salt so the engine (and the KV router above, when
         # router_mode == KV) resolves tenant identity per request.
         adapter = (entry.get("lora") or {}).get("adapter")
+        tok_key = json.dumps(entry.get("tokenizer"), sort_keys=True)
+        compiler = self._grammar_compilers.get(tok_key)
+        if compiler is None:
+            compiler = self._grammar_compilers[tok_key] = GrammarCompiler(tokenizer)
         pipeline = build_pipeline(
-            [OpenAIPreprocessor(tokenizer, name, adapter=adapter), Backend(tokenizer)], sink
+            [
+                OpenAIPreprocessor(tokenizer, name, adapter=adapter, grammar_compiler=compiler),
+                Backend(tokenizer),
+            ],
+            sink,
         )
         model_type = entry.get("model_type", "both")
         if model_type in ("chat", "both"):

@@ -25,9 +25,9 @@ pull, llm/kv_router/pull.py), ``MigrationMetrics`` live migration's
 (runtime/transports/bulk.py and its three consumers).  The health
 watchdog's group lives beside it (runtime/health.py ``health_metrics``).
 The planner's group lives beside it (planner/pmetrics.py).
-``TenancyMetrics`` holds the multi-LoRA counters of the JAX package's
-tenancy group (llm/tenancy/lora.py); its grammar counters come with
-structured output (ROADMAP queue 1 item 6.5).
+``TenancyMetrics`` is the tenancy group: structured output's counters
+(llm/tenancy/grammar.py, the preprocessor's compile cache and hash-first
+wire, the engine's mask rows) and multi-LoRA's (llm/tenancy/lora.py).
 ``Metrics.edge_slo_snapshot`` and ``EngineDispatchMetrics.host_gap_frac``
 feed the edge's ``slo_metrics`` publication (planner/signals.py
 ``EdgeSloPublisher``).
@@ -705,10 +705,22 @@ migration_metrics = MigrationMetrics()
 
 
 class TenancyMetrics:
-    """Multi-LoRA counters of the JAX package's tenancy group
-    (llm/tenancy/lora.py), rendered under the same names."""
+    """The JAX package's tenancy group (llm/tenancy): grammar-constrained
+    decoding + batched multi-LoRA, rendered under the same names."""
 
     def __init__(self):
+        # structured output
+        self.grammar_requests_total = 0   # requests carrying a constraint
+        self.grammar_compiles_total = 0   # automaton compiles (cache misses)
+        self.grammar_cache_hits_total = 0
+        self.grammar_masked_rows_total = 0  # device rows sampled under a mask
+        self.grammar_violations_total = 0   # defensive: inadmissible accepts
+        # hash-first wire protocol (engine content-hash LRU)
+        self.grammar_hash_hits_total = 0    # stubs resolved with zero bytes
+        self.grammar_hash_misses_total = 0  # stubs that forced a full resend
+        self.grammar_full_resends_total = 0  # preprocessor-side fallbacks
+        self.grammar_stub_dispatches_total = 0  # stubs accepted first try
+        # multi-LoRA
         self.adapters_registered = 0      # gauge: host-pool size
         self.adapter_promotions = 0       # host→device slot writes
         self.adapter_evictions = 0        # resident slots reclaimed
@@ -730,6 +742,32 @@ class TenancyMetrics:
             lines.append(f"# TYPE {ns}_{name} {kind}")
             lines.append(f"{ns}_{name} {value}")
 
+        emit("grammar_requests_total", "counter",
+             "Requests with a structured-output constraint",
+             self.grammar_requests_total)
+        emit("grammar_compiles_total", "counter",
+             "Token-mask automaton compiles (cache misses)",
+             self.grammar_compiles_total)
+        emit("grammar_cache_hits_total", "counter",
+             "Constraint compile-cache hits", self.grammar_cache_hits_total)
+        emit("grammar_masked_rows_total", "counter",
+             "Device rows sampled under a grammar mask",
+             self.grammar_masked_rows_total)
+        emit("grammar_violations_total", "counter",
+             "Accepted tokens the mask should have forbidden (defensive; "
+             "always 0)", self.grammar_violations_total)
+        emit("grammar_hash_hits_total", "counter",
+             "Hash-only grammar stubs resolved from the engine LRU",
+             self.grammar_hash_hits_total)
+        emit("grammar_hash_misses_total", "counter",
+             "Hash-only grammar stubs that forced a full-table resend",
+             self.grammar_hash_misses_total)
+        emit("grammar_full_resends_total", "counter",
+             "Constrained dispatches that fell back to the full edge table",
+             self.grammar_full_resends_total)
+        emit("grammar_stub_dispatches_total", "counter",
+             "Constrained dispatches served hash-only end to end",
+             self.grammar_stub_dispatches_total)
         emit("lora_adapters_registered", "gauge",
              "Adapters in the host pool", self.adapters_registered)
         emit("lora_promotions_total", "counter",

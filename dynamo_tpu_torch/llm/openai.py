@@ -157,12 +157,13 @@ class NvExt(_Validated):
     use_raw_prompt: Optional[bool] = None
     annotations: Optional[List[str]] = None
     greed_sampling: Optional[bool] = None
-    # Per-request speculative-decoding opt-out (no effect until speculative
-    # decoding is ported; tokens are identical either way).
+    # Per-request speculative-decoding opt-out (false disables the engine's
+    # draft-free speculation for this request; tokens are identical either
+    # way).
     spec_decode: Optional[bool] = None
-    # Structured-output constraint: a regex string or a JSON-schema dict.
-    # Grammar-constrained decoding is not ported yet: the preprocessor
-    # rejects a request that sets it.
+    # Structured-output constraint (llm/tenancy/grammar.py): a regex string
+    # (restricted syntax) or a JSON-schema dict.  Wins over the standard
+    # ``response_format`` field when both are set.
     grammar: Optional[Union[str, Dict[str, Any]]] = None
     # QoS: priority class ("interactive" | "batch") and tenant identity for
     # the scheduler's weighted fair queue.
@@ -218,7 +219,9 @@ class CommonFields(_Validated):
     n: int = 1
     nvext: Optional[NvExt] = None
     # Structured output (OpenAI shape): {"type": "text" | "json_object" |
-    # "json_schema", ...}.  Only "text" is served until grammars are ported.
+    # "json_schema", "json_schema": {"name": ..., "schema": {...}}}.
+    # Compiled to a token-mask automaton at the preprocessor
+    # (llm/tenancy/grammar.py) and enforced as a per-row logit mask.
     response_format: Optional[Dict[str, Any]] = None
 
     _SCHEMA: ClassVar[Dict[str, Callable[[Any], Any]]] = {

@@ -13,10 +13,11 @@ A traced request (``ctx.trace``, sampled at the HTTP edge) records the
 
 When the pipeline fronts a LoRA adapter (``adapter=``, one pipeline per
 served name), every request is stamped with the adapter id and its KV-hash
-salt.  Not ported yet: structured output (``response_format`` other than
-text, ``nvext.grammar``; ROADMAP queue 1 item 6.5).  A request asking for
-it is rejected with a ``ValueError`` (400 at the edge), never served
-unconstrained.
+salt.  Structured output (``response_format`` ``json_object`` /
+``json_schema``, ``nvext.grammar``) compiles HERE, the only layer holding
+the tokenizer, into a serializable token-mask automaton that rides the
+PreprocessedRequest (llm/tenancy/grammar.py); constrained requests dispatch
+hash-first, with one full-table resend on ``grammar_miss``.
 """
 
 from __future__ import annotations
@@ -30,18 +31,67 @@ from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, ResponseS
 from ..runtime.pipeline import Operator
 from .openai import ChatCompletionRequest, CompletionRequest, DeltaGenerator
 from .protocols import PreprocessedRequest
+from .tenancy.grammar import GrammarCacheMissError, GrammarCompiler, constraint_spec
 from .tokenizer import BaseTokenizer
 from .trace_service import preprocess_span
+
+# Sentinel for preprocess(grammar=...): distinguishes "compile it for me"
+# (the default, sync callers) from an explicitly precompiled value — which
+# may legitimately be None (generate() compiles off-loop first).
+_UNSET = object()
 
 
 class OpenAIPreprocessor(Operator):
     """Chat/completions requests → token-level requests → OpenAI chunks."""
 
     def __init__(self, tokenizer: BaseTokenizer, model_name: str = "",
-                 adapter: Optional[str] = None):
+                 adapter: Optional[str] = None, grammar_compiler=None):
         self._tokenizer = tokenizer
         self.model_name = model_name
         self.adapter = adapter
+        # Shared across the sibling per-adapter preprocessors of one
+        # tokenizer when the caller passes it; lazily created otherwise.
+        # Compilation (vocabulary indexing) is the expensive step.
+        self._grammar_compiler = grammar_compiler
+        # Hash-first dispatch state per automaton hash: {"misses", "full"}.
+        # After a miss the next 2**misses dispatches ship the full table —
+        # with round-robin routing a single miss→resend pair can seed the
+        # SAME two workers forever, so the full-table burst walks the
+        # rotation and seeds the whole fleet before stubs are retried.
+        self._grammar_wire: Dict[str, Dict[str, int]] = {}
+
+    def _constraint_spec(self, oai) -> Optional[dict]:
+        return constraint_spec(
+            getattr(oai, "response_format", None),
+            oai.nvext.grammar if oai.nvext else None,
+        )
+
+    def _compile_grammar(self, oai) -> Optional[dict]:
+        """Constraint spec → serialized automaton dict (None when the
+        request is unconstrained).  GrammarError (bad schema/regex) is a
+        ValueError: the HTTP edge maps it to 400."""
+        from .metrics import tenancy_metrics
+
+        spec = self._constraint_spec(oai)
+        if spec is None:
+            return None
+        if self._grammar_compiler is None:
+            self._grammar_compiler = GrammarCompiler(self._tokenizer)
+        before = self._grammar_compiler.compiles
+        automaton = self._grammar_compiler.compile(spec)
+        if self._grammar_compiler.compiles > before:
+            tenancy_metrics.grammar_compiles_total += 1
+        else:
+            tenancy_metrics.grammar_cache_hits_total += 1
+        return automaton.to_dict()
+
+    async def _compile_grammar_async(self, oai) -> Optional[dict]:
+        """Off-loop grammar compile: a cache miss indexes the whole
+        vocabulary (seconds on a 128k vocabulary) and must not stall every
+        concurrent stream on this process's event loop."""
+        if self._constraint_spec(oai) is None:
+            return None
+        return await asyncio.to_thread(self._compile_grammar, oai)
 
     # -- forward ------------------------------------------------------------
 
@@ -57,24 +107,12 @@ class OpenAIPreprocessor(Operator):
             )
         return oai
 
-    @staticmethod
-    def _refuse_unported(oai) -> None:
-        """Structured output is not ported: refuse it rather than serve the
-        request unconstrained."""
-        if oai.nvext is not None and oai.nvext.grammar is not None:
-            raise ValueError("nvext.grammar is not supported: structured output is not ported yet")
-        rf = oai.response_format
-        if rf and rf.get("type") not in (None, "text"):
-            raise ValueError(
-                f"response_format type {rf.get('type')!r} is not supported: structured "
-                "output is not ported yet"
-            )
-
     def preprocess(
-        self, oai: Union[ChatCompletionRequest, CompletionRequest, Dict[str, Any]]
+        self,
+        oai: Union[ChatCompletionRequest, CompletionRequest, Dict[str, Any]],
+        grammar: Any = _UNSET,
     ) -> PreprocessedRequest:
         oai = self._parse(oai)
-        self._refuse_unported(oai)
         if isinstance(oai, ChatCompletionRequest):
             if oai.nvext and oai.nvext.use_raw_prompt and len(oai.messages) == 1:
                 prompt = oai.messages[0].text()
@@ -125,16 +163,64 @@ class OpenAIPreprocessor(Operator):
             sampling_options=oai.sampling_options(),
             model=oai.model,
             annotations=annotations,
+            grammar=self._compile_grammar(oai) if grammar is _UNSET else grammar,
             priority=priority,
         )
+
+    # -- dispatch -----------------------------------------------------------
+
+    @staticmethod
+    def _is_grammar_miss(exc: BaseException) -> bool:
+        from ..runtime.transports.service import RemoteEngineError
+
+        if isinstance(exc, GrammarCacheMissError):
+            return True  # in-process engine (cli run out=torch)
+        return isinstance(exc, RemoteEngineError) and exc.kind == "grammar_miss"
+
+    async def _dispatch(self, next: AsyncEngine, ctx, pre) -> ResponseStream:
+        """Hash-first constrained dispatch: ship the automaton's content
+        hash alone; only an engine whose LRU lacks it answers
+        ``grammar_miss``, and exactly then the full edge table (KBs per
+        request on a real vocabulary) goes over the wire.  Repeated misses
+        (cold fleet) switch to an exponentially growing full-table burst
+        that seeds the routing rotation, then stubs are retried.
+        Unconstrained requests dispatch unchanged."""
+        from .metrics import tenancy_metrics
+
+        g = pre.grammar
+        if not g or not g.get("hash") or "edges" not in g:
+            return await next.generate(Context(pre.to_dict(), ctx))
+        state = self._grammar_wire.setdefault(g["hash"], {"misses": 0, "full": 0})
+        if len(self._grammar_wire) > 256:  # bounded (hash churn)
+            # (`next` names the downstream engine here — index, don't iter.)
+            self._grammar_wire.pop(list(self._grammar_wire)[0])
+        if state["full"] > 0:
+            state["full"] -= 1
+        else:
+            stub = dataclasses.replace(pre, grammar={"hash": g["hash"], "stub": True})
+            try:
+                stream = await next.generate(Context(stub.to_dict(), ctx))
+                state["misses"] = 0
+                tenancy_metrics.grammar_stub_dispatches_total += 1
+                return stream
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not self._is_grammar_miss(e):
+                    raise
+                state["misses"] += 1
+                state["full"] = min(2 ** state["misses"], 16)
+                tenancy_metrics.grammar_full_resends_total += 1
+        return await next.generate(Context(pre.to_dict(), ctx))
 
     # -- the operator -------------------------------------------------------
 
     async def generate(self, request: Context, next: AsyncEngine) -> ResponseStream:
         raw = request.data
         chat = "messages" in raw if isinstance(raw, dict) else True
+        oai = self._parse(raw)
         with preprocess_span(request.ctx):
-            pre = self.preprocess(raw)
+            pre = self.preprocess(oai, grammar=await self._compile_grammar_async(oai))
         trace = getattr(request.ctx, "trace", None)
         if trace is not None and trace.sampled:
             # Propagation: the trace rides ``annotations.trace`` on the
@@ -151,7 +237,7 @@ class OpenAIPreprocessor(Operator):
             if k in ("formatted_prompt", "token_ids")
         }
         if n <= 1:
-            stream = await next.generate(Context(pre.to_dict(), request.ctx))
+            stream = await self._dispatch(next, request.ctx, pre)
             return ResponseStream(
                 self._to_chunks(stream, model, chat, request.id, echo),
                 request.ctx,
@@ -169,7 +255,7 @@ class OpenAIPreprocessor(Operator):
                     pre.sampling_options, seed=pre.sampling_options.seed + i
                 )
                 pre_i = dataclasses.replace(pre, sampling_options=so)
-            streams.append(await next.generate(Context(pre_i.to_dict(), child)))
+            streams.append(await self._dispatch(next, child, pre_i))
         return ResponseStream(
             self._merge_choices(streams, model, chat, request.id, echo),
             request.ctx,

@@ -7,7 +7,7 @@ serving metadata.  This package executes models natively, so the architecture
 config lives here, convertible from a HF ``config.json``.
 
 Dense Llama-family (Llama 2/3, DeepSeek-R1-Distill-Llama) plus Mixtral-style
-MoE fields (this package runs the dense path).  head_dim is 128 where the
+MoE fields (models/moe.py runs the experts).  head_dim is 128 where the
 checkpoints allow, bfloat16 activations by default.
 """
 

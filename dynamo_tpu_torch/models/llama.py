@@ -1,6 +1,7 @@
 """Llama-family forward pass (dense) with paged KV, in PyTorch.
 
-Port of the JAX package's ``models/llama.py`` dense path.  The model is
+Port of the JAX package's ``models/llama.py``, dense and MoE (models/moe.py
+replaces the SwiGLU FFN where the config has experts).  The model is
 plain functions over a dict of tensors: ``{"embed": [V, D], "layers":
 {name: [L, ...]}, "final_norm": [D], "lm_head": [D, V]}``, weights in the
 JAX package's ``[in, out]`` layout so trees convert leaf for leaf
@@ -30,6 +31,7 @@ from ..ops.ragged_attention import (
 )
 from ..ops.rope import rope_cos_sin, rope_frequencies, rotate
 from .config import ModelConfig
+from .moe import init_moe_params, moe_mlp
 from .quant import fuse_projections, operand_layout  # noqa: F401  (fuse_projections: re-exported)
 
 Params = Dict[str, Any]
@@ -163,9 +165,8 @@ def init_params(
 ) -> Params:
     """Random N(0, 0.02) weights from a seeded ``torch.Generator`` on the
     target device (unit norms), in the config's dtype — for benchmarks and
-    tests without a checkpoint.  Dense models only."""
-    if config.is_moe:
-        raise NotImplementedError("MoE models are not supported by this package yet")
+    tests without a checkpoint.  MoE configs get the router and expert
+    leaves in place of the dense FFN's."""
     dev = default_device(device)
     dt = torch_dtype(config.dtype)
     gen = torch.Generator(device=dev)
@@ -186,12 +187,13 @@ def init_params(
         "wv": norm(L, D, KV * hd),
         "wo": norm(L, H * hd, D),
         "mlp_norm": torch.ones((L, D), dtype=dt, device=dev),
-        "w_gate": norm(L, D, Fi),
-        "w_up": norm(L, D, Fi),
-        "w_down": norm(L, Fi, D),
     }
     if config.qkv_bias:
         layers.update({"bq": norm(L, H * hd), "bk": norm(L, KV * hd), "bv": norm(L, KV * hd)})
+    if config.is_moe:
+        layers.update(init_moe_params(config, gen, dt, dev))
+    else:
+        layers.update({"w_gate": norm(L, D, Fi), "w_up": norm(L, D, Fi), "w_down": norm(L, Fi, D)})
     params: Params = {
         "embed": norm(V, D),
         "layers": layers,
@@ -203,10 +205,11 @@ def init_params(
 
 
 _TOP_LEAVES = {"embed", "final_norm", "lm_head", "embed_scale", "lm_head_scale"}
-_QUANT_LAYER_LEAVES = {"wo", "w_down", "wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gateup"}
+_QUANT_LAYER_LEAVES = {"wo", "w_down", "wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gateup",
+                       "moe_gate", "moe_up", "moe_down"}
 _LORA_TARGETS = ("wq", "wk", "wv", "wo")  # llm/tenancy/lora.py LORA_TARGETS
 _LAYER_LEAVES = (
-    {"attn_norm", "mlp_norm", "bq", "bk", "bv", "bqkv"}
+    {"attn_norm", "mlp_norm", "bq", "bk", "bv", "bqkv", "router"}
     | _QUANT_LAYER_LEAVES
     | {n + "_scale" for n in _QUANT_LAYER_LEAVES}
     | {f"lora_{ab}_{t}" for ab in "ab" for t in _LORA_TARGETS}
@@ -226,8 +229,9 @@ def params_from_jax(tree: Mapping[str, Any], device: Optional[torch.device] = No
     (weights stay ``[in, out]``).  Accepts unfused (wq/wk/wv, w_gate/w_up)
     and fused (wqkv, w_gateup) leaves, float or int8 with their ``*_scale``
     siblings (int8 weights are stored column-major, models/quant.py), and
-    the LoRA banks (``lora_a_*`` / ``lora_b_*``); refuses leaves it cannot
-    serve (MoE)."""
+    the LoRA banks (``lora_a_*`` / ``lora_b_*``) and the MoE leaves
+    (``router``, ``moe_*`` and their scales); refuses leaves it does not
+    know."""
     dev = default_device(device)
 
     def conv(name: str, x: Any, group: Mapping[str, Any]) -> torch.Tensor:
@@ -333,7 +337,7 @@ def forward_ragged(
             o = o if do is None else o + do
         h = h + o
         x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
-        h = h + mlp(x, lp)
+        h = h + (moe_mlp(x, lp, config) if config.is_moe else mlp(x, lp))
     h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
     rows = (rb.cu_q_lens[1:].long() - 1).clamp(0, T - 1)  # last token per row
     return lm_logits(params, h[rows])

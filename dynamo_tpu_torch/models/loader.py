@@ -18,7 +18,11 @@ as it arrives (``models/quant._quantize``, the arithmetic of
 q|k|v and gate|up leaves are allocated fused (``fuse_projections``'
 layout), each projection written into its columns.
 
-MoE expert tensors are refused (ROADMAP queue 1 item 6.6).
+Mixtral-layout MoE checkpoints map as the JAX loader maps them: the router
+``block_sparse_moe.gate.weight`` to ``router`` and the expert grid
+``block_sparse_moe.experts.{e}.w1|w2|w3`` to ``moe_gate|moe_down|moe_up``,
+all transposed, each expert written (and quantized) into ``[L, E, ...]``
+leaves allocated once.
 """
 
 from __future__ import annotations
@@ -55,12 +59,16 @@ _LAYER_MAP = {
     "mlp.gate_proj.weight": ("w_gate", True),
     "mlp.up_proj.weight": ("w_up", True),
     "mlp.down_proj.weight": ("w_down", True),
+    # Mixtral MoE router: torch [E, D] → transpose → router [D, E].
+    "block_sparse_moe.gate.weight": ("router", True),
 }
 
-MOE_REFUSAL = (
-    "MoE checkpoints are not supported by this package yet (ROADMAP queue 1 "
-    "item 6.6: models/moe.py, the expert leaves and the loader's expert stacking)"
-)
+# Mixtral expert sub-keys: block_sparse_moe.experts.{e}.{w}.weight.
+# w1 = gate proj [F, D], w2 = down proj [D, F], w3 = up proj [F, D]; all
+# transpose into the [in, out] layout moe_mlp consumes (models/moe.py:
+# moe_gate/moe_up [E, D, F], moe_down [E, F, D]).
+_EXPERT_MAP = {"w1": "moe_gate", "w2": "moe_down", "w3": "moe_up"}
+_EXPERT_PREFIX = "block_sparse_moe.experts."
 
 # ------------------------------------------------------------ safetensors
 
@@ -208,11 +216,15 @@ def _layer_shapes(config: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Per-layer shape of each unfused layer leaf (JAX layout, [in, out])."""
     D, F = config.hidden_size, config.intermediate_size
     q, kv = config.q_size, config.kv_size
+    Fm = config.moe_intermediate_size or F
     return {
         "attn_norm": (D,), "mlp_norm": (D,),
         "wq": (D, q), "wk": (D, kv), "wv": (D, kv), "wo": (q, D),
         "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D),
         "bq": (q,), "bk": (kv,), "bv": (kv,),
+        # MoE: the router per layer, each expert's matrix per (layer, expert).
+        "router": (D, config.num_experts),
+        "moe_gate": (D, Fm), "moe_up": (D, Fm), "moe_down": (Fm, D),
     }
 
 
@@ -273,6 +285,34 @@ class _TreeBuilder:
             self.layers[leaf][idx][..., col: col + width].copy_(v)
         self.filled.setdefault(part, set()).add(idx)
 
+    def put_expert(self, name: str, idx: int, e: int, value: torch.Tensor) -> None:
+        """Write expert ``e`` of layer ``idx`` into the ``[L, E, in, out]``
+        leaf ``name`` (quantized as it arrives under int8)."""
+        L, E = self.config.num_layers, self.config.num_experts
+        if not (0 <= idx < L and 0 <= e < E):
+            raise ValueError(f"checkpoint {name} (layer {idx}, expert {e}) outside the "
+                             f"config's {L} layers x {E} experts")
+        shape = self.shapes[name]
+        if tuple(value.shape) != shape:
+            raise ValueError(f"checkpoint {name} layer {idx} expert {e}: shape "
+                             f"{tuple(value.shape)} != the config's {shape}")
+        if name not in self.layers:
+            if self.quant:  # column-major per expert matrix (models/quant.py)
+                w = torch.empty((L, E, shape[1], shape[0]), dtype=torch.int8, device=self.dev)
+                self.layers[name] = w.transpose(-1, -2)
+                self.layers[name + "_scale"] = torch.empty((L, E, shape[1]), dtype=torch.float32,
+                                                           device=self.dev)
+            else:
+                self.layers[name] = torch.empty((L, E, *shape), dtype=self.dt, device=self.dev)
+        v = value.to(self.dev)
+        if self.quant:
+            q, s = _quantize(v, _LAYER_QUANT_AXES[name] - 2)  # stacked [L, E] dropped
+            self.layers[name][idx, e].copy_(q)
+            self.layers[name + "_scale"][idx, e].copy_(s)
+        else:
+            self.layers[name][idx, e].copy_(v)
+        self.filled.setdefault(name, set()).add((idx, e))
+
     def put_top(self, name: str, value: torch.Tensor) -> None:
         v = value.to(self.dev)
         if self.quant and name in _TOP_QUANT_AXES:
@@ -283,10 +323,28 @@ class _TreeBuilder:
             self.top[name] = v.to(self.dt).contiguous()
 
     def finish(self) -> Params:
-        required = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down"}
-        if self.config.qkv_bias or any(p in self.filled for p in ("bq", "bk", "bv")):
+        cfg = self.config
+        L, E = cfg.num_layers, cfg.num_experts
+        required = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"}
+        if cfg.is_moe:
+            # Fail at load, not at the first forward's KeyError: a dense
+            # checkpoint under an MoE config would silently drop experts.
+            absent = {"router", "moe_gate", "moe_up", "moe_down"} - set(self.filled)
+            if absent:
+                raise ValueError(
+                    f"config {cfg.name!r} is MoE ({E} experts) but checkpoint is "
+                    f"missing {sorted(absent)} (block_sparse_moe.gate/experts tensors)")
+            required.add("router")
+            for name in ("moe_gate", "moe_up", "moe_down"):
+                missing = sorted({(i, e) for i in range(L) for e in range(E)}
+                                 - self.filled[name])
+                if missing:
+                    raise ValueError(f"checkpoint missing {name} for (layer, expert) "
+                                     f"{missing[:8]}")
+        else:
+            required |= {"w_gate", "w_up", "w_down"}
+        if cfg.qkv_bias or any(p in self.filled for p in ("bq", "bk", "bv")):
             required |= {"bq", "bk", "bv"}
-        L = self.config.num_layers
         for part in sorted(required):
             missing = sorted(set(range(L)) - self.filled.get(part, set()))
             if missing:
@@ -312,8 +370,6 @@ def load_params(
     ``fuse_projections`` when fused) bit for bit."""
     if quant not in (None, "int8"):
         raise ValueError(f"unknown weight quant {quant!r} (supported: int8)")
-    if config.is_moe:
-        raise ValueError(f"config {config.name!r}: {MOE_REFUSAL}")
     dev = default_device(device)
     if path.endswith(".gguf"):
         from .gguf import load_params_gguf
@@ -340,8 +396,18 @@ def load_params(
                     b.put_top("lm_head", tensor.T)
             elif key.startswith("model.layers."):
                 idx_str, sub = key[len("model.layers."):].split(".", 1)
-                if sub.startswith("block_sparse_moe."):
-                    raise ValueError(f"checkpoint tensor {key}: {MOE_REFUSAL}")
+                if sub.startswith(_EXPERT_PREFIX):
+                    if not config.is_moe:
+                        raise ValueError(f"config {config.name!r} is dense but checkpoint has "
+                                         f"MoE expert tensors ({key})")
+                    e_str, w_key = sub[len(_EXPERT_PREFIX):].split(".", 1)
+                    name = _EXPERT_MAP.get(w_key.removesuffix(".weight"))
+                    if name is not None:
+                        b.put_expert(name, int(idx_str), int(e_str), tensor.T)
+                    continue
+                if sub == "block_sparse_moe.gate.weight" and not config.is_moe:
+                    raise ValueError(f"config {config.name!r} is dense but checkpoint has "
+                                     f"an MoE router ({key})")
                 mapped = _LAYER_MAP.get(sub)
                 if mapped is None:
                     continue  # rotary inv_freq buffers etc.
@@ -357,9 +423,12 @@ def hf_config(config: ModelConfig) -> Dict[str, Any]:
     """The ``config.json`` that ``ModelConfig.from_hf_config`` reads back
     into ``config`` (name aside: ``from_local_path`` names a config after
     its directory)."""
+    arch, kind = (("MixtralForCausalLM", "mixtral") if config.is_moe
+                  else ("Qwen2ForCausalLM", "qwen2") if config.qkv_bias
+                  else ("LlamaForCausalLM", "llama"))
     out: Dict[str, Any] = {
-        "architectures": ["Qwen2ForCausalLM" if config.qkv_bias else "LlamaForCausalLM"],
-        "model_type": "qwen2" if config.qkv_bias else "llama",
+        "architectures": [arch],
+        "model_type": kind,
         "vocab_size": config.vocab_size,
         "hidden_size": config.hidden_size,
         "num_hidden_layers": config.num_layers,
@@ -374,6 +443,11 @@ def hf_config(config: ModelConfig) -> Dict[str, Any]:
         "attention_bias": config.qkv_bias,
         "torch_dtype": config.dtype,
     }
+    if config.is_moe:
+        out["num_local_experts"] = config.num_experts
+        out["num_experts_per_tok"] = config.num_experts_per_token
+        if config.moe_intermediate_size:
+            out["intermediate_size"] = config.moe_intermediate_size
     if config.rope_scaling is not None:
         out["rope_scaling"] = dict(config.rope_scaling)
     if config.eos_token_ids:
@@ -398,7 +472,14 @@ def _hf_entries(params: Params) -> List[Tuple[str, Tuple[int, ...], torch.dtype,
     if "lm_head" in params:
         add("lm_head.weight", params["lm_head"], True)
     inv = {v[0]: (k, v[1]) for k, v in _LAYER_MAP.items()}
+    inv_expert = {v: k for k, v in _EXPERT_MAP.items()}
     for name, stacked in params["layers"].items():
+        if name in inv_expert:
+            for i in range(stacked.shape[0]):
+                for e in range(stacked.shape[1]):
+                    add(f"model.layers.{i}.{_EXPERT_PREFIX}{e}.{inv_expert[name]}.weight",
+                        stacked[i, e], True)
+            continue
         if name not in inv:
             continue
         hf_sub, transpose = inv[name]

@@ -41,6 +41,9 @@ _LAYER_QUANT_AXES = {
     "wq": 1, "wk": 1, "wv": 1, "wo": 1,
     "w_gate": 1, "w_up": 1, "w_down": 1,
     "wqkv": 1, "w_gateup": 1,
+    # MoE experts [L, E, in, out] -> scales [L, E, out]; the router stays
+    # float (tiny, and routing-accuracy-critical).
+    "moe_gate": 2, "moe_up": 2, "moe_down": 2,
 }
 
 # Top-level leaves.  embed [V, D] scales per vocab row (axis 1): the same
@@ -108,9 +111,10 @@ def quantize_params(params: Params) -> Params:
         if axis is None or name.startswith("lora_"):
             layers[name] = leaf
             continue
-        q = torch.empty(leaf.shape[0], leaf.shape[2], leaf.shape[1], dtype=torch.int8,
-                        device=leaf.device).transpose(1, 2)  # column-major per layer
-        s = torch.empty(leaf.shape[0], leaf.shape[2], dtype=torch.float32, device=leaf.device)
+        *lead, din, dout = leaf.shape
+        q = torch.empty(*lead, dout, din, dtype=torch.int8,
+                        device=leaf.device).transpose(-1, -2)  # column-major per matrix
+        s = torch.empty(*lead, dout, dtype=torch.float32, device=leaf.device)
         for l in range(leaf.shape[0]):
             q[l], s[l] = _quantize(leaf[l], axis - 1)
         layers[name], layers[name + "_scale"] = q, s
@@ -178,10 +182,9 @@ def init_params_quantized(
     """Random-init a quantized tree directly in int8 on the device, from a
     seeded ``torch.Generator``: uniform int8 in [-127, 127] with the
     constant per-channel scale ``0.02/73`` (unit norms).  No float
-    transient: full-depth 8B in bf16 would be 16 GB before quantizing.  The
-    draws are this package's own, not ``jax.random``'s."""
-    if config.is_moe:
-        raise NotImplementedError("MoE models are not supported by this package yet")
+    transient: full-depth 8B in bf16 would be 16 GB before quantizing, and
+    mixtral-8x7b's experts 93 GB.  The MoE router stays float, N(0, 0.02).
+    The draws are this package's own, not ``jax.random``'s."""
     dev = default_device(device)
     dt = getattr(torch, str(config.dtype))
     gen = torch.Generator(device=dev)
@@ -209,10 +212,21 @@ def init_params_quantized(
         "wv": q(L, D, KV * hd), "wv_scale": s(L, KV * hd),
         "wo": q(L, H * hd, D), "wo_scale": s(L, D),
         "mlp_norm": torch.ones((L, D), dtype=dt, device=dev),
-        "w_gate": q(L, D, Fi), "w_gate_scale": s(L, Fi),
-        "w_up": q(L, D, Fi), "w_up_scale": s(L, Fi),
-        "w_down": q(L, Fi, D), "w_down_scale": s(L, D),
     }
+    if config.is_moe:
+        E, Fm = config.num_experts, config.moe_intermediate_size or Fi
+        layers.update({
+            "router": (torch.randn((L, D, E), generator=gen, device=dev) * 0.02).to(dt),
+            "moe_gate": q(L, E, D, Fm), "moe_gate_scale": s(L, E, Fm),
+            "moe_up": q(L, E, D, Fm), "moe_up_scale": s(L, E, Fm),
+            "moe_down": q(L, E, Fm, D), "moe_down_scale": s(L, E, D),
+        })
+    else:
+        layers.update({
+            "w_gate": q(L, D, Fi), "w_gate_scale": s(L, Fi),
+            "w_up": q(L, D, Fi), "w_up_scale": s(L, Fi),
+            "w_down": q(L, Fi, D), "w_down_scale": s(L, D),
+        })
     if config.qkv_bias:
         layers.update({
             "bq": torch.zeros((L, H * hd), dtype=dt, device=dev),

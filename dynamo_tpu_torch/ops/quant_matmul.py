@@ -16,7 +16,9 @@ Weights are best stored column-major (``[N, K]`` contiguous seen as
 ``[K, N]``), the layout models/quant.py gives every int8 weight leaf.
 
 int32 accumulation is exact for K up to ~130k (|acc| <= K * 127^2 < 2^31).
-``qdot_batched``/``expert_linear`` (MoE) come with the MoE slice.
+``qdot_batched``/``expert_linear`` are the MoE experts' batched products
+(models/moe.py): rows quantized over ``[E, C, K]``, then one ``int_mm`` per
+expert, the JAX package's ``einsum("eck,ekn->ecn")``.
 """
 
 from __future__ import annotations
@@ -86,3 +88,32 @@ def qdot(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     with rf(QDOT_PARTS[2]):
         out = acc.float() * ax.reshape(-1, 1) * scale
         return out.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+
+
+def qdot_batched(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Batched ``qdot`` for MoE experts: x ``[E, C, K]`` float, w_q
+    ``[E, K, N]`` int8, scale ``[E, N]`` f32 → ``[E, C, N]``.  One int8
+    product per expert into an int32 ``[E, C, N]`` accumulator, rescaled
+    ``(acc * row_scale) * scale`` in f32 as the JAX package does."""
+    E, C, K = x.shape
+    N = w_q.shape[-1]
+    xq, ax = quantize_rows(x)
+    acc = torch.empty((E, C, N), dtype=torch.int32, device=x.device)
+    for e in range(E):
+        acc[e] = int_mm(xq[e], w_q[e])
+    out = acc.float() * ax * scale[:, None, :]
+    return out.to(out_dtype or x.dtype)
+
+
+def expert_linear(x: torch.Tensor, lp, name: str,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-expert ``einsum("ecd,edf->ecf", x, lp[name])`` dispatching on the
+    quant scale leaf — the batched sibling of models.llama.linear, so the
+    MoE and dense forwards share one quantization contract."""
+    w = lp[name]
+    s = lp.get(name + "_scale")
+    if s is None:
+        r = torch.bmm(x, w)
+        return r if out_dtype is None else r.to(out_dtype)
+    return qdot_batched(x, w, s, out_dtype=out_dtype)

@@ -300,8 +300,13 @@ def sample_tokens(
             - samp.pres_penalty[:, None] * (c > 0)
         )
     if samp.any_mask and samp.mask_words is not None:
-        shifts = torch.arange(32, device=dev, dtype=torch.int64)
-        bits = (samp.mask_words[:, :, None] >> shifts[None, None, :]) & 1
+        # Unpacked through a byte view: the low 4 bytes of each int64 word
+        # (little-endian, on the host and the card) hold its 32 bits, so
+        # bit j of word w is bit j % 8 of byte 8w + j // 8, and the
+        # intermediates are [B, V] bytes, not [B, V] int64.
+        words = samp.mask_words.contiguous().view(torch.uint8).view(B, -1, 8)[:, :, :4]
+        shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+        bits = (words[:, :, :, None] >> shifts) & 1
         admissible = bits.reshape(B, -1)[:, :V] != 0
         eff = torch.where(admissible, eff, NEG_INF)
     greedy = eff.argmax(dim=-1)

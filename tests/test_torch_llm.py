@@ -309,9 +309,19 @@ def test_preprocess_matches_jax(body):
 @pytest.mark.parametrize("ext", [{"response_format": {"type": "json_object"}},
                                  {"nvext": {"grammar": "[a-z]+"}}])
 def test_structured_output_is_refused_not_ignored(ext):
+    """A structured-output request is never served unconstrained: the port
+    compiles its constraint into the automaton the JAX preprocessor ships
+    (the same wire dict), and refuses a malformed one with a ValueError
+    (400 at the edge), as the JAX preprocessor does."""
+    jp = jpre.OpenAIPreprocessor(jtokenizer.ByteTokenizer(), "m")
     tp = tpre.OpenAIPreprocessor(ttokenizer.ByteTokenizer(), "m")
-    with pytest.raises(ValueError, match="not ported"):
-        tp.preprocess(dict(CHAT, **ext))
+    got = tp.preprocess(dict(CHAT, **ext)).to_dict()
+    assert got["grammar"]["edges"] and got == jp.preprocess(dict(CHAT, **ext)).to_dict()
+    bad = ({"response_format": {"type": "json_schema", "json_schema": {"schema": {"enum": []}}}}
+           if "response_format" in ext else {"nvext": {"grammar": "a(b"}})
+    for pre in (tp, jp):
+        with pytest.raises(ValueError):
+            pre.preprocess(dict(CHAT, **bad))
 
 
 # ----------------------------------------------------------------- decoding

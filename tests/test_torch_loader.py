@@ -193,16 +193,24 @@ def test_device_quantize_equals_numpy_arithmetic(axis, dtype):
 
 
 def test_moe_checkpoint_refused_naming_its_roadmap_item(tmp_path):
-    """A Mixtral-style checkpoint (expert tensors) is refused with a
-    message naming ROADMAP queue 1 item 6.6, under a dense config and
-    under the MoE one."""
+    """A Mixtral-style checkpoint (expert tensors) is refused under a dense
+    config, with a message naming what does not fit, and loads under the
+    MoE config into the JAX loader's tree, leaf for leaf (MoE checkpoints
+    are served since ROADMAP queue 1 item 6.6; tests/test_torch_moe.py
+    holds the rest)."""
     jcfg = jax_get_config("debug-tiny-moe").with_overrides(dtype="float32")
     path = str(tmp_path / "moe")
     jax_save_params_hf(jax_init_params(jcfg, jax.random.PRNGKey(0)), path)
-    for cfg in (get_config("debug-tiny").with_overrides(dtype="float32"),
-                get_config("debug-tiny-moe").with_overrides(dtype="float32")):
-        with pytest.raises(ValueError, match=r"queue 1 item 6\.6"):
-            loader.load_params(cfg, path, device=CPU)
+    with pytest.raises(ValueError, match="is dense but checkpoint has MoE expert tensors"):
+        loader.load_params(get_config("debug-tiny").with_overrides(dtype="float32"), path,
+                           device=CPU)
+    got = loader.load_params(get_config("debug-tiny-moe").with_overrides(dtype="float32"), path,
+                             device=CPU)
+    want = params_from_jax(_np(jax_load_params(jcfg, path)), device=CPU)
+    assert set(got["layers"]) == set(want["layers"]) >= {"router", "moe_gate", "moe_up",
+                                                          "moe_down"}
+    for name, leaf in want["layers"].items():
+        assert torch.equal(got["layers"][name], leaf), name
 
 
 def test_incomplete_checkpoints_refused(tmp_path):

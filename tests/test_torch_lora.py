@@ -13,7 +13,7 @@ greedy streams with mixed adapters in one batch, in f32 on ``debug-tiny``,
 at ``decode_steps`` 1 and 4, with speculation on and under W8A8; the
 device banks are written in place and a hot swap with more adapters than
 slots captures no new program.  The grammar halves of the JAX tenancy
-tests wait for structured output (ROADMAP queue 1 item 6.5).
+tests are tests/test_torch_grammar.py's.
 """
 
 import asyncio
@@ -569,20 +569,25 @@ async def test_kv_router_overlap_is_salted(pkg):
 @pytest.mark.parametrize("pkg", PKGS)
 def test_snapshot_carries_tenant_identity(pkg):
     """tests/test_tenancy.py::test_snapshot_carries_tenant_identity on
-    ``pkg``, without the grammar field (structured output: ROADMAP queue 1
-    item 6.5); the two packages' dicts and resume requests are equal."""
+    ``pkg``, the grammar field included; the two packages' dicts and
+    resume requests are equal."""
     snap_mod = importlib.import_module(f"{pkg}.llm.migration.snapshot")
     salt = M(pkg).lora.kv_salt_for_adapter("ad0")
+    g = importlib.import_module(f"{pkg}.llm.tenancy.grammar").GrammarCompiler(
+        importlib.import_module(f"{pkg}.llm.tokenizer").ByteTokenizer()).compile(
+        {"kind": "json_schema", "schema": {"enum": ["yes", "no", "maybe"]}}).to_dict()
     snap = snap_mod.SequenceSnapshot(request_id="r1", token_ids=[1, 2, 3], orig_prompt_len=2,
-                                     adapter="ad0", kv_salt=salt)
+                                     adapter="ad0", kv_salt=salt, grammar=g)
     back = snap_mod.SequenceSnapshot.from_dict(snap.to_dict())
-    assert (back.adapter, back.kv_salt) == ("ad0", salt)
+    assert (back.adapter, back.kv_salt, back.grammar) == ("ad0", salt, g)
     resume = back.to_resume_request()
     assert resume["annotations"]["adapter"] == "ad0"
     assert resume["annotations"]["kv_salt"] == salt
+    assert resume["grammar"] == g
     bare = snap_mod.SequenceSnapshot(request_id="r2", token_ids=[1],
                                      orig_prompt_len=1).to_resume_request()
     assert "adapter" not in bare["annotations"]
+    assert "grammar" not in bare
     other = importlib.import_module(
         f"{JAX if pkg == PORT else PORT}.llm.migration.snapshot").SequenceSnapshot
     assert other.from_dict(snap.to_dict()).to_resume_request() == resume
@@ -590,11 +595,12 @@ def test_snapshot_carries_tenant_identity(pkg):
 
 async def test_migrated_tenant_sequence_resumes_exact_and_isolated():
     """tests/test_tenancy.py::test_migrated_tenant_sequence_resumes_exact_and_isolated
-    (a ``slow`` test there) on the port, without the grammar: a seeded
-    LoRA stream migrated mid-decode carries its adapter and salt in the
-    splice request, the target continues it token-identically under the
-    tenant's salted chain, and the source's slot pin is released at
-    cutover; the control equals TpuEngine's stream."""
+    (a ``slow`` test there) on the port, without the grammar (a migrated
+    constrained stream is tests/test_torch_grammar.py's): a seeded LoRA
+    stream migrated mid-decode carries its adapter and salt in the splice
+    request, the target continues it token-identically under the tenant's
+    salted chain, and the source's slot pin is released at cutover; the
+    control equals TpuEngine's stream."""
     from dynamo_tpu_torch.llm.migration.worker import MigratableWorker
     from dynamo_tpu_torch.runtime.engine import Context, collect
 
@@ -648,14 +654,14 @@ async def test_migrated_tenant_sequence_resumes_exact_and_isolated():
 
 
 def test_tenancy_metrics_group_renders_the_jax_lora_rows():
-    """The port's ``/metrics`` tenancy group: the JAX group's LoRA rows,
-    name for name and value for value (its grammar rows come with 6.5)."""
+    """The port's ``/metrics`` tenancy group: the JAX group's rows, LoRA
+    and grammar, name for name and value for value."""
     tm = {pkg: M(pkg).metrics.TenancyMetrics() for pkg in PKGS}
-    for i, field in enumerate(("adapters_registered", "adapter_promotions", "adapter_evictions",
-                               "adapter_requests_total", "adapter_not_found_total")):
+    for i, field in enumerate(vars(tm[JAX])):
         for m in tm.values():
             setattr(m, field, i + 3)
-    jax_rows = [ln for ln in tm[JAX].render().splitlines() if "lora" in ln]
+    jax_rows = tm[JAX].render().splitlines()
+    assert [ln for ln in jax_rows if "lora" in ln]
     assert tm[PORT].render().splitlines() == jax_rows
 
 

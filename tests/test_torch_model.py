@@ -119,7 +119,9 @@ def test_params_from_jax_keeps_layout_and_refuses_unknown_leaves():
     params = tl.params_from_jax(tree, device="cpu")
     assert params["layers"]["wq"].shape == tree["layers"]["wq"].shape  # [L, in, out]
     np.testing.assert_array_equal(params["embed"].numpy(), tree["embed"])
-    bad = dict(tree, layers=dict(tree["layers"], router=np.ones(1, np.float32)))  # MoE
+    # MoE leaves (router, moe_*) are served since the MoE slice; a leaf no
+    # forward reads is still refused.
+    bad = dict(tree, layers=dict(tree["layers"], shared_expert=np.ones(1, np.float32)))
     with pytest.raises(ValueError):
         tl.params_from_jax(bad, device="cpu")
 

@@ -253,13 +253,19 @@ async def test_supervisor_spawns_port_workers_and_drains_on_scale_down():
             follower = asyncio.ensure_future(follow())
             act = X.actuate.LocalActuator(rt.hub)
             pol = X.policy
-            await act.apply(pol.Decision(tick=1, actions=[pol.scale_decode(2, 2, "up")],
-                                         pressures={}))
 
-            async def two():
-                return len(await rt.hub.kv_get_prefix(prefix)) == 2 and len(order) == 2
+            def registered(n):
+                async def pred():
+                    return len(await rt.hub.kv_get_prefix(prefix)) == n and len(order) == n
+                return pred
 
-            await _wait(two, 180, "two spawned workers")
+            # One worker at a time: the supervisor stops the worker it
+            # spawned last, and two spawned together may register in
+            # either order.
+            for tick, n in ((1, 1), (2, 2)):
+                await act.apply(pol.Decision(tick=tick, actions=[pol.scale_decode(1, n, "up")],
+                                             pressures={}))
+                await _wait(registered(n), 180, f"{n} spawned worker(s)")
             client = await rt.namespace("sv").component("TorchWorker").endpoint(
                 "generate").client()
             await client.wait_for_instances(10)
@@ -277,7 +283,7 @@ async def test_supervisor_spawns_port_workers_and_drains_on_scale_down():
                 return len(_tokens(items)) >= 3
 
             await _wait(started, 60, "the stream's first tokens")
-            await act.apply(pol.Decision(tick=2, actions=[pol.scale_decode(-1, 1, "down")],
+            await act.apply(pol.Decision(tick=3, actions=[pol.scale_decode(-1, 1, "down")],
                                          pressures={}))
             await asyncio.wait_for(stream, 120)
 
