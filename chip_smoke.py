@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-ab   # direct vs HTTP serve in turns only
     python3 chip_smoke.py --quant-ab   # phase c's traffic, W8A8 vs bf16 in turns only
+    python3 chip_smoke.py --sdk-graph  # phase p alone
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -310,10 +311,31 @@ Phases, any failure exits non-zero:
      beside their bound, the larger of the weights' bytes and the int8
      operations the routing needs (the dropless layout's operations
      reported beside it);
+  p. the serving SDK and the native library: PyYAML's presence; the native
+     library (dynamo_tpu_torch/csrc/native, host C++) built with g++ (its
+     time and ``g++ --version``) and its chained hashes of a 131072-id
+     salted prompt equal to the pure-Python chain (both timed); then the
+     SDK's example graph at llama-3.1-8b's full width and depth
+     (``python -m dynamo_tpu_torch.sdk.runner
+     dynamo_tpu_torch.examples.llm.graphs:agg -f CFG --http-port P --router
+     kv``: the runner's hub, Frontend, Processor, TorchWorker on the card,
+     and the HTTP edge, each a child of the runner): the worker's boot;
+     three greedy chat prompts of 32 tokens with logprobs, one at a time,
+     each served cold at the edge, then again at the edge and through
+     ``Processor.chat`` on the service plane: the two equal, token and
+     logprob, and the cold text the same; the worker's kernel launches
+     (a ``sitecustomize`` on the children's path zeroes them on SIGUSR1
+     just before and writes them at exit; both attention kernels must
+     launch); no other child opens a CUDA context (the same reports) and
+     at most one new process holds card memory (nvidia-smi); ``model
+     add`` of an alias for ``examples.TorchWorker.generate`` served at the
+     edge, ``model remove`` answered 404; SIGTERM stops the graph, every
+     child through its shutdown, within the supervisor's 10 s; TTFT and ITL
+     at the edge, reported;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l, m, n and o beside phase 6's and
-     7's; the noise kernel's in phases j, k, l and e), then the device
-     line last.
+     phases c, d, e, f, g, h, i, j, k, l, m, n, o and p beside phase 6's
+     and 7's; the noise kernel's in phases j, k, l, e and p), then the
+     device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -3400,13 +3422,19 @@ def dist_path(torch):
         name = {wid_a: "A", wid_b: "B"}
 
         # The router's hot path on this host: fast_sequence_hashes at 2048
-        # ids, on the path this host takes and on the numpy one (the path
-        # without xxhash).
+        # ids, on the path this host takes (the native library once built)
+        # and on the numpy one (the path without the library and xxhash).
+        from dynamo_tpu_torch import native
+
         ids = dist_prompts(1, DIST_HASH_IDS, 3)[0]
-        out["hash_path"] = "xxhash" if tok_mod.USING_XXHASH else "numpy lanes + Python chain"
-        installed = tok_mod.USING_XXHASH
-        for key, flag in (("hash_ms", installed), ("hash_numpy_ms", False)):
-            tok_mod.USING_XXHASH = flag
+        native.available()  # the build lands before the timed calls
+        out["hash_path"] = ("native" if native.get_lib() is not None else
+                            "xxhash" if tok_mod.USING_XXHASH else "numpy lanes + Python chain")
+        installed, hash_blocks = tok_mod.USING_XXHASH, native.hash_blocks
+        for key, fallback in (("hash_ms", False), ("hash_numpy_ms", True)):
+            if fallback:
+                tok_mod.USING_XXHASH = False
+                native.hash_blocks = lambda *a, **k: None
             times = []
             try:
                 for _ in range(DIST_HASH_CALLS):
@@ -3414,7 +3442,7 @@ def dist_path(torch):
                     tok_mod.fast_sequence_hashes(ids, PS)
                     times.append(time.perf_counter() - t)
             finally:
-                tok_mod.USING_XXHASH = installed
+                tok_mod.USING_XXHASH, native.hash_blocks = installed, hash_blocks
             out[key] = statistics.median(times) * 1e3
 
         prompts = dist_prompts(DIST_PROMPTS, DIST_ISL, 11)
@@ -7076,6 +7104,368 @@ def moe_path(torch, dev):
     return not fails, out.get("launches", {}), out
 
 
+# ------------------------------------------------------------------ phase p
+
+SDK_MODEL = "llama-3.1-8b"
+SDK_SERVED = "llama-3.1-8b-sdk"
+SDK_ALIAS = "llama-3.1-8b-alias"
+SDK_WORKER_ENDPOINT = "examples.TorchWorker.generate"
+SDK_CONFIG = (
+    "TorchWorker:\n"
+    f"  model: {SDK_MODEL}\n"
+    "  block_size: 16\n"
+    "  num_blocks: 2048\n"
+    "  max_batch: 16\n"
+    "  max_model_len: 4096\n"
+    f"  served_model_name: {SDK_SERVED}\n"
+    "Processor:\n"
+    f"  served_model_name: {SDK_SERVED}\n"
+)
+SDK_PROMPTS = ("Write a haiku about graphs.", "List three prime numbers.",
+               "What does a supervisor do when a worker exits?")
+SDK_MAX_TOKENS = 32
+SDK_HASH_IDS = 131072
+SDK_STOP_TIMEOUT_S = 10.0  # Supervisor.shutdown's timeout
+# On the runner's children's PYTHONPATH: each child writes, at exit, whether
+# it opened a CUDA context and (the worker) its kernel launch counts, and
+# SIGUSR1 zeroes the counts.  It changes nothing the children do; another
+# sitecustomize further down the path still runs.
+SDK_SITE_HOOK = '''\
+import atexit, json, os, signal, sys, time
+
+_OUT = os.environ.get("CHIP_SMOKE_CHILD_DIR")
+
+
+def _graphs():
+    return sys.modules.get("dynamo_tpu_torch.engine.graphs")
+
+
+def _zero(signum, frame):
+    g = _graphs()
+    if g is not None:
+        for fn in g.KERNELS.values():
+            fn.launches = 0
+
+
+def _report():
+    torch = sys.modules.get("torch")
+    g = _graphs()
+    rec = {"pid": os.getpid(), "argv": sys.argv, "t_exit": time.time(),
+           "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized()),
+           "launches": None if g is None else g.kernel_launches()}
+    with open(os.path.join(_OUT, f"{os.getpid()}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+if _OUT:
+    atexit.register(_report)
+    signal.signal(signal.SIGUSR1, _zero)
+
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _cand = os.path.join(os.path.abspath(_p or "."), "sitecustomize.py")
+    if os.path.dirname(_cand) != _here and os.path.isfile(_cand):
+        import importlib.util as _u
+        _spec = _u.spec_from_file_location("_chained_sitecustomize", _cand)
+        _spec.loader.exec_module(_u.module_from_spec(_spec))
+        break
+'''
+
+
+def sdk_native(out):
+    """Phase p's host part: PyYAML's presence, the native library built
+    from dynamo_tpu_torch/csrc/native (its own g++ time), and its chained
+    hashes of a 131072-id prompt against the pure-Python chain.  Returns
+    the failures."""
+    import importlib.util
+
+    from dynamo_tpu_torch import native, tokens
+
+    fails = []
+    spec = importlib.util.find_spec("yaml")
+    if spec is None:
+        log("sdk: PyYAML is not installed (the SDK config uses its built-in reader; "
+            "`deploy` refuses)")
+    else:
+        import yaml
+
+        log(f"sdk: PyYAML {yaml.__version__} is installed")
+    out["pyyaml"] = None if spec is None else __import__("yaml").__version__
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    out["gxx"] = gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        t0 = time.perf_counter()
+        try:
+            native.build(Path(tmp) / "libdyn_native.so")
+        except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+            fails.append(f"native library build: {e!r}")
+        out["native_build_s"] = time.perf_counter() - t0
+    if not native.available():
+        fails.append("the native library does not load")
+        return fails
+    rng = random.Random(11)
+    ids = [rng.randrange(0, DIST_VOCAB) for _ in range(SDK_HASH_IDS)]
+    t0 = time.perf_counter()
+    fast = tokens.fast_sequence_hashes(ids, PS, "tenant-a")
+    out["native_hash_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py = [b.sequence_hash for b in tokens.hash_token_blocks(ids, PS, "tenant-a")]
+    out["python_hash_ms"] = (time.perf_counter() - t0) * 1e3
+    if fast != py or len(py) != SDK_HASH_IDS // PS:
+        fails.append(f"native hashes differ from the pure-Python chain ({len(fast)}, {len(py)})")
+    log(f"sdk native: {out['gxx']}; g++ build {out['native_build_s']:.2f} s; chained hashes of "
+        f"{SDK_HASH_IDS} ids ({len(py)} blocks, salted): native {out['native_hash_ms']:.1f} ms, "
+        f"pure-Python chain {out['python_hash_ms']:.1f} ms, equal {fast == py}; host clock "
+        f"[{CARD}]")
+    return fails
+
+
+def compute_apps():
+    """(pid, used MiB) of each process holding memory on the card, as
+    nvidia-smi lists them (empty where it cannot see them)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60)
+    apps = []
+    for line in r.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps.append((int(parts[0]), parts[1]))
+    return apps
+
+
+async def sdk_chat(port, prompt, model):
+    """A streamed greedy chat request with logprobs (every token's chunk
+    reaches the client): (status, the stream's (content, logprob) pairs,
+    finish reason, TTFT s, ITL s)."""
+    stamps = []
+
+    def on_event(t, ev):
+        if ev.startswith("data: {"):
+            stamps.append(t)
+
+    body = {"model": model, "messages": [{"role": "user", "content": prompt}],
+            "max_tokens": SDK_MAX_TOKENS, "temperature": 0.0, "stream": True, "logprobs": True,
+            "nvext": {"ignore_eos": True}}
+    st, _, raw, events = await http_call(port, "POST", "/v1/chat/completions", body,
+                                         on_event=on_event)
+    if st != 200:
+        return st, raw.decode(errors="replace")[:200], None, float("nan"), float("nan")
+    chunks, _ = sse_data(events)
+    return (st, sdk_tokens([c for _, c in chunks]), sdk_finish([c for _, c in chunks]),
+            stamps[0] if stamps else float("nan"),
+            (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1) if stamps else float("nan"))
+
+
+def sdk_tokens(chunks):
+    """(content, logprob) of each token in a chat stream's chunks."""
+    out = []
+    for c in chunks:
+        for ch in c.get("choices") or []:
+            for lp in ((ch.get("logprobs") or {}).get("content") or []):
+                out.append((lp["token"], lp["logprob"]))
+    return out
+
+
+def sdk_finish(chunks):
+    for c in reversed(chunks):
+        for ch in c.get("choices") or []:
+            if ch.get("finish_reason"):
+                return ch["finish_reason"]
+    return None
+
+
+async def sdk_processor(hub, prompt):
+    """The same request through ``Processor.chat`` on the service plane."""
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+
+    rt = await DistributedRuntime.connect(hub)
+    try:
+        client = await rt.namespace("examples").component("Processor").endpoint("chat").client()
+        await client.wait_for_instances(60)
+        items = await collect(await client.generate(Context({
+            "model": SDK_SERVED, "messages": [{"role": "user", "content": prompt}],
+            "max_tokens": SDK_MAX_TOKENS, "temperature": 0.0, "stream": True, "logprobs": True,
+            "nvext": {"ignore_eos": True}})))
+        await client.close()
+        return sdk_tokens(items), sdk_finish(items)
+    finally:
+        await rt.close()
+
+
+async def sdk_models(port):
+    st, _, raw, _ = await http_call(port, "GET", "/v1/models")
+    return [m["id"] for m in json.loads(raw)["data"]] if st == 200 else []
+
+
+async def sdk_wait_model(port, name, present, timeout):
+    end = time.time() + timeout
+    while time.time() < end:
+        try:
+            if (name in await sdk_models(port)) == present:
+                return True
+        except OSError:
+            pass
+        await asyncio.sleep(0.2)
+    return False
+
+
+def sdk_path(torch):
+    """Phase p: the serving SDK's example graph at llama-3.1-8b's full width
+    and depth (``python -m dynamo_tpu_torch.sdk.runner
+    dynamo_tpu_torch.examples.llm.graphs:agg -f CFG --http-port P --router
+    kv``: the runner's hub, Frontend, Processor, TorchWorker on the card and
+    the HTTP edge), after the host part (``sdk_native``).  Greedy chat
+    requests one at a time through the edge and through ``Processor.chat``
+    on the service plane: the same tokens and logprobs; the worker's kernel
+    launches (zeroed by SIGUSR1 just before, written at its exit); no other
+    child opens a CUDA context or holds card memory; ``model add`` of an
+    alias served at the edge and ``model remove`` answered 404; SIGTERM
+    stops the graph within the supervisor's timeout.  Returns (ok,
+    launches, numbers)."""
+    fails, out = [], {}
+    t_phase = time.perf_counter()
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"sdk check FAILED: {what}")
+
+    for f in sdk_native(out):
+        check(False, f)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
+        site, reports = os.path.join(tmp, "site"), os.path.join(tmp, "reports")
+        os.makedirs(site)
+        os.makedirs(reports)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(SDK_SITE_HOOK)
+        cfg = os.path.join(tmp, "graph.yaml")
+        with open(cfg, "w") as f:
+            f.write(SDK_CONFIG)
+        port, hub = _free_port(), "127.0.0.1:6650"
+        before_apps = compute_apps()
+        env = {"PYTHONPATH": os.pathsep.join([site, str(REPO)]), "CHIP_SMOKE_CHILD_DIR": reports}
+        t0 = time.perf_counter()
+        graph = Child("sdk-graph", ["dynamo_tpu_torch.examples.llm.graphs:agg", "-f", cfg,
+                                    "--http-port", str(port), "--router", "kv"],
+                      env=env, module="dynamo_tpu_torch.sdk.runner")
+        children = [graph]
+        try:
+            graph.wait_line("service TorchWorker up", 300)
+            out["worker_boot_s"] = time.perf_counter() - t0
+            spawned = {}
+            for line in graph.lines:
+                m = re.search(r"spawned (\S+)\[0\] pid=(\d+)", line)
+                if m:
+                    spawned[m.group(1)] = int(m.group(2))
+            out["pids"] = spawned
+            ok_model = asyncio.run(sdk_wait_model(port, SDK_SERVED, True, 120))
+            check(ok_model, f"{SDK_SERVED} registered at the edge")
+            out["serving_s"] = time.perf_counter() - t0
+            during_apps = compute_apps()
+            os.kill(spawned["TorchWorker"], signal.SIGUSR1)  # zero the worker's counts
+            time.sleep(0.5)
+            results = []
+            for prompt in SDK_PROMPTS:  # one at a time: each served alone on each route
+                # The first serve fills the prefix cache (and captures the
+                # graphs): the two compared serves then both prefill the
+                # same uncached tail, in the same shapes.
+                warm = asyncio.run(sdk_chat(port, prompt, SDK_SERVED))
+                http = asyncio.run(sdk_chat(port, prompt, SDK_SERVED))
+                proc = asyncio.run(sdk_processor(hub, prompt))
+                results.append((http, proc, warm))
+                check(http[0] == 200 and warm[0] == 200,
+                      f"edge chat answered {warm[0]}, {http[0]}: {http[1]}")
+                check(len(http[1]) == SDK_MAX_TOKENS and http[2] == "length",
+                      f"edge stream whole ({len(http[1])} tokens, {http[2]})")
+                check(proc == (http[1], http[2]),
+                      f"Processor.chat equals the edge's stream, tokens and logprobs "
+                      f"({len(proc[0])} tokens)")
+                check([t for t, _ in warm[1]] == [t for t, _ in http[1]],
+                      "the cold and the prefix-hit edge serves give the same text")
+            out.update(ttft_ms=[r[0][3] * 1e3 for r in results],
+                       itl_ms=[r[0][4] * 1e3 for r in results],
+                       cold_ttft_ms=[r[2][3] * 1e3 for r in results],
+                       cold_itl_ms=[r[2][4] * 1e3 for r in results])
+
+            # model add | remove through the CLI, seen at the edge.
+            add = Child("model-add", ["model", "add", SDK_ALIAS, SDK_WORKER_ENDPOINT,
+                                      "--hub", hub], env=env)
+            children.append(add)
+            add.p.wait(60)
+            check(add.p.returncode == 0, f"model add exited {add.p.returncode}")
+            check(asyncio.run(sdk_wait_model(port, SDK_ALIAS, True, 60)),
+                  f"the edge lists {SDK_ALIAS} after model add")
+            alias = asyncio.run(sdk_chat(port, SDK_PROMPTS[0], SDK_ALIAS))
+            check(alias[0] == 200 and len(alias[1]) == SDK_MAX_TOKENS,
+                  f"the alias served ({alias[0]}, {len(alias[1]) if alias[0] == 200 else 0})")
+            remove = Child("model-remove", ["model", "remove", SDK_ALIAS, "--hub", hub], env=env)
+            children.append(remove)
+            remove.p.wait(60)
+            check(remove.p.returncode == 0, f"model remove exited {remove.p.returncode}")
+            check(asyncio.run(sdk_wait_model(port, SDK_ALIAS, False, 60)),
+                  f"the edge drops {SDK_ALIAS} after model remove")
+            gone = asyncio.run(sdk_chat(port, SDK_PROMPTS[0], SDK_ALIAS))
+            check(gone[0] == 404, f"the removed alias answers {gone[0]}, not 404")
+            out["alias_status"] = (alias[0], gone[0])
+
+            # SIGTERM: the graph stops within the supervisor's timeout.
+            t_term = time.time()
+            t0 = time.perf_counter()
+            graph.p.send_signal(signal.SIGTERM)
+            try:
+                graph.p.wait(SDK_STOP_TIMEOUT_S + 20)
+            except subprocess.TimeoutExpired:
+                pass
+            out["stop_s"] = time.perf_counter() - t0
+            check(graph.p.poll() is not None and out["stop_s"] < SDK_STOP_TIMEOUT_S + 2,
+                  f"the runner exits within the supervisor's timeout ({out['stop_s']:.1f} s)")
+            recs = []
+            for name in os.listdir(reports):
+                with open(os.path.join(reports, name)) as f:
+                    recs.append(json.load(f))
+            by_pid = {r["pid"]: r for r in recs}
+            for svc, pid in spawned.items():
+                check(pid in by_pid, f"{svc} exited through its shutdown (no exit report)")
+            worker = by_pid.get(spawned.get("TorchWorker"), {})
+            launches = worker.get("launches") or {}
+            out["worker_exit_s"] = worker.get("t_exit", float("nan")) - t_term
+            cuda = sorted(" ".join(r["argv"][1:2]) for r in recs if r["cuda_initialized"])
+            check(cuda == ["dynamo_tpu_torch.examples.llm.components:TorchWorker"],
+                  f"only TorchWorker opened a CUDA context ({cuda})")
+            # nvidia-smi may show every process of this container as one
+            # pid: count the entries.
+            check(len(during_apps) - len(before_apps) <= 1,
+                  f"at most one more process on the card while the graph served "
+                  f"({before_apps} -> {during_apps})")
+            out["apps"] = {"before": before_apps, "during": during_apps}
+            check(launches.get("decode_attention", 0) > 0
+                  and launches.get("prefill_attention", 0) > 0,
+                  f"TorchWorker launched both attention kernels ({launches})")
+        finally:
+            for c in children:
+                c.stop(signal.SIGKILL if c is not graph else signal.SIGTERM)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sdk graph: {SDK_MODEL} at full width and depth behind the runner (hub, Frontend, "
+        f"Processor, TorchWorker, http --router kv); worker up {out.get('worker_boot_s', 0):.1f} "
+        f"s after the runner's start, model at the edge after {out.get('serving_s', 0):.1f} s; "
+        f"{len(SDK_PROMPTS)} greedy chat prompts of {SDK_MAX_TOKENS} tokens, each served cold, "
+        f"then again at the edge and through Processor.chat, one at a time: cold TTFT "
+        f"{[round(x, 1) for x in out.get('cold_ttft_ms', [])]} ms, ITL "
+        f"{[round(x, 2) for x in out.get('cold_itl_ms', [])]} ms (the first captures the "
+        f"graphs); prefix-hit edge TTFT {[round(x, 1) for x in out.get('ttft_ms', [])]} ms, ITL "
+        f"{[round(x, 2) for x in out.get('itl_ms', [])]} ms; alias {out.get('alias_status')}; "
+        f"worker launches "
+        f"{launches}; card processes before {out.get('apps', {}).get('before')} during "
+        f"{out.get('apps', {}).get('during')}; SIGTERM to runner exit "
+        f"{out.get('stop_s', float('nan')):.2f} s, the worker's own exit "
+        f"{out.get('worker_exit_s', float('nan')):.2f} s; phase {out['phase_s']:.1f} s; host "
+        f"clock [{CARD}]")
+    return not fails, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -7115,6 +7505,8 @@ def main() -> int:
             return 0 if quant_ab(torch, dev) else 1
         if sys.argv[1:] == ["--grammar-compile"]:
             return 0 if grammar_compile_times() else 1
+        if sys.argv[1:] == ["--sdk-graph"]:
+            return 0 if sdk_path(torch)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -7191,7 +7583,15 @@ def main() -> int:
         log(f"memory before the MoE phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated")
         ok_o, o_launches, _ = moe_path(torch, dev)
-        slice_ok = {"structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
+        # Phase p: the SDK graph's worker is a child of the runner; this
+        # process's card memory goes back first.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the SDK phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        ok_p, p_launches, _ = sdk_path(torch)
+        slice_ok = {"sdk graph and native library (p)": ok_p,
+                    "structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
                     "checkpoints, tokenizer and LoRA (m)": ok_m,
                     "w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
                     "bench geometry (c)": ok_bench, "loadgen geometry (d)": ok_loadgen,
@@ -7236,6 +7636,7 @@ def main() -> int:
             kernels[-1]["lora_launches"] = m_launches["lora"].get(name, 0)
             kernels[-1]["grammar_launches"] = n_launches.get(name, 0)
             kernels[-1]["moe_launches"] = o_launches.get(name, 0)
+            kernels[-1]["sdk_launches"] = p_launches.get(name, 0)
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -7261,6 +7662,7 @@ def main() -> int:
             "migrate_launches": migrate_launches["threefry_gumbel"],
             "bulk_launches": bulk_launches["threefry_gumbel"],
             "planner_launches": planner_launches["threefry_gumbel"],
+            "sdk_launches": p_launches.get("threefry_gumbel", 0),
         })
         # The restore's CRC kernel has no Pallas counterpart (the JAX
         # package verifies a host block with zlib on the host); its path is

@@ -1,8 +1,8 @@
-"""CLI launcher for the port — the ``hub``, ``http``, ``run``, ``metrics``
-and ``mock-worker`` commands of the JAX package's ``cli.py`` (reference:
-launch/dynamo-run, ``dynamo-run in=… out=…``; components/http, the
-standalone frontend; components/metrics and its mock worker; the hub stands
-in for the docker-compose etcd + NATS).
+"""CLI launcher for the port — the commands of the JAX package's ``cli.py``
+(reference: launch/dynamo-run, ``dynamo-run in=… out=…``; components/http,
+the standalone frontend; components/metrics and its mock worker; llmctl;
+the operator and the api-store; the hub stands in for the docker-compose
+etcd + NATS).
 
 Usage:
   python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
@@ -25,6 +25,12 @@ Usage:
   python -m dynamo_tpu_torch.cli metrics --hub H:P [--port 9091]  # aggregator
   python -m dynamo_tpu_torch.cli mock-worker --hub H:P   # synthetic metrics
   python -m dynamo_tpu_torch.planner run --hub H:P ...   # the SLA planner
+  python -m dynamo_tpu_torch.cli model add|list|remove [NAME ENDPOINT] --hub H:P
+  python -m dynamo_tpu_torch.cli deploy render|preview -f CR.yaml   # needs PyYAML
+  python -m dynamo_tpu_torch.cli prepare MODEL [--cache DIR]   # local specs only
+  python -m dynamo_tpu_torch.cli operator [--namespace NS]      # in-cluster
+  python -m dynamo_tpu_torch.cli api-store --hub H:P [--kube] [--token T]
+  python -m dynamo_tpu_torch.sdk.runner MODULE:GRAPH -f CFG.yaml --http-port P  # SDK
 
 ``out=torch`` is ``TorchEngine`` on the first CUDA device unless
 ``--device cpu`` is given; ``out=echocore|echofull`` echo the prompt.
@@ -65,9 +71,16 @@ role (decode: through live migration) and starts the new one on the same
 resident engine, then acks the key.  ``run --record FILE`` taps every
 stream to JSONL (runtime/recorder.py).  The flags keep the JAX parser's
 names and defaults.  Options the port does not have yet fail when set
-(engine/__init__.py UNSUPPORTED_OPTIONS); the other JAX subcommands
-(model, prepare, operator, api-store, deploy) are not ported (ROADMAP
-queue 1 item 10.8).  Weights come from ``--checkpoint`` (a local HF
+(engine/__init__.py UNSUPPORTED_OPTIONS).  ``model`` writes and removes the
+JAX command's static registry entries (an ``hf`` tokenizer spec is
+registered as given; the frontend's watcher refuses to build it);
+``deploy`` renders a DynamoTpuDeployment CR into manifests that run the
+port (deploy/renderer.py; multi-host specs are refused); ``prepare``
+resolves a local directory, a ``.gguf`` file or a pre-staged copy and
+prints its path, and refuses a remote repo id (models/hub.py: no
+download); ``operator`` runs the deployment and model-cache reconcilers
+over the standard-library ``KubeApi``; ``api-store`` serves the deployment
+REST API (deploy/api_store.py).  Weights come from ``--checkpoint`` (a local HF
 safetensors directory, a ``.gguf`` file or a pre-staged copy; the
 architecture from its ``config.json`` or GGUF metadata) or a seeded random
 init.  The tokenizer is ``--tokenizer X.model`` (sentencepiece), else the
@@ -161,7 +174,7 @@ def _edge_tracing():
 def _edge_qos(args=None):
     """QosController for the HTTP edge from the layered ``qos`` config
     section under explicit --qos-*/--brownout flags (llm/qos.py; the
-    ``http`` command has them, ``run`` does not).  Returns None when
+    ``http`` and ``run`` commands have them).  Returns None when
     neither quotas nor the brownout ladder are enabled — zero behaviour
     change by default."""
     from .llm.qos import QosConfig, QosController
@@ -727,7 +740,7 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
                 ).start()
             service = HttpService(
                 host=args.host, port=args.port,
-                qos=_edge_qos(), kv_usage_fn=kv_usage_fn,
+                qos=_edge_qos(args), kv_usage_fn=kv_usage_fn,
                 tracing=sampler, trace_aggregator=aggregator,
             )
             service.models.add_chat_model(args.model, pipeline)
@@ -819,6 +832,133 @@ async def _run_mock_worker(args) -> None:
         await runtime.close()
 
 
+async def _run_model_cmd(args) -> None:
+    """llmctl equivalent (reference: launch/llmctl/src/main.rs:26-124): the
+    JAX command's registry entries, so a mixed fleet shares them."""
+    from .llm.discovery import MODEL_PREFIX, model_prefix
+
+    runtime = await DistributedRuntime.connect(args.hub)
+    try:
+        if args.verb == "add":
+            key = await register_model(
+                runtime,
+                args.name,
+                args.endpoint,
+                model_type=args.type,
+                tokenizer={"kind": "hf", "file": args.tokenizer}
+                if args.tokenizer
+                else {"kind": "byte"},
+                kv_block_size=args.block_size,
+                static=True,
+            )
+            print(f"registered {args.name} -> {args.endpoint} ({key})", flush=True)
+        elif args.verb == "list":
+            kvs = await runtime.hub.kv_get_prefix(MODEL_PREFIX)
+            for key, entry in sorted(kvs.items()):
+                print(f"{entry['name']}\t{entry['model_type']}\t{entry['endpoint']}")
+            if not kvs:
+                print("(no models registered)")
+        elif args.verb == "remove":
+            kvs = await runtime.hub.kv_get_prefix(model_prefix(args.name))
+            for key in kvs:
+                await runtime.hub.kv_delete(key)
+            print(f"removed {len(kvs)} registration(s) for {args.name}", flush=True)
+    finally:
+        await runtime.close()
+
+
+def _run_deploy(args) -> None:
+    """``deploy render|preview``: a DynamoTpuDeployment CR file → the
+    manifests (YAML) or the commands each service runs.  Needs PyYAML."""
+    from .deploy import render_to_yaml, shell_preview
+    from .deploy.renderer import require_yaml
+
+    try:
+        yaml = require_yaml()
+    except RuntimeError as e:
+        raise SystemExit(f"deploy: {e}") from None
+    with open(args.cr_file) as f:
+        cr = yaml.safe_load(f)
+    try:
+        print(render_to_yaml(cr) if args.verb == "render" else shell_preview(cr))
+    except ValueError as e:
+        raise SystemExit(f"deploy: {e}") from None
+
+
+def _run_prepare(args) -> None:
+    """Pre-stage a checkpoint into the model cache (the model-cache Job's
+    entrypoint): the local half of the JAX command.  A local directory, a
+    ``.gguf`` file or a copy pre-staged under ``--cache`` (or
+    ``DYN_MODEL_CACHE``) resolves and prints its path; a remote repo id is
+    refused (models/hub.py: the port downloads nothing)."""
+    if args.cache:
+        os.environ["DYN_MODEL_CACHE"] = args.cache
+    from .models.hub import resolve_model
+
+    try:
+        path = resolve_model(args.model, revision=args.revision)
+    except FileNotFoundError as e:
+        raise SystemExit(f"prepare: {e}") from None
+    print(path, flush=True)
+
+
+async def _run_operator(args) -> None:
+    """In-cluster reconcile loop (reference: the Go operator binary) —
+    drives BOTH CRDs: deployments and model caches (the reference's
+    dynamonimdeployment + dynamonimrequest controller pair)."""
+    from .deploy.controller import KubeApi, Reconciler
+    from .deploy.model_cache import ModelCacheReconciler
+
+    kube = KubeApi(namespace=args.namespace, base=args.api_server)
+    print(
+        f"operator reconciling {args.namespace}/dynamotpudeployments "
+        f"+ dynamotpumodelcaches (watch-triggered, {args.poll_interval}s "
+        f"resync)",
+        flush=True,
+    )
+    try:
+        # Both controllers run watch-triggered with periodic resync; a
+        # failing watch degrades each to pure polling independently.
+        await asyncio.gather(
+            Reconciler(kube).run(poll_interval=args.poll_interval),
+            ModelCacheReconciler(kube).run(poll_interval=args.poll_interval),
+        )
+    finally:
+        await kube.close()
+
+
+async def _run_api_store(args) -> None:
+    """Deployment-management REST API (reference: api-store FastAPI app)."""
+    from .deploy.api_store import ApiStore
+    from .runtime.transports.hub import HubClient
+
+    hub = await HubClient(args.hub).connect()
+    reconciler = None
+    if args.kube:
+        from .deploy.controller import KubeApi, Reconciler
+
+        # Distinct manager identity: the operator's orphan sweep must never
+        # treat api-store children as its own (and vice versa).
+        reconciler = Reconciler(KubeApi(namespace=args.namespace), manager="api-store")
+    token = args.token or os.environ.get("DYN_API_TOKEN") or None
+    if token is None and args.host not in ("127.0.0.1", "localhost", "::1"):
+        print(
+            "api-store WARNING: binding a non-loopback address with no "
+            "--token/DYN_API_TOKEN — any network peer can create/delete "
+            "deployments",
+            flush=True,
+        )
+    store = await ApiStore(hub, reconciler, host=args.host, port=args.port, token=token).start()
+    print(f"api-store on http://{args.host}:{store.port}", flush=True)
+    try:
+        await _wait_forever()
+    finally:
+        await store.close()
+        if reconciler is not None:
+            await reconciler.kube.close()
+        await hub.close()
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -883,6 +1023,63 @@ def build_parser() -> argparse.ArgumentParser:
     p_mock.add_argument("--namespace", default="dynamo")
     p_mock.add_argument("--component", default="TpuWorker")
     p_mock.add_argument("--interval", type=float, default=0.5)
+
+    p_model = sub.add_parser("model", help="model registry (llmctl equivalent)")
+    p_model.add_argument("verb", choices=["add", "list", "remove"])
+    p_model.add_argument("name", nargs="?", default=None)
+    p_model.add_argument("endpoint", nargs="?", default=None, help="dyn://ns.comp.ep")
+    p_model.add_argument("--hub", required=True)
+    p_model.add_argument("--type", default="both", choices=["chat", "completion", "both"])
+    p_model.add_argument("--tokenizer", default=None)
+    p_model.add_argument("--block-size", type=int, default=16, dest="block_size")
+
+    p_deploy = sub.add_parser(
+        "deploy", help="render k8s manifests from a DynamoTpuDeployment CR"
+    )
+    p_deploy.add_argument("verb", choices=["render", "preview"])
+    p_deploy.add_argument("-f", "--file", required=True, dest="cr_file")
+
+    p_prep = sub.add_parser(
+        "prepare",
+        help="pre-stage a model checkpoint into the cache "
+             "(model-cache Job entrypoint)",
+    )
+    p_prep.add_argument("model")
+    p_prep.add_argument("--cache", default=None,
+                        help="destination dir (overrides DYN_MODEL_CACHE)")
+    p_prep.add_argument("--revision", default=None)
+
+    p_op = sub.add_parser(
+        "operator",
+        help="k8s controller: reconcile DynamoTpuDeployment + "
+             "DynamoTpuModelCache CRs in-cluster",
+    )
+    p_op.add_argument("--namespace", default="default")
+    p_op.add_argument("--poll-interval", type=float, default=10.0,
+                      dest="poll_interval")
+    p_op.add_argument("--api-server", default=None, dest="api_server",
+                      help="override the in-cluster API server URL")
+
+    p_store = sub.add_parser(
+        "api-store",
+        help="deployment-management REST API over the hub store",
+    )
+    p_store.add_argument("--hub", required=True)
+    # Loopback by default: the store can create/delete k8s objects (with
+    # --kube), so exposure beyond localhost is opt-in and should come with
+    # --token.
+    p_store.add_argument("--host", default="127.0.0.1")
+    p_store.add_argument("--port", type=int, default=7070)
+    p_store.add_argument(
+        "--kube", action="store_true",
+        help="also reconcile created deployments against the k8s API",
+    )
+    p_store.add_argument("--namespace", default="default")
+    p_store.add_argument(
+        "--token", default=None,
+        help="bearer token required on every request (default: "
+        "DYN_API_TOKEN env; unset = unauthenticated)",
+    )
 
     p_run = sub.add_parser("run", help="in=… out=… launcher")
     p_run.add_argument("inout", nargs=2, metavar="in=/out=")
@@ -1003,11 +1200,29 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-local-prefill", type=int, default=512, dest="max_local_prefill",
         help="prefills longer than this (minus prefix hit) go remote",
     )
+    # QoS / overload control for in=http (llm/qos.py; defaults disabled).
+    p_run.add_argument(
+        "--qos-rate", type=float, default=None, dest="qos_rate",
+        help="per-tenant sustained requests/s (token bucket; unset = off)",
+    )
+    p_run.add_argument(
+        "--qos-burst", type=float, default=None, dest="qos_burst",
+        help="per-tenant burst allowance (default 2x rate)",
+    )
+    p_run.add_argument(
+        "--brownout", action="store_true",
+        help="enable the brownout degradation ladder (docs/qos.md)",
+    )
     return parser
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.cmd == "model" and args.verb in ("add", "remove") and not args.name:
+        parser.error(f"model {args.verb} requires a model name")
+    if args.cmd == "model" and args.verb == "add" and not args.endpoint:
+        parser.error("model add requires an endpoint path")
     if args.cmd != "run":
         return args
     io = {}
@@ -1028,9 +1243,16 @@ def main(argv: Optional[list] = None) -> None:
 
     setup_logging()
     args = parse_args(argv)
+    if args.cmd == "deploy":
+        _run_deploy(args)
+        return
+    if args.cmd == "prepare":
+        _run_prepare(args)
+        return
     run = {
         "hub": _run_hub, "http": _run_http_frontend, "run": _run,
         "metrics": _run_metrics, "mock-worker": _run_mock_worker,
+        "model": _run_model_cmd, "operator": _run_operator, "api-store": _run_api_store,
     }[args.cmd]
     try:
         asyncio.run(run(args))

@@ -12,14 +12,20 @@ UNSUPPORTED_OPTIONS = (
 )
 
 
+def refuse_unsupported(args) -> None:
+    """Exit naming the ROADMAP item when ``args`` sets an option of
+    ``UNSUPPORTED_OPTIONS`` away from its default."""
+    for attr, default, flag, waits in UNSUPPORTED_OPTIONS:
+        if getattr(args, attr, default) != default:
+            raise SystemExit(f"{flag} is not supported by out=torch yet (ROADMAP {waits})")
+
+
 def build_torch_engine(args):
     """CLI factory for ``run out=torch``, the counterpart of the JAX
     package's ``build_tpu_engine`` for the settings this engine has.  Runs
     on CUDA unless ``args.device`` says otherwise (device.py).  Imports
     torch lazily."""
-    for attr, default, flag, waits in UNSUPPORTED_OPTIONS:
-        if getattr(args, attr, default) != default:
-            raise SystemExit(f"{flag} is not supported by out=torch yet (ROADMAP {waits})")
+    refuse_unsupported(args)
     from .config import EngineConfig
     from .engine import TorchEngine
 

@@ -1,14 +1,17 @@
 """Prometheus label hygiene for the port's ``/metrics``.
 
-Copy of ``bounded_label``, ``escape_label`` and ``hash_credential`` from
-the JAX package's ``labels.py``.  Wire-controlled values (the OpenAI
-``model`` field, HTTP headers) pass through one of the first two before
-they reach a label; credentials become tenant ids only through the third.
+Copy of ``bounded_label``, ``escape_label``, ``hash_credential`` and
+``safe_key_component`` from the JAX package's ``labels.py``.
+Wire-controlled values (the OpenAI ``model`` field, HTTP headers) pass
+through one of the first two before they reach a label; credentials become
+tenant ids only through the third; wire-controlled hub-key components (the
+api-store's deployment names) through the fourth.
 """
 
 from __future__ import annotations
 
 import hashlib
+import re
 
 # Prometheus exposition label values escape exactly three characters:
 # backslash, double-quote, and newline (in that order — the escape
@@ -46,3 +49,23 @@ def hash_credential(secret: str, prefix: str = "key") -> str:
     flows just as well, and 12 hex chars keep collision odds negligible at
     fleet scale (2^48)."""
     return f"{prefix}:{hashlib.sha256(secret.encode()).hexdigest()[:12]}"
+
+
+# One hub-key path component: no '/', whitespace or control characters.
+_KEY_COMPONENT_RE = re.compile(r"^[A-Za-z0-9]([A-Za-z0-9._-]{0,253})$")
+
+
+def safe_key_component(value: str) -> str:
+    """Validate a wire-controlled string for use as ONE hub-key path
+    component.  Returns the value unchanged or raises ``ValueError`` —
+    callers map the error to their 400/reject path.
+
+    Hub keys are a shared namespace (``instances/…``, ``planner/…``,
+    ``health/quarantine/…``); a crafted id containing ``/`` or whitespace
+    could escape its prefix and shadow another subsystem's keys."""
+    if not isinstance(value, str) or not _KEY_COMPONENT_RE.match(value):
+        raise ValueError(
+            f"invalid key component {value!r}: must match "
+            "[A-Za-z0-9][A-Za-z0-9._-]{0,253}"
+        )
+    return value

@@ -12,9 +12,8 @@ A copy of the JAX package's ``planner/__main__.py``.
 
 SLO targets and policy bounds come from the layered config's ``planner``
 section (runtime/config.py: ``DYN_PLANNER__TTFT_P95_MS=1500`` etc.),
-overridable by the flags below.  ``run --kube`` needs the deploy
-package's ``KubeApi``, which the port does not have yet (ROADMAP queue 1
-item 10.8): it fails naming that item.
+overridable by the flags below.  ``run --kube CR_NAME`` actuates through
+the CR's replica counts with the deploy package's ``KubeApi``.
 """
 
 from __future__ import annotations
@@ -53,21 +52,23 @@ def _engine_from_config(args) -> DecisionEngine:
 
 async def _run(args) -> None:
     from ..runtime.component import DistributedRuntime
-    from .actuate import LocalActuator
+    from .actuate import KubeActuator, LocalActuator
     from .service import Planner, PlannerHttp
     from .signals import SignalCollector
 
-    if args.kube:
-        raise SystemExit(
-            "--kube is not supported by the port yet (ROADMAP queue 1 item "
-            "10.8, the deploy package's KubeApi); omit it for local actuation"
-        )
     runtime = await DistributedRuntime.connect(args.hub)
     component = runtime.namespace(args.namespace).component(args.component)
     collector = await SignalCollector(
         component, model=args.model, stale_after_s=args.stale_after_s
     ).start()
-    actuator = LocalActuator(runtime.hub)
+    if args.kube:
+        from ..deploy.controller import KubeApi
+
+        actuator = KubeActuator(
+            KubeApi(namespace=args.k8s_namespace), cr_name=args.kube
+        )
+    else:
+        actuator = LocalActuator(runtime.hub)
     engine = _engine_from_config(args)
     if args.autopilot:
         from .autopilot import Autopilot
@@ -93,6 +94,8 @@ async def _run(args) -> None:
         await http.stop()
         await planner.stop()
         await collector.stop()
+        if args.kube:
+            await actuator.kube.close()
         await runtime.close()
 
 

@@ -4,12 +4,9 @@ package's ``planner/actuate.py``.
 Two actuators behind one protocol:
 
 - ``KubeActuator`` — patches ``DynamoTpuDeployment`` CR replica counts
-  through a duck-typed ``kube`` object (the JAX package's
-  ``deploy/controller.py`` ``KubeApi`` / ``FakeKube`` surface: ``list``
-  and ``apply``); the reconciler then drives the fleet to the new count.
-  The port has no deploy package yet (ROADMAP queue 1 item 10.8), so it
-  keeps its own copy of the CR's group and kind.  The
-  planner never touches child Deployments/StatefulSets directly — the CR
+  through a duck-typed ``kube`` object (the ``deploy/controller.py``
+  ``KubeApi`` / ``FakeKube`` surface: ``list`` and ``apply``); the reconciler then drives the fleet to the new count.
+  The planner never touches child Deployments/StatefulSets directly — the CR
   stays the single source of truth, exactly like a human running
   ``kubectl patch``.
 - ``LocalActuator`` — for hub-native (non-k8s) deployments: records
@@ -31,6 +28,7 @@ import asyncio
 import logging
 from typing import Any, Awaitable, Callable, Dict, List, Optional
 
+from ..deploy.controller import GROUP
 from ..runtime.transports.shard import hub_key, hub_prefix
 from .policy import DECODE, PREFILL, Decision
 
@@ -39,8 +37,6 @@ logger = logging.getLogger(__name__)
 ROLE_PREFIX = hub_prefix("planner", "roles")
 TARGET_PREFIX = hub_prefix("planner", "targets")
 DIRECTIVE_PREFIX = hub_prefix("planner", "directives")
-# The custom resource the reconciler drives (deploy/k8s/crd.yaml).
-GROUP = "dynamo.tpu.io"
 CR_KIND = "DynamoTpuDeployment"
 
 

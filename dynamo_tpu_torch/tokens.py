@@ -284,10 +284,17 @@ def fast_sequence_hashes(
 ) -> List[int]:
     """Chained sequence hashes of all complete blocks — the router's hot path
     (one call per routed request over the full prompt), bit-identical to
-    ``hash_token_blocks``.  Without xxhash the blocks' local hashes are
+    ``hash_token_blocks``.  Uses the native C++ library
+    (csrc/native/dyn_tokens.cc, the same XXH64 chain; native.py) once it is
+    loaded.  Otherwise, without xxhash the blocks' local hashes are
     computed at once in numpy lanes (``block_hashes_np``) and the chain
     step, which is sequential, runs the 16-byte XXH64 in Python."""
+    from . import native
+
     parent = salt_hash(salt)
+    pairs = native.hash_blocks(list(tokens), block_size, parent or 0)
+    if pairs is not None:
+        return [seq for _local, seq in pairs]
     out: List[int] = []
     if USING_XXHASH:
         for local in (compute_block_hash(tokens[i:i + block_size])

@@ -407,17 +407,22 @@ def test_package_imports_no_jax_and_no_module_level_triton():
     root = pathlib.Path(__file__).resolve().parent.parent
     files = list((root / "dynamo_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     # The modules each slice adds are in the scan (the bulk plane, the
-    # whole health watchdog, the planner and the auxiliary services among
-    # them).
+    # whole health watchdog, the planner, the auxiliary services, the SDK,
+    # its example graph and the deployment tooling among them).
     planner = ("signals", "policy", "pmetrics", "actuate", "autopilot", "sim", "service",
                "supervisor", "__init__", "__main__")
+    sdk = ("__init__", "service", "graph", "config", "allocator", "worker_main", "runner")
+    deploy = ("__init__", "renderer", "controller", "model_cache", "api_store")
     for module in ("runtime/transports/bulk.py", "runtime/health.py",
                    "llm/kv_router/pull.py", "llm/migration/worker.py", "llm/trace_service.py",
                    "llm/metrics_service.py", "llm/billing.py", "runtime/recorder.py",
                    "llm/kv_router/recorder.py", "runtime/logging_config.py",
                    *(f"planner/{m}.py" for m in planner),
                    "models/loader.py", "models/gguf.py", "models/hub.py", "llm/sp.py",
-                   "llm/tenancy/__init__.py", "llm/tenancy/lora.py"):
+                   "llm/tenancy/__init__.py", "llm/tenancy/lora.py", "native.py",
+                   *(f"sdk/{m}.py" for m in sdk), *(f"deploy/{m}.py" for m in deploy),
+                   "examples/__init__.py", "examples/llm/__init__.py",
+                   "examples/llm/components.py", "examples/llm/graphs.py"):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the

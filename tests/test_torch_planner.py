@@ -194,11 +194,49 @@ def test_sim_smoke_command_matches_jax():
 
 
 def test_kube_option_names_its_roadmap_item():
-    """``planner run --kube`` waits for the deploy package: it fails
-    naming ROADMAP queue 1 item 10.8 before it dials the hub."""
-    M = importlib.import_module(f"{PORT}.planner.__main__")
-    with pytest.raises(SystemExit, match="queue 1 item 10.8"):
-        M.main(["run", "--hub", "127.0.0.1:1", "--kube", "app"])
+    """``planner run --kube CR`` (once refused, naming ROADMAP queue 1 item
+    10.8, which the deploy package closed) starts on each package against
+    a live hub with a ``KubeActuator`` over that package's ``KubeApi``,
+    announces ``kube:CR`` actuation and stops on SIGTERM with code 0."""
+    import signal
+    import threading
+
+    from conftest import hermetic_child_env
+
+    hubmod = importlib.import_module(f"{PORT}.runtime.transports.hub")
+
+    async def main():
+        hub = await hubmod.HubServer(host="127.0.0.1", port=0).start()
+        try:
+            out = {}
+            for pkg in PKGS:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", f"{pkg}.planner", "run", "--hub", hub.address,
+                     "--kube", "app", "--dry-run", "--host", "127.0.0.1", "--port", "0"],
+                    cwd=REPO, env=hermetic_child_env(REPO), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                lines = []
+                reader = threading.Thread(target=lambda p=proc: lines.extend(p.stdout))
+                reader.start()
+                try:
+                    for _ in range(600):
+                        if any(ln.startswith("planner on ") for ln in lines):
+                            break
+                        await asyncio.sleep(0.1)
+                    proc.send_signal(signal.SIGTERM)
+                    rc = await asyncio.to_thread(proc.wait, 30)
+                finally:
+                    proc.kill()
+                    reader.join(10)
+                said = [ln for ln in lines if ln.startswith("planner on ")]
+                out[pkg] = (rc, [re.sub(r":\d+/", ":P/", ln) for ln in said])
+            assert out[PORT] == out[JAX]
+            assert out[PORT][0] == 0
+            assert out[PORT][1] and "DRY-RUN, kube:app actuation" in out[PORT][1][0]
+        finally:
+            await hub.close()
+
+    asyncio.run(main())
 
 
 # --------------------------------------------------------------- metrics
