@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serve-ab   # direct vs HTTP serve in turns only
     python3 chip_smoke.py --quant-ab   # phase c's traffic, W8A8 vs bf16 in turns only
     python3 chip_smoke.py --sdk-graph  # phase p alone
+    python3 chip_smoke.py --parallel   # phase q alone
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -332,9 +333,30 @@ Phases, any failure exits non-zero:
      edge, ``model remove`` answered 404; SIGTERM stops the graph, every
      child through its shutdown, within the supervisor's 10 s; TTFT and ITL
      at the edge, reported;
+  q. tensor, expert, data and sequence parallelism and the step plane,
+     with ranks that share this one card over gloo (NCCL refuses two ranks
+     on one GPU; no number here measures an interconnect): the backend and
+     program mode chosen and the device count; two f32 ranks
+     (``--parallel-rank``) at llama-3.1-8b's width and 2 layers, each
+     holding its own one-rank reference: tp 2 logits and each rank's pages
+     against tp 1's head slice, W8A8 tp 2 against W8A8 tp 1, mixtral-8x7b's
+     width at ep 2 against ep 1, and an sp 2 ring pass over 4096 ids (its
+     first-token logits and sealed pages against the chunked path), each
+     within 1e-4; the group's all-reduce of [16, 4096] and [512, 4096]
+     bf16; then at full depth in bf16: ``run in=http out=torch --tp 2``
+     (its second rank started by the command) serving 3 greedy requests
+     one at a time, both ranks launching both attention kernels (the site
+     hook of phase p), each rank's peak allocated memory and the card's
+     used memory, TTFT, ITL, a warm-``_build``
+     boot, and how many streams equal a one-rank engine's (ungated); the
+     same as two commands (``--nnodes 2``, ``DYN_STEP_TOKEN`` set): the
+     same texts, and the follower exits with its leader; ``run --sp 2``
+     sealing a 4096-id prompt in one ring pass, its TTFT beside the
+     one-rank chunked TTFT, then two more sent at once, each sealed and
+     served whole; no rank process outlives its run;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l, m, n, o and p beside phase 6's
-     and 7's; the noise kernel's in phases j, k, l, e and p), then the
+     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p and q beside phase 6's
+     and 7's; the noise kernel's in phases j, k, l, e, p and q), then the
      device line last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
@@ -7127,8 +7149,8 @@ SDK_MAX_TOKENS = 32
 SDK_HASH_IDS = 131072
 SDK_STOP_TIMEOUT_S = 10.0  # Supervisor.shutdown's timeout
 # On the runner's children's PYTHONPATH: each child writes, at exit, whether
-# it opened a CUDA context and (the worker) its kernel launch counts, and
-# SIGUSR1 zeroes the counts.  It changes nothing the children do; another
+# it opened a CUDA context (and its peak allocated card memory) and (the
+# worker) its kernel launch counts, and SIGUSR1 zeroes the counts.  It changes nothing the children do; another
 # sitecustomize further down the path still runs.
 SDK_SITE_HOOK = '''\
 import atexit, json, os, signal, sys, time
@@ -7150,8 +7172,10 @@ def _zero(signum, frame):
 def _report():
     torch = sys.modules.get("torch")
     g = _graphs()
+    cuda = bool(torch is not None and torch.cuda.is_initialized())
     rec = {"pid": os.getpid(), "argv": sys.argv, "t_exit": time.time(),
-           "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized()),
+           "cuda_initialized": cuda,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
            "launches": None if g is None else g.kernel_launches()}
     with open(os.path.join(_OUT, f"{os.getpid()}.json"), "w") as f:
         json.dump(rec, f)
@@ -7232,6 +7256,17 @@ def compute_apps():
         if len(parts) == 2 and parts[0].isdigit():
             apps.append((int(parts[0]), parts[1]))
     return apps
+
+
+def card_used_mib():
+    """The card's used memory in MiB, all processes together, as nvidia-smi
+    reads it (None where it cannot).  Inside a container nvidia-smi may not
+    map a process to its own memory, so a rank's own figure is its peak
+    allocated memory from the site hook."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    first = r.stdout.strip().splitlines()[:1]
+    return int(first[0]) if first and first[0].strip().isdigit() else None
 
 
 async def sdk_chat(port, prompt, model):
@@ -7466,6 +7501,480 @@ def sdk_path(torch):
     return not fails, launches, out
 
 
+# ------------------------------------------------------------------ phase q
+
+PAR_MODEL = "llama-3.1-8b"
+PAR_CHECK_LAYERS = 2
+PAR_TOL = 1e-4
+PAR_RANK_TIMEOUT_S = 400
+PAR_SP_IDS = 4096
+PAR_SP_CHUNK = 512
+PAR_ALLREDUCE_ROWS = (16, 512)
+PAR_PROMPTS = 3
+PAR_ISL = 64
+PAR_MAX_TOKENS = 16
+PAR_SERVE_TIMEOUT_S = 400
+# A full-depth llama-3.1-8b ``run`` as phase q starts it (seed 0, bf16):
+# its rows, pages and length.  The sp run takes a 4096-id prompt.
+PAR_RUN_FLAGS = ["--arch", PAR_MODEL, "--model", PAR_MODEL, "--max-batch", "8",
+                 "--num-blocks", "1024", "--max-model-len", "8192"]
+
+
+def par_state_for(base, mesh_cfg):
+    """A ParallelState for another mesh over the same two ranks: every
+    group of two ranks is the world's group."""
+    from dynamo_tpu_torch.parallel.distributed import _GROUP_AXES, AxisGroup, ParallelState
+    from dynamo_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(mesh_cfg, [base.device] * base.size)
+    groups = {}
+    for axes in _GROUP_AXES:
+        ranks = mesh.group_ranks(axes, base.rank)
+        groups[axes] = AxisGroup(ranks, base.rank, base.world.pg if len(ranks) > 1 else None,
+                                 stage=base.backend == "gloo")
+    return ParallelState(mesh, base.rank, base.device, base.backend, groups)
+
+
+def par_steps(torch, dev, mc, table, S=8):
+    """A 48-id prefill of one row, then two fused-decode-shaped steps."""
+    tokens = torch.randint(1, mc.vocab_size, (50,),
+                           generator=torch.Generator().manual_seed(5)).tolist()
+    return [one_row_batch(torch, dev, S, table, tokens[:48], 0, False),
+            one_row_batch(torch, dev, S, table, tokens[48:49], 48, True),
+            one_row_batch(torch, dev, S, table, tokens[49:50], 49, True)], [False, True, True]
+
+
+def par_forward(torch, dev, mc, params, shard, n_pages=8):
+    """forward_ragged over ``par_steps`` at this rank's heads: (row 0's
+    logits of each step [3, V], the pages)."""
+    from dynamo_tpu_torch.models.llama import PagedKVCache, forward_ragged
+
+    kv = mc.num_kv_heads // (1 if shard is None else shard.tp.size)
+    cache = PagedKVCache.create(mc.with_overrides(num_kv_heads=kv), n_pages, PS,
+                                torch.float32, dev)
+    rbs, decode = par_steps(torch, dev, mc, list(range(4)))
+    logits = torch.stack([forward_ragged(params, mc, rb, cache, decode=d, shard=shard)[0]
+                          for rb, d in zip(rbs, decode)])
+    return logits, cache.pages
+
+
+def par_rank_job(rank, port, out_path, dev=None):
+    """One of phase q's two f32 ranks on this card (``--parallel-rank``):
+    tp 2, W8A8 tp 2, ep 2 (mixtral width), sp 2 against the one-rank
+    forward of the same weights, each rank computing its own reference;
+    and the group's all-reduce times.  Writes a JSON report.  ``dev``
+    (default the card) lets a CPU rehearsal run it."""
+    import torch
+
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.models.llama import (
+        PagedKVCache, forward_ragged, forward_sp_prefill, init_params,
+    )
+    from dynamo_tpu_torch.models.quant import init_params_quantized
+    from dynamo_tpu_torch.parallel.distributed import MultiHostConfig, init_multihost
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig, param_pspecs, shard_params
+
+    dev = dev or torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    base = init_multihost(MultiHostConfig(coordinator=f"127.0.0.1:{port}"), MeshConfig(tp=2),
+                          rank, dev)
+    rep = {"rank": rank, "backend": base.backend, "eager": base.eager, "errors": {}}
+
+    def compare(label, got, want):
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=PAR_TOL, atol=PAR_TOL)
+        rep["errors"][label] = (err, ok, float(w.abs().max()))
+
+    with torch.inference_mode():
+        # tp 2, f32, and W8A8 (f32 activations) at llama-3.1-8b's width.
+        for label, quant in (("tp2", False), ("tp2_w8a8", True)):
+            mc = get_config(PAR_MODEL).with_overrides(num_layers=PAR_CHECK_LAYERS,
+                                                      dtype="float32")
+            full = init_params_quantized(mc, 0, dev) if quant else init_params(mc, 0, dev)
+            ref_logits, ref_pages = par_forward(torch, dev, mc, full, None)
+            local = shard_params(full, param_pspecs(mc), base.mesh, rank)
+            del full
+            torch.cuda.empty_cache()
+            logits, pages = par_forward(torch, dev, mc, local, base)
+            compare(f"{label} logits", logits, ref_logits)
+            kv2 = pages.shape[3]
+            compare(f"{label} pages", pages, ref_pages[:, :, :, rank * kv2:(rank + 1) * kv2])
+            del local, ref_pages, pages
+            torch.cuda.empty_cache()
+        # ep 2 at mixtral-8x7b's width.
+        ep = par_state_for(base, MeshConfig(ep=2))
+        mc = get_config("mixtral-8x7b").with_overrides(num_layers=PAR_CHECK_LAYERS,
+                                                       dtype="float32")
+        full = init_params(mc, 0, dev)
+        ref_logits, _ = par_forward(torch, dev, mc, full, None)
+        local = shard_params(full, param_pspecs(mc), ep.mesh, rank)
+        del full
+        torch.cuda.empty_cache()
+        logits, _ = par_forward(torch, dev, mc, local, ep)
+        compare("ep2 logits", logits, ref_logits)
+        del local
+        torch.cuda.empty_cache()
+        # sp 2: a 4096-id prompt in one ring pass against the chunked path.
+        sp = par_state_for(base, MeshConfig(sp=2))
+        mc = get_config(PAR_MODEL).with_overrides(num_layers=PAR_CHECK_LAYERS, dtype="float32")
+        params = init_params(mc, 0, dev)
+        ids = torch.randint(1, mc.vocab_size, (PAR_SP_IDS,),
+                            generator=torch.Generator().manual_seed(6))
+        npg = PAR_SP_IDS // PS
+        cache = PagedKVCache.create(mc, npg, PS, torch.float32, dev)
+        table = list(range(npg))
+        for lo in range(0, PAR_SP_IDS, PAR_SP_CHUNK):
+            rb = one_row_batch(torch, dev, 1, table, ids[lo:lo + PAR_SP_CHUNK].tolist(), lo,
+                               False)
+            chunk_logits = forward_ragged(params, mc, rb, cache)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp_logits, rows = forward_sp_prefill(params, mc, ids.to(dev), PAR_SP_IDS, sp)
+        torch.cuda.synchronize()
+        rep["sp_pass_ms"] = (time.perf_counter() - t0) * 1e3
+        compare("sp2 first-token logits", sp_logits, chunk_logits)
+        sealed = rows.reshape(mc.num_layers, npg, PS, *rows.shape[2:])
+        compare("sp2 sealed pages", sealed, cache.pages)
+        del params, cache, rows, sealed
+        torch.cuda.empty_cache()
+        # The all-reduce over the group, host-staged (gloo).
+        times = {}
+        for rows_n in PAR_ALLREDUCE_ROWS:
+            x = torch.ones((rows_n, 4096), dtype=torch.bfloat16, device=dev)
+            for _ in range(3):
+                base.tp.all_reduce(x)
+            torch.cuda.synchronize()
+            n = 20
+            t0 = time.perf_counter()
+            for _ in range(n):
+                base.tp.all_reduce(x)
+            torch.cuda.synchronize()
+            times[f"[{rows_n}, 4096] bf16"] = (time.perf_counter() - t0) * 1e3 / n
+        rep["allreduce_ms"] = times
+        rep["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(out_path, "w") as f:
+        json.dump(rep, f)
+
+
+def par_f32_checks(fails, out):
+    """Phase q's f32 part: two ranks (this script, ``--parallel-rank``)
+    on the card, over gloo."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--parallel-rank",
+                                   str(r), str(port), os.path.join(tmp, f"{r}.json")],
+                                  cwd=str(REPO), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PAR_RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["f32_ranks_s"] = time.perf_counter() - t0
+        reps = []
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                fails.append(f"f32 rank {r} exited {p.returncode}")
+                log(f"parallel rank {r} FAILED:\n{logs[r][-3000:]}")
+                continue
+            with open(os.path.join(tmp, f"{r}.json")) as f:
+                reps.append(json.load(f))
+    for rep in reps:
+        for label, (err, ok, mag) in rep["errors"].items():
+            log(f"parallel f32 rank {rep['rank']} {label}: max_abs_err {err:.3e} "
+                f"(max |x| {mag:.3f}) tol {PAR_TOL} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fails.append(f"rank {rep['rank']} {label}")
+    if reps:
+        r0 = reps[0]
+        log(f"parallel: backend {r0['backend']}, programs {'eager' if r0['eager'] else 'graphs'}"
+            f" (two ranks on one card) [{CARD}]")
+        for k, ms in r0["allreduce_ms"].items():
+            log(f"parallel all-reduce {k} over 2 ranks on one card (gloo, host-staged): "
+                f"{ms:.3f} ms [{CARD}]")
+        log(f"parallel sp 2 ring pass, {PAR_SP_IDS} ids, {PAR_CHECK_LAYERS} layers f32: "
+            f"{r0['sp_pass_ms']:.1f} ms [{CARD}]")
+        out.update(backend=r0["backend"], eager=r0["eager"], allreduce_ms=r0["allreduce_ms"],
+                   sp_pass_f32_ms=r0["sp_pass_ms"],
+                   f32_errors={rep["rank"]: rep["errors"] for rep in reps},
+                   f32_peak_gib=[rep["memory_gib"] for rep in reps])
+
+
+def par_prompts(n, isl, seed):
+    rng = random.Random(seed)
+    return [[rng.randrange(1, DIST_VOCAB) for _ in range(isl)] for _ in range(n)]
+
+
+async def par_complete(port, prompt, max_tokens):
+    """A streamed greedy completion with logprobs (every token's chunk is
+    sent): (status, the chunks' token texts, TTFT s, ITL s, completion
+    tokens of the usage)."""
+    texts, stamps, used = [], [], []
+
+    def on_event(t, ev):
+        if not ev.startswith("data: ") or ev == "data: [DONE]":
+            return
+        c = json.loads(ev[len("data: "):])
+        if c.get("usage"):
+            used.append(c["usage"].get("completion_tokens"))
+        for ch in c.get("choices") or []:
+            lp = ch.get("logprobs") or {}
+            for tok in lp.get("tokens") or []:
+                texts.append(tok)
+                stamps.append(t)
+
+    body = {"model": PAR_MODEL, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "logprobs": 0, "nvext": {"ignore_eos": True}}
+    st, _, _, _ = await http_call(port, "POST", "/v1/completions", body, on_event=on_event)
+    ttft = stamps[0] if stamps else float("nan")
+    itl = (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1) if stamps else float("nan")
+    return st, texts, ttft, itl, used[-1] if used else None
+
+
+async def par_at_once(port, prompts, max_tokens, timeout):
+    """``par_complete`` of every prompt, all sent at once, within
+    ``timeout`` seconds."""
+    return await asyncio.wait_for(asyncio.gather(
+        *(par_complete(port, p, max_tokens) for p in prompts)), timeout)
+
+
+class ParRun:
+    """One ``run in=http out=torch`` of phase q (full depth, bf16) and the
+    rank processes it starts, whose kernel launches the site hook writes
+    at their exit."""
+
+    def __init__(self, name, flags, env):
+        self.port = _free_port()
+        self.t0 = time.perf_counter()
+        self.child = Child(name, ["run", "in=http", "out=torch", "--host", "127.0.0.1",
+                                  "--port", str(self.port), *PAR_RUN_FLAGS, *flags], env=env)
+        self.boot_s = None
+
+    def wait(self):
+        self.child.wait_line("serving ", PAR_SERVE_TIMEOUT_S)
+        self.boot_s = time.perf_counter() - self.t0
+        return self
+
+    def rank_pids(self):
+        pids = [self.child.p.pid]
+        for line in self.child.lines:
+            m = re.match(r"rank \d+ started \(pid (\d+)\)", line)
+            if m:
+                pids.append(int(m.group(1)))
+        return pids
+
+    def serve(self, prompts, max_tokens):
+        return [asyncio.run(par_complete(self.port, p, max_tokens)) for p in prompts]
+
+
+def par_reports(reports, pids):
+    """The site hook's exit reports of ``pids``: launches summed, and per
+    pid its launches and peak allocated card memory (GiB)."""
+    total, per = {}, {}
+    for pid in pids:
+        path = os.path.join(reports, f"{pid}.json")
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        per[pid] = dict(rec["launches"] or {}, peak_allocated_gib=rec.get("peak_allocated_gib"))
+        for k, v in (rec["launches"] or {}).items():
+            total[k] = total.get(k, 0) + v
+    return total, per
+
+
+def par_stop(run, reports, fails, label):
+    """Stop a run (SIGINT to the leader) and check that every rank process
+    it started exits with it."""
+    pids = run.rank_pids()
+    run.child.stop(signal.SIGINT)
+    deadline = time.time() + 60
+    alive = pids
+    while alive and time.time() < deadline:
+        alive = [p for p in pids if _pid_alive(p)]
+        time.sleep(0.2)
+    if alive:
+        fails.append(f"{label}: rank processes {alive} outlived the run")
+        for p in alive:
+            os.kill(p, signal.SIGKILL)
+    return par_reports(reports, pids)
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    # A zombie (exited, not yet reaped) holds nothing.
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except OSError:
+        return False
+
+
+def par_zero(pids):
+    for pid in pids:
+        os.kill(pid, signal.SIGUSR1)
+    time.sleep(0.5)
+
+
+def parallel_path(torch):
+    """Phase q: tensor, expert, data and sequence parallelism and the step
+    plane, with ranks sharing this one card over gloo (NCCL refuses two
+    ranks on one GPU): no number here measures an interconnect.  Returns
+    (ok, launches of every rank of the tp 2 run, numbers)."""
+    fails, out = [], {}
+    t_phase = time.perf_counter()
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"parallel check FAILED: {what}")
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.parallel.distributed import choose_backend
+
+    log(f"parallel: torch.cuda.device_count() {torch.cuda.device_count()}; two ranks on one card "
+        f"choose {choose_backend(['h/0', 'h/0'])} (one card a rank: "
+        f"{choose_backend(['h/0', 'h/1'])}); gloo runs the programs eagerly")
+    par_f32_checks(fails, out)
+    for f in list(fails):
+        log(f"parallel check FAILED: {f}")
+
+    prompts = par_prompts(PAR_PROMPTS, PAR_ISL, 17)
+    sp_prompt = par_prompts(1, PAR_SP_IDS, 18)[0]
+    sp_pair = par_prompts(2, PAR_SP_IDS, 19)
+    # tp 1 in this process: the streams and the chunked TTFT of the 4096-id
+    # prompt that the runs below are held against.
+
+    async def one_rank():
+        eng = TorchEngine(EngineConfig(model=PAR_MODEL, max_batch=8, num_blocks=1024,
+                                       max_model_len=8192, seed=0))
+        try:
+            got = [(await dist_engine_alone(eng, p, PAR_MAX_TOKENS))[0] for p in prompts]
+            return got, (await dist_engine_alone(eng, sp_prompt, 4))[1]
+        finally:
+            await eng.close()
+
+    streams, ttft = asyncio.run(one_rank())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parallel tp 1 (this process, CUDA graphs): {PAR_SP_IDS}-id prompt chunked TTFT "
+        f"{ttft * 1e3:.1f} ms [{CARD}]")
+    out["chunked_ttft_ms"] = ttft * 1e3
+
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    want_texts = [[tok.decode([t]) for t in s] for s in streams]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as tmp:
+        site, reports = os.path.join(tmp, "site"), os.path.join(tmp, "reports")
+        os.makedirs(site)
+        os.makedirs(reports)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(SDK_SITE_HOOK)
+        env = {"PYTHONPATH": os.pathsep.join([site, str(REPO)]),
+               "CHIP_SMOKE_CHILD_DIR": reports, "DYN_LOG": "info"}
+
+        # q3: run --tp 2, one command.
+        run = ParRun("tp2", ["--tp", "2"], env)
+        try:
+            run.wait()
+            used = card_used_mib()
+            par_zero(run.rank_pids())
+            res = run.serve(prompts, PAR_MAX_TOKENS)
+        finally:
+            total, per = par_stop(run, reports, fails, "run --tp 2")
+        line = next((x for x in run.child.lines if x.startswith("parallel: ")), "")
+        log(f"parallel run --tp 2: {line} ; boot {run.boot_s:.1f} s with a warm _build [{CARD}]")
+        check(all(r[0] == 200 and r[4] == PAR_MAX_TOKENS for r in res),
+              f"run --tp 2 served every request whole ({[(r[0], r[4]) for r in res]})")
+        texts = [r[1] for r in res]
+        same = sum(t == w for t, w in zip(texts, want_texts))
+        log(f"parallel run --tp 2: {same}/{len(texts)} streams equal tp 1's (ungated: "
+            f"batch invariance), TTFT {[round(r[2] * 1e3, 1) for r in res]} ms, ITL "
+            f"{[round(r[3] * 1e3, 2) for r in res]} ms [{CARD}]")
+        log(f"parallel run --tp 2 card's used memory while serving, all processes: {used} MiB "
+            f"(nvidia-smi; a rank's own is its peak allocated below) [{CARD}]")
+        for pid, l in per.items():
+            log(f"parallel run --tp 2 rank pid {pid}: launches and peak allocated GiB {l} "
+                f"[{CARD}]")
+            check(l.get("decode_attention", 0) > 0 and l.get("prefill_attention", 0) > 0,
+                  f"rank pid {pid} launched both attention kernels ({l})")
+        check(len(per) == 2, f"both ranks reported their launches ({sorted(per)})")
+        launches = total
+        out.update(tp2_boot_s=run.boot_s, tp2_streams_equal_tp1=same,
+                   tp2_ttft_ms=[r[2] * 1e3 for r in res], tp2_itl_ms=[r[3] * 1e3 for r in res],
+                   tp2_card_used_mib=used, tp2_launches=per)
+
+        # q4: the same as two commands, --nnodes 2.
+        coord, step = f"127.0.0.1:{_free_port()}", str(_free_port())
+        env2 = {**env, "DYN_STEP_TOKEN": "chip-smoke-two-nodes"}
+        nodes = ["--tp", "2", "--nnodes", "2", "--coordinator", coord, "--step-port", step]
+        follower = Child("node1", ["run", "in=http", "out=torch", "--host", "127.0.0.1",
+                                   "--port", str(_free_port()), *PAR_RUN_FLAGS, *nodes,
+                                   "--node-rank", "1"], env=env2)
+        lead = ParRun("node0", [*nodes, "--node-rank", "0"], env2)
+        try:
+            lead.wait()
+            res2 = lead.serve(prompts, PAR_MAX_TOKENS)
+        finally:
+            par_stop(lead, reports, fails, "run --nnodes 2 leader")
+            try:
+                follower.p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                check(False, "the follower node exits when the leader closes")
+                follower.stop(signal.SIGKILL)
+        check(follower.p.returncode == 0,
+              f"the follower node exited {follower.p.returncode} after the leader closed")
+        check([r[1] for r in res2] == texts,
+              "the two-command --nnodes 2 form gives run --tp 2's texts")
+        log(f"parallel run --nnodes 2 (two commands, DYN_STEP_TOKEN set): "
+            f"{sum(r[1] == t for r, t in zip(res2, texts))}/{len(texts)} texts equal run --tp 2's;"
+            f" boot {lead.boot_s:.1f} s [{CARD}]")
+        out.update(nnodes_boot_s=lead.boot_s)
+
+        # q5: run --sp 2 on a 4096-id prompt.
+        run = ParRun("sp2", ["--sp", "2", "--sp-prefill-min", "1024"], env)
+        try:
+            run.wait()
+            st, _, sp_ttft, _, sp_used = asyncio.run(par_complete(run.port, sp_prompt, 4))
+            # Two more long prompts at once: each pass and its seal are one
+            # dispatch on every rank, so they cannot interleave.
+            try:
+                pair = asyncio.run(par_at_once(run.port, sp_pair, 4, 300))
+            except asyncio.TimeoutError:
+                pair = None
+        finally:
+            par_stop(run, reports, fails, "run --sp 2")
+        sealed = [x for x in run.child.lines if "sp prefill sealed" in x]
+        check(st == 200 and sp_used == 4, f"run --sp 2 served the {PAR_SP_IDS}-id prompt")
+        check(bool(sealed), "run --sp 2 sealed the prompt's blocks in one ring pass")
+        check(pair is not None and all(r[0] == 200 and r[4] == 4 for r in pair),
+              f"run --sp 2 served two {PAR_SP_IDS}-id prompts sent at once, each whole")
+        check(len(sealed) == 3, f"run --sp 2 sealed each of the three prompts ({len(sealed)} seals)")
+        log(f"parallel run --sp 2: {sealed[0].split(': ')[-1] if sealed else 'no seal'}; "
+            f"TTFT {sp_ttft * 1e3:.1f} ms beside tp 1 chunked {ttft * 1e3:.1f} ms; two at once "
+            f"TTFT {[round(r[2] * 1e3, 1) for r in pair or []]} ms "
+            f"({PAR_SP_IDS} ids, bf16, full depth, eager over gloo) [{CARD}]")
+        out.update(sp_ttft_ms=sp_ttft * 1e3, sp_boot_s=run.boot_s,
+                   sp_pair_ttft_ms=[r[2] * 1e3 for r in pair or []])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['phase_s']:.1f} s")
+    return not fails, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -7479,6 +7988,9 @@ def main() -> int:
         print("chip_smoke: dynamo_tpu_torch is not beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase q's f32 ranks
+        par_rank_job(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     try:
         from dynamo_tpu_torch.ops import _build
 
@@ -7507,6 +8019,8 @@ def main() -> int:
             return 0 if grammar_compile_times() else 1
         if sys.argv[1:] == ["--sdk-graph"]:
             return 0 if sdk_path(torch)[0] else 1
+        if sys.argv[1:] == ["--parallel"]:
+            return 0 if parallel_path(torch)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -7590,7 +8104,14 @@ def main() -> int:
         log(f"memory before the SDK phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         ok_p, p_launches, _ = sdk_path(torch)
-        slice_ok = {"sdk graph and native library (p)": ok_p,
+        # Phase q: ranks that share this card, over gloo.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"memory before the parallel phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        ok_q, q_launches, _ = parallel_path(torch)
+        slice_ok = {"parallelism and the step plane (q)": ok_q,
+                    "sdk graph and native library (p)": ok_p,
                     "structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
                     "checkpoints, tokenizer and LoRA (m)": ok_m,
                     "w8a8 ops (a)": ok_ops, "w8a8 model (b)": ok_w8a8_model,
@@ -7637,6 +8158,7 @@ def main() -> int:
             kernels[-1]["grammar_launches"] = n_launches.get(name, 0)
             kernels[-1]["moe_launches"] = o_launches.get(name, 0)
             kernels[-1]["sdk_launches"] = p_launches.get(name, 0)
+            kernels[-1]["parallel_launches"] = q_launches.get(name, 0)
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -7663,6 +8185,7 @@ def main() -> int:
             "bulk_launches": bulk_launches["threefry_gumbel"],
             "planner_launches": planner_launches["threefry_gumbel"],
             "sdk_launches": p_launches.get("threefry_gumbel", 0),
+            "parallel_launches": q_launches.get("threefry_gumbel", 0),
         })
         # The restore's CRC kernel has no Pallas counterpart (the JAX
         # package verifies a host block with zlib on the host); its path is
@@ -7678,6 +8201,7 @@ def main() -> int:
             "library_ms": None,
             "checks_passed": not any(f.startswith("crc32_blocks") for f in tally.failures),
             "shape": crc_times["shape"],
+            "parallel_launches": q_launches.get("crc32_blocks", 0),
         })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(

@@ -7,6 +7,8 @@ etcd + NATS).
 Usage:
   python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b \\
         --model llama-3.1-8b [--port 8000] [--device cpu]   # OpenAI server
+  python -m dynamo_tpu_torch.cli run in=http out=torch --arch llama-3.1-8b --tp 2 \\
+        [--sp 2 --sp-prefill-min 1024] [--nnodes 2 --node-rank R --coordinator H:P]
   python -m dynamo_tpu_torch.cli run in=http out=torch --checkpoint DIR|FILE.gguf \
         [--tokenizer X.model] [--lora NAME=DIR --lora-max-adapters R --lora-rank r]
   python -m dynamo_tpu_torch.cli run in=text out=torch ...       # chat REPL
@@ -70,12 +72,18 @@ runs the planner's ``RoleFlipWatcher`` (planner/actuate.py): a put on
 role (decode: through live migration) and starts the new one on the same
 resident engine, then acks the key.  ``run --record FILE`` taps every
 stream to JSONL (runtime/recorder.py).  The flags keep the JAX parser's
-names and defaults.  Options the port does not have yet fail when set
-(engine/__init__.py UNSUPPORTED_OPTIONS).  ``model`` writes and removes the
+names and defaults.  ``--tp/--dp/--ep/--sp`` run one process per rank:
+this one is its node's local rank 0 and starts the others (the hidden
+``__rank__`` role, the same command line), global rank 0 serves and
+publishes its dispatches on the step plane (engine/multihost.py), and
+every other rank replays them; ``--nnodes/--node-rank/--coordinator
+/--step-port`` spread the ranks over hosts, one command each, and
+``--device cpu`` or ``--cpu-devices N`` runs them on the CPU over gloo.
+``model`` writes and removes the
 JAX command's static registry entries (an ``hf`` tokenizer spec is
 registered as given; the frontend's watcher refuses to build it);
 ``deploy`` renders a DynamoTpuDeployment CR into manifests that run the
-port (deploy/renderer.py; multi-host specs are refused); ``prepare``
+port (deploy/renderer.py; a TPU topology is refused); ``prepare``
 resolves a local directory, a ``.gguf`` file or a pre-staged copy and
 prints its path, and refuses a remote repo id (models/hub.py: no
 download); ``operator`` runs the deployment and model-cache reconcilers
@@ -98,9 +106,11 @@ import asyncio
 import logging
 import os
 import signal
+import sys
 from typing import Callable, Optional
 
 from .engine import build_torch_engine
+from .engine.ranks import RANK_ROLE, die_with_parent, mesh_config, run_rank, start_ranks
 from .llm.backend import Backend
 from .llm.engines import EchoEngineCore, EchoEngineFull
 from .llm.discovery import ModelWatcher, make_tokenizer, register_model
@@ -679,14 +689,26 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
     ``in=http``, ``on_serving`` is called with the service once it listens
     (its ``port`` resolved); with ``in=dyn://…``, with the worker's
     ``DistributedRuntime`` once the model is registered.  Servers run until
-    this task is cancelled (or SIGINT/SIGTERM in the main thread)."""
+    this task is cancelled (or SIGINT/SIGTERM in the main thread).
+
+    At more than one rank (``--tp/--dp/--ep/--sp``) this process is its
+    node's local rank 0 and starts the others (engine/ranks.py
+    ``start_ranks``); global rank 0 serves and publishes its dispatches,
+    every other rank replays them (engine/multihost.py)."""
     inp = args.inp
     if inp not in INPUTS and not inp.startswith(("batch:", "dyn://")):
         raise SystemExit(
             f"in={inp} is not supported by the port "
             "(it has in=http|text|stdin|batch:FILE|none|dyn://ns.comp.ep)"
         )
-    engine, level = _build_engine(args.out, args)
+    ranks = None
+    if mesh_config(args).num_devices > 1 or getattr(args, "nnodes", 1) > 1:
+        engine, ranks = await start_ranks(args, build_torch_engine)
+        if engine is None:  # a follower node: it replayed the leader until it closed
+            return
+        level = "core"
+    else:
+        engine, level = _build_engine(args.out, args)
     tokenizer = make_tokenizer(_tokenizer_spec(args))
     if getattr(args, "record", None):
         # Tap every request/response stream to JSONL (reference:
@@ -796,6 +818,8 @@ async def _run(args, on_serving: Optional[Callable] = None) -> None:
         close = getattr(engine, "close", None)
         if close is not None:
             await close()
+        if ranks is not None:
+            await ranks.stop()
 
 
 async def _run_metrics(args) -> None:
@@ -1171,10 +1195,17 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_run.add_argument("--model-config", default=None, dest="model_config",
                        help="model config json (HF config.json format)")
-    # The JAX parser's options that out=torch lacks: accepted so that
-    # setting one fails with where it waits (build_torch_engine).
-    for flag in ("--tp", "--dp", "--ep", "--sp", "--nnodes"):
-        p_run.add_argument(flag, type=int, default=1)
+    p_run.add_argument("--tp", type=int, default=1, help="tensor parallel size")
+    p_run.add_argument("--dp", type=int, default=1, help="data parallel size")
+    p_run.add_argument("--ep", type=int, default=1, help="expert parallel size")
+    p_run.add_argument(
+        "--sp", type=int, default=1,
+        help="sequence parallel size (ring-attention long-prompt prefill)",
+    )
+    p_run.add_argument(
+        "--sp-prefill-min", type=int, default=1024, dest="sp_prefill_min",
+        help="prompts at least this long use the sp whole-prompt prefill",
+    )
     p_run.add_argument("--spec-decode", action="store_true", default=None)
     for flag in ("--spec-k", "--spec-ngram-min", "--spec-ngram-max"):
         p_run.add_argument(flag, type=int, default=None)
@@ -1199,6 +1230,26 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument(
         "--max-local-prefill", type=int, default=512, dest="max_local_prefill",
         help="prefills longer than this (minus prefix hit) go remote",
+    )
+    # multi-host scale-out (reference: MultiNodeConfig, engines.rs:40-105)
+    p_run.add_argument(
+        "--nnodes", type=int, default=1, help="total hosts in this engine"
+    )
+    p_run.add_argument(
+        "--node-rank", type=int, default=0, dest="node_rank",
+        help="this host's rank (0 = leader)",
+    )
+    p_run.add_argument(
+        "--coordinator", default="",
+        help="host:port of rank 0's torch.distributed store",
+    )
+    p_run.add_argument(
+        "--step-port", type=int, default=6651, dest="step_port",
+        help="leader port for the follower dispatch stream",
+    )
+    p_run.add_argument(
+        "--cpu-devices", type=int, default=None, dest="cpu_devices",
+        help="TEST ONLY: run this node's ranks on the CPU, N of them at most (gloo)",
     )
     # QoS / overload control for in=http (llm/qos.py; defaults disabled).
     p_run.add_argument(
@@ -1234,6 +1285,8 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     if "in" not in io or "out" not in io:
         raise SystemExit("run requires in=… out=…")
     args.inp, args.out = io["in"], io["out"]
+    # The command line as given: the node's other ranks run it again.
+    args.run_argv = list(argv if argv is not None else sys.argv[1:])
     return args
 
 
@@ -1242,6 +1295,15 @@ def main(argv: Optional[list] = None) -> None:
     from .runtime.logging_config import setup_logging
 
     setup_logging()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == [RANK_ROLE]:
+        # A node's other local rank, started by its rank 0 (start_ranks).
+        die_with_parent(int(argv[2]))
+        try:
+            asyncio.run(run_rank(int(argv[1]), parse_args(argv[3:])))
+        except KeyboardInterrupt:
+            pass
+        return
     args = parse_args(argv)
     if args.cmd == "deploy":
         _run_deploy(args)

@@ -6,13 +6,13 @@ and ordering are the JAX renderer's; what differs:
 
 - every command is ``python -m dynamo_tpu_torch.cli …``, and engine roles
   run ``out=torch``;
-- a service's ``tpu.chips`` (default 1: the port's engine runs on one card)
-  becomes ``nvidia.com/gpu`` requests and limits, and ``tpu.accelerator`` a
-  ``nvidia.com/gpu.product`` node selector;
-- ``tpu.topology``, ``nnodes > 1`` and an engine ``tp``/``dp`` (or any
-  option of ``engine.UNSUPPORTED_OPTIONS``) away from 1 are refused, naming
-  ROADMAP queue 1 item 7, as is any engine flag the port's ``run`` parser
-  rejects: no manifest carries a flag its worker would refuse.
+- a service's ``tpu`` block becomes ``nvidia.com/gpu`` requests and
+  limits: a pod's local rank count (``tp*dp*ep*sp / nnodes``) when the
+  engine runs more than one rank, else ``tpu.chips`` (default 1); and
+  ``tpu.accelerator`` a ``nvidia.com/gpu.product`` node selector;
+- ``tpu.topology`` (a TPU slice's shape) is refused, as is a mesh whose
+  ranks do not split over ``nnodes`` and any engine flag the port's ``run``
+  parser rejects: no manifest carries a flag its worker would refuse.
 
 Reference counterpart: the k8s operator's child-resource generation
 (deploy/dynamo/operator/*: a DynamoDeployment CR fans out into per-service
@@ -29,9 +29,10 @@ Service roles map onto the CLI (cli.py):
   router    → standalone KV router (via frontend flag today)
   metrics   → ``cli metrics``
 
-The JAX renderer's multi-host workers (nnodes > 1: one StatefulSet of
-nnodes pods, rank wiring from the pod ordinal) wait for the port's
-multi-host engine (ROADMAP queue 1 item 7).
+Multi-host workers (nnodes > 1) render as the JAX renderer's: one
+StatefulSet of nnodes pods, the node rank from the pod ordinal and rank 0's
+pod DNS as the ``--coordinator`` (the process group's store); each pod's
+``run`` starts its node's other local ranks itself.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ HUB_PORT = 6650
 HTTP_PORT = 8000
 METRICS_PORT = 9091
 STEP_PORT = 6651
-MULTIHOST = "ROADMAP queue 1 item 7, tp/sp and multi-host"
+COORD_PORT = 6652
 
 
 def _meta(name: str, app: str, extra: Dict[str, str] = {}) -> Dict[str, Any]:
@@ -71,22 +72,22 @@ def _engine_flags(engine: Dict[str, Any]) -> List[str]:
     return flags
 
 
-def _check_worker(svc_name: str, svc: Dict[str, Any], cmd: List[str]) -> None:
-    """Refuse a worker the port cannot run: multi-host, a TPU topology, or
-    a ``run`` command line the port's parser or engine factory rejects."""
+def _check_worker(svc_name: str, svc: Dict[str, Any], cmd: List[str]) -> int:
+    """Refuse a worker the port cannot run: a TPU topology, a mesh whose
+    ranks do not split over its nodes, or a ``run`` command line the port's
+    parser or engine factory rejects.  Returns the ranks one pod runs."""
     from ..cli import parse_args
     from ..engine import UNSUPPORTED_OPTIONS
 
-    if int(svc.get("nnodes", 1)) > 1:
-        raise ValueError(f"service {svc_name!r}: nnodes > 1 is not supported by the port "
-                         f"yet ({MULTIHOST})")
     if (svc.get("tpu") or {}).get("topology"):
-        raise ValueError(f"service {svc_name!r}: tpu.topology (a multi-host slice) is not "
-                         f"supported by the port yet ({MULTIHOST})")
+        raise ValueError(f"service {svc_name!r}: tpu.topology names a TPU slice; the port "
+                         "runs on NVIDIA GPUs (give nnodes and the engine's tp/dp/ep/sp)")
     err = io.StringIO()
+    # The pod ordinal is substituted at run time.
+    argv = ["0" if a == "$(POD_ORDINAL)" else a for a in cmd[3:]]
     try:
         with contextlib.redirect_stderr(err):
-            args = parse_args(cmd[3:])
+            args = parse_args(argv)
     except SystemExit:
         said = (err.getvalue().strip().splitlines() or ["rejected"])[-1]
         raise ValueError(f"service {svc_name!r}: the port's run refuses "
@@ -95,6 +96,14 @@ def _check_worker(svc_name: str, svc: Dict[str, Any], cmd: List[str]) -> None:
         if getattr(args, attr) != default:
             raise ValueError(f"service {svc_name!r}: {flag} {getattr(args, attr)} is not "
                              f"supported by the port yet (ROADMAP {waits})")
+    for axis in ("tp", "dp", "ep", "sp", "nnodes"):
+        if getattr(args, axis) < 1:
+            raise ValueError(f"service {svc_name!r}: --{axis} {getattr(args, axis)} must be >= 1")
+    world = args.tp * args.dp * args.ep * args.sp
+    if world % args.nnodes:
+        raise ValueError(f"service {svc_name!r}: {world} ranks do not split over "
+                         f"nnodes {args.nnodes}")
+    return world // args.nnodes
 
 
 def render(cr: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -156,9 +165,25 @@ def render(cr: Dict[str, Any]) -> List[Dict[str, Any]]:
         if role in ("prefill", "decode"):
             cmd += ["--disagg", role]
         cmd += _engine_flags(svc.get("engine"))
-        _check_worker(svc_name, svc, cmd)
+        nnodes = int(svc.get("nnodes", 1))
+        if nnodes > 1:
+            # Pod ordinal = node rank; rank 0's pod DNS is the coordinator.
+            coord = f"{full}-0.{full}.{namespace}.svc:{COORD_PORT}"
+            cmd += ["--nnodes", str(nnodes), "--coordinator", coord,
+                    "--step-port", str(STEP_PORT),
+                    "--node-rank", "$(POD_ORDINAL)"]
+            envs = envs + [{
+                "name": "POD_ORDINAL",
+                "valueFrom": {"fieldRef": {
+                    "fieldPath": "metadata.labels['apps.kubernetes.io/pod-index']"
+                }},
+            }]
+        local = _check_worker(svc_name, svc, cmd)
+        if tpu and local > 1:
+            tpu = {**tpu, "chips": local}  # one card per local rank
         out.append(_statefulset(full, namespace, image, cmd,
-                                replicas=replicas, envs=envs, tpu=tpu))
+                                replicas=nnodes if nnodes > 1 else replicas,
+                                envs=envs, tpu=tpu))
         out.append(_service(full, namespace, STEP_PORT, headless=True))
     return out
 

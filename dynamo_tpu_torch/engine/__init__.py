@@ -2,14 +2,8 @@
 
 # Options of the JAX package's ``run`` command that this engine does not
 # have yet: (args attribute, its default, flag, where it waits in ROADMAP).
-# Setting one fails; it is never dropped.
-UNSUPPORTED_OPTIONS = (
-    ("tp", 1, "--tp", "queue 1 item 7, tp/sp and multi-host"),
-    ("dp", 1, "--dp", "queue 1 item 7, tp/sp and multi-host"),
-    ("ep", 1, "--ep", "queue 1 item 7, tp/sp and multi-host"),
-    ("sp", 1, "--sp", "queue 1 item 7, tp/sp and multi-host"),
-    ("nnodes", 1, "--nnodes", "queue 1 item 7, tp/sp and multi-host"),
-)
+# Setting one fails; it is never dropped.  None are left.
+UNSUPPORTED_OPTIONS: tuple = ()
 
 
 def refuse_unsupported(args) -> None:
@@ -23,8 +17,9 @@ def refuse_unsupported(args) -> None:
 def build_torch_engine(args):
     """CLI factory for ``run out=torch``, the counterpart of the JAX
     package's ``build_tpu_engine`` for the settings this engine has.  Runs
-    on CUDA unless ``args.device`` says otherwise (device.py).  Imports
-    torch lazily."""
+    on CUDA unless ``args.device`` says otherwise (device.py); at more than
+    one rank on this process's rank of the group ``run`` joined
+    (parallel/distributed.py).  Imports torch lazily."""
     refuse_unsupported(args)
     from .config import EngineConfig
     from .engine import TorchEngine
@@ -38,6 +33,11 @@ def build_torch_engine(args):
         max_batch=getattr(args, "max_batch", 8),
         max_model_len=getattr(args, "max_model_len", 1024),
         prefill_chunk=getattr(args, "prefill_chunk", 512),
+        dp=getattr(args, "dp", 1),
+        tp=getattr(args, "tp", 1),
+        ep=getattr(args, "ep", 1),
+        sp=getattr(args, "sp", 1),
+        sp_prefill_min=getattr(args, "sp_prefill_min", 1024),
         dtype=getattr(args, "dtype", "bfloat16"),
         decode_steps=getattr(args, "decode_steps", 4),
         pipeline_depth=getattr(args, "pipeline_depth", 2),

@@ -1,8 +1,9 @@
 """Engine configuration knobs.
 
 The JAX package's ``EngineConfig`` trimmed to the knobs this engine honours:
-a knob it would silently ignore (meshes) is absent, so
-passing one fails at construction instead of serving something else.
+a knob it would silently ignore (the XLA kernel selectors, the compilation
+cache) is absent, so passing one fails at construction instead of serving
+something else.
 """
 
 from __future__ import annotations
@@ -178,6 +179,16 @@ class EngineConfig:
     max_batch: int = 8  # decode slots
     max_model_len: int = 1024  # context limit per sequence
     prefill_chunk: int = 512  # max prompt tokens per device step
+    # The mesh (parallel/mesh.py): one rank per device, dp*ep*sp*tp ranks.
+    dp: int = 1
+    tp: int = 1
+    ep: int = 1
+    # Sequence parallel (ring attention): prompts of at least
+    # sp_prefill_min tokens prefill in ONE whole-prompt pass sharded over
+    # sp instead of serial prefill_chunk steps (models/llama.py
+    # forward_sp_prefill).
+    sp: int = 1
+    sp_prefill_min: int = 1024
     dtype: str = "bfloat16"
     # KV page dtype; defaults to dtype.  Quantized page dtypes ("int8",
     # "float8_e4m3fn") store value / kv_scale; kv_scale is a float, a
@@ -279,6 +290,9 @@ class EngineConfig:
             raise ValueError(f"unknown weight_quant {self.weight_quant!r} (None or 'int8')")
         if isinstance(self.kv_scale, str) and self.kv_scale != "auto":
             raise ValueError(f"unknown kv_scale {self.kv_scale!r} (a float, a sequence or 'auto')")
+        for axis in ("dp", "tp", "ep", "sp"):
+            if getattr(self, axis) < 1:
+                raise ValueError(f"{axis} must be >= 1")
         if self.decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
         if self.pipeline_depth < 1:

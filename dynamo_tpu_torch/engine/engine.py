@@ -53,8 +53,20 @@ samples one token a unified step under its packed mask row, which every
 step program reads from one static buffer (``_stage_mask``), and never
 rides a fused dispatch.  MoE configs (mixtral-8x7b, debug-tiny-moe) run
 models/moe.py in place of the dense FFN, with static shapes, so their
-steps are captured like the dense ones.  Out of this engine so far: tp/sp
-and multi-host (ROADMAP queue 1 item 7).
+steps are captured like the dense ones.
+
+Tensor, expert, data and sequence parallelism run one engine per rank
+(parallel/): every rank builds the same engine from the same config and
+seed, holds its slice of the params and pages, and runs the sharded forward
+with its collectives.  Global rank 0 serves (scheduler, KV manager, tiers,
+the serving loop) and publishes every dispatch to the other ranks before it
+enqueues it, under the device lock (``attach_publisher``, the step plane of
+engine/multihost.py); the others replay them in order (``mirror_step``), so
+every rank reaches every collective in one order.  Long prompts prefill in
+one ring-attention pass over ``sp`` (``_sp_prefill``).  At more than one
+rank the disk and object tiers are off and the KV export paths refuse
+(export returns None, the caller prefills locally), as the JAX package's
+multi-process branches do; the host tier holds each rank's own slice.
 """
 
 from __future__ import annotations
@@ -81,13 +93,15 @@ from ..llm.tenancy.grammar import GrammarCacheMissError, TokenMaskAutomaton
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
 from ..models.quant import fuse_projections, init_params_quantized, quantize_params
-from ..ops.ragged_attention import kernel_route
+from ..ops.ragged_attention import kernel_route, quantize_for_cache
+from ..parallel import distributed as pdist
+from ..parallel.mesh import MeshConfig, check_tp, make_mesh, param_pspecs, shard_params
 from ..ops.sampling import SampleOut, SamplingFlags, SamplingParams, sample_tokens
 from ..runtime.engine import AsyncEngine, Context, ResponseStream
 from ..runtime.tracing import SeqTrace, parse_trace, span
 from ..tokens import hash_token_blocks
 from .config import EngineConfig
-from .disk_cache import DiskKvStore
+from .disk_cache import DTYPES, DiskKvStore
 from .graphs import DevicePrograms, FetchRing, Layout
 from .host_cache import HostKvStore
 from .integrity import CorruptionCache
@@ -158,10 +172,30 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         params: Optional[Dict[str, Any]] = None,
         device: Optional[torch.device] = None,
         event_callback: Optional[Callable[[KvCacheEvent], None]] = None,
+        shard: Optional["pdist.ParallelState"] = None,
     ):
         self.cfg = cfg
-        self.device = default_device(device)
         self.model_config: ModelConfig = get_config(cfg.model).with_overrides(dtype=cfg.dtype)
+        mc = self.model_config
+        check_tp(mc.num_kv_heads, cfg.tp)
+        # This rank's place in the mesh (parallel/): given, or the state
+        # init_multihost set up in this process.  None = one rank.
+        mesh_cfg = MeshConfig(dp=cfg.dp, tp=cfg.tp, ep=cfg.ep, sp=cfg.sp)
+        self.shard: Optional[pdist.ParallelState] = None
+        if mesh_cfg.num_devices > 1:
+            shard = shard if shard is not None else pdist.current()
+            if shard is None:
+                make_mesh(mesh_cfg, [default_device(device)])  # raises: too few devices
+            if shard.mesh.config != mesh_cfg:
+                raise ValueError(f"the process group's mesh {shard.mesh.config} is not the "
+                                 f"engine's {mesh_cfg}")
+            self.shard = shard
+            if device is None:
+                device = shard.device
+        self.device = default_device(device)
+        # The step plane (engine/multihost.py): the leader's publisher.
+        self._publisher = None
+        self._export_refusal_logged = False
         self.kv = KvBlockManager(
             cfg.num_blocks,
             cfg.block_size,
@@ -240,7 +274,11 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         dev = self.device
         # No fused projections for MoE trees, as the JAX engine: the
         # unfused q/k/v path serves their attention.
-        fuse = cfg.fuse_projections and not self.model_config.is_moe
+        fuse = cfg.fuse_projections and not self.model_config.is_moe and self.shard is None
+        if cfg.lora.enable and self.shard is not None:
+            raise ValueError(
+                "lora.enable requires a single-shard engine in this build (tp/dp/ep/sp == 1): "
+                "the adapter banks have no PartitionSpecs yet")
         if params is None and cfg.checkpoint_path:
             from ..models.loader import load_params
 
@@ -262,6 +300,10 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             }
             if cfg.weight_quant:
                 params = quantize_params(params)  # a no-op on a quantized tree
+        if self.shard is not None:
+            # Every rank draws (or loads) the same whole tree and keeps its
+            # slice, as every JAX process holds the same host values.
+            params = shard_params(params, param_pspecs(mc), self.shard.mesh, self.shard.rank)
         self.params = fuse_projections(params) if fuse else params
         self._lora_rank = cfg.lora.rank if cfg.lora.enable else 0
         if cfg.lora.enable:
@@ -285,8 +327,12 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 promote_timeout_s=cfg.lora.promote_timeout_s,
             )
         cache_dtype = torch_dtype(cfg.cache_dtype)
+        # This rank's heads' pages (tp divides num_kv_heads).
+        self._kv_heads = mc.num_kv_heads // cfg.tp
+        self._kv_head0 = 0 if self.shard is None else self.shard.tp.index * self._kv_heads
         self.cache = PagedKVCache.create(
-            self.model_config, cfg.num_blocks, cfg.block_size, cache_dtype, dev
+            mc.with_overrides(num_kv_heads=self._kv_heads), cfg.num_blocks, cfg.block_size,
+            cache_dtype, dev
         )
         self.programs: Optional[DevicePrograms] = None
         self.calibration_s = 0.0
@@ -322,7 +368,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # The device programs (captured graphs on CUDA) and the pinned
         # slots of deferred fetches: pipeline_depth chunks, up to two burst
         # chunks, and one first-token fetch per parked row at most.
-        self.programs = DevicePrograms(dev)
+        self.programs = DevicePrograms(dev, eager=self.shard is not None and self.shard.eager)
         # The grammar mask every ``step`` program applies: [S, ceil(V/32)]
         # packed admissible-token words (int64 holding uint32), all-ones
         # for unconstrained rows, at a fixed address the graphs read
@@ -368,7 +414,13 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # Checksums of whole prefixes, on threads (engine/integrity.py).
         self._crc_pool = ThreadPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1), thread_name_prefix="kv-crc")
-        if cfg.disk_cache_bytes > 0:
+        if cfg.disk_cache_bytes > 0 and self.shard is not None:
+            # Each rank's host tier holds its own slice of a block; the
+            # disk container takes whole blocks (the JAX multi-process
+            # branch keeps the same pre-tier drop behaviour).
+            logger.warning("disk KV tier disabled: a run of %d ranks keeps per-rank host "
+                           "tiers only", self.shard.size)
+        elif cfg.disk_cache_bytes > 0:
             # The per-PID default is deliberate: block hashes do not encode
             # the weights' identity, so a stable shared dir could restore a
             # previous (differently seeded) run's KV under valid hashes.
@@ -414,7 +466,8 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # Probe length bounded so nb (+1 slack) fits a single row's table.
         T = min(128, (cfg.max_blocks_per_seq - 1) * cfg.block_size)
         nb = (T + cfg.block_size - 1) // cfg.block_size + 1
-        probe = PagedKVCache.create(mc, nb, cfg.block_size, torch.bfloat16, self.device)
+        probe = PagedKVCache.create(mc.with_overrides(num_kv_heads=self._kv_heads), nb,
+                                    cfg.block_size, torch.bfloat16, self.device)
         S = cfg.max_batch
         toks = (np.arange(T, dtype=np.int64) * 2654435761) % mc.vocab_size
         pos = np.arange(T, dtype=np.int32)
@@ -430,8 +483,13 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             page_indices=d(tables), cu_q_lens=d(cu), num_seqs=d(np.asarray([1], np.int32)),
         )
         with torch.inference_mode():
-            forward_ragged(self.params, mc, rb, probe)
-            maxabs = probe.pages.float().abs().amax(dim=(1, 2, 3, 4)).cpu().numpy()
+            forward_ragged(self.params, mc, rb, probe, shard=self.shard)
+            maxabs = probe.pages.float().abs().amax(dim=(1, 2, 3, 4))
+            if self.shard is not None:
+                # Every rank stores the same scale: the max over the heads
+                # of the whole tp group.
+                maxabs = self.shard.tp.all_reduce(maxabs, "max")
+            maxabs = maxabs.cpu().numpy()
         dt = torch_dtype(cfg.cache_dtype)
         qmax = float(torch.finfo(dt).max if dt.is_floating_point else torch.iinfo(dt).max)
         scales = np.maximum(maxabs / qmax, 1e-6).astype(np.float32)
@@ -443,7 +501,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         """One unified ragged step: forward + sample (device, no sync)."""
         logits = forward_ragged(
             self.params, self.model_config, rb, self.cache, kv_scale=self.kv_scale,
-            lora_rank=self._lora_rank,
+            lora_rank=self._lora_rank, shard=self.shard,
         )
         return sample_tokens(logits, samp)
 
@@ -489,6 +547,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             logits = forward_ragged(
                 self.params, self.model_config, rb, self.cache,
                 kv_scale=self.kv_scale, decode=True, lora_rank=self._lora_rank,
+                shard=self.shard,
             )
             out = sample_tokens(logits, samp, steps=steps, counts=counts)
             outs.append(out)
@@ -633,12 +692,140 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 out = self._run_multi(None, *args, samp)
             # A real fetch: warmup must not return with work still queued.
             self._start_d2h(out, False).result()
+            # Every reachable sp-prefill token bucket (sp_prefill_min up to
+            # max_model_len), as the JAX engine compiles them: the kernels'
+            # and the library's first-use costs never land in a request.
+            for Tg in self.sp_buckets():
+                self._run_sp(np.zeros((Tg,), np.int64), Tg)
         return self.compile_counts()
 
     async def run_warmup(self) -> Dict[str, int]:
-        """warmup() under the device lock, off the event loop."""
+        """warmup() under the device lock, off the event loop; the other
+        ranks warm up in step (serving paths use this)."""
         async with self._device_lock:
+            await self._publish("warmup")
             return await asyncio.to_thread(self.warmup)
+
+    # ------------------------------------------------------------ the mesh
+    def sp_buckets(self) -> List[int]:
+        """The sp-prefill token buckets: powers of two from
+        ``sp_prefill_min`` to ``max_model_len``, each a multiple of sp."""
+        cfg = self.cfg
+        if cfg.sp <= 1:
+            return []
+        lo = max(cfg.sp, 1 << (max(1, cfg.sp_prefill_min) - 1).bit_length())
+        hi = max(lo, 1 << (cfg.max_model_len - 1).bit_length())
+        out, t = [], lo
+        while True:
+            out.append(t + (-t) % cfg.sp)
+            if t >= hi:
+                return out
+            t *= 2
+
+    def _run_sp(self, toks: np.ndarray, valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sequence-parallel whole-prompt pass (models/llama.py
+        forward_sp_prefill) over ``toks`` (a bucket's ids, ``valid`` of
+        them real): (logits [V], rows [L, Tg, 2KV, hd] in the page dtype,
+        value / scale on quantized pages)."""
+        from ..models.llama import forward_sp_prefill
+
+        with torch.inference_mode():
+            logits, rows = forward_sp_prefill(self.params, self.model_config,
+                                              self._to_device(toks), int(valid), self.shard)
+            dt = self.cache.pages.dtype
+            if self.kv_scale is not None:
+                sc = torch.as_tensor(np.asarray(self.kv_scale, np.float32).reshape(-1, 1, 1, 1),
+                                     device=rows.device)
+                rows = quantize_for_cache(rows.float() / sc, dt)
+            elif rows.dtype != dt:
+                rows = rows.to(dt)
+            return logits, rows
+
+    def _sp_prefill_seal(self, toks: np.ndarray, valid: int, ids: List[int], first: int) -> None:
+        """One sp-prefill pass, then its complete blocks ``first ..``
+        scattered into pages ``ids`` in place, on every rank within one
+        dispatch (stream order: the rows were computed on this stream)."""
+        rows = self._run_sp(toks, valid)[1]
+        bs = self.cfg.block_size
+        L, _, KV2, hd = rows.shape
+        n = len(ids)
+        blocks = rows[:, first * bs:(first + n) * bs].reshape(L, n, bs, KV2, hd)
+        self._restore_scatter(ids, (blocks.transpose(0, 1), None))
+
+    def attach_publisher(self, publisher) -> None:
+        """Leader side: broadcast every device dispatch to the other ranks
+        (engine/multihost.py StepPublisher)."""
+        self._publisher = publisher
+
+    async def _publish(self, kind: str, payload: Tuple = ()) -> None:
+        """Broadcast one dispatch before it is enqueued, under the device
+        lock (the publish order is the order every rank reaches the
+        dispatch's collectives)."""
+        if self._publisher is not None:
+            await self._publisher.publish(kind, payload)
+
+    async def mirror_step(self, kind: str, payload: Tuple) -> None:
+        """Follower side: replay one leader dispatch with this rank's
+        slices (same programs, same host inputs, same order)."""
+        async with self._device_lock:
+            await asyncio.to_thread(self._mirror, kind, payload)
+        if kind in ("offload", "restore_host"):
+            # Followers record host-tier drops too (no event sink to
+            # publish to, but the transition list must not grow).
+            self._flush_tier_events()
+
+    def _mirror(self, kind: str, payload: Tuple) -> None:
+        with torch.inference_mode():
+            if kind == "warmup":
+                self.warmup()
+            elif kind == "unified":
+                rb, samp = payload
+                self._run_step(rb, samp)
+            elif kind == "multi":
+                self._run_multi(*payload)
+            elif kind == "inject":
+                ids, k, v, name = payload
+                self._restore_scatter(ids, self._inject_upload(*self._local_heads(k, v),
+                                                               DTYPES[name]))
+            elif kind == "offload":
+                ids, hashes = payload
+                self._offload_commit(self._offload_gather(ids), hashes)
+            elif kind == "restore_host":
+                ids, hashes = payload
+                self._mirror_restore(ids, hashes)
+            elif kind == "sp_prefill":
+                self._sp_prefill_seal(*payload)
+            else:
+                raise ValueError(f"unknown mirror step kind {kind!r}")
+
+    def _local_heads(self, k: np.ndarray, v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """This rank's KV heads of transfer arrays ``[L, n, ps, KV, hd]``
+        that carry every head."""
+        if k.shape[3] == self._kv_heads:
+            return k, v
+        h = slice(self._kv_head0, self._kv_head0 + self._kv_heads)
+        return k[:, :, :, h], v[:, :, :, h]
+
+    def _mirror_restore(self, ids: List[int], hashes: List[int]) -> None:
+        """A follower's half of a host-tier restore: this rank's slices of
+        ``hashes``, verified, scattered into pages ``ids``.  The leader
+        chose them from its own tier, which every rank's mirrors block for
+        block; a missing or corrupt slice would diverge the ranks, so it
+        fails the step."""
+        blocks = []
+        for h in hashes:
+            blk = self.host_kv.peek(h)
+            if blk is None:
+                raise RuntimeError(f"rank {self.shard.rank}: host tier lacks block {h:#x}")
+            blocks.append(blk)
+        staged = self._restore_upload(blocks)
+        stamps = [self.host_kv.checksum(h) for h in hashes]
+        rows = [i for i, st in enumerate(stamps) if st is not None]
+        if rows and self._restore_verify(staged, rows) != [stamps[i] for i in rows]:
+            raise RuntimeError(f"rank {self.shard.rank}: host tier slice failed its checksum")
+        self._restore_scatter(ids, staged)
+        for h in hashes:
+            self.host_kv.touch(h)
 
     # ------------------------------------------------------------ public API
     async def generate(self, request: Context) -> ResponseStream:
@@ -701,7 +888,25 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                     list(pre.token_ids), salt, pre.annotations["kv_pull"], trace=trace,
                 )
                 ps.set(pulled_tokens=pulled)
+        if (
+            self.cfg.sp > 1
+            and len(pre.token_ids) >= self.cfg.sp_prefill_min
+            and self.shard.nnodes == 1
+            and salt is None
+        ):
+            # A long prompt: one sequence-parallel whole-prompt pass seals
+            # its complete blocks ahead of admission (ring attention over
+            # sp), on one node's ranks only, as the JAX engine keeps it to
+            # one process.
+            sp_sealed = await self._sp_prefill(list(pre.token_ids))
+        else:
+            sp_sealed = 0
         seq = SequenceState.from_request(request.id, pre, self.cfg)
+        if sp_sealed:
+            # PIN the just-sealed prefix until admission (the scheduler
+            # releases it): the blocks sit in the reuse pool, where another
+            # request's allocations could evict them first.
+            seq.pin_ids = self._pin_prefix(list(pre.token_ids), salt)
         if trace is not None:
             # Anchors the queue-wait (scheduler._record_admission) and
             # prefill (pipeline._trace_first_token) spans.
@@ -923,6 +1128,9 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         if self._loop_task is not None:
             await self._loop_task
             self._loop_task = None
+        if self._publisher is not None:
+            await self._publisher.close()
+            self._publisher = None
         if self._offload_task is not None:
             self._offload_task.cancel()
             try:

@@ -35,6 +35,12 @@ fetch threads waiting on events elsewhere do not break it.  The graphs bake
 in the addresses of the weights and the KV pages: nothing may reallocate
 them while the graphs live, and ``close()`` drops them.
 
+Eager mode (``DevicePrograms(device, eager=True)``): a rank whose
+collectives are staged through host memory (gloo, parallel/distributed.py)
+cannot be captured, so its programs run eagerly on CUDA, fed by the same
+staged copy into a fresh device arena, and record the same keys and
+signatures as graph mode.  Every kernel still launches on the card.
+
 Kernel launch counts: a wrapper counts its Python calls, so a capture
 counts once however often its graph runs.  Each graph records how many
 launches of each hand-written kernel it captured (and takes them off the
@@ -247,6 +253,11 @@ class Program:
             arena = torch.empty(layout.nbytes, dtype=torch.uint8)
             layout.pack(host, arena.numpy())
             return fn({**layout.views(arena), **dev})
+        if owner.eager:
+            self._signatures[key] = signature
+            arena = torch.empty(layout.nbytes, dtype=torch.uint8, device=owner.device)
+            owner.staging.copy_in(layout, host, arena)
+            return fn({**layout.views(arena), **dev})
         g = self._graphs.get(key)
         if g is None:
             g = self._capture(key, fn, layout, host, dev, signature)
@@ -302,11 +313,12 @@ class DevicePrograms:
 
     NAMES = ("step", "multi")
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, eager: bool = False):
         self.device = device
         self.cuda = device.type == "cuda"
+        self.eager = eager or not self.cuda
         self.closed = False
-        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if self.cuda and not eager else None
         self.capture_stream = torch.cuda.Stream(device) if self.cuda else None
         self.staging = Staging() if self.cuda else None
         self.step = Program("step", self)

@@ -36,6 +36,7 @@ import asyncio
 import logging
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..llm.metrics import kv_integrity_metrics, kv_tier_metrics
@@ -101,7 +102,10 @@ class HostOffloadMixin:
             if not live:
                 return 0
             hashes = [tb.sequence_hash for _, tb in live]
-            staged = await asyncio.to_thread(self._offload_gather, [bid for bid, _ in live])
+            ids = [bid for bid, _ in live]
+            # Every rank stores its own slice of these blocks.
+            await self._publish("offload", (ids, hashes))
+            staged = await asyncio.to_thread(self._offload_gather, ids)
         await asyncio.to_thread(self._offload_commit, staged, hashes)
         self._flush_tier_events()
         return len(live)
@@ -153,6 +157,56 @@ class HostOffloadMixin:
             done.synchronize()
         for h, blk, crc in zip(hashes, blocks, block_checksums(blocks, self._crc_pool)):
             self.host_kv.put(h, blk, checksum=crc)
+
+    # ---------------------------------------------------------- sp prefill
+    async def _sp_prefill(self, token_ids: List[int], salt: Optional[str] = None) -> int:
+        """Whole-prompt sequence-parallel prefill (the JAX engine's
+        ``_sp_prefill``): compute the prompt's KV in one ring-attention pass
+        over the ``sp`` ranks and seal its complete blocks into the pages
+        (released to the reuse pool), so admission sees a prefix hit; the
+        trailing partial block and the last token recompute through the
+        normal unified step, which also samples the first token.  Returns
+        the tokens sealed.
+
+        Unlike the JAX engine, the pass holds the device lock: its
+        collectives must reach every rank in the order of every other
+        dispatch's, so it is published and run like one ("sp_prefill").
+        The block ids are allocated first, and every rank runs the pass and
+        seals its rows within that one hold of the lock, so two long
+        prompts in flight cannot interleave their passes and seals."""
+        cfg = self.cfg
+        bs = cfg.block_size
+        n_complete = len(token_ids) // bs
+        blocks = hash_token_blocks(token_ids, bs, salt)
+        resident = len(self.kv.match_prefix(blocks))
+        if resident >= n_complete or n_complete == 0:
+            return 0
+        n_new = n_complete - resident
+        sealing = blocks[resident:n_complete]
+        alloc = self.kv.allocate_sequence(sealing, n_new, count_hits=False)
+        if alloc is None:
+            return 0
+        ids, _ = alloc
+        # The token bucket: a power of two, a multiple of sp.
+        Tg = max(cfg.sp, 1 << (len(token_ids) - 1).bit_length())
+        Tg += (-Tg) % cfg.sp
+        toks = np.zeros((Tg,), np.int64)
+        toks[: len(token_ids)] = token_ids
+        payload = (toks, len(token_ids), ids, resident)
+        try:
+            async with self._device_lock:
+                await self._publish("sp_prefill", payload)
+                await asyncio.to_thread(self._sp_prefill_seal, *payload)
+        except BaseException:
+            self.kv.free_sequence(ids)  # roll back: blocks never sealed
+            raise
+        for bid, tb in zip(ids, sealing):
+            self.kv.seal_block(bid, tb)
+        self.kv.free_sequence(ids)
+        covered = n_new * bs
+        logger.info("sp prefill sealed %d tokens of %d (sp=%d, bucket %d)",
+                    covered, len(token_ids), cfg.sp, Tg)
+        return covered
 
     # ----------------------------------------------------------- promotion
     def _promote_blocks(self, seq_hashes: List[int], stop_on_miss: bool) -> List[int]:
@@ -385,6 +439,7 @@ class HostOffloadMixin:
             n = len(run)
             buf, done = staged
             async with self._device_lock:
+                await self._publish("restore_host", (ids, [tb.sequence_hash for tb, _ in run]))
                 await asyncio.to_thread(self._restore_scatter, ids, (buf[:n], done))
             # Candidate selection peeked; refresh recency for the blocks
             # restored.  touch(), not get(): this runs on the event loop and

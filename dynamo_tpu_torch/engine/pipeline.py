@@ -18,12 +18,14 @@ kind of deferred fetch, applied by ``_harvest_spec``, and the session probe
 that leaves a fused session once its output turns repetitive enough for
 speculation to beat it.  Request tracing enters at the first accepted
 token (``_trace_first_token``: the ``engine.prefill`` span) and once per
-fused dispatch (``_trace_decode_chunk``), on host clocks only.  Live
+fused dispatch (``_trace_decode_chunk``), on host clocks only.  At more
+than one rank every dispatch is published to the other ranks inside the
+device lock, before it is enqueued (``_publish``, the JAX sites: "broadcast
+order must equal enqueue order").  Live
 migration (engine/migrate.py) enters through ``_pipeline_members``, which a
 session publishes before its first dispatch, and the freeze park: a frozen
 row leaves a live session at its write barrier, its unharvested chunk
-tokens dropped, while the session keeps fusing for the other rows.  Left
-out: the multi-host publisher (ROADMAP queue 1 item 7).
+tokens dropped, while the session keeps fusing for the other rows.
 
 Grammar-constrained rows (llm/tenancy/grammar.py) never ride a fused
 dispatch: each samples one token a unified step under its packed mask row
@@ -322,6 +324,7 @@ class DecodePipelineMixin:
         await self._pace()
         t0 = time.perf_counter()
         async with self._device_lock:
+            await self._publish("unified", (rb, samp))
             fetch = await self._await_device(self._device_task(run), "unified_dispatch",
                                              len(plan.items))
         wall = time.perf_counter() - t0
@@ -588,6 +591,7 @@ class DecodePipelineMixin:
             await self._pace()
             t0 = time.perf_counter()
             async with self._device_lock:
+                await self._publish("multi", args)
                 fetch = await self._await_device(self._device_task(run), "decode_dispatch",
                                                  n_active)
             chained = True
@@ -743,6 +747,8 @@ class DecodePipelineMixin:
             await self._pace()
             t0 = time.perf_counter()
             async with self._device_lock:
+                # tok None: the other ranks chain their own carry.
+                await self._publish("multi", (tok_in, p0, tables, limits, samp))
                 fetch = await self._await_device(self._device_task(run), "burst_dispatch", n)
             t1 = time.perf_counter()
             self.step_trace.append(("decode_burst", t1 - t0, n, n * T))

@@ -370,6 +370,7 @@ class SpecDecodeMixin:
         await self._pace()
         t0 = time.perf_counter()
         async with self._device_lock:
+            await self._publish("unified", (rb, samp))  # before the enqueue (pipeline.py)
             fetch = await self._await_device(self._device_task(run), "spec_dispatch",
                                              len(plan.items))
         wall = time.perf_counter() - t0

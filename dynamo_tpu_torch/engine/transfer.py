@@ -32,9 +32,13 @@ the KV tiers' copies are (engine/offload.py), never by a device-wide sync:
   ordered by an event from the source's stream to the destination's, with
   no host staging.
 
-The JAX package's multi-host guards and the follower broadcast of an
-import (``_publisher``) have no counterpart: tp and multi-host are ROADMAP
-queue 1 item 7.
+At more than one rank (parallel/) an import is published to the other
+ranks under the device lock before the leader's scatter ("inject"), each
+rank keeping its own heads of the payload; the export paths (disaggregated
+prefill, migration, the prefix pull, the bulk plane) refuse, as the JAX
+package's multi-process branches do: export returns None and the caller
+prefills locally.  A leader-side gather of every rank's heads is ROADMAP
+queue 1's next item.
 """
 
 from __future__ import annotations
@@ -145,6 +149,9 @@ class KvTransferMixin:
         list pass it through instead of rehashing per chunk; under
         ``__debug__`` it is asserted equal to a fresh recompute.
         """
+        if self.shard is not None:
+            self._refuse_export()
+            return None
         if blocks is None:
             blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)
         elif __debug__:
@@ -191,6 +198,14 @@ class KvTransferMixin:
             "k": kb,
             "v": vb,
         }
+
+    def _refuse_export(self) -> None:
+        """Log, once, that this rank's pages hold only its heads: a KV
+        export needs every rank's (ROADMAP queue 1)."""
+        if not self._export_refusal_logged:
+            self._export_refusal_logged = True
+            logger.warning("KV export refused: the pages are sharded over %d ranks; the "
+                           "caller prefills locally", self.shard.size)
 
     def _export_staging(self, n: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """Pinned host buffers for ``n`` blocks' K and V (CUDA only),
@@ -365,7 +380,7 @@ class KvTransferMixin:
                 k = k[:, :n]
                 v = v[:, :n]
         t0 = time.perf_counter()
-        staged = await asyncio.to_thread(self._inject_upload, k, v, dt)
+        staged = await asyncio.to_thread(self._inject_upload, *self._local_heads(k, v), dt)
         parts["upload"] = time.perf_counter() - t0
         alloc = self.kv.allocate_sequence(blocks, n, count_hits=False)
         if alloc is None:
@@ -378,6 +393,7 @@ class KvTransferMixin:
                 # overlap contract is that an import never blocks decode
                 # longer than ONE chunk's scatter.
                 t0 = time.perf_counter()
+                await self._publish("inject", (ids, k, v, payload["dtype"]))
                 await asyncio.to_thread(self._restore_scatter, ids, staged)
                 hold = time.perf_counter() - t0
         except BaseException:
@@ -435,7 +451,11 @@ class KvTransferMixin:
         """Seal ``n`` transferred blocks whose pages are ALREADY on this
         engine's device (no host staging).  ``pages_dev`` is ``[L, m, ps,
         2KV, hd]`` with the first n slots valid; ``ready`` is the event
-        behind the work that wrote it (None: stream order already holds)."""
+        behind the work that wrote it (None: stream order already holds).
+        At more than one rank it seals nothing: device pages cannot cross
+        the step plane (the host-staged ``inject_blocks`` can)."""
+        if self.shard is not None:
+            return 0
         blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)[start_block:]
         n = min(n, len(blocks))
         if n == 0:
@@ -493,6 +513,8 @@ async def transfer_blocks_device(
     prefix run)."""
     if src.cfg.block_size != dst.cfg.block_size:
         return 0
+    if src.shard is not None or dst.shard is not None:
+        return 0  # sharded pages: the export refuses too
     if src.cache.pages.shape[0] != dst.cache.pages.shape[0]:
         return 0  # different layer counts: not the same model
     if src.cache.pages.dtype != dst.cache.pages.dtype or not _scales_close(

@@ -5,7 +5,9 @@ examples/llm/components/{frontend,processor,worker}.py), on ``TorchEngine``.
 Services:
 - ``TorchWorker`` — the port's engine serving token-in/token-out,
   publishing KV events + metrics (1 GPU by default; ``device: cpu`` in its
-  service config runs it on the CPU, as ``run --device cpu`` does).
+  service config runs it on the CPU, as ``run --device cpu`` does; ``tp``
+  above 1 starts the other ranks as ``run --tp`` does and serves as their
+  leader).
 - ``Processor``  — tokenizes OpenAI requests and routes token requests to
   workers (round-robin here; the HTTP frontend's --router kv does KV-aware
   routing in the main serving path).
@@ -16,10 +18,8 @@ Services:
 from __future__ import annotations
 
 import asyncio
-from types import SimpleNamespace
 from typing import Any, AsyncIterator, Dict
 
-from ...engine import refuse_unsupported
 from ...engine.config import EngineConfig
 from ...llm.backend import Backend
 from ...llm.discovery import make_tokenizer, register_model
@@ -46,20 +46,24 @@ class TorchWorker:
             KvMetricsPublisher,
         )
 
-        refuse_unsupported(SimpleNamespace(tp=int(self.config.get("tp", 1))))
+        tp = int(self.config.get("tp", 1))
         cfg = EngineConfig(
             model=self.config.get("model", "debug-tiny"),
             block_size=int(self.config.get("block_size", 16)),
             num_blocks=int(self.config.get("num_blocks", 256)),
             max_batch=int(self.config.get("max_batch", 8)),
             max_model_len=int(self.config.get("max_model_len", 1024)),
+            tp=tp,
         )
         # Weights are drawn (or loaded) for seconds at full size: off the
         # event loop, so the instance's lease keeps being renewed.  A
         # request that arrives meanwhile waits in ``generate``.
-        self.engine = await asyncio.to_thread(
-            TorchEngine, cfg, device=self.config.get("device")
-        )
+        if tp > 1:
+            self.engine = await self._boot_ranks(cfg)
+        else:
+            self.engine = await asyncio.to_thread(
+                TorchEngine, cfg, device=self.config.get("device")
+            )
         self._ready.set()
         component = self.runtime.namespace("examples").component("TorchWorker")
         self.engine.set_event_callback(
@@ -75,6 +79,23 @@ class TorchWorker:
             tokenizer={"kind": "byte"},
             kv_block_size=cfg.block_size,
         )
+
+    async def _boot_ranks(self, cfg: EngineConfig):
+        """``tp`` ranks as ``run --tp`` starts them (engine/ranks.py): the
+        other ranks run ``run in=none`` with this engine's settings and
+        replay this one's dispatches."""
+        from ...cli import parse_args
+        from ...engine import build_torch_engine
+        from ...engine.ranks import start_ranks
+
+        argv = ["run", "in=none", "out=torch", "--arch", cfg.model,
+                "--block-size", str(cfg.block_size), "--num-blocks", str(cfg.num_blocks),
+                "--max-batch", str(cfg.max_batch), "--max-model-len", str(cfg.max_model_len),
+                "--tp", str(cfg.tp)]
+        if self.config.get("device"):
+            argv += ["--device", str(self.config["device"])]
+        engine, self._ranks = await start_ranks(parse_args(argv), build_torch_engine)
+        return engine
 
     @dynamo_endpoint
     async def generate(self, request: Context) -> AsyncIterator[Dict]:

@@ -54,14 +54,20 @@ def torch_dtype(name: Any) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r} (one of {sorted(_DTYPES)})") from None
 
 
-def linear(x: torch.Tensor, lp: Params, name: str, out_dtype=None) -> torch.Tensor:
+def linear(x: torch.Tensor, lp: Params, name: str, out_dtype=None, group=None) -> torch.Tensor:
     """``x @ lp[name]`` (weights [in, out]), dispatching on quantization:
     an int8 weight is recognised by its sibling ``name + "_scale"``
-    (models/quant.py) and runs the int8 product (ops/quant_matmul.qdot)."""
+    (models/quant.py) and runs the int8 product (ops/quant_matmul.qdot).
+    ``group`` (parallel/distributed.AxisGroup) makes the product
+    row-parallel: ``x`` and the weight hold this rank's slice of the input
+    features and the partial products are all-reduced (for int8, the
+    accumulators before the rescale)."""
     s = lp.get(name + "_scale")
     if s is not None:
-        return qdot(x, lp[name], s, out_dtype=out_dtype)
+        return qdot(x, lp[name], s, out_dtype=out_dtype, group=group)
     r = x @ lp[name]
+    if group is not None:
+        r = group.all_reduce(r)
     return r if out_dtype is None else r.to(out_dtype)
 
 
@@ -78,41 +84,61 @@ def qkv_proj(x: torch.Tensor, lp: Params, q_size: int, kv_size: int):
     return q, k, v
 
 
-def mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    """SwiGLU FFN (gate activation in f32), fused w_gateup when present."""
+def mlp(x: torch.Tensor, lp: Params, tp=None) -> torch.Tensor:
+    """SwiGLU FFN (gate activation in f32), fused w_gateup when present;
+    ``tp`` (an AxisGroup) all-reduces the row-parallel ``w_down``."""
     if "w_gateup" in lp:
         gu = linear(x, lp, "w_gateup", torch.float32)
         Fh = gu.shape[-1] // 2
         gate = F.silu(gu[..., :Fh]).to(x.dtype)
         up = gu[..., Fh:].to(x.dtype)
-        return linear(gate * up, lp, "w_down")
+        return linear(gate * up, lp, "w_down", group=tp)
     gate = F.silu(linear(x, lp, "w_gate", torch.float32)).to(x.dtype)
-    return linear(gate * linear(x, lp, "w_up"), lp, "w_down")
+    return linear(gate * linear(x, lp, "w_up"), lp, "w_down", group=tp)
 
 
-def embed_lookup(params: Params, token_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def embed_lookup(params: Params, token_ids: torch.Tensor, dtype: torch.dtype,
+                 tp=None) -> torch.Tensor:
     """Token embedding gather; int8 embeds dequantize the gathered rows by
-    their per-row scale (the vocab row, shared with the tied head)."""
-    e = params["embed"][token_ids]
+    their per-row scale (the vocab row, shared with the tied head).  With
+    ``tp`` the embedding holds this rank's slice of the vocabulary: ids
+    outside it look up zeros and the rows are all-reduced, which is exact
+    (one term of each sum is not zero)."""
+    emb = params["embed"]
     s = params.get("embed_scale")
-    if s is None:
-        return e
-    return (e.float() * s[token_ids][:, None]).to(dtype)
+    if tp is None or tp.size == 1:
+        e = emb[token_ids]
+        return e if s is None else (e.float() * s[token_ids][:, None]).to(dtype)
+    Vl = emb.shape[0]
+    local = token_ids.long() - tp.index * Vl
+    mine = (local >= 0) & (local < Vl)
+    local = torch.where(mine, local, 0)
+    e = emb[local]
+    if s is not None:
+        e = (e.float() * s[local][:, None]).to(dtype)
+    e = torch.where(mine[:, None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+    return tp.all_reduce(e.contiguous())
 
 
-def lm_logits(params: Params, h_last: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, h_last: torch.Tensor, tp=None) -> torch.Tensor:
     """Final-norm hidden rows → f32 logits, through lm_head or the tied
-    embedding, quantized or not."""
+    embedding, quantized or not.  With ``tp`` the head holds this rank's
+    slice of the vocabulary and the ``[S, V]`` logits are all-gathered, so
+    every rank holds (and samples from) the same logits."""
     head = params.get("lm_head")
     if head is not None:
         s = params.get("lm_head_scale")
         if s is None:
-            return (h_last @ head).float()
-        return qdot(h_last, head, s, out_dtype=torch.float32)
-    s = params.get("embed_scale")
-    if s is None:
-        return (h_last @ params["embed"].T).float()
-    return qdot(h_last, params["embed"].T, s, out_dtype=torch.float32)
+            out = (h_last @ head).float()
+        else:
+            out = qdot(h_last, head, s, out_dtype=torch.float32)
+    else:
+        s = params.get("embed_scale")
+        if s is None:
+            out = (h_last @ params["embed"].T).float()
+        else:
+            out = qdot(h_last, params["embed"].T, s, out_dtype=torch.float32)
+    return out if tp is None else tp.all_gather(out, dim=-1)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -266,6 +292,9 @@ def forward_ragged(
     # LoRA.  Active only when the params carry bank leaves AND the batch
     # carries adapter_slots.
     lora_rank: int = 0,
+    # This rank's place in a mesh (parallel/distributed.ParallelState):
+    # params and pages are its slices; None = one rank.
+    shard=None,
 ) -> torch.Tensor:
     """Unified mixed prefill+decode forward over a flat ragged token run.
 
@@ -281,9 +310,18 @@ def forward_ragged(
     adapter's columns but the token's own, so ``(x @ A_all) * mask @ B_all``
     serves rows of many adapters in one forward; slot -1 matches nothing.
     The q, k and v deltas are added before rope, the o delta after the
-    output projection; base weights (possibly int8) are untouched."""
+    output projection; base weights (possibly int8) are untouched.
+
+    Under a mesh (``shard``), the JAX forward's sharding is run by hand: a
+    rank holds its ``tp`` slice of the heads (and of their pages), calls
+    the attention kernels at its local head counts, all-reduces the
+    row-parallel ``wo`` and ``w_down`` outputs, looks up its vocabulary
+    slice of the embedding (all-reduced) and all-gathers the vocab-sharded
+    logits; MoE experts run over ``ep`` (models/moe.py)."""
     T = rb.token_ids.shape[0]
-    H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    tp = None if shard is None or shard.tp.size == 1 else shard.tp
+    n = 1 if tp is None else tp.size
+    H, KV, hd = config.num_heads // n, config.num_kv_heads // n, config.head_dim
     dev = rb.token_ids.device
     inv_freq = rope_frequencies(hd, config.rope_theta, config.rope_scaling, device=dev)
     sm_scale = hd**-0.5
@@ -310,7 +348,7 @@ def forward_ragged(
         xa = (x_in @ a) * lora_mask  # own-adapter columns only
         return (xa @ lp["lora_b_" + name]).to(x_in.dtype)
 
-    h = embed_lookup(params, rb.token_ids, dt)  # [T, D]
+    h = embed_lookup(params, rb.token_ids, dt, tp)  # [T, D]
     for l in range(L):
         lp = {name: w[l] for name, w in layers.items()}
         x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
@@ -331,13 +369,72 @@ def forward_ragged(
             sm_scale=sm_scale, kv_scale=s_l, decode=decode, rows=rows,
         )
         attn_flat = attn.reshape(T, H * hd)
-        o = linear(attn_flat, lp, "wo")
+        o = linear(attn_flat, lp, "wo", group=tp)
         if lora_mask is not None:
             do = lora_delta(attn_flat, lp, "wo")
             o = o if do is None else o + do
         h = h + o
         x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
-        h = h + (moe_mlp(x, lp, config) if config.is_moe else mlp(x, lp))
+        h = h + (moe_mlp(x, lp, config, shard) if config.is_moe else mlp(x, lp, tp))
     h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
     rows = (rb.cu_q_lens[1:].long() - 1).clamp(0, T - 1)  # last token per row
-    return lm_logits(params, h[rows])
+    return lm_logits(params, h[rows], tp)
+
+
+def forward_sp_prefill(
+    params: Params,
+    config: ModelConfig,
+    token_ids: torch.Tensor,  # [Tg] this prompt's ids, Tg a multiple of sp
+    valid_len: int,  # the prompt's length (<= Tg; the rest is padding)
+    shard,  # parallel/distributed.ParallelState with sp > 1
+):
+    """Whole-prompt sequence-parallel prefill (the JAX package's
+    ``forward_sp_prefill``): this rank computes its contiguous chunk of
+    ``Tg / sp`` tokens over its ``tp`` heads, every product local to the
+    chunk (weights replicate over ``sp``), attention by ring attention over
+    the ``sp`` group (ops/ring_attention.py).
+
+    Returns (logits ``[V]`` f32 of the last valid token — the first decode
+    token's distribution — on every rank, and ``[L, Tg, 2*KV_local, hd]``
+    pages-layout rows, K at even and V at odd combined heads, all-gathered
+    over ``sp`` because pages replicate over it)."""
+    from ..ops.ring_attention import ring_attention
+
+    sp = shard.sp
+    tp = None if shard.tp.size == 1 else shard.tp
+    n = 1 if tp is None else tp.size
+    Tg = token_ids.shape[0]
+    C = Tg // sp.size
+    H, KV, hd = config.num_heads // n, config.num_kv_heads // n, config.head_dim
+    dev = token_ids.device
+    inv_freq = rope_frequencies(hd, config.rope_theta, config.rope_scaling, device=dev)
+    sm_scale = hd**-0.5
+    lo = sp.index * C
+    toks = token_ids[lo:lo + C]
+    positions = torch.arange(lo, lo + C, dtype=torch.int32, device=dev)
+    cos, sin = rope_cos_sin(positions, inv_freq)
+    dt = torch_dtype(config.dtype)
+    layers = params["layers"]
+    h = embed_lookup(params, toks, dt, tp)  # [C, D]
+    rows = []
+    for l in range(config.num_layers):
+        lp = {name: w[l] for name, w in layers.items()}
+        x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
+        q, k, v = qkv_proj(x, lp, H * hd, KV * hd)
+        q = rotate(q.reshape(C, H, hd), cos, sin)
+        k = rotate(k.reshape(C, KV, hd), cos, sin)
+        v = v.reshape(C, KV, hd)
+        attn = ring_attention(q, k, v, valid_len, sp, sm_scale=sm_scale)
+        h = h + linear(attn.reshape(C, H * hd), lp, "wo", group=tp)
+        x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
+        h = h + (moe_mlp(x, lp, config, shard) if config.is_moe else mlp(x, lp, tp))
+        rows.append(torch.stack([k, v], dim=2).reshape(C, 2 * KV, hd))
+    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+    # The last valid token lies in one rank's chunk: every rank computes
+    # the logits of its own candidate row (the head's collectives run on
+    # all), and the owner's row is taken from the gather over sp.
+    last = max(0, min(valid_len, Tg) - 1)
+    logits = lm_logits(params, h[min(max(last - lo, 0), C - 1)][None], tp)  # [1, V]
+    logits = sp.all_gather(logits, dim=0)[last // C]
+    kv = sp.all_gather(torch.stack(rows), dim=1)  # [L, Tg, 2KV, hd]
+    return logits, kv

@@ -15,6 +15,14 @@ The combine adds each token's K weighted expert rows onto zero in f32.
 the two terms commute exactly (``0 + a + b == 0 + b + a`` in IEEE
 arithmetic), so the result is deterministic, and a CUDA call with K > 2 is
 refused rather than served with an order-dependent sum.
+
+Under a mesh (parallel/mesh.py) a rank holds the experts of its ``ep``
+coordinate, each over its ``tp`` slice of the expert hidden dim
+(``moe_gate: (None, "ep", None, "tp")``): it routes every token over all
+experts, runs its own experts' products, and the f32 combine is summed over
+the ``ep`` x ``tp`` group.  With int8 experts the down product is
+row-parallel over ``tp`` (ops/quant_matmul.qdot_batched with the group),
+so the combine then sums over ``ep`` only.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ def moe_mlp(
     x: torch.Tensor,  # [T, D]
     lp: Dict[str, torch.Tensor],  # this layer's params (leading L stripped)
     config: ModelConfig,
+    shard=None,  # parallel/distributed.ParallelState; None = one rank
 ) -> torch.Tensor:
     """The JAX ``moe_mlp`` on a flat token run: the router product in the
     model dtype, then f32; ``top_k`` over the f32 logits with a softmax over
@@ -88,15 +97,23 @@ def moe_mlp(
         gate_w = torch.zeros((E * C,), dtype=torch.float32, device=dev)
         gate_w = gate_w.scatter(0, at, weights.reshape(T * K)).view(E, C)
 
+        El = lp["moe_gate"].shape[0]  # this rank's experts
+        if El != E:
+            e0 = shard.ep_index * El
+            dispatch, gate_w = dispatch[e0:e0 + El], gate_w[e0:e0 + El]
         x_pad = torch.cat([x, x.new_zeros((1, D))])
         idx = dispatch.reshape(-1)
-        xe = x_pad.index_select(0, idx).view(E, C, D)
+        xe = x_pad.index_select(0, idx).view(El, C, D)
+    quant_tp = shard is not None and shard.tp.size > 1 and "moe_down_scale" in lp
     with rf(MOE_PARTS[1]):
         gate = F.silu(expert_linear(xe, lp, "moe_gate", torch.float32)).to(x.dtype)
         up = expert_linear(xe, lp, "moe_up")
-        ye = expert_linear(gate * up, lp, "moe_down")  # [E, C, D]
+        ye = expert_linear(gate * up, lp, "moe_down",
+                           group=shard.tp if quant_tp else None)  # [El, C, D]
     with rf(MOE_PARTS[2]):
         ye_w = ye.float() * gate_w[..., None]
         yt = torch.zeros((T + 1, D), dtype=torch.float32, device=dev)
-        yt.index_add_(0, idx, ye_w.reshape(E * C, D))
+        yt.index_add_(0, idx, ye_w.reshape(El * C, D))
+        if shard is not None:
+            yt = (shard.ep if quant_tp else shard.ep_tp).all_reduce(yt)
         return yt[:T].to(x.dtype)

@@ -9,8 +9,8 @@
   ``hf`` tokenizer spec registered as given), the same listing, removal of
   every registration, the parser's checks;
 - ``deploy render|preview`` on a CR file: the JAX output after the
-  renderer's substitutions; the repository's v5e example refused naming
-  ROADMAP queue 1 item 7; without PyYAML a refusal naming it;
+  renderer's substitutions; the repository's v5e example refused for its
+  TPU topology; without PyYAML a refusal naming it;
 - ``prepare``: a local directory, a ``.gguf`` file and a pre-staged cache
   entry print the JAX command's paths; a remote repo id is refused with
   the port's no-download message;
@@ -220,7 +220,7 @@ def test_deploy_refuses_the_v5e_example_and_names_pyyaml(monkeypatch, capsys):
     example = os.path.join(REPO, "deploy", "k8s", "example-deployment.yaml")
     r = _run_cli(PORT, "deploy", "render", "-f", example)
     assert r.returncode == 1 and r.stdout == ""
-    assert "nnodes > 1" in r.stderr and "queue 1 item 7" in r.stderr
+    assert "tpu.topology names a TPU slice" in r.stderr
     assert _run_cli(JAX, "deploy", "preview", "-f", example).returncode == 0
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(SystemExit, match="PyYAML"):

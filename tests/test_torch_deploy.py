@@ -3,9 +3,9 @@ package's (``tests/test_deploy.py``, ``tests/test_kube_api.py``,
 ``tests/test_model_cache.py``):
 
 - the renderer: the repository's ``deploy/k8s/example-deployment.yaml`` (a
-  v5e pod: ``nnodes: 4``, ``topology: 4x4``, ``tp: 4``) is refused naming
-  ROADMAP queue 1 item 7, as are ``tp``/``dp`` above 1, a topology and any
-  flag the port's ``run`` rejects; a single-card variant built here, the
+  v5e pod: ``nnodes: 4``, ``topology: 4x4``, ``tp: 4``) is refused for its
+  TPU topology, as are a mesh axis below 1, ranks that do not split over
+  ``nnodes`` and any flag the port's ``run`` rejects; a single-card variant built here, the
   JAX tests' CRs cut to one card, and a frontend ingress render to the JAX
   output after the documented substitutions (``dynamo_tpu_torch.cli``,
   ``out=torch``, ``nvidia.com/gpu`` resources and ``gpu.product`` node
@@ -179,18 +179,20 @@ def test_gpu_resources_default_to_one_card():
 
 
 def test_example_cr_is_refused_naming_item_7():
+    """Multi-host serving is in the port; the example's TPU topology is
+    still refused (the multi-host render itself: test_torch_multihost.py)."""
     cr = _example()
-    with pytest.raises(ValueError, match=r"nnodes > 1 .*queue 1 item 7"):
+    with pytest.raises(ValueError, match=r"tpu.topology names a TPU slice"):
         D(PORT).deploy.render(cr)
     assert any(d["kind"] == "StatefulSet" for d in D(JAX).deploy.render(cr))
 
 
 REFUSED = {
-    "tp": ({"engine": {"tp": 4}}, r"--tp 4 .*queue 1 item 7"),
-    "dp": ({"engine": {"dp": 2}}, r"--dp 2 .*queue 1 item 7"),
-    "ep": ({"engine": {"ep": 2}}, r"--ep 2 .*queue 1 item 7"),
-    "topology": ({"tpu": {"accelerator": "a", "topology": "4x4"}}, r"topology .*queue 1 item 7"),
-    "nnodes": ({"nnodes": 2}, r"nnodes > 1 .*queue 1 item 7"),
+    "tp": ({"engine": {"tp": 0}}, r"--tp 0 must be >= 1"),
+    "dp": ({"engine": {"dp": 3}, "nnodes": 2}, r"3 ranks do not split over nnodes 2"),
+    "ep": ({"engine": {"ep": 0}}, r"--ep 0 must be >= 1"),
+    "topology": ({"tpu": {"accelerator": "a", "topology": "4x4"}}, r"topology names a TPU slice"),
+    "nnodes": ({"nnodes": 2}, r"1 ranks do not split over nnodes 2"),
     "unknown-flag": ({"engine": {"attn_impl": "xla"}}, r"unrecognized arguments: --attn-impl"),
     "bad-value": ({"engine": {"max_batch": "many"}}, r"--max-batch: invalid int value"),
 }

@@ -554,23 +554,29 @@ def test_cli_serves_http_out_torch():
     assert p.returncode == 0
 
 
-# What each refused option fails with: meshes wait in ROADMAP; a remote
-# checkpoint or adapter cannot be downloaded; an HF tokenizer needs the
-# `tokenizers` package.
+# What each refused option fails with: a mesh the model, the devices or the
+# nodes cannot take (before any rank starts); a remote checkpoint or adapter
+# cannot be downloaded; an HF tokenizer needs the `tokenizers` package.
 _REFUSALS = {
+    "--tp": (ValueError, "tp=3 must divide num_kv_heads=2"),
+    "--dp": (ValueError, "need 2 devices"),
+    "--sp": (ValueError, "need 2 devices"),
+    "--nnodes": (SystemExit, "1 ranks do not split over --nnodes 2"),
     "--checkpoint": (FileNotFoundError, "does not download"),
     "--lora": (FileNotFoundError, "does not download"),
     "--tokenizer": (ValueError, "`tokenizers` package"),
 }
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--checkpoint", "org/remote-model"], ["--dp", "2"],
-                                  ["--sp", "2"], ["--lora", "a=org/remote-adapter"],
+@pytest.mark.parametrize("flag", [["--tp", "3"], ["--checkpoint", "org/remote-model"],
+                                  ["--dp", "2", "--cpu-devices", "1"],
+                                  ["--sp", "2", "--cpu-devices", "1"],
+                                  ["--lora", "a=org/remote-adapter"],
                                   ["--nnodes", "2"], ["--tokenizer", "tok.json"]])
 def test_cli_refuses_options_the_port_lacks(flag):
     from dynamo_tpu_torch import cli
 
     args = cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu", *flag])
-    err, match = _REFUSALS.get(flag[0], (SystemExit, "ROADMAP"))
+    err, match = _REFUSALS[flag[0]]
     with pytest.raises(err, match=match):
         asyncio.run(cli._run(args))

@@ -408,7 +408,8 @@ def test_package_imports_no_jax_and_no_module_level_triton():
     files = list((root / "dynamo_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     # The modules each slice adds are in the scan (the bulk plane, the
     # whole health watchdog, the planner, the auxiliary services, the SDK,
-    # its example graph and the deployment tooling among them).
+    # its example graph, the deployment tooling, the parallel package, the
+    # step plane and ring attention among them).
     planner = ("signals", "policy", "pmetrics", "actuate", "autopilot", "sim", "service",
                "supervisor", "__init__", "__main__")
     sdk = ("__init__", "service", "graph", "config", "allocator", "worker_main", "runner")
@@ -422,7 +423,9 @@ def test_package_imports_no_jax_and_no_module_level_triton():
                    "llm/tenancy/__init__.py", "llm/tenancy/lora.py", "native.py",
                    *(f"sdk/{m}.py" for m in sdk), *(f"deploy/{m}.py" for m in deploy),
                    "examples/__init__.py", "examples/llm/__init__.py",
-                   "examples/llm/components.py", "examples/llm/graphs.py"):
+                   "examples/llm/components.py", "examples/llm/graphs.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                   "engine/multihost.py", "engine/ranks.py", "ops/ring_attention.py"):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the

@@ -295,19 +295,20 @@ async def test_run_worker_order(monkeypatch):
 
 
 async def test_torch_worker_refuses_tp_like_run():
-    """``tp`` other than 1 in TorchWorker's config fails as ``run --tp``
-    does (engine/__init__.py UNSUPPORTED_OPTIONS), before any engine."""
+    """A ``tp`` the model cannot take in TorchWorker's config fails as
+    ``run --tp`` does, before any rank starts or any engine is built."""
     from dynamo_tpu_torch.cli import parse_args
     from dynamo_tpu_torch.engine import build_torch_engine
     from dynamo_tpu_torch.examples.llm.components import TorchWorker
 
-    worker = TorchWorker(config={"tp": 2, "device": "cpu", "model": "debug-tiny"})
-    with pytest.raises(SystemExit) as got:
+    worker = TorchWorker(config={"tp": 3, "device": "cpu", "model": "debug-tiny"})
+    with pytest.raises(ValueError) as got:
         await worker.boot()
-    with pytest.raises(SystemExit) as want:
-        build_torch_engine(parse_args(["run", "in=http", "out=torch", "--tp", "2"]))
+    with pytest.raises(ValueError) as want:
+        build_torch_engine(parse_args(["run", "in=http", "out=torch", "--tp", "3",
+                                       "--device", "cpu"]))
     assert str(got.value) == str(want.value)
-    assert "queue 1 item 7" in str(got.value) and worker.engine is None
+    assert "must divide num_kv_heads" in str(got.value) and worker.engine is None
 
 
 # ------------------------------------------------------------- the example graph
