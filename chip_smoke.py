@@ -6,6 +6,7 @@
     python3 chip_smoke.py --quant-ab   # phase c's traffic, W8A8 vs bf16 in turns only
     python3 chip_smoke.py --sdk-graph  # phase p alone
     python3 chip_smoke.py --parallel   # phase q alone
+    python3 chip_smoke.py --tp-tiers   # phase r alone
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -108,7 +109,12 @@ Phases, any failure exits non-zero:
      identical token streams and no graph captured,
      with each pass's TTFT and ITL medians (the tracing overhead, not
      gated) and both kernels' launches in the phase;
-  g. the KV memory tiers on engines sharing phase 6's weights (512 pages,
+  g. the restore's CRC kernel (csrc/crc32_blocks.cu) against zlib on
+     every geometry it takes, bitwise, and timed at a 128-block prefix
+     beside the earlier design's time and its bound (the bytes, the INT32
+     operations of slicing by 4 at 64 lanes a clock, and the shared-memory
+     wavefronts at the sampled SM clock); then
+     the KV memory tiers on engines sharing phase 6's weights (512 pages,
      1 GiB; host tier 1024 MiB pinned, disk 1024 MiB and object store
      2048 MiB in a temporary directory removed at the end): 12 greedy
      prompts of 2056 ids, 16 new tokens each, one at a time, the offload
@@ -204,7 +210,10 @@ Phases, any failure exits non-zero:
      threefry Gumbel noise bit for bit) against its plain version at 16 and
      256 rows over the 128256-id vocabulary: uint32 bits exactly equal,
      values within 2 ulp at the scale max(|g|, 1), the sampled tokens of
-     random logits equal; timed beside its plain version and its bound.
+     random logits equal; timed beside its plain version and its bound: the
+     larger of the [B, V] write and each pipe's time for the kernel's SASS
+     instructions an element (cuobjdump, by pipe: ALU, FMA/IMAD, MUFU,
+     conversions) at the SM clock nvidia-smi reports while it runs.
      Then the distributed stack again (``cli hub``, ``http --router kv``
      and worker B as subprocesses, worker A the CLI's own ``run in=dyn://``
      code in this process with ``--kv-pull-mb 192``): a greedy and a
@@ -343,7 +352,7 @@ Phases, any failure exits non-zero:
      width at ep 2 against ep 1, and an sp 2 ring pass over 4096 ids (its
      first-token logits and sealed pages against the chunked path), each
      within 1e-4; the group's all-reduce of [16, 4096] and [512, 4096]
-     bf16; then at full depth in bf16: ``run in=http out=torch --tp 2``
+     bf16; then at 16 of 32 layers in bf16: ``run in=http out=torch --tp 2``
      (its second rank started by the command) serving 3 greedy requests
      one at a time, both ranks launching both attention kernels (the site
      hook of phase p), each rank's peak allocated memory and the card's
@@ -354,8 +363,30 @@ Phases, any failure exits non-zero:
      sealing a 4096-id prompt in one ring pass, its TTFT beside the
      one-rank chunked TTFT, then two more sent at once, each sealed and
      served whole; no rank process outlives its run;
+  r. KV export and the whole-block KV tiers at tp 2 on one node, at 16 of
+     llama-3.1-8b's 32 layers, every rank sharing this card over gloo:
+     the disaggregated stack (hub, ``http``, D = the CLI's own ``--disagg
+     decode`` code in this process) with ``run … --disagg prefill --tp 2``
+     as its prefill worker P (the command starts its second rank): 4
+     greedy prompts of 2040 ids, 64 new tokens, all remote, none local or
+     degraded, every streams whole, D's imported pages of the first prompt
+     bitwise the leader's gathered payload (every KV head), remote TTFT
+     beside D's local TTFT, P's export by part with the gather's share (a
+     SIGUSR2 snapshot from the children's site hook) and how many streams
+     equal D's local prefill of the same shapes (ungated); then ``run
+     in=http out=torch --tp 2`` with phase g's budgets (host 1024 MiB,
+     disk 1024 MiB, object store 2048 MiB), its leader in this process: 17
+     prompts of 2056 ids (8 new), then prefixes whose first block is in
+     the object store, on disk and in host, each off the device, served
+     again: every stream's tokens and logprobs equal its first pass, the
+     restored blocks equal the counter and /metrics, the node's host-tier
+     bytes summed over its ranks (the follower's from its snapshot) within
+     1024 MiB, the CRC kernel launched on the leader; then a fresh
+     one-rank engine on that object store restores the tp-2 prefix (scale
+     from zero across tp; its stream against tp 2's ungated); no started
+     rank outlives its command;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p and q beside phase 6's
+     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q and r beside phase 6's
      and 7's; the noise kernel's in phases j, k, l, e, p and q), then the
      device line last.
 
@@ -511,27 +542,163 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# ------------------------------------------------------------ kernel checks
+# ------------------------------------------------ the port-only kernels' bounds
+# Lanes a clock on one SM of sm_90 (the CUDA C++ Programming Guide's
+# throughput table for compute capability 9.0): 32-bit integer add, logic,
+# shift, compare and select on the ALU pipe 64; IMAD on the FMA pipe's
+# heavy half 64, float add/multiply/FMA on both halves 128; MUFU (log2,
+# exp2, reciprocal) 16; conversions 16; instruction issue 4 warps (128
+# lanes).  Shared memory serves one 128-byte wavefront a clock an SM.
+PIPE_LANES = {"alu": 64, "imad": 64, "fp32": 128, "mufu": 16, "xu": 16, "issue": 128}
+SASS_PIPES = {
+    "alu": {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "SEL", "ISETP", "LEA",
+            "IMNMX", "IABS", "BMSK", "SGXT", "PLOP3", "P2R", "R2P", "MOV", "FSETP", "FSEL",
+            "FMNMX", "CSET", "CSETP", "FLO", "POPC", "BREV", "LEA.HI"},
+    "imad": {"IMAD", "VIADD", "IMUL", "IDP", "IMNMX3"},
+    "fp32": {"FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I", "FCHK"},
+    "mufu": {"MUFU"},
+    "xu": {"I2F", "F2I", "F2F", "I2I", "FRND", "I2FP", "F2IP"},
+}
+CRC_OPS_PER_4_BYTES = 8  # slicing by 4: 1 xor in, 4 byte extractions, 3 xors to combine
+CRC_LOOKUPS_PER_BYTE = 1  # one table lookup a byte; conflict-free, 32 a wavefront
+CRC_RANDOM_BANK_WAVEFRONTS = 3.5  # 32 random lookups into one table copy: ~3.5 to a bank
 
 
-def tensor_core_report(lib_path):
-    """HMMA (tensor-core mma) instructions per kernel function in a built
-    library's SASS, from cuobjdump: {function: count}, or None without the
-    tool."""
+def sm_count(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def during(fn):
+    """``fn()`` with the card's SM clock sampled by nvidia-smi meanwhile:
+    (its result, the samples in MHz)."""
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=30)
+            try:
+                samples.append(float(r.stdout.split()[0]))
+            except (ValueError, IndexError):
+                pass
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        return fn(), samples
+    finally:
+        stop.set()
+        th.join(60)
+
+
+def run_clock_hz(samples):
+    """The SM clock while the kernel ran: the median sample, else the
+    card's maximum SM clock (both from nvidia-smi)."""
+    if samples:
+        return statistics.median(samples) * 1e6
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=30)
+    return float(r.stdout.split()[0]) * 1e6
+
+
+def sass_functions(lib_path):
+    """A built library's SASS by function (cuobjdump -sass): {function:
+    [(address, opcode, text)]}, or None without the tool."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120).stdout
-    counts, fn = {}, None
+    out, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+            out[fn] = []
+            continue
+        m = re.match(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if fn is not None and m:
+            text = m.group(2)
+            body = re.sub(r"^@!?U?P\w+\s+", "", text)
+            out[fn].append((int(m.group(1), 16), body.split()[0].split(".")[0], text))
+    return out
+
+
+def sass_listing(lib_path, kernel_substr):
+    """The SASS of the one function of a built library whose name holds
+    ``kernel_substr``, or None (no tool, no such function)."""
+    fns = sass_functions(lib_path) or {}
+    return next((ins for fn, ins in fns.items() if kernel_substr in fn), None)
+
+
+def pipe_of(op):
+    for pipe, ops in SASS_PIPES.items():
+        if op in ops:
+            return pipe
+    return "other"
+
+
+def sass_per_element(listing, per=256):
+    """Instructions a thread executes for one element, by pipe.  A forward
+    branch taken on a predicate guards a region: one that stores to shared
+    memory (thread 0's row key in the noise kernel) runs once for ``per``
+    elements and counts 1/per; one that stores to global memory (the
+    optional ``bits`` output, absent while serving) counts 0.  What follows
+    the last unpredicated EXIT is padding.  Returns (counts by pipe, counts
+    by opcode, {region: instructions})."""
+    end = max((i for i, (_, op, text) in enumerate(listing)
+               if op == "EXIT" and not text.startswith("@")), default=len(listing) - 1)
+    ins = listing[:end + 1]
+    weight = [1.0] * len(ins)
+    regions = {}
+    for i, (addr, op, text) in enumerate(ins):
+        m = re.search(r"BRA\s+`?\(?(0x[0-9a-f]+)", text)
+        if op != "BRA" or not text.startswith("@") or not m or int(m.group(1), 16) <= addr:
+            continue
+        body = [j for j in range(i + 1, len(ins)) if ins[j][0] < int(m.group(1), 16)]
+        ops = {ins[j][1] for j in body}
+        if "STS" in ops:
+            w, name = 1.0 / per, "once a block"
+        elif "STG" in ops:
+            w, name = 0.0, "optional output"
+        else:
+            continue
+        for j in body:
+            weight[j] = min(weight[j], w)
+        regions[name] = len(body)
+    by_pipe, by_op = {}, {}
+    for w, (_, op, _) in zip(weight, ins):
+        by_op[op] = by_op.get(op, 0.0) + w
+        by_pipe[pipe_of(op)] = by_pipe.get(pipe_of(op), 0.0) + w
+    return by_pipe, by_op, regions
+
+
+def pipe_times_ms(per_element, elements, sms, clock_hz):
+    """Each pipe's least time for ``elements`` threads' worth of the
+    per-element counts: lanes over lanes a clock on every SM.  IMAD and
+    float work share the FMA pipe: its time is the larger of IMAD on the
+    heavy half and both on both halves.  'issue' counts every instruction."""
+    rate = sms * clock_hz
+    t = {p: elements * per_element.get(p, 0.0) / (PIPE_LANES[p] * rate) * 1e3
+         for p in ("alu", "mufu", "xu")}
+    imad, f32 = per_element.get("imad", 0.0), per_element.get("fp32", 0.0)
+    t["fma"] = elements * max(imad / PIPE_LANES["imad"], (imad + f32) / PIPE_LANES["fp32"]) \
+        / rate * 1e3
+    t["issue"] = elements * sum(per_element.values()) / (PIPE_LANES["issue"] * rate) * 1e3
+    return t
+
+
+# ------------------------------------------------------------ kernel checks
+
+
+def tensor_core_report(lib_path):
+    """HMMA (tensor-core mma) instructions per kernel function in a built
+    library's SASS: {function: count}, or None without cuobjdump."""
+    fns = sass_functions(lib_path)
+    if fns is None:
+        return None
+    return {fn: sum(op == "HMMA" for _, op, _ in ins) for fn, ins in fns.items()}
 
 
 def check_tensor_cores(failures):
@@ -1408,7 +1575,9 @@ CHAT_BODY = {
 class CliServer:
     """``cli._run`` of the port on an event loop in a thread of this
     process, so this process's kernel launch counters see its work.  The
-    engine the CLI builds is kept (``engine``) so it can be warmed."""
+    engine the CLI builds is kept (``engine``) so it can be warmed; at more
+    than one rank this process is the leader and ``ranks`` the node's
+    started ranks."""
 
     def __init__(self, argv, timeout=900):
         from dynamo_tpu_torch import cli
@@ -1416,15 +1585,20 @@ class CliServer:
         args = cli.parse_args(argv)
         ready = concurrent.futures.Future()
         self.loop = asyncio.new_event_loop()
-        self.engine = None
-        build = cli._build_engine
+        self.engine = self.ranks = None
+        build, start = cli._build_engine, cli.start_ranks
 
         def keep(out, a):
             engine, level = build(out, a)
             self.engine = engine
             return engine, level
 
+        async def keep_ranks(a, b):
+            self.engine, self.ranks = await start(a, b)
+            return self.engine, self.ranks
+
         cli._build_engine = keep
+        cli.start_ranks = keep_ranks
 
         async def run():
             try:
@@ -1447,7 +1621,7 @@ class CliServer:
         try:
             self.service = ready.result(timeout=timeout)
         finally:
-            cli._build_engine = build
+            cli._build_engine, cli.start_ranks = build, start
 
     def warmup(self):
         """The engine's ``run_warmup`` on the server's loop; returns its
@@ -2121,25 +2295,51 @@ class TierTimers:
 
 # The restore's CRC kernel at phase g's shape: a 128-block prefix of
 # llama-3.1-8b blocks [L, ps, 2KV, D] in bf16 (2 MiB each); its edges: int8
-# pages, a short last slice, bytes off an 8-byte boundary.
+# pages, blocks shorter than a tile, bytes off a 16-byte boundary, full
+# tiles with a short last one, and the same off the boundary.
 CRC_CASES = (("prefix", 128, (32, PS, 2 * KV, D), "bfloat16", 0),
              ("int8 pages", 7, (32, PS, 2 * KV, D), "int8", 0),
              ("short slice", 5, (4100,), "uint8", 0),
-             ("unaligned", 3, (2053,), "uint8", 1))
-CRC_OPS_PER_8_BYTES = 23  # 1 xor in, 7 shifts and 8 masks to index, 7 xors to combine
+             ("unaligned", 3, (2053,), "uint8", 1),
+             ("tiles and a short tail", 9, (2 * 32768 + 4112,), "uint8", 0),
+             ("tiles off the boundary", 4, (3 * 32768 + 7,), "uint8", 5),
+             ("one byte", 2, (1,), "uint8", 0))
+# The earlier design's time at the prefix (PERF.md's kernel table): for the log
+# line alone, never for the kernels line, which holds this run's numbers.
+CRC_PREFIX_MS = 0.2589
+
+
+def crc_bound(nbytes, n, sms, clock_hz):
+    """The CRC kernel's least time over ``n`` blocks of ``nbytes`` bytes in
+    all: the blocks read once (and n words written), the slicing-by-4
+    integer operations at the INT32 lane rate, and the shared-memory
+    wavefronts (each byte's table lookup, 32 a wavefront when conflict-free
+    as designed, and each byte written to and read from the ring once).
+    Returns (bound ms, what bounds it, the parts in ms)."""
+    rate = sms * clock_hz
+    parts = {
+        "bytes": (nbytes + 4 * n) / HBM_BYTES_PER_S * 1e3,
+        "int32": nbytes / 4 * CRC_OPS_PER_4_BYTES / (PIPE_LANES["alu"] * rate) * 1e3,
+        "smem_wavefronts": nbytes * (CRC_LOOKUPS_PER_BYTE / 32 + 2 / 128) / rate * 1e3,
+    }
+    # The earlier design's lookups: one table copy, ~3.5 to a bank.
+    parts["smem_one_copy"] = nbytes * (CRC_LOOKUPS_PER_BYTE * CRC_RANDOM_BANK_WAVEFRONTS / 32
+                                       ) / rate * 1e3
+    designed = {k: v for k, v in parts.items() if k != "smem_one_copy"}
+    by = max(designed, key=designed.get)
+    return designed[by], "bytes" if by == "bytes" else "operations", parts
 
 
 def check_crc_kernel(torch, dev, tally):
     """Phase g, part 0: csrc/crc32_blocks.cu against its plain version
     (zlib over each block's bytes on the host, the port's check before this
     kernel) on CRC_CASES, exactly; then timed at the prefix (rounds of 20
-    launches, L2 flushed) beside the plain version on the host (the
-    engine's 8 CRC threads) and the bound (the blocks read once against
-    CRC_OPS_PER_8_BYTES integer operations at the f32 peak).  Returns the
-    timings."""
+    launches, L2 flushed) beside the earlier design's time, the plain version
+    on the host (the engine's 8 CRC threads) and the bound (``crc_bound``
+    at the SM clock sampled while it ran).  Returns the timings."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from dynamo_tpu_torch.ops import crc32
+    from dynamo_tpu_torch.ops import _build, crc32
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
@@ -2148,7 +2348,7 @@ def check_crc_kernel(torch, dev, tally):
     for label, n, shape, dtype, off in CRC_CASES:
         dt = getattr(torch, dtype)
         nbytes = n * math.prod(shape) * torch.empty((), dtype=dt).element_size()
-        raw = torch.randint(0, 256, (nbytes + 8,), generator=gen, device=dev, dtype=torch.uint8)
+        raw = torch.randint(0, 256, (nbytes + 16,), generator=gen, device=dev, dtype=torch.uint8)
         blocks = raw[off:off + nbytes].view(dt).view(n, *shape)
         got = crc32.block_crc32_cuda(blocks)
         want = crc32.block_crc32_plain(blocks.cpu())
@@ -2162,10 +2362,19 @@ def check_crc_kernel(torch, dev, tally):
         if label == "prefix":
             prefix = blocks
         del raw, got
+    listing = sass_listing(_build._target(_build.CSRC / "crc32_blocks.cu"), "crc32_blocks_kernel")
+    if listing:
+        ops = {}
+        for _, op, _ in listing:
+            ops[op] = ops.get(op, 0) + 1
+        log(f"sass crc32_blocks: {sum(ops.values())} instructions in the kernel, by opcode "
+            f"{dict(sorted(ops.items()))}")
     host = prefix.cpu()
     nbytes = host.numel() * host.element_size()
-    rounds = [cuda_ms(torch, lambda: crc32.block_crc32_cuda(prefix), 20, flush)
-              for _ in range(TIMING_ROUNDS)]
+    rounds, clocks = during(lambda: [cuda_ms(torch, lambda: crc32.block_crc32_cuda(prefix), 20,
+                                             flush) for _ in range(TIMING_ROUNDS)])
+    clock = run_clock_hz(clocks)
+    sms = sm_count(torch)
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         crc32.block_crc32_plain(host, pool)
         plain = []
@@ -2173,20 +2382,32 @@ def check_crc_kernel(torch, dev, tally):
             t0 = time.perf_counter()
             crc32.block_crc32_plain(host, pool)
             plain.append((time.perf_counter() - t0) * 1e3)
-    t_bytes = (nbytes + 4 * prefix.shape[0]) / HBM_BYTES_PER_S * 1e3
-    t_ops = nbytes / 8 * CRC_OPS_PER_8_BYTES / F32_FLOPS * 1e3
-    r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations",
+    bound_ms, bound_by, parts = crc_bound(nbytes, prefix.shape[0], sms, clock)
+    per_block, per_cta, grid = crc32.tiles_of(prefix.shape[0], nbytes // prefix.shape[0], sms)
+    r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=bound_ms, bound_by=bound_by,
+             bound_parts_ms=parts, clock_mhz=clock / 1e6, clock_samples=clocks,
              plain_ms=statistics.median(plain), library_ms=None,
              shape=f"{prefix.shape[0]} x {list(prefix.shape[1:])} bf16")
-    log(f"time crc32_blocks [{r['shape']}, {nbytes / 2**20:.0f} MiB]: kernel {r['ms']:.4f} ms, "
-        f"plain (zlib on the host, 8 threads) {r['plain_ms']:.3f} ms {[round(x, 3) for x in plain]}, "
-        f"library none (PyTorch has no CRC), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-        f"{t_bytes:.4f} ms of bytes, {t_ops:.4f} ms of {CRC_OPS_PER_8_BYTES} operations per 8 "
-        f"bytes at {F32_FLOPS / 1e12:.0f} T/s); rounds {[round(x, 4) for x in rounds]}")
+    log(f"time crc32_blocks [{r['shape']}, {nbytes / 2**20:.0f} MiB]: kernel {r['ms']:.4f} ms "
+        f"(the earlier design {CRC_PREFIX_MS} ms), plain (zlib on the host, 8 threads) "
+        f"{r['plain_ms']:.3f} ms {[round(x, 3) for x in plain]}, library none (PyTorch has no "
+        f"CRC), bound {bound_ms:.4f} ms ({bound_by}; at {clock / 1e6:.0f} MHz on {sms} SMs: "
+        f"{({k: round(v, 4) for k, v in parts.items()})} ms: {CRC_OPS_PER_4_BYTES} INT32 "
+        f"operations per 4 bytes at {PIPE_LANES['alu']} lanes a clock, {CRC_LOOKUPS_PER_BYTE} "
+        f"lookup a byte conflict-free, the one-copy design's ~{CRC_RANDOM_BANK_WAVEFRONTS} "
+        f"to a bank beside it), {r['ms'] / bound_ms:.2f}x the bound; {grid} CTAs of "
+        f"{per_cta} tiles, {per_block} a block [{CARD}]; rounds {[round(x, 4) for x in rounds]}")
     del flush, prefix, host
     torch.cuda.empty_cache()
     return r
+
+
+def restore_parts(entries):
+    """(restore passes, their host wall summed by part in ms) among an
+    engine's ``transfer_parts`` entries (engine/offload.py _restore_pass)."""
+    passes = [pp for kind, _, pp in entries if kind == "restore"]
+    return len(passes), {k: sum(pp[k] for pp in passes) * 1e3
+                         for k in (passes[0] if passes else {})}
 
 
 async def tier_path(torch, phase6):
@@ -2280,8 +2501,10 @@ async def tier_path(torch, phase6):
             r0, m0 = engine.host_kv.restored_blocks, tm.kv_tier_metrics.restored_blocks_total
             c0 = engine.copy_summary()
             timers.take()
+            n_parts0 = len(engine.transfer_parts)
             toks, stamps, _ = (await serve(torch, engine, [prompts[i]], TIER_NEW))[0]
             parts = timers.take()
+            passes = restore_parts(list(engine.transfer_parts)[n_parts0:])
             c1 = engine.copy_summary()
             restored = engine.host_kv.restored_blocks - r0
             scraped = parse_prometheus(tm.kv_tier_metrics.render())
@@ -2294,7 +2517,8 @@ async def tier_path(torch, phase6):
                    "identical": toks == first[i][0],
                    "bitwise": pages is not None and torch.equal(pages, saved[i]),
                    "h2d_bytes": c1["h2d_bytes"] - c0["h2d_bytes"],
-                   "h2d_ms": c1["h2d_ms"] - c0["h2d_ms"], "parts_ms": parts}
+                   "h2d_ms": c1["h2d_ms"] - c0["h2d_ms"], "parts_ms": parts,
+                   "restore_passes": passes[0], "restore_parts_ms": passes[1]}
             out["rows"].append(row)
             check(row["identical"], f"{label}: stream identical to the first pass")
             check(row["bitwise"] or not restored,  # a recompute is reported, not held
@@ -2361,13 +2585,15 @@ async def tier_path(torch, phase6):
                 pages = await block_pages(fresh, chains[s0][TIER_CHECK_BLOCK])
                 torch.cuda.synchronize = real_sync
                 timers.close()
+                passes = restore_parts(list(fresh.transfer_parts))
                 row = {"label": "scale from zero", "prompt": s0,
                        "restored": fresh.host_kv.restored_blocks,
                        "ttft_ms": stamps[0] * 1e3, "first_ttft_ms": first[s0][1] * 1e3,
                        "identical": toks == first[s0][0],
                        "bitwise": pages is not None and torch.equal(pages, saved[s0]),
                        "h2d_bytes": fresh.copy_summary()["h2d_bytes"],
-                       "h2d_ms": fresh.copy_summary()["h2d_ms"], "parts_ms": timers.take()}
+                       "h2d_ms": fresh.copy_summary()["h2d_ms"], "parts_ms": timers.take(),
+                       "restore_passes": passes[0], "restore_parts_ms": passes[1]}
                 out["rows"].append(row)
                 check(row["identical"], "scale from zero: stream identical to the first pass")
                 check(row["bitwise"], "scale from zero: restored pages bitwise equal")
@@ -2399,7 +2625,8 @@ async def tier_path(torch, phase6):
             f"TTFT {r['ttft_ms']:.1f} ms vs first pass {r['first_ttft_ms']:.1f} ms, identical "
             f"{r['identical']}, bitwise {r['bitwise']}, host->device {r['h2d_bytes']} B in "
             f"{r['h2d_ms']:.3f} ms stream time ({h2d:.2f} GiB/s); host wall by part (ms, "
-            f"nested) {r['parts_ms']}")
+            f"nested) {r['parts_ms']}; the restore passes ({r['restore_passes']}) by part (ms) "
+            f"{({k: round(v, 2) for k, v in r['restore_parts_ms'].items()})}")
     log(f"tiers totals: copies {out.get('copies')}; tier counters {out.get('tier_counters')}; "
         f"integrity {out.get('integrity')}; objstore {out.get('objstore')}; graphs "
         f"{out.get('graphs')}; torch.cuda.synchronize calls while serving {out.get('syncs')}; "
@@ -4676,12 +4903,9 @@ def planner_path(torch, ctx):
 NOISE_V = 128256  # llama-3.1-8b's vocabulary
 NOISE_ROWS = (16, 256)  # a serve dispatch's rows and phase c/e's
 NOISE_ULP = 2.0  # Gumbel values: within 2 ulp at the scale max(|g|, 1)
-F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
-# Operations of one noise element: threefry-2x32's 20 rounds (add, rotate,
-# xor: 3 each), 5 key injections (3 each) and the 2 counter adds, the xor of
-# the halves, the uniform (shift, or, subtract, multiply-add, max) and the
-# Gumbel (two logs, two negations).
-NOISE_OPS = 20 * 3 + 5 * 3 + 2 + 1 + 5 + 4
+# The noise kernel's operations an element come from its SASS, by pipe
+# (``noise_sass``): threefry-2x32's 20 rounds of add, rotate and xor, the key
+# injections, the uniform and the two logs, as the compiler scheduled them.
 
 
 def noise_launches():
@@ -4696,20 +4920,43 @@ def zero_noise_launches():
     smp.gumbel_noise_cuda.launches = 0
 
 
+def noise_sass():
+    """The noise kernel's SASS instructions an element, by pipe (thread 0's
+    row key counted 1/256: it runs once a block of 256 elements), logged
+    with the opcodes; None without cuobjdump."""
+    from dynamo_tpu_torch.ops import _build
+
+    listing = sass_listing(_build._target(_build.CSRC / "threefry_gumbel.cu"),
+                           "threefry_gumbel_kernel")
+    if not listing:
+        log("sass threefry_gumbel: cuobjdump not found or no kernel; the bound counts bytes only")
+        return None
+    by_pipe, by_op, regions = sass_per_element(listing)
+    log(f"sass threefry_gumbel: {sum(by_pipe.values()):.2f} instructions an element by pipe "
+        f"{({k: round(v, 2) for k, v in sorted(by_pipe.items())})}; by opcode "
+        f"{({k: round(v, 2) for k, v in sorted(by_op.items())})}; guarded regions "
+        f"(instructions) {regions}: thread 0's row key counted 1/256, the bits output 0 "
+        f"[{CARD}]")
+    return by_pipe
+
+
 def check_noise_kernel(torch, dev, tally):
     """Phase j, part 1: csrc/threefry_gumbel.cu against its plain version
     at B = 16 and 256 over the llama-3.1-8b vocabulary, on ragged seeds and
     steps (0 and 2**32 - 1 among them): the uint32 bits exactly, the Gumbel
     values within NOISE_ULP ulp at the scale max(|g|, 1), and the sampled
     token of ``argmax(logits + g)`` on random logits; then timed (rounds of
-    20 launches, L2 flushed) beside the plain version and the bound (the
-    [B, V] f32 write against NOISE_OPS operations an element).  Returns
-    {B: timings}."""
+    20 launches, L2 flushed) beside the plain version and the bound: the
+    larger of the [B, V] f32 write and each pipe's time for the kernel's
+    SASS instructions an element (``noise_sass``) at the SM clock sampled
+    while it ran.  Returns {B: timings}."""
     from dynamo_tpu_torch.ops import sampling as smp
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sms = sm_count(torch)
+    per_element = noise_sass()
     out = {}
     for B in NOISE_ROWS:
         seeds = torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
@@ -4743,18 +4990,27 @@ def check_noise_kernel(torch, dev, tally):
         def plain():
             return smp.gumbel_noise_plain(seeds, steps, NOISE_V)
 
-        rounds = [cuda_ms(torch, kernel, 20, flush) for _ in range(TIMING_ROUNDS)]
+        rounds, clocks = during(lambda: [cuda_ms(torch, kernel, 20, flush)
+                                         for _ in range(TIMING_ROUNDS)])
+        clock = run_clock_hz(clocks)
         nbytes = B * NOISE_V * 4 + 2 * B * 8
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = B * NOISE_V * NOISE_OPS / F32_FLOPS * 1e3
-        r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+        times = pipe_times_ms(per_element, B * NOISE_V, sms, clock) if per_element else {}
+        pipes = {p: t for p, t in times.items() if p != "issue"}
+        worst = max(pipes, key=pipes.get) if pipes else None
+        bound_ms = max([t_bytes] + list(pipes.values()))
+        r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=bound_ms,
+                 bound_by="bytes" if bound_ms == t_bytes else "operations",
+                 bound_pipe=None if bound_ms == t_bytes else worst, pipe_ms=times,
+                 sass_per_element=per_element, clock_mhz=clock / 1e6, clock_samples=clocks,
                  plain_ms=cuda_ms(torch, plain, 3, flush, spin=False), library_ms=None)
         log(f"time threefry_gumbel [B={B} V={NOISE_V}, int64 seeds/steps -> f32]: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none (PyTorch has no "
-            f"threefry), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.1f} MB "
-            f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms, {NOISE_OPS} operations "
-            f"an element at {F32_FLOPS / 1e12:.0f} TFLOP/s = {t_ops:.4f} ms); rounds "
+            f"threefry), bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
+            f"{'' if r['bound_pipe'] is None else ', the ' + r['bound_pipe'] + ' pipe'}: "
+            f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms; "
+            f"pipes at {clock / 1e6:.0f} MHz on {sms} SMs {({k: round(v, 4) for k, v in times.items()})}"
+            f" ms), {r['ms'] / r['bound_ms']:.2f}x the bound [{CARD}]; rounds "
             f"{[round(x, 4) for x in rounds]}")
         out[B] = r
         torch.cuda.empty_cache()
@@ -7514,8 +7770,9 @@ PAR_PROMPTS = 3
 PAR_ISL = 64
 PAR_MAX_TOKENS = 16
 PAR_SERVE_TIMEOUT_S = 400
-# A full-depth llama-3.1-8b ``run`` as phase q starts it (seed 0, bf16):
-# its rows, pages and length.  The sp run takes a 4096-id prompt.
+# llama-3.1-8b's ``run`` as phase q starts it (seed 0, bf16; at
+# PATH_CUT_LAYERS of its layers, as phases h-l and r run, for the script's
+# time): its rows, pages and length.  The sp run takes a 4096-id prompt.
 PAR_RUN_FLAGS = ["--arch", PAR_MODEL, "--model", PAR_MODEL, "--max-batch", "8",
                  "--num-blocks", "1024", "--max-model-len", "8192"]
 
@@ -7714,10 +7971,11 @@ def par_prompts(n, isl, seed):
 
 
 async def par_complete(port, prompt, max_tokens):
-    """A streamed greedy completion with logprobs (every token's chunk is
-    sent): (status, the chunks' token texts, TTFT s, ITL s, completion
-    tokens of the usage)."""
-    texts, stamps, used = [], [], []
+    """A streamed greedy completion with logprobs: (status, the logprob
+    entries' token texts, TTFT s, ITL s, completion tokens of the usage,
+    the entries' logprobs).  Tokens whose text the detokenizer holds back
+    share an entry with the next, so the usage counts the stream."""
+    texts, stamps, used, logprobs = [], [], [], []
 
     def on_event(t, ev):
         if not ev.startswith("data: ") or ev == "data: [DONE]":
@@ -7727,8 +7985,9 @@ async def par_complete(port, prompt, max_tokens):
             used.append(c["usage"].get("completion_tokens"))
         for ch in c.get("choices") or []:
             lp = ch.get("logprobs") or {}
-            for tok in lp.get("tokens") or []:
+            for tok, val in zip(lp.get("tokens") or [], lp.get("token_logprobs") or []):
                 texts.append(tok)
+                logprobs.append(val)
                 stamps.append(t)
 
     body = {"model": PAR_MODEL, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
@@ -7736,7 +7995,7 @@ async def par_complete(port, prompt, max_tokens):
     st, _, _, _ = await http_call(port, "POST", "/v1/completions", body, on_event=on_event)
     ttft = stamps[0] if stamps else float("nan")
     itl = (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1) if stamps else float("nan")
-    return st, texts, ttft, itl, used[-1] if used else None
+    return st, texts, ttft, itl, used[-1] if used else None, logprobs
 
 
 async def par_at_once(port, prompts, max_tokens, timeout):
@@ -7747,9 +8006,9 @@ async def par_at_once(port, prompts, max_tokens, timeout):
 
 
 class ParRun:
-    """One ``run in=http out=torch`` of phase q (full depth, bf16) and the
-    rank processes it starts, whose kernel launches the site hook writes
-    at their exit."""
+    """One ``run in=http out=torch`` of phase q (bf16, at the depth that
+    ``model_depth`` sets and the site hook applies) and the rank processes
+    it starts, whose kernel launches the site hook writes at their exit."""
 
     def __init__(self, name, flags, env):
         self.port = _free_port()
@@ -7764,12 +8023,7 @@ class ParRun:
         return self
 
     def rank_pids(self):
-        pids = [self.child.p.pid]
-        for line in self.child.lines:
-            m = re.match(r"rank \d+ started \(pid (\d+)\)", line)
-            if m:
-                pids.append(int(m.group(1)))
-        return pids
+        return [self.child.p.pid, *rank_pids(self.child.lines)]
 
     def serve(self, prompts, max_tokens):
         return [asyncio.run(par_complete(self.port, p, max_tokens)) for p in prompts]
@@ -7791,13 +8045,17 @@ def par_reports(reports, pids):
     return total, per
 
 
-def par_stop(run, reports, fails, label):
-    """Stop a run (SIGINT to the leader) and check that every rank process
-    it started exits with it."""
-    pids = run.rank_pids()
-    run.child.stop(signal.SIGINT)
-    deadline = time.time() + 60
-    alive = pids
+def rank_pids(lines):
+    """The pids of the ranks a ``run`` command started, from its output."""
+    return [int(m.group(1)) for m in (re.match(r"rank \d+ started \(pid (\d+)\)", x)
+                                      for x in lines) if m]
+
+
+def reap(pids, fails, label, timeout=60):
+    """Wait for ``pids`` to exit; any still alive after ``timeout`` is a
+    failure and is killed."""
+    deadline = time.time() + timeout
+    alive = list(pids)
     while alive and time.time() < deadline:
         alive = [p for p in pids if _pid_alive(p)]
         time.sleep(0.2)
@@ -7805,6 +8063,14 @@ def par_stop(run, reports, fails, label):
         fails.append(f"{label}: rank processes {alive} outlived the run")
         for p in alive:
             os.kill(p, signal.SIGKILL)
+
+
+def par_stop(child, reports, fails, label):
+    """Stop a ``run`` command (SIGINT to the leader) and check that every
+    rank process it started exits with it."""
+    pids = [child.p.pid, *rank_pids(child.lines)]
+    child.stop(signal.SIGINT)
+    reap(pids, fails, label)
     return par_reports(reports, pids)
 
 
@@ -7883,7 +8149,7 @@ def parallel_path(torch):
         os.makedirs(site)
         os.makedirs(reports)
         with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-            f.write(SDK_SITE_HOOK)
+            f.write(SDK_SITE_HOOK + TPT_DEPTH_HOOK)
         env = {"PYTHONPATH": os.pathsep.join([site, str(REPO)]),
                "CHIP_SMOKE_CHILD_DIR": reports, "DYN_LOG": "info"}
 
@@ -7895,7 +8161,7 @@ def parallel_path(torch):
             par_zero(run.rank_pids())
             res = run.serve(prompts, PAR_MAX_TOKENS)
         finally:
-            total, per = par_stop(run, reports, fails, "run --tp 2")
+            total, per = par_stop(run.child, reports, fails, "run --tp 2")
         line = next((x for x in run.child.lines if x.startswith("parallel: ")), "")
         log(f"parallel run --tp 2: {line} ; boot {run.boot_s:.1f} s with a warm _build [{CARD}]")
         check(all(r[0] == 200 and r[4] == PAR_MAX_TOKENS for r in res),
@@ -7930,7 +8196,7 @@ def parallel_path(torch):
             lead.wait()
             res2 = lead.serve(prompts, PAR_MAX_TOKENS)
         finally:
-            par_stop(lead, reports, fails, "run --nnodes 2 leader")
+            par_stop(lead.child, reports, fails, "run --nnodes 2 leader")
             try:
                 follower.p.wait(timeout=60)
             except subprocess.TimeoutExpired:
@@ -7949,7 +8215,7 @@ def parallel_path(torch):
         run = ParRun("sp2", ["--sp", "2", "--sp-prefill-min", "1024"], env)
         try:
             run.wait()
-            st, _, sp_ttft, _, sp_used = asyncio.run(par_complete(run.port, sp_prompt, 4))
+            st, _, sp_ttft, _, sp_used, _ = asyncio.run(par_complete(run.port, sp_prompt, 4))
             # Two more long prompts at once: each pass and its seal are one
             # dispatch on every rank, so they cannot interleave.
             try:
@@ -7957,7 +8223,7 @@ def parallel_path(torch):
             except asyncio.TimeoutError:
                 pair = None
         finally:
-            par_stop(run, reports, fails, "run --sp 2")
+            par_stop(run.child, reports, fails, "run --sp 2")
         sealed = [x for x in run.child.lines if "sp prefill sealed" in x]
         check(st == 200 and sp_used == 4, f"run --sp 2 served the {PAR_SP_IDS}-id prompt")
         check(bool(sealed), "run --sp 2 sealed the prompt's blocks in one ring pass")
@@ -7967,11 +8233,473 @@ def parallel_path(torch):
         log(f"parallel run --sp 2: {sealed[0].split(': ')[-1] if sealed else 'no seal'}; "
             f"TTFT {sp_ttft * 1e3:.1f} ms beside tp 1 chunked {ttft * 1e3:.1f} ms; two at once "
             f"TTFT {[round(r[2] * 1e3, 1) for r in pair or []]} ms "
-            f"({PAR_SP_IDS} ids, bf16, full depth, eager over gloo) [{CARD}]")
+            f"({PAR_SP_IDS} ids, bf16, {os.environ.get(DEPTH_ENV, 'all')} layers, eager over "
+            f"gloo) [{CARD}]")
         out.update(sp_ttft_ms=sp_ttft * 1e3, sp_boot_s=run.boot_s,
                    sp_pair_ttft_ms=[r[2] * 1e3 for r in pair or []])
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"parallel phase: {out['phase_s']:.1f} s")
+    return not fails, launches, out
+
+
+# ------------------------------------------------------------------ phase r
+
+# llama-3.1-8b at PATH_CUT_LAYERS of its layers (1 MiB a block in bf16):
+# the disaggregated stack with a tp-2 prefill worker, then ``run --tp 2``
+# with phase g's tier budgets.  TPT_TIER_PROMPTS x 129 blocks overflow the
+# host and disk tiers (1024 blocks each) into the object store.
+TPT_DISAGG_PROMPTS = 4
+TPT_TIER_PROMPTS, TPT_TIER_NEW = 17, 8  # 2056 + 8 ids: 129 blocks sealed each
+TPT_TIER_ARGV = ["--num-blocks", str(TIER_CFG["num_blocks"]), "--host-cache-mb", "1024",
+                 "--disk-cache-mb", "1024", "--object-store-mb", "2048"]
+TPT_HOST_BUDGET = 1024 << 20
+TPT_SNAP_TIMEOUT_S = 30
+# The children's site hook: phase p's (launches at exit, SIGUSR1 zeroes
+# them), the layer cut applied at start (a started rank runs the CLI
+# module without CHILD_PRELUDE), and SIGUSR2 writing a snapshot of each
+# TorchEngine of the process: its host tier's bytes and its KV transfers'
+# parts, with the CRC kernel's launches.
+TPT_DEPTH_HOOK = f"""\
+import os as _os
+if _os.environ.get({DEPTH_ENV!r}):
+    from dynamo_tpu_torch.models import config as _mc
+    _mc._REGISTRY[{DIST_MODEL!r}] = _mc._REGISTRY[{DIST_MODEL!r}].with_overrides(
+        num_layers=int(_os.environ[{DEPTH_ENV!r}]))
+"""
+TPT_SNAP_HOOK = '''
+
+def _snap(signum, frame):
+    import gc
+    crc = sys.modules.get("dynamo_tpu_torch.ops.crc32")
+    engines = []
+    for o in gc.get_objects():
+        if type(o).__name__ == "TorchEngine":
+            hk = getattr(o, "host_kv", None)
+            engines.append({"rank": None if o.shard is None else o.shard.rank,
+                            "host_bytes": None if hk is None else hk.used_bytes,
+                            "host_capacity": None if hk is None else hk.capacity_bytes,
+                            "transfer_parts": [list(x) for x in o.transfer_parts]})
+    g = _graphs()
+    rec = {"pid": os.getpid(), "engines": engines,
+           "launches": None if g is None else g.kernel_launches(),
+           "crc32_blocks": None if crc is None else crc.block_crc32_cuda.launches}
+    tmp = os.path.join(_OUT, f"{os.getpid()}.snap.tmp")
+    with open(tmp, "w") as f:
+        json.dump(rec, f)
+    os.replace(tmp, os.path.join(_OUT, f"{os.getpid()}.snap.json"))
+
+
+if _OUT:
+    signal.signal(signal.SIGUSR2, _snap)
+'''
+TPT_SITE_HOOK = SDK_SITE_HOOK + TPT_SNAP_HOOK + TPT_DEPTH_HOOK  # the cut after any chained hook
+
+
+def tpt_snapshot(reports, pid):
+    """The site hook's snapshot of process ``pid`` (SIGUSR2), or None."""
+    path = os.path.join(reports, f"{pid}.snap.json")
+    if os.path.exists(path):
+        os.remove(path)
+    os.kill(pid, signal.SIGUSR2)
+    end = time.time() + TPT_SNAP_TIMEOUT_S
+    while time.time() < end:
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        time.sleep(0.1)
+    return None
+
+
+def tpt_disagg(torch, check, out, reports):
+    """Phase r, part 1: the README's disaggregated stack whose prefill
+    worker P is ``run … --disagg prefill --tp 2`` (its second rank started
+    by the command, both sharing the card over gloo); D is the CLI's own
+    ``--disagg decode`` code in this process, one rank."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, parse_endpoint_path
+    from dynamo_tpu_torch.runtime.engine import Context, collect
+    from dynamo_tpu_torch.tokens import hash_token_blocks
+
+    hub_port = _free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    children, server, prefill = [], None, None
+
+    def on_d(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, server.loop).result(timeout)
+
+    async def alone(engine, prompt, n, salt):
+        req = PreprocessedRequest(
+            token_ids=list(prompt), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0), annotations={"kv_salt": salt},
+        ).to_dict()
+        return [t for item in await collect(await engine.generate(Context(req)))
+                for t in item["token_ids"]]
+
+    t_part = time.perf_counter()
+    try:
+        children.append(Child("hub", ["hub", "--host", "127.0.0.1", "--port", str(hub_port)]))
+        children[-1].wait_line("hub listening", 120)
+        front = Child("http", ["http", "--hub", hub_addr, "--host", "127.0.0.1", "--port", "0"])
+        children.append(front)
+        prefill = Child("prefill worker P (tp 2)", ["run", f"in={DISAGG_PREFILL_ENDPOINT}",
+                                                    *DIST_ENGINE_ARGV, "--hub", hub_addr,
+                                                    "--disagg", "prefill", "--tp", "2"])
+        children.append(prefill)
+        fport = int(front.wait_line("OpenAI frontend on", 120).rsplit(":", 1)[1])
+        t = time.perf_counter()
+        server = CliServer(["run", f"in={DIST_ENDPOINT}", *DIST_ENGINE_ARGV, "--hub", hub_addr,
+                            "--disagg", "decode", "--max-local-prefill", str(DISAGG_THRESHOLD)])
+        server.warmup()
+        engine = server.engine
+        out["d_up_s"] = time.perf_counter() - t
+        prefill.wait_line("worker ", 600)
+        out["p_up_s"] = time.perf_counter() - t_part
+        p_pids = [prefill.p.pid, *rank_pids(prefill.lines)]
+        line = next((x for x in prefill.lines if x.startswith("parallel: ")), "")
+        log(f"tp tiers: disaggregated stack, hub {hub_addr}, frontend :{fport}, D in this "
+            f"process (up and warmed in {out['d_up_s']:.1f} s), P = run --disagg prefill --tp 2 "
+            f"(pids {p_pids}, registered {out['p_up_s']:.1f} s after the part began; {line})")
+        check(len(p_pids) == 2, f"P started its second rank ({p_pids})")
+
+        prompts = dist_prompts(TPT_DISAGG_PROMPTS, DISAGG_ISL, 41)
+        warm = dist_prompts(2, DISAGG_ISL, 42)
+        salt = "tp-disagg-reference"
+        refs, local_ttft = {}, []
+        for p in prompts:
+            # D's local prefill of the remote path's shapes: a first pass
+            # seals the 127 blocks, the stream hits them and prefills the
+            # 8-id tail; and a whole local prefill's TTFT.
+            on_d(alone(engine, p, 1, salt))
+            refs[tuple(p)] = on_d(alone(engine, p, DISAGG_OSL, salt))
+            local_ttft.append(on_d(dist_engine_alone(engine, p, 1))[1] * 1e3)
+        chain0 = [tb.sequence_hash for tb in hash_token_blocks(prompts[0], PS)]
+
+        async def phase():
+            rt = await DistributedRuntime.connect(hub_addr)
+            ns, comp, _ = parse_endpoint_path(DIST_ENDPOINT)
+            stats_client = await rt.namespace(ns).component(comp).endpoint(
+                "disagg_stats").client()
+            await stats_client.wait_for_instances(30)
+
+            async def stats():
+                return (await collect(await stats_client.generate(Context({}))))[0]
+
+            try:
+                for _ in range(300):
+                    if await rt.hub.kv_get_prefix("models/"):
+                        break
+                    await asyncio.sleep(0.1)
+                for p in warm:  # P's first export and D's first import, off the record
+                    r = await dist_complete(fport, p, 8)
+                    check(r[0] == 200 and r[3] == 8, f"warm-up: {r[0]} {r[3]}")
+                for pid in p_pids:
+                    os.kill(pid, signal.SIGUSR1)
+                s0 = await stats()
+                n_parts0 = len(engine.transfer_parts)
+                captured, inject = [], engine.inject_blocks
+
+                async def capture(tokens, payload, salt=None, donor=None):
+                    if list(tokens) == prompts[0]:
+                        captured.append(payload)
+                    return await inject(tokens, payload, salt, donor)
+
+                engine.inject_blocks = capture
+                try:
+                    res = []
+                    for i, p in enumerate(prompts):
+                        r = await dist_complete(fport, p, DISAGG_OSL)
+                        check(r[0] == 200 and r[2] == "length" and r[3] == DISAGG_OSL,
+                              f"remote {i}: {r[0]} {r[2]}/{r[3]}")
+                        res.append(r)
+                finally:
+                    engine.inject_blocks = inject
+                s1 = await stats()
+                moved = {k: s1[k] - s0[k] for k in
+                         ("remote_prefills", "local_prefills", "degraded_fallbacks")}
+                return res, moved, captured, list(engine.transfer_parts)[n_parts0:]
+            finally:
+                await rt.close()
+
+        res, moved, captured, d_parts = asyncio.run(phase())
+        check(moved == {"remote_prefills": TPT_DISAGG_PROMPTS, "local_prefills": 0,
+                        "degraded_fallbacks": 0},
+              f"{TPT_DISAGG_PROMPTS} of {TPT_DISAGG_PROMPTS} remote from the tp-2 worker, none "
+              f"local or degraded ({moved})")
+        # D's imported pages against the leader's gathered payload, bitwise.
+        checked = same_pages = 0
+        for pl in captured:
+            shape = pl["shape"]  # [L, n, ps, KV, hd], every KV head of the model
+            k = np.frombuffer(pl["k"], np.uint16).reshape(shape)
+            v = np.frombuffer(pl["v"], np.uint16).reshape(shape)
+            for j in range(int(pl["n_blocks"])):
+                got = on_d(block_pages(engine, chain0[int(pl["start_block"]) + j]))
+                want = np.stack([k[:, j], v[:, j]], axis=3).reshape(
+                    shape[0], shape[2], 2 * shape[3], shape[4])
+                checked += 1
+                same_pages += int(got is not None and np.array_equal(
+                    got.view(torch.int16).numpy().view(np.uint16), want))
+        full = DISAGG_ISL // PS
+        out["payload"] = {"chunks": len(captured), "blocks": checked, "bitwise": same_pages,
+                          "kv_heads": captured[0]["shape"][3] if captured else None}
+        check(checked == full and same_pages == full,
+              f"D's imported pages bitwise the leader's gathered payload ({same_pages} of "
+              f"{checked} blocks, {full} expected, KV heads {out['payload']['kv_heads']})")
+        out["remote_ttft_ms"] = [r[4] * 1e3 for r in res]
+        out["local_ttft_ms"] = local_ttft
+        out["streams_equal_local"] = sum(r[1] == dist_text(refs[tuple(p)])
+                                         for r, p in zip(res, prompts))
+        snap = tpt_snapshot(reports, p_pids[0])
+        exports = [pp for e in (snap or {}).get("engines", [])
+                   for kind, _, pp in e["transfer_parts"] if kind == "export"]
+        parts = ("pin", "lock_wait", "gather", "d2h_wait", "crc", "bytes")
+        out["p_export_parts_ms"] = {k: statistics.median(pp[k] for pp in exports) * 1e3
+                                    for k in parts} if exports else {}
+        tot = sum(out["p_export_parts_ms"].values())
+        out["gather_share"] = out["p_export_parts_ms"].get("gather", 0.0) / tot if tot else None
+        out["d_inject_parts_ms"] = {
+            k: statistics.median(pp.get(k, 0.0) for kind, _, pp in d_parts if kind == "inject")
+            * 1e3 for k in ("parse", "verify", "upload", "hold")} if d_parts else {}
+        out["chunks"] = [n for kind, n, _ in d_parts if kind == "inject"]
+        check(bool(exports), f"P's leader reported its exports ({len(exports)})")
+        share = out["gather_share"]
+        log(f"tp tiers disagg: {moved}; remote TTFT {[round(x, 1) for x in out['remote_ttft_ms']]}"
+            f" ms beside D's local prefill TTFT {[round(x, 1) for x in local_ttft]} ms; "
+            f"{out['streams_equal_local']}/{TPT_DISAGG_PROMPTS} streams equal D's local prefill "
+            f"of the same shapes (ungated: tp 2 all-reduces in another order); payload "
+            f"{out['payload']}; P's export by part (median ms) "
+            f"{({k: round(v, 2) for k, v in out['p_export_parts_ms'].items()})}, the gather "
+            f"{None if share is None else round(share, 3)} of it; D's inject by part "
+            f"{({k: round(v, 2) for k, v in out['d_inject_parts_ms'].items()})}; chunks "
+            f"{out['chunks']} [{CARD}]")
+    finally:
+        if server is not None:
+            server.stop()
+        if prefill is not None:
+            par_stop(prefill, reports, SimpleNamespace(append=lambda f: check(False, f)), "P")
+        for c in reversed(children):
+            c.stop()
+    out["disagg_s"] = time.perf_counter() - t_part
+
+
+def tpt_tiers(torch, check, out, reports, tmp):
+    """Phase r, part 2: ``run in=http out=torch --tp 2`` with phase g's
+    tier budgets, its leader in this process (the CLI's own code; its
+    second rank started by it): 17 prompts of 2056 ids, then prefixes whose
+    first block sits in the object store, on disk and in host restored and
+    each stream held against its first pass.  Returns (the object-store
+    prompt, its first pass) for part 3, or None."""
+    from dynamo_tpu_torch.llm import metrics as tm
+    from dynamo_tpu_torch.ops import crc32
+    from dynamo_tpu_torch.tokens import hash_token_blocks
+
+    t_part = time.perf_counter()
+    server = CliServer(["run", "in=http", *DIST_ENGINE_ARGV, *TPT_TIER_ARGV, "--host", "127.0.0.1",
+                        "--port", "0", "--tp", "2", "--disk-cache-dir", os.path.join(tmp, "disk"),
+                        "--object-store-dir", os.path.join(tmp, "objects")])
+    engine, port = server.engine, server.service.port
+    follower = [p.pid for p in server.ranks.children]
+    result = None
+
+    def on_s(fn, timeout=600):
+        """``fn()`` on the server's loop (the engine's state lives there)."""
+        async def call():
+            return fn()
+
+        return asyncio.run_coroutine_threadsafe(call(), server.loop).result(timeout)
+
+    async def drain():
+        while engine._offload_queue:
+            await engine.drain_offload()
+
+    def scrape(name):
+        _, _, body, _ = asyncio.run(http_call(port, "GET", "/metrics"))
+        return parse_prometheus(body.decode()).get((name, ()), 0.0)
+
+    try:
+        out["tiers_up_s"] = time.perf_counter() - t_part
+        check(engine.shard is not None and engine.shard.size == 2 and engine.shard.nnodes == 1,
+              "run --tp 2 is two ranks on one node")
+        check(engine.disk_kv is not None and engine.object_kv is not None,
+              "run --tp 2 keeps its disk and object tiers on one node")
+        t = time.perf_counter()
+        server.warmup()
+        out["tiers_warm_s"] = time.perf_counter() - t
+        crc32.block_crc32_cuda.launches = 0
+        prompts = tier_prompts(torch, TPT_TIER_PROMPTS, 51)
+        chains = [[tb.sequence_hash for tb in hash_token_blocks(p, PS)] for p in prompts]
+        n_blocks = TIER_LEN // PS
+        first = []
+        t = time.perf_counter()
+        for i, p in enumerate(prompts):
+            st, texts, ttft, _, used, lps = asyncio.run(par_complete(port, p, TPT_TIER_NEW))
+            # Tokens whose text the detokenizer holds back share a chunk,
+            # so the usage counts the stream, not the logprob entries.
+            check(st == 200 and used == TPT_TIER_NEW, f"fill {i}: {st} {used}")
+            first.append((list(zip(texts, lps)), ttft))
+            asyncio.run_coroutine_threadsafe(drain(), server.loop).result(600)
+        out["fill_s"] = time.perf_counter() - t
+        tiers = on_s(lambda: [engine._tier_of(c[0]) for c in chains])
+        out["tiers_after_fill"] = tiers
+        check("objstore" in tiers and "disk" in tiers and "host" in tiers,
+              f"fill: first blocks in host, disk and object store ({tiers})")
+        rows = []
+
+        def pick(tier):
+            taken = {r["prompt"] for r in rows}
+            cands = [i for i in reversed(range(TPT_TIER_PROMPTS))
+                     if i not in taken and engine._tier_of(chains[i][0]) == tier]
+            whole = [i for i in cands
+                     if all(engine._tier_of(h) == tier for h in chains[i][:n_blocks])]
+            return (whole or cands or [None])[0]
+
+        for tier in ("objstore", "disk", "host"):
+            i = on_s(lambda: pick(tier))
+            check(i is not None, f"a prompt whose first block is in {tier}")
+            if i is None:
+                continue
+            on_s(lambda: engine.kv.evict_hashes(chains[i]))
+            n_parts0 = on_s(lambda: len(engine.transfer_parts))
+            r0 = on_s(lambda: engine.host_kv.restored_blocks)
+            m0 = scrape("dynamo_tpu_kv_tier_restored_blocks_total")
+            c0 = tm.kv_tier_metrics.restored_blocks_total
+            st, texts, ttft, _, used, lps = asyncio.run(par_complete(port, prompts[i],
+                                                                      TPT_TIER_NEW))
+            toks = list(zip(texts, lps))
+            restored = on_s(lambda: engine.host_kv.restored_blocks) - r0
+            passes = restore_parts(on_s(lambda: list(engine.transfer_parts))[n_parts0:])
+            row = {"tier": tier, "prompt": i, "restored": restored,
+                   "counter": tm.kv_tier_metrics.restored_blocks_total - c0,
+                   "metric": scrape("dynamo_tpu_kv_tier_restored_blocks_total") - m0,
+                   "ttft_ms": ttft * 1e3, "first_ttft_ms": first[i][1] * 1e3,
+                   "restore_passes": passes[0], "restore_parts_ms": passes[1],
+                   "identical": st == 200 and toks == first[i][0],
+                   "host_bytes": on_s(lambda: engine.host_kv.used_bytes)}
+            rows.append(row)
+            asyncio.run_coroutine_threadsafe(drain(), server.loop).result(600)
+            check(row["identical"], f"{tier}: the stream (tokens and logprobs) equals its "
+                                    f"first pass")
+            check(restored >= n_blocks, f"{tier}: {restored} blocks restored (>= {n_blocks})")
+            check(restored == row["counter"] == row["metric"],
+                  f"{tier}: restored {restored} = counter {row['counter']} = /metrics "
+                  f"{row['metric']}")
+            if tier == "objstore":
+                result = (prompts[i], first[i][0])
+        out["restores"] = rows
+        snap = tpt_snapshot(reports, follower[0]) if follower else None
+        f_host = sum(e["host_bytes"] or 0 for e in (snap or {}).get("engines", []))
+        lead_host = on_s(lambda: engine.host_kv.used_bytes)
+        out["host_bytes"] = {"leader": lead_host, "follower": f_host,
+                             "peak_seen": max([lead_host] + [r["host_bytes"] for r in rows])}
+        check(snap is not None and all(e["host_bytes"] is None for e in snap["engines"]),
+              f"the follower keeps no host tier ({snap and snap['engines']})")
+        check(out["host_bytes"]["peak_seen"] + f_host <= TPT_HOST_BUDGET,
+              f"the node's host-tier bytes summed over its ranks within 1024 MiB "
+              f"({out['host_bytes']})")
+        out["crc_launches"] = crc32.block_crc32_cuda.launches
+        check(out["crc_launches"] > 0, f"the CRC kernel launched on the leader "
+                                       f"({out['crc_launches']})")
+        shown = [{k: (round(v, 1) if isinstance(v, float) else
+                      {p: round(x, 2) for p, x in v.items()} if isinstance(v, dict) else v)
+                  for k, v in r.items()} for r in rows]
+        log(f"tp tiers run --tp 2: up {out['tiers_up_s']:.1f} s, warmup {out['tiers_warm_s']:.1f} "
+            f"s, fill {TPT_TIER_PROMPTS} x {TIER_LEN} ids in {out['fill_s']:.1f} s; first blocks "
+            f"by tier {({t: tiers.count(t) for t in set(tiers)})}; restores {shown}; host-tier "
+            f"bytes {out['host_bytes']} of {TPT_HOST_BUDGET}; CRC launches on the leader "
+            f"{out['crc_launches']} [{CARD}]")
+    finally:
+        server.stop()
+        reap(follower, SimpleNamespace(append=lambda f: check(False, f)), "run --tp 2")
+    out["tiers_s"] = time.perf_counter() - t_part
+    return result
+
+
+def tpt_scale_from_zero(torch, dev, check, out, tmp, prompt, first):
+    """Phase r, part 3: a fresh one-rank engine on the tp-2 worker's object
+    store restores its prefix (scale from zero across tp)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    t = time.perf_counter()
+
+    async def go():
+        eng = TorchEngine(EngineConfig(**dict(
+            TIER_CFG, host_offload_interval=3600.0, disk_cache_dir=os.path.join(tmp, "disk1"),
+            object_store_dir=os.path.join(tmp, "objects"))), device=dev)
+        try:
+            n_obj = len(eng.object_kv)
+            toks, stamps, finish = (await serve(torch, eng, [prompt], TPT_TIER_NEW))[0]
+            return n_obj, toks, stamps[0], finish, eng.host_kv.restored_blocks
+        finally:
+            await eng.close()
+
+    n_obj, toks, ttft, finish, restored = asyncio.run(go())
+    tok = ByteTokenizer()
+    same = [tok.decode([x]) for x in toks] == [x for x, _ in first]
+    out["scale_from_zero"] = {"objects": n_obj, "restored": restored, "ttft_ms": ttft * 1e3,
+                              "texts_equal_tp2": same, "s": time.perf_counter() - t}
+    check(len(toks) == TPT_TIER_NEW and finish == "length", f"scale from zero: {len(toks)} tokens")
+    check(restored >= TIER_LEN // PS, f"scale from zero across tp: a one-rank engine restored "
+                                      f"{restored} blocks of the tp-2 worker's prefix")
+    log(f"tp tiers scale from zero across tp: {out['scale_from_zero']} (the one-rank stream "
+        f"against tp 2's first pass ungated) [{CARD}]")
+
+
+def tp_tiers_path(torch, dev=None):
+    """Phase r: KV export and whole-block KV tiers at tp 2 on one node, at
+    PATH_CUT_LAYERS of llama-3.1-8b's layers, every rank sharing this card
+    over gloo.  ``dev`` (default the card) is part 3's device.  Returns
+    (ok, this process's launches in the phase, numbers)."""
+    from dynamo_tpu_torch.ops import crc32
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"tp tiers check FAILED: {what}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_r_")
+    site, reports = os.path.join(tmp, "site"), os.path.join(tmp, "reports")
+    os.makedirs(site)
+    os.makedirs(reports)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(TPT_SITE_HOOK)
+    saved = {k: os.environ.get(k) for k in ("PYTHONPATH", "CHIP_SMOKE_CHILD_DIR")}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [site, str(REPO)] + ([saved["PYTHONPATH"]] if saved["PYTHONPATH"] else []))
+    os.environ["CHIP_SMOKE_CHILD_DIR"] = reports
+    zero_kernel_counts()
+    zero_noise_launches()
+    crc32.block_crc32_cuda.launches = 0
+    launches = {}
+    try:
+        with model_depth(PATH_CUT_LAYERS):
+            tpt_disagg(torch, check, out, reports)
+            gc.collect()
+            torch.cuda.empty_cache()
+            got = tpt_tiers(torch, check, out, reports, tmp)
+            launches = dict(kernel_counts(), threefry_gumbel=noise_launches(),
+                            crc32_blocks=crc32.block_crc32_cuda.launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if got is not None:
+                tpt_scale_from_zero(torch, dev or torch.device("cuda", 0), check, out, tmp, *got)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(launches.get("decode_attention", 0) > 0 and launches.get("prefill_attention", 0) > 0,
+          f"both attention kernels launched in this process's part of the phase ({launches})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tp tiers phase: {out['phase_s']:.1f} s; launches (this process: D and the tp-2 leader) "
+        f"{launches}")
     return not fails, launches, out
 
 
@@ -8020,7 +8748,10 @@ def main() -> int:
         if sys.argv[1:] == ["--sdk-graph"]:
             return 0 if sdk_path(torch)[0] else 1
         if sys.argv[1:] == ["--parallel"]:
-            return 0 if parallel_path(torch)[0] else 1
+            with model_depth(PATH_CUT_LAYERS):
+                return 0 if parallel_path(torch)[0] else 1
+        if sys.argv[1:] == ["--tp-tiers"]:
+            return 0 if tp_tiers_path(torch)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -8109,8 +8840,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the parallel phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        ok_q, q_launches, _ = parallel_path(torch)
-        slice_ok = {"parallelism and the step plane (q)": ok_q,
+        with model_depth(PATH_CUT_LAYERS):
+            ok_q, q_launches, _ = parallel_path(torch)
+        # Phase r: KV export and the whole-block tiers at tp 2, one node.
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok_r, r_launches, _ = tp_tiers_path(torch)
+        slice_ok = {"kv export and tiers at tp 2 (r)": ok_r,
+                    "parallelism and the step plane (q)": ok_q,
                     "sdk graph and native library (p)": ok_p,
                     "structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
                     "checkpoints, tokenizer and LoRA (m)": ok_m,
@@ -8159,6 +8896,7 @@ def main() -> int:
             kernels[-1]["moe_launches"] = o_launches.get(name, 0)
             kernels[-1]["sdk_launches"] = p_launches.get(name, 0)
             kernels[-1]["parallel_launches"] = q_launches.get(name, 0)
+            kernels[-1]["tp_tiers_launches"] = r_launches.get(name, 0)
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],
@@ -8186,6 +8924,9 @@ def main() -> int:
             "planner_launches": planner_launches["threefry_gumbel"],
             "sdk_launches": p_launches.get("threefry_gumbel", 0),
             "parallel_launches": q_launches.get("threefry_gumbel", 0),
+            "tp_tiers_launches": r_launches.get("threefry_gumbel", 0),
+            "bound_pipe": nt["bound_pipe"], "pipe_ms": nt["pipe_ms"],
+            "sass_per_element": nt["sass_per_element"], "clock_mhz": nt["clock_mhz"],
         })
         # The restore's CRC kernel has no Pallas counterpart (the JAX
         # package verifies a host block with zlib on the host); its path is
@@ -8202,6 +8943,9 @@ def main() -> int:
             "checks_passed": not any(f.startswith("crc32_blocks") for f in tally.failures),
             "shape": crc_times["shape"],
             "parallel_launches": q_launches.get("crc32_blocks", 0),
+            "tp_tiers_launches": r_launches.get("crc32_blocks", 0),
+            "bound_parts_ms": crc_times["bound_parts_ms"],
+            "clock_mhz": crc_times["clock_mhz"],
         })
         log(json.dumps({"kernels": kernels}))
         if tally.failures or not ok_model or not ok_path or not ok_http or not all(

@@ -63,10 +63,15 @@ the serving loop) and publishes every dispatch to the other ranks before it
 enqueues it, under the device lock (``attach_publisher``, the step plane of
 engine/multihost.py); the others replay them in order (``mirror_step``), so
 every rank reaches every collective in one order.  Long prompts prefill in
-one ring-attention pass over ``sp`` (``_sp_prefill``).  At more than one
-rank the disk and object tiers are off and the KV export paths refuse
-(export returns None, the caller prefills locally), as the JAX package's
-multi-process branches do; the host tier holds each rank's own slice.
+one ring-attention pass over ``sp`` (``_sp_prefill``).  On one node the
+KV export and the tiers take whole blocks, as the JAX engine does in one
+process: the leader gathers every rank's heads (one gather over ``tp``)
+and keeps the node's one host tier, with disk and object store beneath,
+within ``host_cache_bytes``; a restore publishes each rank its heads.
+Across nodes (``nnodes`` > 1) the disk and object tiers are off and the
+export refuses (it returns None, the caller prefills locally), as the JAX
+package's multi-process branches do; each rank's host tier holds its own
+slice.
 """
 
 from __future__ import annotations
@@ -196,6 +201,11 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         # The step plane (engine/multihost.py): the leader's publisher.
         self._publisher = None
         self._export_refusal_logged = False
+        # Whole blocks (every rank's heads) in the export and the tiers:
+        # one rank, or one node's ranks gathering to the leader.  Across
+        # nodes the export refuses and each rank's tier keeps its slice, as
+        # the JAX multi-process branches do.
+        self._whole_blocks = self.shard is None or self.shard.nnodes == 1
         self.kv = KvBlockManager(
             cfg.num_blocks,
             cfg.block_size,
@@ -334,6 +344,12 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             mc.with_overrides(num_kv_heads=self._kv_heads), cfg.num_blocks, cfg.block_size,
             cache_dtype, dev
         )
+        # A whole block [L, ps, 2KV, hd] with every rank's heads: what the
+        # KV export, the tiers and their files hold, as one JAX process
+        # holds it.  On one node the leader assembles it from the ranks'
+        # heads (``_node_heads``); across nodes each rank keeps its slice.
+        L_, _, ps_, kv2_, hd_ = self.cache.pages.shape
+        self.block_shape = (L_, ps_, kv2_ * cfg.tp, hd_)
         self.programs: Optional[DevicePrograms] = None
         self.calibration_s = 0.0
         if cache_dtype.itemsize == 1:
@@ -410,16 +426,21 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         self._crc_pool: Optional[ThreadPoolExecutor] = None
         if cfg.host_cache_bytes <= 0:
             return
+        if self.shard is not None and self._whole_blocks and not self.shard.is_leader:
+            # One node: the leader's tiers hold whole blocks within the
+            # budget, as one JAX process's do; this rank lends its heads to
+            # the leader's gathers and takes its heads of each restore.
+            return
         self.host_kv = HostKvStore(cfg.host_cache_bytes)
         # Checksums of whole prefixes, on threads (engine/integrity.py).
         self._crc_pool = ThreadPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1), thread_name_prefix="kv-crc")
-        if cfg.disk_cache_bytes > 0 and self.shard is not None:
-            # Each rank's host tier holds its own slice of a block; the
-            # disk container takes whole blocks (the JAX multi-process
-            # branch keeps the same pre-tier drop behaviour).
-            logger.warning("disk KV tier disabled: a run of %d ranks keeps per-rank host "
-                           "tiers only", self.shard.size)
+        if cfg.disk_cache_bytes > 0 and not self._whole_blocks:
+            # Across nodes each rank's host tier holds its own slice of a
+            # block; the disk container takes whole blocks (the JAX
+            # multi-process branch keeps the same pre-tier drop behaviour).
+            logger.warning("disk KV tier disabled: a run over %d nodes keeps per-rank host "
+                           "tiers only", self.shard.nnodes)
         elif cfg.disk_cache_bytes > 0:
             # The per-PID default is deliberate: block hashes do not encode
             # the weights' identity, so a stable shared dir could restore a
@@ -769,7 +790,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         slices (same programs, same host inputs, same order)."""
         async with self._device_lock:
             await asyncio.to_thread(self._mirror, kind, payload)
-        if kind in ("offload", "restore_host"):
+        if kind in ("offload", "restore_host", "restore_blocks"):
             # Followers record host-tier drops too (no event sink to
             # publish to, but the transition list must not grow).
             self._flush_tier_events()
@@ -787,16 +808,61 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
                 ids, k, v, name = payload
                 self._restore_scatter(ids, self._inject_upload(*self._local_heads(k, v),
                                                                DTYPES[name]))
+            elif kind == "export":
+                self._export_gather(payload[0], None)  # this rank's heads to the leader
             elif kind == "offload":
                 ids, hashes = payload
-                self._offload_commit(self._offload_gather(ids), hashes)
+                staged = self._offload_gather(ids)
+                if staged is not None:  # across nodes: this rank's own tier slice
+                    self._offload_commit(staged, hashes)
             elif kind == "restore_host":
                 ids, hashes = payload
                 self._mirror_restore(ids, hashes)
+            elif kind == "restore_blocks":
+                self._restore_node(payload[0], None)  # this rank's heads from the leader
             elif kind == "sp_prefill":
                 self._sp_prefill_seal(*payload)
             else:
                 raise ValueError(f"unknown mirror step kind {kind!r}")
+
+    def _node_heads(self, t: torch.Tensor, dim: int) -> Optional[torch.Tensor]:
+        """``t``, this rank's combined heads of some pages on axis ``dim``,
+        with every rank's heads on the leader (one gather over ``tp``, the
+        axis that shards the pages; dp, sp and ep replicate them); None on
+        every other rank, whose heads went to the leader.  The leader's
+        ``tp`` group takes part; the other replicas have nothing to send."""
+        if self.shard is None:
+            return t
+        group = self.shard.tp
+        if group.ranks[0] != 0:
+            return None
+        out = group.gather(t, dim)
+        return out if self.shard.is_leader else None
+
+    def _restore_node(self, ids: List[int], staged: Optional[Tuple[torch.Tensor, Any]]) -> None:
+        """A restore on one node: the leader's verified whole blocks
+        ``staged`` (``[n, L, ps, 2KV, hd]`` on its device, and the upload's
+        event) reach every rank as its heads, one scatter over all ranks
+        (dp, sp and ep replicate the pages, so a rank takes its ``tp``
+        index's heads); each rank then scatters them into pages ``ids``.
+        A follower passes None.  Runs in a worker thread under the device
+        lock."""
+        L, ps, kv2, hd = self.block_shape
+        width = kv2 // self.cfg.tp
+        with torch.inference_mode():
+            mine = torch.empty((len(ids), L, ps, width, hd), dtype=self.cache.pages.dtype,
+                               device=self.device)
+            parts = None
+            if staged is not None:
+                buf, done = staged
+                if done is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(done)
+                    buf.record_stream(stream)
+                tp_of = [self.shard.mesh.coords(r)["tp"] for r in self.shard.world.ranks]
+                parts = [buf[:, :, :, t * width:(t + 1) * width] for t in tp_of]
+            self.shard.world.scatter(mine, parts)
+        self._restore_scatter(ids, (mine, None))
 
     def _local_heads(self, k: np.ndarray, v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """This rank's KV heads of transfer arrays ``[L, n, ps, KV, hd]``
@@ -1293,8 +1359,9 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         self._prefix_puller = puller
 
     def block_nbytes(self) -> int:
-        """Bytes of one KV block (all layers) in the page dtype."""
-        return int(self.cache.pages.nbytes // max(1, self.cfg.num_blocks))
+        """Bytes of one whole KV block (all layers, every rank's heads) in
+        the page dtype, as the JAX engine counts its global pages."""
+        return int(self.cache.pages.nbytes // max(1, self.cfg.num_blocks)) * self.cfg.tp
 
     def kv_tier_summary(self) -> Dict[str, Any]:
         """Per-tier bytes/blocks gauges for /metrics (KvTierMetrics's

@@ -24,6 +24,15 @@ Ordering is by stream, never by a device-wide sync (a
   ``index_copy_``, before the admission whose step reads them.  The pages
   tensor is never rebound: every captured graph holds its address.
 
+On one node with more than one rank the tiers hold whole blocks on the
+leader, as one JAX process holds them: the offload's gather assembles
+every rank's heads there (``_node_heads``, one gather over ``tp``), and a
+restore, verified on the leader's device, publishes only the block ids
+("restore_blocks"): one scatter over all ranks (``_restore_node``) hands
+each rank its heads of those blocks from the leader's device.  Across
+nodes each rank's host tier keeps its own slice and a restore is the
+"restore_host" mirror of the leader's choice.
+
 Page ids are sliced to the live count (no out-of-range padding ids: on
 CUDA one would fault the context).  Nothing here falls back: a failed
 pinned allocation, copy or scatter raises; the tiers recompute only where
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -103,7 +113,8 @@ class HostOffloadMixin:
                 return 0
             hashes = [tb.sequence_hash for _, tb in live]
             ids = [bid for bid, _ in live]
-            # Every rank stores its own slice of these blocks.
+            # Every rank sends its heads to the leader (one node) or
+            # stores its own slice (across nodes).
             await self._publish("offload", (ids, hashes))
             staged = await asyncio.to_thread(self._offload_gather, ids)
         await asyncio.to_thread(self._offload_commit, staged, hashes)
@@ -119,17 +130,23 @@ class HostOffloadMixin:
             idx = idx.pin_memory().to(self.device, non_blocking=True)
         return idx
 
-    def _offload_gather(self, ids: List[int]) -> Tuple[List[torch.Tensor], Any]:
-        """Gather pages ``ids`` into fresh memory and start their copy to
-        host blocks ``[L, ps, 2KV, D]`` (pinned on CUDA).  Returns the host
+    def _offload_gather(self, ids: List[int]) -> Optional[Tuple[List[torch.Tensor], Any]]:
+        """Gather pages ``ids`` into fresh memory, whole blocks on one node
+        (every rank's heads, on the leader), and start their copy to host
+        blocks ``[L, ps, 2KV, D]`` (pinned on CUDA).  Returns the host
         blocks and the copy's event (None on the CPU, where the copy is
-        made at once).  Runs in a worker thread under the device lock."""
+        made at once), or None on a follower of one node, whose heads went
+        to the leader.  Runs in a worker thread under the device lock."""
         with torch.inference_mode():
             idx = self._page_index(ids)
             # [n, L, ps, 2KV, D]: block i is one contiguous run of bytes.
             pages = self.cache.pages
-            gathered = as_bits(pages).transpose(0, 1).index_select(0, idx).contiguous().view(
-                pages.dtype)
+            gathered = as_bits(pages).transpose(0, 1).index_select(0, idx).contiguous()
+            if self._whole_blocks:
+                gathered = self._node_heads(gathered, 3)
+                if gathered is None:
+                    return None
+            gathered = gathered.view(pages.dtype)
             self.d2h_bytes += gathered.nbytes
             if self.device.type != "cuda":
                 return [b.clone() for b in gathered.unbind(0)], None
@@ -225,8 +242,7 @@ class HostOffloadMixin:
         drop with it and the hash is negative-cached), and the carried
         stamp rides into the host entry so the later host→device restore
         re-verifies the same identity."""
-        L, _, ps, KV2, hd = self.cache.pages.shape
-        shape, dtype = (L, ps, KV2, hd), self.cache.pages.dtype
+        shape, dtype = self.block_shape, self.cache.pages.dtype
         staged = 0
         promoted: List[int] = []
         for h in seq_hashes:
@@ -364,6 +380,7 @@ class HostOffloadMixin:
         """One promote→restore round of ``_restore_from_host``."""
         if self.host_kv is None:
             return 0
+        t0 = time.perf_counter()
         blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)
         resident = len(self.kv.match_prefix(blocks))
         if self.disk_kv is not None and (
@@ -404,9 +421,12 @@ class HostOffloadMixin:
                 break
         if not cands:
             return 0
+        t1 = time.perf_counter()
         staged = await asyncio.to_thread(self._restore_upload, [host for _, host, _ in cands])
+        t2 = time.perf_counter()
         rows = [i for i, (_, _, stamp) in enumerate(cands) if stamp is not None]
         sums = iter(await asyncio.to_thread(self._restore_verify, staged, rows) if rows else ())
+        t3 = time.perf_counter()
         run: List[Tuple[Any, torch.Tensor]] = []
         for tb, host, stamp in cands:
             if stamp is not None:
@@ -438,9 +458,30 @@ class HostOffloadMixin:
                 return 0
             n = len(run)
             buf, done = staged
-            async with self._device_lock:
-                await self._publish("restore_host", (ids, [tb.sequence_hash for tb, _ in run]))
-                await asyncio.to_thread(self._restore_scatter, ids, (buf[:n], done))
+            t4 = time.perf_counter()
+            try:
+                async with self._device_lock:
+                    t5 = time.perf_counter()
+                    if self.shard is not None and self._whole_blocks:
+                        # One node: the ids alone cross the step plane, and
+                        # each rank takes its heads of the verified whole
+                        # blocks from the leader's device; a block that
+                        # failed its stamp reaches none.
+                        await self._publish("restore_blocks", (ids,))
+                        t6 = time.perf_counter()
+                        await asyncio.to_thread(self._restore_node, ids, (buf[:n], done))
+                    else:
+                        await self._publish("restore_host",
+                                            (ids, [tb.sequence_hash for tb, _ in run]))
+                        t6 = time.perf_counter()
+                        await asyncio.to_thread(self._restore_scatter, ids, (buf[:n], done))
+            except Exception:
+                self.kv.free_sequence(ids)  # unsealed: back to the free list
+                raise
+            t7 = time.perf_counter()
+            self.transfer_parts.append(("restore", n, dict(
+                promote=t1 - t0, upload=t2 - t1, verify=t3 - t2, select=t4 - t3,
+                lock_wait=t5 - t4, publish=t6 - t5, scatter=t7 - t6)))
             # Candidate selection peeked; refresh recency for the blocks
             # restored.  touch(), not get(): this runs on the event loop and
             # must never wait behind a thread holding the lock through a

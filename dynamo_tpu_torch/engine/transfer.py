@@ -34,11 +34,16 @@ the KV tiers' copies are (engine/offload.py), never by a device-wide sync:
 
 At more than one rank (parallel/) an import is published to the other
 ranks under the device lock before the leader's scatter ("inject"), each
-rank keeping its own heads of the payload; the export paths (disaggregated
-prefill, migration, the prefix pull, the bulk plane) refuse, as the JAX
-package's multi-process branches do: export returns None and the caller
-prefills locally.  A leader-side gather of every rank's heads is ROADMAP
-queue 1's next item.
+rank keeping its own heads of the payload.  On one node an export is
+published too ("export"): every rank gathers its heads of the blocks and
+one gather over ``tp`` (the axis that shards the pages) assembles the
+payload on the leader with every head in the JAX order, so disaggregated
+prefill, migration, the prefix pull and the bulk plane carry whole blocks
+as a one-rank engine's do.  Across nodes the export refuses, as the JAX
+package's multi-process branch does: it returns None and the caller
+prefills locally.  The same-process device path seals nothing at more
+than one rank (another engine's ranks live in other processes): the
+caller's host-staged path carries the blocks.
 """
 
 from __future__ import annotations
@@ -149,7 +154,7 @@ class KvTransferMixin:
         list pass it through instead of rehashing per chunk; under
         ``__debug__`` it is asserted equal to a fresh recompute.
         """
-        if self.shard is not None:
+        if not self._whole_blocks:
             self._refuse_export()
             return None
         if blocks is None:
@@ -176,6 +181,7 @@ class KvTransferMixin:
         t1 = time.perf_counter()
         async with self._device_lock:
             t2 = time.perf_counter()
+            await self._publish("export", (ids,))
             staged = await asyncio.to_thread(self._export_gather, ids, staging)
             t3 = time.perf_counter()
         parts.update(pin=t1 - t0, lock_wait=t2 - t1, gather=t3 - t2)
@@ -200,34 +206,38 @@ class KvTransferMixin:
         }
 
     def _refuse_export(self) -> None:
-        """Log, once, that this rank's pages hold only its heads: a KV
-        export needs every rank's (ROADMAP queue 1)."""
+        """Log, once, that the pages are sharded over nodes: the JAX
+        package refuses a multi-process export too."""
         if not self._export_refusal_logged:
             self._export_refusal_logged = True
-            logger.warning("KV export refused: the pages are sharded over %d ranks; the "
-                           "caller prefills locally", self.shard.size)
+            logger.warning("KV export refused: the pages are sharded over %d nodes; the "
+                           "caller prefills locally", self.shard.nnodes)
 
     def _export_staging(self, n: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        """Pinned host buffers for ``n`` blocks' K and V (CUDA only),
-        allocated before the device lock is taken."""
+        """Pinned host buffers for ``n`` whole blocks' K and V (CUDA
+        only), allocated before the device lock is taken."""
         if self.device.type != "cuda":
             return None
-        L, _, ps, KV2, hd = self.cache.pages.shape
+        L, ps, KV2, hd = self.block_shape
         shape = (L, n, ps, KV2 // 2, hd)
         dt = self.cache.pages.dtype
         return (torch.empty(shape, dtype=dt, pin_memory=True),
                 torch.empty(shape, dtype=dt, pin_memory=True))
 
-    def _export_gather(self, ids: List[int], staging) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-        """Gather pages ``ids`` and split them into K (even combined heads)
-        and V (odd), each ``[L, n, ps, KV, hd]``, then start their copy to
-        the pinned ``staging`` on the copy stream.  Returns the host K, V
-        and the copy's event (None on the CPU, where they are made at
-        once).  Runs in a worker thread under the device lock."""
+    def _export_gather(self, ids: List[int], staging):
+        """Gather pages ``ids``, with every rank's heads on the leader
+        (``_node_heads``), and split them into K (even combined heads) and
+        V (odd), each ``[L, n, ps, KV, hd]``, then start their copy to the
+        pinned ``staging`` on the copy stream.  Returns the host K, V and
+        the copy's event (None on the CPU, where they are made at once), or
+        None on a follower, whose heads went to the leader.  Runs in a
+        worker thread under the device lock."""
         with torch.inference_mode():
             idx = self._page_index(ids)
             pages = self.cache.pages
-            gathered = as_bits(pages).index_select(1, idx)  # [L, n, ps, 2KV, hd]
+            gathered = self._node_heads(as_bits(pages).index_select(1, idx), 3)
+            if gathered is None:
+                return None
             k = gathered[:, :, :, 0::2].contiguous().view(pages.dtype)
             v = gathered[:, :, :, 1::2].contiguous().view(pages.dtype)
             if self.device.type != "cuda":
@@ -453,7 +463,8 @@ class KvTransferMixin:
         2KV, hd]`` with the first n slots valid; ``ready`` is the event
         behind the work that wrote it (None: stream order already holds).
         At more than one rank it seals nothing: device pages cannot cross
-        the step plane (the host-staged ``inject_blocks`` can)."""
+        the step plane, and the caller's host-staged ``inject_blocks``
+        carries the blocks instead."""
         if self.shard is not None:
             return 0
         blocks = hash_token_blocks(token_ids, self.cfg.block_size, salt)[start_block:]
@@ -514,7 +525,7 @@ async def transfer_blocks_device(
     if src.cfg.block_size != dst.cfg.block_size:
         return 0
     if src.shard is not None or dst.shard is not None:
-        return 0  # sharded pages: the export refuses too
+        return 0  # ranks in other processes: the host-staged path carries them
     if src.cache.pages.shape[0] != dst.cache.pages.shape[0]:
         return 0  # different layer counts: not the same model
     if src.cache.pages.dtype != dst.cache.pages.dtype or not _scales_close(

@@ -9,10 +9,17 @@ the plain version, zlib over each block's bytes (the JAX package's check,
 way: CRC-32 with the reflected polynomial 0xEDB88320, initial value and
 final xor 0xFFFFFFFF, over a block's raw bytes.
 
-The kernel hashes CHUNK-byte slices from a zero register and moves each to
-its block's end by multiplying with x^(8 * bytes after the slice) mod P;
-``chunk_shifts`` gives those factors and ``init_term`` the initial value's
-contribution, both computed here in zlib's arithmetic (``multmodp``).
+The kernel streams TILE-byte tiles of the blocks through shared memory;
+in a tile, thread t hashes the SUB bytes at t * SUB from a zero register
+with the four slicing-by-4 ``tables``.  A thread carries its register
+across consecutive full tiles of a block by Horner's rule (a
+multiplication by ``tile_step``'s x^(8 * TILE)) and moves the run's
+register to the block's end by multiplying with x^(8 * bytes after the
+run's last slice) mod P: ``chunk_shifts`` gives those factors, one a
+slice, and ``init_term`` the initial value's contribution, all computed
+here in zlib's arithmetic (``multmodp``).  ``tiles_of`` is the split of
+the tiles over the kernel's CTAs.  The host decides the whole plan and
+passes it to each launch; the kernel computes none of it.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 
 from . import _build
 
-CHUNK = 1024  # bytes a CUDA thread hashes (csrc/crc32_blocks.cu CHUNK)
+SUB = 64  # bytes a CUDA thread hashes in a tile (csrc/crc32_blocks.cu SUB)
+TILE = 512 * SUB  # bytes of a tile: one slice for each of a CTA's 512 threads
 POLY = 0xEDB88320
 ONE = 1 << 31  # x^0: bit 31 holds the lowest power in the reflected form
 
@@ -59,18 +67,56 @@ def x8n(n: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def chunk_shifts(block_bytes: int) -> np.ndarray:
-    """[ceil(block_bytes / CHUNK)] uint32: slice i's factor x^(8 * (bytes
+    """[ceil(block_bytes / SUB)] uint32: slice i's factor x^(8 * (bytes
     of the block after slice i)) mod P."""
-    k = -(-block_bytes // CHUNK)
+    k = -(-block_bytes // SUB)
     out = np.empty(k, np.uint32)
     out[k - 1] = ONE
     if k > 1:
-        step = x8n(CHUNK)
-        s = x8n(block_bytes - (k - 1) * CHUNK)  # the last slice's length
+        step = x8n(SUB)
+        s = x8n(block_bytes - (k - 1) * SUB)  # the last slice's length
         for i in range(k - 2, -1, -1):
             out[i] = s
             s = multmodp(step, s)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def tables() -> np.ndarray:
+    """[4, 256] uint32: the slicing-by-4 tables.  Table 0 is the bytewise
+    table; table k carries table k-1's entry through one more zero
+    byte."""
+    t = np.zeros((4, 256), np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ POLY if c & 1 else c >> 1
+        t[0, i] = c
+    for k in range(1, 4):
+        for i in range(256):
+            c = int(t[k - 1, i])
+            t[k, i] = (c >> 8) ^ int(t[0, c & 0xFF])
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def tile_step() -> Tuple[int, ...]:
+    """Bit j's column of the multiplication by x^(8 * TILE) mod P, j =
+    0..31: the kernel's Horner step, passed to each launch."""
+    c = x8n(TILE)
+    return tuple(multmodp(1 << j, c) for j in range(32))
+
+
+def tiles_of(n_blocks: int, block_bytes: int, ctas: int,
+             tile: int = TILE) -> Tuple[int, int, int]:
+    """The kernel's split, passed to each launch: (tiles a block, tiles a
+    CTA, CTAs launched) for ``ctas`` streaming multiprocessors, each CTA a
+    contiguous range of the tiles.  ``tile`` other than TILE only replays
+    the plan at a small size (tests/test_torch_crc32.py)."""
+    per_block = -(-block_bytes // tile)
+    tiles = per_block * n_blocks
+    grid = min(tiles, ctas)
+    return per_block, -(-tiles // grid), grid
 
 
 def init_term(block_bytes: int) -> int:
@@ -98,23 +144,36 @@ def block_crc32_plain(blocks: torch.Tensor, executor: Optional[Executor] = None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("crc32_blocks")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crc32_blocks_launch.argtypes = [vp, ctypes.c_longlong, ci, vp, vp, ci, vp]
+    ll = ctypes.c_longlong
+    lib.crc32_blocks_launch.argtypes = [vp, ll, ci, vp, vp, ctypes.POINTER(ctypes.c_uint32), ll,
+                                        ll, ci, vp, ci, vp]
     lib.crc32_blocks_launch.restype = ci
     return lib
 
 
-_shift_tensors: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+@functools.lru_cache(maxsize=None)
+def _step_words() -> ctypes.Array:
+    return (ctypes.c_uint32 * 32)(*tile_step())
 
 
-def _shifts_on(dev: torch.device, block_bytes: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_consts: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _consts_on(dev: torch.device, block_bytes: int) -> torch.Tensor:
+    """The tables (1024 words) then the slices' shifts, on ``dev``."""
     key = (dev, block_bytes)
-    t = _shift_tensors.get(key)
+    t = _consts.get(key)
     if t is None:
-        host = torch.from_numpy(chunk_shifts(block_bytes).view(np.int32))
-        t = host.to(dev)
+        host = np.concatenate([tables().reshape(-1), chunk_shifts(block_bytes)])
+        t = torch.from_numpy(host.view(np.int32)).to(dev)
         # Once per block size: the copy lands before any stream reads it.
         torch.cuda.current_stream(dev).synchronize()
-        _shift_tensors[key] = t
+        _consts[key] = t
     return t
 
 
@@ -133,11 +192,14 @@ def block_crc32_cuda(blocks: torch.Tensor) -> torch.Tensor:
     if nbytes == 0:
         raise ValueError("blocks of zero bytes")
     out = torch.empty((n,), dtype=torch.int32, device=dev)
-    shifts = _shifts_on(dev, nbytes)
-    aligned8 = int(blocks.data_ptr() % 8 == 0 and nbytes % 8 == 0)
+    consts = _consts_on(dev, nbytes)
+    aligned16 = int(blocks.data_ptr() % 16 == 0 and nbytes % 16 == 0)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    per_block, per_cta, grid = tiles_of(n, nbytes, _sms(index))
     lib = _lib()
     p = _build.ptr
-    code = lib.crc32_blocks_launch(p(blocks), nbytes, n, p(shifts), p(out), aligned8,
+    code = lib.crc32_blocks_launch(p(blocks), nbytes, n, p(consts), p(consts[1024:]),
+                                   _step_words(), per_block, per_cta, grid, p(out), aligned16,
                                    _build.stream_ptr(dev))
     _build.check(lib, code, "crc32_blocks")
     block_crc32_cuda.launches += 1

@@ -21,9 +21,12 @@ It is not a fallback: an NCCL init error fails the run.
 
 The forward's collectives go through ``AxisGroup``, one per mesh axis (or
 axes) as seen from this rank: ``all_reduce`` (sum, max), ``all_gather``
-and the ring ``shift`` to the next rank.  A group of one rank returns its
-input, so the single-rank forward runs the same code.  ``global_array`` has
-no counterpart: ``parallel.mesh.shard_params`` hands each rank its slice.
+and the ring ``shift`` to the next rank; the KV paths (engine/transfer.py,
+engine/offload.py) ``gather`` to the group's first rank and ``scatter``
+from it.  A group of one
+rank returns its input, so the single-rank forward runs the same code.
+``global_array`` has no counterpart: ``parallel.mesh.shard_params`` hands
+each rank its slice.
 """
 
 from __future__ import annotations
@@ -111,6 +114,64 @@ class AxisGroup:
         parts = [torch.empty_like(h) for _ in range(self.size)]
         dist.all_gather(parts, h, group=self.pg)
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> Optional[torch.Tensor]:
+        """Every rank's ``t`` concatenated along ``dim`` in group order, on
+        the group's first rank (on ``t``'s device); None on the others.
+        Under gloo a CUDA ``t`` goes through pinned memory allocated for
+        the call (the KV paths' sizes vary, so nothing is kept).  Bytes
+        move, never values: the gather runs on a uint8 view (any page
+        dtype, fp8 included; on the last axis each element's bytes stay
+        together)."""
+        if self.size == 1:
+            return t
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        raw = t.view(torch.uint8)
+        staged = self._staged(raw)
+        src = raw
+        if staged:
+            src = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+            src.copy_(raw)
+        parts = [torch.empty_like(src) for _ in range(self.size)] if self.index == 0 else None
+        dist.gather(src, parts, dst=self.ranks[0], group=self.pg)
+        if parts is None:
+            return None
+        out = torch.cat(parts, dim=dim)
+        if staged:
+            out = out.to(t.device)
+        return out.view(t.dtype)
+
+    def scatter(self, out: torch.Tensor,
+                parts: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The group's first rank's ``parts[i]`` written into ``out`` on the
+        group's i-th rank, and returned.  ``parts`` is given on the first
+        rank alone: one tensor a rank in group order, each of ``out``'s
+        shape and dtype.  As in ``gather``, bytes move through uint8 views,
+        and under gloo CUDA tensors go through pinned memory allocated for
+        the call."""
+        if self.size == 1:
+            return out.copy_(parts[0])
+        import torch.distributed as dist
+
+        raw = out.view(torch.uint8)
+        staged = self._staged(raw)
+        dst = torch.empty(raw.shape, dtype=torch.uint8, pin_memory=True) if staged else raw
+        src = None
+        if self.index == 0:
+            src = []
+            for p in parts:
+                p = p.contiguous().view(torch.uint8)
+                if staged:
+                    h = torch.empty(p.shape, dtype=torch.uint8, pin_memory=True)
+                    h.copy_(p)
+                    p = h
+                src.append(p)
+        dist.scatter(dst, src, src=self.ranks[0], group=self.pg)
+        if staged:
+            raw.copy_(dst)
+        return out
 
     def shift(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the next rank of the ring and return the previous

@@ -287,6 +287,8 @@ def test_threefry_gumbel_kernel_matches_plain(cuda, B, V):
     (5, (4100,), torch.uint8),  # a short last slice
     (3, (2053,), torch.uint8),  # bytes not a multiple of 8: the byte loop only
     (2, (1,), torch.uint8),
+    (9, (2 * 32768 + 4112,), torch.uint8),  # full tiles and a short last one
+    (4, (3 * 32768 + 7,), torch.uint8),  # tiles loaded byte by byte
 ])
 def test_crc32_blocks_kernel_matches_plain(cuda, n, shape, dtype):
     """csrc/crc32_blocks.cu against zlib over each block's bytes, exactly,
