@@ -7,8 +7,11 @@
     python3 chip_smoke.py --sdk-graph  # phase p alone
     python3 chip_smoke.py --parallel   # phase q alone
     python3 chip_smoke.py --tp-tiers   # phase r alone
+    python3 chip_smoke.py --tune       # phase s alone
 
-Phases, any failure exits non-zero:
+Phases, any failure exits non-zero; every phase but s runs with
+DYN_DECODE_TUNE_TABLE at a path that does not exist (printed first), so
+the kernels launch their built-in shapes:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from dynamo_tpu_torch/csrc with nvcc;
   3. check that the bf16 kernel bodies run on the tensor cores and the
@@ -385,10 +388,27 @@ Phases, any failure exits non-zero:
      one-rank engine on that object store restores the tp-2 prefix (scale
      from zero across tp; its stream against tp 2's ungated); no started
      rank outlives its command;
+  s. the tuned launch table: ``python -m dynamo_tpu_torch.tools.tune_decode``
+     (its ``main``, in this process) at the three geometries of the kernel
+     rows, full chains — the serve phase's 16 rows of 256 pages (bf16),
+     phase c's 256 rows of 16 pages and phase d's 24 rows of 256 pages
+     (int8) — into a temporary table: every decode (splits, ppcb) and
+     prefill split count printed beside the built-in launch and the bound,
+     each held against the plain version (1e-2), the winners written; then
+     each kernel row of phases 4 and a under its geometry's entry beside
+     the built-in launch in alternating rounds, the tuned launch's shape
+     checked against the entry; then ``TorchEngine`` at phase 6's geometry
+     (PATH_CUT_LAYERS layers) with DYN_DECODE_TUNE_TABLE at the table: the
+     installed entry equal to the serve entry, 4 greedy requests of
+     512..1169 ids, 32 new each, whole, both kernels launched at the
+     entry's (part, J), no graph captured after warmup, the graph check,
+     DYN_DECODE_SPLITS beating the table, and a fused decode dispatch with
+     and without the table (an engine on the same weights) in turns;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q and r beside phase 6's
-     and 7's; the noise kernel's in phases j, k, l, e, p and q), then the
-     device line last.
+     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q, r and s beside
+     phase 6's and 7's, and its tuned time at each geometry of phase s; the
+     noise kernel's in phases j, k, l, e, p and q), then the device line
+     last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
 """
@@ -8703,6 +8723,381 @@ def tp_tiers_path(torch, dev=None):
     return not fails, launches, out
 
 
+# ------------------------------------------------------- phase s: the tuned table
+
+TUNE_MODEL = "llama-3.1-8b"
+# Every phase but s runs with DYN_DECODE_TUNE_TABLE at a path that does not
+# exist (set by main), so a table left on the machine changes no launch.
+TUNE_TABLE_ENV = "DYN_DECODE_TUNE_TABLE"
+# The three geometries of the kernel rows (PERF.md §6): the serve phase's
+# (bf16 pages), phase c's and phase d's (int8 pages), each swept by the
+# tool at its rows, table width and prefill chunk.
+TUNE_GEOMETRIES = {
+    "serve": dict(batch=SERVE_CFG["max_batch"], pages_per_seq=4096 // PS, cache_dtype="bfloat16",
+                  prefill_chunk=SERVE_CFG["prefill_chunk"]),
+    "bench": dict(batch=256, pages_per_seq=256 // PS, cache_dtype="int8", prefill_chunk=512),
+    "loadgen": dict(batch=24, pages_per_seq=4096 // PS, cache_dtype="int8", prefill_chunk=2048),
+}
+TUNE_SPLITS, TUNE_PPCB, TUNE_PREFILL_SPLITS = "0,1,2,4,8,16", "4,8,16,32,64", "1,2,4,8"
+TUNE_ITERS = 5  # launches a timed round (the tool's --iters): 7 rounds of 5, for the script's time
+TUNE_REQUESTS, TUNE_MAX_TOKENS = 4, 32
+TUNE_PINS = (2, 4, 8)  # DYN_DECODE_SPLITS pinned over the entry: the first that changes the launch
+TUNE_TURNS = ("tuned", "default", "default", "tuned", "tuned", "default")
+TUNE_DISPATCHES = 10  # fused decode dispatches a turn
+
+
+def tune_case_bound(geo, prefill):
+    """The bound of the tool's case at ``geo``: full chains, every row its
+    whole table; for prefill, every row its last ``prefill_chunk`` tokens."""
+    g = TUNE_GEOMETRIES[geo]
+    B, L = g["batch"], g["pages_per_seq"] * PS
+    esize = 1 if g["cache_dtype"] == "int8" else 2
+    kv = B * L * 2 * KV * D * esize + B * g["pages_per_seq"] * 4
+    if not prefill:
+        return bound(kv + 2 * B * H * D * 2, B * L * H * D * 4)
+    c = min(g["prefill_chunk"], L)
+    return bound(kv + 2 * B * c * H * D * 2, B * (c * L - c * (c - 1) // 2) * H * D * 4)
+
+
+def tune_sweeps(torch, table):
+    """Part 1: the tool (``dynamo_tpu_torch.tools.tune_decode.main``, in
+    this process) at each geometry into ``table``.  Returns {geo: report}."""
+    import contextlib
+    import io
+
+    from dynamo_tpu_torch.tools import tune_decode
+
+    reports = {}
+    for geo, g in TUNE_GEOMETRIES.items():
+        argv = ["--model", TUNE_MODEL, "--batch", str(g["batch"]), "--page-size", str(PS),
+                "--pages-per-seq", str(g["pages_per_seq"]), "--cache-dtype", g["cache_dtype"],
+                "--prefill-chunk", str(g["prefill_chunk"]), "--splits", TUNE_SPLITS,
+                "--ppcb", TUNE_PPCB, "--prefill-splits", TUNE_PREFILL_SPLITS,
+                "--iters", str(TUNE_ITERS), "--out", table]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tune_decode.main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        reports[geo] = dict(json.loads(lines[-1]) if rc == 0 and lines else {}, rc=rc,
+                            argv=argv, seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+def tune_report(geo, report, check):
+    """Print every combination of one geometry beside the built-in launch
+    and the bound; the winners must hold their plain versions."""
+    log(f"tune {geo}: tune_decode {' '.join(report['argv'][:-2])}: rc {report['rc']}, "
+        f"{report['seconds']:.1f} s, key {report.get('key')}")
+    check(report["rc"] == 0, f"the tool at {geo} exits 0")
+    if report["rc"]:
+        return
+    for family, prefill in (("fused_sweep", False), ("prefill_sweep", True)):
+        rows = report[family]
+        b_ms, b_by = tune_case_bound(geo, prefill)
+        default = next(r for r in rows if r.get("default"))
+        d_ms = default["us"] / 1e3 if "us" in default else float("nan")
+        for r in rows:
+            if "rejected" in r:
+                log(f"tune {geo} {family} splits={r['splits']} ppcb={r['ppcb']}: refused "
+                    f"({r['rejected']})")
+                continue
+            plan = (f"part {r['part']} x {r['J']}" if not prefill
+                    else f"{r['J']} x {r['split_pages']} pages")
+            knobs = ("built-in" if r.get("default") else
+                     f"splits={r['splits']}" + ("" if prefill else f" ppcb={r['ppcb']}"))
+            ms = r["us"] / 1e3 if "us" in r else float("nan")
+            log(f"tune {geo} {'prefill' if prefill else 'decode'} {knobs} ({plan}): {ms:.4f} ms "
+                f"(built-in {d_ms:.4f} ms, x{ms / d_ms:.3f}; bound {b_ms:.4f} ms {b_by}, "
+                f"{b_ms / ms:.0%} of it), max_abs_err {r['max_abs_err']:.3e} "
+                f"{'ok' if r['ok'] else 'FAIL'}")
+            check(r["ok"], f"{geo} {family} {knobs} ({plan}) against its plain version")
+    entry = report["entry"]
+    for family, key in (("fused_sweep", "splits"), ("prefill_sweep", "prefill_splits")):
+        win = [r for r in report[family] if not r.get("default") and r["splits"] == entry.get(key)
+               and (family == "prefill_sweep" or r["ppcb"] == entry.get("ppcb"))]
+        check(len(win) == 1 and win[0].get("ok"),
+              f"{geo} {family} winner held to its plain version at rtol = atol = 1e-2 "
+              f"({win})")
+    log(f"tune {geo} entry: {json.dumps(entry, sort_keys=True)}")
+
+
+def tune_row_times(torch, dev, tally, entries):
+    """Part 2: each kernel row of PERF.md §6 (phase 4's serve shapes, phase
+    a's int8 shapes) under its geometry's tuned entry beside the built-in
+    launch, in alternating rounds; the tuned output held against the plain
+    version.  Returns {geo: {kernel: numbers}}."""
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    sm = D**-0.5
+    cfg_serve = SimpleNamespace(max_batch=SERVE_CFG["max_batch"])
+    bench_lens = [129 + (7 * i) % 64 for i in range(256)]
+    loadgen_lens = [3000 + 6 * i for i in range(24)]
+    i8, sc = torch.int8, INT8_KV_SCALE
+    rows = {
+        "serve": {"decode_attention": (serving_decode_lens(cfg_serve)[1], 4096 // PS,
+                                       torch.bfloat16, 1.0),
+                  "prefill_attention": (SERVE_CFG["max_batch"], 512, [1024], [512],
+                                        torch.bfloat16, 1.0)},
+        "bench": {"decode_attention": (bench_lens, 16, i8, sc),
+                  "prefill_attention": (256, 512, [0] * 4, [128] * 4, i8, sc)},
+        "loadgen": {"decode_attention": (loadgen_lens, 256, i8, sc),
+                    "prefill_attention": (24, 2048, [2048, 0], [952, 1096], i8, sc)},
+    }
+    out = {}
+    da.clear_tuned_hints()
+    for geo, kernels in rows.items():
+        entry = entries.get(geo) or {}
+        out[geo] = {}
+        for name, spec in kernels.items():
+            gen.manual_seed(3)
+            if name == "decode_attention":
+                lens, PP, pdt, scale = spec
+                kv_scale = None if pdt == torch.bfloat16 else scale
+                q, pages, kv_lens, tables, num = decode_case(
+                    torch, gen, dev, lens, len(lens), PP, torch.bfloat16, pdt, scale)
+                args = (q, pages, kv_lens, tables, num)
+                plain = da.decode_attention_plain(*args, sm_scale=sm, kv_scale=kv_scale)
+                knobs = dict(num_kv_splits=entry.get("splits"), pages_per_block=entry.get("ppcb"))
+                fn = da.decode_attention_cuda
+                want_plan = da.decode_partitions(PP, PS, knobs["num_kv_splits"],
+                                                 knobs["pages_per_block"])
+                builtin = da.decode_partitions(PP, PS)
+                label = f"S={len(lens)} PP={PP}"
+            else:
+                S, T, priors, q_lens, pdt, scale = spec
+                kv_scale = None if pdt == torch.bfloat16 else scale
+                q, pages, kv_lens, tables, cu, num = prefill_case(
+                    torch, gen, dev, priors, q_lens, S, T, torch.bfloat16, pdt, scale)
+                args = (q, pages, kv_lens, tables, cu, num)
+                plain = pa.prefill_attention_plain(*args, sm_scale=sm, kv_scale=kv_scale)
+                knobs = dict(num_kv_splits=entry.get("prefill_splits"))
+                fn = pa.prefill_attention_cuda
+                PP = tables.shape[1]
+                sp, J = pa.prefill_partitions(PP, knobs["num_kv_splits"])
+                want_plan = (sp * PS, J)
+                sp, J = pa.prefill_partitions(PP)
+                builtin = (sp * PS, J)
+                label = f"T={T} S={S} PP={PP}"
+
+            def tuned(fn=fn, args=args, knobs=knobs, kv_scale=kv_scale):
+                return fn(*args, sm_scale=sm, kv_scale=kv_scale, **knobs)
+
+            def default(fn=fn, args=args, kv_scale=kv_scale):
+                return fn(*args, sm_scale=sm, kv_scale=kv_scale)
+
+            got = tuned()
+            plan = fn.last_plan
+            tally.compare(torch, name, f"tuned {geo} {label} pages={pdt} plan {plan}", got, plain,
+                          1e-2)
+            default()
+            dplan = fn.last_plan
+            rt, rd = [], []
+            for _ in range(TIMING_ROUNDS):
+                rt.append(cuda_ms(torch, tuned, 20, flush))
+                rd.append(cuda_ms(torch, default, 20, flush))
+            r = dict(ms=statistics.median(rt), default_ms=statistics.median(rd), plan=list(plan),
+                     default_plan=list(dplan), want_plan=list(want_plan),
+                     builtin_plan=list(builtin), rounds=rt, default_rounds=rd)
+            out[geo][name] = r
+            log(f"tune time {name} {geo} [{label}, pages {str(pdt).split('.')[-1]}]: tuned "
+                f"{r['ms']:.4f} ms at {tuple(plan)}, built-in {r['default_ms']:.4f} ms at "
+                f"{tuple(dplan)} (tuned/built-in {r['ms'] / r['default_ms']:.3f}); rounds "
+                f"{[round(x, 4) for x in rt]} / {[round(x, 4) for x in rd]}")
+            del q, pages, got, plain
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def tune_dispatch_times(torch, on, off, turns=TUNE_TURNS):
+    """A fused decode dispatch (16 rows at 1024 ids of context, 8 steps)
+    replayed on the engine with the table and on one without it sharing
+    its weights, in TUNE_TURNS; CUDA events around TUNE_DISPATCHES
+    dispatches a turn.  Returns {"tuned": [ms...], "default": [ms...]}."""
+    import numpy as np
+
+    cfg = on.cfg
+    S, PP, bs = cfg.max_batch, cfg.max_blocks_per_seq, cfg.block_size
+    ctx = 1024
+    per = ctx // bs + 2
+    tables = np.zeros((S, PP), np.int32)
+    for i in range(S):
+        tables[i, :per] = np.arange(i * per, (i + 1) * per)
+    tok0 = np.ones((S,), np.int64)
+    pos0 = np.full((S,), ctx, np.int32)
+    limits = np.full((S,), per * bs, np.int32)
+    engines = {"tuned": on, "default": off}
+    times = {k: [] for k in engines}
+    with torch.inference_mode():
+        for turn in turns:
+            eng = engines[turn]
+            samp = eng._sampling_arrays([])
+            eng._run_multi(tok0, pos0, tables, limits, samp)
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(TUNE_DISPATCHES):
+                eng._run_multi(tok0, pos0, tables, limits, samp)
+            b.record()
+            b.synchronize()
+            times[turn].append(a.elapsed_time(b) / TUNE_DISPATCHES)
+    return times
+
+
+def tune_path(torch, dev, tally, absent):
+    """Phase s: the tuned launch table.  The sweep tool at the three
+    geometries into a temporary table (every combination beside the
+    built-in launch and the bound; every check against the plain version);
+    each kernel row's time under its entry beside the built-in launch;
+    then ``TorchEngine`` at the serve geometry (PATH_CUT_LAYERS layers)
+    built with the table: its installed entry, TUNE_REQUESTS greedy
+    requests served whole with both kernels launched at the entry's
+    launches and no graph captured after warmup, the graph check, an env
+    pin over the table, and a fused decode dispatch with and without the
+    table in turns.  ``absent`` is the table path of every other phase,
+    restored on return.  Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import decode_attention as da
+    from dynamo_tpu_torch.ops import prefill_attention as pa
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"tune check FAILED: {what}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s_")
+    table = os.path.join(tmp, "decode_tune.json")
+    launches = {}
+    try:
+        with torch.inference_mode():
+            reports = tune_sweeps(torch, table)
+        for geo, report in reports.items():
+            tune_report(geo, report, check)
+        entries = {geo: r.get("entry") for geo, r in reports.items()}
+        out["sweeps"] = reports
+        out["sweep_s"] = time.perf_counter() - t_phase
+        with torch.inference_mode():
+            out["rows"] = tune_row_times(torch, dev, tally, entries)
+        for geo, kernels in out["rows"].items():
+            for name, r in kernels.items():
+                check(r["plan"] == r["want_plan"] and r["default_plan"] == r["builtin_plan"],
+                      f"{name} {geo}: the tuned launch {r['plan']} is the entry's "
+                      f"{r['want_plan']}, the built-in {r['default_plan']} is "
+                      f"{r['builtin_plan']}")
+
+        # The engine with the table.
+        os.environ[TUNE_TABLE_ENV] = table
+        serve_entry = entries.get("serve")
+        with model_depth(PATH_CUT_LAYERS):
+            cfg = EngineConfig(**SERVE_CFG)
+            engine = TorchEngine(cfg, device=dev)
+            installed = da.active_hints()
+            PP = cfg.max_blocks_per_seq
+            want_decode = da.decode_partitions(PP, PS, (serve_entry or {}).get("splits"),
+                                               (serve_entry or {}).get("ppcb"))
+            sp, J = pa.prefill_partitions(PP, (serve_entry or {}).get("prefill_splits"))
+            want_prefill = (sp * PS, J)
+            log(f"tune engine: {TUNE_MODEL} at {engine.model_config.num_layers} layers, "
+                f"{TUNE_TABLE_ENV}={table}: installed {json.dumps(installed, sort_keys=True)}; "
+                f"launches decode {want_decode}, prefill {want_prefill}")
+            check(serve_entry is not None and installed == serve_entry,
+                  "the engine installed the serve geometry's entry")
+            prompts = serve_prompts(torch)[:TUNE_REQUESTS]
+
+            async def run():
+                try:
+                    out["warm"] = await engine.run_warmup()
+                    warm = engine.compile_counts()
+                    zero_kernel_counts()
+                    t = time.perf_counter()
+                    results = await serve(torch, engine, prompts, TUNE_MAX_TOKENS)
+                    out["serve_s"] = time.perf_counter() - t
+                    launches.update(kernel_counts())
+                    plans = (da.decode_attention_cuda.last_plan,
+                             pa.prefill_attention_cuda.last_plan)
+                    whole = [len(t) == TUNE_MAX_TOKENS and f == "length" for t, _, f in results]
+                    log(f"tune serve: {len(prompts)} greedy requests of "
+                        f"{[len(p) for p in prompts]} ids, {TUNE_MAX_TOKENS} new: whole {whole}, "
+                        f"{out['serve_s']:.2f} s, launches {launches}, last launches decode "
+                        f"{plans[0]} prefill {plans[1]}, graphs {warm} -> "
+                        f"{engine.compile_counts()}")
+                    check(all(whole), "every stream whole")
+                    check(launches["decode_attention"] > 0 and launches["prefill_attention"] > 0,
+                          f"both kernels launched ({launches})")
+                    check(plans == (want_decode, want_prefill),
+                          f"the kernels launched the entry's shapes {plans} vs "
+                          f"{(want_decode, want_prefill)}")
+                    check(engine.compile_counts() == warm, "no graph captured after warmup")
+                    check(graph_check(torch, dev, engine), "graph replays against eager calls")
+                    # An env pin beats the table: a split count whose launch
+                    # differs from the entry's.
+                    ppcb = (serve_entry or {}).get("ppcb")
+                    pin = next(v for v in TUNE_PINS
+                               if da.decode_partitions(PP, PS, v, ppcb) != want_decode)
+                    want_pin = da.decode_partitions(PP, PS, pin, ppcb)
+                    os.environ["DYN_DECODE_SPLITS"] = str(pin)
+                    try:
+                        with torch.inference_mode():
+                            gen = torch.Generator(device=dev)
+                            gen.manual_seed(4)
+                            lens = serving_decode_lens(cfg)[1]
+                            args = decode_case(torch, gen, dev, lens, len(lens), PP,
+                                               torch.bfloat16, torch.bfloat16, 1.0)
+                            da.decode_attention_cuda(*args, sm_scale=D**-0.5)
+                            pinned = da.decode_attention_cuda.last_plan
+                    finally:
+                        os.environ.pop("DYN_DECODE_SPLITS", None)
+                    log(f"tune pin: DYN_DECODE_SPLITS={pin} over the entry (splits "
+                        f"{(serve_entry or {}).get('splits')}, launch {want_decode}): launch "
+                        f"{pinned}, expected {want_pin}")
+                    check(pinned == want_pin, "DYN_DECODE_SPLITS beats the table")
+                    # The same engine geometry without the table, sharing the
+                    # weights: a fused decode dispatch in turns (one replay
+                    # on this engine first, so that any graph it still
+                    # captures holds the tuned launch).
+                    tune_dispatch_times(torch, engine, None, turns=("tuned",))
+                    os.environ[TUNE_TABLE_ENV] = absent
+                    off = TorchEngine(cfg, params=engine.params, device=dev)
+                    check(da.active_hints() is None, "no entry without the table")
+                    try:
+                        times = tune_dispatch_times(torch, engine, off)
+                    finally:
+                        await off.close()
+                    out["dispatch"] = times
+                    t_ms, d_ms = statistics.median(times["tuned"]), statistics.median(times["default"])
+                    log(f"tune dispatch: a fused decode dispatch (16 rows at 1024 ids, "
+                        f"{cfg.decode_steps} steps, {engine.model_config.num_layers} layers), "
+                        f"{TUNE_DISPATCHES} a turn in turns {list(TUNE_TURNS)}: with the table "
+                        f"{t_ms:.3f} ms {[round(x, 3) for x in times['tuned']]}, without "
+                        f"{d_ms:.3f} ms {[round(x, 3) for x in times['default']]} (x"
+                        f"{t_ms / d_ms:.3f})")
+                finally:
+                    await engine.close()
+
+            asyncio.run(run())
+            del engine
+    finally:
+        os.environ[TUNE_TABLE_ENV] = absent
+        da.clear_tuned_hints()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tune phase: {out['phase_s']:.1f} s (sweeps {out.get('sweep_s', 0):.1f} s); launches "
+        f"{launches}")
+    return not fails, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -8719,6 +9114,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase q's f32 ranks
         par_rank_job(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    # Every phase but s reads no tuned table: a table left on this machine
+    # must not change a launch (the children inherit the variable).
+    absent = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_no_tune_table.json")
+    if os.path.exists(absent):
+        print(f"chip_smoke: {absent} exists", file=sys.stderr)
+        return 1
+    os.environ[TUNE_TABLE_ENV] = absent
     try:
         from dynamo_tpu_torch.ops import _build
 
@@ -8731,6 +9133,8 @@ def main() -> int:
         CARD = smi[0] if smi else "nvidia-smi gave nothing"
         log(f"card: {CARD}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        log(f"tuned table: {TUNE_TABLE_ENV}={absent}, a path that does not exist: every phase "
+            f"but s launches the kernels' built-in shapes")
 
         t0 = time.perf_counter()
         report = _build.build_all()
@@ -8752,6 +9156,8 @@ def main() -> int:
                 return 0 if parallel_path(torch)[0] else 1
         if sys.argv[1:] == ["--tp-tiers"]:
             return 0 if tp_tiers_path(torch)[0] else 1
+        if sys.argv[1:] == ["--tune"]:
+            return 0 if tune_path(torch, dev, Tally(), absent)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
@@ -8846,7 +9252,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ok_r, r_launches, _ = tp_tiers_path(torch)
-        slice_ok = {"kv export and tiers at tp 2 (r)": ok_r,
+        # Phase s: the tuned launch table.
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok_s, s_launches, tune = tune_path(torch, dev, tally, absent)
+        slice_ok = {"tuned launch table (s)": ok_s, "kv export and tiers at tp 2 (r)": ok_r,
                     "parallelism and the step plane (q)": ok_q,
                     "sdk graph and native library (p)": ok_p,
                     "structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
@@ -8897,6 +9307,12 @@ def main() -> int:
             kernels[-1]["sdk_launches"] = p_launches.get(name, 0)
             kernels[-1]["parallel_launches"] = q_launches.get(name, 0)
             kernels[-1]["tp_tiers_launches"] = r_launches.get(name, 0)
+            kernels[-1]["tune_launches"] = s_launches.get(name, 0)
+            # Each geometry's row under its tuned entry, beside the
+            # built-in launch timed in the same rounds.
+            kernels[-1]["tuned"] = {
+                geo: {k: r[k] for k in ("ms", "default_ms", "plan", "default_plan")}
+                for geo, r in ((g, rows[name]) for g, rows in tune.get("rows", {}).items())}
             if "mixed" in tm:
                 kernels[-1].update(mixed_step_ms=tm["mixed"]["ms"],
                                    mixed_step_plain_ms=tm["mixed"]["plain_ms"],

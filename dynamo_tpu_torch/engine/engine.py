@@ -98,6 +98,7 @@ from ..llm.tenancy.grammar import GrammarCacheMissError, TokenMaskAutomaton
 from ..models.config import ModelConfig, get_config
 from ..models.llama import PagedKVCache, RaggedBatch, forward_ragged, init_params, torch_dtype
 from ..models.quant import fuse_projections, init_params_quantized, quantize_params
+from ..ops.decode_attention import install_tuned_hints
 from ..ops.ragged_attention import kernel_route, quantize_for_cache
 from ..parallel import distributed as pdist
 from ..parallel.mesh import MeshConfig, check_tp, make_mesh, param_pspecs, shard_params
@@ -279,6 +280,11 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         self.decode_spans = StreamSpans(self.device)
         self._init_tiers()
         self._init_transfer()
+        # The tuned launch shapes for this engine's geometry (the table that
+        # ``python -m dynamo_tpu_torch.tools.tune_decode`` writes; built-in
+        # defaults when no entry matches), installed before any kernel runs
+        # so that every captured graph holds the tuned launch.
+        install_tuned_hints(cfg.model, cfg.max_batch, cfg.block_size)
 
         # --- device state -------------------------------------------------
         dev = self.device

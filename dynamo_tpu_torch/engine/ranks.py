@@ -18,6 +18,7 @@ from __future__ import annotations
 import asyncio
 import os
 import signal
+import subprocess
 import sys
 from typing import Any, Callable, Optional, Tuple
 
@@ -67,7 +68,7 @@ class NodeRanks:
         self.step_host = step_host
         self.step_port = step_port
 
-    async def watch(self, coro):
+    async def guard(self, coro):
         """Await ``coro``, failing as soon as a started rank exits."""
         task = asyncio.ensure_future(coro)
         try:
@@ -90,7 +91,7 @@ class NodeRanks:
         for p in self.children:
             try:
                 await asyncio.to_thread(p.wait, timeout)
-            except Exception:  # noqa: BLE001 — subprocess.TimeoutExpired
+            except subprocess.TimeoutExpired:
                 p.kill()
                 await asyncio.to_thread(p.wait)
         shutdown_multihost()
@@ -128,7 +129,6 @@ async def _join(args) -> NodeRanks:
     plane and, with ``DYN_STEP_TOKEN`` unset, a random token its ranks
     share."""
     import secrets
-    import subprocess
 
     from ..parallel.mesh import make_mesh
 
@@ -175,7 +175,7 @@ async def _join(args) -> NodeRanks:
         children.append(p)
     ranks = NodeRanks(None, children, args.coordinator.rsplit(":", 1)[0], args.step_port)
     try:
-        ranks.state = await ranks.watch(asyncio.to_thread(_init_rank, args, 0))
+        ranks.state = await ranks.guard(asyncio.to_thread(_init_rank, args, 0))
     except BaseException:
         for p in children:
             p.kill()
@@ -195,7 +195,7 @@ async def _attach_step_plane(engine, args, ranks: NodeRanks) -> None:
     n = ranks.state.size - 1
     first = StepPublisher(ranks.step_host, args.step_port, n)
     try:
-        publisher = await ranks.watch(first.start(timeout=600.0 if args.nnodes == 1 else 60.0))
+        publisher = await ranks.guard(first.start(timeout=600.0 if args.nnodes == 1 else 60.0))
     except (OSError, asyncio.TimeoutError):
         if args.nnodes == 1:
             raise
@@ -204,7 +204,7 @@ async def _attach_step_plane(engine, args, ranks: NodeRanks) -> None:
         await first.abort()
         print(f"step plane: cannot serve followers on {ranks.step_host}, falling back to "
               "0.0.0.0 (firewall the port; requires DYN_STEP_TOKEN)", flush=True)
-        publisher = await ranks.watch(StepPublisher("0.0.0.0", args.step_port, n).start())
+        publisher = await ranks.guard(StepPublisher("0.0.0.0", args.step_port, n).start())
     engine.attach_publisher(publisher)
 
 
@@ -221,7 +221,7 @@ async def start_ranks(args, build: Callable[[Any], Any]) -> Tuple[Optional[Any],
 
     ranks = await _join(args)
     try:
-        engine = await ranks.watch(asyncio.to_thread(build, args))
+        engine = await ranks.guard(asyncio.to_thread(build, args))
     except BaseException:
         await ranks.kill()
         raise
@@ -229,7 +229,7 @@ async def start_ranks(args, build: Callable[[Any], Any]) -> Tuple[Optional[Any],
         leader = f"{ranks.step_host}:{args.step_port}"
         print(f"follower node {args.node_rank}/{args.nnodes} replaying {leader}", flush=True)
         try:
-            await ranks.watch(follower_serve(engine, leader, timeout=600.0))
+            await ranks.guard(follower_serve(engine, leader, timeout=600.0))
         finally:
             await engine.close()
             await ranks.stop()

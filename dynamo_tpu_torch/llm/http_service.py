@@ -332,6 +332,8 @@ async def _serve_connection(reader: asyncio.StreamReader, writer: asyncio.Stream
                 break
     except (ConnectionError, OSError):
         pass  # the peer went away
+    except asyncio.CancelledError:
+        raise  # the server's close
     except Exception:  # noqa: BLE001 — connection boundary
         logger.exception("HTTP connection handler failed")
     finally:

@@ -218,9 +218,15 @@ def make_client_exporter(client):
 
     async def exporter(worker_id: int, data: Dict[str, Any]):
         stream = await client.generate(Context(data), worker_id=worker_id)
-        async for item in stream:
-            return (item or {}).get("payload")
-        return None
+        try:
+            async for item in stream:
+                return (item or {}).get("payload")
+            return None
+        finally:
+            # A return inside the loop leaves the remote stream open: its
+            # slot on the connection and its cancel-forwarding task would
+            # live until the garbage collector found their cycle.
+            await stream.aclose()
 
     return exporter
 

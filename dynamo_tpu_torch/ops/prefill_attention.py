@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
-from .decode_attention import HEAD_DIM, NEG_INF, check_paged_inputs, gather_rows
+from .decode_attention import HEAD_DIM, NEG_INF, check_paged_inputs, gather_rows, resolve_hint
 
 ROWS = 64  # csrc/prefill_attention.cu ROWS: query-head rows per block
 SMALL_ROWS = 16  # csrc/prefill_attention.cu RW: rows of a small q-block
@@ -91,6 +91,27 @@ def prefill_slots(T: int, S: int, G: int, tensor_cores: bool) -> int:
     return -(-T // qb) + S * (SMALL_SLICES if tensor_cores else 1)
 
 
+def prefill_partitions(PP: int, num_kv_splits: Optional[int] = None) -> Tuple[int, int]:
+    """``(split_pages, n_splits)`` of a prefill launch: the table's ``PP``
+    pages cut into ``n_splits`` page-aligned runs of ``split_pages``,
+    empty tail runs dropped, as the JAX kernel cuts them
+    (``dynamo_tpu/ops/prefill_attention.py:325-331``; the port has no
+    ``prefill_ppcb``, so only ``PP`` caps the count).  None or a count
+    below 1 means 1: the q-block grid already spreads a chunk over the
+    SMs."""
+    J = max(1, min(num_kv_splits or 1, PP))
+    split_pages = -(-PP // J)
+    return split_pages, -(-PP // split_pages)
+
+
+def prefill_plan(PP: int, num_kv_splits: Optional[int] = None) -> Tuple[int, int]:
+    """The launch's ``(split_pages, n_splits)`` with its knob resolved: an
+    explicit ``num_kv_splits``, else ``DYN_PREFILL_SPLITS`` / tuned
+    ``prefill_splits``."""
+    return prefill_partitions(
+        PP, num_kv_splits or resolve_hint("DYN_PREFILL_SPLITS", "prefill_splits", 0))
+
+
 _slice_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
@@ -138,10 +159,11 @@ def prefill_attention_cuda(
     num_kv_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch csrc/prefill_attention.cu on the current stream (no sync).
-    ``num_kv_splits`` None means 1: the q-block grid already spreads a
-    chunk over the SMs, and the kernel then writes ``out`` itself with no
-    combine pass.  bf16 queries run on the tensor cores, f32 queries on the
-    f32 CUDA-core body."""
+    ``num_kv_splits`` None takes the resolved knob (``prefill_plan``), 1
+    when unset: the q-block grid already spreads a chunk over the SMs, and
+    the kernel then writes ``out`` itself with no combine pass.  bf16
+    queries run on the tensor cores, f32 queries on the f32 CUDA-core
+    body."""
     check_paged_inputs(q, pages, (kv_lens, page_indices, cu_q_lens, num_seqs))
     T, H, D = q.shape
     P, ps, KV2, _ = pages.shape
@@ -152,9 +174,7 @@ def prefill_attention_cuda(
         raise ValueError(f"prefill kernel needs {ROWS} % G == 0, got G={G}")
     if kv_lens.shape != (S,) or cu_q_lens.shape != (S + 1,) or num_seqs.shape != (1,):
         raise ValueError("kv_lens / cu_q_lens / num_seqs do not match page_indices' rows")
-    J = max(1, min(num_kv_splits or 1, PP))
-    split_pages = -(-PP // J)
-    J = -(-PP // split_pages)
+    split_pages, J = prefill_plan(PP, num_kv_splits)
     dev = q.device
     o_part = m_part = l_part = None  # one partition: the kernel writes ``out`` itself
     if J > 1:
@@ -177,10 +197,12 @@ def prefill_attention_cuda(
     )
     _build.check(lib, code, "prefill_attention")
     prefill_attention_cuda.launches += 1
+    prefill_attention_cuda.last_plan = (split_pages * ps, J)
     return out
 
 
 prefill_attention_cuda.launches = 0  # kernel launches (chip_smoke.py reads it)
+prefill_attention_cuda.last_plan = None  # the last launch's (split positions, n_splits)
 
 
 def prefill_attention(q, pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,

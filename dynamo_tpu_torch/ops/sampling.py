@@ -50,9 +50,11 @@ class SamplingFlags(NamedTuple):
     them (engine/graphs.py)."""
 
     need_logprobs: bool
-    any_penalty: bool
-    any_sampled: bool  # some row has temperature > 0
-    any_filter: bool  # some sampled row uses top-k or top-p
+    # Stages the host knows no row needs are skipped; a constructor that
+    # does not say runs them (the results are the same, the step slower).
+    any_penalty: bool = True
+    any_sampled: bool = True  # some row has temperature > 0
+    any_filter: bool = True  # some sampled row uses top-k or top-p
 
     @classmethod
     def of(cls, temperature, top_k, top_p, freq_penalty, pres_penalty,
@@ -90,9 +92,11 @@ class SamplingParams(NamedTuple):
     pres_penalty: torch.Tensor  # [B] f32
     counts: torch.Tensor  # [B, V] int16 output-token histogram
     need_logprobs: bool
-    any_penalty: bool
-    any_sampled: bool  # some row has temperature > 0
-    any_filter: bool  # some sampled row uses top-k or top-p
+    # Stages the host knows no row needs are skipped; a constructor that
+    # does not say runs them (the results are the same, the step slower).
+    any_penalty: bool = True
+    any_sampled: bool = True  # some row has temperature > 0
+    any_filter: bool = True  # some sampled row uses top-k or top-p
     # Packed admissible-token bitmask ([B, ceil(V/32)] words in int64; bit
     # i of word i//32 = token i admissible) and whether any row is masked.
     mask_words: Optional[torch.Tensor] = None

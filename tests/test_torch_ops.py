@@ -409,7 +409,8 @@ def test_package_imports_no_jax_and_no_module_level_triton():
     # The modules each slice adds are in the scan (the bulk plane, the
     # whole health watchdog, the planner, the auxiliary services, the SDK,
     # its example graph, the deployment tooling, the parallel package, the
-    # step plane and ring attention among them).
+    # step plane, ring attention and the port's own tools among them).  The
+    # repo's ``tools/`` (the JAX package's) is as foreign as ``dynamo_tpu``.
     planner = ("signals", "policy", "pmetrics", "actuate", "autopilot", "sim", "service",
                "supervisor", "__init__", "__main__")
     sdk = ("__init__", "service", "graph", "config", "allocator", "worker_main", "runner")
@@ -425,7 +426,8 @@ def test_package_imports_no_jax_and_no_module_level_triton():
                    "examples/__init__.py", "examples/llm/__init__.py",
                    "examples/llm/components.py", "examples/llm/graphs.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
-                   "engine/multihost.py", "engine/ranks.py", "ops/ring_attention.py"):
+                   "engine/multihost.py", "engine/ranks.py", "ops/ring_attention.py",
+                   "tools/__init__.py", "tools/tune_decode.py"):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the
@@ -446,7 +448,7 @@ def test_package_imports_no_jax_and_no_module_level_triton():
                 names = [node.module or ""]
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "dynamo_tpu"):
+                if top in ("jax", "jaxlib", "dynamo_tpu", "tools"):
                     bad.append(f"{path.name}: {name}")
                 if top in absent and (path.name, top) not in allowed:
                     bad.append(f"{path.name}: {name} (not on the card's machine)")

@@ -24,6 +24,7 @@ Engines run debug-tiny in f32 at block size 4 on the same seeded weights.
 """
 
 import asyncio
+import gc
 import importlib
 from types import SimpleNamespace
 
@@ -374,5 +375,43 @@ async def test_pull_across_packages(donor_pkg, puller_pkg):
             await e.close()
         if donor_up:
             await donor_rt.close()
+        await client_rt.close()
+        await hub.close()
+
+
+async def test_client_exporter_closes_the_remote_stream():
+    """The service-plane exporter returns on the export's one item; the
+    remote stream is closed then, not whenever the garbage collector finds
+    it: no cancel-forwarding task stays pending and the shared connection
+    holds no stream.  The collector is off for the pull, as a busy test
+    process may not run it before teardown (the cross-package test above
+    failed so under load)."""
+    service = importlib.import_module(f"{PORT}.runtime.transports.service")
+    hub = await P[PORT].hub.HubServer().start()
+    donor = _engine(PORT)
+    donor_rt = await _export_worker(PORT, hub.address, donor)
+    C = P[PORT]
+    client_rt = await C.component.DistributedRuntime.connect(hub.address)
+    gc.disable()
+    try:
+        client = await client_rt.namespace("x").component("w").endpoint(
+            C.pull.KV_EXPORT_ENDPOINT).client()
+        await client.wait_for_instances(5)
+        prompt = list(range(30, 54))  # 6 full blocks
+        await _generate(PORT, donor, prompt, max_tokens=1)
+        exporter = C.pull.make_client_exporter(client)
+        payload = await exporter(donor_rt.worker_id, {"token_ids": prompt, "max_blocks": 6})
+        assert payload is not None and payload["n_blocks"] == 6
+        await asyncio.sleep(0)  # a cancelled task ends at its next turn
+        pending = [t.get_coro().__qualname__ for t in asyncio.all_tasks()
+                   if not t.done() and "forward_cancel" in t.get_coro().__qualname__]
+        assert pending == []
+        assert [sid for conn in service.MuxConnection._by_address.values()
+                for sid in conn._queues] == []
+        await client.close()
+    finally:
+        gc.enable()
+        await donor.close()
+        await donor_rt.close()
         await client_rt.close()
         await hub.close()
