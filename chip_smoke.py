@@ -209,14 +209,23 @@ the kernels launch their built-in shapes:
      all three kernels launch (prefill launches while D is a prefill
      worker counted apart); each tick's pressures, the put-to-ack wall, the
      drain's move and TTFT p95 before and after the flip reported;
-  j. the sampler's noise kernel (csrc/threefry_gumbel.cu, ``jax.random``'s
-     threefry Gumbel noise bit for bit) against its plain version at 16 and
-     256 rows over the 128256-id vocabulary: uint32 bits exactly equal,
-     values within 2 ulp at the scale max(|g|, 1), the sampled tokens of
-     random logits equal; timed beside its plain version and its bound: the
-     larger of the [B, V] write and each pipe's time for the kernel's SASS
-     instructions an element (cuobjdump, by pipe: ALU, FMA/IMAD, MUFU,
-     conversions) at the SM clock nvidia-smi reports while it runs.
+  j. the sampler's kernel (csrc/threefry_gumbel.cu): its noise entry
+     (``jax.random``'s threefry Gumbel noise bit for bit) against its plain
+     version at 16 and 256 rows over the 128256-id vocabulary, uint32 bits
+     exactly equal, values within 2 ulp at the scale max(|g|, 1); the
+     categorical draw's Gumbel code bitwise torch.log's on all 2^23
+     uniforms; the categorical draw (noise, temperature and argmax fused)
+     against ``categorical_plain`` at 16 and 256 rows on edge rows
+     (constant, -1e30 but one id, NaN) and seeds and at each temperature,
+     equal tokens; timed in turns with the unfused path it replaced (its
+     plain version once), beside its bound: the larger of x read once and
+     the function's own instructions an element at the issue rate and the
+     SM clock nvidia-smi reports while it runs; the kernel's SASS an
+     element by pipe logged beside it (cuobjdump: ALU, FMA/IMAD, MUFU,
+     conversions; the loop body over its 4 elements, the rest over a
+     thread's elements) with its pipe and issue times; a launch split into
+     its CTAs' row key, loop and reduction and the time outside them
+     (a profiled instantiation's stamps).
      Then the distributed stack again (``cli hub``, ``http --router kv``
      and worker B as subprocesses, worker A the CLI's own ``run in=dyn://``
      code in this process with ``--kv-pull-mb 192``): a greedy and a
@@ -407,7 +416,7 @@ the kernels launch their built-in shapes:
   8. print the kernels line (each kernel's int8 timings and its launches in
      phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q, r and s beside
      phase 6's and 7's, and its tuned time at each geometry of phase s; the
-     noise kernel's in phases j, k, l, e, p and q), then the device line
+     categorical draw's in phases j, k, l, e, p and q), then the device line
      last.
 
 Needs a CUDA device; without one it prints no result and exits 1.
@@ -659,34 +668,45 @@ def pipe_of(op):
     return "other"
 
 
-def sass_per_element(listing, per=256):
-    """Instructions a thread executes for one element, by pipe.  A forward
-    branch taken on a predicate guards a region: one that stores to shared
-    memory (thread 0's row key in the noise kernel) runs once for ``per``
-    elements and counts 1/per; one that stores to global memory (the
-    optional ``bits`` output, absent while serving) counts 0.  What follows
-    the last unpredicated EXIT is padding.  Returns (counts by pipe, counts
-    by opcode, {region: instructions})."""
+def sass_per_element(listing, per_iteration, per_thread):
+    """Instructions a thread executes for one element, by pipe, in a kernel
+    whose threads loop over their elements.  The rule: the body of the
+    element loop (the span of its backward branch, the largest if there
+    are several) runs once for ``per_iteration`` elements and counts
+    1/per_iteration; every other instruction up to the last unpredicated
+    EXIT (the row key before the loop, the reduction after it) runs once
+    a thread and counts 1/per_thread, the elements a thread takes.  A
+    forward branch taken on a predicate around a CALL and no other branch
+    (the division's slow path, for operands outside its fast range) guards
+    a region that counts 0.  What follows the last unpredicated EXIT is padding or the
+    subroutines called.  Returns (counts by pipe, counts by opcode,
+    {region: instructions})."""
     end = max((i for i, (_, op, text) in enumerate(listing)
                if op == "EXIT" and not text.startswith("@")), default=len(listing) - 1)
     ins = listing[:end + 1]
-    weight = [1.0] * len(ins)
-    regions = {}
+
+    def target(text):
+        m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\w+,\s*)?`?\(?(0x[0-9a-f]+)", text)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(ins[i][0] - target(text), target(text), ins[i][0])
+             for i, (addr, op, text) in enumerate(ins)
+             if op == "BRA" and target(text) is not None and target(text) < addr]
+    lo, hi = max(loops)[1:] if loops else (None, None)
+    weight = [1.0 / per_iteration if lo is not None and lo <= addr <= hi else 1.0 / per_thread
+              for addr, _, _ in ins]
+    regions = {"loop body": sum(lo is not None and lo <= a <= hi for a, _, _ in ins),
+               "once a thread": sum(not (lo is not None and lo <= a <= hi) for a, _, _ in ins)}
     for i, (addr, op, text) in enumerate(ins):
-        m = re.search(r"BRA\s+`?\(?(0x[0-9a-f]+)", text)
-        if op != "BRA" or not text.startswith("@") or not m or int(m.group(1), 16) <= addr:
+        t = target(text) if op == "BRA" and text.startswith("@") else None
+        if t is None or t <= addr:
             continue
-        body = [j for j in range(i + 1, len(ins)) if ins[j][0] < int(m.group(1), 16)]
+        body = [j for j in range(i + 1, len(ins)) if ins[j][0] < t]
         ops = {ins[j][1] for j in body}
-        if "STS" in ops:
-            w, name = 1.0 / per, "once a block"
-        elif "STG" in ops:
-            w, name = 0.0, "optional output"
-        else:
-            continue
-        for j in body:
-            weight[j] = min(weight[j], w)
-        regions[name] = len(body)
+        if "CALL" in ops and "BRA" not in ops:
+            for j in body:
+                weight[j] = 0.0
+            regions["slow path"] = regions.get("slow path", 0) + len(body)
     by_pipe, by_op = {}, {}
     for w, (_, op, _) in zip(weight, ins):
         by_op[op] = by_op.get(op, 0.0) + w
@@ -3333,7 +3353,7 @@ def spec_phase(torch, dev):
                         f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, verification "
                         f"dispatches {int(snap['dispatches_total'])}, fallbacks "
                         f"{int(snap['fallback_total'])}, launches {res[(kind, mode)]['launches']}, "
-                        f"noise kernel launches {res[(kind, mode)]['noise']}, graphs captured in "
+                        f"categorical kernel launches {res[(kind, mode)]['noise']}, graphs captured in "
                         f"the timed pass {captured}")
                 if mode == "on":
                     await forced(engine, vocab)
@@ -3394,8 +3414,8 @@ def spec_phase(torch, dev):
     # repetitive; it is reported, the streams and launches are checked.
     launched = all(all(v > 0 for v in res[(k, m)]["launches"].values())
                    for k in ("repetitive", "random") for m in ("off", "on"))
-    # The sampled (random) passes draw their noise from the threefry kernel;
-    # the all-greedy (repetitive) passes do no key work at all.
+    # The sampled (random) passes draw through the categorical kernel; the
+    # all-greedy (repetitive) passes do no key work at all.
     noise_ok = all(res[("random", m)]["noise"] > 0 and res[("repetitive", m)]["noise"] == 0
                    for m in ("off", "on"))
     forced_ok = all(res[(k, "forced")]["ok"] for k in ("repetitive", "random"))
@@ -3411,8 +3431,8 @@ def spec_phase(torch, dev):
             pair = (hist[j - 1], hist[j])
             hits += pair in seen
             seen.add(pair)
-    log(f"spec: both kernels launched in every timed pass {launched}; the noise kernel in the "
-        f"sampled passes only {noise_ok}; verification dispatches "
+    log(f"spec: both kernels launched in every timed pass {launched}; the categorical kernel in "
+        f"the sampled passes only {noise_ok}; verification dispatches "
         f"on the repetitive traffic {int(rep['dispatches_total'])}, acceptance "
         f"{rep['acceptance_rate']:.3f}, tokens/dispatch {rep['tokens_per_dispatch']:.2f}; output "
         f"tokens whose bigram was already in the history {hits} of {n * BENCH_OSL} "
@@ -4453,7 +4473,7 @@ def disagg_path(torch):
 
 
 PLAN_STREAM_ISL, PLAN_STREAM_OSL = 256, 2048  # D's one and D2's two live streams
-PLAN_SEED = 4545  # D's stream: seeded at MIGRATE_TEMPERATURE, so the noise kernel runs
+PLAN_SEED = 4545  # D's stream: seeded at MIGRATE_TEMPERATURE, so the categorical kernel runs
 PLAN_BURST, PLAN_BURST_OSL = 3, 8  # 2040-id prompts at once through the fresh frontend
 PLAN_WARM_OSL = 400  # D's seeded warm-up stream, live while remote prompts land beside it
 PLAN_AFTER, PLAN_AFTER_OSL = 4, 16  # remote prompts after the flip, one at a time
@@ -4922,63 +4942,210 @@ def planner_path(torch, ctx):
 
 NOISE_V = 128256  # llama-3.1-8b's vocabulary
 NOISE_ROWS = (16, 256)  # a serve dispatch's rows and phase c/e's
-NOISE_ULP = 2.0  # Gumbel values: within 2 ulp at the scale max(|g|, 1)
-# The noise kernel's operations an element come from its SASS, by pipe
-# (``noise_sass``): threefry-2x32's 20 rounds of add, rotate and xor, the key
-# injections, the uniform and the two logs, as the compiler scheduled them.
+NOISE_ULP = 2.0  # the noise entry's Gumbel values: within 2 ulp at the scale max(|g|, 1)
+CATEGORICAL_THREADS = 1024  # threads a CTA (csrc/threefry_gumbel.cu THREADS)
+CATEGORICAL_TEMPERATURES = (1e-7, 0.7, 2.0, None)  # None: rows already scaled
+# The function's own instructions an element, what any kernel that draws
+# jax.random.categorical's token must issue: threefry-2x32's 20 rounds of
+# add, rotate and xor, its key injections (two adds each of 5), the
+# uniform (shift-or, subtract, add and the row's id), two accurate logs
+# (about 17 each), the IEEE division (about 8), the add and the compare.
+CATEGORICAL_FLOOR_OPS = {"threefry rounds": 60, "key injections": 10, "uniform": 5,
+                         "two logf": 35, "division": 8, "add and compare": 3}
 
 
 def noise_launches():
+    """Launches of the sampler's kernel (csrc/threefry_gumbel.cu's
+    categorical draw, the launch the main path makes)."""
     from dynamo_tpu_torch.ops import sampling as smp
 
-    return smp.gumbel_noise_cuda.launches
+    return smp.categorical_cuda.launches
 
 
 def zero_noise_launches():
     from dynamo_tpu_torch.ops import sampling as smp
 
-    smp.gumbel_noise_cuda.launches = 0
+    smp.categorical_cuda.launches = 0
 
 
-def noise_sass():
-    """The noise kernel's SASS instructions an element, by pipe (thread 0's
-    row key counted 1/256: it runs once a block of 256 elements), logged
-    with the opcodes; None without cuobjdump."""
+def categorical_sass():
+    """The SASS of the categorical kernel the main path launches
+    (``categorical_kernel<4, true, false>``: float4 rows, divided by the
+    temperature, not profiled), or None without cuobjdump."""
     from dynamo_tpu_torch.ops import _build
 
     listing = sass_listing(_build._target(_build.CSRC / "threefry_gumbel.cu"),
-                           "threefry_gumbel_kernel")
+                           "categorical_kernelILi4ELb1ELb0E")
     if not listing:
         log("sass threefry_gumbel: cuobjdump not found or no kernel; the bound counts bytes only")
-        return None
-    by_pipe, by_op, regions = sass_per_element(listing)
-    log(f"sass threefry_gumbel: {sum(by_pipe.values()):.2f} instructions an element by pipe "
-        f"{({k: round(v, 2) for k, v in sorted(by_pipe.items())})}; by opcode "
-        f"{({k: round(v, 2) for k, v in sorted(by_op.items())})}; guarded regions "
-        f"(instructions) {regions}: thread 0's row key counted 1/256, the bits output 0 "
-        f"[{CARD}]")
-    return by_pipe
+    return listing
+
+
+def categorical_case(torch, dev, B, V, temperature):
+    """The checks' inputs: random logits with, from row 1 on, a constant
+    row (the noise alone decides), a row at -1e30 but one id and a NaN row
+    (NaNs at 7 and V - 5); seeds and steps with 0 and 2**32 - 1 among
+    them; the last row at a second temperature."""
+    gen = torch.Generator(device=dev).manual_seed(B * 31 + V)
+    x = torch.randn((B, V), generator=gen, device=dev) * 3
+    seeds = torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
+    steps = torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
+    seeds[0], steps[0] = 2**32 - 1, 0
+    seeds[1], steps[1] = 0, 2**32 - 1
+    x[1] = 0.5
+    x[2] = -1e30
+    x[2, V // 3] = -2.0
+    x[3, [7, V - 5]] = float("nan")
+    t = None
+    if temperature is not None:
+        t = torch.full((B,), temperature, device=dev)
+        t[-1] = 0.7 if temperature != 0.7 else 2.0
+    return x, t, seeds, steps
+
+
+SPLIT_LAUNCHES = 5  # profiled launches of the draw, a row count
+
+
+def categorical_split(torch, smp, x, temperature, seeds, steps, flush, clock_hz, kernel_ms):
+    """Where a launch of the categorical draw spends its time: the kernel's
+    profiled instantiation (``threefry_categorical_profile_launch``: the
+    main path's code, with thread 0 of each CTA stamping its parts) on the
+    timed inputs, SPLIT_LAUNCHES launches queued behind a spin kernel, each
+    with L2 flushed before it and CUDA events around it.  Per launch: its
+    event time, the span from the first CTA's start to the last one's end
+    and the spread of the CTAs' starts (global timer), the event time less
+    the span (the launch's time outside its CTAs), and per CTA the SM
+    cycles of the row key, of its loop up to its last warp's end (thread
+    0's own loop apart) and of the CTA's reduction and atomics, at
+    ``clock_hz``; the medians over launches.  Beside them ``kernel_ms``
+    (the unprofiled kernel's timed median) and an empty launch's event
+    time in the same setting (``torch.cuda._sleep(0)``, one thread): the
+    floor of what the events add around a launch.  The stamps cost a few
+    registers and reads, and the compiler may move arithmetic across
+    them, so the split is approximate.  Returns the split in
+    microseconds, or raises if a profiled launch's tokens are not the
+    kernel's."""
+    from dynamo_tpu_torch.ops import _build
+
+    B, V = x.shape
+    dev = x.device
+    sms = sm_count(torch)
+    lib = smp._lib()
+    ctas = lib.threefry_categorical_ctas(B, V, sms, 1)
+    L = SPLIT_LAUNCHES
+    want = smp.categorical_cuda(x, temperature, seeds, steps)
+    prof = torch.zeros((L, B * ctas, 8), dtype=torch.int64, device=dev)
+    state = torch.zeros((L, B, 2), dtype=torch.int64, device=dev)
+    tokens = torch.empty((L, B), dtype=torch.int64, device=dev)
+    p = _build.ptr
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        state.zero_()
+        torch.cuda._sleep(SPIN_CYCLES * 4**attempt)
+        spun = torch.cuda.Event()
+        spun.record()
+        pairs = []
+        for i in range(L):
+            flush.zero_()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            code = lib.threefry_categorical_profile_launch(
+                p(x), p(temperature), p(seeds), p(steps), p(state[i]), p(tokens[i]), p(prof[i]),
+                B, V, sms, _build.stream_ptr(dev))
+            _build.check(lib, code, "threefry_categorical_profile")
+            ev[1].record()
+            pairs.append(ev)
+        queued_in_time = not spun.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            break
+    else:
+        raise RuntimeError("the host could not queue the profiled launches within the spin")
+    if not all(torch.equal(tokens[i], want) for i in range(L)):
+        raise RuntimeError(f"the profiled draw's tokens at B={B} are not the kernel's")
+    parts = {k: [] for k in ("event", "span", "start_spread", "outside", "key", "key_max",
+                             "loop", "loop_max", "own_loop", "reduce", "reduce_max", "cta",
+                             "cta_max")}
+    steps_ns = []
+    us = 1e6 / clock_hz
+    for i, (s, e) in enumerate(pairs):
+        w = prof[i].cpu().double()
+        start, end = w[:, 0], w[:, 1]
+        key, own, wait, red = w[:, 2] * us, w[:, 3] * us, w[:, 4] * us, w[:, 5] * us
+        cta = key + own + wait + red
+        event = s.elapsed_time(e) * 1e3
+        span = float(end.max() - start.min()) / 1e3
+        parts["event"].append(event)
+        parts["span"].append(span)
+        parts["start_spread"].append(float(start.max() - start.min()) / 1e3)
+        parts["outside"].append(event - span)
+        for name, v in (("key", key), ("loop", own + wait), ("reduce", red), ("cta", cta)):
+            parts[name].append(float(v.mean()))
+            if name + "_max" in parts:
+                parts[name + "_max"].append(float(v.max()))
+        parts["own_loop"].append(float(own.mean()))
+        gaps = torch.cat([start, end]).unique().diff()
+        steps_ns.append(float(gaps.min()) if gaps.numel() else 0.0)
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    split["timer_step_ns"] = min(steps_ns)
+    split["empty_launch"] = cuda_ms(torch, lambda: torch.cuda._sleep(0), 20, flush) * 1e3
+    log(f"split threefry_gumbel categorical B={B} V={V} ({ctas} CTAs a row, {B * ctas} CTAs; "
+        f"median of {L} profiled launches behind a spin, L2 flushed; us): a profiled launch "
+        f"{split['event']:.2f} by its events (the kernel's timed median {kernel_ms * 1e3:.2f}; "
+        f"an empty launch {split['empty_launch']:.2f}); the CTAs' span {split['span']:.2f} "
+        f"(their starts spread over {split['start_spread']:.2f}), so {split['outside']:.2f} "
+        f"outside it (launch and drain); a CTA's row key {split['key']:.2f} (max "
+        f"{split['key_max']:.2f}), its loop to its last warp {split['loop']:.2f} (max "
+        f"{split['loop_max']:.2f}; thread 0's own {split['own_loop']:.2f}), its reduction and "
+        f"atomics {split['reduce']:.2f} (max {split['reduce_max']:.2f}); a CTA "
+        f"{split['cta']:.2f} (max {split['cta_max']:.2f}) at {clock_hz / 1e6:.0f} MHz; the "
+        f"global timer's least step {split['timer_step_ns']:.0f} ns [{CARD}]")
+    return split
 
 
 def check_noise_kernel(torch, dev, tally):
-    """Phase j, part 1: csrc/threefry_gumbel.cu against its plain version
-    at B = 16 and 256 over the llama-3.1-8b vocabulary, on ragged seeds and
-    steps (0 and 2**32 - 1 among them): the uint32 bits exactly, the Gumbel
-    values within NOISE_ULP ulp at the scale max(|g|, 1), and the sampled
-    token of ``argmax(logits + g)`` on random logits; then timed (rounds of
-    20 launches, L2 flushed) beside the plain version and the bound: the
-    larger of the [B, V] f32 write and each pipe's time for the kernel's
-    SASS instructions an element (``noise_sass``) at the SM clock sampled
-    while it ran.  Returns {B: timings}."""
+    """Phase j, part 1: csrc/threefry_gumbel.cu.  Its noise entry against
+    the plain version at B = 16 and 256 over the llama-3.1-8b vocabulary,
+    on ragged seeds and steps (0 and 2**32 - 1 among them): the uint32 bits
+    exactly, the Gumbel values within NOISE_ULP ulp at the scale
+    max(|g|, 1), the tokens of ``argmax(logits + g)`` equal.  The
+    categorical draw's Gumbel code bit for bit ``gumbel_from_bits``'s
+    (torch.log on the card) on all 2^23 uniforms.  The categorical draw
+    against ``categorical_plain`` at B = 16 and 256 on
+    ``categorical_case``'s rows at each of CATEGORICAL_TEMPERATURES: equal
+    tokens, the NaN row's its first NaN (torch.argmax's), the -1e30 row's
+    its one id.  Then timed in turns (TIMING_ROUNDS rounds of 20 launches,
+    L2 flushed): the kernel and the unfused path it replaced (eager
+    division, the noise entry, eager add and argmax); the plain version
+    once, over 3 launches.  The bound is the larger of x read once with the
+    tokens written, and the function's own instructions
+    (CATEGORICAL_FLOOR_OPS) at the issue rate and the SM clock sampled
+    while it ran; the kernel's SASS an element by pipe
+    (``sass_per_element``) and its pipe and issue times are logged beside
+    it, not bound.  Then ``categorical_split``.  Returns {B: timings}."""
     from dynamo_tpu_torch.ops import sampling as smp
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     sms = sm_count(torch)
-    per_element = noise_sass()
+    listing = categorical_sass()
+    # The draw's Gumbel code on every uniform: the 23 bits that make one.
+    table = torch.arange(2**23, dtype=torch.int64, device=dev) << 9
+    got = smp.gumbel_of_bits_cuda(table.to(torch.int32))
+    want = smp.gumbel_from_bits(table)
+    torch.cuda.synchronize()
+    exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float((got - want).abs().max())
+    tally.worst["threefry_gumbel"] = max(tally.worst["threefry_gumbel"], err)
+    log(f"check threefry_gumbel gumbel on all 2^23 uniforms: bitwise torch.log's {exact}, "
+        f"max_abs_err={err:.3e} {'ok' if exact else 'FAIL'}")
+    if not exact:
+        tally.failures.append("threefry_gumbel gumbel table")
+    del table, got, want
     out = {}
     for B in NOISE_ROWS:
+        # -- the noise entry, bit for bit
         seeds = torch.randint(0, 2**32, (B,), generator=gen, device=dev, dtype=torch.int64)
         steps = torch.randint(0, 4096, (B,), generator=gen, device=dev, dtype=torch.int64)
         seeds[0], steps[0] = 2**32 - 1, 0
@@ -4997,42 +5164,97 @@ def check_noise_kernel(torch, dev, tally):
         tokens_ok = torch.equal((logits + got).argmax(-1), (logits + want).argmax(-1))
         ok = bits_ok and ulps <= NOISE_ULP and tokens_ok and bool(torch.isfinite(got).all())
         tally.worst["threefry_gumbel"] = max(tally.worst["threefry_gumbel"], err)
-        log(f"check threefry_gumbel B={B} V={NOISE_V}: bits equal {bits_ok}, gumbel "
+        log(f"check threefry_gumbel noise entry B={B} V={NOISE_V}: bits equal {bits_ok}, gumbel "
             f"max_abs_err={err:.3e} ({ulps:.2f} ulp at max(|g|,1), tol {NOISE_ULP}), "
             f"categorical tokens equal {tokens_ok} {'ok' if ok else 'FAIL'}")
         if not ok:
-            tally.failures.append(f"threefry_gumbel B={B}")
+            tally.failures.append(f"threefry_gumbel noise B={B}")
         del bits, want_bits, want, scale, ulp, logits, got
 
+        # -- the categorical draw against categorical_plain
+        for temp in CATEGORICAL_TEMPERATURES:
+            x, t, cseeds, csteps = categorical_case(torch, dev, B, NOISE_V, temp)
+            got = smp.categorical_cuda(x, t, cseeds, csteps)
+            want = smp.categorical_plain(x, t, cseeds, csteps)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            edges = int(got[3]) == 7 and int(got[2]) == NOISE_V // 3
+            ok = equal and edges and got.dtype == torch.int64
+            log(f"check threefry_gumbel categorical B={B} V={NOISE_V} temperature {temp}: tokens "
+                f"equal {equal} ({int((got != want).sum())} of {B} differ), the NaN row's token "
+                f"{int(got[3])} (its first NaN 7, torch.argmax {int(want[3])}), the -1e30 "
+                f"row's {int(got[2])} (its one id {NOISE_V // 3}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                tally.failures.append(f"threefry_gumbel categorical B={B} t={temp}")
+            del x, t, got, want
+
+        # -- timed in turns: the kernel and the unfused path; the plain
+        # version once (its ~38 ms a call at 256 rows)
+        x = torch.randn((B, NOISE_V), generator=gen, device=dev) * 3
+        temperature = torch.full((B,), MIGRATE_TEMPERATURE, device=dev)
+
         def kernel():
-            return smp.gumbel_noise_cuda(seeds, steps, NOISE_V)
+            return smp.categorical_cuda(x, temperature, seeds, steps)
+
+        def unfused_path():
+            noise = smp.gumbel_noise_cuda(seeds, steps, NOISE_V)
+            return (x / temperature.clamp(min=smp.MIN_TEMPERATURE)[:, None] + noise).argmax(-1)
 
         def plain():
-            return smp.gumbel_noise_plain(seeds, steps, NOISE_V)
+            return smp.categorical_plain(x, temperature, seeds, steps)
 
-        rounds, clocks = during(lambda: [cuda_ms(torch, kernel, 20, flush)
-                                         for _ in range(TIMING_ROUNDS)])
+        def turns():
+            rounds = {"ms": [], "unfused_ms": []}
+            for _ in range(TIMING_ROUNDS):
+                for key, fn in (("ms", kernel), ("unfused_ms", unfused_path)):
+                    rounds[key].append(cuda_ms(torch, fn, 20, flush))
+            return rounds
+
+        rounds, clocks = during(turns)
         clock = run_clock_hz(clocks)
-        nbytes = B * NOISE_V * 4 + 2 * B * 8
+        # The plain version's ~150 launches a call overflow the launch queue
+        # behind a spin: it is timed without one, its device time far above
+        # the host's time to launch it.
+        plain_ms = cuda_ms(torch, plain, 3, flush, spin=False)
+        ctas = smp._lib().threefry_categorical_ctas(B, NOISE_V, sms, 1)
+        per_thread = NOISE_V / (ctas * CATEGORICAL_THREADS)
+        nbytes = B * NOISE_V * 4 + B * 8 + B * (8 + 8 + 4)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        times = pipe_times_ms(per_element, B * NOISE_V, sms, clock) if per_element else {}
-        pipes = {p: t for p, t in times.items() if p != "issue"}
-        worst = max(pipes, key=pipes.get) if pipes else None
-        bound_ms = max([t_bytes] + list(pipes.values()))
-        r = dict(ms=statistics.median(rounds), rounds=rounds, bound_ms=bound_ms,
-                 bound_by="bytes" if bound_ms == t_bytes else "operations",
-                 bound_pipe=None if bound_ms == t_bytes else worst, pipe_ms=times,
-                 sass_per_element=per_element, clock_mhz=clock / 1e6, clock_samples=clocks,
-                 plain_ms=cuda_ms(torch, plain, 3, flush, spin=False), library_ms=None)
-        log(f"time threefry_gumbel [B={B} V={NOISE_V}, int64 seeds/steps -> f32]: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none (PyTorch has no "
-            f"threefry), bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
-            f"{'' if r['bound_pipe'] is None else ', the ' + r['bound_pipe'] + ' pipe'}: "
-            f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms; "
-            f"pipes at {clock / 1e6:.0f} MHz on {sms} SMs {({k: round(v, 4) for k, v in times.items()})}"
-            f" ms), {r['ms'] / r['bound_ms']:.2f}x the bound [{CARD}]; rounds "
-            f"{[round(x, 4) for x in rounds]}")
+        floor_ops = sum(CATEGORICAL_FLOOR_OPS.values())
+        t_ops = B * NOISE_V * floor_ops / (PIPE_LANES["issue"] * sms * clock) * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        r = dict(ms=statistics.median(rounds["ms"]),
+                 unfused_ms=statistics.median(rounds["unfused_ms"]), plain_ms=plain_ms,
+                 rounds=rounds, bound_ms=bound_ms,
+                 bound_by="bytes" if bound_ms == t_bytes else "operations", ctas=ctas,
+                 clock_mhz=clock / 1e6, clock_samples=clocks, library_ms=None)
+        # Diagnostics, not the bound: the kernel's own SASS by pipe.
+        times = {}
+        if listing:
+            per_element, by_op, regions = sass_per_element(listing, 4, per_thread)
+            times = pipe_times_ms(per_element, B * NOISE_V, sms, clock)
+            log(f"sass threefry_gumbel categorical_kernel<4, true> at B={B} ({ctas} CTAs a row, "
+                f"{per_thread:.1f} elements a thread): {sum(per_element.values()):.2f} "
+                f"instructions an element (the function's {floor_ops}) by pipe "
+                f"{({k: round(v, 2) for k, v in sorted(per_element.items())})}; by opcode "
+                f"{({k: round(v, 2) for k, v in sorted(by_op.items())})}; regions "
+                f"(instructions) {regions}; its pipe and issue times at {clock / 1e6:.0f} MHz on "
+                f"{sms} SMs {({k: round(v, 4) for k, v in times.items()})} ms, the kernel "
+                f"{r['ms'] / times['issue']:.2f}x its own issue time [{CARD}]")
+        log(f"time threefry_gumbel categorical [B={B} V={NOISE_V}, f32 logits at temperature "
+            f"{MIGRATE_TEMPERATURE} -> int64 tokens; {ctas} CTAs a row]: kernel {r['ms']:.4f} ms, "
+            f"the unfused path (eager division, noise entry, eager add and argmax) "
+            f"{r['unfused_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (3 launches), library none "
+            f"(no one PyTorch call draws it); bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms; the "
+            f"function's {floor_ops} instructions an element {CATEGORICAL_FLOOR_OPS} at "
+            f"{PIPE_LANES['issue']} lanes a clock an SM, {clock / 1e6:.0f} MHz, {sms} SMs = "
+            f"{t_ops:.4f} ms), {r['ms'] / r['bound_ms']:.2f}x the bound [{CARD}]; rounds "
+            f"{ {k: [round(v, 4) for v in vs] for k, vs in rounds.items()} }")
+        r["split"] = categorical_split(torch, smp, x, temperature, seeds, steps, flush, clock,
+                                       r["ms"])
         out[B] = r
+        del x
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -5344,7 +5566,8 @@ def migrate_pull_path(torch, noise_times):
                 log(f"migrate: a fused dispatch ({DISPATCH_PROMPTS} live rows of 16, 8 steps) "
                     f"greedy {out['dispatch_greedy_ms']:.3f} ms ({n_g} dispatches), sampled at "
                     f"temperature {MIGRATE_TEMPERATURE} {out['dispatch_sampled_ms']:.3f} ms "
-                    f"({n_s}); the noise kernel at 16 rows {noise_times[16]['ms']:.4f} ms a step")
+                    f"({n_s}); the categorical draw at 16 rows {noise_times[16]['ms']:.4f} ms a "
+                    f"step")
 
                 # -- live migration through the KV frontend ----------------
                 prompts = dist_prompts(MIGRATE_STREAMS, MIGRATE_ISL, 61)
@@ -9206,7 +9429,7 @@ def main() -> int:
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         with model_depth(PATH_CUT_LAYERS):
             ok_disagg, disagg_launches, _, (ok_planner, planner_launches, _) = disagg_path(torch)
-        # Phase j: the sampler's noise kernel, then two workers again.
+        # Phase j: the sampler's kernel, then two workers again.
         gc.collect()
         torch.cuda.empty_cache()
         with torch.inference_mode():
@@ -9319,21 +9542,26 @@ def main() -> int:
                                    mixed_step_bound_ms=tm["mixed"]["bound_ms"],
                                    mixed_step_library_ms=None,
                                    mixed_step_decode_rows_ms=tm["mixed"]["decode_rows_ms"])
-        # The sampler's noise kernel has no Pallas counterpart (the JAX
-        # package draws jax.random's noise in XLA); its path is the sampled
-        # traffic, so its launches are phase j's (worker A) and phase e's.
+        # The sampler's categorical draw has no Pallas counterpart (the JAX
+        # package draws with jax.random.categorical in XLA); its path is the
+        # sampled traffic, so its launches are phase j's (worker A) and
+        # phase e's.  max_abs_err is the Gumbel values' (all 2^23 uniforms,
+        # and the noise entry's); the tokens are compared for equality.
         nt = noise_times[max(NOISE_ROWS)]
+        timing_keys = ("ms", "unfused_ms", "plain_ms", "bound_ms", "bound_by", "ctas")
         kernels.append({
             "name": "threefry_gumbel", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/threefry_gumbel.cu",
-            "replaces": "dynamo_tpu/ops/sampling.py:105 (jax.random in XLA, no Pallas kernel)",
+            "replaces": "dynamo_tpu/ops/sampling.py:165 (jax.random.categorical in XLA, no "
+                        "Pallas kernel)",
             "launches": migrate_launches["threefry_gumbel"],
             "max_abs_err": tally.worst["threefry_gumbel"],
             "ms": nt["ms"], "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
             "bound_by": nt["bound_by"], "library_ms": None,
             "checks_passed": not any(f.startswith("threefry_gumbel") for f in tally.failures),
             "shape": f"B={max(NOISE_ROWS)} V={NOISE_V}",
-            "rows16": {k: noise_times[16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "unfused_ms": nt["unfused_ms"], "ctas": nt["ctas"],
+            "rows16": {k: noise_times[16][k] for k in timing_keys},
             "spec_launches": {k: spec[(k, "on")]["noise"] for k in ("repetitive", "random")},
             "migrate_launches": migrate_launches["threefry_gumbel"],
             "bulk_launches": bulk_launches["threefry_gumbel"],
@@ -9341,8 +9569,7 @@ def main() -> int:
             "sdk_launches": p_launches.get("threefry_gumbel", 0),
             "parallel_launches": q_launches.get("threefry_gumbel", 0),
             "tp_tiers_launches": r_launches.get("threefry_gumbel", 0),
-            "bound_pipe": nt["bound_pipe"], "pipe_ms": nt["pipe_ms"],
-            "sass_per_element": nt["sass_per_element"], "clock_mhz": nt["clock_mhz"],
+            "clock_mhz": nt["clock_mhz"],
         })
         # The restore's CRC kernel has no Pallas counterpart (the JAX
         # package verifies a host block with zlib on the host); its path is

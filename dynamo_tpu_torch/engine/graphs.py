@@ -57,7 +57,7 @@ import torch
 
 from ..ops.decode_attention import decode_attention_cuda
 from ..ops.prefill_attention import prefill_attention_cuda
-from ..ops.sampling import gumbel_noise_cuda
+from ..ops.sampling import categorical_cuda
 
 ALIGN = 64  # byte alignment of every field in a staging buffer / arena
 
@@ -69,9 +69,10 @@ _TORCH = {
 }
 
 # The hand-written kernels' wrappers, whose ``launches`` counters replays
-# advance.
+# advance.  "threefry_gumbel" is the sampler's categorical draw, the launch
+# of csrc/threefry_gumbel.cu that the main path makes.
 KERNELS = {"decode_attention": decode_attention_cuda, "prefill_attention": prefill_attention_cuda,
-           "threefry_gumbel": gumbel_noise_cuda}
+           "threefry_gumbel": categorical_cuda}
 
 
 def kernel_launches() -> Dict[str, int]:

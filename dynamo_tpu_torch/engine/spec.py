@@ -9,7 +9,7 @@ graph per token bucket on CUDA).  Row ``j`` feeds position
 sequence's own page table and is sampled with its rng ``steps`` at the
 output index of its own position (``_sampling_arrays(step_offsets=)``).
 The sampler's noise is a pure function of ``(seed, step, token)``
-(ops/sampling.py ``gumbel_noise``), so the sample at a position depends
+(ops/sampling.py ``categorical``), so the sample at a position depends
 only on the committed prefix, not on how it was batched.
 
 Acceptance is exact-stream: the longest draft prefix matching the sampled

@@ -29,7 +29,8 @@ from .protocols import SamplingOptions, StopConditions
 
 # -- field converters (pydantic lax mode, for JSON values) -------------------
 
-_INT_STR = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
+_INT_DIGITS = re.compile(r"-?(?:0|[1-9][0-9]*)")
+_DECIMAL_ZEROS = re.compile(r"\.0+$")
 _TRUE = frozenset(("1", "on", "t", "true", "y", "yes"))
 _FALSE = frozenset(("0", "off", "f", "false", "n", "no"))
 
@@ -41,11 +42,37 @@ def _int(v: Any) -> int:
         return v
     if isinstance(v, float) and math.isfinite(v) and v == int(v) and abs(v) < 2**63:
         return int(v)
-    if isinstance(v, str):
+    if isinstance(v, str) and v.isascii():
         s = v.strip()
-        if s.isascii() and _INT_STR.fullmatch(s):
-            return int(s.split(".")[0])
+        for text in (s, _DECIMAL_ZEROS.sub("", s)):
+            n = _int_str(text)
+            if n is not None:
+                return n
     raise ValueError(f"expected an integer, got {v!r}")
+
+
+def _int_str(s: str) -> Optional[int]:
+    """pydantic-core's string-to-int steps, quirks included: the sign is set
+    aside, leading zeros and underscores are dropped up to the first other
+    character (so ``"0-1"`` is -1), the sign goes back on, underscores that
+    are neither doubled nor trailing go, and what is left must be a JSON
+    integer."""
+    sign = s[:1] if s[:1] in ("-", "+") else ""
+    rest = s[len(sign):]
+    if not rest or rest[0] not in "0123456789":
+        return None
+    if rest[0] == "0":
+        for i, c in enumerate(rest):
+            if c not in "0_":
+                rest = rest[i:] if c in "123456789-" else ""
+                break
+        else:
+            rest = rest[-1]
+    text = (sign if sign == "-" else "") + rest
+    if text.endswith("_") or "__" in text:
+        return None
+    text = text.replace("_", "")
+    return int(text) if _INT_DIGITS.fullmatch(text) else None
 
 
 def _float(v: Any) -> float:
@@ -55,10 +82,15 @@ def _float(v: Any) -> float:
         except OverflowError:
             pass
     elif isinstance(v, str) and v.isascii():
-        try:
-            return float(v)
-        except ValueError:
-            pass
+        # pydantic drops underscores that are neither leading, trailing nor
+        # doubled, and then no longer trims white space.
+        s = v.replace("_", "")
+        if s == v or not (v.startswith("_") or v.endswith("_") or "__" in v
+                          or v != v.strip()):
+            try:
+                return float(s)
+            except ValueError:
+                pass
     raise ValueError(f"expected a number, got {v!r}")
 
 

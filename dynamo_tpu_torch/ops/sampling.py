@@ -16,8 +16,11 @@ threefry-2x32 construction of ``jax.random.categorical`` under
 ``jax_threefry_partitionable=True`` (the default of the JAX package's
 jax), ``gumbel``'s "low" mode.  A sampled stream therefore continues
 exactly across the two packages (a resumed or migrated stream may land on
-either).  ``gumbel_noise`` routes by device: CUDA tensors launch
-``csrc/threefry_gumbel.cu``, CPU tensors take ``gumbel_noise_plain``.
+either).  The sampled rows' draw is ``categorical``, the Gumbel-max
+``argmax(x / temperature + g)`` of ``jax.random.categorical``; it routes
+by device: CUDA tensors launch ``csrc/threefry_gumbel.cu`` (noise,
+division, add and argmax in one kernel), CPU tensors take
+``categorical_plain``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+# Temperatures below this divide as this (the JAX sampler's floor).
+MIN_TEMPERATURE = 1e-6
+# Rows a sampler kernel launch takes (its grid's y dimension).
+MAX_KERNEL_ROWS = 65535
 # Top-k logprobs returned when logprobs are requested (the OpenAI API's
 # documented top_logprobs maximum).
 TOPK_LOGPROBS = 20
@@ -235,24 +242,42 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.threefry_gumbel_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.threefry_gumbel_launch.restype = ci
+    lib.threefry_categorical_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.threefry_categorical_launch.restype = ci
+    lib.threefry_categorical_profile_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                                        vp]
+    lib.threefry_categorical_profile_launch.restype = ci
+    lib.threefry_categorical_ctas.argtypes = [ci, ci, ci, ci]
+    lib.threefry_categorical_ctas.restype = ci
+    lib.gumbel_of_bits_launch.argtypes = [vp, vp, ci, vp]
+    lib.gumbel_of_bits_launch.restype = ci
     return lib
 
 
-def gumbel_noise_cuda(seeds: torch.Tensor, steps: torch.Tensor, V: int,
-                      bits: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch csrc/threefry_gumbel.cu on the current stream (no sync): one
-    thread per (row, id).  ``bits`` (a [B, V] int32 tensor, tests and
-    chip_smoke.py) also receives the raw uint32 bits."""
-    dev = seeds.device
-    if dev.type != "cuda" or steps.device != dev:
-        raise ValueError(f"CUDA kernel given tensors on {seeds.device}/{steps.device}")
-    B = seeds.shape[0]
+def _check_rows(dev: torch.device, seeds: torch.Tensor, steps: torch.Tensor, B: int) -> None:
+    """The [B] int64 seeds and steps a kernel takes, on ``dev``."""
+    if dev.type != "cuda" or seeds.device != dev or steps.device != dev:
+        raise ValueError(f"CUDA kernel given tensors on {dev}/{seeds.device}/{steps.device}")
     if seeds.shape != (B,) or steps.shape != (B,):
         raise ValueError(f"seeds {tuple(seeds.shape)} / steps {tuple(steps.shape)} are not [B]")
     if seeds.dtype != torch.int64 or steps.dtype != torch.int64:
         raise TypeError(f"seeds/steps must be int64, got {seeds.dtype}/{steps.dtype}")
     if not (seeds.is_contiguous() and steps.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
+    if B > MAX_KERNEL_ROWS:
+        raise ValueError(f"{B} rows: the kernels take at most {MAX_KERNEL_ROWS}")
+
+
+def gumbel_noise_cuda(seeds: torch.Tensor, steps: torch.Tensor, V: int,
+                      bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/threefry_gumbel.cu's noise entry on the current stream
+    (no sync): one thread per (row, id).  The sampler draws through
+    ``categorical``; this entry serves the checks (the bits against
+    ``random_bits_plain``, and the unfused draw chip_smoke.py times).
+    ``bits`` (a [B, V] int32 tensor) also receives the raw uint32 bits."""
+    dev = seeds.device
+    B = seeds.shape[0] if seeds.dim() == 1 else -1
+    _check_rows(dev, seeds, steps, B)
     if bits is not None and (bits.shape != (B, V) or bits.dtype != torch.int32
                              or bits.device != dev or not bits.is_contiguous()):
         raise ValueError("bits must be a contiguous [B, V] int32 tensor on the same device")
@@ -262,22 +287,78 @@ def gumbel_noise_cuda(seeds: torch.Tensor, steps: torch.Tensor, V: int,
     code = lib.threefry_gumbel_launch(p(seeds), p(steps), p(out), p(bits), B, V,
                                       _build.stream_ptr(dev))
     _build.check(lib, code, "threefry_gumbel")
-    gumbel_noise_cuda.launches += 1
     return out
 
 
-gumbel_noise_cuda.launches = 0  # kernel launches (chip_smoke.py reads it)
+def gumbel_of_bits_cuda(bits: torch.Tensor) -> torch.Tensor:
+    """The categorical kernel's Gumbel value of each int32 ``bits`` word (a
+    CUDA tensor), for the checks that hold it against ``gumbel_from_bits``
+    on every uniform; nothing on the main path calls it."""
+    if bits.device.type != "cuda" or bits.dtype != torch.int32 or not bits.is_contiguous():
+        raise ValueError("bits must be a contiguous int32 CUDA tensor")
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    lib = _lib()
+    code = lib.gumbel_of_bits_launch(_build.ptr(bits), _build.ptr(out), bits.numel(),
+                                     _build.stream_ptr(bits.device))
+    _build.check(lib, code, "gumbel_of_bits")
+    return out
 
 
-def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
-    """[B, V] f32 Gumbel(0, 1) noise, ``jax.random``'s bit for bit.  Routes
+def categorical_plain(x: torch.Tensor, temperature: Optional[torch.Tensor],
+                      seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """[B] int64 tokens ``argmax(x / max(temperature, 1e-6) + g)`` with
+    ``g`` the rows' ``gumbel_noise_plain`` (``jax.random.categorical``'s
+    Gumbel-max); ``temperature=None``: the rows are already scaled."""
+    if temperature is not None:
+        x = x / temperature.clamp(min=MIN_TEMPERATURE)[:, None]
+    return (x + gumbel_noise_plain(seeds, steps, x.shape[-1])).argmax(dim=-1)
+
+
+def categorical_cuda(x: torch.Tensor, temperature: Optional[torch.Tensor],
+                     seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/threefry_gumbel.cu's categorical draw on the current
+    stream (no sync): the noise, division, add and argmax fused, a row
+    over as many CTAs as the kernel picks; ``categorical_plain``'s
+    tokens."""
+    dev = x.device
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [B, V] float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    B, V = x.shape
+    _check_rows(dev, seeds, steps, B)
+    if not 1 <= V < 2**31:
+        raise ValueError(f"V = {V} ids: the kernel takes 1 to 2**31 - 1")
+    if temperature is not None and (
+            temperature.shape != (B,) or temperature.dtype != torch.float32
+            or temperature.device != dev or not temperature.is_contiguous()):
+        raise ValueError("temperature must be a contiguous [B] float32 tensor on the same device")
+    tokens = torch.empty((B,), dtype=torch.int64, device=dev)
+    state = torch.zeros((B, 2), dtype=torch.int64, device=dev)  # a row's best pair, CTAs done
+    lib = _lib()
+    p = _build.ptr
+    code = lib.threefry_categorical_launch(
+        p(x), p(temperature), p(seeds), p(steps), p(state), p(tokens), B, V,
+        torch.cuda.get_device_properties(dev).multi_processor_count, _build.stream_ptr(dev))
+    _build.check(lib, code, "threefry_categorical")
+    categorical_cuda.launches += 1
+    return tokens
+
+
+categorical_cuda.launches = 0  # kernel launches (engine/graphs.py, chip_smoke.py read it)
+
+
+def categorical(x: torch.Tensor, temperature: Optional[torch.Tensor],
+                seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """[B] int64 tokens of ``jax.random.categorical`` over the rows of
+    ``x / max(temperature, 1e-6)`` (``temperature=None``: ``x`` is already
+    scaled) under the rows' keys ``fold_in(PRNGKey(seed), step)``.  Routes
     by device: CUDA tensors launch the kernel (or raise), CPU tensors take
     the plain version.  No fallback."""
-    if seeds.device.type == "cuda":
-        return gumbel_noise_cuda(seeds, steps, V)
-    if seeds.device.type == "cpu":
-        return gumbel_noise_plain(seeds, steps, V)
-    raise ValueError(f"no Gumbel noise for device {seeds.device}")
+    if x.device.type == "cuda":
+        return categorical_cuda(x, temperature, seeds, steps)
+    if x.device.type == "cpu":
+        return categorical_plain(x, temperature, seeds, steps)
+    raise ValueError(f"no categorical draw for device {x.device}")
 
 
 def sample_tokens(
@@ -315,10 +396,12 @@ def sample_tokens(
         eff = torch.where(admissible, eff, NEG_INF)
     greedy = eff.argmax(dim=-1)
     if samp.any_sampled:
-        scaled = eff / samp.temperature.clamp(min=1e-6)[:, None]
-        if samp.any_filter:
-            scaled = _filtered_logits(scaled, samp.top_k, samp.top_p)
-        sampled = (scaled + gumbel_noise(samp.seeds, steps, V)).argmax(dim=-1)
+        if samp.any_filter:  # the sort needs the scaled rows
+            scaled = eff / samp.temperature.clamp(min=MIN_TEMPERATURE)[:, None]
+            sampled = categorical(_filtered_logits(scaled, samp.top_k, samp.top_p), None,
+                                  samp.seeds, steps)
+        else:
+            sampled = categorical(eff.contiguous(), samp.temperature, samp.seeds, steps)
         tokens = torch.where(samp.temperature <= 0.0, greedy, sampled)
     else:
         tokens = greedy

@@ -278,7 +278,83 @@ def test_threefry_gumbel_kernel_matches_plain(cuda, B, V):
     scale = torch.maximum(want.abs(), torch.ones_like(want))
     ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
     assert ((got.cpu().double() - want.double()).abs() / ulp.double()).max() <= 2.0
-    assert smp.gumbel_noise(seeds, steps, V).device == seeds.device  # routed to the kernel
+
+
+def _categorical_case(cuda, B, V, temperature):
+    """Rows of random logits with, from row 1 on, a constant row, a row at
+    -1e30 but one id and a NaN row (NaNs at 7 and V - 5); seeds and steps
+    with 0 and 2**32 - 1 among them; one row at a second temperature."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 31 + V)
+    x = torch.randn((B, V), generator=gen, device=cuda) * 3
+    seeds = torch.randint(0, 2**32, (B,), generator=gen, device=cuda, dtype=torch.int64)
+    steps = torch.randint(0, 2**32, (B,), generator=gen, device=cuda, dtype=torch.int64)
+    seeds[0], steps[0] = 2**32 - 1, 0
+    if B > 1:
+        seeds[1], steps[1] = 0, 2**32 - 1
+        x[1] = 0.5
+        x[2] = -1e30
+        x[2, V // 3] = -2.0
+        x[3, [7, V - 5]] = float("nan")
+    t = None
+    if temperature is not None:
+        t = torch.full((B,), temperature, device=cuda)
+        t[-1] = 0.7 if temperature != 0.7 else 2.0
+    return x, t, seeds, steps
+
+
+@pytest.mark.parametrize("temperature", [1e-7, 0.7, 2.0, None])
+@pytest.mark.parametrize("V", [128256, 128257])  # the llama-3 vocabulary, and a ragged tail
+@pytest.mark.parametrize("B", [1, 16, 256])
+def test_threefry_categorical_kernel_matches_plain(cuda, B, V, temperature):
+    """csrc/threefry_gumbel.cu's categorical draw against
+    ``categorical_plain`` on the same card: equal tokens (the first NaN's
+    index in a NaN row, as torch.argmax gives), and ``categorical`` routes
+    CUDA tensors to the kernel."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    x, t, seeds, steps = _categorical_case(cuda, B, V, temperature)
+    got = smp.categorical_cuda(x, t, seeds, steps)
+    want = smp.categorical_plain(x, t, seeds, steps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (B,)
+    assert torch.equal(got, want)
+    if B > 1:
+        assert int(got[3]) == 7 and int(got[2]) == V // 3
+    before = smp.categorical_cuda.launches
+    assert torch.equal(smp.categorical(x, t, seeds, steps), want)
+    assert smp.categorical_cuda.launches == before + 1  # routed to the kernel
+
+
+def test_categorical_gumbel_is_torch_log_on_every_uniform(cuda):
+    """The categorical kernel's Gumbel code (logf restricted to positive
+    normal inputs) against ``gumbel_from_bits`` (torch.log on the card),
+    bit for bit, on all 2^23 uniforms: the 23 bits that make one."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    bits = torch.arange(2**23, dtype=torch.int64, device=cuda) << 9
+    got = smp.gumbel_of_bits_cuda(bits.to(torch.int32))
+    want = smp.gumbel_from_bits(bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_categorical_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    x, t, seeds, steps = _categorical_case(cuda, 4, 1000, 0.7)
+    bad = [
+        (x.cpu(), t, seeds, steps),
+        (x.to(torch.bfloat16), t, seeds, steps),
+        (x.t().contiguous().t(), t, seeds, steps),  # not contiguous
+        (x, t, seeds.to(torch.int32), steps),
+        (x, t, seeds, steps[:3]),
+        (x, t.double(), seeds, steps),
+        (x, t[:3], seeds, steps),
+        (x[:, :0], t, seeds, steps),
+    ]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            smp.categorical_cuda(*args)
 
 
 @pytest.mark.parametrize("n,shape,dtype", [

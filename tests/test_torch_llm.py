@@ -241,6 +241,26 @@ JSON_SCALARS = st.one_of(
 @given(st.sampled_from(["max_tokens", "temperature", "stream", "n", "top_k", "top_p", "seed"]),
        JSON_SCALARS)
 def test_scalar_fields_accept_and_convert_like_pydantic(name, value):
+    _same_as_pydantic(name, value)
+
+
+# pydantic-core's string-to-number quirks: a run of leading zeros and
+# underscores is dropped before the sign is read ("0-1" is -1), single
+# underscores between digits are dropped, leading, trailing or doubled ones
+# refused.
+PYDANTIC_QUIRKS = ["0-0", "0-1", "+0-0", "00-0", "0__1", "1_0", " 1_0", "_1", "1_", "1__0",
+                   "-0_1", "0_0.0", "1_0.5", "0-1.0"]
+
+
+@pytest.mark.parametrize("name", ["max_tokens", "seed", "temperature"])
+@pytest.mark.parametrize("value", PYDANTIC_QUIRKS)
+def test_quirky_number_strings_parse_like_pydantic(name, value):
+    _same_as_pydantic(name, value)
+
+
+def _same_as_pydantic(name, value):
+    """The port's request parse of ``{name: value}`` gives the JAX
+    package's (pydantic's) value and type, or refuses as it does."""
     body = dict(COMPLETION, **{name: value})
     try:
         want = getattr(_parse(jopenai, body), name)

@@ -11,16 +11,22 @@ across packages.
   PyTorch; where ``g`` is near 0 (``-log(u)`` near 1) the outer log turns
   that ulp into many ulps of ``g`` itself, but never into more than 2 ulp
   of the logits it is added to.
+- ``categorical_plain`` gives ``jax.random.categorical``'s tokens exactly
+  under the same row keys: edge seeds and steps, constant rows (the noise
+  alone decides), a row at -1e30 but one id, a NaN row (its first NaN),
+  temperatures below the 1e-6 floor, and pre-scaled rows.
 - ``sample_tokens`` draws the tokens of the JAX package's ``sample_tokens``
-  for temperature, top-k, top-p and penalties, and an all-greedy step does
-  no key work.
+  for temperature, top-k, top-p and penalties, routes sampled rows through
+  ``categorical`` (with the temperature, or pre-scaled after the filters),
+  and an all-greedy step does no key work.
 - ``TorchEngine`` and ``TpuEngine`` on debug-tiny in f32 (the same seeded
   weights) give identical seeded temperature streams, and identical
   logprob values (within 1e-6) and top-k ids with logprobs 0–3 at
   ``decode_steps`` 1, 4 and 8.
 
-The CUDA kernel (``csrc/threefry_gumbel.cu``) is held against the plain
-version on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
+The CUDA kernel (``csrc/threefry_gumbel.cu``: the categorical draw and
+the noise entry) is held against the plain versions on the card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
 import asyncio
@@ -93,6 +99,83 @@ def test_plain_gumbel_within_two_ulp_of_jax_random_gumbel():
     assert ulps.max() <= 2.0, ulps.max()
 
 
+@jax.jit
+def _jax_categorical(seeds, steps, x):
+    return jax.vmap(jax.random.categorical)(jsamp._row_keys(seeds, steps), x)
+
+
+def _categorical_rows(B, V, rng):
+    """[B, V] f32 rows: random logits, then a constant row, a row at -1e30
+    but one id, a NaN row (NaNs at 7 and V - 5), and random again."""
+    x = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    if B > 1:
+        x[1] = 0.5
+        x[2] = jsamp.NEG_INF
+        x[2, V // 3] = -2.0
+        x[3, [7, V - 5]] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("V", [1000, 1003])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("temperature", [1e-7, 0.7, 2.0, None])
+def test_categorical_plain_equals_jax_random_categorical(B, V, temperature):
+    """``categorical_plain`` (and ``categorical`` on the CPU) against
+    ``jax.vmap(jax.random.categorical)`` over the JAX package's row keys:
+    equal tokens.  ``None``: rows already scaled, as after the filters."""
+    rng = np.random.default_rng(B * 10007 + V)
+    x = _categorical_rows(B, V, rng)
+    seeds = np.asarray([0, U32_MAX, 3, 2**31, 77][:B], np.uint32)
+    steps = np.asarray([U32_MAX, 0, 5, 1, 2**31 + 9][:B], np.uint32)
+    temp = None if temperature is None else np.full(B, temperature, np.float32)
+    if temp is not None and B > 1:
+        temp[4] = 0.7 if temperature != 0.7 else 2.0  # rows at two temperatures
+    scaled = x if temp is None else np.asarray(
+        jnp.asarray(x) / jnp.maximum(jnp.asarray(temp), 1e-6)[:, None])
+    want = np.asarray(_jax_categorical(jnp.asarray(seeds), jnp.asarray(steps),
+                                       jnp.asarray(scaled)))
+    t = None if temp is None else torch.as_tensor(temp)
+    got = tsamp.categorical_plain(torch.as_tensor(x), t, _i64(seeds), _i64(steps))
+    assert got.dtype == torch.int64 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(tsamp.categorical(torch.as_tensor(x), t, _i64(seeds), _i64(steps)), got)
+    if B > 1:
+        assert got[2] == V // 3  # the one id above -1e30
+        assert got[3] == 7  # the row's first NaN, as torch.argmax and jnp.argmax give
+        noise = tsamp.gumbel_noise_plain(_i64(seeds[1:2]), _i64(steps[1:2]), V)
+        assert got[1] == noise.argmax()  # a constant row: the noise alone decides
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["temperature", "top_k"])
+def test_sample_tokens_draws_sampled_rows_through_categorical(monkeypatch, filtered):
+    """Sampled rows take one ``categorical`` call: with the temperature on
+    unfiltered steps, pre-scaled (``None``) after top-k/top-p; the greedy
+    rows keep the argmax."""
+    calls = []
+    real = tsamp.categorical
+    monkeypatch.setattr(tsamp, "categorical",
+                        lambda x, t, *a: calls.append((x, t)) or real(x, t, *a))
+    B, V = 4, 50
+    logits = torch.randn(B, V, generator=torch.Generator().manual_seed(1))
+    temp = np.asarray([0.7, 0.0, 1.3, 0.9], np.float32)
+    topk = np.full(B, 5 if filtered else 0, np.int32)
+    z = np.zeros(B, np.float32)
+    samp = tsamp.SamplingParams.from_numpy(
+        CPU, np.arange(B), np.arange(B, dtype=np.int32), temp, topk, np.ones(B, np.float32),
+        z, z, torch.zeros((B, V), dtype=torch.int16), False)
+    assert samp.any_filter == filtered
+    tokens = tsamp.sample_tokens(logits, samp).tokens
+    assert len(calls) == 1
+    x, t = calls[0]
+    if filtered:
+        assert t is None and int((x[0] > jsamp.NEG_INF).sum()) == 5
+    else:
+        assert torch.equal(t, torch.as_tensor(temp)) and torch.equal(x, logits)
+    assert tokens[1] == logits[1].argmax()
+    want = tsamp.categorical_plain(x, t, samp.seeds, samp.steps)
+    assert tokens[[0, 2, 3]].tolist() == want[[0, 2, 3]].tolist()
+
+
 def _jax_sample(logits, seeds, steps, temp, topk, topp, fpen, ppen, counts):
     return jsamp.sample_tokens(
         jnp.asarray(logits), jnp.asarray(seeds), jnp.asarray(steps), jnp.asarray(temp),
@@ -144,8 +227,8 @@ def test_all_greedy_step_does_no_key_work(monkeypatch):
     """As the JAX sampler's outer ``lax.cond`` skips ``_row_keys``, an
     all-greedy step never draws noise."""
     calls = []
-    real = tsamp.gumbel_noise
-    monkeypatch.setattr(tsamp, "gumbel_noise", lambda *a: calls.append(a) or real(*a))
+    real = tsamp.categorical
+    monkeypatch.setattr(tsamp, "categorical", lambda *a: calls.append(a) or real(*a))
     B, V = 4, 50
     logits = torch.randn(B, V, generator=torch.Generator().manual_seed(0))
     z = np.zeros(B, np.float32)
