@@ -8,6 +8,8 @@
     python3 chip_smoke.py --parallel   # phase q alone
     python3 chip_smoke.py --tp-tiers   # phase r alone
     python3 chip_smoke.py --tune       # phase s alone
+    python3 chip_smoke.py --upload-causes  # phase g's upload under each candidate cause
+    python3 chip_smoke.py --chaos      # phase t alone
 
 Phases, any failure exits non-zero; every phase but s runs with
 DYN_DECODE_TUNE_TABLE at a path that does not exist (printed first), so
@@ -73,11 +75,18 @@ the kernels launch their built-in shapes:
      time calibration took) against its own tree dequantized to bf16: mean
      KL < 0.05 and decisive top-1 agreement at both depths; int8 pages vs
      bf16 pages on the W8A8 model: cosine > 0.99 at 4 layers, and at 32
-     1 - cosine within 8x the bf16 tree's under the same scales;
-  c. bench.py's geometry on one W8A8 + int8-KV ``auto`` engine (max_batch
+     1 - cosine within 8x the bf16 tree's under the same scales; then, at
+     both depths, fp8 and int8 pages (``tools/quant_quality.kv_rows``,
+     scales calibrated as ``kv_scale="auto"``) against bf16 pages on the
+     bf16 tree: KL, top-1 and cosine, the fp8 row's bars in
+     ``w8a8_model_check``;
+  c. the port's bench headline (``dynamo_tpu_torch.bench``) at its
+     default geometry, one W8A8 + int8-KV ``auto`` engine (max_batch
      256, max_model_len 256, 4160 pages, prefill_chunk 512, decode_steps 8,
-     pipeline_depth 8): 256 greedy requests, ISL 128, OSL 64, after
-     ``run_warmup()``, with no graph captured during the serve; then a
+     pipeline_depth 8): 256 greedy requests, ISL 128, OSL 64, after its
+     warmup and 4-token warm pass, with no graph captured during the
+     serve; its one line must carry the JAX contract's key set and name
+     the CUDA kernels (MFU against the H100's dense peaks); then a
      256-row unified step and the sampler with and without its grammar
      mask stage, which every unified step runs (all-ones words here);
   d. benchmarks/loadgen.py's self-hosted geometry through the port's
@@ -85,7 +94,7 @@ the kernels launch their built-in shapes:
      max_batch 24, max_model_len 4096, 6208 pages, prefill_chunk 2048,
      decode_steps 16, pipeline_depth 4): 24 concurrent streamed
      /v1/completions of 3000-token-id prompts, OSL 150, and /metrics;
-  e. speculation as bench.py's ``_spec_bench`` runs it: a fresh W8A8
+  e. speculation through the port's bench in its spec mode: a fresh W8A8
      engine at phase c's geometry per mode, off then on at k 8, 32
      requests of repetitive prompts (greedy) and of random prompts
      (temperature 0.7, seed i·7+1); the streams must be identical; then
@@ -132,7 +141,9 @@ the kernels launch their built-in shapes:
      its first pass; a chosen block's restored pages equal the bytes read
      after its first prefill, bitwise; the restored counts equal the
      engine's counter and the /metrics text; the host restore's TTFT is
-     below the first pass's; no graph is captured and no
+     below the first pass's (each restore's upload printed in its parts:
+     lock wait, allocation, enqueue, and the unpinned sources, beside the
+     interpreter's collections in the window); no graph is captured and no
      ``torch.cuda.synchronize`` runs while serving.  Then phase 6's 8
      concurrent requests on a host-tier engine and on one without tiers,
      in turns (the pump's cost on TTFT and ITL, not gated);
@@ -398,10 +409,10 @@ the kernels launch their built-in shapes:
      from zero across tp; its stream against tp 2's ungated); no started
      rank outlives its command;
   s. the tuned launch table: ``python -m dynamo_tpu_torch.tools.tune_decode``
-     (its ``main``, in this process) at the three geometries of the kernel
-     rows, full chains — the serve phase's 16 rows of 256 pages (bf16),
-     phase c's 256 rows of 16 pages and phase d's 24 rows of 256 pages
-     (int8) — into a temporary table: every decode (splits, ppcb) and
+     (its ``main``, in this process) at the serve phase's geometry, full
+     chains of 16 rows of 256 pages (bf16; the bench and loadgen
+     geometries were cut for phase t's time) into a temporary table:
+     every decode (splits, ppcb) and
      prefill split count printed beside the built-in launch and the bound,
      each held against the plain version (1e-2), the winners written; then
      each kernel row of phases 4 and a under its geometry's entry beside
@@ -413,8 +424,15 @@ the kernels launch their built-in shapes:
      entry's (part, J), no graph captured after warmup, the graph check,
      DYN_DECODE_SPLITS beating the table, and a fused decode dispatch with
      and without the table (an engine on the same weights) in turns;
+  t. the fault matrix and the chaos ladder on the card at 16 of
+     llama-3.1-8b's 32 layers: ``dynamo_tpu_torch.tools.fault_matrix``
+     with ``--engine`` (no UNEXPECTED or NOT RECOVERED row), then
+     ``dynamo_tpu_torch.tools.goodput``'s rungs L0, L1, L7 and L10 on
+     three ``TorchEngine`` workers sharing one weight tree (L10 spawns a
+     fourth from zero), under ``--check`` and cross-checked against that
+     matrix, every kernel of the ladder's path launched;
   8. print the kernels line (each kernel's int8 timings and its launches in
-     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q, r and s beside
+     phases c, d, e, f, g, h, i, j, k, l, m, n, o, p, q, r, s and t beside
      phase 6's and 7's, and its tuned time at each geometry of phase s; the
      categorical draw's in phases j, k, l, e, p and q), then the device line
      last.
@@ -474,6 +492,19 @@ def log(*a):
     line = " ".join(map(str, a))
     if _FAIL_RE.search(line):
         print(line, file=sys.stderr, flush=True)
+        _FAILED_LINES.append(line)
+
+
+_FAILED_LINES = []  # every failed check's line, repeated under the closing summary
+
+
+_T0 = time.perf_counter()
+
+
+def mark(phase):
+    """When a phase starts, in seconds since the script started (its wall
+    is the next mark's time less this one's)."""
+    log(f"phase {phase} starts at {time.perf_counter() - _T0:.1f} s")
 
 
 # ------------------------------------------------------------------ inputs
@@ -1964,7 +1995,9 @@ async def edge_path(torch, engine):
     from dynamo_tpu_torch.llm.trace_service import TraceAggregator
     from dynamo_tpu_torch.runtime.pipeline import build_pipeline
     from dynamo_tpu_torch.runtime.resilience import metrics as resilience_metrics
-    from dynamo_tpu_torch.runtime.tracing import SpanExporter, TraceSampler, TracingConfig
+    from dynamo_tpu_torch.runtime.engine import AsyncEngineContext
+    from dynamo_tpu_torch.runtime.resilience import Deadline
+    from dynamo_tpu_torch.runtime.tracing import SpanExporter, TraceSampler, TracingConfig, _wall_ms
 
     fails, out = [], {}
     vocab = engine.model_config.vocab_size
@@ -2057,9 +2090,17 @@ async def edge_path(torch, engine):
                             "counted": counted}
 
         # Deadlines: a long traced stream cut at 0.5 s ends in the SSE 504
-        # event.  No fused dispatch takes its row once the deadline has
-        # passed (its trace's decode-chunk spans all start before) and none
-        # runs at all after the event.  The row leaves once the dispatches
+        # event.  No fused dispatch takes its row once the edge has stopped
+        # it (its trace's decode-chunk spans all start before), the edge
+        # stops it within a dispatch period of its deadline, and at most one
+        # dispatch starts between the two: the edge's deadline is a timer on
+        # the event loop (in both packages), which runs it at the loop's next
+        # turn, so a dispatch formed in the loop's current turn can start
+        # after the instant.  Both instants are the harness's reads of
+        # ``Deadline.after`` and the context's ``stop_generating`` for this
+        # request, on the spans' clock (the deadline is set after admission,
+        # so the request's start is not its origin).  None runs at all after
+        # the event.  The row leaves once the dispatches
         # already in flight have landed (its KV blocks are held until then:
         # the pipeline's write barrier): they land within pipeline_depth
         # dispatch periods (an event recorded behind them on the stream),
@@ -2069,10 +2110,27 @@ async def edge_path(torch, engine):
         # chunks after the first.
         (prompt,) = edge_prompts(torch, vocab, [EDGE_ISL], 9002)
         d_start = engine.decode_spans.count
-        st, headers, _, events = await http_call(
-            port["tracing"], "POST", "/v1/completions", completion(prompt, EDGE_DEADLINE_TOKENS),
-            headers={"x-deadline-s": str(EDGE_DEADLINE_S), "x-request-id": "deadline",
-                     "x-trace": "1"})
+        instants = {}
+        real_after, real_stop = Deadline.__dict__["after"], AsyncEngineContext.stop_generating
+
+        def after(cls, seconds):
+            instants.setdefault("expire", time.perf_counter() + seconds)
+            return real_after.__func__(cls, seconds)
+
+        def stop_generating(ctx):
+            if ctx.id.startswith("deadline-"):
+                instants.setdefault("stop", time.perf_counter())
+            real_stop(ctx)
+
+        Deadline.after, AsyncEngineContext.stop_generating = classmethod(after), stop_generating
+        try:
+            st, headers, _, events = await http_call(
+                port["tracing"], "POST", "/v1/completions",
+                completion(prompt, EDGE_DEADLINE_TOKENS),
+                headers={"x-deadline-s": str(EDGE_DEADLINE_S), "x-request-id": "deadline",
+                         "x-trace": "1"})
+        finally:
+            Deadline.after, AsyncEngineContext.stop_generating = real_after, real_stop
         t_end, d_end = time.perf_counter(), engine.decode_spans.count
         # The engine's dispatches replay on the default stream; on the CPU
         # (a rehearsal) they have run when they return.
@@ -2104,14 +2162,20 @@ async def edge_path(torch, engine):
         root = next((s["start_ms"] for s in spans if s["name"] == "edge.request"), None)
         chunks_ms = [s["start_ms"] - root for s in spans
                      if s["name"] == "engine.decode_chunk" and root is not None]
-        late = [c for c in chunks_ms if c >= EDGE_DEADLINE_S * 1e3]
+        expire_ms, stop_ms = (_wall_ms(instants[k]) - root if k in instants and root is not None
+                              else float("nan") for k in ("expire", "stop"))
+        late = [c for c in chunks_ms if not c < stop_ms]
+        between = [c for c in chunks_ms if c >= expire_ms]
         data_t = [t for t, ev in events if ev.startswith("data: ")]
         gaps_ms = [(b - a) * 1e3 for a, b in zip(data_t[1:], data_t[2:])]
         period_ms = max(gaps_ms) if gaps_ms else float("nan")
         depth = engine.cfg.pipeline_depth
-        check(len(chunks_ms) >= 2 and not late,
-              f"deadline: no fused dispatch takes the row after its deadline (decode chunks "
-              f"at {[round(c, 1) for c in chunks_ms]} ms after the request)")
+        check(len(chunks_ms) >= 2 and not late and len(between) <= 1
+              and 0 <= stop_ms - expire_ms <= period_ms,
+              f"deadline: no fused dispatch takes the row after the edge stopped it, the stop "
+              f"within a period of {period_ms:.1f} ms of the deadline, at most one dispatch "
+              f"between (decode chunks at {[round(c, 1) for c in chunks_ms]} ms after the "
+              f"request; deadline at {expire_ms:.1f} ms, stopped at {stop_ms:.1f} ms)")
         check(len(gaps_ms) >= 2 and not sched.num_running and not sched.num_waiting
               and extra == 0 and landed_ms <= depth * period_ms
               and 0 <= left_ms - landed_ms <= period_ms / 2 and engine.kv.active_blocks == 0,
@@ -2123,6 +2187,7 @@ async def edge_path(torch, engine):
         tokens = sum(len(v) for k, v in recorder.streams.items() if k.startswith("deadline-"))
         out["deadline"] = {"events": len(events), "dispatches": d_end - d_start,
                            "tokens": tokens, "decode_chunks_ms": [round(c, 3) for c in chunks_ms],
+                           "deadline_ms": expire_ms, "stopped_ms": stop_ms,
                            "chunk_gaps_ms": [round(g, 3) for g in gaps_ms],
                            "extra_dispatches": extra, "landed_after_ms": landed_ms,
                            "empty_after_ms": left_ms, "bound_ms": depth * period_ms}
@@ -2293,14 +2358,28 @@ class TierTimers:
     """Host wall of the tier work inside a restore, by part, from wrappers
     around the engine's methods (phase g's breakdown; the parts nest:
     ``promote`` holds the reads and the demotion cascade its host-tier
-    puts set off)."""
+    puts set off; ``upload`` is the whole upload, which the restore
+    entries split into its lock wait, allocation and enqueue), and
+    ``gc_pause``, the interpreter's collections in the window (a
+    collection holds the GIL, so every thread waits it out)."""
 
     PARTS = ("promote", "disk_read", "objstore_read", "demote_to_disk", "demote_to_objstore",
-             "upload_enqueue", "verify", "scatter_enqueue")
+             "upload", "verify", "scatter_enqueue", "gc_pause")
 
     def __init__(self, engine):
         self.ms = dict.fromkeys(self.PARTS, 0.0)
         self._undo = []
+        self._gc_t0 = None
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self._gc_t0 = time.perf_counter()
+            elif self._gc_t0 is not None:
+                self.ms["gc_pause"] += (time.perf_counter() - self._gc_t0) * 1e3
+                self._gc_t0 = None
+
+        gc.callbacks.append(on_gc)
+        self._undo.append((gc.callbacks, None, on_gc))
 
         def wrap(obj, attr, part):
             fn = getattr(obj, attr)
@@ -2320,7 +2399,7 @@ class TierTimers:
         wrap(engine.object_kv, "read", "objstore_read")
         wrap(engine.host_kv, "on_evict", "demote_to_disk")
         wrap(engine.disk_kv, "on_evict", "demote_to_objstore")
-        wrap(engine, "_restore_upload", "upload_enqueue")
+        wrap(engine, "_restore_upload", "upload")
         wrap(engine, "_restore_verify", "verify")
         wrap(engine, "_restore_scatter", "scatter_enqueue")
 
@@ -2330,7 +2409,10 @@ class TierTimers:
 
     def close(self):
         for obj, attr, fn in reversed(self._undo):
-            setattr(obj, attr, fn)
+            if attr is None:
+                obj.remove(fn)
+            else:
+                setattr(obj, attr, fn)
 
 
 # The restore's CRC kernel at phase g's shape: a 128-block prefix of
@@ -2444,10 +2526,131 @@ def check_crc_kernel(torch, dev, tally):
 
 def restore_parts(entries):
     """(restore passes, their host wall summed by part in ms) among an
-    engine's ``transfer_parts`` entries (engine/offload.py _restore_pass)."""
+    engine's ``transfer_parts`` entries (engine/offload.py _restore_pass);
+    ``unpinned`` is a count of source blocks, summed as it is."""
     passes = [pp for kind, _, pp in entries if kind == "restore"]
-    return len(passes), {k: sum(pp[k] for pp in passes) * 1e3
+    return len(passes), {k: sum(pp[k] for pp in passes) * (1 if k == "unpinned" else 1e3)
                          for k in (passes[0] if passes else {})}
+
+
+UPLOAD_BLOCKS = 128  # phase g's host restore: 128 blocks of 2 MiB
+UPLOAD_REPEATS = 4
+
+
+def upload_causes(torch, dev):
+    """``--upload-causes``: phase g's host-restore upload (128 blocks of 2
+    MiB, host → device on a side stream) under each candidate cause of a
+    slow upload, apart: the lock held by another thread, a pageable source,
+    another Python thread holding the GIL, a collection of a large heap in
+    the middle of the enqueues, and the caching allocator freeing its cache
+    to make room for the buffer.  Each case times the host wall of the lock
+    wait, the buffer's allocation and the enqueues, and the copy stream's
+    time; first as the engine enqueued (a Python loop of ``copy_``), then
+    in one call (``torch._foreach_copy_``), then into a kept buffer.
+    Returns the rows."""
+    shape = (32, PS, 2 * KV, D)
+    pinned = [torch.empty(shape, dtype=torch.bfloat16, pin_memory=True).fill_(1.0)
+              for _ in range(UPLOAD_BLOCKS)]
+    pageable = [torch.ones(shape, dtype=torch.bfloat16) for _ in range(UPLOAD_BLOCKS)]
+    stream = torch.cuda.Stream(dev)
+    lock = threading.Lock()
+    kept = torch.empty((UPLOAD_BLOCKS, *shape), dtype=torch.bfloat16, device=dev)
+    rows = []
+
+    def upload(blocks, how):
+        t0 = time.perf_counter()
+        with lock:
+            t1 = time.perf_counter()
+            with torch.cuda.stream(stream):
+                a = torch.cuda.Event(enable_timing=True)
+                a.record(stream)
+                t2a = time.perf_counter()
+                buf = kept if how == "kept" else torch.empty(
+                    (len(blocks), *shape), dtype=torch.bfloat16, device=dev)
+                t2 = time.perf_counter()
+                if how == "loop":
+                    for dst, src in zip(buf.unbind(0), blocks):
+                        dst.copy_(src, non_blocking=True)
+                else:
+                    torch._foreach_copy_(list(buf.unbind(0)), blocks, non_blocking=True)
+                t3 = time.perf_counter()
+                b = torch.cuda.Event(enable_timing=True)
+                b.record(stream)
+        b.synchronize()
+        del buf
+        return {"lock_wait": (t1 - t0) * 1e3, "alloc": (t2 - t2a) * 1e3,
+                "enqueue": (t3 - t2) * 1e3, "stream": a.elapsed_time(b)}
+
+    def busy_python(stop):
+        x = 0
+        while not stop.is_set():
+            x += 1
+
+    def hold_lock(stop, hold_s):
+        with lock:
+            stop.wait(hold_s)
+
+    def case(label, blocks, how, around=None):
+        out = []
+        for _ in range(UPLOAD_REPEATS):
+            stop = threading.Event()
+            th = threading.Thread(target=around, args=(stop,)) if around else None
+            if th:
+                th.start()
+                time.sleep(0.02)
+            try:
+                out.append(upload(blocks, how))
+            finally:
+                stop.set()
+                if th:
+                    th.join()
+            torch.cuda.synchronize()
+        med = {k: statistics.median(r[k] for r in out) for k in out[0]}
+        gib = UPLOAD_BLOCKS * 2 / 1024 / (med["stream"] / 1e3)
+        rows.append(dict(label=label, how=how, **{k: round(v, 3) for k, v in med.items()},
+                         gib_s=round(gib, 2), first=out[0]))
+        log(f"upload cause [{label}, {how}] median of {UPLOAD_REPEATS}: lock wait "
+            f"{med['lock_wait']:.3f} ms, alloc {med['alloc']:.3f} ms, enqueue "
+            f"{med['enqueue']:.3f} ms, copy stream {med['stream']:.3f} ms ({gib:.2f} GiB/s); "
+            f"first {({k: round(v, 3) for k, v in out[0].items()})} (card {CARD})")
+
+    heap = [[i] for i in range(3_000_000)]  # a heap of a few million container objects
+
+    def collect_during(stop):
+        # A full collection (it holds the GIL) ~1 ms into the enqueues.
+        stop.wait(0.021)
+        gc.collect()
+
+    class Hog:
+        """Card memory taken so that the buffer's allocation finds no free
+        segment: the allocator then frees its cache (a device-wide sync)."""
+
+        def __enter__(self):
+            cached = [torch.empty(64 << 20, dtype=torch.uint8, device=dev) for _ in range(8)]
+            del cached  # 512 MiB cached on the default stream, not the side stream's
+            free, _ = torch.cuda.mem_get_info(dev)
+            self.held = torch.empty(int(free - (192 << 20)), dtype=torch.uint8, device=dev)
+            return self
+
+        def __exit__(self, *exc):
+            del self.held
+            torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        for how in ("loop", "foreach"):
+            case("pinned, idle", pinned, how)
+            case("pageable", pageable, how)
+            case("another thread holds the GIL", pinned, how, around=busy_python)
+            case("a full collection of a 3M-object heap", pinned, how, around=collect_during)
+        case("the lock held 100 ms by another thread", pinned, "loop",
+             around=lambda stop: hold_lock(stop, 0.1))
+        torch.cuda.empty_cache()
+        with Hog():
+            case("the allocator frees its cache first", pinned, "loop")
+        case("pinned, idle", pinned, "kept")
+        case("another thread holds the GIL", pinned, "kept", around=busy_python)
+    heap.clear()
+    return rows
 
 
 async def tier_path(torch, phase6):
@@ -2667,6 +2870,12 @@ async def tier_path(torch, phase6):
             f"{r['h2d_ms']:.3f} ms stream time ({h2d:.2f} GiB/s); host wall by part (ms, "
             f"nested) {r['parts_ms']}; the restore passes ({r['restore_passes']}) by part (ms) "
             f"{({k: round(v, 2) for k, v in r['restore_parts_ms'].items()})}")
+        rp = r["restore_parts_ms"]
+        if r["restore_passes"]:
+            log(f"tiers upload [{r['label']}]: lock wait {rp['upload_lock_wait']:.3f} ms, alloc "
+                f"{rp['upload_alloc']:.3f} ms, enqueue {rp['upload_enqueue']:.3f} ms of "
+                f"{rp['upload']:.3f} ms; {int(rp['unpinned'])} unpinned source blocks; "
+                f"collections {r['parts_ms']['gc_pause']:.3f} ms in the request's window")
     log(f"tiers totals: copies {out.get('copies')}; tier counters {out.get('tier_counters')}; "
         f"integrity {out.get('integrity')}; objstore {out.get('objstore')}; graphs "
         f"{out.get('graphs')}; torch.cuda.synchronize calls while serving {out.get('syncs')}; "
@@ -2885,6 +3094,8 @@ KV_COSINE = 0.99
 # bf16 tree's under the same scales (~5x on the card at 4 and at 32 layers:
 # W8A8's rounding turns the KV noise into whole-step code changes).
 KV_DRIFT_WITNESS = 8.0
+FP8_COSINE = 0.98  # phase b's fp8-page bar at 4 layers
+FP8_DRIFT_WITNESS = 64.0  # and at 32: 1 - cosine against the int8 row's
 
 
 def rows_batch(torch, dev, prompts, tables):
@@ -2925,8 +3136,23 @@ def w8a8_model_check(torch, dev):
     against its witness, the bf16 tree's drift under the same scales:
     1 - cosine within KV_DRIFT_WITNESS times the witness's, since a random
     32-layer model amplifies any perturbation (1 - cosine grows
-    with the square of the per-layer noise).  Returns ok."""
+    with the square of the per-layer noise).
+
+    Then the kv-fp8 rows, through ``dynamo_tpu_torch.tools.quant_quality``'s
+    measuring function (``kv_rows``): the same bf16 tree's float8_e4m3fn
+    pages under per-layer scales calibrated as ``kv_scale="auto"`` does
+    (a bf16 probe, max |K/V| over 448), against bf16 pages, on the same
+    prompts one at a time, beside the tool's int8 row on the same tree:
+    mean KL, top-1 (overall and decisive) and the smallest cosine.  Their
+    bars, set before the first card run: at 4 layers the fp8 pages' cosine
+    above FP8_COSINE on every prompt and their mean KL below KL_TOL; at 32
+    layers finite logits and 1 - cosine within FP8_DRIFT_WITNESS times the
+    int8 row's (e4m3's 3 mantissa bits give ~6x the relative noise of
+    calibrated int8 near the scale's top, ~36x in 1 - cosine).  Returns
+    ok."""
     import numpy as np
+
+    from dynamo_tpu_torch.tools import quant_quality as qq
 
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -2989,6 +3215,24 @@ def w8a8_model_check(torch, dev):
                   f"{KV_DRIFT_WITNESS:g}x")
         top1 = (f"{agree}/{decisive} decisive rows" if decisive else
                 "vacuous (no row's top-2 gap is decisive)")
+        with torch.inference_mode():
+            sub = dict(deq, layers={k: v[:depth] for k, v in deq["layers"].items()})
+            kv = {r["config"].split(" +")[0]: r for r in qq.kv_rows(
+                sub, mcd, prompts, dev, ref_dtype="bfloat16", ref_label="bf16 pages")}
+        i8, f8 = kv["kv int8"], kv["kv fp8-e4m3"]
+        fp8_ok = (f8["min_cosine"] > FP8_COSINE and f8["mean_kl"] < KL_TOL if shallow else
+                  math.isfinite(f8["mean_kl"]) and 1 - f8["min_cosine"]
+                  <= FP8_DRIFT_WITNESS * max(1 - i8["min_cosine"], 1e-12))
+        ok = ok and fp8_ok
+        bar = (f"cosine > {FP8_COSINE}, KL < {KL_TOL}" if shallow else
+               f"1 - cosine within {FP8_DRIFT_WITNESS:g}x the int8 row's")
+        for name, r in (("int8", i8), ("fp8-e4m3", f8)):
+            verdict = "" if name == "int8" else f" (bar: {bar}) {'ok' if fp8_ok else 'FAIL'}"
+            log(f"kv {name} pages (quant_quality.kv_rows, scales calibrated as kv_scale auto) vs "
+                f"bf16 pages on the bf16 tree, {depth} layers, {MODEL_CHECK_ROWS} prompts of "
+                f"{MODEL_CHECK_TOKENS}: mean KL {r['mean_kl']:.3e}, top-1 {r['top1_agree']}, "
+                f"decisive top-1 {r['decisive_agree']}, cosine min {r['min_cosine']:.6f}"
+                f"{verdict} [{CARD}]")
         log(f"w8a8 model {depth} layers vs its dequantized bf16 tree, {MODEL_CHECK_ROWS} prompts "
             f"of {MODEL_CHECK_TOKENS}: mean KL {np.mean(kls):.3e} (bar {KL_TOL}), top-1 agreement "
             f"{top1}, max logit err {float((lq - lr).abs().max()):.4f} "
@@ -3018,71 +3262,75 @@ def bench_prompts(vocab, n):
 
 
 def bench_serve(torch, dev, quant):
-    """One engine at BENCH_CFG (W8A8 with int8 KV ``auto``, or bf16 weights
-    and bf16 KV), warmed (``run_warmup``), then 256 greedy requests of
-    BENCH_ISL tokens with BENCH_OSL new each and ``ignore_eos``, kernel
-    counters zeroed just before and read just after.  Returns (ok,
-    numbers)."""
+    """Phase c: the port's bench headline (``dynamo_tpu_torch.bench``'s
+    ``headline``, what ``python -m dynamo_tpu_torch.bench`` runs) on one
+    engine at BENCH_CFG (W8A8 with int8 KV ``auto``, or bf16 weights and
+    bf16 KV): every program captured, a 4-token warm pass, then 256
+    greedy requests of BENCH_ISL tokens with BENCH_OSL new each and
+    ``ignore_eos``, kernel counters zeroed just before and read just after.
+    Its one line must carry the JAX contract's key set and name the CUDA
+    kernels.  Returns (ok, numbers)."""
+    from dynamo_tpu_torch import bench
     from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
 
     cfg = EngineConfig(**BENCH_CFG, **(W8A8 if quant else {}))
     label = "W8A8 + int8 KV auto" if quant else "bf16 + bf16 KV"
+    wl = {"isl": BENCH_ISL, "osl": BENCH_OSL, "requests": cfg.max_batch}
+    out = {"label": label}
+
+    def before(engine):
+        zero_kernel_counts()
+
+    def after(engine):
+        out["launches"] = kernel_counts()
+        out["per_replay"] = {name: {str(k): v for k, v in getattr(engine.programs, name)
+                                    .captured_launches().items()} for name in ("step", "multi")}
+        dec, pre = engine.decode_spans, engine.prefill_spans
+        out["fused_step_ms"] = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
+        out["prefill_step_ms"] = pre.seconds / max(1, pre.count) * 1e3
+        # Every unified step applies the grammar mask (all-ones words
+        # here): its cost at this geometry's row count.
+        out["mask"] = mask_stage_times(torch, engine, BENCH_ISL)
+
     t0 = time.perf_counter()
-    engine = TorchEngine(cfg, device=dev)
-    torch.cuda.synchronize()
-    out = {"label": label, "init_s": time.perf_counter() - t0,
-           "calibration_s": engine.calibration_s}
-    prompts = bench_prompts(engine.model_config.vocab_size, cfg.max_batch)
-
-    async def run():
-        try:
-            t = time.perf_counter()
-            out["warm"] = await engine.run_warmup()
-            out["warm_s"] = time.perf_counter() - t
-            zero_kernel_counts()
-            t = time.perf_counter()
-            results = await serve(torch, engine, prompts, BENCH_OSL)
-            out["wall"] = time.perf_counter() - t
-            out["launches"] = kernel_counts()
-            out["after"] = engine.compile_counts()
-            out["per_replay"] = {name: {str(k): v for k, v in getattr(engine.programs, name)
-                                        .captured_launches().items()} for name in ("step", "multi")}
-            dec, pre = engine.decode_spans, engine.prefill_spans
-            out["fused_step_ms"] = dec.seconds / max(1, dec.count * cfg.decode_steps) * 1e3
-            out["prefill_step_ms"] = pre.seconds / max(1, pre.count) * 1e3
-            out["summary"] = engine.dispatch_summary()
-            # Every unified step applies the grammar mask (all-ones words
-            # here): its cost at this geometry's row count.
-            out["mask"] = mask_stage_times(torch, engine, BENCH_ISL)
-            return results
-        finally:
-            await engine.close()
-
-    results = asyncio.run(run())
-    del engine
+    try:
+        line, details = bench.headline(cfg, wl, dev, before_timed=before, after_timed=after)
+    except RuntimeError as e:  # a capture inside the timed window
+        log(f"bench {label}: {e} FAIL")
+        return False, dict(out, launches=kernel_counts())
+    out["phase_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    results = details["streams"]
     ttft = sorted(s[0] for _, s, _ in results)
     itl = [(s[-1] - s[0]) / (len(s) - 1) for _, s, _ in results if len(s) > 1]
-    total = sum(len(t) for t, _, _ in results)
     whole = all(len(t) == BENCH_OSL and f == "length" for t, _, f in results)
-    ok = whole and out["after"] == out["warm"] and all(v > 0 for v in out["launches"].values())
-    pipe = out["summary"]["pipeline"]
-    out.update(tok_s=total / out["wall"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+    keys = set(line) == bench.HEADLINE_KEYS
+    names = (line["decode_kernel"], line["prefill_kernel"]) == bench.KERNEL_NAMES["cuda"]
+    ok = (whole and keys and names and details["graphs_after"] == details["graphs"]
+          and all(v > 0 for v in out["launches"].values()))
+    pipe = line["pipeline"]
+    out.update(line=line, warm=details["graphs"], after=details["graphs_after"],
+               warm_s=details["warm_s"], calibration_s=details["calibration_s"],
+               wall=details["wall"], tok_s=line["value"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
                ttft_max_ms=ttft[-1] * 1e3, itl_ms=sum(itl) / len(itl) * 1e3,
-               host_gap_frac=pipe["host_gap_frac"])
-    log(f"bench {label}: {len(results)} requests, ISL {BENCH_ISL} OSL {BENCH_OSL}, "
-        f"max_batch {cfg.max_batch}, decode_steps {cfg.decode_steps}, pipeline_depth "
-        f"{cfg.pipeline_depth}; init {out['init_s']:.1f} s (calibration "
-        f"{out['calibration_s']:.3f} s), warmup {out['warm_s']:.2f} s for graphs {out['warm']}; "
-        f"wall {out['wall']:.3f} s, {out['tok_s']:.2f} output tok/s; TTFT p50 "
-        f"{out['ttft_p50_ms']:.1f} ms max {out['ttft_max_ms']:.1f} ms; ITL mean "
+               host_gap_frac=line["host_gap_frac"])
+    peak = "int8 1979 TOP/s" if cfg.weight_quant else "bf16 989 TFLOP/s"
+    log(f"bench {label} (dynamo_tpu_torch.bench headline): {len(results)} requests, ISL "
+        f"{BENCH_ISL} OSL {BENCH_OSL}, max_batch {cfg.max_batch}, decode_steps "
+        f"{cfg.decode_steps}, pipeline_depth {cfg.pipeline_depth}; calibration "
+        f"{out['calibration_s']:.3f} s, warmup {out['warm_s']:.2f} s for graphs {out['warm']}; "
+        f"phase {out['phase_s']:.1f} s; wall {out['wall']:.3f} s, {out['tok_s']:.2f} output "
+        f"tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms max {out['ttft_max_ms']:.1f} ms; ITL mean "
         f"{out['itl_ms']:.2f} ms; fused step {out['fused_step_ms']:.2f} ms and prefill step "
-        f"{out['prefill_step_ms']:.2f} ms (stream time); host_gap_frac {out['host_gap_frac']}; "
-        f"sessions {pipe['sessions']} rebuilds {pipe['rebuilds']}; launches {out['launches']}; "
-        f"per replay {out['per_replay']}; graphs after the serve {out['after']}; streams whole "
-        f"{whole} {'ok' if ok else 'FAIL'}")
+        f"{out['prefill_step_ms']:.2f} ms (stream time); decode MFU {line['decode_mfu']} and "
+        f"prefill MFU {line['prefill_mfu']} of the H100's dense {peak} peak; host_gap_frac "
+        f"{out['host_gap_frac']}; sessions {pipe['sessions']} rebuilds {pipe['rebuilds']}; "
+        f"launches {out['launches']}; per replay {out['per_replay']}; graphs after the serve "
+        f"{out['after']}; streams whole {whole}; the line's key set is the contract's {keys}, "
+        f"its kernels {line['decode_kernel']}, {line['prefill_kernel']} [{CARD}] "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"bench line: {json.dumps(line)}")
     log(f"bench {label} mask stage: a {cfg.max_batch}-row decode-shaped unified step (graph "
         f"replay, the all-ones mask applied) {out['mask']['step_plain']:.3f} ms; "
         f"{mask_stage_text(out['mask'])} [{CARD}]")
@@ -3268,131 +3516,115 @@ def spec_oracle(prompts, streams, vocab):
     return oracle
 
 
-def spec_prompts(kind, n, vocab):
-    """bench.py's ``_spec_prompts``: ``repetitive`` period-8 templated
-    prompts, or ``random`` prompts with a jittered length."""
-    prompts = []
-    for i in range(n):
-        if kind == "repetitive":
-            pattern = [(i * 131 + j * 17 + 3) % vocab for j in range(8)]
-            prompts.append((pattern * ((BENCH_ISL + 7) // 8))[:BENCH_ISL])
-        else:
-            isl_i = max(8, BENCH_ISL // 2 + (i * 2654435761) % BENCH_ISL)
-            prompts.append([(i * 7919 + j * 104729 + 13) % vocab for j in range(isl_i)])
-    return prompts
-
-
-async def spec_run(engine, prompts, osl, temperature):
-    """bench.py's ``_spec_run``: every prompt at once, seed i·7+1."""
-    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
-    from dynamo_tpu_torch.runtime.engine import Context, collect
-
-    async def one(i, prompt):
-        req = PreprocessedRequest(
-            token_ids=prompt,
-            stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
-            sampling_options=SamplingOptions(temperature=temperature, seed=i * 7 + 1),
-        ).to_dict()
-        items = await collect(await engine.generate(Context(req)))
-        return [t for it in items for t in it["token_ids"]]
-
-    t0 = time.perf_counter()
-    streams = await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
-    return sum(len(s) for s in streams), time.perf_counter() - t0, streams
-
-
 def spec_phase(torch, dev):
-    """Phase e, as bench.py's ``_spec_bench`` runs it: a fresh W8A8 + int8
-    KV engine at BENCH_CFG per mode (speculation off, then on at k
-    SPEC_K), n = max_batch // 8 requests of BENCH_ISL tokens with
-    BENCH_OSL new each — the repetitive prompts greedy, the random ones at
-    temperature 0.7 — each after bench.py's 4-token warm pass (which fills
-    the prefix cache) and a second, whole warm pass over the cached
-    prompts, which captures the sampled programs ``run_warmup`` leaves to
-    first use (the graphs a timed pass still captured are printed).  The streams must be
-    identical between the modes.  The random model's greedy output seldom
-    gives the n-gram proposer a match, so the spec-on engine then serves
-    both workloads once more with drafts forced (``spec_oracle``): the
-    streams must again equal the spec-off ones, with verification
-    dispatches, accepted and rejected drafts all above 0.  Returns (ok,
-    numbers)."""
+    """Phase e: the port's bench in its spec mode (``dynamo_tpu_torch.bench``'s
+    ``spec_bench``, what ``BENCH_SPEC=1 python -m dynamo_tpu_torch.bench``
+    runs): a fresh W8A8 + int8 KV engine at BENCH_CFG per mode
+    (speculation off, then on at k SPEC_K), n = max_batch // 8 requests of
+    BENCH_ISL tokens with BENCH_OSL new each — the repetitive prompts
+    greedy, the random ones at temperature 0.7 — each after the bench's
+    4-token warm pass (which fills the prefix cache) and its second, whole
+    warm pass over the cached prompts, which captures the sampled programs
+    ``run_warmup`` leaves to first use (the graphs a timed pass still
+    captured are printed).  The streams must be identical between the
+    modes.  The random model's greedy output seldom gives the n-gram
+    proposer a match, so the spec-on engine then serves both workloads
+    once more with drafts forced (``spec_oracle``): the streams must again
+    equal the spec-off ones, with verification dispatches, accepted and
+    rejected drafts all above 0.  Returns (ok, numbers)."""
+    from dynamo_tpu_torch import bench
     from dynamo_tpu_torch.engine import spec as spec_mod
     from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.metrics import spec_metrics
 
     n = max(2, BENCH_CFG["max_batch"] // 8)
-    res, streams, kv_scales = {}, {}, {}
-    for mode in ("off", "on"):
-        engine = TorchEngine(EngineConfig(**BENCH_CFG, **W8A8,
-                                          spec_decode={"enable": mode == "on", "k": SPEC_K}),
-                             device=dev)
-        vocab = engine.model_config.vocab_size
+    res, kv_scales, before = {}, {}, {}
+    vocab = 128256
+
+    def before_timed(engine, kind, mode):
+        zero_kernel_counts()
+        zero_noise_launches()
+        before[(kind, mode)] = engine.compile_counts()
+
+    def after_timed(engine, kind, mode, toks, dt, out):
+        snap = spec_metrics.snapshot()
+        captured = (sum(engine.compile_counts().values())
+                    - sum(before[(kind, mode)].values()))
+        res[(kind, mode)] = dict(tok_s=toks / dt, tokens=toks, wall=dt,
+                                 launches=kernel_counts(), noise=noise_launches(),
+                                 captured=captured, **snap)
+        log(f"spec {kind}/{mode}: {n} requests, {toks} tokens in {dt:.3f} s "
+            f"({toks / dt:.2f} tok/s), acceptance {snap['acceptance_rate']:.3f}, "
+            f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, verification "
+            f"dispatches {int(snap['dispatches_total'])}, fallbacks "
+            f"{int(snap['fallback_total'])}, launches {res[(kind, mode)]['launches']}, "
+            f"categorical kernel launches {res[(kind, mode)]['noise']}, graphs captured in "
+            f"the timed pass {captured}")
+
+    streams = {}
+
+    async def after_mode(engine, mode):
         kv_scales[mode] = [float(s) for s in engine.kv_scale]
+        if mode == "on":
+            await forced(engine)
 
-        async def run():
-            try:
-                await engine.run_warmup()
-                for kind, temp in (("repetitive", 0.0), ("random", 0.7)):
-                    prompts = spec_prompts(kind, n, vocab)
-                    await spec_run(engine, prompts, 4, temp)  # bench.py's warm pass
-                    await spec_run(engine, prompts, BENCH_OSL, temp)
-                    spec_metrics.reset()
-                    zero_kernel_counts()
-                    zero_noise_launches()
-                    before = engine.compile_counts()
-                    toks, dt, out = await spec_run(engine, prompts, BENCH_OSL, temp)
-                    snap = spec_metrics.snapshot()
-                    captured = sum(engine.compile_counts().values()) - sum(before.values())
-                    res[(kind, mode)] = dict(tok_s=toks / dt, tokens=toks, wall=dt,
-                                             launches=kernel_counts(), noise=noise_launches(),
-                                             captured=captured, **snap)
-                    streams[(kind, mode)] = out
-                    log(f"spec {kind}/{mode}: {n} requests, {toks} tokens in {dt:.3f} s "
-                        f"({toks / dt:.2f} tok/s), acceptance {snap['acceptance_rate']:.3f}, "
-                        f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, verification "
-                        f"dispatches {int(snap['dispatches_total'])}, fallbacks "
-                        f"{int(snap['fallback_total'])}, launches {res[(kind, mode)]['launches']}, "
-                        f"categorical kernel launches {res[(kind, mode)]['noise']}, graphs captured in "
-                        f"the timed pass {captured}")
-                if mode == "on":
-                    await forced(engine, vocab)
-            finally:
-                await engine.close()
+    async def forced(engine):
+        """Drafts forced on the card: the proposer replaced by
+        ``spec_oracle`` over the spec-off streams."""
+        saved = spec_mod.propose_ngram
+        try:
+            for kind, temp in bench.SPEC_KINDS:
+                prompts = bench.spec_prompts(kind, BENCH_ISL, n, vocab)
+                spec_mod.propose_ngram = spec_oracle(prompts, streams[(kind, "off")], vocab)
+                spec_metrics.reset()
+                zero_kernel_counts()
+                toks, dt, out = await bench.spec_run(engine, prompts, BENCH_OSL, temp)
+                snap = spec_metrics.snapshot()
+                rejected = snap["drafted_total"] - snap["accepted_total"]
+                same = out == streams[(kind, "off")]
+                good = (same and snap["dispatches_total"] > 0 and snap["accepted_total"] > 0
+                        and rejected > 0)
+                res[(kind, "forced")] = dict(tok_s=toks / dt, identical=same, ok=good,
+                                             launches=kernel_counts(), **snap)
+                log(f"spec {kind}/forced drafts ({'greedy' if temp == 0 else f'temperature {temp}'}"
+                    f", oracle of the spec-off stream, one token wrong in every other "
+                    f"window): streams identical to spec off {same}; {toks / dt:.2f} tok/s, "
+                    f"verification dispatches {int(snap['dispatches_total'])}, drafted "
+                    f"{int(snap['drafted_total'])}, accepted {int(snap['accepted_total'])}, "
+                    f"rejected {int(rejected)}, acceptance {snap['acceptance_rate']:.3f}, "
+                    f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, launches "
+                    f"{res[(kind, 'forced')]['launches']} {'ok' if good else 'FAIL'}")
+        finally:
+            spec_mod.propose_ngram = saved
 
-        async def forced(engine, vocab):
-            """Drafts forced on the card: the proposer replaced by
-            ``spec_oracle`` over the spec-off streams."""
-            saved = spec_mod.propose_ngram
-            try:
-                for kind, temp in (("repetitive", 0.0), ("random", 0.7)):
-                    prompts = spec_prompts(kind, n, vocab)
-                    spec_mod.propose_ngram = spec_oracle(prompts, streams[(kind, "off")], vocab)
-                    spec_metrics.reset()
-                    zero_kernel_counts()
-                    toks, dt, out = await spec_run(engine, prompts, BENCH_OSL, temp)
-                    snap = spec_metrics.snapshot()
-                    rejected = snap["drafted_total"] - snap["accepted_total"]
-                    same = out == streams[(kind, "off")]
-                    good = (same and snap["dispatches_total"] > 0 and snap["accepted_total"] > 0
-                            and rejected > 0)
-                    res[(kind, "forced")] = dict(tok_s=toks / dt, identical=same, ok=good,
-                                                 launches=kernel_counts(), **snap)
-                    log(f"spec {kind}/forced drafts ({'greedy' if temp == 0 else f'temperature {temp}'}"
-                        f", oracle of the spec-off stream, one token wrong in every other "
-                        f"window): streams identical to spec off {same}; {toks / dt:.2f} tok/s, "
-                        f"verification dispatches {int(snap['dispatches_total'])}, drafted "
-                        f"{int(snap['drafted_total'])}, accepted {int(snap['accepted_total'])}, "
-                        f"rejected {int(rejected)}, acceptance {snap['acceptance_rate']:.3f}, "
-                        f"tokens/dispatch {snap['tokens_per_dispatch']:.2f}, launches "
-                        f"{res[(kind, 'forced')]['launches']} {'ok' if good else 'FAIL'}")
-            finally:
-                spec_mod.propose_ngram = saved
+    def keep_streams(engine, kind, mode, toks, dt, out):
+        streams[(kind, mode)] = out
+        after_timed(engine, kind, mode, toks, dt, out)
 
-        asyncio.run(run())
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+    env = {"BENCH_SPEC_ISL": str(BENCH_ISL), "BENCH_SPEC_OSL": str(BENCH_OSL),
+           "BENCH_SPEC_REQUESTS": str(n), "BENCH_SPEC_K": str(SPEC_K)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        line, _, _ = bench.spec_bench(EngineConfig(**BENCH_CFG, **W8A8), dev,
+                                      hooks={"before_timed": before_timed,
+                                             "after_timed": keep_streams,
+                                             "after_mode": after_mode})
+        log(f"spec line (dynamo_tpu_torch.bench spec mode): {json.dumps(line)}")
+    except RuntimeError as e:  # the modes' streams differ
+        log(f"spec: {e} FAIL")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(kv_scales) < 2 or any((k, m) not in streams for k in ("repetitive", "random")
+                                 for m in ("off", "on")) or len(res) < 6:
+        log(f"spec: a mode did not finish ({sorted(res)}) FAIL")
+        return False, res
     # A warm start from the object store restores int8 codes without their
     # scales: it relies on two fresh engines of one seed calibrating the
     # same scales (reported, not gated).
@@ -3424,7 +3656,8 @@ def spec_phase(torch, dev):
     # What the proposer can match: output positions whose bigram (previous
     # token, token) already occurred in the prompt or earlier output.
     hits = 0
-    for prompt, out in zip(spec_prompts("repetitive", n, vocab), streams[("repetitive", "off")]):
+    for prompt, out in zip(bench.spec_prompts("repetitive", BENCH_ISL, n, vocab),
+                           streams[("repetitive", "off")]):
         hist = prompt + out
         seen = {(a, b) for a, b in zip(prompt, prompt[1:])}
         for j in range(len(prompt), len(hist)):
@@ -8955,11 +9188,11 @@ TUNE_TABLE_ENV = "DYN_DECODE_TUNE_TABLE"
 # The three geometries of the kernel rows (PERF.md §6): the serve phase's
 # (bf16 pages), phase c's and phase d's (int8 pages), each swept by the
 # tool at its rows, table width and prefill chunk.
+# The serve geometry only since phase t came in (the script's time): the
+# bench and loadgen geometries' sweeps and rows are PR 19's.
 TUNE_GEOMETRIES = {
     "serve": dict(batch=SERVE_CFG["max_batch"], pages_per_seq=4096 // PS, cache_dtype="bfloat16",
                   prefill_chunk=SERVE_CFG["prefill_chunk"]),
-    "bench": dict(batch=256, pages_per_seq=256 // PS, cache_dtype="int8", prefill_chunk=512),
-    "loadgen": dict(batch=24, pages_per_seq=4096 // PS, cache_dtype="int8", prefill_chunk=2048),
 }
 TUNE_SPLITS, TUNE_PPCB, TUNE_PREFILL_SPLITS = "0,1,2,4,8,16", "4,8,16,32,64", "1,2,4,8"
 TUNE_ITERS = 5  # launches a timed round (the tool's --iters): 7 rounds of 5, for the script's time
@@ -9075,6 +9308,8 @@ def tune_row_times(torch, dev, tally, entries):
     out = {}
     da.clear_tuned_hints()
     for geo, kernels in rows.items():
+        if geo not in TUNE_GEOMETRIES:
+            continue
         entry = entries.get(geo) or {}
         out[geo] = {}
         for name, spec in kernels.items():
@@ -9321,6 +9556,103 @@ def tune_path(torch, dev, tally, absent):
     return not fails, launches, out
 
 
+# ------------------------------------------- t. the fault matrix and the chaos ladder
+
+CHAOS_MODEL = "llama-3.1-8b"
+CHAOS_LAYERS = 16  # the depth phase t runs at, as phases h–l (the script's time)
+# The ladder's rungs on the card: baseline, a crash, the corruption storm,
+# and the object tier's scale from zero (its replacement restores the
+# victim's chain through the CRC kernel on every run; L7's host restores
+# race the integrity plane's negative cache and may all miss).
+CHAOS_LEVELS = "0,1,7,10"
+
+
+def chaos_path(torch, dev):
+    """Phase t: the port's fault matrix and chaos ladder on the card, on
+    llama-3.1-8b at full width (the depth the caller's ``model_depth``
+    sets), bf16 weights.  First ``dynamo_tpu_torch.tools.fault_matrix``
+    with ``--engine``: every fault point against the port's hub, service
+    plane, routed client, HTTP edge, integrity and bulk planes, then
+    ``kv_pressure`` and ``tenant_flood`` on a ``TorchEngine`` on the card;
+    no row may observe UNEXPECTED behaviour or NOT RECOVER.  Then
+    ``dynamo_tpu_torch.tools.goodput``'s rungs CHAOS_LEVELS with three
+    ``TorchEngine`` workers on the card sharing one weight tree, under
+    ``--check`` (0 dropped streams, every stream identical to L0's — a
+    seeded resume after L1's crash, the integrity plane's restores and
+    injects under L7's flips, each flip detected before a scatter, L10's
+    replacement engine restoring the crashed victim's persisted chain from
+    the object tier, byte-identical) and its ``--fault-matrix``
+    cross-check against the matrix just written.  The attention kernels,
+    the draw (the ladder's requests sample at 0.8) and the restore's CRC
+    kernel (L10's warm start, and L7's host restores where one beats the
+    negative cache) must launch in the ladder, counters zeroed just before
+    it and read just after.  Returns (ok, launches, numbers)."""
+    from dynamo_tpu_torch.ops import crc32
+    from dynamo_tpu_torch.tools import fault_matrix, goodput
+
+    fails, out = [], {}
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            log(f"chaos check FAILED: {what}")
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_t_") as tmp:
+        fm_json = os.path.join(tmp, "fault_matrix.json")
+        t = time.perf_counter()
+        rc = asyncio.run(fault_matrix.run(fault_matrix.parser().parse_args(
+            ["--engine", "--model", CHAOS_MODEL, "--dtype", "bfloat16", "--json", fm_json])))
+        out["matrix_s"] = time.perf_counter() - t
+        matrix = json.loads(Path(fm_json).read_text())
+        rows = matrix["fault_matrix"]
+        bad = fault_matrix.bad_rows(rows)
+        check(rc == 0 and not bad, f"fault matrix: exit {rc}, rows {[r['fault'] for r in bad]}")
+        check({"kv_pressure", "tenant_flood"} <= set(matrix["fault_kinds"]),
+              f"fault matrix: the engine sweep ran ({matrix['fault_kinds']})")
+        for r in rows:
+            log(f"chaos matrix [{r['fault']}] at {r['injected_at']}: {r['observed']} -> "
+                f"{r['status']}")
+        gc.collect()  # the sweep's engine goes before the ladder's three
+        torch.cuda.empty_cache()
+        args = goodput.parser().parse_args(
+            ["--levels", CHAOS_LEVELS, "--check", "--fault-matrix", fm_json, "--workdir", tmp,
+             "--model", CHAOS_MODEL, "--dtype", "bfloat16"])
+        zero_kernel_counts()
+        zero_noise_launches()
+        crc32.block_crc32_cuda.launches = 0
+        t = time.perf_counter()
+        report = asyncio.run(goodput.run_ladder(args))
+        out["ladder_s"] = time.perf_counter() - t
+        launches = dict(kernel_counts(), threefry_gumbel=noise_launches(),
+                        crc32_blocks=crc32.block_crc32_cuda.launches)
+    problems = goodput.check_report(report, args.min_goodput_ratio, args.min_tenant_ratio)
+    for p in problems:
+        check(False, f"ladder: {p}")
+    cross = report.get("fault_matrix") or {}
+    check(cross.get("unswept_used_kinds") == [],
+          f"ladder: every fault kind its rungs use has a swept row ({cross})")
+    check(all(v > 0 for v in launches.values()),
+          f"ladder: the attention kernels, the draw and the CRC kernel launched ({launches})")
+    for r in report["rungs"]:
+        log(f"chaos rung {r['name']}: {r['completed']}/{r['requests']} completed, dropped "
+            f"{r['dropped']} {r['dropped_errors']}, goodput {r['goodput']:.3f} (vs L0 "
+            f"{r.get('goodput_vs_l0')}), TTFT p50 {r['ttft_p50_ms']} ms p95 {r['ttft_p95_ms']} ms, "
+            f"ITL p95 {r['itl_p95_ms']} ms; resilience {r['resilience']}"
+            + (f"; integrity {r['integrity']}" if "integrity" in r else "")
+            + (f"; objstore {r['objstore']}" if "objstore" in r else "")
+            + (f"; tracing {r['tracing']}" if "tracing" in r else ""))
+    out.update(report={k: v for k, v in report.items() if k != "rungs"},
+               rungs=[{k: v for k, v in r.items() if k != "deterministic"}
+                      for r in report["rungs"]], launches=launches,
+               wall_s=time.perf_counter() - t_phase)
+    log(f"chaos (phase t, card {CARD}): fault matrix {len(rows)} rows in {out['matrix_s']:.1f} s "
+        f"(exit {rc}); ladder {CHAOS_LEVELS} on {report['workers']} card engines in "
+        f"{out['ladder_s']:.1f} s, --check {'passed' if not problems else problems}; launches "
+        f"{launches}; phase wall {out['wall_s']:.1f} s {'ok' if not fails else 'FAIL: ' + '; '.join(fails)}")
+    return not fails, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -9359,6 +9691,7 @@ def main() -> int:
         log(f"tuned table: {TUNE_TABLE_ENV}={absent}, a path that does not exist: every phase "
             f"but s launches the kernels' built-in shapes")
 
+        mark("2 (build)")
         t0 = time.perf_counter()
         report = _build.build_all()
         log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report) or 'cached libraries'}")
@@ -9381,17 +9714,24 @@ def main() -> int:
             return 0 if tp_tiers_path(torch)[0] else 1
         if sys.argv[1:] == ["--tune"]:
             return 0 if tune_path(torch, dev, Tally(), absent)[0] else 1
+        if sys.argv[1:] == ["--upload-causes"]:
+            return 0 if upload_causes(torch, dev) else 1
+        if sys.argv[1:] == ["--chaos"]:
+            with model_depth(CHAOS_LAYERS):
+                return 0 if chaos_path(torch, dev)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 
         cfg = EngineConfig(**SERVE_CFG)
         tally = Tally()
         check_tensor_cores(tally.failures)
+        mark("3-5")
         with torch.inference_mode():
             check_kernels(torch, dev, cfg, tally)
             times = time_kernels(torch, dev, cfg, tally)
             crc_times = check_crc_kernel(torch, dev, tally)
             ok_model = model_check(torch, dev, cfg)
+        mark("6 (with f and g)")
         ok_path, launches, ok_edge, edge, ok_tiers, tiers = main_path(torch, dev)
         # Phase 7 builds its own engine: free the direct serve's first
         # (16 GB of weights and 4 GiB of KV pages).
@@ -9399,17 +9739,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the HTTP phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated")
+        mark("7")
         ok_http, http_launches, _ = http_path(torch)
         gc.collect()
         torch.cuda.empty_cache()
 
         # This slice: W8A8 weights, calibrated int8 KV pages, speculation.
+        mark("a")
         with torch.inference_mode():
             ok_ops = w8a8_ops(torch, dev)
             int8_times = time_int8_kernels(torch, dev, tally)
+        mark("b")
         ok_w8a8_model = w8a8_model_check(torch, dev)
+        mark("c")
         ok_bench, bench = bench_serve(torch, dev, quant=True)
+        mark("d")
         ok_loadgen, loadgen = loadgen_http(torch, dev)
+        mark("e")
         ok_spec, spec = spec_phase(torch, dev)
         # Phase h runs two llama-3.1-8b workers on this card (one in this
         # process): free what the earlier phases left first.
@@ -9419,6 +9765,7 @@ def main() -> int:
             f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         log(f"phases h, i and j (l on i's stack, k on j's) at {PATH_CUT_LAYERS} of "
             f"llama-3.1-8b's 32 layers")
+        mark("h")
         with model_depth(PATH_CUT_LAYERS):
             ok_dist, dist_launches, _ = dist_path(torch)
         # Phase i runs two llama-3.1-8b workers on this card again.
@@ -9427,11 +9774,13 @@ def main() -> int:
         log(f"memory before the disaggregated phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        mark("i (with l)")
         with model_depth(PATH_CUT_LAYERS):
             ok_disagg, disagg_launches, _, (ok_planner, planner_launches, _) = disagg_path(torch)
         # Phase j: the sampler's kernel, then two workers again.
         gc.collect()
         torch.cuda.empty_cache()
+        mark("j (with k)")
         with torch.inference_mode():
             noise_times = check_noise_kernel(torch, dev, tally)
         log(f"memory before the migration phase: "
@@ -9446,16 +9795,19 @@ def main() -> int:
         log(f"memory before the checkpoint and LoRA phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         # Phase n serves with the sentencepiece model that phase m writes.
+        mark("m")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp:
             ok_m, m_launches, _ = checkpoint_lora_path(torch, dev, tmp)
             gc.collect()
             torch.cuda.empty_cache()
+            mark("n")
             ok_n, n_launches, _ = grammar_path(torch, dev, os.path.join(tmp, "tokenizer.model"))
         # Phase o: mixtral-8x7b under W8A8 (~47 GB resident).
         gc.collect()
         torch.cuda.empty_cache()
         log(f"memory before the MoE phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated")
+        mark("o")
         ok_o, o_launches, _ = moe_path(torch, dev)
         # Phase p: the SDK graph's worker is a child of the runner; this
         # process's card memory goes back first.
@@ -9463,23 +9815,34 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"memory before the SDK phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        mark("p")
         ok_p, p_launches, _ = sdk_path(torch)
         # Phase q: ranks that share this card, over gloo.
         gc.collect()
         torch.cuda.empty_cache()
         log(f"memory before the parallel phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        mark("q")
         with model_depth(PATH_CUT_LAYERS):
             ok_q, q_launches, _ = parallel_path(torch)
         # Phase r: KV export and the whole-block tiers at tp 2, one node.
         gc.collect()
         torch.cuda.empty_cache()
+        mark("r")
         ok_r, r_launches, _ = tp_tiers_path(torch)
         # Phase s: the tuned launch table.
         gc.collect()
         torch.cuda.empty_cache()
+        mark("s")
         ok_s, s_launches, tune = tune_path(torch, dev, tally, absent)
-        slice_ok = {"tuned launch table (s)": ok_s, "kv export and tiers at tp 2 (r)": ok_r,
+        # Phase t: the fault matrix and the chaos ladder on card engines.
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("t")
+        with model_depth(CHAOS_LAYERS):
+            ok_t, t_launches, _ = chaos_path(torch, dev)
+        mark("end")
+        slice_ok = {"fault matrix and chaos ladder (t)": ok_t, "tuned launch table (s)": ok_s, "kv export and tiers at tp 2 (r)": ok_r,
                     "parallelism and the step plane (q)": ok_q,
                     "sdk graph and native library (p)": ok_p,
                     "structured output (n)": ok_n, "mixtral W8A8 (o)": ok_o,
@@ -9531,6 +9894,7 @@ def main() -> int:
             kernels[-1]["parallel_launches"] = q_launches.get(name, 0)
             kernels[-1]["tp_tiers_launches"] = r_launches.get(name, 0)
             kernels[-1]["tune_launches"] = s_launches.get(name, 0)
+            kernels[-1]["chaos_launches"] = t_launches.get(name, 0)
             # Each geometry's row under its tuned entry, beside the
             # built-in launch timed in the same rounds.
             kernels[-1]["tuned"] = {
@@ -9569,6 +9933,7 @@ def main() -> int:
             "sdk_launches": p_launches.get("threefry_gumbel", 0),
             "parallel_launches": q_launches.get("threefry_gumbel", 0),
             "tp_tiers_launches": r_launches.get("threefry_gumbel", 0),
+            "chaos_launches": t_launches.get("threefry_gumbel", 0),
             "clock_mhz": nt["clock_mhz"],
         })
         # The restore's CRC kernel has no Pallas counterpart (the JAX
@@ -9587,6 +9952,7 @@ def main() -> int:
             "shape": crc_times["shape"],
             "parallel_launches": q_launches.get("crc32_blocks", 0),
             "tp_tiers_launches": r_launches.get("crc32_blocks", 0),
+            "chaos_launches": t_launches.get("crc32_blocks", 0),
             "bound_parts_ms": crc_times["bound_parts_ms"],
             "clock_mhz": crc_times["clock_mhz"],
         })
@@ -9597,6 +9963,9 @@ def main() -> int:
                 f"{'ok' if ok_model else 'failed'}; main path {'ok' if ok_path else 'failed'}; "
                 f"HTTP path {'ok' if ok_http else 'failed'}; "
                 f"{ {k: 'ok' if v else 'failed' for k, v in slice_ok.items()} }")
+            # The phases' own lines, again: the end of stderr names each check.
+            for line in _FAILED_LINES[:-1][-30:]:
+                print(f"  failed earlier: {line[:600]}", file=sys.stderr, flush=True)
             return 1
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

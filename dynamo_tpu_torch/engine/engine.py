@@ -890,7 +890,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             if blk is None:
                 raise RuntimeError(f"rank {self.shard.rank}: host tier lacks block {h:#x}")
             blocks.append(blk)
-        staged = self._restore_upload(blocks)
+        staged, _ = self._restore_upload(blocks)
         stamps = [self.host_kv.checksum(h) for h in hashes]
         rows = [i for i, st in enumerate(stamps) if st is not None]
         if rows and self._restore_verify(staged, rows) != [stamps[i] for i in rows]:

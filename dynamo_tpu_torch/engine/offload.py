@@ -44,7 +44,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -422,7 +422,8 @@ class HostOffloadMixin:
         if not cands:
             return 0
         t1 = time.perf_counter()
-        staged = await asyncio.to_thread(self._restore_upload, [host for _, host, _ in cands])
+        staged, upload = await asyncio.to_thread(self._restore_upload,
+                                                 [host for _, host, _ in cands])
         t2 = time.perf_counter()
         rows = [i for i, (_, _, stamp) in enumerate(cands) if stamp is not None]
         sums = iter(await asyncio.to_thread(self._restore_verify, staged, rows) if rows else ())
@@ -480,7 +481,7 @@ class HostOffloadMixin:
                 raise
             t7 = time.perf_counter()
             self.transfer_parts.append(("restore", n, dict(
-                promote=t1 - t0, upload=t2 - t1, verify=t3 - t2, select=t4 - t3,
+                promote=t1 - t0, upload=t2 - t1, **upload, verify=t3 - t2, select=t4 - t3,
                 lock_wait=t5 - t4, publish=t6 - t5, scatter=t7 - t6)))
             # Candidate selection peeked; refresh recency for the blocks
             # restored.  touch(), not get(): this runs on the event loop and
@@ -498,30 +499,50 @@ class HostOffloadMixin:
             if prefix_ids:
                 self.kv.free_sequence(prefix_ids)
 
-    def _restore_upload(self, blocks: List[torch.Tensor]) -> Tuple[torch.Tensor, Any]:
+    def _restore_upload(self, blocks: List[torch.Tensor]
+                        ) -> Tuple[Tuple[torch.Tensor, Any], Dict[str, float]]:
         """Copy host blocks into one fresh device buffer ``[n, L, ps, 2KV,
-        D]``: on CUDA on the copy stream, returning the copy's event (the
-        pages are not touched, so no lock is needed)."""
+        D]``: on CUDA on the copy stream, with the copy's event (the pages
+        are not touched, so no lock is needed).  Returns ``((buffer,
+        event), parts)``: the host wall in seconds of the wait for
+        ``_copy_lock`` (``upload_lock_wait``), the buffer's allocation
+        (``upload_alloc``) and the copies' enqueue (``upload_enqueue``),
+        and ``unpinned``, the source blocks not in pinned memory (a
+        pageable source turns an asynchronous copy into a synchronous one).
+
+        The copies are enqueued in one call: a loop of ``copy_`` calls
+        gives up and takes back the GIL once a block, and each take waits
+        out the interpreter's switch interval whenever another thread runs
+        Python, which once turned phase g's 128 enqueues (~1 ms) into
+        122 ms."""
+        unpinned = sum(not b.is_pinned() for b in blocks) if self.device.type == "cuda" else 0
         with torch.inference_mode():
+            t0 = time.perf_counter()
             if self.device.type != "cuda":
-                buf = torch.stack(blocks)
                 with self._copy_lock:
+                    t1 = time.perf_counter()
+                    buf = torch.stack(blocks)
+                    t2 = t3 = time.perf_counter()
                     self.h2d_bytes += buf.nbytes
-                return buf, None
-            stream = self._copy_stream
-            # Two requests may restore at once: the lock keeps the copy
-            # accounting whole.
-            with self._copy_lock, torch.cuda.stream(stream):
-                t0 = self.h2d_spans.start()
-                buf = torch.empty((len(blocks), *blocks[0].shape), dtype=blocks[0].dtype,
-                                  device=self.device)
-                for dst, src in zip(buf.unbind(0), blocks):
-                    dst.copy_(src, non_blocking=True)
-                self.h2d_spans.stop(t0)
-                done = torch.cuda.Event()
-                done.record(stream)
-                self.h2d_bytes += buf.nbytes
-            return buf, done
+                done = None
+            else:
+                stream = self._copy_stream
+                # Two requests may restore at once: the lock keeps the copy
+                # accounting whole.
+                with self._copy_lock, torch.cuda.stream(stream):
+                    t1 = time.perf_counter()
+                    span = self.h2d_spans.start()
+                    buf = torch.empty((len(blocks), *blocks[0].shape), dtype=blocks[0].dtype,
+                                      device=self.device)
+                    t2 = time.perf_counter()
+                    torch._foreach_copy_(list(buf.unbind(0)), blocks, non_blocking=True)
+                    t3 = time.perf_counter()
+                    self.h2d_spans.stop(span)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    self.h2d_bytes += buf.nbytes
+        return (buf, done), {"upload_lock_wait": t1 - t0, "upload_alloc": t2 - t1,
+                             "upload_enqueue": t3 - t2, "unpinned": unpinned}
 
     def _restore_verify(self, staged: Tuple[torch.Tensor, Any], rows: List[int]) -> List[int]:
         """CRC-32 of the uploaded blocks ``rows`` (ops/crc32.py).  On CUDA

@@ -513,6 +513,30 @@ async def test_restore_writes_the_captured_pages_in_place(tmp_path):
         await engine.close()
 
 
+async def test_restore_entry_splits_the_upload(tmp_path):
+    """A host restore's ``transfer_parts`` entry carries the upload's three
+    parts — the wait for the copy lock, the buffer's allocation and the
+    copies' enqueue — which add up to the whole upload (less the thread
+    hop), and the count of source blocks not in pinned memory (none on the
+    CPU, where nothing is pinned or asynchronous)."""
+    engine = _torch_engine(_cfg(tmp_path, "t", disk_cache_bytes=0, object_store_bytes=0))
+    try:
+        await _gen(engine, PROMPT)
+        chain = [tb.sequence_hash for tb in hash_token_blocks(PROMPT, BS)]
+        await _drain(engine)
+        assert engine.kv.evict_hashes(chain) == 3
+        await _gen(engine, PROMPT)
+        (parts,) = [pp for kind, n, pp in engine.transfer_parts if kind == "restore" and n == 3]
+        split = ("upload_lock_wait", "upload_alloc", "upload_enqueue")
+        assert set(split) | {"upload", "unpinned"} <= set(parts)
+        assert all(parts[k] >= 0.0 for k in split)
+        assert sum(parts[k] for k in split) <= parts["upload"] + 1e-6
+        assert parts["upload"] - sum(parts[k] for k in split) < 0.05
+        assert parts["unpinned"] == 0
+    finally:
+        await engine.close()
+
+
 async def _scale_from_zero(writer, make_fresh):
     chain = [tb.sequence_hash for tb in hash_token_blocks(list(range(1, 41)), BS)]
     first = await _gen(writer, list(range(1, 41)))
