@@ -10,6 +10,8 @@
     python3 chip_smoke.py --tune       # phase s alone
     python3 chip_smoke.py --upload-causes  # phase g's upload under each candidate cause
     python3 chip_smoke.py --chaos      # phase t alone
+    python3 chip_smoke.py --batch-invariance  # why phase t's engines are batch-invariant
+    python3 chip_smoke.py --checkpoint # phase m's checkpoint and tokenizer steps alone
 
 Phases, any failure exits non-zero; every phase but s runs with
 DYN_DECODE_TUNE_TABLE at a path that does not exist (printed first), so
@@ -288,17 +290,27 @@ the kernels launch their built-in shapes:
      only to B (all 200), the marker ``ejected``; A re-registered and reset;
      the ``dynamo_tpu_health_*`` counters equal to the transitions; no
      graph and no sync on A, all three kernels launched;
-  m. checkpoints, the sentencepiece tokenizer and batched multi-LoRA: the
-     seeded llama-3.1-8b init written at full width and depth as bf16
+  m. checkpoints, the checkpoint's own tokenizer and batched multi-LoRA:
+     the seeded llama-3.1-8b init written at full width and depth as bf16
      safetensors shards with config.json (``save_params_hf``, 16.06 GB),
      loaded back in bf16 and under ``quant="int8"`` (each leaf bitwise
      equal to the init tree and to ``quantize_params`` of it; write and
-     load seconds, peak device memory over each load); a sentencepiece
-     ``tokenizer.model`` of 128256 pieces (``llm/sp.build_model_proto``)
-     whose texts round-trip; 4 requests one at a time through ``run
-     in=http out=torch --checkpoint DIR --tokenizer X.model`` (3 of ids, 1
-     of text), each text equal to the tokenizer's decode of the same seeded
-     init's stream served directly; then ``run in=http out=torch
+     load seconds, peak device memory over each load); phase n's
+     sentencepiece ``tokenizer.model`` of 128256 pieces
+     (``llm/sp.build_model_proto``) whose texts round-trip; in the
+     checkpoint, a llama-3.1-format tokenizer.json (128000 byte-level BPE
+     tokens and 256 specials) and tokenizer_config.json with a chat
+     template (``tools/synth_tokenizer.py``): its load seconds, round
+     trips of seeded and Unicode texts, encode ms at 512, 2048 and 4096
+     ids, the template's render ms; 4 completions (3 of ids, 1 of text)
+     and a chat request one at a time through ``run in=http out=torch
+     --checkpoint DIR`` (no ``--tokenizer``: the server's tokenizer is the
+     directory's ``HFTokenizer``), the text and the chat also streamed:
+     each text equal to the tokenizer's decode of the same seeded init's
+     stream served directly, the deltas joined equal to the unary text,
+     prompt lengths as the tokenizer gives them, the chat's as its
+     rendered template with one <|begin_of_text|>; the chat TTFT against
+     its ids sent as a completion; then ``run in=http out=torch
      --lora-max-adapters 4 --lora-rank 16`` with five ``--lora
      aN=random:N`` adapters and one PEFT directory, warmed, 16 concurrent
      requests of 1024 ids and 64 new over the base and all six adapters
@@ -1646,9 +1658,9 @@ CHAT_BODY = {
 class CliServer:
     """``cli._run`` of the port on an event loop in a thread of this
     process, so this process's kernel launch counters see its work.  The
-    engine the CLI builds is kept (``engine``) so it can be warmed; at more
-    than one rank this process is the leader and ``ranks`` the node's
-    started ranks."""
+    engine the CLI builds is kept (``engine``) so it can be warmed, and so
+    is the tokenizer its spec made (``tokenizer``); at more than one rank
+    this process is the leader and ``ranks`` the node's started ranks."""
 
     def __init__(self, argv, timeout=900):
         from dynamo_tpu_torch import cli
@@ -1656,8 +1668,8 @@ class CliServer:
         args = cli.parse_args(argv)
         ready = concurrent.futures.Future()
         self.loop = asyncio.new_event_loop()
-        self.engine = self.ranks = None
-        build, start = cli._build_engine, cli.start_ranks
+        self.engine = self.ranks = self.tokenizer = None
+        build, start, make_tokenizer = cli._build_engine, cli.start_ranks, cli.make_tokenizer
 
         def keep(out, a):
             engine, level = build(out, a)
@@ -1668,8 +1680,13 @@ class CliServer:
             self.engine, self.ranks = await start(a, b)
             return self.engine, self.ranks
 
+        def keep_tokenizer(spec):
+            self.tokenizer = make_tokenizer(spec)
+            return self.tokenizer
+
         cli._build_engine = keep
         cli.start_ranks = keep_ranks
+        cli.make_tokenizer = keep_tokenizer
 
         async def run():
             try:
@@ -1693,6 +1710,7 @@ class CliServer:
             self.service = ready.result(timeout=timeout)
         finally:
             cli._build_engine, cli.start_ranks = build, start
+            cli.make_tokenizer = make_tokenizer
 
     def warmup(self):
         """The engine's ``run_warmup`` on the server's loop; returns its
@@ -6582,6 +6600,18 @@ SP_TEXTS = (
     "tokenizers round-trip: ids -> text -> ids (sentencepiece unigram)",
     "A",
 )
+# The checkpoint's tokenizer.json: llama-3.1's 128000 BPE tokens and 256
+# specials (tools/synth_tokenizer.py), served by --checkpoint alone.
+HF_TOKENS = 128000
+HF_TEXTS = ("héllo wörld — ünïcödé: 中文字符, 😀👍🏽, Ελληνικά, русский\r\n\ttabs  and  spaces",
+            "def f(x):\n    return x ** 2  # 12345678\n\n\n")
+HF_ENCODE_IDS = (512, 2048, 4096)
+CKPT_CHAT = [{"role": "system", "content": "You are a concise assistant."},
+             {"role": "user", "content": "Name three colours of the sea."}]
+CKPT_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "The weather <now> in a city",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string"}},
+                   "required": ["city"]}}}]
 LORA_RANK = 16
 LORA_SLOTS = 4
 LORA_RANDOM = 5  # adapters drawn by --lora NAME=random:SEED; one more is a PEFT directory
@@ -6670,14 +6700,19 @@ def checkpoint_path(torch, dev, tmp):
     """Phase m, steps 1-3: write llama-3.1-8b's seeded init as a sharded
     bf16 checkpoint with its config.json, load it back in bf16 and under
     ``quant="int8"`` (each held leaf by leaf, bitwise, against the init
-    tree and ``quantize_params`` of it), then serve 4 requests one at a
-    time through ``run in=http out=torch --checkpoint DIR --tokenizer
-    X.model``: texts equal to the sentencepiece decode of the same seeded
-    init's streams served directly, prompt lengths and round trips as the
-    tokenizer gives them.  Returns (ok, launches, numbers)."""
+    tree and ``quantize_params`` of it); write phase n's sentencepiece
+    model and, into the checkpoint, a llama-3.1-format tokenizer.json and
+    tokenizer_config.json (load, round trips, encode and render times);
+    then serve through ``run in=http out=torch --checkpoint DIR``, which
+    picks the tokenizer.json: 4 completions and a chat request one at a
+    time, the text and the chat also streamed, texts equal to the decode
+    of the same seeded init's streams served directly, prompt lengths as
+    the tokenizer and template give them; then the chat TTFT against its
+    ids sent as a completion.  Returns (ok, launches, numbers)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
-    from dynamo_tpu_torch.llm.tokenizer import SentencePieceTokenizer
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer, SentencePieceTokenizer
+    from dynamo_tpu_torch.tools import synth_tokenizer
     from dynamo_tpu_torch.models.config import get_config
     from dynamo_tpu_torch.models.llama import init_params
     from dynamo_tpu_torch.models.loader import load_params, save_params_hf
@@ -6722,21 +6757,52 @@ def checkpoint_path(torch, dev, tmp):
         f"{out['load_int8_peak_gib']:.2f} GiB); {out['bf16_leaves']} + {out['int8_leaves']} "
         f"leaves compared")
 
-    # The sentencepiece tokenizer at llama-3.1's vocabulary size.
+    # Phase n's sentencepiece tokenizer at llama-3.1's vocabulary size.
     sp_path = os.path.join(tmp, "tokenizer.model")
     with open(sp_path, "wb") as f:
         f.write(sp_model_proto(SP_PIECES, 14))
-    tok = SentencePieceTokenizer(sp_path)
-    check(tok.vocab_size == SP_PIECES and tok.bos_token_id == 128000
-          and tok.eos_token_id == 128001, f"tokenizer: {tok.vocab_size} pieces, bos/eos ids")
+    sp = SentencePieceTokenizer(sp_path)
+    check(sp.vocab_size == SP_PIECES and sp.bos_token_id == 128000
+          and sp.eos_token_id == 128001, f"sentencepiece: {sp.vocab_size} pieces, bos/eos ids")
     for text in SP_TEXTS:
+        ids = sp.encode(text)
+        check(sp.decode(ids) == text and ids[0] == 128000 and max(ids) < SP_PIECES,
+              f"sentencepiece round trip of {text!r}: {sp.decode(ids)!r}")
+
+    # The checkpoint's own tokenizer.json and tokenizer_config.json, in
+    # llama-3.1's format (tools/synth_tokenizer.py, from a seed).
+    t0 = time.perf_counter()
+    synth_tokenizer.write(ckpt, HF_TOKENS, 14)
+    out["tokenizer_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok = HFTokenizer.from_pretrained_dir(ckpt)
+    out["tokenizer_load_s"] = time.perf_counter() - t0
+    check(tok.vocab_size == HF_TOKENS + 256 and tok.bos_token_id == 128000
+          and tok.eos_token_id == 128009,
+          f"tokenizer.json: {tok.vocab_size} tokens, bos {tok.bos_token_id}, eos {tok.eos_token_id}")
+    for text in SP_TEXTS + HF_TEXTS:
         ids = tok.encode(text)
-        check(tok.decode(ids) == text and ids[0] == 128000 and max(ids) < SP_PIECES,
-              f"tokenizer round trip of {text!r}: {tok.decode(ids)!r}")
+        check(tok.decode(ids) == text and ids[0] == 128000 and max(ids[1:]) < HF_TOKENS,
+              f"tokenizer.json round trip of {text!r}: {tok.decode(ids)!r} ({ids[:4]}...)")
+    out["encode_ms"] = hf_encode_times(tok)
+    out["render_ms"] = hf_render_times(tok)
+    log(f"tokenizer.json: {HF_TOKENS} BPE tokens + 256 specials written in "
+        f"{out['tokenizer_write_s']:.2f} s, loaded in {out['tokenizer_load_s']:.3f} s; encode "
+        + ", ".join(f"{n} ids {c:.2f} ms cold / {w:.2f} ms warm"
+                    for n, (c, w) in out["encode_ms"].items())
+        + f"; chat template render {out['render_ms'][0]:.3f} ms first (compile) / "
+        f"{out['render_ms'][1]:.3f} ms warm")
+
     gen = torch.Generator().manual_seed(15)
     prompts = [torch.randint(1, 128000, (n,), generator=gen).tolist() for n in CKPT_ISLS]
     text_prompt = SP_TEXTS[1]
     prompts.append(tok.encode(text_prompt))
+    # As the preprocessor renders a chat request without tools.
+    chat_prompt = tok.apply_chat_template(CKPT_CHAT, add_generation_prompt=True, tools=None)
+    chat_ids = tok.encode(chat_prompt, add_special_tokens=False)
+    check(chat_ids[0] == 128000 and chat_ids.count(128000) == 1 and 128009 in chat_ids,
+          f"chat prompt: one <|begin_of_text|> at 0 and <|eot_id|> ({chat_ids[:8]}...)")
+    prompts.append(chat_ids)
 
     # The same seeded init served directly, one request at a time.
     cfg = EngineConfig(model=CKPT_MODEL, dtype="bfloat16", block_size=PS, num_blocks=512,
@@ -6755,7 +6821,9 @@ def checkpoint_path(torch, dev, tmp):
     gc.collect()
     torch.cuda.empty_cache()
 
-    argv = ["run", "in=http", "out=torch", "--checkpoint", ckpt, "--tokenizer", sp_path,
+    # The checkpoint serve, as a user starts it: the CLI picks the
+    # directory's tokenizer.json (no --tokenizer).
+    argv = ["run", "in=http", "out=torch", "--checkpoint", ckpt,
             "--dtype", "bfloat16", "--block-size", "16", "--num-blocks", "512", "--max-batch", "4",
             "--max-model-len", "2048", "--prefill-chunk", "512", "--decode-steps", "8",
             "--port", "0", "--model", "ckpt"]
@@ -6766,41 +6834,142 @@ def checkpoint_path(torch, dev, tmp):
     check(server.engine.model_config.num_layers == mc.num_layers
           and server.engine.model_config.vocab_size == mc.vocab_size,
           f"architecture from config.json: {server.engine.model_config}")
+    check(type(server.tokenizer).__name__ == "HFTokenizer",
+          f"the server's tokenizer is HFTokenizer ({type(server.tokenizer).__name__})")
+    served_tok = server.tokenizer if server.tokenizer is not None else tok
+    body = {"model": "ckpt", "max_tokens": CKPT_OSL, "temperature": 0, "nvext": {"ignore_eos": True}}
     zero_kernel_counts()
     try:
         async def phase():
             got = []
-            for i, p in enumerate(prompts):
-                body = {"model": "ckpt", "max_tokens": CKPT_OSL, "temperature": 0,
-                        "nvext": {"ignore_eos": True}}
-                body["prompt"] = text_prompt if i == len(prompts) - 1 else p
-                st, _, raw, _ = await http_call(port, "POST", "/v1/completions", body)
-                res = json.loads(raw) if st == 200 else {}
+            for i, p in enumerate(prompts[:-1]):
+                req = dict(body, prompt=text_prompt if i == len(prompts) - 2 else p)
+                st, _, raw, _ = await http_call(port, "POST", "/v1/completions", req)
                 check(st == 200, f"checkpoint request {i}: status {st} {raw[:200]!r}")
-                got.append(res)
+                got.append(json.loads(raw) if st == 200 else {})
+            # Each streamed request against a unary one over the same
+            # cached prefix (a prefix hit changes the step's shape, and so
+            # may a random model's near-tied argmax; phase 7 does the same).
+            for route, req, delta in (
+                    ("/v1/completions", dict(body, prompt=text_prompt), "text"),
+                    ("/v1/chat/completions", dict(body, messages=CKPT_CHAT), "content")):
+                if delta == "content":
+                    st, _, raw, _ = await http_call(port, "POST", route, req)
+                    check(st == 200, f"chat request: status {st} {raw[:200]!r}")
+                    got.append(json.loads(raw) if st == 200 else {})
+                st, _, _, ev = await http_call(port, "POST", route, dict(req, stream=True))
+                check(st == 200, f"streamed {route}: status {st}")
+                chunks, done = sse_data(ev) if st == 200 else ([], False)
+                stream = "".join((c["choices"][0].get("delta") or {}).get("content") or ""
+                                 if delta == "content" else c["choices"][0].get("text") or ""
+                                 for _, c in chunks if c["choices"])
+                st, _, raw, _ = await http_call(port, "POST", route, req)
+                res = json.loads(raw) if st == 200 else {}
+                unary = ((res.get("choices") or [{}])[0].get("message") or {}).get("content") \
+                    if delta == "content" else (res.get("choices") or [{}])[0].get("text")
+                check(done and stream == unary and unary is not None,
+                      f"{route}: the streamed deltas joined equal the unary text over the same "
+                      f"cached prefix ({stream[:60]!r} vs {str(unary)[:60]!r})")
             return got
 
         got = asyncio.run(phase())
-    finally:
         launches = kernel_counts()
+        out["chat_ttft_ms"], out["ids_ttft_ms"] = asyncio.run(chat_vs_ids_ttft(port, chat_ids))
+    finally:
         server.stop()
+    n_done = len(prompts) - 1  # the completions: the id prompts, then the text
     same = 0
-    for i, (res, ids) in enumerate(zip(got, want)):
+    for i, (res, ids) in enumerate(zip(got[:n_done], want[:n_done])):
         if not res:
             continue
         text = res["choices"][0]["text"]
         usage = res["usage"]
-        good = (text == tok.decode(ids) and usage["completion_tokens"] == len(ids) == CKPT_OSL
+        good = (text == served_tok.decode(ids) and usage["completion_tokens"] == len(ids) == CKPT_OSL
                 and usage["prompt_tokens"] == len(prompts[i]))
         same += good
         check(good, f"checkpoint request {i}: text equals the direct stream's decode "
-                    f"({usage}, {text[:60]!r} vs {tok.decode(ids)[:60]!r})")
-    log(f"checkpoint serve: {same}/{len(prompts)} streams through --checkpoint --tokenizer equal "
-        f"the seeded init's served directly (prompts {[len(p) for p in prompts]}, the last the "
-        f"text {text_prompt!r}); server up in {out['server_up_s']:.1f} s (load and build); "
-        f"launches {launches}")
+                    f"({usage}, {text[:60]!r} vs {served_tok.decode(ids)[:60]!r})")
+    chat = got[n_done] if len(got) > n_done else {}
+    if chat:
+        chat_want = served_tok.decode(want[-1])
+        good = (chat["choices"][0]["message"]["content"] == chat_want
+                and chat["usage"]["prompt_tokens"] == len(chat_ids))
+        same += good
+        check(good, f"chat: the rendered template's ids ({chat['usage']} vs {len(chat_ids)}) and "
+                    f"the direct stream's decode "
+                    f"({chat['choices'][0]['message']['content'][:60]!r} vs {chat_want[:60]!r})")
+    log(f"checkpoint serve: {same}/{n_done + 1} streams through --checkpoint (its tokenizer.json) "
+        f"equal the seeded init's served directly (prompts {[len(p) for p in prompts]}, the "
+        f"fourth the text {text_prompt!r}, the last the chat template's {len(chat_ids)} ids); "
+        f"server up in {out['server_up_s']:.1f} s (load and build); launches {launches}; chat TTFT "
+        f"{statistics.median(out['chat_ttft_ms']):.2f} ms against "
+        f"{statistics.median(out['ids_ttft_ms']):.2f} ms for its ids as a completion (medians of "
+        f"{len(out['chat_ttft_ms'])}: {fmt_ms(out['chat_ttft_ms'])} / {fmt_ms(out['ids_ttft_ms'])})")
     out["launches"] = launches
     return not fails and all(v > 0 for v in launches.values()), launches, out
+
+
+def fmt_ms(xs):
+    return ", ".join(f"{x:.2f}" for x in xs)
+
+
+def hf_encode_times(tok):
+    """{ids: (first encode ms, median repeat ms)} of seeded texts cut to
+    512, 2048 and 4096 ids: words drawn by ``synth_tokenizer.words`` from
+    another seed than the vocabulary's (so few are whole tokens), with
+    HF_TEXTS' Unicode lines between them.  The model's per-pre-token
+    cache is emptied before each first encode, so that one is cold."""
+    from dynamo_tpu_torch.tools.synth_tokenizer import words
+
+    out = {}
+    for n in HF_ENCODE_IDS:
+        stream, parts = words(random.Random(1000 + n)), []
+        for i in range(n):
+            parts.append(next(stream))
+            if i % 97 == 96:
+                parts.append(HF_TEXTS[(i // 97) % len(HF_TEXTS)])
+        ids = tok.encode("".join(parts), add_special_tokens=False)[:n]
+        text = tok.decode(ids)
+        tok._tok.model._cache.clear()
+        t0 = time.perf_counter()
+        got = tok.encode(text, add_special_tokens=False)
+        cold = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tok.encode(text, add_special_tokens=False)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        out[len(got)] = (cold, statistics.median(warm))
+    return out
+
+
+def hf_render_times(tok):
+    """The chat template's first render (its compile included) and the
+    median of 20 more, in ms, over CKPT_CHAT with a tool."""
+    from dynamo_tpu_torch.llm import chat_template  # imported outside the timing
+
+    chat_template.compile_template.cache_clear()
+    times = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        tok.apply_chat_template(CKPT_CHAT, add_generation_prompt=True, tools=CKPT_TOOLS)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[0], statistics.median(times[1:])
+
+
+async def chat_vs_ids_ttft(port, chat_ids, turns=3):
+    """TTFT of the chat request, streamed, against its rendered ids sent
+    as a streamed completion, in turns (both prefixes cached by then)."""
+    chat, ids = [], []
+    body = {"model": "ckpt", "max_tokens": 4, "temperature": 0, "stream": True,
+            "nvext": {"ignore_eos": True}}
+    for _ in range(turns):
+        for route, req, sink in (("/v1/chat/completions", dict(body, messages=CKPT_CHAT), chat),
+                                 ("/v1/completions", dict(body, prompt=chat_ids), ids)):
+            st, _, _, ev = await http_call(port, "POST", route, req)
+            chunks, _ = sse_data(ev) if st == 200 else ([], False)
+            sink.append(chunks[0][0] * 1e3 if chunks else float("nan"))
+    return chat, ids
 
 
 def lora_prompts(torch, n, isl, seed):
@@ -9576,7 +9745,8 @@ def chaos_path(torch, dev):
     ``kv_pressure`` and ``tenant_flood`` on a ``TorchEngine`` on the card;
     no row may observe UNEXPECTED behaviour or NOT RECOVER.  Then
     ``dynamo_tpu_torch.tools.goodput``'s rungs CHAOS_LEVELS with three
-    ``TorchEngine`` workers on the card sharing one weight tree, under
+    ``TorchEngine`` workers on the card sharing one weight tree, each
+    ``batch_invariant`` (``--batch-invariance`` shows why), under
     ``--check`` (0 dropped streams, every stream identical to L0's — a
     seeded resume after L1's crash, the integrity plane's restores and
     injects under L7's flips, each flip detected before a scatter, L10's
@@ -9653,6 +9823,96 @@ def chaos_path(torch, dev):
     return not fails, launches, out
 
 
+
+# --batch-invariance: the product widths of llama-3.1-8b, (in, out) features.
+INVARIANCE_WIDTHS = {"wq": (4096, 4096), "wk": (4096, 1024), "wo": (4096, 4096),
+                     "w_gate": (4096, 14336), "w_down": (14336, 4096), "lm_head": (4096, 128256)}
+INVARIANCE_ROWS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 128)
+INVARIANCE_LADDERS = (True,) * 6 + (False,) * 5  # batch_invariant of each ladder run
+
+
+@contextlib.contextmanager
+def engines_batch_invariant(flag):
+    """Every TorchEngine built meanwhile has ``batch_invariant=flag``."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import engine as engine_mod
+
+    init = engine_mod.TorchEngine.__init__
+
+    def patched(self, cfg, *a, **k):
+        init(self, dataclasses.replace(cfg, batch_invariant=flag), *a, **k)
+
+    engine_mod.TorchEngine.__init__ = patched
+    try:
+        yield
+    finally:
+        engine_mod.TorchEngine.__init__ = init
+
+
+def batch_invariance(torch, dev):
+    """``--batch-invariance``: why the chaos ladder runs batch-invariant
+    engines.  (1) One bf16 row's product at llama-3.1-8b widths, against
+    the same row in a 4-row call (a fused decode dispatch's rows), at each
+    of INVARIANCE_ROWS rows: the rows of the first 4 that differ, as cuBLAS
+    is called by the forward without and with ``pad_rows`` 64 (every call
+    64 rows); and the row at place 9 of 16 against place 0.  (2) The f32
+    row mean ``rms_norm`` takes, likewise.  (3) Phase t's ladder (rungs
+    CHAOS_LEVELS, --check) once for each INVARIANCE_LADDERS entry, with
+    and without the mode: its problems.  Fails if a padded product or a
+    ladder with the mode differs."""
+    from dynamo_tpu_torch.tools import goodput
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    fails = []
+
+    def padded(x, w):  # forward_ragged's per_token at pad_rows 64
+        xp = torch.cat([x, x.new_zeros((64 - x.shape[0], x.shape[1]))]) if x.shape[0] < 64 else x
+        return torch.cat([xp[i:i + 64] @ w for i in range(0, xp.shape[0], 64)])[:x.shape[0]]
+
+    for how, fn in (("plain", lambda x, w: x @ w), ("pad_rows 64", padded)):
+        table = {}
+        for name, (k, n) in INVARIANCE_WIDTHS.items():
+            w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+            x = torch.randn((128, k), generator=gen, device=dev).to(torch.bfloat16)
+            ref = fn(x[:4], w)
+            row = {m: int((fn(x[:m], w)[:min(m, 4)] != ref[:min(m, 4)]).any(dim=1).sum())
+                   for m in INVARIANCE_ROWS}
+            moved = x[:16].clone()
+            moved[[0, 9]] = x[[9, 0]]
+            row["place 9"] = int(bool((fn(moved, w)[9] != fn(x[:16], w)[0]).any()))
+            table[name] = row
+            if how != "plain" and any(row.values()):
+                fails.append(f"{how} {name}: {row}")
+        log(f"batch invariance, card {CARD}: bf16 product rows (of 4) unlike the 4-row call's, "
+            f"{how}, by row count: {json.dumps(table)}")
+    x = torch.randn((128, 4096), generator=gen, device=dev)
+    ref = (x[:4] * x[:4]).mean(-1)
+    means = {m: int(((x[:m] * x[:m]).mean(-1)[:min(m, 4)] != ref[:min(m, 4)]).sum())
+             for m in INVARIANCE_ROWS}
+    log(f"batch invariance: f32 row means (of 4) unlike the 4-row call's, by row count: {means}")
+    for flag in INVARIANCE_LADDERS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bi_") as tmp, \
+                engines_batch_invariant(flag):
+            args = goodput.parser().parse_args(
+                ["--levels", CHAOS_LEVELS, "--check", "--workdir", tmp,
+                 "--model", CHAOS_MODEL, "--dtype", "bfloat16"])
+            t = time.perf_counter()
+            report = asyncio.run(goodput.run_ladder(args))
+            wall = time.perf_counter() - t
+        problems = goodput.check_report(report, args.min_goodput_ratio, args.min_tenant_ratio)
+        if flag and problems:
+            fails.append(f"ladder with the mode: {problems}")
+        log(f"batch invariance: ladder {CHAOS_LEVELS} batch_invariant={flag} in {wall:.1f} s, "
+            f"completed {[r['completed'] for r in report['rungs']]}, --check "
+            f"{problems or 'passed'}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for f in fails:
+        log(f"batch invariance FAILED: {f}")
+    return not fails
+
 def main() -> int:
     try:
         import torch
@@ -9719,6 +9979,12 @@ def main() -> int:
         if sys.argv[1:] == ["--chaos"]:
             with model_depth(CHAOS_LAYERS):
                 return 0 if chaos_path(torch, dev)[0] else 1
+        if sys.argv[1:] == ["--batch-invariance"]:
+            with model_depth(CHAOS_LAYERS):
+                return 0 if batch_invariance(torch, dev) else 1
+        if sys.argv[1:] == ["--checkpoint"]:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp:
+                return 0 if checkpoint_path(torch, dev, tmp)[0] else 1
 
         from dynamo_tpu_torch.engine.config import EngineConfig
 

@@ -91,9 +91,12 @@ over the standard-library ``KubeApi``; ``api-store`` serves the deployment
 REST API (deploy/api_store.py).  Weights come from ``--checkpoint`` (a local HF
 safetensors directory, a ``.gguf`` file or a pre-staged copy; the
 architecture from its ``config.json`` or GGUF metadata) or a seeded random
-init.  The tokenizer is ``--tokenizer X.model`` (sentencepiece), else the
-checkpoint's own ``tokenizer.model``, else the self-contained byte
-tokenizer; HF and GGUF tokenizers are refused (no ``tokenizers``).
+init.  The tokenizer is ``--tokenizer`` (a ``tokenizer.json``, a directory
+holding one, a ``.gguf`` or a sentencepiece ``.model``), else the
+checkpoint's own (its ``tokenizer.json``, the GGUF's embedded one or its
+``tokenizer.model``), else the self-contained byte tokenizer; HF
+tokenizers and chat templates run in plain Python (llm/hf_tokenizer.py,
+llm/chat_template.py).
 ``--lora NAME=SPEC`` serves adapters as extra model names on the same
 engine, batched in one forward pass; a worker registers each as an adapter
 entry the frontend's watcher routes.
@@ -1116,8 +1119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--temperature", type=float, default=None)
     p_run.add_argument(
         "--tokenizer", default=None,
-        help="a sentencepiece tokenizer.model (HF tokenizer.json and GGUF "
-        "tokenizers need the `tokenizers` package and are refused)",
+        help="path to tokenizer.json (or a directory holding one, a .gguf, or a "
+        "sentencepiece tokenizer.model)",
     )
     # out=torch engine knobs (reference: launch/dynamo-run/src/flags.rs)
     p_run.add_argument("--arch", default=None, help="model architecture name (out=torch)")

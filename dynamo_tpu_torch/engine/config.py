@@ -270,6 +270,16 @@ class EngineConfig:
     # the prefill steps and advance via one fused decode_steps burst every
     # this many prefill chunks (engine.py _run_loop).
     prefill_chunks_per_burst: int = 24
+    # Batch invariance: a token's logits and K/V come out the same bits
+    # whatever else its step carries.  The per-token layers run at one row
+    # count, the largest step's token bucket (models/llama.py forward_ragged
+    # ``pad_rows``), and a prompt is cut into whole prefill_chunk pieces from
+    # its first uncached token, never at a step's leftover budget
+    # (scheduler.py).  It costs a decode dispatch the padded rows' compute
+    # and the steps some prompt packing.  Off by default; the chaos ladder
+    # (tools/goodput.py) turns it on, since it compares streams across rungs
+    # bit for bit.
+    batch_invariant: bool = False
     # Scheduler QoS section (QosSchedConfig; accepts dict).
     qos: Any = None
     # Draft-free speculative decoding (SpecDecodeConfig; accepts a dict,

@@ -377,6 +377,9 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         S, V = cfg.max_batch, self.model_config.vocab_size
         self._zero_counts = torch.zeros((S, V), dtype=torch.int16, device=dev)
         self._rows = torch.arange(S, device=dev)
+        # batch_invariant: every forward's per-token layers at the largest
+        # step's row count (0 = the step's own).
+        self._pad_rows = cfg.bucket_tokens(cfg.prefill_chunk + S) if cfg.batch_invariant else 0
         self._decode_cu = torch.arange(S + 1, dtype=torch.int32, device=dev)
         self._decode_num = torch.full((1,), S, dtype=torch.int32, device=dev)
         # The fused decode's device carry (token, rng step, penalty counts):
@@ -528,7 +531,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
         """One unified ragged step: forward + sample (device, no sync)."""
         logits = forward_ragged(
             self.params, self.model_config, rb, self.cache, kv_scale=self.kv_scale,
-            lora_rank=self._lora_rank, shard=self.shard,
+            lora_rank=self._lora_rank, shard=self.shard, pad_rows=self._pad_rows,
         )
         return sample_tokens(logits, samp)
 
@@ -574,7 +577,7 @@ class TorchEngine(KvTransferMixin, HostOffloadMixin, SpecDecodeMixin, DecodePipe
             logits = forward_ragged(
                 self.params, self.model_config, rb, self.cache,
                 kv_scale=self.kv_scale, decode=True, lora_rank=self._lora_rank,
-                shard=self.shard,
+                shard=self.shard, pad_rows=self._pad_rows,
             )
             out = sample_tokens(logits, samp, steps=steps, counts=counts)
             outs.append(out)

@@ -573,6 +573,18 @@ class Scheduler:
             seq.pin_ids = None
 
     # --------------------------------------------------------------- planning
+    def _prompt_piece(self, seq: SequenceState, budget: int) -> int:
+        """Prompt tokens ``seq`` computes in a step with ``budget`` left: as
+        many as fit, or under ``batch_invariant`` its next whole
+        ``prefill_chunk`` piece or none, so where a prompt is cut never
+        depends on the step's other rows (a piece's attention is computed
+        per piece)."""
+        left = len(seq.prompt) - seq.num_computed
+        if not self.cfg.batch_invariant:
+            return min(budget, left)
+        piece = min(self.cfg.prefill_chunk, left)
+        return piece if piece <= budget else 0
+
     def schedule(self) -> Optional[StepPlan]:
         """Plan the next unified device step: decode tokens FIRST (every
         decoding sequence advances — no ITL starvation behind prefills), then
@@ -638,7 +650,9 @@ class Scheduler:
             if budget <= 0 or len(items) >= self.cfg.max_batch:
                 break
             if seq.in_prefill and not seq.finished and not seq.frozen:
-                chunk = min(budget, len(seq.prompt) - seq.num_computed)
+                chunk = self._prompt_piece(seq, budget)
+                if not chunk:
+                    break
                 items.append((seq, seq.num_computed, chunk))
                 budget -= chunk
 
@@ -655,6 +669,8 @@ class Scheduler:
                 admission_blocked = True
                 break
             seq = self.waiting[0]
+            if self.cfg.batch_invariant and not self._prompt_piece(seq, budget):
+                break  # its next whole piece waits for a step with room
             if seq.frozen:
                 # A preempted sequence frozen mid-migration must not be
                 # admitted and recomputed — a sampled token the snapshot
@@ -687,7 +703,7 @@ class Scheduler:
             self._record_admission(seq)
             # Admission always leaves >= 1 prompt token to compute (a fully
             # cached prompt still recomputes its last token for logits).
-            chunk = min(budget, len(seq.prompt) - seq.num_computed)
+            chunk = self._prompt_piece(seq, budget)
             items.append((seq, seq.num_computed, chunk))
             budget -= chunk
 

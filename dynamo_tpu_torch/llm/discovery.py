@@ -12,10 +12,10 @@ Entry key: ``models/{model_name}/{worker_id}`` so multiple workers can back
 one model; the engine is added on the first entry, removed with the last.
 
 LoRA adapter entries (``register_model(lora=...)``) build adapter-stamping
-pipelines onto the base model's endpoint.  Tokenizer specs: ``byte`` and
-``sp`` (the sentencepiece ``tokenizer.model``, llm/sp.py); the ``hf`` and
-``gguf`` kinds need the ``tokenizers`` package, which the port does not
-use, and ``make_tokenizer`` refuses them.  The watcher keeps one
+pipelines onto the base model's endpoint.  Tokenizer specs: ``byte``,
+``hf`` (a ``tokenizer.json`` file or a directory holding one,
+llm/hf_tokenizer.py), ``gguf`` (the tokenizer a GGUF embeds) and ``sp``
+(the sentencepiece ``tokenizer.model``, llm/sp.py).  The watcher keeps one
 ``GrammarCompiler`` per tokenizer spec, shared by every pipeline of that
 tokenizer (llm/tenancy/grammar.py).
 """
@@ -36,7 +36,7 @@ from .backend import Backend
 from .http_service import ModelManager
 from .preprocessor import OpenAIPreprocessor
 from .tenancy.grammar import GrammarCompiler
-from .tokenizer import BaseTokenizer, ByteTokenizer
+from .tokenizer import BaseTokenizer, ByteTokenizer, HFTokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +57,30 @@ def make_tokenizer(spec: Dict[str, Any]) -> BaseTokenizer:
     kind = (spec or {}).get("kind", "byte")
     if kind == "byte":
         return ByteTokenizer()
+    if kind == "hf":
+        if "file" in spec:
+            return HFTokenizer(spec["file"])
+        d = spec["dir"]
+        if not os.path.exists(os.path.join(d, "tokenizer.json")) and spec.get("source"):
+            # Registered dirs are paths on the REGISTERING worker's
+            # filesystem; a frontend on another host re-resolves the
+            # original model spec (a pre-staged copy, models/hub.py)
+            # instead of silently failing the model registration.
+            from ..models.hub import resolve_model
+
+            logger.info("tokenizer dir %s not on this host; resolving %r locally",
+                        d, spec["source"])
+            d = resolve_model(spec["source"])
+        return HFTokenizer.from_pretrained_dir(d)
+    if kind == "gguf":
+        f = spec["file"]
+        if not os.path.exists(f) and spec.get("source"):
+            from ..models.hub import resolve_model
+
+            f = resolve_model(spec["source"])
+        from ..models.gguf import GGUFFile
+
+        return GGUFFile(f).to_tokenizer()
     if kind == "sp":
         from .tokenizer import SentencePieceTokenizer
 
@@ -69,12 +93,6 @@ def make_tokenizer(spec: Dict[str, Any]) -> BaseTokenizer:
 
             f = os.path.join(resolve_model(spec["source"]), "tokenizer.model")
         return SentencePieceTokenizer(f)
-    if kind in ("hf", "gguf"):
-        raise ValueError(
-            f"tokenizer kind {kind!r} needs the `tokenizers` package, which this "
-            "package does not use; serve a sentencepiece tokenizer.model instead "
-            "(--tokenizer X.model)"
-        )
     raise ValueError(f"unknown tokenizer kind {kind!r}")
 
 

@@ -1,16 +1,21 @@
 """Tokenizers + incremental detokenization.
 
-Copy of the JAX package's ``llm/tokenizer.py`` for what needs no package
-the card's machine lacks: ``BaseTokenizer`` with its role-tagged chat
-fallback, ``ByteTokenizer``, ``SentencePieceTokenizer`` (over the pure
-Python ``llm/sp.py``) and ``DecodeStream``.  Reference semantics:
-lib/llm/src/tokenizers.rs (Encoding, incremental ``DecodeStream``) and the
-preprocessor's prompt templating (lib/llm/src/preprocessor/prompt/).
+A copy of the JAX package's ``llm/tokenizer.py``.  Reference semantics:
+lib/llm/src/tokenizers.rs (Encoding, HF/sentencepiece backends,
+incremental ``DecodeStream``) and the preprocessor's prompt templating
+(lib/llm/src/preprocessor/prompt/).
 
-``HFTokenizer`` needs the ``tokenizers`` package and chat templates need
-jinja2, neither of which the port uses.  A sentencepiece checkpoint that
-ships a chat template is served with the role-tagged fallback, and says so
-once in the log.
+- ``HFTokenizer`` — a ``tokenizer.json`` (the HF format every target model
+  ships) run by ``llm/hf_tokenizer.py`` in plain Python, and the chat
+  template of a sibling tokenizer_config.json;
+- ``SentencePieceTokenizer`` — a ``tokenizer.model`` through ``llm/sp.py``;
+- ``ByteTokenizer`` — self-contained byte-level tokenizer (ids 0-255 are
+  raw bytes + special tokens above), for tests, echo serving and synthetic
+  benchmarks.
+
+Chat templates render through ``llm/chat_template.py``, the subset of
+Jinja2 that chat templates use, with the JAX renderer's environment; the
+card's machine has neither ``tokenizers`` nor jinja2.
 
 ``DecodeStream`` performs incremental detokenization by decoding a sliding
 window of accumulated ids and diffing against the previously emitted prefix,
@@ -20,12 +25,9 @@ holding back trailing bytes that form an incomplete UTF-8 sequence.
 from __future__ import annotations
 
 import json
-import logging
 import os
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Sequence
-
-logger = logging.getLogger(__name__)
 
 
 class BaseTokenizer(ABC):
@@ -66,46 +68,116 @@ class BaseTokenizer(ABC):
         add_generation_prompt: bool = True,
         **kwargs: Any,
     ) -> str:
-        """Render messages to a prompt string with the role-tagged fallback
-        (the JAX package's rendering when a tokenizer has no template)."""
-        if self.chat_template is not None:
-            raise NotImplementedError(
-                "chat templates need jinja2, which the port does not use "
-                "(ROADMAP queue 1: HF tokenizers)"
-            )
-        parts = [f"<|{m['role']}|>\n{m.get('content') or ''}" for m in messages]
-        if add_generation_prompt:
-            parts.append("<|assistant|>\n")
-        return "\n".join(parts)
+        """Render messages to a prompt string (reference: minijinja templates,
+        lib/llm/src/preprocessor/prompt/template/)."""
+        template = self.chat_template
+        if template is None:
+            # simple role-tagged fallback (mirrors no-template GGUF models)
+            parts = [f"<|{m['role']}|>\n{m.get('content') or ''}" for m in messages]
+            if add_generation_prompt:
+                parts.append("<|assistant|>\n")
+            return "\n".join(parts)
+        from .chat_template import render_chat_template
+
+        return render_chat_template(
+            template,
+            messages=messages,
+            add_generation_prompt=add_generation_prompt,
+            bos_token=getattr(self, "bos_token", "") or "",
+            eos_token=getattr(self, "eos_token", "") or "",
+            **kwargs,
+        )
 
     def decode_stream(self, skip_special_tokens: bool = True) -> "DecodeStream":
         return DecodeStream(self, skip_special_tokens=skip_special_tokens)
 
 
+class HFTokenizer(BaseTokenizer):
+    """HuggingFace ``tokenizer.json`` backend (+ chat template/config),
+    run by ``llm/hf_tokenizer.Tokenizer``."""
+
+    def __init__(
+        self,
+        tokenizer_file: Optional[str] = None,
+        config_file: Optional[str] = None,
+        *,
+        tokenizer: Optional[Any] = None,  # an in-memory hf_tokenizer.Tokenizer
+        bos_token_id: Optional[int] = None,
+        eos_token_id: Optional[int] = None,
+    ):
+        from .hf_tokenizer import Tokenizer
+
+        if tokenizer is not None:
+            self._tok = tokenizer  # e.g. built from GGUF metadata
+        elif tokenizer_file is not None:
+            self._tok = Tokenizer.from_file(tokenizer_file)
+        else:
+            raise ValueError("need tokenizer_file or tokenizer")
+        self._chat_template: Optional[str] = None
+        self.bos_token: Optional[str] = None
+        self.eos_token: Optional[str] = None
+        self._bos_id: Optional[int] = None
+        self._eos_id: Optional[int] = None
+
+        if config_file is None and tokenizer_file is not None:
+            candidate = os.path.join(os.path.dirname(tokenizer_file), "tokenizer_config.json")
+            config_file = candidate if os.path.exists(candidate) else None
+        if config_file is not None:
+            self._chat_template, self.bos_token, self.eos_token = _read_config(config_file)
+        if self.bos_token:
+            self._bos_id = self._tok.token_to_id(self.bos_token)
+        if self.eos_token:
+            self._eos_id = self._tok.token_to_id(self.eos_token)
+        if bos_token_id is not None:
+            self._bos_id = int(bos_token_id)
+        if eos_token_id is not None:
+            self._eos_id = int(eos_token_id)
+
+    @classmethod
+    def from_pretrained_dir(cls, model_dir: str) -> "HFTokenizer":
+        return cls(os.path.join(model_dir, "tokenizer.json"))
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=add_special_tokens)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=skip_special_tokens)
+
+    @property
+    def eos_token_id(self) -> Optional[int]:
+        return self._eos_id
+
+    @property
+    def bos_token_id(self) -> Optional[int]:
+        return self._bos_id
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    @property
+    def chat_template(self) -> Optional[str]:
+        return self._chat_template
+
+
 class SentencePieceTokenizer(BaseTokenizer):
     """``tokenizer.model``-only checkpoints (older Llama/Mistral) served
     through the vendored sentencepiece runtime (llm/sp.py; reference:
-    lib/llm/src/tokenizers/sp.rs).  Special tokens come from a sibling
-    tokenizer_config.json when present; its chat template is recorded but
-    rendered with the role-tagged fallback (no jinja2 here)."""
+    lib/llm/src/tokenizers/sp.rs).  Chat template / special tokens come
+    from a sibling tokenizer_config.json when present."""
 
     def __init__(self, model_file: str, config_file: Optional[str] = None):
         from .sp import SentencePieceModel
 
         self._sp = SentencePieceModel.from_file(model_file)
         self._chat_template: Optional[str] = None
-        self._template_noted = False
         self.bos_token: Optional[str] = None
         self.eos_token: Optional[str] = None
         if config_file is None:
             candidate = os.path.join(os.path.dirname(model_file), "tokenizer_config.json")
             config_file = candidate if os.path.exists(candidate) else None
         if config_file is not None:
-            with open(config_file) as f:
-                cfg = json.load(f)
-            self._chat_template = cfg.get("chat_template")
-            self.bos_token = _token_str(cfg.get("bos_token"))
-            self.eos_token = _token_str(cfg.get("eos_token"))
+            self._chat_template, self.bos_token, self.eos_token = _read_config(config_file)
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids = self._sp.encode(text)
@@ -127,23 +199,6 @@ class SentencePieceTokenizer(BaseTokenizer):
         deltas preserve inter-token spaces (DecodeStream)."""
         return self._sp.decode(list(ids), sequence_start=sequence_start)
 
-    def apply_chat_template(
-        self,
-        messages: List[Dict[str, Any]],
-        add_generation_prompt: bool = True,
-        **kwargs: Any,
-    ) -> str:
-        if self._chat_template is not None and not self._template_noted:
-            self._template_noted = True
-            logger.warning(
-                "the tokenizer's chat template needs jinja2, which this package does "
-                "not use; chat prompts are rendered with the role-tagged fallback"
-            )
-        parts = [f"<|{m['role']}|>\n{m.get('content') or ''}" for m in messages]
-        if add_generation_prompt:
-            parts.append("<|assistant|>\n")
-        return "\n".join(parts)
-
     @property
     def eos_token_id(self) -> Optional[int]:
         return self._sp.eos_id if self._sp.eos_id >= 0 else None
@@ -159,6 +214,20 @@ class SentencePieceTokenizer(BaseTokenizer):
     @property
     def chat_template(self) -> Optional[str]:
         return self._chat_template
+
+
+def _read_config(config_file: str):
+    """tokenizer_config.json's chat template, bos and eos token strings.
+    The template is compiled here, so a construct outside the renderer's
+    subset stops the tokenizer's load, named, not the first chat request."""
+    with open(config_file) as f:
+        cfg = json.load(f)
+    template = cfg.get("chat_template")
+    if isinstance(template, str):
+        from .chat_template import compile_template
+
+        compile_template(template)
+    return template, _token_str(cfg.get("bos_token")), _token_str(cfg.get("eos_token"))
 
 
 def _token_str(value: Any) -> Optional[str]:

@@ -9,9 +9,9 @@ stacked params tree; quantized ggml types are refused with the JAX
 package's message.  BF16 goes through ``uint16`` words viewed as
 ``torch.bfloat16`` (the card's machine has no ``ml_dtypes``).
 
-The embedded tokenizer (``to_tokenizer``) needs the ``tokenizers``
-package, which the port does not use: it is refused, never replaced by
-another tokenizer.
+The embedded tokenizer (``to_tokenizer``) is built from the port's own
+pipeline objects (llm/hf_tokenizer.py): ``gpt2`` as byte-level BPE,
+``llama`` as a unigram, as the JAX package builds them with ``tokenizers``.
 
 Format (spec: ggml/docs/gguf.md):
   u32 magic "GGUF" | u32 version (2|3) | u64 n_tensors | u64 n_kv
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
-from typing import Any, BinaryIO, Dict, Optional, Tuple
+from typing import Any, BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,12 +185,37 @@ class GGUFFile:
 
     # ------------------------------------------------------------ tokenizer
     def to_tokenizer(self):
-        """The JAX package builds a ``tokenizers`` BPE/Unigram tokenizer
-        from ``tokenizer.ggml.*``; the port does not use that package."""
-        raise NotImplementedError(
-            f"{self.path}: the GGUF's embedded tokenizer needs the `tokenizers` "
-            "package, which this package does not use; serve it with --tokenizer "
-            "pointing at a sentencepiece tokenizer.model"
+        """Build a tokenizer from `tokenizer.ggml.*` metadata.
+
+        `gpt2` model → byte-level BPE from tokens+merges; `llama` (SPM) →
+        Unigram from tokens+scores.  Reference: gguf/mod.rs tokenizer
+        extraction into their HF tokenizer."""
+        from ..llm import hf_tokenizer as hf
+        from ..llm.tokenizer import HFTokenizer
+
+        m = self.metadata
+        tokens: List[str] = m["tokenizer.ggml.tokens"]
+        model = str(m.get("tokenizer.ggml.model", "gpt2"))
+        if model == "gpt2":
+            vocab = {t: i for i, t in enumerate(tokens)}
+            merges = [tuple(s.split(" ", 1)) for s in m.get("tokenizer.ggml.merges", [])]
+            tok = hf.Tokenizer(
+                hf.BPE(vocab, merges, ignore_merges=True),
+                pre_tokenizer=hf.build_pre_tokenizer({"type": "ByteLevel", "add_prefix_space": False}),
+                decoder=hf.build_decoder({"type": "ByteLevel"}))
+        elif model == "llama":
+            scores = m.get("tokenizer.ggml.scores") or [0.0] * len(tokens)
+            unk = int(m.get("tokenizer.ggml.unknown_token_id", 0))
+            tok = hf.Tokenizer(
+                hf.Unigram(list(zip(tokens, scores)), unk_id=unk),
+                decoder=hf.build_decoder({"type": "Replace", "pattern": {"String": "▁"},
+                                          "content": " "}))
+        else:
+            raise ValueError(f"unsupported tokenizer.ggml.model {model!r}")
+        return HFTokenizer(
+            tokenizer=tok,
+            bos_token_id=m.get("tokenizer.ggml.bos_token_id"),
+            eos_token_id=m.get("tokenizer.ggml.eos_token_id"),
         )
 
 

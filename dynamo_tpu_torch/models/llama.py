@@ -295,6 +295,8 @@ def forward_ragged(
     # This rank's place in a mesh (parallel/distributed.ParallelState):
     # params and pages are its slices; None = one rank.
     shard=None,
+    # > 0: the per-token layers run on exactly this many rows a call.
+    pad_rows: int = 0,
 ) -> torch.Tensor:
     """Unified mixed prefill+decode forward over a flat ragged token run.
 
@@ -317,7 +319,16 @@ def forward_ragged(
     the attention kernels at its local head counts, all-reduces the
     row-parallel ``wo`` and ``w_down`` outputs, looks up its vocabulary
     slice of the embedding (all-reduced) and all-gathers the vocab-sharded
-    logits; MoE experts run over ``ep`` (models/moe.py)."""
+    logits; MoE experts run over ``ep`` (models/moe.py).
+
+    ``pad_rows`` (the engine's ``batch_invariant``): the norms, the
+    projections and the MLP see the step's tokens zero-padded to
+    ``pad_rows`` rows (cut into slabs of that many where the step holds
+    more), so every product has one shape whatever the step carries.
+    cuBLAS picks its kernel by the row count, and on the card a token's
+    bf16 projections then differ by the step's size (measured at 16 rows
+    against 4 on llama-3.1-8b widths); padded, they are the same bits in
+    a decode dispatch and in any prefill step."""
     T = rb.token_ids.shape[0]
     tp = None if shard is None or shard.tp.size == 1 else shard.tp
     n = 1 if tp is None else tp.size
@@ -341,23 +352,50 @@ def forward_ragged(
         seg = torch.arange(Rr, dtype=torch.int32, device=dev) // lora_rank  # column → slot
         lora_mask = (rb.adapter_slots[:, None] == seg[None, :]).to(dt)  # [T, R*r]
 
-    def lora_delta(x_in: torch.Tensor, lp: Params, name: str) -> Optional[torch.Tensor]:
+    def lora_delta(x_in: torch.Tensor, lp: Params, name: str,
+                   mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         a = lp.get("lora_a_" + name)
-        if a is None:
+        if a is None or mask is None:
             return None
-        xa = (x_in @ a) * lora_mask  # own-adapter columns only
+        xa = (x_in @ a) * mask  # own-adapter columns only
         return (xa @ lp["lora_b_" + name]).to(x_in.dtype)
+
+    def per_token(fn, *xs):
+        """``fn`` over rows of ``xs`` (None passes through): in one call,
+        or in ``pad_rows``-row calls over the zero-padded rows."""
+        if pad_rows <= 0:
+            return fn(*xs)
+        n = -(-T // pad_rows) * pad_rows
+        xs = [x if x is None or n == T else torch.cat([x, x.new_zeros((n - T, *x.shape[1:]))])
+              for x in xs]
+        parts = [fn(*(None if x is None else x[i:i + pad_rows] for x in xs))
+                 for i in range(0, n, pad_rows)]
+
+        def cat(ts):
+            return (ts[0] if len(ts) == 1 else torch.cat(ts))[:T]
+
+        return tuple(map(cat, zip(*parts))) if isinstance(parts[0], tuple) else cat(parts)
+
+    def add(x: torch.Tensor, d: Optional[torch.Tensor]) -> torch.Tensor:
+        return x if d is None else x + d
 
     h = embed_lookup(params, rb.token_ids, dt, tp)  # [T, D]
     for l in range(L):
         lp = {name: w[l] for name, w in layers.items()}
-        x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
-        q, k, v = qkv_proj(x, lp, H * hd, KV * hd)
-        if lora_mask is not None:
-            dq, dk, dv = lora_delta(x, lp, "wq"), lora_delta(x, lp, "wk"), lora_delta(x, lp, "wv")
-            q = q if dq is None else q + dq
-            k = k if dk is None else k + dk
-            v = v if dv is None else v + dv
+
+        def attn_in(h, mask, lp=lp):
+            x = rms_norm(h, lp["attn_norm"], config.rms_norm_eps)
+            q, k, v = qkv_proj(x, lp, H * hd, KV * hd)
+            return (add(q, lora_delta(x, lp, "wq", mask)), add(k, lora_delta(x, lp, "wk", mask)),
+                    add(v, lora_delta(x, lp, "wv", mask)))
+
+        def attn_out(h, attn_flat, mask, lp=lp):
+            o = linear(attn_flat, lp, "wo", group=tp)
+            h = h + add(o, lora_delta(attn_flat, lp, "wo", mask))
+            x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
+            return h + (moe_mlp(x, lp, config, shard) if config.is_moe else mlp(x, lp, tp))
+
+        q, k, v = per_token(attn_in, h, lora_mask)
         q = rotate(q.reshape(T, H, hd), cos, sin)
         k = rotate(k.reshape(T, KV, hd), cos, sin)
         v = v.reshape(T, KV, hd)
@@ -368,15 +406,8 @@ def forward_ragged(
             q, pages, rb.kv_lens, rb.page_indices, rb.cu_q_lens, rb.num_seqs,
             sm_scale=sm_scale, kv_scale=s_l, decode=decode, rows=rows,
         )
-        attn_flat = attn.reshape(T, H * hd)
-        o = linear(attn_flat, lp, "wo", group=tp)
-        if lora_mask is not None:
-            do = lora_delta(attn_flat, lp, "wo")
-            o = o if do is None else o + do
-        h = h + o
-        x = rms_norm(h, lp["mlp_norm"], config.rms_norm_eps)
-        h = h + (moe_mlp(x, lp, config, shard) if config.is_moe else mlp(x, lp, tp))
-    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+        h = per_token(attn_out, h, attn.reshape(T, H * hd), lora_mask)
+    h = per_token(lambda h: rms_norm(h, params["final_norm"], config.rms_norm_eps), h)
     rows = (rb.cu_q_lens[1:].long() - 1).clamp(0, T - 1)  # last token per row
     return lm_logits(params, h[rows], tp)
 

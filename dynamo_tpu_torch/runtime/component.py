@@ -88,6 +88,7 @@ class DistributedRuntime:
         # re-put everything.
         self._registrations: Dict[str, Any] = {}
         self._lease_monitor_task: Optional[asyncio.Task] = None
+        self._lease_lock = asyncio.Lock()
 
     @classmethod
     async def detached(cls) -> "DistributedRuntime":
@@ -122,9 +123,30 @@ class DistributedRuntime:
         return self
 
     async def register_key(self, key: str, value: Any) -> None:
-        """kv_put under the primary lease, tracked for re-registration."""
+        """kv_put under the primary lease, tracked for re-registration.  If
+        the hub no longer knows the lease (it expired while this process
+        stalled, before the lease monitor noticed), the lease is re-granted
+        and every registration restored here, as the monitor would, instead
+        of failing the caller."""
         self._registrations[key] = value
-        await self.hub.kv_put(key, value, self.primary_lease)
+        lease = self.primary_lease
+        try:
+            await self.hub.kv_put(key, value, lease)
+        except (KeyError, RuntimeError) as exc:
+            if "unknown lease" not in str(exc):
+                raise
+            await self._regrant(lease)
+
+    async def _regrant(self, lost: Optional[int]) -> None:
+        """A fresh primary lease in place of ``lost`` (unless another caller
+        replaced it already) with every tracked registration put again."""
+        async with self._lease_lock:
+            if self.primary_lease == lost:
+                logger.warning("primary lease lost; re-registering %d keys",
+                               len(self._registrations))
+                self.primary_lease = await self.hub.lease_grant(self.lease_ttl)
+            for key, value in list(self._registrations.items()):
+                await self.hub.kv_put(key, value, self.primary_lease)
 
     async def unregister_key(self, key: str) -> None:
         self._registrations.pop(key, None)
@@ -147,14 +169,10 @@ class DistributedRuntime:
             if self.primary_lease is None:
                 continue
             try:
-                alive = await self.hub.lease_keepalive(self.primary_lease)
-                if alive:
+                lease = self.primary_lease
+                if await self.hub.lease_keepalive(lease):
                     continue
-                logger.warning("primary lease lost; re-registering %d keys",
-                               len(self._registrations))
-                self.primary_lease = await self.hub.lease_grant(self.lease_ttl)
-                for key, value in list(self._registrations.items()):
-                    await self.hub.kv_put(key, value, self.primary_lease)
+                await self._regrant(lease)
             except asyncio.CancelledError:
                 return
             except (ConnectionError, RuntimeError, OSError):

@@ -81,7 +81,10 @@ subset (every 5th request) relies on server-side seed resolution — the
 engine derives the seed from the FIXED request id, stamps it on the first
 stream item, and the routed client resumes with it after crashes
 (runtime/client.py _StreamGuard) — so ``--check`` verifies byte-identity
-against the L0 control for seeded and unseeded streams alike.
+against the L0 control for seeded and unseeded streams alike.  The workers'
+engines run ``batch_invariant`` (engine/config.py): a rung's extra traffic
+packs the steps differently, and on the card a token's bits would otherwise
+follow the step's size.
 
 Usage:
     python -m dynamo_tpu_torch.tools.goodput --levels 0,1,2,5,6 --device cpu \
@@ -1738,7 +1741,9 @@ async def run_ladder(args) -> Dict[str, Any]:
            if ev.worker is not None]
     )
     device = default_device(args.device)
-    cfg = dict(ENGINE_CFG, model=args.model, dtype=args.dtype)
+    # Batch-invariant engines: --check holds every rung's streams to L0's
+    # bit for bit, while each rung's traffic packs the steps differently.
+    cfg = dict(ENGINE_CFG, model=args.model, dtype=args.dtype, batch_invariant=True)
     logger.info("building %d engines (%s on %s)", n_workers, cfg["model"], device)
     # Per-engine disk tiers with EXPLICIT directories: the engine-owned
     # per-PID default would collide across the fleet's engines (one

@@ -6,9 +6,9 @@ tensors read back equal, ``to_model_config`` gives the same architecture,
 ``load_params_gguf`` gives the same tree bit for bit (``params_from_jax``
 of the JAX one), quantized GGML types fail with the same message, and an
 engine built from ``--checkpoint x.gguf`` serves the same greedy tokens.
-Tokenizer extraction is the one case that differs: the JAX package builds
-a ``tokenizers`` tokenizer from the metadata, and the port, which does not
-use that package, refuses with a message naming it.
+The embedded tokenizer (``gpt2`` byte-level BPE and ``llama`` unigram)
+gives the same ids and texts as the JAX package's ``tokenizers`` build,
+directly and through discovery's ``gguf`` spec.
 """
 
 import asyncio
@@ -133,21 +133,56 @@ def test_gguf_to_model_config(tmp_path):
     assert t.vocab_size == 8 and t.eos_token_ids == (1,)
 
 
-def test_gguf_tokenizer_extraction(tmp_path):
-    """The JAX package extracts the tokenizer; the port refuses it, naming
-    the package it would need, and so does discovery's ``make_tokenizer``
-    for a ``gguf`` spec (never a quiet fallback to another tokenizer)."""
+GGUF_TEXTS = ["hello", "hello hello", "hel lo", "oh hell", "", "he said: 'hello!'", "é hello"]
+
+
+def _tokenizer_parity(path, texts):
+    """Both packages' ``to_tokenizer`` on one file: equal ids with and
+    without special tokens, equal decodes of those ids and of every id."""
+    from dynamo_tpu.llm.discovery import make_tokenizer as jax_make
     from dynamo_tpu_torch.llm.discovery import make_tokenizer
 
+    toks = [jg.GGUFFile(path).to_tokenizer(), tg.GGUFFile(path).to_tokenizer(),
+            jax_make({"kind": "gguf", "file": path}), make_tokenizer({"kind": "gguf", "file": path})]
+    j, t = toks[0], toks[1]
+    assert (t.vocab_size, t.bos_token_id, t.eos_token_id) == (j.vocab_size, j.bos_token_id,
+                                                              j.eos_token_id)
+    for text in texts:
+        for special in (True, False):
+            ids = j.encode(text, add_special_tokens=special)
+            assert [k.encode(text, add_special_tokens=special) for k in toks] == [ids] * 4, text
+            for skip in (True, False):
+                assert t.decode(ids, skip_special_tokens=skip) == j.decode(ids, skip_special_tokens=skip)
+    every = list(range(j.vocab_size))
+    assert t.decode(every) == j.decode(every)
+    return j
+
+
+def test_gguf_tokenizer_extraction(tmp_path):
+    """The ``gpt2`` tokenizer a GGUF embeds (byte-level BPE, its merges):
+    the port's equals the JAX package's id for id and text for text, and
+    so does discovery's ``make_tokenizer`` for a ``gguf`` spec."""
     path = str(tmp_path / "tiny.gguf")
     vocab = ["h", "e", "l", "o", "he", "hel", "hell", "hello"]
     jg.write_gguf(path, _tiny_meta(vocab), _tiny_tensors(np.random.default_rng(2)))
-    tok = jg.GGUFFile(path).to_tokenizer()
-    assert tok.encode("hello", add_special_tokens=False) == [vocab.index("hello")]
-    with pytest.raises(NotImplementedError, match="`tokenizers`"):
-        tg.GGUFFile(path).to_tokenizer()
-    with pytest.raises(ValueError, match="`tokenizers` package"):
-        make_tokenizer({"kind": "gguf", "file": path})
+    j = _tokenizer_parity(path, GGUF_TEXTS)
+    assert j.encode("hello", add_special_tokens=False) == [vocab.index("hello")]
+
+
+def test_gguf_llama_tokenizer_extraction(tmp_path):
+    """The ``llama`` (sentencepiece) tokenizer a GGUF embeds: a unigram
+    over the pieces' scores with its unk id and a ▁ → space decoder, id
+    for id and text for text against the JAX package's."""
+    path = str(tmp_path / "spm.gguf")
+    vocab = ["<unk>", "<s>", "</s>", "▁", "h", "e", "l", "o", "▁he", "llo", "▁hello", "▁hel", "lo"]
+    meta = dict(_tiny_meta(vocab), **{
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.scores": [0.0, 0.0, 0.0, -2.0, -3.0, -3.0, -3.0, -3.0, -1.5, -1.0, -0.5,
+                                  -1.2, -1.1],
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2})
+    del meta["tokenizer.ggml.merges"]
+    jg.write_gguf(path, meta, _tiny_tensors(np.random.default_rng(2), V=len(vocab)))
+    _tokenizer_parity(path, GGUF_TEXTS + ["▁hello▁hel", "hello▁lo x"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -554,9 +554,77 @@ def test_cli_serves_http_out_torch():
     assert p.returncode == 0
 
 
+def _write_hf_tokenizer(d, template=None):
+    """A WordLevel ``tokenizer.json`` inside debug-tiny's 256 ids, written
+    with the ``tokenizers`` package, and a tokenizer_config.json with a
+    chat template when given one."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    words = ["<unk>", "<s>", "</s>", "<|user|>", "<|assistant|>", "hello", "world", "the", "sky",
+             "is", "blue", "!", "?", "system", "user", "assistant", ":", "[", "]"]
+    tok = Tokenizer(WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.add_special_tokens(["<s>", "</s>", "<|user|>", "<|assistant|>"])
+    os.makedirs(d, exist_ok=True)
+    tok.save(os.path.join(d, "tokenizer.json"))
+    if template is not None:
+        with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": template, "bos_token": "<s>", "eos_token": "</s>"}, f)
+    return os.path.join(d, "tokenizer.json")
+
+
+HF_TEMPLATE = ("{{ bos_token }}{% for m in messages %}[ {{ m.role }} ] : {{ m.content|trim }} "
+               "{% endfor %}{% if add_generation_prompt %}<|assistant|>{% endif %}")
+
+
+def test_cli_serves_an_hf_tokenizer_without_tokenizers_or_jinja2(tmp_path):
+    """``run in=http out=torch --tokenizer DIR`` in an interpreter where
+    aiohttp, pydantic, prometheus_client, jinja2, tokenizers and xxhash
+    cannot be imported: the directory's ``tokenizer.json`` and its chat
+    template serve, and the prompts count the ids the JAX package's
+    ``HFTokenizer`` gives (the chat prompt rendered by its jinja2)."""
+    from dynamo_tpu.llm.tokenizer import HFTokenizer as JaxHF
+
+    d = str(tmp_path / "tok")
+    _write_hf_tokenizer(d, HF_TEMPLATE)
+    jtok = JaxHF.from_pretrained_dir(d)
+    messages = [{"role": "system", "content": " the sky "}, {"role": "user", "content": "hello world?"}]
+    chat_ids = jtok.encode(jtok.apply_chat_template(messages, add_generation_prompt=True),
+                           add_special_tokens=False)
+    p = subprocess.Popen(
+        [sys.executable, "-c", WITHOUT_ABSENT_PACKAGES, "run", "in=http", "out=torch",
+         "--arch", "debug-tiny", "--dtype", "float32", "--device", "cpu", "--port", "0",
+         "--host", "127.0.0.1", "--max-model-len", "128", "--num-blocks", "64", "--tokenizer", d],
+        env=_env(), cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = p.stdout.readline()
+        assert line.startswith("serving 'echo' on http://127.0.0.1:"), (line, p.stderr.read())
+        base = line.strip().split(" on ")[1]
+        st, _, text, _ = asyncio.run(_post(base, "/v1/completions", dict(
+            model="echo", prompt="hello world the sky is blue", max_tokens=4,
+            nvext={"ignore_eos": True})))
+        assert st == 200, text
+        assert json.loads(text)["usage"]["prompt_tokens"] == len(jtok.encode("hello world the sky is blue"))
+        st, _, text, _ = asyncio.run(_post(base, "/v1/chat/completions", dict(
+            model="echo", messages=messages, max_tokens=4, nvext={"ignore_eos": True})))
+        assert st == 200, text
+        assert json.loads(text)["usage"]["prompt_tokens"] == len(chat_ids)
+        assert chat_ids[0] == 1 and 0 not in chat_ids  # one <s>, no unknown word
+    finally:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(timeout=30)
+        finally:
+            p.kill()
+    assert p.returncode == 0
+
+
 # What each refused option fails with: a mesh the model, the devices or the
 # nodes cannot take (before any rank starts); a remote checkpoint or adapter
-# cannot be downloaded; an HF tokenizer needs the `tokenizers` package.
+# cannot be downloaded.  ``--tokenizer tok.json`` (an HF tokenizer) is no
+# longer refused: it serves.
 _REFUSALS = {
     "--tp": (ValueError, "tp=3 must divide num_kv_heads=2"),
     "--dp": (ValueError, "need 2 devices"),
@@ -564,7 +632,6 @@ _REFUSALS = {
     "--nnodes": (SystemExit, "1 ranks do not split over --nnodes 2"),
     "--checkpoint": (FileNotFoundError, "does not download"),
     "--lora": (FileNotFoundError, "does not download"),
-    "--tokenizer": (ValueError, "`tokenizers` package"),
 }
 
 
@@ -573,10 +640,36 @@ _REFUSALS = {
                                   ["--sp", "2", "--cpu-devices", "1"],
                                   ["--lora", "a=org/remote-adapter"],
                                   ["--nnodes", "2"], ["--tokenizer", "tok.json"]])
-def test_cli_refuses_options_the_port_lacks(flag):
+def test_cli_refuses_options_the_port_lacks(flag, tmp_path, monkeypatch):
+    from dynamo_tpu.llm.tokenizer import HFTokenizer as JaxHF
     from dynamo_tpu_torch import cli
 
     args = cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu", *flag])
-    err, match = _REFUSALS[flag[0]]
-    with pytest.raises(err, match=match):
-        asyncio.run(cli._run(args))
+    if flag[0] != "--tokenizer":
+        err, match = _REFUSALS[flag[0]]
+        with pytest.raises(err, match=match):
+            asyncio.run(cli._run(args))
+        return
+    # A relative tokenizer.json path serves, with the JAX tokenizer's ids.
+    monkeypatch.chdir(tmp_path)
+    _write_hf_tokenizer(str(tmp_path))
+    os.rename(tmp_path / "tokenizer.json", tmp_path / "tok.json")
+    args = cli.parse_args(["run", "in=http", "out=torch", "--device", "cpu", "--arch", "debug-tiny",
+                           "--dtype", "float32", "--port", "0", "--max-model-len", "128",
+                           "--num-blocks", "64", *flag])
+    prompt = "hello world the sky is blue !"
+
+    async def main():
+        ready = asyncio.get_running_loop().create_future()
+        task = asyncio.create_task(cli._run(args, on_serving=ready.set_result))
+        service = await asyncio.wait_for(ready, 60)
+        try:
+            return await _post(f"http://127.0.0.1:{service.port}", "/v1/completions", dict(
+                model="echo", prompt=prompt, max_tokens=3, nvext={"ignore_eos": True}))
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+
+    st, _, text, _ = asyncio.run(main())
+    assert st == 200, text
+    assert json.loads(text)["usage"]["prompt_tokens"] == len(JaxHF("tok.json").encode(prompt)) == 7

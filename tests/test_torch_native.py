@@ -10,9 +10,17 @@ own ``csrc/native/*.cc``) against the JAX package's (``tests/test_native.py``):
   publishes;
 - ``DYN_NATIVE_LIB`` naming a missing library refuses loudly, and the
   library rebuilds when a source is newer than it.
+
+The JAX side is a library of this module's own, built by the JAX
+package's Makefile (``native/``, read only) into a directory of its own.
+Every xdist worker that collects ``tests/test_native.py`` runs ``make -C
+native``, whose rule writes ``native/build/libdyn_native.so`` in place with
+no lock; a worker that loads a half-written file marks the JAX library
+failed for the rest of its life.  So this module never loads that file.
 """
 
 import ctypes
+import importlib
 import json
 import os
 import random
@@ -37,11 +45,31 @@ def _prompts(seed):
     return [[rng.randrange(0, 1 << 17) for _ in range(n)] for n in LENGTHS]
 
 
+def _build_jax_library(build_dir):
+    """Build the JAX package's library with its own Makefile (its flags,
+    its sources, read only), with the Makefile's ``BUILD`` pointed at
+    ``build_dir``, a directory of this worker's own: no other loader sees
+    the file while it is written."""
+    subprocess.run(["make", "-C", os.path.join(REPO, "native"), f"BUILD={build_dir}"],
+                   check=True, capture_output=True, timeout=120)
+    return build_dir / "libdyn_native.so"
+
+
 @pytest.fixture(scope="module")
-def libs():
+def libs(tmp_path_factory):
     assert native.available(), "the port's native library did not build"
+    so = _build_jax_library(tmp_path_factory.mktemp("jax_native"))
+    left = {k: getattr(jax_native, k) for k in ("_SO_PATH", "_lib", "_load_failed", "_build_thread")}
+    # A fresh load: forget whatever this worker's collection-time build
+    # left behind (a half-written library marks the module failed).
+    importlib.reload(jax_native)
+    jax_native._SO_PATH = str(so)
     assert jax_native.available(), "the JAX package's native library did not build"
-    return native.get_lib(), jax_native.get_lib()
+    yield native.get_lib(), jax_native.get_lib()
+    # Hand the module back as this worker's collection left it, so a later
+    # tests/test_native.py here tests the library `make` built there.
+    for k, v in left.items():
+        setattr(jax_native, k, v)
 
 
 def test_port_builds_its_own_sources(libs):

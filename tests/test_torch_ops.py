@@ -427,7 +427,8 @@ def test_package_imports_no_jax_and_no_module_level_triton():
                    "examples/llm/components.py", "examples/llm/graphs.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
                    "engine/multihost.py", "engine/ranks.py", "ops/ring_attention.py",
-                   "tools/__init__.py", "tools/tune_decode.py"):
+                   "tools/__init__.py", "tools/tune_decode.py", "llm/hf_tokenizer.py",
+                   "llm/chat_template.py", "tools/synth_tokenizer.py"):
         assert root / "dynamo_tpu_torch" / module in files, module
     # Packages the card's machine does not have: the port serves without
     # them (tokens.py computes XXH64 itself where xxhash is missing; the

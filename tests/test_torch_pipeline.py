@@ -290,6 +290,35 @@ def test_admit_continuous_compatibility_and_order(pkg):
     assert more[2] in sched.waiting
 
 
+
+@pytest.mark.parametrize("invariant", [False, True], ids=["packed", "batch_invariant"])
+def test_batch_invariant_cuts_prompts_into_whole_pieces(invariant):
+    """Under ``batch_invariant`` a prompt is cut into whole prefill_chunk
+    pieces from its first token and a piece waits for a step with room;
+    without it, prompts fill each step's budget and are cut where it ends."""
+    from dynamo_tpu_torch.engine import config as cfg_mod, kv_manager as kv_mod, scheduler as mod
+    from dynamo_tpu_torch import tokens
+
+    cfg = cfg_mod.EngineConfig(**dict(CFG, prefill_chunk=8, batch_invariant=invariant))
+    sched = mod.Scheduler(cfg, kv_mod.KvBlockManager(cfg.num_blocks, cfg.block_size))
+    seqs = [mod.SequenceState(request_id=f"s{i}", prompt=list(range(1, n + 1)),
+                              block_seq=tokens.TokenBlockSequence(block_size=cfg.block_size))
+            for i, n in enumerate([6, 6, 11])]
+    for seq in seqs:
+        sched.add(seq)
+    steps = []
+    while any(s.in_prefill for s in seqs):
+        plan = sched.schedule()
+        steps.append([(seq.request_id, start, n) for seq, start, n in plan.items if seq.in_prefill])
+        for seq, start, n in plan.items:
+            if seq.in_prefill:
+                seq.num_computed = start + n
+    if invariant:
+        assert steps == [[("s0", 0, 6)], [("s1", 0, 6)], [("s2", 0, 8)], [("s2", 8, 3)]]
+    else:
+        assert steps == [[("s0", 0, 6), ("s1", 0, 2)], [("s1", 2, 4), ("s2", 0, 4)],
+                         [("s2", 4, 7)]]
+
 def test_write_barrier_holds_retired_blocks():
     """No block of a retired row is freed while a fused chunk dispatched
     when the row was active is still unharvested."""

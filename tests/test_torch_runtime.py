@@ -1063,3 +1063,34 @@ async def test_direct_routing_to_a_dead_leased_worker_fails_alike():
             except Exception:  # noqa: BLE001 — crashed worker
                 pass
             await hub.close()
+
+
+@pytest.mark.parametrize("p", [PORT, JAX], ids=["port", "jax"])
+@pytest.mark.asyncio
+async def test_register_key_survives_a_lost_primary_lease(p):
+    """The hub drops a runtime's primary lease before its lease monitor
+    notices (a stall past the TTL): the port's next ``register_key``
+    re-grants the lease and puts every tracked registration again; the JAX
+    runtime's raises ``unknown lease`` (the reference's fault, repaired in
+    the port: a frontend starting under load died of it)."""
+    server = await p.hub.HubServer(host="127.0.0.1").start()
+    rt = await p.component.DistributedRuntime.connect(server.address)
+    observer = await p.hub.HubClient(server.address).connect()
+    try:
+        await rt.register_key("reg/a", 1)
+        lost = rt.primary_lease
+        await observer.lease_revoke(lost)  # the hub forgets it, and its keys
+        assert await observer.kv_get("reg/a") is None
+        if p is JAX:
+            with pytest.raises(RuntimeError, match="unknown lease"):
+                await rt.register_key("reg/b", 2)
+            return
+        await rt.register_key("reg/b", 2)
+        assert rt.primary_lease != lost
+        assert (await observer.kv_get("reg/a"), await observer.kv_get("reg/b")) == (1, 2)
+        await rt.register_key("reg/c", 3)  # the new lease is live
+        assert await observer.kv_get("reg/c") == 3
+    finally:
+        await observer.close()
+        await rt.close()
+        await server.close()

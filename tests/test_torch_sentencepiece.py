@@ -2,15 +2,16 @@
 
 Every case of the JAX package's ``tests/test_sentencepiece.py`` runs on
 both packages (its source loaded with the ``dynamo_tpu.`` imports pointed
-at ``dynamo_tpu_torch.``, one parametrised case per package), except two:
-the golden checkpoint serve, which needs the ``tokenizers`` package and a
-jinja2 chat template (its port counterpart is the last test here), and the
-parity check against the ``sentencepiece`` library, which this image does
-not have.  Then ids, texts and incremental detokenization are held equal
-across the packages on the reference test's protos and on seeded random
-texts, the port logs where the normalization neither package runs would
-change a text, and a ``tokenizer.model``-only checkpoint is served by ``run
-in=http out=torch --checkpoint DIR`` with the JAX engine's greedy tokens.
+at ``dynamo_tpu_torch.``, one parametrised case per package; on the port
+the golden checkpoint serve builds its engine with ``build_torch_engine``
+on the CPU), except the parity check against the ``sentencepiece``
+library, which this image does not have.  Then ids, texts and incremental
+detokenization are held equal across the packages on the reference test's
+protos and on seeded random texts, the port logs where the normalization
+neither package runs would change a text, a tokenizer_config.json chat
+template renders as the JAX package renders it, ``hf`` specs are served,
+and a ``tokenizer.model``-only checkpoint is served by ``run in=http
+out=torch --checkpoint DIR`` with the JAX engine's greedy tokens.
 """
 
 import asyncio
@@ -18,23 +19,42 @@ import importlib
 import json
 import logging
 import os
+import re
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from test_torch_planner import JAX, PORT, load_reference_tests, run_reference_case
+from test_torch_planner import JAX, PORT, REPO, load_reference_tests, run_reference_case
 
 pytestmark = pytest.mark.torch_port
 
 PKGS = (PORT, JAX)
 REF_FILE = "test_sentencepiece.py"
 NOT_MIRRORED = {
-    "test_sp_only_checkpoint_serves_golden_tokens",  # tokenizers + jinja2 (see the last test)
     "test_parity_against_real_sentencepiece",  # needs the sentencepiece library
 }
-REF = {pkg: load_reference_tests(REF_FILE, pkg) for pkg in PKGS}
+# The port's name for the engine factory, and the CPU its entry points
+# need spelled out (device.py); each must be found exactly once.
+PORT_ENGINE = (("build_tpu_engine", "build_torch_engine", 2),
+               ('dtype="float32",\n        )', 'dtype="float32", device="cpu",\n        )', 1))
+
+
+def _load_port_reference():
+    path = os.path.join(REPO, "tests", REF_FILE)
+    src = re.sub(r"\bdynamo_tpu\.", f"{PORT}.", open(path, encoding="utf-8").read())
+    for old, new, count in PORT_ENGINE:
+        assert src.count(old) == count, old
+        src = src.replace(old, new)
+    mod = types.ModuleType(f"_ref_test_sentencepiece_{PORT}_cpu")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+REF = {JAX: load_reference_tests(REF_FILE, JAX), PORT: _load_port_reference()}
 CASES = sorted(n for n, f in vars(REF[JAX]).items()
                if n.startswith("test_") and callable(f) and n not in NOT_MIRRORED)
 
@@ -145,34 +165,76 @@ def test_unapplied_normalization_is_logged_where_it_would_change_ids(caplog):
     assert "'hello  world'" in caplog.records[0].getMessage()
 
 
-def test_chat_template_is_logged_once_and_rendered_role_tagged(tmp_path, caplog):
-    """A tokenizer_config.json chat template needs jinja2: the port keeps
-    the template on the tokenizer, renders the role-tagged fallback, and
-    says so once in the log."""
-    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, SentencePieceTokenizer
+def test_chat_template_is_logged_once_and_rendered_role_tagged(tmp_path):
+    """A tokenizer_config.json chat template beside a tokenizer.model: the
+    port renders it as the JAX package renders it with jinja2 (bos and eos
+    from the config, ``tools``, both ``add_generation_prompt`` settings),
+    where it used to log and fall back to role tags; without a template
+    both render the role-tagged fallback."""
+    toks = {}
+    pieces, _ = _protos()["unigram"]
+    template = ("{{ bos_token }}{% for m in messages %}[{{ m.role|upper }}] {{ m.content|trim }}"
+                "{% if not loop.last %}\n{% endif %}{% endfor %}{% if tools %} tools="
+                "{{ tools|tojson }}{% endif %}{% if add_generation_prompt %}\n[ASSISTANT]"
+                "{% endif %}{{ eos_token if not add_generation_prompt }}")
+    for with_config in (True, False):
+        d = tmp_path / str(with_config)
+        d.mkdir()
+        (d / "tokenizer.model").write_bytes(_sp(JAX).build_model_proto(pieces))
+        if with_config:
+            (d / "tokenizer_config.json").write_text(json.dumps(
+                {"chat_template": template, "bos_token": "<s>", "eos_token": {"content": "</s>"}}))
+        toks = {pkg: importlib.import_module(f"{pkg}.llm.tokenizer").SentencePieceTokenizer(
+            str(d / "tokenizer.model")) for pkg in PKGS}
+        assert toks[PORT].chat_template == toks[JAX].chat_template
+        msgs = [{"role": "system", "content": " be brief "}, {"role": "user", "content": "hello world"}]
+        for agp in (True, False):
+            for tools in (None, [{"name": "f", "description": "<a & 'b'>"}]):
+                got = {pkg: tok.apply_chat_template(msgs, add_generation_prompt=agp, tools=tools)
+                       for pkg, tok in toks.items()}
+                assert got[PORT] == got[JAX], (with_config, agp, tools)
+        if with_config:
+            assert got[PORT].startswith("<s>[SYSTEM] be brief[USER] hello world")  # trim_blocks
 
+
+def test_unsupported_template_stops_the_sentencepiece_load(tmp_path):
+    """A template construct outside the renderer's subset beside a
+    tokenizer.model: the JAX tokenizer loads it (jinja2 has the filter),
+    the port refuses the load, naming it."""
     pieces, _ = _protos()["unigram"]
     (tmp_path / "tokenizer.model").write_bytes(_sp(JAX).build_model_proto(pieces))
-    (tmp_path / "tokenizer_config.json").write_text(json.dumps(
-        {"chat_template": "{{ messages[0].content }}", "bos_token": "<s>", "eos_token": "</s>"}))
-    tok = SentencePieceTokenizer(str(tmp_path / "tokenizer.model"))
-    assert tok.chat_template == "{{ messages[0].content }}"
-    msgs = [{"role": "user", "content": "hello world"}]
-    caplog.set_level(logging.WARNING)
-    a = tok.apply_chat_template(msgs)
-    b = tok.apply_chat_template(msgs)
-    assert a == b == ByteTokenizer().apply_chat_template(msgs)
-    assert len([r for r in caplog.records if "jinja2" in r.getMessage()]) == 1
+    template = "{% for m in messages %}{{ m.content|wordwrap(20) }}{% endfor %}"
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps({"chat_template": template}))
+    mods = {pkg: importlib.import_module(f"{pkg}.llm.tokenizer") for pkg in PKGS}
+    assert mods[JAX].SentencePieceTokenizer(str(tmp_path / "tokenizer.model")).chat_template
+    with pytest.raises(ValueError, match="wordwrap"):
+        mods[PORT].SentencePieceTokenizer(str(tmp_path / "tokenizer.model"))
 
 
-def test_tokenizer_kinds_the_port_refuses():
-    """``hf`` specs need the ``tokenizers`` package: discovery refuses them
-    with a message naming it (the ``gguf`` kind: tests/test_torch_gguf.py)."""
+def test_tokenizer_kinds_the_port_refuses(tmp_path):
+    """``hf`` specs (a ``tokenizer.json`` file, or a directory holding one)
+    are served, id for id with the JAX package's discovery; the one kind
+    both refuse is an unknown one (the ``gguf`` kind:
+    tests/test_torch_gguf.py)."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    from dynamo_tpu.llm.discovery import make_tokenizer as jax_make
     from dynamo_tpu_torch.llm.discovery import make_tokenizer
 
-    for spec in ({"kind": "hf", "dir": "/x"}, {"kind": "hf", "file": "/x/tokenizer.json"}):
-        with pytest.raises(ValueError, match="`tokenizers` package"):
-            make_tokenizer(spec)
+    tok = Tokenizer(WordLevel({"<unk>": 0, "hello": 1, "world": 2, "!": 3}, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(str(tmp_path / "tokenizer.json"))
+    for spec in ({"kind": "hf", "dir": str(tmp_path)},
+                 {"kind": "hf", "file": str(tmp_path / "tokenizer.json")}):
+        j, t = jax_make(spec), make_tokenizer(spec)
+        assert type(t).__name__ == "HFTokenizer"
+        for text in ("hello world!", "hello there", ""):
+            assert t.encode(text) == j.encode(text) and t.decode(t.encode(text)) == j.decode(j.encode(text))
+    for make in (jax_make, make_tokenizer):
+        with pytest.raises(ValueError, match="unknown tokenizer kind"):
+            make({"kind": "nope"})
 
 
 def test_sp_only_checkpoint_serves_like_the_jax_engine(tmp_path):
@@ -181,8 +243,8 @@ def test_sp_only_checkpoint_serves_like_the_jax_engine(tmp_path):
     (the port's CLI, f32 on the CPU): the text completion's usage counts
     the tokenizer's ids, and its text decodes the exact greedy tokens
     TpuEngine gives on the same files and ids; a chat request renders the
-    role-tagged prompt (the port has no jinja2) and decodes the JAX
-    engine's tokens for that prompt."""
+    role-tagged prompt (no tokenizer_config.json, so no template) and
+    decodes the JAX engine's tokens for that prompt."""
     from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
     from dynamo_tpu.engine.engine import TpuEngine
     from dynamo_tpu.llm.protocols import PreprocessedRequest, SamplingOptions, StopConditions
